@@ -1,0 +1,100 @@
+"""The port stands alone: no module of ``repro_torch`` (nor
+``chip_smoke.py``) imports JAX or any module of the JAX package, and its
+entry points refuse to run on a card that is not there instead of falling
+back to the CPU."""
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """Import every module of the port (and chip_smoke) in a fresh
+    interpreter where ``import jax`` fails; no ``repro``/``repro.*``
+    module may be loaded afterwards."""
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None          # any "import jax" now raises
+        sys.path[:0] = [{str(SRC)!r}, {str(ROOT)!r}]
+        import repro_torch
+        names = ["chip_smoke"] + [
+            m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m == "repro" or m.startswith(("repro.", "jax.",
+                                                      "jaxlib")))
+        assert not bad, bad
+        print(len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) > 30
+
+
+def test_port_sources_name_no_jax_or_repro_import():
+    """The same rule read from the sources, so an import inside a function
+    that the import test never calls is caught too."""
+    files = sorted((SRC / "repro_torch").rglob("*.py")) + \
+        [ROOT / "chip_smoke.py"]
+    bad = []
+    for f in files:
+        for i, line in enumerate(f.read_text().splitlines(), 1):
+            s = line.strip()
+            if s.startswith(("import jax", "from jax", "import repro.",
+                             "from repro ", "from repro.")) \
+                    or s in ("import repro",):
+                bad.append(f"{f.relative_to(ROOT)}:{i}: {s}")
+    assert not bad, bad
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+
+
+@pytest.mark.parametrize("entry", ["init_params", "TierStore",
+                                   "PagedServingEngine"])
+def test_entry_points_raise_without_cuda(entry):
+    """With no CUDA and no explicit ``device="cpu"`` every entry point
+    raises; it never falls back quietly."""
+    _no_card()
+    from repro_torch.configs.base import registry, smoke
+    from repro_torch.core.tiers import TierConfig, TierStore
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import PagedServingEngine, ServeConfig
+    cfg = smoke(registry()["qwen3_4b"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "init_params":
+            init_params(cfg)
+        elif entry == "TierStore":
+            TierStore(TierConfig(n_pages=4, fast_slots=2, slow_slots=4,
+                                 page_shape=(2,)))
+        else:
+            params = init_params(cfg, device="cpu")
+            PagedServingEngine(cfg, params, ServeConfig())
+
+
+@pytest.mark.parametrize("field,value", [("prefill", True),
+                                         ("overlap_plan", True),
+                                         ("qos", object())])
+def test_serve_config_refuses_unported_features(field, value):
+    from repro_torch.serving.engine import ServeConfig
+    with pytest.raises(NotImplementedError, match=field):
+        ServeConfig(**{field: value})
+
+
+def test_serve_config_refuses_pinned_tiers():
+    from repro_torch.core.hierarchy import MemoryHierarchy
+    from repro_torch.serving.engine import ServeConfig
+    with pytest.raises(NotImplementedError, match="pinned"):
+        ServeConfig(hierarchy=MemoryHierarchy.two_tier(8, 16,
+                                                       pinned_slow=True))
