@@ -14,25 +14,50 @@ prints no result line):
      drawn on the card from a seed.  The HBM pool is smaller than the
      batch's demand, so preemption, demotion, promotion and slow-tier
      wear all happen; the kernel launch counts are read around this run;
-  3. fused dispatch vs the K=1 reference path at the same width, memos
+  3. the same requests served over ``MemoryHierarchy.two_tier(64, 512,
+     pinned_slow=True)``: the NVM tier is pinned host memory the card
+     reads and writes in place (dual-pool decode, in-dispatch wear and
+     Start-Gap), with the fault injector flipping and sticking bits in
+     it at a fixed seed.  Every completed request must emit exactly the
+     phase-2 tokens, every failed one an exact prefix of them (0
+     corrupted tokens), faults must be injected and quarantined, and the
+     dual-pool attention, wear, checksum and pass-sweep kernels must
+     launch; the launch counts are read around this run;
+  4. fused dispatch vs the K=1 reference path at the same width, memos
      off: the generated tokens, SysMon counters and page versions must
-     be identical;
-  4. two fused dispatches under ``torch.profiler``: the device's busy
-     share of the wall time;
-  5. a small float32 model stepped on the card and on the CPU (the plain
+     be identical — once over the host tier, once with tail pages in the
+     pinned tier, where the pinned pool's bytes, the wear remap and the
+     Start-Gap state must match too;
+  5. the pinned parity requests again with the fault injector armed, so
+     appends into the pinned tier, their checksum refresh, the
+     in-dispatch wear charge and Start-Gap run under page integrity:
+     with zero rates nothing is quarantined and every token matches
+     phase 4's; under a media storm no token differs and faults are
+     injected and caught;
+  6. what padding the decode to ``max_batch`` rows costs (one dispatch
+     of 2 rows padded to 8 vs unpadded) and which dense op of the step
+     gives other bits for another number of rows;
+  7. two fused dispatches under ``torch.profiler``, on the phase-2 path
+     and, once pages sit in the pinned tier, on the phase-3 path: the
+     device's busy share of the wall time;
+  8. a small float32 model stepped on the card and on the CPU (the plain
      kernel versions): logits within 1e-3 and identical integer state;
-  6. every kernel against its plain PyTorch version on the card at the
+  9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
-     kernels exactly), with CUDA-event timings of the
-     kernel, the plain version and one PyTorch library call, and the
-     least time the card could take (bytes over 3.35 TB/s, operations
-     over the bf16 peak).
+     kernels and the KV append exactly; the dual-pool attention
+     bit-identical to single-pool K1 on the same pages), with CUDA-event
+     timings of the kernel, the plain version and one PyTorch library
+     call where one computes the same function, and the least time the
+     card could take: bytes over 3.35 TB/s for HBM, bytes over the
+     host-link rate measured in this run (a pinned -> device ``copy_``)
+     for pinned host memory, operations over the bf16 peak.
 
 Output: the card's name and power limit, the build time, the engine
-line, the parity lines, the ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``.  Exits 2 without a CUDA device and 1
-when the port's sources are not beside this script.
+lines, the parity lines, the ``{"kernels": [...]}`` line, the card's
+line again, and last ``{"ok": true, "device": {...}}``.  Exits 2
+without a CUDA device and 1 when the port's sources are not beside this
+script.
 """
 from __future__ import annotations
 
@@ -49,8 +74,22 @@ BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 ATTN_TOL = 3e-3
 
 SEED = 0
-REQUESTS, PROMPT_LEN, NEW_TOKENS = 12, 128, 32       # the engine run
+REQUESTS, PROMPT_LEN, NEW_TOKENS = 12, 128, 32       # the engine runs
 PARITY_PROMPT_LEN, PARITY_NEW_TOKENS = 32, 16        # the parity runs
+# the pinned run's media storm: per live pinned slot and engine step
+FAULT_SEED, FLIP_RATE, STUCK_RATE = 3, 5e-4, 2e-4
+# the storm of the pinned-tail run (the parity phase's requests with HBM
+# cut to 8 slots, so tail pages are appended in the pinned tier)
+TAIL_FAULT_SEED, TAIL_FLIP_RATE, TAIL_STUCK_RATE = 6, 1e-2, 5e-3
+# kernels each engine run must launch (its path); the rest of KERNELS
+# belongs to the other run
+ENGINE_KERNELS = ("paged_attention", "touch_update", "page_gather",
+                  "page_scatter", "wear_update", "sysmon_pass")
+PINNED_KERNELS = ("paged_attention_dual", "kv_append", "touch_update",
+                  "wear_update", "page_checksum", "sysmon_pass")
+# the pinned-tail run: memos off, so no pass sweep
+TAIL_KERNELS = ("paged_attention_dual", "kv_append", "touch_update",
+                "wear_update", "page_checksum")
 
 
 def _emit(obj) -> None:
@@ -79,17 +118,23 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound_ms(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
-    """The least time the card could take: bytes moved over the memory
-    rate, or operations on the bf16 inputs over the card's bf16 peak."""
+def _bound_ms(nbytes: float, flops: float = 0.0, host_bytes: float = 0.0,
+              link_bytes_per_s: float | None = None) -> tuple[float, str]:
+    """The least time the card could take: the bytes moved in HBM over its
+    rate and the bytes moved across the host link (pinned host memory)
+    over the link rate measured in this run — the two channels work in
+    parallel, so the larger of the two — or the operations on the bf16
+    inputs over the card's bf16 peak, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if host_bytes:
+        t_bytes = max(t_bytes, host_bytes / link_bytes_per_s * 1e3)
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
 
 
 # =============================================================================
-# phase 2-3: the engine at full width
+# phases 2-6: the engine at full width
 # =============================================================================
 
 def _serve_config(**kw):
@@ -106,7 +151,41 @@ def _prompts(n: int, length: int, vocab: int, seed: int) -> list[list[int]]:
     return [rng.randint(0, vocab, size=length).tolist() for _ in range(n)]
 
 
-def run_engine(cfg, params) -> tuple[dict, dict, object]:
+def _span_seconds() -> dict[str, float]:
+    """Host wall seconds per span name of the process tracer (nested
+    spans such as migrate.move_group are also inside their parents)."""
+    from repro_torch import obs
+    span_s: dict[str, float] = {}
+    for ev in obs.get_tracer().events():
+        span_s[ev.name] = span_s.get(ev.name, 0.0) + ev.dur_ns * 1e-9
+    return span_s
+
+
+def _check_launches(launches: dict, path: tuple[str, ...], run: str) -> None:
+    missing = [k for k in path if launches[k] == 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the {run} path: "
+                           f"{missing}")
+
+
+def _corrupted_tokens(reqs, want: list[list[int]]) -> tuple[int, dict]:
+    """Tokens that differ from ``want`` (the fault-free run's tokens per
+    request): a completed request must match it whole, a failed one must
+    have emitted an exact prefix.  Returns (count, {request: first bad
+    position})."""
+    corrupted, wrong = 0, {}
+    for r, w in zip(reqs, want):
+        got = r.generated
+        ref = w if r.error is None else w[:len(got)]
+        n = sum(a != b for a, b in zip(got, ref)) + abs(len(got) - len(ref))
+        if n:
+            corrupted += n
+            wrong[r.rid] = next((i for i, (a, b) in enumerate(zip(got, ref))
+                                 if a != b), min(len(got), len(ref)))
+    return corrupted, wrong
+
+
+def run_engine(cfg, params) -> tuple[dict, dict, object, list]:
     import torch
     from repro_torch import kernels, obs
     from repro_torch.models.transformer import pad_vocab
@@ -125,9 +204,7 @@ def run_engine(cfg, params) -> tuple[dict, dict, object]:
     dt = time.perf_counter() - t0
     launches = kernels.launch_counts()
     obs.configure(trace=False)
-    span_s: dict[str, float] = {}
-    for ev in obs.get_tracer().events():
-        span_s[ev.name] = span_s.get(ev.name, 0.0) + ev.dur_ns * 1e-9
+    span_s = _span_seconds()
     store = eng.kv.store
     mig = eng.memos.engine.stats
     wear = store.wear
@@ -172,14 +249,131 @@ def run_engine(cfg, params) -> tuple[dict, dict, object]:
         if not out[key]:
             raise RuntimeError(f"engine run has {key} == 0: the memos path "
                                f"did not run")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise RuntimeError(f"kernels never launched on the main path: "
-                           f"{missing}")
+    _check_launches(launches, ENGINE_KERNELS, "engine")
+    return out, launches, eng, [r.generated for r in reqs]
+
+
+def run_engine_pinned(cfg, params, want: list[list[int]]
+                      ) -> tuple[dict, dict, object]:
+    """The engine run's requests over the pinned-host NVM tier, served in
+    place, with the fault injector flipping and sticking bits in it.
+    ``want`` holds the engine run's tokens per request."""
+    import torch
+    from repro_torch import faults, kernels, obs
+    from repro_torch.core.hierarchy import MemoryHierarchy
+    from repro_torch.faults import FaultConfig
+    from repro_torch.models.transformer import pad_vocab
+    from repro_torch.serving.engine import PagedServingEngine
+    # armed before the store is built: it latches page integrity
+    inj = faults.configure(FaultConfig(seed=FAULT_SEED,
+                                       media_flip_rate=FLIP_RATE,
+                                       media_stuck_rate=STUCK_RATE))
+    try:
+        eng = PagedServingEngine(cfg, params, _serve_config(
+            hierarchy=MemoryHierarchy.two_tier(64, 512, pinned_slow=True)),
+            device="cuda")
+        reqs = [eng.submit(p, NEW_TOKENS)
+                for p in _prompts(REQUESTS, PROMPT_LEN, cfg.vocab, SEED)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        obs.reset()
+        obs.configure(trace=True)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        obs.configure(trace=False)
+    finally:
+        faults.reset()
+    span_s = _span_seconds()
+    reg = obs.get_registry()
+    store = eng.kv.store
+    pt = eng.pinned_tier
+    wear, lv = store.wear_by_tier[pt], store.leveler_by_tier[pt]
+    done = [r for r in reqs if r.error is None]
+    failed = [r for r in reqs if r.error is not None]
+    corrupted, wrong = _corrupted_tokens(reqs, want)
+    quarantined = sum(len(q) for q in store.quarantined.values())
+    out = {
+        "phase": "pinned_faults", "arch": cfg.name,
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "dtype": "bfloat16", "hierarchy": store.hierarchy.describe(),
+        "requests": len(reqs), "prompt_len": PROMPT_LEN,
+        "new_tokens": NEW_TOKENS, "generated": eng.tokens_out,
+        "seconds": dt, "generated_tokens_per_s": eng.tokens_out / dt,
+        "dispatches": len(hist), "memos_passes": len(eng.memos.reports),
+        "fault_seed": FAULT_SEED, "media_flip_rate": FLIP_RATE,
+        "media_stuck_rate": STUCK_RATE,
+        "faults_injected": inj.total_injected,
+        "faults_by_kind": dict(inj.counts),
+        "quarantined_slots": quarantined,
+        "completed": len(done), "failed": [r.rid for r in failed],
+        "failed_errors": sorted({type(r.error).__name__ for r in failed}),
+        "corrupted_tokens": corrupted,
+        "preemptions": eng.batcher.n_preempted,
+        "pinned_reads": store.reads_from[pt],
+        "pinned_writes": store.writes_to[pt],
+        "traffic_0_1_bytes": store.traffic[(0, 1)],
+        "traffic_1_0_bytes": store.traffic[(1, 0)],
+        "slow_wear_max": wear.max_wear(), "slow_writes": wear.writes_total,
+        "leveling_writes": wear.leveling_writes,
+        "startgap_advances": lv.stats.advances,
+        "ladder_rung": eng.memos.ladder.rung,
+        "recovered": int(reg.counter("faults.recovered").value),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        # the optimistic demotions into the pinned tier commit without a
+        # migrate.move_group span; a span that never opened reads 0
+        "span_seconds": {**dict.fromkeys(
+            ("serve.dispatch", "serve.startgap_adopt", "memos.pass_sync",
+             "migrate.move_group"), 0.0), **span_s},
+    }
+    if corrupted:
+        raise RuntimeError(f"pinned run emitted {corrupted} corrupted "
+                           f"tokens (request: first bad position) {wrong}; "
+                           f"failed {out['failed']}")
+    if not done or len(done) < len(failed):
+        raise RuntimeError(f"pinned run completed only {len(done)} of "
+                           f"{len(reqs)} requests")
+    bad = [r.rid for r in failed if out["failed_errors"] !=
+           ["PageCorruptionError"]]
+    if bad:
+        raise RuntimeError(f"requests {bad} failed with "
+                           f"{out['failed_errors']}")
+    for key in ("faults_injected", "quarantined_slots", "slow_wear_max",
+                "pinned_reads"):
+        if not out[key]:
+            raise RuntimeError(f"pinned run has {key} == 0")
+    if not torch.isfinite(eng.last_logits.float()).all() \
+            or eng.last_logits.shape[-1] != pad_vocab(cfg.vocab):
+        raise RuntimeError("pinned run's last logits are non-finite or "
+                           "misshapen")
+    _check_launches(launches, PINNED_KERNELS, "pinned")
     return out, launches, eng
 
 
-def run_fused_vs_reference(cfg, params) -> dict:
+def _pinned_tail_config(**kw):
+    """HBM cut to 8 slots under the parity requests: tail pages are
+    appended in the pinned tier and Start-Gap advances every 4 pinned
+    writes."""
+    from repro_torch.core.hierarchy import MemoryHierarchy
+    return _serve_config(fast_slots=8, slow_slots=64,
+                         hierarchy=MemoryHierarchy.two_tier(
+                             8, 64, pinned_slow=True, gap_write_interval=4),
+                         **kw)
+
+
+def run_fused_vs_reference(cfg, params, pinned: bool = False
+                           ) -> tuple[dict, list]:
+    """The fused dispatch against the K=1 reference path, memos off.  With
+    ``pinned`` the NVM tier is pinned host memory and HBM holds 8 pages,
+    so tail pages land in the pinned pool: KV appends, the in-dispatch
+    wear charge and Start-Gap advances (every 4 pinned writes) run at
+    full depth, and the pinned pool's bytes, remap and leveler state must
+    match too (per-row wear attribution differs with the cadence; its
+    total must not).  Returns the line and the fused run's tokens."""
     import numpy as np
     import torch
     from repro_torch.serving.engine import PagedServingEngine
@@ -188,16 +382,25 @@ def run_fused_vs_reference(cfg, params) -> dict:
     for ref in (False, True):
         # memos off, as the JAX package pins this parity: no pass boundary
         # resets the counters, so they cover the whole access stream
-        eng = PagedServingEngine(cfg, params,
-                                 _serve_config(reference=ref,
-                                               memos_enabled=False),
-                                 device="cuda")
+        scfg = (_pinned_tail_config if pinned else _serve_config)(
+            reference=ref, memos_enabled=False)
+        eng = PagedServingEngine(cfg, params, scfg, device="cuda")
         reqs = [eng.submit(p, PARITY_NEW_TOKENS) for p in prompts]
         eng.run()
         torch.cuda.synchronize()
         state = {f: getattr(eng.sysmon, f).cpu().numpy()
                  for f in eng.sysmon._fields}
-        state["version"] = eng.kv.store.version.copy()
+        store = eng.kv.store
+        state["version"] = store.version.copy()
+        if pinned:
+            wear, lv = store.wear_by_tier[1], store.leveler_by_tier[1]
+            state.update(
+                pinned_pool=store.pools[1].raw().copy(),
+                remap=wear._remap.copy(),
+                leveler=np.array([lv.stats.advances, lv.stats.gap,
+                                  lv.stats.rotations, lv._pending]),
+                writes=np.array([wear.writes_total, wear.leveling_writes,
+                                 wear.wear_counts().sum()]))
         runs[ref] = ([r.generated for r in reqs], state)
     toks_f, sm_f = runs[False]
     toks_r, sm_r = runs[True]
@@ -206,28 +409,273 @@ def run_fused_vs_reference(cfg, params) -> dict:
                            f"vs {toks_r}")
     diff = [f for f in sm_f if not np.array_equal(sm_f[f], sm_r[f])]
     if diff:
-        raise RuntimeError(f"fused vs reference SysMon/versions differ "
-                           f"in {diff}")
-    return {"phase": "fused_vs_reference", "requests": 4,
+        raise RuntimeError(f"fused vs reference state differs in {diff}")
+    out = {"phase": "fused_vs_reference" + ("_pinned" if pinned else ""),
+           "requests": 4, "prompt_len": PARITY_PROMPT_LEN,
+           "new_tokens": PARITY_NEW_TOKENS, "tokens_identical": True,
+           "sysmon_identical": True}
+    if pinned:
+        advances, writes = int(sm_f["leveler"][0]), int(sm_f["writes"][0])
+        if not (advances and writes):
+            raise RuntimeError(f"pinned parity run: {writes} pinned "
+                               f"writes, {advances} Start-Gap advances")
+        out.update(pinned_writes=writes, startgap_advances=advances,
+                   pinned_state_identical=True)
+    return out, toks_f
+
+
+def run_pinned_tail_faults(cfg, params, want: list[list[int]]
+                           ) -> tuple[dict, dict]:
+    """The pinned parity phase's fused run with the fault injector armed:
+    tail pages are appended in the pinned tier, so the checksum refresh
+    of appended rows, the in-dispatch wear charge and Start-Gap all run
+    with page integrity on.  Twice: with zero fault rates every request
+    must complete with ``want``'s tokens and nothing may be quarantined
+    (a refresh that read the pool before the appends landed would
+    quarantine good pages); under a media storm no token may differ from
+    ``want`` and faults must be injected and caught.  Memos stays off,
+    as in the parity run: a memos pass would promote the written tails
+    to HBM.  The launch counts are read around the storm run."""
+    import torch
+    from repro_torch import faults, kernels
+    from repro_torch.faults import FaultConfig
+    from repro_torch.serving.engine import PagedServingEngine
+    prompts = _prompts(4, PARITY_PROMPT_LEN, cfg.vocab, SEED + 1)
+    out = {"phase": "pinned_tail_faults", "requests": len(prompts),
+           "prompt_len": PARITY_PROMPT_LEN, "new_tokens": PARITY_NEW_TOKENS,
+           "fault_seed": TAIL_FAULT_SEED, "media_flip_rate": TAIL_FLIP_RATE,
+           "media_stuck_rate": TAIL_STUCK_RATE}
+    launches = {}
+    for storm in (False, True):
+        # armed before the store is built: it latches page integrity
+        inj = faults.configure(FaultConfig(
+            seed=TAIL_FAULT_SEED,
+            media_flip_rate=TAIL_FLIP_RATE if storm else 0.0,
+            media_stuck_rate=TAIL_STUCK_RATE if storm else 0.0))
+        try:
+            eng = PagedServingEngine(
+                cfg, params, _pinned_tail_config(memos_enabled=False),
+                device="cuda")
+            reqs = [eng.submit(p, PARITY_NEW_TOKENS) for p in prompts]
+            kernels.reset_launch_counts()
+            eng.run()
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+        finally:
+            faults.reset()
+        store = eng.kv.store
+        pt = eng.pinned_tier
+        corrupted, wrong = _corrupted_tokens(reqs, want)
+        run = {"faults_injected": inj.total_injected,
+               "faults_by_kind": dict(inj.counts),
+               "quarantined_slots": sum(len(q) for q in
+                                        store.quarantined.values()),
+               "completed": sum(r.error is None for r in reqs),
+               "failed": [r.rid for r in reqs if r.error is not None],
+               "failed_errors": sorted({type(r.error).__name__ for r in reqs
+                                        if r.error is not None}),
+               "corrupted_tokens": corrupted,
+               "pinned_writes": store.writes_to[pt],
+               "startgap_advances": store.leveler_by_tier[pt].stats.advances,
+               "slow_wear_max": store.wear_by_tier[pt].max_wear()}
+        out["storm" if storm else "armed_no_faults"] = run
+        if corrupted:
+            raise RuntimeError(f"pinned-tail run emitted {corrupted} "
+                               f"corrupted tokens {wrong}: {run}")
+        for key in ("pinned_writes", "startgap_advances", "slow_wear_max"):
+            if not run[key]:
+                raise RuntimeError(f"pinned-tail run has {key} == 0: {run}")
+        if not storm and (run["failed"] or run["quarantined_slots"]):
+            raise RuntimeError(f"pinned-tail run without faults failed "
+                               f"requests or quarantined slots: {run}")
+        if storm and not (run["faults_injected"] and run["completed"]
+                          and run["failed_errors"] in (
+                              [], ["PageCorruptionError"])):
+            raise RuntimeError(f"pinned-tail storm: {run}")
+    out["launches"] = launches
+    _check_launches(launches, TAIL_KERNELS, "pinned-tail")
+    return out, launches
+
+
+def run_batch_padding(cfg, params) -> dict:
+    """What padding the decode to ``max_batch`` rows costs, and which op
+    needs it.  Two engines serve the same 2 requests, memos off: one with
+    ``max_batch`` 8 (each dispatch pads 2 rows to 8), one with 2 (no
+    padding); their dispatches alternate and each is timed on the host
+    clock around a device sync.  Then each dense op of the decode step
+    runs on the first R of 8 random rows, R = 1..8: an op whose row bits
+    change with R is batch-variant."""
+    import statistics
+
+    import torch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import PagedServingEngine
+    prompts = _prompts(2, PARITY_PROMPT_LEN, cfg.vocab, SEED + 4)
+    engines = {}
+    for rows in (8, 2):
+        eng = PagedServingEngine(cfg, params, _serve_config(
+            max_batch=rows, memos_enabled=False), device="cuda")
+        reqs = [eng.submit(p, PARITY_NEW_TOKENS) for p in prompts]
+        eng.step()                              # admission, first dispatch
+        engines[rows] = (eng, reqs, [])
+    for _ in range(4):
+        for eng, _, times in engines.values():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    for eng, _, _ in engines.values():
+        eng.run()
+    ms = {rows: statistics.median(t) * 1e3
+          for rows, (_, _, t) in engines.items()}
+
+    # which op's row bits depend on the number of rows
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    lp = params["layers"][0]
+    d = cfg.d_model
+    h = torch.randn((8, 1, d), generator=gen, device="cuda").to(
+        params["embed"].dtype)
+    a = torch.randn((8, cfg.n_heads * cfg.head_dim), generator=gen,
+                    device="cuda").to(h.dtype)
+    cos, sin = L.rope_angles(torch.zeros((8, 1), dtype=torch.int32,
+                                         device="cuda"),
+                             cfg.head_dim, cfg.rope_theta)
+    wo = lp["attn"]["wo"]
+    z = T.logits_out(params, cfg, h)[:, 0]
+    tied = torch.sort(torch.randint(0, cfg.vocab, (8, 2), generator=gen,
+                                    device="cuda"), dim=1).values
+    z.scatter_(1, tied, z.max().item() + 1)
+    ops = {
+        "rms_norm": lambda r: L.rms_norm(h[:r], lp["ln1"], eps=cfg.norm_eps,
+                                         gemma_style=cfg.gemma_norm),
+        "qkv_projection": lambda r: torch.cat([
+            t.reshape(r, -1) for t in attn_mod.project_qkv(
+                lp["attn"], h[:r], cos[:r], sin[:r])], dim=1),
+        "wo_matmul": lambda r: a[:r] @ wo.reshape(-1, wo.shape[-1]),
+        "ffn_block": lambda r: T.ffn_block(lp, cfg, h[:r]),
+        "logits": lambda r: T.logits_out(params, cfg, h[:r]),
+        # the sampler over logits whose maximum is tied between two
+        # columns of every row: the first of the two must win
+        "argmax_on_ties": lambda r: torch.argmax(z[:r, :cfg.vocab], dim=-1),
+    }
+    variant = {}
+    for name, op in ops.items():
+        full = op(8)
+        variant[name] = [r for r in range(1, 8)
+                         if not torch.equal(op(r), full[:r])]
+    first_wins = torch.equal(ops["argmax_on_ties"](8), tied[:, 0])
+    return {"phase": "batch_padding", "requests": len(prompts),
             "prompt_len": PARITY_PROMPT_LEN,
-            "new_tokens": PARITY_NEW_TOKENS, "tokens_identical": True,
-            "sysmon_identical": True}
+            "new_tokens": PARITY_NEW_TOKENS, "dispatches_timed": 4,
+            "dispatch_ms_padded_to_8": ms[8], "dispatch_ms_unpadded": ms[2],
+            "padded_over_unpadded": ms[8] / ms[2],
+            "tokens_identical": [r.generated for r in engines[8][1]]
+            == [r.generated for r in engines[2][1]],
+            "batch_variant_ops": {k: v for k, v in variant.items() if v},
+            "batch_invariant_ops": [k for k, v in variant.items() if not v],
+            "argmax_first_index_on_ties": first_wins}
 
 
-def run_profiled_window(cfg, params) -> dict:
+def run_batch_invariance(cfg, params) -> dict:
+    """Whether one decode step's bits depend on how many rows share it or
+    on a row's place in the batch.  An engine with ``max_batch`` 1 (so
+    no zero rows pad the step) decodes 8 rows over random KV in distinct
+    pages at the engine runs' contexts, then the first r rows for
+    r = 1..7, then all 8 in reverse order: every row's logits and
+    sampled token are compared with its own in the 8-row step.  Once
+    with every page in HBM (``_decode_core``), once with about half of
+    them in the pinned-host pool (``_decode_core_pinned``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.hierarchy import MemoryHierarchy
+    from repro_torch.serving.engine import PagedServingEngine
+    B, P = 8, 16                 # the engine runs' batch and table width
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    rng = np.random.RandomState(SEED + 7)
+    lengths = rng.randint(PROMPT_LEN + 1, PROMPT_LEN + NEW_TOKENS + 1,
+                          size=B)
+    out = {"phase": "batch_invariance", "rows": B, "pages_per_row": P,
+           "contexts": lengths.tolist()}
+    for path in ("hbm", "dual_pool"):
+        eng = PagedServingEngine(cfg, params, _serve_config(
+            max_batch=1, fast_slots=B * P, slow_slots=B * P,
+            memos_enabled=False, hierarchy=MemoryHierarchy.two_tier(
+                B * P, B * P, pinned_slow=path == "dual_pool")),
+            device="cuda")
+        pools = [eng.kv.store.fast_pool]
+        slots = rng.permutation(B * P).reshape(B, P)
+        cols = [rng.randint(0, cfg.vocab, B), lengths - 1, slots, lengths]
+        if path == "dual_pool":
+            pools.append(eng.kv.store.pools[1].data)
+            cols.append((rng.rand(B, P) < 0.5).astype(np.int32))
+        for pool in pools:
+            pool.copy_(torch.randn(pool.shape, generator=gen, device="cuda",
+                                   dtype=torch.float32).to(pool.dtype))
+        cols = [torch.from_numpy(a.astype(np.int32)).to("cuda")
+                for a in cols]
+        remap = torch.arange(B * P, dtype=torch.int32, device="cuda")
+
+        def step(rows, eng=eng, cols=cols, path=path, remap=remap):
+            rows = torch.tensor(rows, device="cuda")
+            tok, pos, bt, lens, *sel = (c[rows].contiguous() for c in cols)
+            if path == "hbm":
+                return eng._decode_core(tok, pos, bt, lens)
+            return eng._decode_core_pinned(tok, pos, bt, sel[0], lens, remap)
+
+        full = step(list(range(B)))
+        sampled = torch.argmax(full[:, :cfg.vocab], dim=-1)
+        bits, tokens = [], []
+        for r in range(1, B):
+            part = step(list(range(r)))
+            if not torch.equal(part, full[:r]):
+                bits.append(r)
+            if not torch.equal(torch.argmax(part[:, :cfg.vocab], dim=-1),
+                               sampled[:r]):
+                tokens.append(r)
+        out[path] = {
+            "row_counts_with_other_bits": bits,
+            "row_counts_with_other_tokens": tokens,
+            "reversed_order_identical": torch.equal(
+                step(list(range(B))[::-1]), full.flip(0)),
+            "finite": bool(torch.isfinite(full.float()).all())}
+        del eng, pools
+    return out
+
+
+def run_profiled_window(cfg, params, pinned: bool = False) -> dict:
     """Two fused dispatches of a fresh engine under ``torch.profiler``
     (device activity only): the device's busy share of the host wall
-    time, from the union of the kernel and copy intervals it traced."""
+    time, from the union of the kernel and copy intervals it traced.
+    With ``pinned`` the engine serves the engine run's requests over the
+    pinned-host tier and the window opens once pages sit there, so both
+    dispatches take the dual-pool path."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core.hierarchy import MemoryHierarchy
     from repro_torch.serving.engine import PagedServingEngine
-    scfg = _serve_config()
+    if pinned:
+        scfg = _serve_config(hierarchy=MemoryHierarchy.two_tier(
+            64, 512, pinned_slow=True))
+        prompts = _prompts(REQUESTS, PROMPT_LEN, cfg.vocab, SEED)
+        new = NEW_TOKENS
+    else:
+        scfg = _serve_config()
+        prompts = _prompts(scfg.max_batch, PARITY_PROMPT_LEN, cfg.vocab,
+                           SEED + 3)
+        new = PARITY_NEW_TOKENS
     eng = PagedServingEngine(cfg, params, scfg, device="cuda")
-    for p in _prompts(scfg.max_batch, PARITY_PROMPT_LEN, cfg.vocab,
-                      SEED + 3):
-        eng.submit(p, PARITY_NEW_TOKENS)
+    for p in prompts:
+        eng.submit(p, new)
     eng.step()                                  # admission, first dispatch
+    while pinned and eng.kv.store.tier_used()[1] == 0 \
+            and not eng.batcher.all_done():
+        eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -242,7 +690,8 @@ def run_profiled_window(cfg, params) -> dict:
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    return {"phase": "profiled_window", "dispatches": 2, "inner_steps": ks,
+    return {"phase": "profiled_window" + ("_pinned" if pinned else ""),
+            "dispatches": 2, "inner_steps": ks,
             "batch": scfg.max_batch, "wall_s": wall,
             "device_events": len(spans), "device_busy_s": busy_us * 1e-6,
             "device_busy_share": busy_us * 1e-6 / wall if spans else None}
@@ -302,7 +751,7 @@ def run_card_vs_cpu() -> dict:
 
 
 # =============================================================================
-# phase 6: every kernel against its plain version
+# phase 9: every kernel against its plain version
 # =============================================================================
 
 def _attn_bf16_accumulating(q, k_pool, v_pool, bt, lengths):
@@ -489,6 +938,209 @@ def bench_kernels(cfg, eng, launches: dict) -> list[dict]:
     return rows
 
 
+def host_link_rate(pool) -> dict:
+    """Bytes per second of a pinned -> device ``copy_`` of 16 pages of the
+    pinned pool: the rate at which the card reads pinned host memory,
+    which bounds every kernel that reads the pinned tier in place."""
+    import torch
+    src = pool[:16]
+    dst = torch.empty(src.shape, dtype=src.dtype, device="cuda")
+    ms = _time_ms(lambda: dst.copy_(src, non_blocking=True), iters=20)
+    nbytes = src.numel() * src.element_size()
+    return {"bytes": nbytes, "ms": ms, "bytes_per_s": nbytes / ms * 1e3}
+
+
+def _check_nonzero_pages(pool, rows, what: str) -> None:
+    """Raise unless every page ``pool[rows]`` holds a nonzero bit: on an
+    all-zero page a kernel that reads the wrong row or stride still
+    agrees with its plain version."""
+    import torch
+    rows = torch.as_tensor(rows, device=pool.device).long()
+    bits = pool[rows].reshape(rows.numel(), -1).view(torch.int16)
+    if not bool((bits != 0).any(dim=1).all()):
+        raise RuntimeError(f"{what}: the check would compare all-zero pages")
+
+
+def bench_pinned_kernels(cfg, peng, launches: dict, engine_launches: dict,
+                         tail_launches: dict, link: dict) -> list[dict]:
+    """The slice's kernels against their plain versions on the card, at
+    the pinned run's shapes: K5 over pages of the pinned pool, K7 over
+    the run's page counters, the dual-pool K1 over a batch whose pages
+    split between HBM and the pinned pool, and the KV append.  Both
+    pools are first filled with seeded random bf16."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import hotness_update as K2
+    from repro_torch.kernels import kv_append as KA
+    from repro_torch.kernels import page_checksum as K5
+    from repro_torch.kernels import paged_attention as K1
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    rng = np.random.RandomState(SEED + 5)
+    rate = link["bytes_per_s"]
+    scfg = peng.scfg
+    store = peng.kv.store
+    fast = store.fast_pool
+    pin = store.pools[peng.pinned_tier].data        # pinned host memory
+    n_fast, n_pin = fast.shape[0], pin.shape[0]
+    page = scfg.page_size
+    B, P = scfg.max_batch, scfg.max_pages_per_seq
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = Hq // Hkv
+    page_bytes = pin[0].numel() * pin.element_size()
+    rows = []
+    # the runs left most slots of both pools zeroed or freed
+    for p in (pin, fast):
+        p.copy_(torch.randn(p.shape, generator=gen, device=dev,
+                            dtype=torch.float32).to(p.dtype))
+    torch.cuda.synchronize()
+
+    def row(name, src, replaces, err, ms, plain_ms, bound, library_ms, tol,
+            **extra):
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": err, "tolerance": tol, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound[0],
+                     "bound_by": bound[1], "library_ms": library_ms,
+                     "launches_pinned_tail_run": tail_launches.get(name, 0),
+                     **extra})
+
+    # -- K5: one pre-dispatch verify of 16 pinned pages ---------------------
+    idx = torch.from_numpy(rng.permutation(n_pin)[:16].astype(np.int32)
+                           ).to(dev)
+    _check_nonzero_pages(pin, idx.cpu(), "page_checksum")
+    got = K5.page_checksum(pin, idx).view(torch.int32)
+    want = K5.page_checksum_plain(pin, idx).view(torch.int32)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise RuntimeError("page_checksum kernel disagrees with plain")
+    row("page_checksum", "src/repro_torch/kernels/csrc/page_checksum.cu",
+        "src/repro/kernels/page_checksum/page_checksum.py:36", 0,
+        _time_ms(lambda: K5.page_checksum(pin, idx), iters=20),
+        _time_ms(lambda: K5.page_checksum_plain(pin, idx), iters=3,
+                 warmup=1),
+        _bound_ms(idx.numel() * 4 * 2, host_bytes=16 * page_bytes,
+                  link_bytes_per_s=rate), None, 0, pages=16,
+        pool="pinned host")
+
+    # -- K7: the pass sweep over the run's page counters --------------------
+    n = peng.kv.n_pages
+    args = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
+        rng.randint(0, 40, n), rng.randint(0, 10, n), rng.randint(0, 256, n))]
+    got = K2.sysmon_pass(*args)
+    want = K2.sysmon_pass_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise RuntimeError("sysmon_pass kernel disagrees with plain")
+    row("sysmon_pass", "src/repro_torch/kernels/csrc/sysmon_pass.cu",
+        "src/repro/kernels/hotness_update/hotness_update.py:76", 0,
+        _time_ms(lambda: K2.sysmon_pass(*args)),
+        _time_ms(lambda: K2.sysmon_pass_plain(*args)),
+        _bound_ms(24 * n), None, 0, pages=n,
+        launches_engine_run=engine_launches["sysmon_pass"])
+
+    # -- K1 dual-pool: batch B, half the pages in the pinned pool ------------
+    l = 0
+    kf, vf, kp, vp = fast[:, l, 0], fast[:, l, 1], pin[:, l, 0], pin[:, l, 1]
+    lengths_np = rng.randint(PROMPT_LEN + 1, PROMPT_LEN + NEW_TOKENS + 1,
+                             size=B)
+    sel_np = (rng.rand(B, P) < 0.5).astype(np.int32)
+    bt_np = np.where(sel_np > 0,
+                     np.stack([rng.permutation(n_pin)[:P] for _ in range(B)]),
+                     np.stack([rng.permutation(n_fast)[:P]
+                               for _ in range(B)])).astype(np.int32)
+    _check_nonzero_pages(pin, np.unique(bt_np[sel_np > 0]),
+                         "paged_attention_dual (pinned pages)")
+    _check_nonzero_pages(fast, np.unique(bt_np[sel_np == 0]),
+                         "paged_attention_dual (HBM pages)")
+    bt = torch.from_numpy(bt_np).to(dev)
+    sel = torch.from_numpy(sel_np).to(dev)
+    lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(dev)
+    q = (torch.randn((B, Hkv, G, D), generator=gen, device=dev)
+         * D ** -0.5).to(fast.dtype)
+    dual = (q, kf, vf, kp, vp, bt, sel, lengths)
+    out_k = K1.paged_attention_dual_pooled(*dual)
+    out_p = K1.paged_attention_dual_plain(*dual)
+    # the same pages in one HBM pool: single-pool K1 must give the same bits
+    kmerged = torch.cat([kf, kp.to(dev)])
+    vmerged = torch.cat([vf, vp.to(dev)])
+    btm = torch.where(sel > 0, bt + n_fast, bt).to(torch.int32)
+    out_s = K1.paged_attention_pooled(q, kmerged, vmerged, btm, lengths)
+    torch.cuda.synchronize()
+    if not torch.allclose(out_k.float(), out_p.float(), atol=ATTN_TOL,
+                          rtol=ATTN_TOL):
+        raise RuntimeError("paged_attention_dual kernel disagrees with "
+                           "plain")
+    if not torch.equal(out_k, out_s):
+        raise RuntimeError("paged_attention_dual is not bit-identical to "
+                           "single-pool paged_attention on the same pages")
+    err = float((out_k.float() - out_p.float()).abs().max())
+    pages_live = (lengths_np + page - 1) // page
+    row_b = 2 * Hkv * D * fast.element_size()          # K and V of a row
+    pin_rows = hbm_rows = 0
+    for b in range(B):
+        for j in range(int(pages_live[b])):
+            live = min(page, int(lengths_np[b]) - j * page)
+            if sel_np[b, j]:
+                pin_rows += live
+            else:
+                hbm_rows += live
+    hbm_bytes = (2 * B * Hq * D * 2 + hbm_rows * row_b + bt.numel() * 8
+                 + B * 4)
+    S = P * page
+    kc = kmerged[btm.long()].reshape(B, S, Hkv, D).transpose(
+        1, 2).repeat_interleave(G, dim=1).contiguous()
+    vc = vmerged[btm.long()].reshape(B, S, Hkv, D).transpose(
+        1, 2).repeat_interleave(G, dim=1).contiguous()
+    q4 = q.reshape(B, Hq, 1, D)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    row("paged_attention_dual",
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention/ops.py:76", err,
+        _time_ms(lambda: K1.paged_attention_dual_pooled(*dual)),
+        _time_ms(lambda: K1.paged_attention_dual_plain(*dual), iters=10,
+                 warmup=2),
+        _bound_ms(hbm_bytes, 4.0 * Hq * D * int(lengths_np.sum()),
+                  host_bytes=pin_rows * row_b, link_bytes_per_s=rate),
+        _time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kc, vc, attn_mask=mask, scale=1.0)), ATTN_TOL,
+        bit_identical_to_single_pool=True, pinned_rows=pin_rows,
+        hbm_rows=hbm_rows)
+    del kmerged, vmerged, kc, vc
+
+    # -- KV append: one layer's new K/V rows, half landing in the pinned pool
+    sfast = fast[:16].clone()
+    spin = torch.empty(pin[:16].shape, dtype=pin.dtype, pin_memory=True)
+    spin.copy_(pin[:16])
+    k = torch.randn((B, Hkv, D), generator=gen, device=dev).to(fast.dtype)
+    v = torch.randn((B, Hkv, D), generator=gen, device=dev).to(fast.dtype)
+    to_pin = torch.from_numpy(rng.rand(B) < 0.5).to(dev)
+    slot = torch.from_numpy(rng.permutation(16)[:B].astype(np.int32)).to(dev)
+    f_idx = torch.where(to_pin, 16, slot).to(torch.int32)
+    p_idx = torch.where(to_pin, slot, 16).to(torch.int32)
+    off = torch.from_numpy(rng.randint(0, page, B).astype(np.int32)).to(dev)
+    app = (sfast[:, l], spin[:, l], f_idx, p_idx, off, k, v)
+    wf, wp = sfast.clone(), spin.clone()
+    KA.kv_append(*app)
+    KA.kv_append_plain(wf[:, l], wp[:, l], f_idx, p_idx, off, k, v)
+    torch.cuda.synchronize()
+    if not (torch.equal(sfast, wf) and torch.equal(spin, wp)):
+        raise RuntimeError("kv_append kernel disagrees with plain")
+    n_pin_rows = int(to_pin.sum())
+    row("kv_append", "src/repro_torch/kernels/csrc/kv_append.cu",
+        "src/repro/serving/engine.py:435", 0,
+        _time_ms(lambda: KA.kv_append(*app)),
+        _time_ms(lambda: KA.kv_append_plain(*app)),
+        _bound_ms(2 * B * Hkv * D * 2 + (B - n_pin_rows) * row_b + B * 12,
+                  host_bytes=n_pin_rows * row_b, link_bytes_per_s=rate),
+        None, 0)
+    return rows
+
+
 # =============================================================================
 
 def main() -> int:
@@ -524,19 +1176,37 @@ def main() -> int:
     init_s = time.perf_counter() - t0
     print(f"init_params: {init_s:.1f} s", file=sys.stderr, flush=True)
 
-    engine_line, launches, eng = run_engine(cfg, params)
+    engine_line, launches, eng, tokens = run_engine(cfg, params)
     engine_line["init_params_s"] = init_s
     print(json.dumps(engine_line), file=sys.stderr, flush=True)
-    parity = run_fused_vs_reference(cfg, params)
+    pinned_line, pinned_launches, peng = run_engine_pinned(cfg, params,
+                                                           tokens)
+    print(json.dumps(pinned_line), file=sys.stderr, flush=True)
+    parity, _ = run_fused_vs_reference(cfg, params)
     print(json.dumps(parity), file=sys.stderr, flush=True)
+    pparity, tail_tokens = run_fused_vs_reference(cfg, params, pinned=True)
+    print(json.dumps(pparity), file=sys.stderr, flush=True)
+    tail, tail_launches = run_pinned_tail_faults(cfg, params, tail_tokens)
+    print(json.dumps(tail), file=sys.stderr, flush=True)
+    padding = run_batch_padding(cfg, params)
+    print(json.dumps(padding), file=sys.stderr, flush=True)
+    invariance = run_batch_invariance(cfg, params)
+    print(json.dumps(invariance), file=sys.stderr, flush=True)
     window = run_profiled_window(cfg, params)
     print(json.dumps(window), file=sys.stderr, flush=True)
+    pwindow = run_profiled_window(cfg, params, pinned=True)
+    print(json.dumps(pwindow), file=sys.stderr, flush=True)
+    pinned_line["device_busy_share"] = pwindow["device_busy_share"]
     cross = run_card_vs_cpu()
     print(json.dumps(cross), file=sys.stderr, flush=True)
-    kernel_rows = bench_kernels(cfg, eng, launches)
+    link = host_link_rate(peng.kv.store.pools[peng.pinned_tier].data)
+    kernel_rows = (bench_kernels(cfg, eng, launches)
+                   + bench_pinned_kernels(cfg, peng, pinned_launches,
+                                          launches, tail_launches, link))
 
-    lines += [{"kernels": kernel_rows}, engine_line, parity, window, cross,
-              _card_line()]
+    lines += [{"kernels": kernel_rows}, {"host_link": link}, engine_line,
+              pinned_line, parity, pparity, tail, padding, invariance,
+              window, pwindow, cross, _card_line()]
     for line in lines:
         _emit(line)
     _emit({"ok": True, "device": {

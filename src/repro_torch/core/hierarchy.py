@@ -4,8 +4,9 @@ The paper schedules "the entire memory hierarchy ... simultaneously";
 this module is the first-class description of that hierarchy: an ordered
 list of tiers (fastest first), each a :class:`MediumSpec` naming its
 capacity, its Table-1 cost-model medium (latency / energy / endurance),
-its residency (device torch pool vs. host numpy pool), and its telemetry
-flags (wear tracking, Start-Gap leveling, int8 soft-NVM storage).
+its residency (device torch pool, host numpy pool, or pinned host memory
+the card addresses in place), and its telemetry flags (wear tracking,
+Start-Gap leveling, int8 soft-NVM storage).
 
 Everything above this module is generic over tier *indices*: the
 placement policy scores pages against per-tier ``MediumSpec`` costs, the
@@ -23,8 +24,10 @@ Conventions:
     lower tier index, "demotion" to a higher one;
   * device tiers hold one torch tensor pool each (HBM, or an HBM-resident
     DRAM-channel simulation); host tiers hold numpy pools (the NVM/CXL
-    analogue) and are the only tiers that support wear tracking,
-    Start-Gap leveling, and int8 quantization.
+    analogue); pinned-host tiers hold one pinned host tensor the kernels
+    read and write in place (the paper's byte-addressable NVM).  Only
+    host-class tiers support wear tracking, Start-Gap leveling, and int8
+    quantization.
 
 Compatibility shim
 ------------------
@@ -50,8 +53,7 @@ SLOW = 1  # deepest tier of a two_tier() hierarchy (NVM / host analogue)
 
 DEVICE = "device"   # torch tensor pool on the card (HBM-resident)
 HOST = "host"       # numpy pool (host DRAM; the NVM-channel analogue)
-PINNED_HOST = "pinned_host"  # pinned host memory pool (not supported by
-                             # this package's TierStore)
+PINNED_HOST = "pinned_host"  # pinned host memory the card addresses
 
 
 @dataclass(frozen=True)
@@ -69,10 +71,12 @@ class MediumSpec:
     host-class features: they require ``residency == "host"`` or
     ``residency == "pinned_host"``.
 
-    ``pinned_host`` (the NVM/CXL analogue with device addressability)
-    and ``quantize_int8`` are part of the hierarchy description so specs
-    stay interchangeable with the JAX package's; this package's
-    ``TierStore`` refuses both with ``NotImplementedError``.
+    ``pinned_host`` is the NVM/CXL analogue with device addressability:
+    the serving engine attends to and appends into its pages in place.
+    ``quantize_int8`` is part of the description so specs stay
+    interchangeable with the JAX package's; this package's ``TierStore``
+    refuses it with ``NotImplementedError`` until the int8 tiers are
+    ported with kernel K6.
     """
 
     name: str
@@ -113,8 +117,8 @@ class MediumSpec:
 
     @property
     def is_device_addressable(self) -> bool:
-        """Whether jitted device code can gather/scatter this tier's pool
-        directly (device tiers and pinned-host tiers)."""
+        """Whether kernels can gather/scatter this tier's pool directly
+        (device tiers and pinned-host tiers)."""
         return self.residency in (DEVICE, PINNED_HOST)
 
     def read_cost_ns(self) -> float:
@@ -184,8 +188,8 @@ class MemoryHierarchy:
         """The pre-redesign FAST/SLOW pair: a device HBM tier over a host
         NVM-analogue tier.  Behaviorally bit-identical to the old
         hardcoded ``TierStore`` (parity-pinned against a golden trace).
-        ``pinned_slow`` describes a pinned-host NVM tier (refused by this
-        package's ``TierStore``)."""
+        ``pinned_slow`` makes the NVM tier pinned host memory, served in
+        place by the dual-pool decode."""
         return cls(tiers=(
             MediumSpec("HBM", fast_slots, cm.HBM, residency=DEVICE),
             MediumSpec("NVM", slow_slots, cm.NVM,
@@ -205,8 +209,8 @@ class MemoryHierarchy:
         """The HBM -> DRAM -> NVM demo hierarchy: a second device-resident
         pool simulates the DRAM channel (device<->device migration stays
         on-accelerator), backed by the host NVM-analogue tier with wear
-        telemetry.  ``pinned_nvm`` describes a pinned-host NVM tier (refused
-        by this package's ``TierStore``)."""
+        telemetry.  ``pinned_nvm`` makes the NVM tier pinned host
+        memory."""
         return cls(tiers=(
             MediumSpec("HBM", hbm_slots, cm.HBM, residency=DEVICE),
             MediumSpec("DRAM", dram_slots, cm.DRAM, residency=DEVICE),

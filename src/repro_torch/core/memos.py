@@ -18,10 +18,16 @@ Ties SysMon -> predictor -> placement -> migration together:
        projected lifetime drops below ``lifetime_horizon_years`` the next
        pass plans with a wear penalty.
 
-The asynchronous snapshot -> plan -> commit pipeline, scrubbing, the
-power governor and the degradation ladder of the JAX manager are not
-ported; with no faults injected the JAX ladder stays at its synchronous
-rung, which is the behaviour here.
+At every pass boundary a budgeted round-robin scrub re-verifies the
+recorded page checksums (quarantining any slot whose bits drifted), and
+the degradation ladder decides whether the pass runs: a pass with
+failed migrations demotes it to memos-off, healthy passes re-promote it
+(``faults.degradation``).  Both are dead branches while the fault
+injector is disarmed.
+
+The asynchronous snapshot -> plan -> commit pipeline and the power
+governor of the JAX manager are not ported; the ladder's top rung is
+the synchronous pass.
 """
 from __future__ import annotations
 
@@ -30,11 +36,19 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from repro_torch import obs
+from repro_torch.faults.degradation import (RUNG_OFF, RUNG_SYNC,
+                                            DegradationLadder)
 
 from . import sysmon as sysmon_mod
 from .migration import BatchedMigrationEngine, MigrationStats
 from .placement import BandwidthBalancer, plan
 from .tiers import TierStore
+
+# consecutive healthy passes before the circuit breaker re-promotes one
+# ladder rung (memos-off -> sync)
+BREAKER_RECOVERY_PASSES = 3
+# per-pass budget of recorded page checksums re-verified by the scrub
+SCRUB_PAGES = 16
 
 
 @dataclass
@@ -87,6 +101,10 @@ class MemosManager:
         self._last_pass_step = 0
         self.reports: list[MemosReport] = []
         self.step_count = 0
+        # graceful degradation: sync -> memos-off and back after
+        # BREAKER_RECOVERY_PASSES healthy passes
+        self.ladder = DegradationLadder(
+            top=RUNG_SYNC, recovery_passes=BREAKER_RECOVERY_PASSES)
 
     @property
     def meter(self):
@@ -111,7 +129,24 @@ class MemosManager:
         # boundary, so credit beyond that is unspendable)
         self._steps_since = min(self._steps_since - self.interval,
                                 self.interval)
+        # scrub at the pass boundary: re-verify a budgeted slice of the
+        # recorded checksums (detection between a write and the next read)
+        self._scrub()
+        # memos-off rung: the pass still closes the SysMon window (state
+        # stays bounded) and counts healthy so the breaker can climb back
+        if self.ladder.rung == RUNG_OFF:
+            sm_state, _ = sysmon_mod.end_pass(sm_state)
+            self.store.roll_traffic_window()
+            self.ladder.record_healthy()
+            return sm_state, None
         return self.run_pass(sm_state, fast_bw_util)
+
+    def _scrub(self) -> None:
+        integ = self.store.integrity
+        if not integ.enabled:
+            return
+        for t, s in integ.scrub(self.store, SCRUB_PAGES):
+            self.store.quarantine_slot(t, s, reason="scrub")
 
     def run_pass(self, sm_state: sysmon_mod.SysmonState,
                  fast_bw_util: float = 0.0):
@@ -214,6 +249,14 @@ class MemosManager:
                                for r in nvm_by_tier.values())),
         )
         self.reports.append(report)
+        # ladder health: any failed migration (a group faulted past its
+        # retry budget, or a page that failed its pre-flight) demotes one
+        # rung; stats.failed only moves under injection, so a fault-free
+        # run records healthy passes only
+        if stats.failed > 0:
+            self.ladder.record_failure("migration")
+        else:
+            self.ladder.record_healthy()
         self._publish_metrics(report, summary)
         return report
 
@@ -230,6 +273,9 @@ class MemosManager:
             report.spilled)
         reg.gauge("memos.interval", "current adaptive pass interval").set(
             self.interval)
+        reg.gauge("faults.ladder_rung",
+                  "degradation rung: 1=sync 0=memos-off").set(
+                      self.ladder.rung)
         reg.gauge("memos.bank_imbalance",
                   "stddev of per-bank access frequency").set(
                       report.bank_imbalance)

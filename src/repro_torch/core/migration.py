@@ -11,8 +11,9 @@ generic over the tiers of a :class:`~repro_torch.core.hierarchy.MemoryHierarchy`
   * **execute** (device) — bulk data movement per (source, destination)
     residency pair:
 
-      - device -> device: ``page_gather`` out of the source pool,
-        ``page_scatter`` into the destination pool;
+      - between device-addressable tiers (HBM pools and the pinned-host
+        pool, which the kernels address in place): ``page_gather`` out
+        of the source pool, ``page_scatter`` into the destination pool;
       - device -> host: ``page_gather`` into contiguous device staging,
         then chunked non-blocking copies into pinned host buffers; the
         host reads them only after the stream has synchronised;
@@ -22,6 +23,12 @@ generic over the tiers of a :class:`~repro_torch.core.hierarchy.MemoryHierarchy`
 
 Host tiers move pages in their storage format (bfloat16 as uint16 bits),
 so a round trip through the slow tier is bit-exact.
+
+While the fault injector is armed, every bulk move retries injected
+transient faults with exponential backoff and fails closed past the cap
+(pages stay where they were, reservations return), and every page read
+out of a host-class tier is first verified against its checksum — a
+corrupt page is quarantined, never copied forward.
 
 Two paths, as in the paper: ``locked`` (synchronous, commit
 unconditionally; promotions toward tier 0) and ``optimistic``
@@ -40,6 +47,8 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.faults.errors import TransientMigrationFault
+from repro_torch.faults.injector import get_injector, note_recovered
 
 from . import placement
 from .tiers import (NO_SLOT, TierStore, _pad_idx_np, _pad_pages, _pow2,
@@ -311,6 +320,25 @@ def plan_optimistic(store, pages: Iterable[int], dst_tier: int,
     )
 
 
+def subset_plan(plan: MigrationPlan, keep: np.ndarray) -> MigrationPlan:
+    """The sub-plan of ``plan`` restricted to the kept pages (bool mask);
+    ``trivial`` and ``reads_by_tier`` carry over whole."""
+    keep = np.asarray(keep, bool)
+    if keep.all():
+        return plan
+    return MigrationPlan(
+        dst_tier=plan.dst_tier,
+        pages=plan.pages[keep],
+        src_tiers=plan.src_tiers[keep],
+        src_slots=plan.src_slots[keep],
+        dst_slots=plan.dst_slots[keep],
+        trivial=plan.trivial,
+        colors=None if plan.colors is None else plan.colors[keep],
+        masks=None if plan.masks is None else plan.masks[keep],
+        reads_by_tier=plan.reads_by_tier,
+    )
+
+
 def _group_decision(store, decision: placement.PlacementDecision
                     ) -> tuple[dict, dict]:
     """(promotions, demotions) per destination tier, in hotness-list
@@ -438,14 +466,38 @@ class BatchedMigrationEngine:
                 t = pinned.to(store.device, non_blocking=True)
             store.scatter_device(dst_tier, dst_slots[i:i + c], t)
 
+    def _with_retries(self, src_tier: int, dst_tier: int, pages: int) -> None:
+        """The injected-fault gate ahead of one bulk write: retry with
+        exponential backoff up to ``max_retries``; past the cap the
+        :class:`TransientMigrationFault` escapes and the caller drops the
+        group.  Injection fires before any data moves, so a failed
+        attempt never leaves a half-written group."""
+        inj = get_injector()
+        attempts = (self.max_retries + 1) if inj.enabled else 1
+        for a in range(attempts):
+            try:
+                inj.maybe_migration_fault(src_tier, dst_tier, pages)
+            except TransientMigrationFault:
+                if a + 1 >= attempts:
+                    raise
+                time.sleep(self.retry_backoff_s * (1 << a))
+                continue
+            if a:
+                note_recovered("migrate_retry")
+            return
+
     def _move_group(self, src_tier: int, dst_tier: int,
                     src_slots: np.ndarray, dst_slots: np.ndarray) -> None:
-        """Bulk-move one (src, dst) tier pair's pages by residency."""
+        """Bulk-move one (src, dst) tier pair's pages by residency:
+        device-addressable pairs (HBM and pinned-host pools) move with
+        the gather/scatter kernels alone, the device <-> numpy-host pairs
+        stage through pinned buffers, host -> host is one numpy copy."""
         store = self.store
-        src_dev = store.is_device_tier(src_tier)
-        dst_dev = store.is_device_tier(dst_tier)
+        src_dev = store.is_addressable_tier(src_tier)
+        dst_dev = store.is_addressable_tier(dst_tier)
         with obs.span("migrate.move_group", src=src_tier, dst=dst_tier,
                       pages=int(len(src_slots))):
+            self._with_retries(src_tier, dst_tier, int(len(src_slots)))
             if src_dev and dst_dev:
                 staged = store.gather_device(src_tier, src_slots)
                 store.scatter_device(dst_tier, dst_slots, staged)
@@ -459,24 +511,68 @@ class BatchedMigrationEngine:
                 staged = store.host_read_raw(src_tier, src_slots)
                 store.host_write_raw(dst_tier, dst_slots, staged)
 
+    # -- integrity pre-flight --------------------------------------------------
+    def _preflight_verify(self, plan: MigrationPlan,
+                          st: MigrationStats) -> MigrationPlan:
+        """Verify the checksums of the plan's host-class source pages
+        before any data moves: a corrupt page's slot is quarantined (its
+        owner fails cleanly), its reserved destination slot freed, and
+        the plan shrunk — corrupt bits are never copied into a faster
+        tier.  No-op while integrity is disarmed."""
+        store = self.store
+        if not store.integrity.enabled or len(plan) == 0:
+            return plan
+        keep = np.ones(len(plan), bool)
+        for src_t in np.unique(plan.src_tiers):
+            t = int(src_t)
+            if store.is_device_tier(t):
+                continue
+            idx = np.nonzero(plan.src_tiers == src_t)[0]
+            bad = set(store.integrity.verify(store, t, plan.src_slots[idx]))
+            for i in idx:
+                if int(plan.src_slots[i]) in bad:
+                    keep[i] = False
+                    st.failed += 1
+                    store.quarantine_slot(t, int(plan.src_slots[i]),
+                                          "promotion-preflight")
+                    store.alloc[plan.dst_tier].free(int(plan.dst_slots[i]), 0)
+        return plan if keep.all() else subset_plan(plan, keep)
+
     # -- plan execution --------------------------------------------------------
     def execute_plan(self, plan: MigrationPlan) -> MigrationStats:
         """Apply a reserved plan as one bulk move per source tier (locked
-        semantics: commit unconditionally)."""
+        semantics: commit unconditionally).  Groups whose move faults past
+        the retry cap are dropped from the commit: their pages stay in
+        the source tier and their reservations are returned."""
         st = MigrationStats()
         store = self.store
         for t, n in plan.reads_by_tier.items():
             store.reads_from[int(t)] += int(n)
+        plan = self._preflight_verify(plan, st)
         k = len(plan)
         if k:
+            keep = np.ones(k, bool)
             for src_t in np.unique(plan.src_tiers):
                 idx = np.nonzero(plan.src_tiers == src_t)[0]
-                self._move_group(int(src_t), plan.dst_tier,
-                                 plan.src_slots[idx], plan.dst_slots[idx])
+                try:
+                    self._move_group(int(src_t), plan.dst_tier,
+                                     plan.src_slots[idx], plan.dst_slots[idx])
+                except TransientMigrationFault:
+                    keep[idx] = False
+                    st.failed += idx.size
+                    for i in idx:
+                        store.alloc[plan.dst_tier].free(
+                            int(plan.dst_slots[i]), 0)
+                    continue
                 if not plan.reads_by_tier:
                     store.reads_from[int(src_t)] += idx.size
                 st.note_move(int(src_t), plan.dst_tier, idx.size)
-            store.commit_moves(plan.pages, plan.dst_tier, plan.dst_slots)
+            if not keep.all():
+                plan = subset_plan(plan, keep)
+                k = len(plan)
+            if k:
+                store.commit_moves(plan.pages, plan.dst_tier,
+                                   plan.dst_slots)
         st.migrated = k + plan.trivial
         st.bytes_moved = (k + plan.trivial) * store.page_nbytes
         _classify(st, plan.dst_tier, st.migrated)
@@ -508,8 +604,20 @@ class BatchedMigrationEngine:
             [int(p) for p in dict.fromkeys(int(p) for p in pages)
              if int(store.tier[p]) != dst_tier
              and int(store.slot[p]) != NO_SLOT], np.int64)
+        if store.integrity.enabled and pending.size:
+            # pre-flight: quarantine corrupt host-class source pages (their
+            # slot drops to NO_SLOT) before anything is staged
+            for t in np.unique(store.tier[pending]):
+                t = int(t)
+                if store.is_device_tier(t):
+                    continue
+                sel = pending[store.tier[pending] == t]
+                for s in store.integrity.verify(store, t, store.slot[sel]):
+                    st.failed += 1
+                    store.quarantine_slot(t, int(s), "promotion-preflight")
+            pending = pending[store.slot[pending] != NO_SLOT]
         bank_freq = None if bank_freq is None else np.array(bank_freq)
-        dst_dev = store.is_device_tier(dst_tier)
+        dst_dev = store.is_addressable_tier(dst_tier)
         for attempt in range(self.max_retries + 1):
             if pending.size == 0:
                 break
@@ -527,7 +635,7 @@ class BatchedMigrationEngine:
                       for t in np.unique(src_tiers)}
             for src_t, idx in groups.items():
                 local_of[idx] = np.arange(idx.size)
-                if not store.is_device_tier(src_t):
+                if not store.is_addressable_tier(src_t):
                     staged[src_t] = store.host_read_raw(src_t,
                                                         src_slots[idx])
                 elif dst_dev:
@@ -554,6 +662,7 @@ class BatchedMigrationEngine:
             if commit_idx:
                 idx = np.asarray(commit_idx, np.int64)
                 slots = np.asarray(dst_slots, np.int64)
+                ok = np.ones(idx.size, bool)
                 for src_t in groups:
                     m = src_tiers[idx] == src_t
                     sel = idx[m]
@@ -566,12 +675,25 @@ class BatchedMigrationEngine:
                     else:
                         vals = buf[torch.from_numpy(_pad_idx_np(li)).to(
                             buf.device)]
-                    self._commit_group_write(src_t, dst_tier, slots[m], vals)
+                    try:
+                        self._commit_group_write(src_t, dst_tier, slots[m],
+                                                 vals)
+                    except TransientMigrationFault:
+                        # faulted past the retry cap: return the
+                        # reservations, leave the pages where they are
+                        ok[m] = False
+                        st.failed += int(sel.size)
+                        for s_ in slots[m]:
+                            store.alloc[dst_tier].free(int(s_), 0)
+                        continue
                     st.note_move(src_t, dst_tier, int(sel.size))
-                store.commit_moves(pending[idx], dst_tier, slots)
-                st.migrated += idx.size
-                st.bytes_moved += idx.size * store.page_nbytes
-                _classify(st, dst_tier, idx.size)
+                if not ok.all():
+                    idx, slots = idx[ok], slots[ok]
+                if idx.size:
+                    store.commit_moves(pending[idx], dst_tier, slots)
+                    st.migrated += idx.size
+                    st.bytes_moved += idx.size * store.page_nbytes
+                    _classify(st, dst_tier, idx.size)
             pending = pending[dirty_mask]
         _note_retries_exhausted(st, int(pending.size))
         self.stats.merge(st)
@@ -579,11 +701,13 @@ class BatchedMigrationEngine:
 
     def _commit_group_write(self, src_tier: int, dst_tier: int,
                             dst_slots: np.ndarray, vals) -> None:
-        """One optimistic-commit group write into the destination tier."""
+        """One optimistic-commit group write into the destination tier,
+        behind the same injected-fault retry gate as :meth:`_move_group`."""
+        self._with_retries(src_tier, dst_tier, int(len(dst_slots)))
         store = self.store
-        if not store.is_device_tier(dst_tier):
+        if not store.is_addressable_tier(dst_tier):
             store.host_write_raw(dst_tier, dst_slots, vals)
-        elif store.is_device_tier(src_tier):
+        elif store.is_addressable_tier(src_tier):
             store.scatter_device(dst_tier, dst_slots, vals)
         else:
             self._stage_host_to_device(dst_tier, dst_slots, vals)

@@ -6,7 +6,10 @@ device: the serving engine's fused decode dispatch records every inner
 step's page touches (block-table prefix reads, the tail-page KV append)
 through the ``touch_update`` kernel without any host round trip, and
 only the pass boundary (``end_pass``) hands a classification to the
-host-side planner.  Algorithm 1 (bank/slab frequency tables) folds each
+host-side planner.  On the card that boundary's sweep — WD/RD/COLD, the
+history shift and the future-state prediction — is one launch of kernel
+K7 (``sysmon_pass``); on CPU tensors it is the tensor composition the
+JAX runtime uses.  Algorithm 1 (bank/slab frequency tables) folds each
 recorded access through the page's color maps.
 """
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.hotness_update import touch_update
+from repro_torch.kernels.hotness_update import sysmon_pass, touch_update
 
 from . import patterns, predictor
 
@@ -131,9 +134,19 @@ def _apply_sampling(state: SysmonState, d_reads: torch.Tensor,
 
 def end_pass(state: SysmonState) -> tuple[SysmonState, PassSummary]:
     """Close a sampling pass: classify, push WD history, reset counters."""
-    wd_code = patterns.classify_wd(state.reads, state.writes)
-    wd_bit = (wd_code == patterns.WD).to(torch.uint8)
-    hist = predictor.push_history(state.hist, wd_bit)
+    if state.reads.device.type == "cuda":
+        # one K7 launch for (wd_code, hist, future); hist stays uint8 in
+        # the state
+        wd32, hist32, fut32 = sysmon_pass(state.reads, state.writes,
+                                          state.hist.to(_I32))
+        wd_code = wd32.to(torch.int8)
+        hist = hist32.to(torch.uint8)
+        future = fut32.to(torch.int8)
+    else:
+        wd_code = patterns.classify_wd(state.reads, state.writes)
+        wd_bit = (wd_code == patterns.WD).to(torch.uint8)
+        hist = predictor.push_history(state.hist, wd_bit)
+        future = predictor.predict_future(hist)
     summary = PassSummary(
         wd_code=wd_code,
         hot=patterns.classify_hot(state.access_count, state.sample_idx),
@@ -141,7 +154,7 @@ def end_pass(state: SysmonState) -> tuple[SysmonState, PassSummary]:
         reuse_class=patterns.classify_reuse(
             state.intv_cnt, state.intv_sum, state.intv_sqsum,
             state.sample_idx),
-        future=predictor.predict_future(hist),
+        future=future,
         reads=state.reads, writes=state.writes,
         bank_freq=state.bank_freq, slab_freq=state.slab_freq,
     )

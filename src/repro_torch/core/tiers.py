@@ -9,7 +9,15 @@ Logical pages live in one of the pools described by a
     through the ``page_gather`` / ``page_scatter`` kernels;
   * **host** tiers — numpy pools (the NVM/CXL analogue).  bfloat16
     payloads are stored as their **uint16 bit pattern** (bit-exact round
-    trips, half the bytes of float32); float32 payloads natively.
+    trips, half the bytes of float32); float32 payloads natively;
+  * **pinned_host** tiers — one page-shaped tensor in pinned host memory
+    in the store dtype (bf16 stays bf16), the paper's byte-addressable
+    NVM: the kernels read and write it in place through its mapped
+    device address, so migrations to and from it need no numpy staging
+    and the serving engine attends to and appends into its pages without
+    promoting them.  Host-side access (the fault injector, Start-Gap row
+    swaps) goes through a zero-copy numpy view taken after the card's
+    stream has drained.  On a CPU store it is a plain CPU tensor.
 
 A page table maps logical page -> (tier, slot); per-page version counters
 are bumped by every write so the optimistic migration path can detect
@@ -20,10 +28,14 @@ write through an ``NvmWear`` remap (and rotate under Start-Gap when
 ``wear_leveling`` is set).
 
 Where the JAX store replaces ``fast_pool`` with each donated dispatch
-result, this store keeps **one** tier-0 tensor for its whole life and
+result, this store keeps **one** tensor per pool for its whole life and
 every writer updates it in place, so no reference to a stale pool can
-survive.  Pinned-host tiers, int8 tiers and page integrity are not
-ported; constructing a store that needs them raises.
+survive.
+
+While the global fault injector is armed, every write into a host or
+pinned tier records a per-page checksum (``faults.integrity``) and a
+slot whose bits drift is quarantined (``quarantine_slot``).  int8 tiers
+are not ported; constructing a store that needs one raises.
 """
 from __future__ import annotations
 
@@ -34,6 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.faults.injector import get_injector, note_recovered
+from repro_torch.faults.integrity import PageIntegrity
 from repro_torch.kernels.page_gather import page_gather, page_scatter
 
 from .allocator import SubBuddyAllocator, SubBuddyConfig
@@ -240,9 +254,75 @@ class HostPool:
     def read_raw(self, phys: np.ndarray) -> np.ndarray:
         return self.data[phys]
 
+    def raw(self) -> np.ndarray:
+        """The storage array itself (the fault injector's handle)."""
+        return self.data
+
     def swap_rows(self, a: int, b: int) -> None:
         """Swap two physical rows in place (Start-Gap leveling advance)."""
         self.data[[a, b]] = self.data[[b, a]]
+
+
+class PinnedHostPool:
+    """A host-capacity page pool the card addresses in place.
+
+    ``data`` is one [slots, *page_shape] tensor in pinned host memory in
+    the store dtype.  ``gather``/``scatter`` run the ``page_gather`` /
+    ``page_scatter`` kernels straight against its mapped device address
+    (the wrappers raise if the memory is not mapped; nothing copies in
+    its place), so demotions into this tier and promotions out of it
+    move pages without numpy staging.  ``raw()`` is the zero-copy numpy
+    view in host storage format (bf16 as uint16 bits) that host-side
+    readers and writers use; it first waits for the card's stream, so
+    it never races a queued write.  On a CPU store ``data`` is a plain
+    CPU tensor and the kernels' plain versions run."""
+
+    def __init__(self, spec: MediumSpec, page_shape: tuple[int, ...],
+                 dtype: torch.dtype, device: torch.device):
+        if dtype not in _HOST_DTYPES:
+            raise NotImplementedError(f"pinned tier dtype {dtype}")
+        self.spec = spec
+        self.page_shape = page_shape
+        self.dtype = dtype
+        self.device = device       # where the kernels that touch it run
+        self.data = torch.zeros((spec.slots, *page_shape), dtype=dtype,
+                                pin_memory=device.type == "cuda")
+
+    def _idx(self, phys: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(phys, np.int32)).to(self.device)
+
+    def raw(self) -> np.ndarray:
+        """Zero-copy numpy view of the pool in host storage format, once
+        every write the card has queued to it has landed."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return to_host_raw(self.data)
+
+    def gather(self, phys) -> torch.Tensor:
+        """Physical rows into a pow2-padded staging tensor on the store's
+        device (``page_gather`` over the mapped pool)."""
+        return page_gather(self.data, self._idx(_pad_idx_np(phys)))
+
+    def scatter(self, phys, pages: torch.Tensor) -> None:
+        """pool[phys[i]] = pages[i] in place (``page_scatter`` into the
+        mapped pool); rows not referenced are untouched."""
+        idx = _pad_idx_np(phys)
+        pages = _pad_pages(pages, idx.size).to(device=self.device,
+                                               dtype=self.dtype).contiguous()
+        page_scatter(self.data, self._idx(idx), pages)
+
+    def write_one(self, phys: int, value: np.ndarray) -> None:
+        self.scatter([phys], torch.from_numpy(
+            np.asarray(value, np.float32)[None]))
+
+    def read_one(self, phys: int) -> np.ndarray:
+        return self.gather([phys])[0].float().cpu().numpy()
+
+    def swap_rows(self, a: int, b: int) -> None:
+        """Swap two physical rows in place (Start-Gap leveling advance on
+        the host)."""
+        raw = self.raw()
+        raw[[a, b]] = raw[[b, a]]
 
 
 # =============================================================================
@@ -257,10 +337,10 @@ class TierStore:
                               hierarchy=cfg.hierarchy(), dtype=cfg.dtype,
                               n_banks=cfg.n_banks, n_slabs=cfg.n_slabs)
         for t in cfg.hierarchy:
-            if t.is_pinned or t.quantize_int8:
+            if t.quantize_int8:
                 raise NotImplementedError(
-                    f"tier {t.name!r}: pinned-host and int8 tiers are not "
-                    "ported")
+                    f"tier {t.name!r}: int8 tiers are not ported yet (they "
+                    "come with kernel K6 in a later slice)")
         if not cfg.hierarchy[0].is_device:
             raise ValueError("tier 0 must be a device tier")
         self.device = resolve_device(device)
@@ -269,10 +349,17 @@ class TierStore:
         self.cfg = cfg
         self.hierarchy = cfg.hierarchy
         self.n_tiers = cfg.hierarchy.n_tiers
-        self.pools: list[DevicePool | HostPool] = [
-            DevicePool(t, cfg.page_shape, cfg.dtype, self.device)
-            if t.is_device else HostPool(t, cfg.page_shape, cfg.dtype)
-            for t in cfg.hierarchy]
+
+        def make_pool(t: MediumSpec):
+            if t.is_device:
+                return DevicePool(t, cfg.page_shape, cfg.dtype, self.device)
+            if t.is_pinned:
+                return PinnedHostPool(t, cfg.page_shape, cfg.dtype,
+                                      self.device)
+            return HostPool(t, cfg.page_shape, cfg.dtype)
+
+        self.pools: list[DevicePool | HostPool | PinnedHostPool] = [
+            make_pool(t) for t in cfg.hierarchy]
         # pages start (unallocated) in the deepest tier
         self.tier = np.full((cfg.n_pages,), cfg.hierarchy.deepest, np.int8)
         self.slot = np.full((cfg.n_pages,), NO_SLOT, np.int64)
@@ -302,6 +389,14 @@ class TierStore:
             if spec.wear_leveling:
                 self.leveler_by_tier[i] = StartGapLeveler(
                     self.wear_by_tier[i], spec.gap_write_interval)
+        # page integrity + bad-slot quarantine (armed only while the
+        # global fault injector is)
+        self.integrity = PageIntegrity(enabled=get_injector().enabled)
+        self.quarantined: dict[int, set[int]] = {
+            t: set() for t in range(self.n_tiers)}
+        # pages unbound by a quarantine since the last drain; the serving
+        # engine reads this back to fail the owning sequences cleanly
+        self.quarantine_log: list[int] = []
 
     # -- two-tier compat surface ----------------------------------------------
     @property
@@ -323,6 +418,14 @@ class TierStore:
 
     def is_device_tier(self, tier: int) -> bool:
         return self.hierarchy[tier].is_device
+
+    def is_pinned_tier(self, tier: int) -> bool:
+        return self.hierarchy[tier].is_pinned
+
+    def is_addressable_tier(self, tier: int) -> bool:
+        """Kernels gather/scatter this tier's pool directly (device tiers
+        and pinned-host tiers)."""
+        return self.hierarchy[tier].is_device_addressable
 
     # -- dirty-set epochs -----------------------------------------------------
     def begin_dirty_epoch(self) -> None:
@@ -358,6 +461,9 @@ class TierStore:
                  color_mask: int | None = None) -> bool:
         """Bind a logical page to a fresh slot in ``tier``."""
         assert self.slot[page] == NO_SLOT, f"page {page} already allocated"
+        inj = get_injector()
+        if inj.enabled and inj.maybe_alloc_fail(tier):
+            return False               # injected pool-exhaustion pressure
         s = self.alloc[tier].alloc(0, color, color_mask)
         if s is None:
             return False
@@ -369,9 +475,36 @@ class TierStore:
     def release(self, page: int) -> None:
         s = int(self.slot[page])
         if s != NO_SLOT:
-            self.alloc[int(self.tier[page])].free(s, 0)
+            t = int(self.tier[page])
+            self.alloc[t].free(s, 0)
+            self.integrity.drop(t, [s])
             self.slot[page] = NO_SLOT
             self._mark_dirty(page)
+
+    def quarantine_slot(self, tier: int, slot: int,
+                        reason: str = "") -> bool:
+        """Retire a failing slot: withhold it from the tier's allocator
+        for good, unbind any page living in it (recorded in
+        ``quarantine_log`` so the serving engine can fail the owner
+        cleanly), and drop its checksum.  Returns False if the slot was
+        already quarantined or is no longer allocated."""
+        slot = int(slot)
+        if slot in self.quarantined[tier]:
+            return False
+        if not self.alloc[tier].retire(slot):
+            return False               # freed since detection: nothing to do
+        self.quarantined[tier].add(slot)
+        self.integrity.drop(tier, [slot])
+        pages = np.nonzero((self.tier == tier) & (self.slot == slot))[0]
+        for p in pages:
+            self.slot[p] = NO_SLOT     # page is gone, not just cold
+            self._mark_dirty(int(p))
+            self.quarantine_log.append(int(p))
+        from repro_torch import obs
+        obs.get_registry().counter(
+            "faults.quarantined_slots", "slots retired by quarantine").inc()
+        note_recovered("quarantine")
+        return True
 
     # -- single-page data access ------------------------------------------------
     def write_page(self, page: int, value) -> None:
@@ -417,14 +550,29 @@ class TierStore:
         p = self._phys_one(tier, slot)
         self.pools[tier].write_one(p, value)
         self._account_host_writes(tier, np.asarray([p]))
+        self.integrity.record(self, tier, [slot])
 
     # -- batched data access (the migration engine's bulk primitives) ----------
     def gather_device(self, tier: int, slots) -> torch.Tensor:
-        """Pack a device tier's slots into one pow2-padded staging tensor."""
+        """Pack a device-addressable tier's (logical) slots into one
+        pow2-padded staging tensor on the store's device; pinned tiers
+        translate through the wear remap."""
+        if self.is_pinned_tier(tier):
+            return self.pools[tier].gather(
+                self._phys(tier, np.asarray(slots, np.int64)))
         return self.pools[tier].gather(slots)
 
     def scatter_device(self, tier: int, slots, pages: torch.Tensor) -> None:
-        """pool[slots[i]] = pages[i] on a device tier, in place."""
+        """pool[slots[i]] = pages[i] on a device-addressable tier, in
+        place.  Pinned tiers go through the wear remap, charge wear and
+        record checksums, like every other write into a host-class
+        tier."""
+        if self.is_pinned_tier(tier):
+            phys = self._phys(tier, np.asarray(slots, np.int64))
+            self.pools[tier].scatter(phys, pages)
+            self._account_host_writes(tier, phys)
+            self.integrity.record(self, tier, slots)
+            return
         self.pools[tier].scatter(slots, pages)
 
     def host_read_raw(self, tier: int, slots: np.ndarray) -> np.ndarray:
@@ -439,6 +587,7 @@ class TierStore:
         phys = self._phys(tier, np.asarray(slots, np.int64))
         self.pools[tier].write_raw(phys, raw)
         self._account_host_writes(tier, phys)
+        self.integrity.record(self, tier, slots)
 
     def charge_fast_accesses(self, page_writes: np.ndarray,
                              n_reads: int) -> None:
@@ -451,6 +600,26 @@ class TierStore:
         self.version += page_writes
         self.writes_to[0] += int(page_writes.sum())
         self.reads_from[0] += int(n_reads)
+
+    def charge_accesses(self, page_writes: np.ndarray,
+                        page_reads: np.ndarray) -> None:
+        """One dispatch's access accounting split by residency: per-page
+        write/read counts bump the version counters and each page's
+        *current* tier's counters (the dual-pool dispatch touches the
+        tier-0 pool and the pinned tier).  Like
+        :meth:`charge_fast_accesses`, in-place appends do not dirty an
+        open epoch."""
+        page_writes = np.asarray(page_writes, np.int64)
+        page_reads = np.asarray(page_reads, np.int64)
+        self.version += page_writes
+        for t in range(self.n_tiers):
+            m = self.tier == t
+            w = int(page_writes[m].sum())
+            r = int(page_reads[m].sum())
+            if w:
+                self.writes_to[t] += w
+            if r:
+                self.reads_from[t] += r
 
     # -- bandwidth headroom (spill / cascade targeting) ------------------------
     def roll_traffic_window(self) -> None:
@@ -487,6 +656,7 @@ class TierStore:
             "commit_moves: page already in the destination tier"
         for p, s in zip(pages, self.slot[pages]):
             self.alloc[int(self.tier[p])].free(int(s), 0)
+            self.integrity.drop(int(self.tier[p]), [int(s)])
         self.tier[pages] = dst_tier
         self.slot[pages] = new_slots
         self._mark_dirty(pages)

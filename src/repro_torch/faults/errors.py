@@ -1,10 +1,17 @@
-"""Structured fault exceptions (the part of ``repro.faults.errors`` the
-serving path raises)."""
+"""Structured fault exceptions, split by who recovers (a copy of
+``repro.faults.errors`` without the plan-worker fault, which waits for
+the asynchronous memos pass):
+
+* :class:`CapacityError` / :class:`PageCorruptionError` fail one
+  request cleanly (``Request.error``) while the engine keeps serving;
+* :class:`TransientMigrationFault` is injected beneath the migration
+  engine's retry loop and should normally never escape to a caller.
+"""
 from __future__ import annotations
 
 
 class FaultError(RuntimeError):
-    """Base class for every capacity fault."""
+    """Base class for every injected or capacity fault."""
 
 
 class CapacityError(FaultError):
@@ -19,3 +26,19 @@ class CapacityError(FaultError):
         super().__init__(msg)
         self.rid = rid
         self.occupancy = occupancy or {}
+
+
+class PageCorruptionError(FaultError):
+    """A page's stored bits no longer match its recorded checksum and
+    the slot was quarantined — the owning sequence fails cleanly."""
+
+    def __init__(self, msg: str, *, rid: int | None = None,
+                 pages: list[int] | None = None):
+        super().__init__(msg)
+        self.rid = rid
+        self.pages = list(pages or [])
+
+
+class TransientMigrationFault(FaultError):
+    """Injected failure of one per-(src,dst) bulk move; retried with
+    backoff by the migration engine, surfaced only past the cap."""

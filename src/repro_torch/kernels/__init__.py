@@ -13,7 +13,8 @@ went through the kernels:
 from __future__ import annotations
 
 KERNELS = ("paged_attention", "touch_update", "page_gather", "page_scatter",
-           "wear_update")
+           "wear_update", "page_checksum", "sysmon_pass",
+           "paged_attention_dual", "kv_append")
 
 _counts = dict.fromkeys(KERNELS, 0)
 

@@ -134,3 +134,31 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+
+
+_mapped: dict[int, int] = {}    # pinned allocation base -> device address
+
+
+def device_address(t) -> int:
+    """The address a kernel uses for tensor ``t``: its data pointer on
+    the card, or, for pinned host memory, the device address CUDA
+    mapped for it (``cudaHostGetDevicePointer`` on the allocation base,
+    plus the view's offset).  Raises for host memory that is not pinned
+    and mapped: no copy ever stands in for it."""
+    if t.device.type == "cuda":
+        return t.data_ptr()
+    if t.device.type != "cpu" or not t.is_pinned():
+        raise ValueError(f"a {t.device} tensor that is not pinned host "
+                         f"memory has no device address")
+    base = t.untyped_storage().data_ptr()
+    dev = _mapped.get(base)
+    if dev is None:
+        out = ctypes.c_void_p()
+        fn = function("host_device_pointer",
+                      [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)])
+        err = fn(base, ctypes.byref(out))
+        if err != 0 or not out.value:
+            raise RuntimeError(f"pinned host memory at {base:#x} is not "
+                               f"mapped for the card: cudaError {err}")
+        dev = _mapped[base] = out.value
+    return dev + (t.data_ptr() - base)

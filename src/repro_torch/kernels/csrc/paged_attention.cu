@@ -24,6 +24,17 @@
 // lanes split D and reduce with shuffles; softmax statistics and the
 // accumulator stay in fp32 (shared memory and registers).  A simple,
 // correct first kernel: no split-K over pages, no TMA/wgmma.
+//
+// Dual-pool variant (the pinned-host NVM tier served in place; the JAX
+// package gathers both pools and selects per page in XLA,
+// repro/serving/engine.py::_decode_core_pinned over
+// kernels/paged_attention/ops.py::paged_attention_pages).  The card can
+// reach the pinned pool only through its mapped device address, so the
+// kernel takes a second pool with its own strides and a per-page
+// pool_sel [B, P]: each page picks its base pointer and row stride, and
+// nothing else changes, so a page's attention is bit-identical whichever
+// pool holds it.  Pages read from host memory cross the host link, which
+// then bounds those pages instead of HBM.
 #include "common.cuh"
 
 namespace {
@@ -37,11 +48,16 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                        const T* __restrict__ v_pool,
+                       const T* __restrict__ k_pool2,
+                       const T* __restrict__ v_pool2,
                        const int32_t* __restrict__ block_table,
+                       const int32_t* __restrict__ pool_sel,
                        const int32_t* __restrict__ lengths,
                        T* __restrict__ out, int Hkv, int G, int D, int page,
                        int P, long long k_ss, long long k_rs, long long k_hs,
-                       long long v_ss, long long v_rs, long long v_hs) {
+                       long long v_ss, long long v_rs, long long v_hs,
+                       long long k2_ss, long long k2_rs, long long k2_hs,
+                       long long v2_ss, long long v2_rs, long long v2_hs) {
   extern __shared__ float smem[];
   float* q_s = smem;              // [G, D]
   float* s_s = q_s + G * D;       // [G, page] scores, then probabilities
@@ -73,9 +89,16 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   int n_pages = (len + page - 1) / page;
   if (n_pages > P) n_pages = P;
   for (int ip = 0; ip < n_pages; ++ip) {
-    const long long slot = block_table[static_cast<long long>(b) * P + ip];
-    const T* kp = k_pool + slot * k_ss + h * k_hs;
-    const T* vp = v_pool + slot * v_ss + h * v_hs;
+    const long long cell = static_cast<long long>(b) * P + ip;
+    const long long slot = block_table[cell];
+    // the page's own pool: tier 0, or (pool_sel = 1) the second pool
+    const bool second = pool_sel != nullptr && pool_sel[cell] != 0;
+    const T* kp = second ? k_pool2 + slot * k2_ss + h * k2_hs
+                         : k_pool + slot * k_ss + h * k_hs;
+    const T* vp = second ? v_pool2 + slot * v2_ss + h * v2_hs
+                         : v_pool + slot * v_ss + h * v_hs;
+    const long long krs = second ? k2_rs : k_rs;
+    const long long vrs = second ? v2_rs : v_rs;
     const int live = min(page, len - ip * page);  // unmasked rows here
 
     // scores s[g][t] = q[g] . k[t]; one warp per row
@@ -84,7 +107,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) part[g] = 0.f;
       if (t < live) {
-        const T* kr = kp + t * k_rs;
+        const T* kr = kp + t * krs;
         for (int d = lane; d < D; d += 32) {
           const float kv = to_float(kr[d]);
 #pragma unroll
@@ -131,7 +154,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         for (int g = 0; g < kMaxG; ++g)
           if (g < G) acc[g][j] *= alpha_s[g];
         for (int t = 0; t < live; ++t) {
-          const float vv = to_float(vp[t * v_rs + d]);
+          const float vv = to_float(vp[t * vrs + d]);
 #pragma unroll
           for (int g = 0; g < kMaxG; ++g)
             if (g < G) acc[g][j] += s_s[g * page + t] * vv;
@@ -155,10 +178,13 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* block_table, const void* lengths, void* out, int B,
+           const void* k_pool2, const void* v_pool2, const void* block_table,
+           const void* pool_sel, const void* lengths, void* out, int B,
            int Hkv, int G, int D, int page, int P, long long k_ss,
            long long k_rs, long long k_hs, long long v_ss, long long v_rs,
-           long long v_hs, void* stream) {
+           long long v_hs, long long k2_ss, long long k2_rs,
+           long long k2_hs, long long v2_ss, long long v2_rs,
+           long long v2_hs, void* stream) {
   if (G < 1 || G > kMaxG || D < 1 || D > kThreads * kMaxDPerThread)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Hkv == 0) return 0;
@@ -167,36 +193,51 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   paged_attention_kernel<T><<<grid, kThreads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool),
+      static_cast<const T*>(v_pool), static_cast<const T*>(k_pool2),
+      static_cast<const T*>(v_pool2),
       static_cast<const int32_t*>(block_table),
+      static_cast<const int32_t*>(pool_sel),
       static_cast<const int32_t*>(lengths), static_cast<T*>(out), Hkv, G, D,
-      page, P, k_ss, k_rs, k_hs, v_ss, v_rs, v_hs);
+      page, P, k_ss, k_rs, k_hs, v_ss, v_rs, v_hs, k2_ss, k2_rs, k2_hs,
+      v2_ss, v2_rs, v2_hs);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-EXPORT int paged_attention_f32(const void* q, const void* k_pool,
-                               const void* v_pool, const void* block_table,
-                               const void* lengths, void* out, int B,
-                               int Hkv, int G, int D, int page, int P,
-                               long long k_ss, long long k_rs, long long k_hs,
-                               long long v_ss, long long v_rs,
-                               long long v_hs, void* stream) {
-  return launch<float>(q, k_pool, v_pool, block_table, lengths, out, B, Hkv,
-                       G, D, page, P, k_ss, k_rs, k_hs, v_ss, v_rs, v_hs,
-                       stream);
-}
+// single pool: block_table holds tier-0 slots
+#define PAGED_ATTENTION_ENTRY(NAME, T)                                      \
+  EXPORT int NAME(const void* q, const void* k_pool, const void* v_pool,   \
+                  const void* block_table, const void* lengths, void* out, \
+                  int B, int Hkv, int G, int D, int page, int P,           \
+                  long long k_ss, long long k_rs, long long k_hs,          \
+                  long long v_ss, long long v_rs, long long v_hs,          \
+                  void* stream) {                                          \
+    return launch<T>(q, k_pool, v_pool, k_pool, v_pool, block_table,       \
+                     nullptr, lengths, out, B, Hkv, G, D, page, P, k_ss,   \
+                     k_rs, k_hs, v_ss, v_rs, v_hs, k_ss, k_rs, k_hs, v_ss, \
+                     v_rs, v_hs, stream);                                  \
+  }
 
-EXPORT int paged_attention_bf16(const void* q, const void* k_pool,
-                                const void* v_pool, const void* block_table,
-                                const void* lengths, void* out, int B,
-                                int Hkv, int G, int D, int page, int P,
-                                long long k_ss, long long k_rs,
-                                long long k_hs, long long v_ss,
-                                long long v_rs, long long v_hs,
-                                void* stream) {
-  return launch<__nv_bfloat16>(q, k_pool, v_pool, block_table, lengths, out,
-                               B, Hkv, G, D, page, P, k_ss, k_rs, k_hs, v_ss,
-                               v_rs, v_hs, stream);
-}
+// two pools: block_table holds each page's slot in its own pool and
+// pool_sel [B, P] is 1 where that pool is the second one
+#define PAGED_ATTENTION_DUAL_ENTRY(NAME, T)                                 \
+  EXPORT int NAME(const void* q, const void* k_pool, const void* v_pool,   \
+                  const void* k_pool2, const void* v_pool2,                \
+                  const void* block_table, const void* pool_sel,           \
+                  const void* lengths, void* out, int B, int Hkv, int G,   \
+                  int D, int page, int P, long long k_ss, long long k_rs,  \
+                  long long k_hs, long long v_ss, long long v_rs,          \
+                  long long v_hs, long long k2_ss, long long k2_rs,        \
+                  long long k2_hs, long long v2_ss, long long v2_rs,       \
+                  long long v2_hs, void* stream) {                         \
+    return launch<T>(q, k_pool, v_pool, k_pool2, v_pool2, block_table,     \
+                     pool_sel, lengths, out, B, Hkv, G, D, page, P, k_ss,  \
+                     k_rs, k_hs, v_ss, v_rs, v_hs, k2_ss, k2_rs, k2_hs,    \
+                     v2_ss, v2_rs, v2_hs, stream);                         \
+  }
+
+PAGED_ATTENTION_ENTRY(paged_attention_f32, float)
+PAGED_ATTENTION_ENTRY(paged_attention_bf16, __nv_bfloat16)
+PAGED_ATTENTION_DUAL_ENTRY(paged_attention_dual_f32, float)
+PAGED_ATTENTION_DUAL_ENTRY(paged_attention_dual_bf16, __nv_bfloat16)

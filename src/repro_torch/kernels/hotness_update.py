@@ -1,4 +1,5 @@
-"""K2 — SysMon's per-sampling touch histogram (``touch_update``).
+"""K2 — SysMon's per-sampling touch histogram (``touch_update``), and
+K7 — the pass-boundary sweep (``sysmon_pass``, at the end of the module).
 
 Replaces ``repro.kernels.hotness_update.hotness_update.touch_update_pallas``.
 ``touch_update`` normalises the event list exactly as the JAX wrapper
@@ -80,3 +81,63 @@ def touch_update(n_pages: int, page_ids: torch.Tensor, is_write=False,
     r = (valid & ~is_write).to(torch.int32)
     w = (valid & is_write).to(torch.int32)
     return touch_update_events(n_pages, ids.contiguous(), r, w)
+
+
+# =============================================================================
+# K7 — the pass-boundary sweep
+# =============================================================================
+# Replaces ``repro.kernels.hotness_update.hotness_update.sysmon_pass_pallas``
+# (the pass sweep the JAX runtime composes from tensor ops in
+# ``core/sysmon.py::end_pass``).  The codes and thresholds are the port's
+# own copies in ``core/patterns.py`` and ``core/predictor.py``, handed to
+# the CUDA kernel as arguments so no constant is restated in C.  They are
+# imported inside the functions: ``core.sysmon`` imports this module.
+
+_PASS_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+
+
+def sysmon_pass_plain(reads: torch.Tensor, writes: torch.Tensor,
+                      hist: torch.Tensor):
+    """The tensor composition: ``classify_wd``, ``push_history``,
+    ``predict_future``.  int32 [n] in, int32 (wd_code, new_hist, future)
+    out."""
+    from repro_torch.core import patterns, predictor
+    wd_code = patterns.classify_wd(reads, writes)
+    new_hist = predictor.push_history(
+        hist.to(torch.int32), (wd_code == patterns.WD).to(torch.int32))
+    future = predictor.predict_future(new_hist)
+    return (wd_code.to(torch.int32), new_hist.to(torch.int32),
+            future.to(torch.int32))
+
+
+def sysmon_pass(reads: torch.Tensor, writes: torch.Tensor,
+                hist: torch.Tensor):
+    """(wd_code, new_hist, future) int32 [n] from the pass counters and
+    the WD history, in one launch on the card."""
+    if reads.device.type == "cpu":
+        return sysmon_pass_plain(reads, writes, hist)
+    if reads.device.type != "cuda":
+        raise ValueError(f"sysmon_pass: unsupported device {reads.device}")
+    from repro_torch.core import patterns, predictor
+    for name, t in (("reads", reads), ("writes", writes), ("hist", hist)):
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous() \
+                or t.device != reads.device or t.shape != reads.shape:
+            raise ValueError(f"sysmon_pass: {name} must be a contiguous "
+                             f"int32 vector on {reads.device} shaped like "
+                             f"reads")
+    out = torch.empty((3, reads.shape[0]), dtype=torch.int32,
+                      device=reads.device)
+    wd_code, new_hist, future = out[0], out[1], out[2]
+    if reads.numel() == 0:              # nothing to launch, nothing counted
+        return wd_code, new_hist, future
+    fn = _build.function("sysmon_pass", _PASS_ARGS)
+    err = fn(reads.data_ptr(), writes.data_ptr(), hist.data_ptr(),
+             wd_code.data_ptr(), new_hist.data_ptr(), future.data_ptr(),
+             reads.shape[0], patterns.WRITE_WEIGHT, patterns.COLD,
+             patterns.RD, patterns.WD, predictor.WINDOW_LEN, predictor.K_LEN,
+             predictor.HI_THRESH, predictor.LO_THRESH, predictor.UN_WD,
+             predictor.WD_FREQ_L, predictor.WD_FREQ_H,
+             torch.cuda.current_stream(reads.device).cuda_stream)
+    _build.check(err, "sysmon_pass")
+    count_launch("sysmon_pass")
+    return wd_code, new_hist, future

@@ -7,6 +7,11 @@ tensors launch ``csrc/page_gather.cu``; CPU tensors take the plain
 indexing versions.  Index vectors arrive pow2-padded by repeating the
 last slot (``core/tiers.py``), which both versions tolerate: a repeated
 scatter index carries an identical page.
+
+The index vector says where the work runs: on the CPU both tensors lie
+on the CPU; on the card the pool lies in HBM or in pinned host memory
+(the pinned-host NVM tier), which the kernel reads and writes in place
+through its mapped device address (``_build.device_address``).
 """
 from __future__ import annotations
 
@@ -30,13 +35,23 @@ def page_scatter_plain(pool: torch.Tensor, idx: torch.Tensor,
     return pool
 
 
+def _on_cpu(pool: torch.Tensor, idx: torch.Tensor, name: str) -> bool:
+    """True when both tensors lie on the CPU (the plain version runs);
+    False when idx lies on the card (the kernel runs); raises otherwise."""
+    if idx.device.type == "cpu" and pool.device.type == "cpu":
+        return True
+    if idx.device.type != "cuda":
+        raise ValueError(f"{name}: idx on {idx.device} with a pool on "
+                         f"{pool.device}")
+    return False
+
+
 def _check(pool: torch.Tensor, idx: torch.Tensor, name: str) -> None:
     if not pool.is_contiguous():
         raise ValueError(f"{name}: pool must be contiguous")
     if idx.dtype != torch.int32 or idx.dim() != 1 \
-            or not idx.is_contiguous() or idx.device != pool.device:
-        raise ValueError(f"{name}: idx must be a contiguous int32 vector "
-                         f"on {pool.device}")
+            or not idx.is_contiguous():
+        raise ValueError(f"{name}: idx must be a contiguous int32 vector")
 
 
 def _page_bytes(pool: torch.Tensor) -> int:
@@ -44,20 +59,19 @@ def _page_bytes(pool: torch.Tensor) -> int:
 
 
 def page_gather(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """staging[i] = pool[idx[i]].  idx int32 [k] -> [k, *page_shape]."""
-    if pool.device.type == "cpu":
+    """staging[i] = pool[idx[i]].  idx int32 [k] -> [k, *page_shape] on
+    idx's device."""
+    if _on_cpu(pool, idx, "page_gather"):
         return page_gather_plain(pool, idx)
-    if pool.device.type != "cuda":
-        raise ValueError(f"page_gather: unsupported device {pool.device}")
     _check(pool, idx, "page_gather")
     out = torch.empty((idx.shape[0], *pool.shape[1:]), dtype=pool.dtype,
-                      device=pool.device)
+                      device=idx.device)
     if out.numel() == 0:               # nothing to launch, nothing counted
         return out
     fn = _build.function("page_gather", _GATHER_ARGS)
-    err = fn(pool.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-             _page_bytes(pool), torch.cuda.current_stream(pool.device)
-             .cuda_stream)
+    err = fn(_build.device_address(pool), idx.data_ptr(), out.data_ptr(),
+             idx.shape[0], _page_bytes(pool),
+             torch.cuda.current_stream(idx.device).cuda_stream)
     _build.check(err, "page_gather")
     count_launch("page_gather")
     return out
@@ -66,24 +80,22 @@ def page_gather(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def page_scatter(pool: torch.Tensor, idx: torch.Tensor,
                  pages: torch.Tensor) -> torch.Tensor:
     """pool[idx[i]] = pages[i] in place; returns ``pool``."""
-    if pool.device.type == "cpu":
+    if _on_cpu(pool, idx, "page_scatter"):
         return page_scatter_plain(pool, idx, pages)
-    if pool.device.type != "cuda":
-        raise ValueError(f"page_scatter: unsupported device {pool.device}")
     _check(pool, idx, "page_scatter")
-    if pages.dtype != pool.dtype or pages.device != pool.device \
+    if pages.dtype != pool.dtype or pages.device != idx.device \
             or not pages.is_contiguous() \
             or tuple(pages.shape) != (idx.shape[0], *pool.shape[1:]):
         raise ValueError(f"page_scatter: pages must be a contiguous "
                          f"{pool.dtype} [{idx.shape[0]}, *page] tensor on "
-                         f"{pool.device}, got {pages.dtype} "
+                         f"{idx.device}, got {pages.dtype} "
                          f"{tuple(pages.shape)}")
     if pages.numel() == 0:
         return pool
     fn = _build.function("page_scatter", _GATHER_ARGS)
-    err = fn(pool.data_ptr(), idx.data_ptr(), pages.data_ptr(),
+    err = fn(_build.device_address(pool), idx.data_ptr(), pages.data_ptr(),
              idx.shape[0], _page_bytes(pool),
-             torch.cuda.current_stream(pool.device).cuda_stream)
+             torch.cuda.current_stream(idx.device).cuda_stream)
     _build.check(err, "page_scatter")
     count_launch("page_scatter")
     return pool

@@ -12,6 +12,16 @@ The pools may be strided views — the engine passes
 ``pool[:, layer, 0]`` of the [slots, L, 2, page, Hkv, D] page pool — and
 are never copied: the kernel takes their slot/row/head strides.
 ``lengths[b]`` must be >= 1.
+
+``paged_attention_dual`` is the dual-pool variant of the pinned-host
+NVM tier: each page of the block table lives either in the tier-0 pool
+or in a second pool (``pool_sel`` = 1), which on the card is pinned host
+memory read in place through its mapped device address.  The JAX
+package gathers both pools and selects per page before attending
+(``repro.serving.engine._decode_core_pinned`` over
+``paged_attention_pages``); ``paged_attention_dual_plain`` is that
+computation.  The kernel is K1 with a per-page choice of base pointer,
+so a page's attention is bit-identical wherever it lives.
 """
 from __future__ import annotations
 
@@ -25,8 +35,11 @@ _C = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = [_C] * 6 + [_I] * 6 + [_L] * 6 + [_C]
+_DUAL_ARGTYPES = [_C] * 9 + [_I] * 6 + [_L] * 12 + [_C]
 _FN = {torch.float32: "paged_attention_f32",
        torch.bfloat16: "paged_attention_bf16"}
+_DUAL_FN = {torch.float32: "paged_attention_dual_f32",
+            torch.bfloat16: "paged_attention_dual_bf16"}
 MAX_G = 8
 MAX_D = 256
 
@@ -36,12 +49,39 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                           lengths: torch.Tensor) -> torch.Tensor:
     """Gather the pages, attend densely in fp32 with positions >= lengths
     masked to -1e30.  q pre-scaled [B, Hkv, G, D] -> [B, Hkv, G, D]."""
-    B, Hkv, G, D = q.shape
-    page = k_pool.shape[1]
-    n_pages = block_table.shape[1]
     bt = block_table.long()
-    k = k_pool[bt].reshape(B, n_pages * page, Hkv, D).float()
-    v = v_pool[bt].reshape(B, n_pages * page, Hkv, D).float()
+    return _attend_pages(q, k_pool[bt], v_pool[bt], lengths)
+
+
+def paged_attention_dual_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, k_pool2: torch.Tensor,
+                               v_pool2: torch.Tensor,
+                               block_table: torch.Tensor,
+                               pool_sel: torch.Tensor,
+                               lengths: torch.Tensor) -> torch.Tensor:
+    """Gather each page from both pools (indices clamped into each
+    pool; the second pool may lie in host memory), keep the one
+    ``pool_sel`` names, attend as the single-pool version does."""
+    bt = block_table.long()
+    sel = (pool_sel > 0)[:, :, None, None, None]
+    b1 = bt.clamp(0, k_pool.shape[0] - 1)
+    b2 = bt.clamp(0, k_pool2.shape[0] - 1).to(k_pool2.device)
+    k = torch.where(sel, k_pool2[b2].to(k_pool.device, k_pool.dtype),
+                    k_pool[b1])
+    v = torch.where(sel, v_pool2[b2].to(v_pool.device, v_pool.dtype),
+                    v_pool[b1])
+    return _attend_pages(q, k, v, lengths)
+
+
+def _attend_pages(q: torch.Tensor, k_pages: torch.Tensor,
+                  v_pages: torch.Tensor, lengths: torch.Tensor
+                  ) -> torch.Tensor:
+    """Attention over pre-gathered pages [B, n_pages, page, Hkv, D] (the
+    JAX ``paged_attention_pages_ref``)."""
+    B, Hkv, G, D = q.shape
+    n_pages, page = k_pages.shape[1:3]
+    k = k_pages.reshape(B, n_pages * page, Hkv, D).float()
+    v = v_pages.reshape(B, n_pages * page, Hkv, D).float()
     s = torch.einsum("bhgd,bkhd->bhgk", q.float(), k)
     pos = torch.arange(n_pages * page, device=q.device)
     s = s.masked_fill(pos[None, None, None, :]
@@ -50,16 +90,35 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return torch.einsum("bhgk,bkhd->bhgd", w, v).to(q.dtype)
 
 
-def _launch(q, k_pool, v_pool, block_table, lengths) -> torch.Tensor:
+def _launch(q, k_pool, v_pool, block_table, lengths, k_pool2=None,
+            v_pool2=None, pool_sel=None) -> torch.Tensor:
+    """Validate and launch K1; with a second pool and ``pool_sel`` the
+    dual-pool entry point (the second pool may be pinned host memory)."""
     B, Hkv, G, D = q.shape
     n_slots, page, hkv_pool, d_pool = k_pool.shape
     P = block_table.shape[1]
     dev = q.device
+    dual = pool_sel is not None
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
                     ("block_table", block_table), ("lengths", lengths)):
         if t.device != dev:
             raise ValueError(f"paged_attention: {name} on {t.device}, "
                              f"q on {dev}")
+    if dual:
+        for name, t in (("k_pool2", k_pool2), ("v_pool2", v_pool2)):
+            if t.dtype != k_pool.dtype or t.shape[1:] != k_pool.shape[1:] \
+                    or t.stride(3) != 1:
+                raise ValueError(f"paged_attention: {name} "
+                                 f"{t.dtype} {tuple(t.shape)} does not match "
+                                 f"k_pool {k_pool.dtype} "
+                                 f"{tuple(k_pool.shape)} with unit-stride "
+                                 f"head_dim")
+        if pool_sel.dtype != torch.int32 or pool_sel.device != dev \
+                or pool_sel.shape != block_table.shape \
+                or not pool_sel.is_contiguous():
+            raise ValueError("paged_attention: pool_sel must be a "
+                             "contiguous int32 tensor shaped like "
+                             "block_table on q's device")
     if q.dtype not in _FN or k_pool.dtype != q.dtype \
             or v_pool.dtype != q.dtype:
         raise TypeError(f"paged_attention: q/k/v must share float32 or "
@@ -90,15 +149,27 @@ def _launch(q, k_pool, v_pool, block_table, lengths) -> torch.Tensor:
     out = torch.empty_like(q)
     if q.numel() == 0:                  # nothing to launch, nothing counted
         return out
-    fn = _build.function(_FN[q.dtype], _ARGTYPES)
     ks, vs = k_pool.stride(), v_pool.stride()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if not dual:
+        fn = _build.function(_FN[q.dtype], _ARGTYPES)
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                 B, Hkv, G, D, page, P, ks[0], ks[1], ks[2], vs[0], vs[1],
+                 vs[2], stream)
+        _build.check(err, _FN[q.dtype])
+        count_launch("paged_attention")
+        return out
+    k2s, v2s = k_pool2.stride(), v_pool2.stride()
+    fn = _build.function(_DUAL_FN[q.dtype], _DUAL_ARGTYPES)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             B, Hkv, G, D, page, P, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-             stream)
-    _build.check(err, _FN[q.dtype])
-    count_launch("paged_attention")
+             _build.device_address(k_pool2), _build.device_address(v_pool2),
+             block_table.data_ptr(), pool_sel.data_ptr(), lengths.data_ptr(),
+             out.data_ptr(), B, Hkv, G, D, page, P, ks[0], ks[1], ks[2],
+             vs[0], vs[1], vs[2], k2s[0], k2s[1], k2s[2], v2s[0], v2s[1],
+             v2s[2], stream)
+    _build.check(err, _DUAL_FN[q.dtype])
+    count_launch("paged_attention_dual")
     return out
 
 
@@ -123,4 +194,39 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     Hkv = k_pool.shape[2]
     qg = (q * D ** -0.5).reshape(B, Hkv, Hq // Hkv, D)
     out = paged_attention_pooled(qg, k_pool, v_pool, block_table, lengths)
+    return out.reshape(B, Hq, D)
+
+
+def paged_attention_dual_pooled(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor, k_pool2: torch.Tensor,
+                                v_pool2: torch.Tensor,
+                                block_table: torch.Tensor,
+                                pool_sel: torch.Tensor,
+                                lengths: torch.Tensor) -> torch.Tensor:
+    """q pre-scaled [B, Hkv, G, D]; k/v_pool [n_slots, page, Hkv, D] (tier
+    0) and k/v_pool2 [n_slots2, page, Hkv, D]; block_table int32 [B, P]
+    holds each page's slot in its own pool and pool_sel int32 [B, P] is 1
+    for the second pool -> [B, Hkv, G, D]."""
+    if q.device.type == "cpu":
+        return paged_attention_dual_plain(q, k_pool, v_pool, k_pool2,
+                                          v_pool2, block_table, pool_sel,
+                                          lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    return _launch(q, k_pool, v_pool, block_table, lengths, k_pool2,
+                   v_pool2, pool_sel)
+
+
+def paged_attention_dual(q: torch.Tensor, k_pool: torch.Tensor,
+                         v_pool: torch.Tensor, k_pool2: torch.Tensor,
+                         v_pool2: torch.Tensor, block_table: torch.Tensor,
+                         pool_sel: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """The engine-facing dual-pool wrapper: q [B, Hq, D] decode queries,
+    scaled here.  Returns [B, Hq, D]."""
+    B, Hq, D = q.shape
+    Hkv = k_pool.shape[2]
+    qg = (q * D ** -0.5).reshape(B, Hkv, Hq // Hkv, D)
+    out = paged_attention_dual_pooled(qg, k_pool, v_pool, k_pool2, v_pool2,
+                                      block_table, pool_sel, lengths)
     return out.reshape(B, Hq, D)

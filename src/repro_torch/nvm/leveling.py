@@ -75,3 +75,20 @@ class StartGapLeveler:
         if self.stats.gap >= self.wear.n_slots - 1:
             self.stats.gap = 0
             self.stats.rotations += 1
+
+    def adopt_scan_advances(self, n_advances: int, pending: int) -> None:
+        """Fold in advances executed *inside* a fused serving dispatch:
+        the dispatch swaps the pool rows and the remap itself, so the
+        boundary only replays the counter arithmetic — gap position (same
+        wrap at ``n_slots - 1`` as :meth:`advance`), rotation count, and
+        the leftover pending-write credit."""
+        n = int(n_advances)
+        if n == 0:
+            self._pending = int(pending)
+            return
+        self.stats.advances += n
+        period = max(self.wear.n_slots - 1, 1)
+        g = self.stats.gap + n
+        self.stats.rotations += g // period
+        self.stats.gap = g % period
+        self._pending = int(pending)

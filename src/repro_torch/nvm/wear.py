@@ -82,6 +82,31 @@ class NvmWear:
             self._pending[ids] = 0
         return self.state
 
+    def adopt_scan_writes(self, new_wear: torch.Tensor, n_app_writes: int,
+                          leveling_writes: int = 0) -> None:
+        """Adopt counters updated *inside* a fused dual-pool dispatch.
+
+        The pinned-host serving path charges each pinned-tier KV append
+        (and the two row rewrites of every in-dispatch Start-Gap advance)
+        into this tracker's device counters with ``wear_update``; at the
+        dispatch boundary the engine hands the counter tensor back here
+        and credits the write totals.  Host-side pending events are a
+        separate buffer and are unaffected."""
+        self.state = self.state._replace(wear=new_wear)
+        self.writes_total += int(n_app_writes)
+        self.leveling_writes += int(leveling_writes)
+
+    def adopt_scan_remap(self, new_remap: torch.Tensor) -> None:
+        """Adopt the logical->physical remap as rotated by in-dispatch
+        Start-Gap advances, so the host mirrors (and every host-side
+        read/write path) stay in sync."""
+        r = new_remap.cpu().numpy().astype(np.int64)
+        self._remap = r
+        inv = np.empty_like(r)
+        inv[r] = np.arange(r.size, dtype=np.int64)
+        self._inv = inv
+        self.state = self.state._replace(remap=new_remap.to(torch.int32))
+
     # -- leveler hook -----------------------------------------------------------
     def swap_phys(self, a: int, b: int) -> None:
         """Swap which logical slots map to physical ``a`` and ``b``."""

@@ -20,10 +20,30 @@ pass (plan + migrate + wear/energy snapshot) between dispatches.
 standalone per-step SysMon records — as the parity oracle for the fused
 dispatch.
 
-Prefill, pinned-host tiers, the overlapped memos plan, QoS, fault
-injection and MoE are not ported; a ``ServeConfig`` asking for them
-raises ``NotImplementedError``.  The KV pool takes the parameters'
-dtype (bfloat16 weights serve from a bfloat16 pool).
+**Dual-pool serving.**  When the deepest tier is a pinned-host pool (the
+paper's byte-addressable NVM), its pages are served in place: the block
+tables carry each page's slot in its own pool plus a per-page pool
+select, the paged-attention kernel's dual-pool variant reads pinned
+pages through their mapped device address, and the new token's K/V
+lands in whichever pool holds the tail page (``kv_append``).  Pinned
+tail writes charge the tier's wear counters on the device
+(``wear_update``) every inner step; Start-Gap advances earned by the
+dispatch run after its K steps — row swaps, remap rotation, wear charge
+— and the boundary adopts them into the host trackers, in the JAX
+order.  A dispatch whose pages all sit in tier 0 takes the single-pool
+path.
+
+**Faults.**  While the global fault injector is armed, every step drains
+the store's quarantine log (failing the owners of lost pages with a
+``PageCorruptionError``), re-verifies the checksums of every pinned page
+the dispatch is about to serve, refreshes the checksums of pinned rows
+the dispatch appended to, and ticks the injector last, so each
+corruption meets a detection point before the next serve.
+
+Prefill, int8 tiers, the overlapped memos plan, QoS and MoE are not
+ported; a ``ServeConfig`` asking for them raises
+``NotImplementedError``.  The KV pool takes the parameters' dtype
+(bfloat16 weights serve from a bfloat16 pool).
 """
 from __future__ import annotations
 
@@ -38,9 +58,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import sysmon as sysmon_mod
 from repro_torch.core.hierarchy import MemoryHierarchy
 from repro_torch.core.memos import MemosConfig, MemosManager
+from repro_torch.core.tiers import NO_SLOT
 from repro_torch.device import resolve_device
-from repro_torch.faults.errors import CapacityError
-from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.faults.errors import CapacityError, PageCorruptionError
+from repro_torch.faults.injector import get_injector, note_recovered
+from repro_torch.kernels.kv_append import kv_append
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_dual)
+from repro_torch.kernels.wear_update import wear_update_events
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -76,11 +101,19 @@ class ServeConfig:
         asked = [name for name, on in (
             ("overlap_plan", self.overlap_plan),
             ("qos", self.qos is not None), ("prefill", self.prefill),
-            ("pinned-host tiers", self.hierarchy is not None
-             and bool(self.hierarchy.pinned_tiers()))) if on]
+            ("int8 tiers (a later slice, with kernel K6)",
+             self.hierarchy is not None
+             and any(t.quantize_int8 for t in self.hierarchy))) if on]
         if asked:
             raise NotImplementedError(
                 f"not ported to repro_torch yet: {', '.join(asked)}")
+
+
+def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """``t`` with zero rows appended along dim 0 up to ``rows``."""
+    if t.shape[0] == rows:
+        return t
+    return torch.cat([t, t.new_zeros((rows - t.shape[0], *t.shape[1:]))])
 
 
 class PagedServingEngine:
@@ -103,6 +136,18 @@ class PagedServingEngine:
             dtype=params["embed"].dtype, hierarchy=scfg.hierarchy),
             device=self.device)
         store = self.kv.store
+        # dual-pool serving: a pinned-host deepest tier is served and
+        # appended in place by the decode
+        pt = self.kv.pinned_tier
+        self.pinned_tier = pt
+        # in-dispatch Start-Gap: the dual-pool dispatch advances the
+        # pinned tier's gap itself once this many pinned writes have
+        # accumulated (0 = no leveler or untracked tier: no advances)
+        lv = store.leveler_by_tier.get(pt) if pt is not None else None
+        self._gap_interval = (lv.interval if lv is not None
+                              and store.wear_by_tier.get(pt) is not None
+                              and store.pools[pt].data.shape[0] >= 2
+                              else 0)
         self.sysmon = sysmon_mod.init(
             self.kv.n_pages, n_banks=store.cfg.n_banks,
             n_slabs=store.cfg.n_slabs, device=self.device)
@@ -131,10 +176,17 @@ class PagedServingEngine:
         return req
 
     # -- page management ---------------------------------------------------------
+    def _servable_mask(self, pids):
+        """Pages the dispatch can attend to: tier-0 residents, plus the
+        pinned deepest tier's residents on the dual-pool path."""
+        if self.pinned_tier is not None:
+            return self.kv.servable_mask(pids)
+        return self.kv.resident_mask(pids)
+
     def _ensure_pages(self, req: Request, k: int = 1) -> bool:
         """Provision ``req`` for the next ``k`` decode positions: allocate
-        the tail pages covering pos .. pos+k-1 and promote every page not
-        in tier 0."""
+        the tail pages covering pos .. pos+k-1 and promote every page the
+        dispatch cannot serve where it lies."""
         need = (req.pos + k - 1) // self.scfg.page_size + 1
         while len(req.pages) < need:
             pid = self.kv.new_page(SERVE_TIER)
@@ -149,16 +201,16 @@ class PagedServingEngine:
         req.pages = []
 
     def _promote_all(self, reqs: list[Request]) -> bool:
-        """Promote every non-resident page of ``reqs`` in one batched
+        """Promote every non-servable page of ``reqs`` in one batched
         migration."""
         pids = [p for req in reqs for p in req.pages]
         if not pids:
             return True
-        mask = self.kv.resident_mask(pids)
+        mask = self._servable_mask(pids)
         if not mask.all():
             cold = [p for p, m in zip(pids, mask) if not m]
             self.memos.engine.migrate_locked(cold, SERVE_TIER)
-            mask = self.kv.resident_mask(pids)
+            mask = self._servable_mask(pids)
         return bool(mask.all())
 
     def _make_room(self) -> bool:
@@ -187,7 +239,76 @@ class PagedServingEngine:
             "serving.failed_requests",
             "requests retired with a structured error").inc()
 
+    # -- fault handling (repro_torch.faults) -----------------------------------
+    def _drain_faults(self) -> None:
+        """Fail every sequence owning a page the store quarantined since
+        the last drain (scrub, promotion pre-flight, pre-dispatch verify):
+        the page's bits are lost, so its owner errors cleanly instead of
+        ever serving from a corrupt page."""
+        store = self.kv.store
+        if not store.quarantine_log:
+            return
+        bad = set(store.quarantine_log)
+        store.quarantine_log.clear()
+        everyone = (self.batcher.active + list(self.batcher.preempted)
+                    + list(self.batcher.waiting))
+        for req in everyone:
+            hit = sorted(bad.intersection(req.pages))
+            if hit:
+                self._fail_request(req, PageCorruptionError(
+                    f"request {req.rid}: page(s) {hit} lost to media "
+                    f"corruption", rid=req.rid, pages=hit))
+
+    def _predispatch_verify(self, active: list[Request]) -> None:
+        """Re-verify the checksum of every page this dispatch would serve
+        out of the pinned-host pool (tier 0 is trusted media; numpy-host
+        pages verify on promotion pre-flight instead).  A mismatch
+        quarantines the slot, and the following drain fails the owner
+        before it can attend to the bits."""
+        pt = self.pinned_tier
+        store = self.kv.store
+        if pt is None or not store.integrity.enabled:
+            return
+        slots = {int(store.slot[p]) for r in active for p in r.pages
+                 if int(store.tier[p]) == pt
+                 and int(store.slot[p]) != NO_SLOT}
+        for s in store.integrity.verify(store, pt, sorted(slots)):
+            store.quarantine_slot(pt, s, reason="pre-dispatch")
+
     # -- model compute -------------------------------------------------------------
+    def _decode_layers(self, tokens: torch.Tensor, positions: torch.Tensor,
+                       attend) -> torch.Tensor:
+        """The layer stack of one decode step.  ``attend(l, q, k, v)``
+        stores the new token's K/V of layer ``l`` (q [B, Hkv, G, D], k/v
+        [B, Hkv, D]) and returns the paged attention over the pools
+        [B, Hkv, G, D].  Returns logits [B, Vp].
+
+        The dense math runs on ``max_batch`` rows whatever B is (zero
+        rows pad the batch): the card's matmul and reduction kernels pick
+        their work split by shape, so a row's bits would otherwise depend
+        on how many rows share the dispatch, and the same request could
+        decode differently under another schedule."""
+        cfg = self.cfg
+        params = self.params
+        B = tokens.shape[0]
+        R = max(self.scfg.max_batch, B)
+        h = T.embed_in(params, cfg, _pad_rows(tokens.long(), R)[:, None])
+        cos, sin = L.rope_angles(_pad_rows(positions, R)[:, None],
+                                 cfg.head_dim, cfg.rope_theta)
+        for l, lp in enumerate(params["layers"]):
+            x = L.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
+                           gemma_style=cfg.gemma_norm)
+            q, k, v = attn_mod.project_qkv(lp["attn"], x, cos, sin)
+            out = attend(l, q[:B, 0], k[:B, 0], v[:B, 0])
+            wo = lp["attn"]["wo"]
+            out = _pad_rows(out.reshape(B, -1), R) \
+                @ wo.reshape(-1, wo.shape[-1])
+            h = h + out[:, None, :]
+            h = T.ffn_block(lp, cfg, h)
+        h = L.rms_norm(h, params["final_norm"], eps=cfg.norm_eps,
+                       gemma_style=cfg.gemma_norm)
+        return T.logits_out(params, cfg, h)[:B, 0]
+
     def _decode_core(self, tokens: torch.Tensor, positions: torch.Tensor,
                      block_tables: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
@@ -196,33 +317,63 @@ class PagedServingEngine:
         stack through the paged-attention kernel.  tokens/positions [B];
         block_tables [B, P] int32 tier-0 slots; lengths int32 [B]
         (including the current token).  Returns logits [B, Vp]."""
-        cfg = self.cfg
-        params = self.params
         page = self.scfg.page_size
         pool = self.kv.store.fast_pool
-        B = tokens.shape[0]
-        h = T.embed_in(params, cfg, tokens.long()[:, None])
-        cos, sin = L.rope_angles(positions[:, None], cfg.head_dim,
-                                 cfg.rope_theta)
-        b_idx = torch.arange(B, device=tokens.device)
+        b_idx = torch.arange(tokens.shape[0], device=tokens.device)
         pos = positions.long()
         slot = block_tables.long()[b_idx, pos // page]
         off = pos % page
-        for l, lp in enumerate(params["layers"]):
-            x = L.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
-                           gemma_style=cfg.gemma_norm)
-            q, k, v = attn_mod.project_qkv(lp["attn"], x, cos, sin)
-            pool[slot, l, 0, off] = k[:, 0].to(pool.dtype)
-            pool[slot, l, 1, off] = v[:, 0].to(pool.dtype)
-            out = paged_attention(q[:, 0], *self.kv.layer_pools(l),
-                                  block_tables, lengths)
-            wo = lp["attn"]["wo"]
-            out = out.reshape(B, -1) @ wo.reshape(-1, wo.shape[-1])
-            h = h + out[:, None, :]
-            h = T.ffn_block(lp, cfg, h)
-        h = L.rms_norm(h, params["final_norm"], eps=cfg.norm_eps,
-                       gemma_style=cfg.gemma_norm)
-        return T.logits_out(params, cfg, h)[:, 0]
+
+        def attend(l, q, k, v):
+            pool[slot, l, 0, off] = k.to(pool.dtype)
+            pool[slot, l, 1, off] = v.to(pool.dtype)
+            return paged_attention(q, *self.kv.layer_pools(l), block_tables,
+                                   lengths)
+        return self._decode_layers(tokens, positions, attend)
+
+    def _decode_core_pinned(self, tokens: torch.Tensor,
+                            positions: torch.Tensor,
+                            block_tables: torch.Tensor,
+                            pool_sel: torch.Tensor, lengths: torch.Tensor,
+                            remap: torch.Tensor) -> torch.Tensor:
+        """One decode step with the KV split across the tier-0 pool and
+        the pinned-host pool: pages are attended wherever they live
+        (``paged_attention_dual``) and the new token's K/V lands in
+        whichever pool holds the tail page (``kv_append``).
+
+        block_tables [B, P] hold each page's slot *in its own pool* — the
+        tier-0 slot, or the pinned pool's **logical** slot, translated
+        here through ``remap`` (the wear-leveling logical -> physical
+        permutation, int32 [n_pin]) before any kernel runs; pool_sel
+        [B, P] is 1 for pinned pages.  The pool that does not hold a
+        row's tail gets an out-of-range slot, which the append drops, so
+        a numeric slot collision between the pools never clobbers a real
+        write.  Returns logits [B, Vp]."""
+        page = self.scfg.page_size
+        store = self.kv.store
+        fast = store.fast_pool
+        pin = store.pools[self.pinned_tier].data
+        n_fast, n_pin = fast.shape[0], pin.shape[0]
+        sel = pool_sel > 0
+        # pinned entries -> physical rows under the current remap (fast
+        # entries pass through; the clamp keeps the dead lookup in range)
+        block_tables = torch.where(
+            sel, remap[block_tables.clamp(0, n_pin - 1).long()],
+            block_tables).to(torch.int32).contiguous()
+        b_idx = torch.arange(tokens.shape[0], device=tokens.device)
+        tailcol = (positions // page).long()
+        slot = block_tables[b_idx, tailcol]
+        sel_tail = sel[b_idx, tailcol]
+        off = (positions % page).to(torch.int32)
+        f_idx = torch.where(sel_tail, n_fast, slot).to(torch.int32)
+        p_idx = torch.where(sel_tail, slot, n_pin).to(torch.int32)
+
+        def attend(l, q, k, v):
+            kv_append(fast[:, l], pin[:, l], f_idx, p_idx, off, k, v)
+            return paged_attention_dual(
+                q, fast[:, l, 0], fast[:, l, 1], pin[:, l, 0], pin[:, l, 1],
+                block_tables, pool_sel, lengths)
+        return self._decode_layers(tokens, positions, attend)
 
     @staticmethod
     def _advance_prompt(positions, prompt_buf, prompt_len, sampled, b_idx):
@@ -235,17 +386,19 @@ class PagedServingEngine:
         nxt_tok = torch.where(nxt_pos < prompt_len, prompt_next, sampled)
         return nxt_tok, nxt_pos
 
-    def _fused_decode(self, tokens, positions, prompt_buf, prompt_len,
-                      page_tables, block_tables, k_steps: int):
-        """K inner decode steps enqueued back to back: device-side argmax
-        feeds the next step, SysMon records and the page-write counters
-        accumulate on the device.  Returns ([K, B] sampled tokens and
-        [n_pages] page writes as numpy — the dispatch's only host reads —
-        and the last step's logits on the device)."""
+    def _k_steps(self, tokens, positions, prompt_buf, prompt_len,
+                 page_tables, k_steps: int, decode, on_tail=None):
+        """K inner decode steps enqueued back to back: ``decode(tokens,
+        positions)`` returns one step's logits, device-side argmax feeds
+        the next step, SysMon records and the page-write counters
+        accumulate on the device, and ``on_tail(tailcol)`` (if given)
+        runs after each step's records.  Returns ([K, B] sampled tokens
+        and [n_pages] page writes as numpy — the dispatch's only host
+        reads — and the last step's logits on the device)."""
         cfg = self.cfg
         page = self.scfg.page_size
         dev = self.device
-        B, P = block_tables.shape
+        B, P = page_tables.shape
         b_idx = torch.arange(B, device=dev)
         col = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
         ones = torch.ones(B, dtype=torch.int32, device=dev)
@@ -254,8 +407,7 @@ class PagedServingEngine:
         sampled_all = torch.empty((k_steps, B), dtype=torch.int32, device=dev)
         logits = None
         for s in range(k_steps):
-            logits = self._decode_core(tokens, positions, block_tables,
-                                       positions + 1)
+            logits = decode(tokens, positions)
             sampled = torch.argmax(logits[:, :cfg.vocab], dim=-1).to(
                 torch.int32)
             nxt_tok, nxt_pos = self._advance_prompt(
@@ -271,24 +423,132 @@ class PagedServingEngine:
             self.sysmon = sysmon_mod.record(self.sysmon, tails,
                                             is_write=True)
             page_writes.index_add_(0, tails.long(), ones)
+            if on_tail is not None:
+                on_tail(tailcol)
             sampled_all[s] = sampled
             tokens, positions = nxt_tok, nxt_pos
         return (sampled_all.cpu().numpy(), page_writes.cpu().numpy(),
                 logits)
 
+    def _fused_decode(self, tokens, positions, prompt_buf, prompt_len,
+                      page_tables, block_tables, k_steps: int):
+        """The single-pool fused dispatch: K inner steps over tier-0
+        pages.  Returns what :meth:`_k_steps` returns."""
+        return self._k_steps(
+            tokens, positions, prompt_buf, prompt_len, page_tables, k_steps,
+            lambda t, p: self._decode_core(t, p, block_tables, p + 1))
+
+    def _fused_decode_pinned(self, tokens, positions, prompt_buf,
+                             prompt_len, page_tables, block_tables, pool_sel,
+                             wear, remap, gap: int, pending: int, *,
+                             k_steps: int, gap_interval: int):
+        """The dual-pool fused dispatch: K inner steps with KV appends
+        landing in either pool, and each step's pinned tail write charged
+        to its physical row under the carried remap through
+        ``wear_update`` (amount 0 for tier-0 tails).  Start-Gap runs after
+        the K steps: the loop only accumulates the pinned write count;
+        then every advance the dispatch earned swaps physical rows (gap,
+        gap+1) of the pinned pool, swaps their two remap entries and
+        charges both rows' wear — the JAX order and arithmetic, so gap,
+        rotation, remap and pool state match it exactly.  ``wear`` is the
+        tracker's device counter tensor, updated in place (None for an
+        untracked tier); ``gap_interval`` 0 disables the advances.
+
+        Returns ([K, B] sampled tokens, [n_pages] page writes — numpy —,
+        the last logits, wear, the rotated remap, gap, pending, number of
+        advances)."""
+        dev = self.device
+        ppool = self.kv.store.pools[self.pinned_tier]
+        n_pin = ppool.data.shape[0]
+        b_idx = torch.arange(block_tables.shape[0], device=dev)
+        pin_w = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def charge_pinned_tail(tailcol):
+            # pinned-tier wear: pinned tails charge their physical row
+            tail_pin = pool_sel[b_idx, tailcol].contiguous()
+            if wear is not None:
+                tail_slot = block_tables[b_idx, tailcol].clamp(0, n_pin - 1)
+                wear_update_events(wear, remap[tail_slot.long()].contiguous(),
+                                   tail_pin)
+            pin_w.add_(tail_pin.sum())
+
+        sampled_np, page_writes, logits = self._k_steps(
+            tokens, positions, prompt_buf, prompt_len, page_tables, k_steps,
+            lambda t, p: self._decode_core_pinned(t, p, block_tables,
+                                                  pool_sel, p + 1, remap),
+            on_tail=charge_pinned_tail)
+        n_adv = 0
+        if gap_interval:
+            pending = pending + int(pin_w)
+            while pending >= gap_interval:
+                # one Start-Gap move, mirroring StartGapLeveler.advance
+                nxt = gap + 1
+                ppool.scatter([nxt, gap], ppool.gather([gap, nxt]))
+                remap = torch.where(remap == gap, nxt,
+                                    torch.where(remap == nxt, gap, remap))
+                # the swap physically rewrites both rows
+                wear_update_events(
+                    wear, torch.tensor([gap, nxt], dtype=torch.int32,
+                                       device=dev),
+                    torch.ones(2, dtype=torch.int32, device=dev))
+                gap = 0 if nxt >= n_pin - 1 else nxt
+                pending -= gap_interval
+                n_adv += 1
+        return (sampled_np, page_writes, logits, wear, remap, gap, pending,
+                n_adv)
+
+    def _dispatch_pinned(self, args: list, pool_sel: np.ndarray, wear_tr,
+                         k: int):
+        """One fused dual-pool dispatch, then the boundary adopt: the
+        tracker takes the dispatch's wear counters (app writes plus the
+        two row rewrites of each advance) and its rotated remap, and the
+        leveler its (gap, pending) bookkeeping — counter arithmetic only,
+        never row swaps.  Returns (sampled, page_writes, logits)."""
+        store = self.kv.store
+        pt = self.pinned_tier
+        lv = (store.leveler_by_tier.get(pt) if self._gap_interval
+              else None)
+        (sampled, page_writes, logits, wear, remap, _, pending,
+         n_adv) = self._fused_decode_pinned(
+            *args, torch.from_numpy(pool_sel).to(self.device),
+            None if wear_tr is None else wear_tr.state.wear,
+            self._pinned_remap(wear_tr),
+            lv.stats.gap if lv is not None else 0,
+            lv._pending if lv is not None else 0,
+            k_steps=k, gap_interval=self._gap_interval)
+        if wear_tr is not None:
+            n_pin_w = int(page_writes[store.tier == pt].sum())
+            with obs.span("serve.startgap_adopt", advances=n_adv):
+                wear_tr.adopt_scan_writes(wear, n_pin_w,
+                                          leveling_writes=2 * n_adv)
+                if n_adv:
+                    wear_tr.adopt_scan_remap(remap)
+                if lv is not None:
+                    lv.adopt_scan_advances(n_adv, pending)
+        return sampled, page_writes, logits
+
     def _reference_decode(self, tokens, positions, page_tables,
-                          block_tables):
+                          block_tables, pool_sel=None, remap=None):
         """The K=1 oracle: one decode step, argmax on the host, and the two
-        SysMon samplings recorded as standalone calls."""
+        SysMon samplings recorded as standalone calls.  With ``pool_sel``
+        (and the pinned tier's ``remap``) the step is the dual-pool one."""
         page = self.scfg.page_size
         P = page_tables.shape[1]
         B = tokens.shape[0]
         dev = self.device
-        logits = self._decode_core(
-            torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(positions).to(dev),
-            torch.from_numpy(block_tables).to(dev),
-            torch.from_numpy(positions + 1).to(dev))
+        if pool_sel is None:
+            logits = self._decode_core(
+                torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(positions).to(dev),
+                torch.from_numpy(block_tables).to(dev),
+                torch.from_numpy(positions + 1).to(dev))
+        else:
+            logits = self._decode_core_pinned(
+                torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(positions).to(dev),
+                torch.from_numpy(block_tables).to(dev),
+                torch.from_numpy(pool_sel).to(dev),
+                torch.from_numpy(positions + 1).to(dev), remap)
         sampled = torch.argmax(logits[:, :self.cfg.vocab], dim=-1).cpu() \
             .numpy().astype(np.int32)[None, :]
         read_valid = np.arange(P)[None, :] <= (positions // page)[:, None]
@@ -302,6 +562,27 @@ class PagedServingEngine:
         page_writes = np.zeros(self.kv.n_pages, np.int64)
         np.add.at(page_writes, tails, 1)
         return sampled, page_writes, logits
+
+    def _page_read_counts(self, positions: np.ndarray,
+                          page_tables: np.ndarray, k: int) -> np.ndarray:
+        """Per-logical-page read counts of one K-step dispatch: page j of
+        a row is read by every inner step whose block-table prefix covers
+        it (closed form, no device work)."""
+        page = self.scfg.page_size
+        P = page_tables.shape[1]
+        n_prefix = (positions[:, None] + np.arange(k)[None, :]) // page + 1
+        cnt = (n_prefix[:, None, :] > np.arange(P)[None, :, None]).sum(2)
+        reads = np.zeros(self.kv.n_pages, np.int64)
+        np.add.at(reads, page_tables.reshape(-1), cnt.reshape(-1))
+        return reads
+
+    def _pinned_remap(self, wear_tr) -> torch.Tensor:
+        """The pinned tier's logical -> physical remap on the device (the
+        identity for an untracked tier)."""
+        if wear_tr is not None:
+            return wear_tr.state.remap
+        n_pin = self.kv.store.pools[self.pinned_tier].data.shape[0]
+        return torch.arange(n_pin, dtype=torch.int32, device=self.device)
 
     # -- metrics -------------------------------------------------------------------
     def _publish_dispatch_metrics(self, dt: float, k: int, batch: int) -> None:
@@ -320,6 +601,9 @@ class PagedServingEngine:
 
     # -- main loop (dispatch-boundary slow path) -----------------------------------
     def step(self) -> dict:
+        # 0) fail owners of pages quarantined since the last boundary
+        # (memos-pass scrub, late promotion pre-flights) before admitting
+        self._drain_faults()
         # 1) admit / resume; make room by preempting if promotion fails.
         # A request that fails provisioning twice in one step is making no
         # progress — stop admitting and let dispatch/memos free capacity.
@@ -365,6 +649,9 @@ class PagedServingEngine:
         # first shrink the dispatch, then preempt
         with obs.span("serve.provision", step=self.step_count) as prov_sp:
             while True:
+                # promotion pre-flights inside _ensure_pages can quarantine
+                # a corrupt source page: fail its owner now
+                self._drain_faults()
                 active = [r for r in active if not r.done]
                 blocked = None
                 for req in active:
@@ -380,8 +667,16 @@ class PagedServingEngine:
                         f"request {blocked.rid}: HBM+host pools exhausted "
                         f"and no preemption victim remains",
                         rid=blocked.rid, occupancy=self.kv.occupancy()))
+                    note_recovered("backpressure")
             prov_sp.set(k=k)
         active = [r for r in active if not r.preempted and not r.done]
+        # pre-dispatch integrity sweep: quarantine any pinned-pool page
+        # whose stored bits drifted since its last checksum and fail its
+        # owner before the block tables are built
+        if get_injector().enabled:
+            self._predispatch_verify(active)
+            self._drain_faults()
+            active = [r for r in active if not r.done]
         if not active:
             self.step_count += 1
             return stats
@@ -395,34 +690,77 @@ class PagedServingEngine:
         prompt_lens = np.array([len(r.prompt) for r in active], np.int32)
         tokens = np.array([(r.prompt + r.generated)[r.pos] for r in active],
                           np.int32)
-        page_tables, block_tables = self.kv.fill_tables(
-            [r.pages for r in active], P)
+        pt = self.pinned_tier
+        pool_sel = wear_tr = None
+        if pt is None:
+            page_tables, block_tables = self.kv.fill_tables(
+                [r.pages for r in active], P)
+        else:
+            page_tables, block_tables, pool_sel = self.kv.fill_tables_mixed(
+                [r.pages for r in active], P)
+            wear_tr = store.wear_by_tier.get(pt)
+            if not pool_sel.any():
+                # every page of this dispatch is tier-0 resident: the
+                # single-pool path serves it
+                pt = pool_sel = wear_tr = None
 
         t_disp0 = time.perf_counter()
         with obs.span("serve.dispatch", step=self.step_count, k=k, batch=B,
-                      path="reference" if self.scfg.reference else "fused"):
+                      path=("reference" if self.scfg.reference else "fused")
+                      + ("+pinned" if pt is not None else "")):
             if self.scfg.reference:
                 sampled, page_writes, logits = self._reference_decode(
-                    tokens, positions, page_tables, block_tables)
+                    tokens, positions, page_tables, block_tables, pool_sel,
+                    None if pt is None else self._pinned_remap(wear_tr))
+                if pt is not None and wear_tr is not None:
+                    # host-side wear charge of the pinned tail writes (the
+                    # fused path charges them on the device); it also
+                    # drives the host leveler, whose advances the next
+                    # dispatch sees through the remap
+                    tcol = positions // page
+                    tslot = block_tables[np.arange(B), tcol]
+                    tpin = pool_sel[np.arange(B), tcol] > 0
+                    if tpin.any():
+                        store._account_host_writes(
+                            pt, wear_tr.phys(tslot[tpin]))
             else:
                 prompt_buf = np.zeros((B, P * page), np.int32)
                 for i, r in enumerate(active):
                     prompt_buf[i, :len(r.prompt)] = r.prompt
-                sampled, page_writes, logits = self._fused_decode(
-                    torch.from_numpy(tokens).to(dev),
-                    torch.from_numpy(positions).to(dev),
-                    torch.from_numpy(prompt_buf).to(dev),
-                    torch.from_numpy(prompt_lens).to(dev),
-                    torch.from_numpy(page_tables).to(dev),
-                    torch.from_numpy(block_tables).to(dev), k)
+                args = [torch.from_numpy(a).to(dev) for a in (
+                    tokens, positions, prompt_buf, prompt_lens, page_tables,
+                    block_tables)]
+                if pt is None:
+                    sampled, page_writes, logits = self._fused_decode(
+                        *args, k)
+                else:
+                    sampled, page_writes, logits = self._dispatch_pinned(
+                        args, pool_sel, wear_tr, k)
             self.last_logits = logits
         self._publish_dispatch_metrics(time.perf_counter() - t_disp0, k, B)
 
         # 4) access accounting: device-counted page writes bump versions
-        # in one add; reads are closed-form
-        n_reads = int(((positions[:, None] + np.arange(k)[None, :])
-                       // page + 1).sum())
-        store.charge_fast_accesses(page_writes, n_reads)
+        # in one add; reads are closed-form.  The dual-pool dispatch
+        # splits the charge by each page's tier.
+        if pt is None:
+            n_reads = int(((positions[:, None] + np.arange(k)[None, :])
+                           // page + 1).sum())
+            store.charge_fast_accesses(page_writes, n_reads)
+        else:
+            store.charge_accesses(
+                page_writes, self._page_read_counts(positions, page_tables,
+                                                    k))
+            # refresh the checksums of the pinned rows the dispatch
+            # appended to (the in-dispatch appends bypass the store's
+            # write paths).  K5 runs on the dispatch's stream, so it reads
+            # the pool after every append and row swap has landed.
+            if store.integrity.enabled:
+                written = np.nonzero(page_writes > 0)[0]
+                wmask = (store.tier[written] == pt) & \
+                    (store.slot[written] != NO_SLOT)
+                if wmask.any():
+                    store.integrity.record(
+                        store, pt, np.unique(store.slot[written[wmask]]))
 
         # 5) advance sequences from the returned token block: tokens
         # sampled at inner step s >= emit_from[i] are new generations
@@ -466,6 +804,14 @@ class PagedServingEngine:
         else:
             # no memos pass rolls the bandwidth window: roll it here
             store.roll_traffic_window()
+
+        # 7) fault-injection tick, strictly after every write path of this
+        # boundary has recorded its checksums and before the next
+        # boundary's pre-dispatch verify: injected corruption always meets
+        # a detection point ahead of the next serve
+        inj = get_injector()
+        if inj.enabled:
+            inj.tick(store)
 
         self.step_count += k
         stats["decode_block"] = k

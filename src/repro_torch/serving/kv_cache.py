@@ -6,7 +6,9 @@ Logical page = one ``page_size``-token span of one sequence, payload
 hierarchy's tiers as a unit.  Tier 0 is the serving tier: block tables
 map (sequence, span) -> logical page -> tier-0 pool slot for the
 paged-attention kernel, so a page must be promoted to tier 0 before it
-can be attended to.
+can be attended to — unless the deepest tier is a pinned-host pool,
+whose pages the dual-pool decode attends to and appends into in place
+(``fill_tables_mixed``).
 """
 from __future__ import annotations
 
@@ -51,6 +53,14 @@ class PagedKVCache:
         self.n_pages = n_pages
         self._free_ids = list(range(n_pages - 1, -1, -1))
 
+    @property
+    def pinned_tier(self) -> int | None:
+        """The deepest tier when it is a pinned-host pool (the kernels
+        address it in place, so the decode serves KV out of it and
+        appends to it); None otherwise."""
+        deepest = self.store.hierarchy.deepest
+        return deepest if self.store.hierarchy[deepest].is_pinned else None
+
     # -- logical page lifecycle ------------------------------------------------
     def new_page(self, tier: int = SERVE_TIER) -> int | None:
         """Bind a fresh logical page, preferring ``tier`` and cascading
@@ -76,6 +86,18 @@ class PagedKVCache:
         return (self.store.tier[pids] == SERVE_TIER) & \
             (self.store.slot[pids] != NO_SLOT)
 
+    def servable_mask(self, pids) -> np.ndarray:
+        """bool [k]: which of ``pids`` the dispatch can attend to — tier-0
+        residents plus, when the deepest tier is pinned-host, residents
+        of that pool (served in place, no promotion needed)."""
+        pids = np.asarray(pids, np.int64)
+        live = self.store.slot[pids] != NO_SLOT
+        ok = self.store.tier[pids] == SERVE_TIER
+        pt = self.pinned_tier
+        if pt is not None:
+            ok = ok | (self.store.tier[pids] == pt)
+        return ok & live
+
     def fast_slots_of(self, pids) -> np.ndarray:
         """int32 [k] tier-0 pool slots for a batch of logical pages (all
         must be HBM-resident)."""
@@ -97,6 +119,30 @@ class PagedKVCache:
             page_tables[i, :len(pg)] = pg
             block_tables[i, :len(pg)] = self.fast_slots_of(pg)
         return page_tables, block_tables
+
+    def fill_tables_mixed(self, pages_rows: list[list[int]], n_cols: int
+                          ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(page_tables, block_tables, pool_sel) int32 [B, n_cols] for the
+        dual-pool dispatch: every page must be servable.  ``block_tables``
+        holds the slot in the page's own pool — the tier-0 slot, or the
+        pinned pool's **logical** slot, which the dispatch translates
+        through the wear-leveling remap; ``pool_sel`` is 1 where the page
+        lives in the pinned pool."""
+        pt = self.pinned_tier
+        assert pt is not None, "fill_tables_mixed needs a pinned deepest tier"
+        store = self.store
+        B = len(pages_rows)
+        page_tables = np.zeros((B, n_cols), np.int32)
+        block_tables = np.zeros((B, n_cols), np.int32)
+        pool_sel = np.zeros((B, n_cols), np.int32)
+        for i, pg in enumerate(pages_rows):
+            pg = np.asarray(pg[:n_cols], np.int64)
+            assert self.servable_mask(pg).all(), \
+                f"non-servable pages in {pg.tolist()}"
+            page_tables[i, :len(pg)] = pg
+            block_tables[i, :len(pg)] = store.slot[pg].astype(np.int32)
+            pool_sel[i, :len(pg)] = (store.tier[pg] == pt).astype(np.int32)
+        return page_tables, block_tables, pool_sel
 
     def layer_pools(self, layer: int) -> tuple[torch.Tensor, torch.Tensor]:
         """(k_pool, v_pool) strided views [n_fast_slots, page, Hkv, Dh] of

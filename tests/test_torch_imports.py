@@ -93,8 +93,33 @@ def test_serve_config_refuses_unported_features(field, value):
 
 
 def test_serve_config_refuses_pinned_tiers():
+    """Pinned-host tiers are served (the dual-pool decode); an int8
+    pinned tier is not ported yet and is refused with the slice that
+    brings it named, by the config and by the store."""
     from repro_torch.core.hierarchy import MemoryHierarchy
+    from repro_torch.core.tiers import StoreConfig, TierStore
     from repro_torch.serving.engine import ServeConfig
-    with pytest.raises(NotImplementedError, match="pinned"):
-        ServeConfig(hierarchy=MemoryHierarchy.two_tier(8, 16,
-                                                       pinned_slow=True))
+    ServeConfig(hierarchy=MemoryHierarchy.two_tier(8, 16, pinned_slow=True))
+    int8 = MemoryHierarchy.two_tier(8, 16, pinned_slow=True,
+                                    quantize_slow=True)
+    with pytest.raises(NotImplementedError, match="int8.*K6"):
+        ServeConfig(hierarchy=int8)
+    with pytest.raises(NotImplementedError, match="int8.*K6"):
+        TierStore(StoreConfig(n_pages=4, page_shape=(2,), hierarchy=int8),
+                  device="cpu")
+
+
+def test_pinned_tier_asks_for_pinned_memory_only_on_the_card():
+    """A CPU store's pinned tier is a plain CPU tensor (there is no card
+    to map it for); the kernels' plain versions serve it."""
+    from repro_torch.core.hierarchy import MemoryHierarchy
+    from repro_torch.core.tiers import PinnedHostPool, StoreConfig, TierStore
+    store = TierStore(StoreConfig(
+        n_pages=4, page_shape=(2,), hierarchy=MemoryHierarchy.two_tier(
+            2, 4, pinned_slow=True)), device="cpu")
+    pool = store.pools[1]
+    assert isinstance(pool, PinnedHostPool)
+    assert pool.data.device.type == "cpu" and not pool.data.is_pinned()
+    from repro_torch.kernels import _build
+    with pytest.raises(ValueError, match="not pinned"):
+        _build.device_address(pool.data)

@@ -19,6 +19,8 @@ from helpers.torch_parity import (assert_close, assert_same, cap_threads,
                                   cuda_device)
 from repro_torch import kernels
 from repro_torch.kernels import hotness_update as K2
+from repro_torch.kernels import kv_append as KA
+from repro_torch.kernels import page_checksum as K5
 from repro_torch.kernels import page_gather as K3
 from repro_torch.kernels import paged_attention as K1
 from repro_torch.kernels import wear_update as K4
@@ -338,3 +340,270 @@ def test_empty_inputs_count_no_launch_cuda():
     torch.cuda.synchronize()
     assert out.shape == (0, 1, 1, 8)
     assert kernels.launch_counts() == counts
+
+
+# =============================================================================
+# K5 page checksum
+# =============================================================================
+
+def _pool_of(dtype, shape, seed):
+    """A pool with values spread over the dtype's range (int8 wraps)."""
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal(shape) * 64
+    if dtype == torch.int8:
+        return torch.from_numpy(x.astype(np.int64).astype(np.int8))
+    return torch.from_numpy(x.astype(np.float32)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_page_checksum_plain_vs_jax(dtype):
+    """Exact: the plain version against the JAX numpy ``checksum_np`` and
+    jnp ``page_checksum_ref`` over the same stored bits (bf16 as its
+    uint16 pattern), including repeated slots."""
+    jnp = _jnp()
+    import jax
+    from repro.kernels.page_checksum import checksum_np, page_checksum_ref
+    pool = _pool_of(dtype, (7, 3, 4, 5), seed=4)
+    idx = np.array([6, 0, 3, 3, 1], np.int32)
+    got = K5.page_checksum(pool, torch.from_numpy(idx))
+    assert got.dtype == torch.uint32
+    raw = (pool.view(torch.int16).numpy().view(np.uint16)
+           if dtype == torch.bfloat16 else pool.numpy())
+    assert_same(got, checksum_np(raw[idx]))
+    assert_same(got, K5.checksum_np(raw[idx]))
+    jpool = (jax.lax.bitcast_convert_type(jnp.asarray(raw), jnp.bfloat16)
+             if dtype == torch.bfloat16 else jnp.asarray(raw))
+    assert_same(got, page_checksum_ref(jpool[jnp.asarray(idx)]))
+
+
+def test_page_checksum_full_depth_weights_fit():
+    """A full-depth qwen3_4b page (36 x 2 x 16 x 8 x 128 bf16) at its
+    largest stored value: the int64 plain sum stays exact mod 2**32."""
+    n = 36 * 2 * 16 * 8 * 128
+    assert 2 * n + 1 < 2 ** 32
+    pool = torch.full((1, n), -1, dtype=torch.int16).view(torch.bfloat16)
+    got = int(K5.page_checksum(pool, torch.tensor([0], dtype=torch.int32)))
+    assert got == int(K5.checksum_np(np.full((1, n), 0xFFFF, np.uint16))[0])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("pinned", [False, True])
+def test_page_checksum_kernel_vs_plain_cuda(dtype, pinned):
+    """Exact, on a full-depth KV page shape plus a ragged one, from HBM
+    and from pinned host memory read in place."""
+    dev = cuda_device()
+    for shape in ((5, 36, 2, 16, 8, 128), (6, 3, 7)):
+        pool = _pool_of(dtype, shape, seed=5)
+        pool = pool.pin_memory() if pinned else pool.to(dev)
+        idx = torch.tensor([4, 0, 2, 2], dtype=torch.int32, device=dev)
+        n0 = kernels.launch_counts()["page_checksum"]
+        got = K5.page_checksum(pool, idx)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["page_checksum"] == n0 + 1
+        assert_same(got.cpu().numpy(),
+                    K5.page_checksum_plain(pool.cpu(), idx.cpu()).numpy())
+
+
+# =============================================================================
+# K7 sysmon pass
+# =============================================================================
+
+def test_sysmon_pass_plain_vs_jax():
+    """Exact: every history byte crossed with cold/RD/WD counters,
+    against ``sysmon_pass_ref`` and the Pallas kernel in interpret
+    mode."""
+    jnp = _jnp()
+    from repro.kernels.hotness_update import sysmon_pass, sysmon_pass_ref
+    hist = np.tile(np.arange(256, dtype=np.int32), 4)
+    rng = np.random.RandomState(6)
+    reads = rng.randint(0, 5, hist.size).astype(np.int32)
+    writes = rng.randint(0, 3, hist.size).astype(np.int32)
+    reads[:256] = writes[:256] = 0                       # untouched: COLD
+    got = K2.sysmon_pass(torch.from_numpy(reads), torch.from_numpy(writes),
+                         torch.from_numpy(hist))
+    args = (jnp.asarray(reads), jnp.asarray(writes), jnp.asarray(hist))
+    for want in (sysmon_pass_ref(*args),
+                 sysmon_pass(*args, interpret=True, block=256)):
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32
+            assert_same(g, w)
+
+
+@pytest.mark.requires_cuda
+def test_sysmon_pass_kernel_vs_plain_cuda():
+    dev = cuda_device()
+    rng = np.random.RandomState(7)
+    n = 5000
+    args = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
+        rng.randint(0, 9, n), rng.randint(0, 5, n), rng.randint(0, 256, n))]
+    n0 = kernels.launch_counts()["sysmon_pass"]
+    got = K2.sysmon_pass(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sysmon_pass"] == n0 + 1
+    for g, p in zip(got, K2.sysmon_pass_plain(*args)):
+        assert_same(g, p)
+
+
+# =============================================================================
+# K1 dual-pool variant and the KV append
+# =============================================================================
+
+def _dual_inputs(seed, B=3, Hq=8, Hkv=2, D=16, page=4, P=3, n_fast=6,
+                 n_pin=9, layers=2):
+    rng = np.random.RandomState(seed)
+    fast = rng.standard_normal((n_fast, layers, 2, page, Hkv, D)
+                               ).astype(np.float32)
+    pin = rng.standard_normal((n_pin, layers, 2, page, Hkv, D)
+                              ).astype(np.float32)
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    sel = (rng.rand(B, P) < 0.5).astype(np.int32)
+    sel[0, 0], sel[1, 0] = 1, 0
+    bt = np.where(sel > 0, rng.randint(0, n_pin, (B, P)),
+                  rng.randint(0, n_fast, (B, P))).astype(np.int32)
+    bt[0, 0] = bt[1, 0] = 2                       # one slot number, two pools
+    lengths = rng.randint(1, P * page + 1, B).astype(np.int32)
+    lengths[0] = P * page
+    return fast, pin, q, bt, sel, lengths
+
+
+def test_paged_attention_dual_plain_vs_jax():
+    """The dual-pool plain version against the JAX dual gather + select
+    and ``paged_attention_pages`` (atol 1e-5, rtol 1e-4), and against
+    single-pool K1 when every page sits in one pool (exact)."""
+    jnp = _jnp()
+    from repro.kernels.paged_attention import paged_attention_pages
+    fast, pin, q, bt, sel, lengths = _dual_inputs(8)
+    tf, tp = torch.from_numpy(fast), torch.from_numpy(pin)
+    l = 1
+    got = K1.paged_attention_dual(
+        torch.from_numpy(q), tf[:, l, 0], tf[:, l, 1], tp[:, l, 0],
+        tp[:, l, 1], torch.from_numpy(bt), torch.from_numpy(sel),
+        torch.from_numpy(lengths))
+    jb = jnp.asarray(bt)
+    sp = jnp.asarray(sel > 0)[:, :, None, None, None]
+    jf, jp = jnp.asarray(fast), jnp.asarray(pin)
+    k = jnp.where(sp, jp[jb, l, 0], jf[jb, l, 0])
+    v = jnp.where(sp, jp[jb, l, 1], jf[jb, l, 1])
+    assert_close(got, paged_attention_pages(jnp.asarray(q), k, v,
+                                            jnp.asarray(lengths)))
+    btf = np.minimum(bt, fast.shape[0] - 1)
+    single = K1.paged_attention(
+        torch.from_numpy(q), tf[:, l, 0], tf[:, l, 1],
+        torch.from_numpy(btf), torch.from_numpy(lengths))
+    dual = K1.paged_attention_dual(
+        torch.from_numpy(q), tf[:, l, 0], tf[:, l, 1], tp[:, l, 0],
+        tp[:, l, 1], torch.from_numpy(btf), torch.zeros_like(
+            torch.from_numpy(sel)), torch.from_numpy(lengths))
+    assert_same(dual, single)
+
+
+def test_kv_append_plain_vs_jax_drop_scatter():
+    """Pinned tail, fast tail, and an out-of-range slot in the pool that
+    does not hold the tail, against the JAX ``mode="drop"`` scatters
+    (exact: the same values are stored)."""
+    jnp = _jnp()
+    rng = np.random.RandomState(9)
+    fast, pin, *_ = _dual_inputs(9)
+    n_fast, n_pin = fast.shape[0], pin.shape[0]
+    Hkv, D = fast.shape[4:]
+    k = rng.standard_normal((3, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((3, Hkv, D)).astype(np.float32)
+    sel_tail = np.array([True, False, True])
+    slot = np.array([2, 2, 8], np.int32)              # collides across pools
+    off = np.array([3, 0, 1], np.int32)
+    f_idx = np.where(sel_tail, n_fast, slot).astype(np.int32)
+    p_idx = np.where(sel_tail, slot, n_pin).astype(np.int32)
+    l = 1
+    tf, tp = torch.from_numpy(fast.copy()), torch.from_numpy(pin.copy())
+    KA.kv_append(tf[:, l], tp[:, l], torch.from_numpy(f_idx),
+                 torch.from_numpy(p_idx), torch.from_numpy(off),
+                 torch.from_numpy(k), torch.from_numpy(v))
+    jf, jp = jnp.asarray(fast), jnp.asarray(pin)
+    jf = jf.at[f_idx, l, 0, off].set(k, mode="drop")
+    jf = jf.at[f_idx, l, 1, off].set(v, mode="drop")
+    jp = jp.at[p_idx, l, 0, off].set(k, mode="drop")
+    jp = jp.at[p_idx, l, 1, off].set(v, mode="drop")
+    assert_same(tf, jf)
+    assert_same(tp, jp)
+    assert not np.array_equal(tp.numpy(), pin)      # pinned rows written
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_paged_attention_dual_kernel_vs_plain_cuda(dtype, tol):
+    """The dual-pool kernel with its second pool in pinned host memory:
+    within ``tol`` of the plain version, and bit-identical to
+    single-pool K1 over the same pages moved into one HBM pool."""
+    dev = cuda_device()
+    fast, pin, q, bt, sel, lengths = _dual_inputs(10, B=4, Hq=32, Hkv=8,
+                                                  D=128, page=16, P=5,
+                                                  n_fast=12, n_pin=20)
+    tf = torch.from_numpy(fast).to(dev, dtype)
+    tp = torch.from_numpy(pin).to(dtype).pin_memory()
+    qd = torch.from_numpy(q).to(dev, dtype)
+    btd, seld = (torch.from_numpy(a).to(dev) for a in (bt, sel))
+    ld = torch.from_numpy(lengths).to(dev)
+    l = 1
+    n0 = kernels.launch_counts()["paged_attention_dual"]
+    got = K1.paged_attention_dual(qd, tf[:, l, 0], tf[:, l, 1], tp[:, l, 0],
+                                  tp[:, l, 1], btd, seld, ld)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_attention_dual"] == n0 + 1
+    tpd = tp.to(dev)
+    want = K1.paged_attention_dual(qd.cpu(), tf.cpu()[:, l, 0],
+                                   tf.cpu()[:, l, 1], tp[:, l, 0],
+                                   tp[:, l, 1], btd.cpu(), seld.cpu(),
+                                   ld.cpu())
+    assert_close(got.float().cpu(), want.float(), atol=tol, rtol=tol)
+    # the same pages moved into one pool: single-pool K1 gives the same bits
+    merged = torch.cat([tf, tpd])
+    btm = torch.where(seld > 0, btd + tf.shape[0], btd).to(torch.int32)
+    single = K1.paged_attention(qd, merged[:, l, 0], merged[:, l, 1], btm, ld)
+    torch.cuda.synchronize()
+    assert_same(got.float(), single.float())
+
+
+@pytest.mark.requires_cuda
+def test_kv_append_kernel_vs_plain_cuda():
+    dev = cuda_device()
+    rng = np.random.RandomState(11)
+    fast, pin, *_ = _dual_inputs(11, Hkv=8, D=128, page=16, n_fast=6,
+                                 n_pin=9)
+    tf = torch.from_numpy(fast).to(dev, torch.bfloat16)
+    tp = torch.from_numpy(pin).to(torch.bfloat16).pin_memory()
+    k = torch.from_numpy(rng.standard_normal((4, 8, 128)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    v = -k
+    f_idx = torch.tensor([6, 2, 6, 5], dtype=torch.int32, device=dev)
+    p_idx = torch.tensor([2, 9, 8, 9], dtype=torch.int32, device=dev)
+    off = torch.tensor([15, 0, 3, 7], dtype=torch.int32, device=dev)
+    wf, wp = tf.cpu().clone(), tp.clone()
+    n0 = kernels.launch_counts()["kv_append"]
+    KA.kv_append(tf[:, 1], tp[:, 1], f_idx, p_idx, off, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["kv_append"] == n0 + 1
+    KA.kv_append_plain(wf[:, 1], wp[:, 1], f_idx.cpu(), p_idx.cpu(),
+                       off.cpu(), k.cpu(), v.cpu())
+    assert_same(tf.cpu().float(), wf.float())
+    assert_same(tp.float(), wp.float())
+
+
+def test_new_wrappers_on_cpu_never_launch_or_build():
+    """The slice's wrappers take their plain versions for CPU tensors:
+    no launch is counted and nothing is built."""
+    from repro_torch.kernels import _build
+    kernels.reset_launch_counts()
+    fast, pin, q, bt, sel, lengths = _dual_inputs(12)
+    tf, tp = torch.from_numpy(fast), torch.from_numpy(pin)
+    K1.paged_attention_dual(torch.from_numpy(q), tf[:, 0, 0], tf[:, 0, 1],
+                            tp[:, 0, 0], tp[:, 0, 1], torch.from_numpy(bt),
+                            torch.from_numpy(sel), torch.from_numpy(lengths))
+    z = torch.zeros(3, dtype=torch.int32)
+    KA.kv_append(tf[:, 0], tp[:, 0], z, z, z, torch.zeros(3, 2, 16),
+                 torch.zeros(3, 2, 16))
+    K5.page_checksum(tp, z)
+    K2.sysmon_pass(z, z, z)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+    assert _build._lib is None
