@@ -42,6 +42,22 @@ prints no result line):
      device's busy share of the wall time;
   8. a small float32 model stepped on the card and on the CPU (the plain
      kernel versions): logits within 1e-3 and identical integer state;
+ 10. ``prefill``: the phase-2 requests with ``prefill=True``: every
+     prefill dispatch launches K1 and the KV append once per layer over
+     the bucket's rows; the tokens that differ from phase 2 (prompt
+     replay) are reported; a probe of 2 prompts, each on fresh engines,
+     holds one prefill dispatch against K=1 replay: a first token may
+     differ only on a near tie; on float32 weights the KV pages and
+     first-token logits agree within 1e-4 and the same prefill with TF32
+     matmuls must not; in bf16 their maximum errors stay within 0.2;
+ 11. ``prefill_pinned``: the same over the pinned-host tier, and again
+     with HBM cut to 8 slots, where prompt pages land in the pinned tier
+     and K1d and the KV append must run inside the prefill dispatches;
+ 12. ``int8_host``: the same over an int8 numpy host tier: K6 quantizes
+     every demotion on the card, ``dequant_gather`` every promotion;
+ 13. ``int8_pinned``: over an int8 pinned-host tier with page integrity
+     armed (no faults): 0 tokens may differ from phase 12, and the NVM
+     int8 bytes and scales must match phase 12's at every logical slot;
   9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
@@ -51,10 +67,13 @@ prints no result line):
      call where one computes the same function, and the least time the
      card could take: bytes over 3.35 TB/s for HBM, bytes over the
      host-link rate measured in this run (a pinned -> device ``copy_``)
-     for pinned host memory, operations over the bf16 peak.
+     for pinned host memory, operations over the bf16 peak.  Phases
+     10-13 run before it; its rows add K6, ``dequant_gather``, K5 over
+     1-byte pages and K1 at the prefill shape.
 
 Output: the card's name and power limit, the build time, the engine
-lines, the parity lines, the ``{"kernels": [...]}`` line, the card's
+lines, the parity lines, the prefill and int8 lines, the ``{"kernels": [...]}``
+line, the card's
 line again, and last ``{"ok": true, "device": {...}}``.  Exits 2
 without a CUDA device and 1 when the port's sources are not beside this
 script.
@@ -90,6 +109,30 @@ PINNED_KERNELS = ("paged_attention_dual", "kv_append", "touch_update",
 # the pinned-tail run: memos off, so no pass sweep
 TAIL_KERNELS = ("paged_attention_dual", "kv_append", "touch_update",
                 "wear_update", "page_checksum")
+# the prefill and int8 runs: each prefill dispatch appends its rows
+# with kv_append and attends with K1 (K1d when prompt pages sit in the
+# pinned tier); the int8 runs quantize demotions with K6 and dequantize
+# promotions with dequant_gather, and the armed int8-pinned run sums its
+# 1-byte pages with K5
+PREFILL_KERNELS = ("paged_attention", "kv_append", "touch_update",
+                   "page_gather", "page_scatter", "wear_update",
+                   "sysmon_pass")
+INT8_HOST_KERNELS = ("paged_attention", "kv_append", "page_gather_quant",
+                     "dequant_gather", "page_scatter", "touch_update",
+                     "wear_update", "sysmon_pass")
+INT8_PINNED_KERNELS = INT8_HOST_KERNELS + ("page_checksum",)
+# prefill vs replay of the same prompt at full depth, KV pages and
+# first-token logits.  On float32 weights the two agree within 1.1e-5
+# (KV) and 7.9e-6 (logits) on the card: the limit (atol = rtol) is ~10x
+# that, and a prefill whose dense math runs in TF32 must fall outside it
+# (checked per run).  In bf16 the two paths round apart with depth, as
+# their dense math runs on other numbers of rows (ROADMAP C6; 0.094 KV,
+# 0.086 logits at most on the card): the maximum errors are held at ~2x
+# those readings.  A first token may differ only where the replay's
+# top-2 logit margin is below PROBE_TIE_MARGIN.
+PROBE_F32_TOL = 1e-4
+PROBE_BF16_MAX_ERR = 0.2
+PROBE_TIE_MARGIN = 3e-2
 
 
 def _emit(obj) -> None:
@@ -751,6 +794,340 @@ def run_card_vs_cpu() -> dict:
 
 
 # =============================================================================
+# phases 10-13: bucketed packed prefill and the int8 tiers
+# =============================================================================
+
+def _watch_prefill(eng) -> dict:
+    """What happens inside the engine's prefill dispatches: wraps the
+    engine's ``_prefill_group`` and adds up the kernel launches and the
+    deepest tier's wear writes made inside each call."""
+    from repro_torch import kernels
+    seen = {"launches": dict.fromkeys(kernels.KERNELS, 0),
+            "slow_wear_writes": 0}
+    wear = eng.kv.store.wear
+    orig = eng._prefill_group
+
+    def watched(group):
+        l0, w0 = kernels.launch_counts(), wear.writes_total
+        orig(group)
+        for k, n in kernels.launch_counts().items():
+            seen["launches"][k] += n - l0[k]
+        seen["slow_wear_writes"] += wear.writes_total - w0
+    eng._prefill_group = watched
+    return seen
+
+
+def _first_difference(wrong: dict) -> dict | None:
+    """The earliest generated position (then request) where tokens
+    differ, from ``_corrupted_tokens``'s {request: first position}."""
+    if not wrong:
+        return None
+    rid, pos = min(wrong.items(), key=lambda kv: (kv[1], kv[0]))
+    return {"request": rid, "position": pos}
+
+
+def _serve_prefill_run(cfg, params, phase: str, scfg, want, *,
+                       fault_cfg=None) -> tuple[dict, dict, object, list]:
+    """Serve the engine run's 12 requests with ``scfg`` (prefill on),
+    the launch counts read around the run and the prefill dispatches
+    watched.  ``want`` holds the tokens the run is compared with; the
+    count of tokens that differ is reported, not checked.  With
+    ``fault_cfg`` the injector is armed (page integrity on)."""
+    import statistics
+
+    import torch
+    from repro_torch import faults, kernels, obs
+    from repro_torch.models.transformer import pad_vocab
+    from repro_torch.serving.engine import PagedServingEngine
+    if fault_cfg is not None:
+        faults.configure(fault_cfg)
+    try:
+        eng = PagedServingEngine(cfg, params, scfg, device="cuda")
+        watch = _watch_prefill(eng)
+        reqs = [eng.submit(p, NEW_TOKENS)
+                for p in _prompts(REQUESTS, PROMPT_LEN, cfg.vocab, SEED)]
+        torch.cuda.synchronize()
+        obs.reset()
+        obs.configure(trace=True)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        obs.configure(trace=False)
+    finally:
+        faults.reset()
+    store = eng.kv.store
+    wear = store.wear
+    ttft = sorted(r.ttft_s for r in reqs)
+    differ, wrong = _corrupted_tokens(reqs, want)
+    inner = sum(h.get("decode_block", 0) for h in hist)
+    out = {
+        "phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "dtype": "bfloat16",
+        "hierarchy": store.hierarchy.describe(),
+        "requests": len(reqs), "prompt_len": PROMPT_LEN,
+        "new_tokens": NEW_TOKENS, "generated": eng.tokens_out,
+        "seconds": dt, "generated_tokens_per_s": eng.tokens_out / dt,
+        "decode_dispatches": sum(1 for h in hist if "decode_block" in h),
+        "decode_inner_steps": inner,
+        "prefill_dispatches": int(obs.get_registry().counter(
+            "serving.prefill_dispatches").value),
+        "prefill_launches": {k: v for k, v in watch["launches"].items()
+                             if v},
+        # wear the prefill dispatches charged to the NVM tier (their
+        # appends into a pinned tier, and demotions made to provision)
+        "prefill_slow_wear_writes": watch["slow_wear_writes"],
+        "ttft_s_p50": statistics.median(ttft),
+        "ttft_s_p99": ttft[min(len(ttft) - 1,
+                               int(round(0.99 * (len(ttft) - 1))))],
+        "memos_passes": len(eng.memos.reports),
+        "preemptions": eng.batcher.n_preempted,
+        "traffic_0_1_bytes": store.traffic[(0, 1)],
+        "traffic_1_0_bytes": store.traffic[(1, 0)],
+        "slow_wear_max": wear.max_wear(), "slow_writes": wear.writes_total,
+        "tokens_differ": differ, "first_difference": _first_difference(wrong),
+        "launches": launches,
+        "span_seconds": {**dict.fromkeys(("serve.prefill", "serve.dispatch",
+                                          "migrate.move_group"), 0.0),
+                         **_span_seconds()},
+    }
+    bad = [r.rid for r in reqs
+           if r.error is not None or len(r.generated) != NEW_TOKENS]
+    if bad:
+        raise RuntimeError(f"{phase}: requests {bad} did not complete")
+    if not torch.isfinite(eng.last_logits.float()).all() \
+            or eng.last_logits.shape[-1] != pad_vocab(cfg.vocab):
+        raise RuntimeError(f"{phase}: last logits non-finite or misshapen")
+    if not out["prefill_dispatches"]:
+        raise RuntimeError(f"{phase}: no prefill dispatch ran")
+    return out, launches, eng, [r.generated for r in reqs]
+
+
+def run_prefill(cfg, params, replay_tokens) -> tuple[dict, dict, list]:
+    """Phase 10: the engine run's requests with ``prefill=True`` over the
+    numpy host tier.  Each prefill dispatch must launch K1 and the KV
+    append once per layer (B = the bucket's rows); the tokens that differ
+    from the replaying engine run are reported."""
+    out, launches, eng, toks = _serve_prefill_run(
+        cfg, params, "prefill", _serve_config(prefill=True), replay_tokens)
+    pl = out["prefill_launches"]
+    n = cfg.n_layers * out["prefill_dispatches"]
+    if pl.get("paged_attention") != n or pl.get("kv_append") != n:
+        raise RuntimeError(f"prefill: {n} K1 and KV-append launches "
+                           f"expected inside the prefill dispatches, got "
+                           f"{pl}")
+    _check_launches(launches, PREFILL_KERNELS, "prefill")
+    for key in ("traffic_0_1_bytes", "traffic_1_0_bytes", "slow_wear_max"):
+        if not out[key]:
+            raise RuntimeError(f"prefill run has {key} == 0")
+    out["probe_bf16"] = run_prefill_probe(cfg, params)
+    for row in out["probe_bf16"]:
+        if max(row["kv_max_abs_err"], row["logits_max_abs_err"]) \
+                > PROBE_BF16_MAX_ERR:
+            raise RuntimeError(f"prefill probe (bf16): error past "
+                               f"{PROBE_BF16_MAX_ERR}: {row}")
+    # the same probe on float32 weights drawn from the same seed: there
+    # the prefill and the replay must agree within PROBE_F32_TOL, and a
+    # prefill in TF32 must not
+    import torch
+    from repro_torch.models.transformer import init_params
+    f32 = init_params(cfg, seed=SEED, dtype=torch.float32, device="cuda")
+    out["probe_f32"] = run_prefill_probe(cfg, f32, tf32_control=True)
+    del f32
+    torch.cuda.empty_cache()
+    for row in out["probe_f32"]:
+        if row["kv_values_outside_tol"] or row["logits_outside_tol"]:
+            raise RuntimeError(f"prefill probe (float32): KV pages or "
+                               f"first-token logits differ: {row}")
+        ctl = row["tf32_control"]
+        if not (ctl["kv_values_outside_tol"] or ctl["logits_outside_tol"]):
+            raise RuntimeError(f"prefill probe (float32): a TF32 prefill "
+                               f"passes the {PROBE_F32_TOL} limit: {row}")
+    return out, launches, toks
+
+
+def _probe_prefill(cfg, params, prompt):
+    """A fresh engine, memos off, that ingests ``prompt`` in one prefill
+    dispatch (the engine's admission, then ``_prefill_admitted``)."""
+    import torch
+    from repro_torch.serving.engine import PagedServingEngine
+    eng = PagedServingEngine(cfg, params, _serve_config(
+        prefill=True, memos_enabled=False), device="cuda")
+    req = eng.submit(prompt, NEW_TOKENS)
+    eng.batcher.admit()
+    eng._prefill_admitted()
+    torch.cuda.synchronize()
+    return eng, req
+
+
+def _probe_errors(cfg, ref, rr, eng, req, tol) -> dict:
+    """The prompt's KV pages and the last logits of ``eng`` against the
+    replay ``ref``: maximum errors (KV per layer too) and the values
+    outside atol = rtol = ``tol`` (allclose's test)."""
+    import torch
+    n_pages = PROMPT_LEN // _serve_config().page_size
+    kv_r, kv = (e.kv.store.fast_pool[torch.as_tensor(
+        e.kv.store.slot[r.pages[:n_pages]])].float()
+        for e, r in ((ref, rr), (eng, req)))
+    la, lb = (e.last_logits[0, :cfg.vocab].float() for e in (ref, eng))
+    err = (kv_r - kv).abs()                     # [pages, L, 2, page, ...]
+    return {"kv_max_abs_err": float(err.max()),
+            "kv_max_abs_err_by_layer": [
+                round(float(e), 6) for e in err.transpose(0, 1)
+                .reshape(cfg.n_layers, -1).max(dim=1).values],
+            "kv_values_outside_tol": int((err > tol * (1 + kv.abs()))
+                                         .sum()),
+            "kv_values": err.numel(),
+            "logits_max_abs_err": float((la - lb).abs().max()),
+            "logits_outside_tol": int(((la - lb).abs()
+                                       > tol * (1 + lb.abs())).sum()),
+            "tolerance": tol}
+
+
+def run_prefill_probe(cfg, params, tf32_control: bool = False
+                      ) -> list[dict]:
+    """Two of the prompts, each on fresh engines, memos off: prompt
+    replay through the K=1 reference path against one prefill dispatch.
+    A first token that differs fails unless the replay's top-2 logit
+    margin is within ``PROBE_TIE_MARGIN`` (a near tie).  Each row holds
+    the KV-page and first-token-logit errors (``_probe_errors``, limit
+    ``PROBE_F32_TOL``); the caller gates them.  ``tf32_control`` adds the
+    same prefill with TF32 matmuls against the same replay."""
+    import torch
+    from repro_torch.serving.engine import PagedServingEngine
+    rows = []
+    for i, prompt in enumerate(_prompts(2, PROMPT_LEN, cfg.vocab, SEED)):
+        ref = PagedServingEngine(cfg, params, _serve_config(
+            reference=True, memos_enabled=False), device="cuda")
+        rr = ref.submit(prompt, NEW_TOKENS)
+        while not rr.generated:
+            ref.step()
+        pre, rp = _probe_prefill(cfg, params, prompt)
+        top2 = torch.topk(ref.last_logits[0, :cfg.vocab].float(), 2).values
+        margin = float(top2[0] - top2[1])
+        row = {"prompt": i, "dtype": str(params["embed"].dtype),
+               **_probe_errors(cfg, ref, rr, pre, rp, PROBE_F32_TOL),
+               "replay_first_token": rr.generated[0],
+               "prefill_first_token": rp.generated[0],
+               "replay_top2_margin": margin}
+        del pre
+        if tf32_control:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                ctl, rc = _probe_prefill(cfg, params, prompt)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            row["tf32_control"] = {
+                k: v for k, v in _probe_errors(
+                    cfg, ref, rr, ctl, rc, PROBE_F32_TOL).items()
+                if k != "kv_max_abs_err_by_layer"}
+            del ctl
+        rows.append(row)
+        if rr.generated[0] != rp.generated[0] and margin > PROBE_TIE_MARGIN:
+            raise RuntimeError(f"prefill probe: first token differs off a "
+                               f"near tie: {row}")
+        del ref
+    return rows
+
+
+def run_prefill_pinned(cfg, params, prefill_tokens) -> tuple[dict, dict]:
+    """Phase 11: the same requests with prefill over the pinned-host
+    tier, no faults; the tokens that differ from phase 10 are reported.
+    With 64 HBM slots the 8 admitted prompts fill HBM exactly (8 pages
+    each), so these prefills never touch the pinned tier; a second run
+    with HBM cut to 8 slots puts prompt pages there, and K1d and the KV
+    append must launch inside its prefill dispatches and its prefill
+    must charge pinned wear."""
+    from repro_torch.core.hierarchy import MemoryHierarchy
+    out, launches, _, _ = _serve_prefill_run(
+        cfg, params, "prefill_pinned", _serve_config(
+            prefill=True, hierarchy=MemoryHierarchy.two_tier(
+                64, 512, pinned_slow=True)), prefill_tokens)
+    _check_launches(launches, ("paged_attention", "kv_append",
+                               "touch_update", "wear_update",
+                               "sysmon_pass"), "prefill_pinned")
+    dual, dual_launches, _, _ = _serve_prefill_run(
+        cfg, params, "prefill_pinned_hbm8", _serve_config(
+            prefill=True, fast_slots=8, hierarchy=MemoryHierarchy.two_tier(
+                8, 512, pinned_slow=True)), prefill_tokens)
+    pl = dual["prefill_launches"]
+    if not (pl.get("paged_attention_dual") and pl.get("kv_append")):
+        raise RuntimeError(f"prefill_pinned: K1d and the KV append never "
+                           f"ran inside a prefill dispatch: {pl}")
+    if not dual["prefill_slow_wear_writes"]:
+        raise RuntimeError("prefill_pinned: the prefill dispatches charged "
+                           "no pinned wear")
+    out["hbm8_run"] = {k: dual[k] for k in (
+        "hierarchy", "seconds", "generated_tokens_per_s",
+        "prefill_dispatches", "prefill_launches",
+        "prefill_slow_wear_writes", "ttft_s_p50",
+        "ttft_s_p99", "slow_wear_max", "slow_writes", "tokens_differ",
+        "first_difference", "launches")}
+    return out, launches
+
+def _nvm_bytes(store):
+    """The NVM tier's int8 rows and scales at every logical slot (read
+    through the wear remap), as numpy."""
+    import numpy as np
+    pool = store.pools[store.hierarchy.deepest]
+    q = pool.raw() if hasattr(pool, "raw") else pool.data
+    sc = pool.scale if isinstance(pool.scale, np.ndarray) \
+        else pool.scale.numpy()
+    phys = store.wear.phys(np.arange(q.shape[0]))
+    return q[phys], sc[phys]
+
+
+def run_int8(cfg, params, prefill_tokens):
+    """Phases 12 and 13: the requests with prefill over the int8 numpy
+    host tier, then over the int8 pinned tier (integrity armed, no
+    faults, so K5 sums the 1-byte pages).  Both promote before they
+    attend and quantize with K6, so the pinned run must emit the host
+    run's tokens exactly and leave the same int8 bytes and scales at
+    every logical slot; the tokens that differ from phase 10 (lossless)
+    are what int8 costs in output quality, reported only.  Returns
+    (host line, host launches, pinned line, pinned launches, pinned
+    engine)."""
+    import numpy as np
+    from repro_torch.core.hierarchy import MemoryHierarchy
+    from repro_torch.faults import FaultConfig
+    host, host_launches, heng, htoks = _serve_prefill_run(
+        cfg, params, "int8_host", _serve_config(
+            prefill=True, hierarchy=MemoryHierarchy.two_tier(
+                64, 512, quantize_slow=True)), prefill_tokens)
+    _check_launches(host_launches, INT8_HOST_KERNELS, "int8_host")
+    for key in ("traffic_0_1_bytes", "traffic_1_0_bytes", "slow_wear_max"):
+        if not host[key]:
+            raise RuntimeError(f"int8_host run has {key} == 0")
+    pinned, pin_launches, peng, _ = _serve_prefill_run(
+        cfg, params, "int8_pinned", _serve_config(
+            prefill=True, hierarchy=MemoryHierarchy.two_tier(
+                64, 512, pinned_slow=True, quantize_slow=True)), htoks,
+        fault_cfg=FaultConfig(seed=FAULT_SEED))
+    _check_launches(pin_launches, INT8_PINNED_KERNELS, "int8_pinned")
+    if peng.pinned_tier is not None:
+        raise RuntimeError("int8_pinned: the int8 tier was served in place")
+    if pinned["tokens_differ"]:
+        raise RuntimeError(f"int8_pinned: {pinned['tokens_differ']} tokens "
+                           f"differ from int8_host, first "
+                           f"{pinned['first_difference']}")
+    hq, hs = _nvm_bytes(heng.kv.store)
+    pq, ps = _nvm_bytes(peng.kv.store)
+    rows_differ = int((hq != pq).reshape(len(hq), -1).any(1).sum()
+                      + (hs != ps).sum())
+    if rows_differ:
+        raise RuntimeError(f"int8_pinned: NVM int8 bytes or scales differ "
+                           f"from int8_host ({rows_differ} differences)")
+    pinned["nvm_bytes_and_scales_identical_to_int8_host"] = True
+    pinned["quarantined_slots"] = sum(
+        len(q) for q in peng.kv.store.quarantined.values())
+    if pinned["quarantined_slots"]:
+        raise RuntimeError("int8_pinned: a fault-free run quarantined slots")
+    return host, host_launches, pinned, pin_launches, peng
+
+
+# =============================================================================
 # phase 9: every kernel against its plain version
 # =============================================================================
 
@@ -1131,13 +1508,181 @@ def bench_pinned_kernels(cfg, peng, launches: dict, engine_launches: dict,
     if not (torch.equal(sfast, wf) and torch.equal(spin, wp)):
         raise RuntimeError("kv_append kernel disagrees with plain")
     n_pin_rows = int(to_pin.sum())
+    # yardstick: one index_put_ of the K and V rows into an HBM pool view
+    # (every row lands in HBM: PyTorch has no in-place write of pinned
+    # host memory from the card)
+    lib_view = sfast.clone()[:, l]
+    lib_idx = (slot.long()[:, None], torch.arange(2, device=dev)[None, :],
+               off.long()[:, None])
+    lib_kv = torch.stack([k, v], dim=1)
     row("kv_append", "src/repro_torch/kernels/csrc/kv_append.cu",
         "src/repro/serving/engine.py:435", 0,
         _time_ms(lambda: KA.kv_append(*app)),
         _time_ms(lambda: KA.kv_append_plain(*app)),
         _bound_ms(2 * B * Hkv * D * 2 + (B - n_pin_rows) * row_b + B * 12,
                   host_bytes=n_pin_rows * row_b, link_bytes_per_s=rate),
-        None, 0)
+        _time_ms(lambda: lib_view.index_put_(lib_idx, lib_kv)), 0,
+        library_call="index_put_ into an HBM pool view")
+    return rows
+
+
+def bench_int8_prefill_kernels(cfg, eng, ieng, prefill_line: dict,
+                               int8_host_launches: dict,
+                               int8_pin_launches: dict,
+                               link: dict) -> list[dict]:
+    """The int8 and prefill kernels against their plain versions on the
+    card: K6 over a demotion batch of 16 pages of the HBM pool,
+    ``dequant_gather`` and the 1-byte K5 over 16 pages of the int8 pinned
+    pool, and K1 at the prefill shape (a bucket of 256 rows: two
+    128-token segments with 16-page tables).  The pools are filled with
+    seeded random values first."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import page_checksum as K5
+    from repro_torch.kernels import page_quant as K6
+    from repro_torch.kernels import paged_attention as K1
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    rng = np.random.RandomState(SEED + 8)
+    rate = link["bytes_per_s"]
+    pool = eng.kv.store.fast_pool                  # bf16 HBM pool
+    ipool = ieng.kv.store.pools[ieng.kv.store.hierarchy.deepest]
+    pq, ps = ipool.data, ipool.scale               # pinned int8 + scales
+    pool.copy_(torch.randn(pool.shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(pool.dtype))
+    pq.copy_(torch.randint(-127, 128, pq.shape, generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8))
+    ps.copy_((torch.rand(ps.shape, generator=gen, device=dev) * 0.05
+              + 1e-3))
+    torch.cuda.synchronize()
+    n_elem = pool[0].numel()
+    k = 16
+    rows = []
+
+    def row(name, kernel, src, replaces, ms, plain_ms, bound, library_ms,
+            launches, **extra):
+        rows.append({"name": name, "kernel": kernel, "route": "cuda",
+                     "source": src, "replaces": replaces,
+                     "launches": launches, "max_abs_err": 0,
+                     "tolerance": 0, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "library_ms": library_ms, **extra})
+
+    # -- K6: quantize a demotion batch out of the HBM pool -------------------
+    idx = torch.from_numpy(rng.permutation(pool.shape[0])[:k]
+                           .astype(np.int32)).to(dev)
+    q, s = K6.page_gather_quant(pool, idx)
+    qp, sp = K6.page_gather_quant_plain(pool, idx)
+    torch.cuda.synchronize()
+    if not (torch.equal(q, qp) and torch.equal(s, sp)):
+        raise RuntimeError("page_gather_quant kernel disagrees with plain")
+    row("page_gather_quant", "page_gather_quant",
+        "src/repro_torch/kernels/csrc/page_quant.cu",
+        "src/repro/kernels/page_gather/page_gather.py:94",
+        _time_ms(lambda: K6.page_gather_quant(pool, idx)),
+        _time_ms(lambda: K6.page_gather_quant_plain(pool, idx), iters=10,
+                 warmup=2),
+        _bound_ms(k * n_elem * (pool.element_size() + 1) + k * 8),
+        None, int8_host_launches["page_gather_quant"], pages=k,
+        launches_int8_pinned_run=int8_pin_launches["page_gather_quant"],
+        library_note="no single PyTorch call gathers pages and quantizes "
+                     "each with its own scale")
+
+    # -- dequant_gather: a promotion batch out of the pinned int8 pool -------
+    pidx = torch.from_numpy(rng.permutation(pq.shape[0])[:k]
+                            .astype(np.int32)).to(dev)
+    got = K6.dequant_gather(pq, ps, pidx, pool.dtype)
+    want = K6.dequant_gather_plain(pq, ps, pidx, pool.dtype)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise RuntimeError("dequant_gather kernel disagrees with plain")
+    row("dequant_gather", "dequant_gather",
+        "src/repro_torch/kernels/csrc/page_quant.cu",
+        "src/repro/kernels/page_gather/ops.py:96",
+        _time_ms(lambda: K6.dequant_gather(pq, ps, pidx, pool.dtype),
+                 iters=20),
+        _time_ms(lambda: K6.dequant_gather_plain(pq, ps, pidx, pool.dtype),
+                 iters=3, warmup=1),
+        _bound_ms(k * n_elem * pool.element_size() + k * 4,
+                  host_bytes=k * (n_elem + 4), link_bytes_per_s=rate),
+        None, int8_pin_launches["dequant_gather"], pages=k,
+        pool="pinned host int8",
+        launches_int8_host_run=int8_host_launches["dequant_gather"],
+        library_note="no single PyTorch call gathers int8 pages out of "
+                     "pinned host memory and scales each by its own "
+                     "factor")
+
+    # -- K5 over 1-byte pages of the pinned int8 pool ------------------------
+    got = K5.page_checksum(pq, pidx).view(torch.int32)
+    want = K5.page_checksum_plain(pq, pidx).view(torch.int32)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise RuntimeError("page_checksum over int8 pages disagrees with "
+                           "plain")
+    row("page_checksum_int8", "page_checksum",
+        "src/repro_torch/kernels/csrc/page_checksum.cu",
+        "src/repro/kernels/page_checksum/page_checksum.py:36",
+        _time_ms(lambda: K5.page_checksum(pq, pidx), iters=20),
+        _time_ms(lambda: K5.page_checksum_plain(pq, pidx), iters=3,
+                 warmup=1),
+        _bound_ms(k * 8, host_bytes=k * n_elem, link_bytes_per_s=rate),
+        None, int8_pin_launches["page_checksum"], pages=k, elem_bytes=1,
+        pool="pinned host int8",
+        library_note="no PyTorch call sums stored bits with odd weights "
+                     "modulo 2**32")
+
+    # -- K1 at the prefill shape: 2 x 128 rows, 16-page tables ---------------
+    page = eng.scfg.page_size
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = Hq // Hkv
+    seg, n_seg = PROMPT_LEN, 2
+    L = seg * n_seg
+    P = L // page                         # n_table_pages(256) = 16
+    k_pool, v_pool = pool[:, 0, 0], pool[:, 0, 1]
+    seg_pages = rng.permutation(pool.shape[0])[:n_seg * (seg // page)] \
+        .reshape(n_seg, seg // page)
+    bt_np = np.zeros((L, P), np.int32)
+    for si in range(n_seg):
+        bt_np[si * seg:(si + 1) * seg, :seg // page] = seg_pages[si]
+    lengths_np = np.tile(np.arange(1, seg + 1), n_seg).astype(np.int32)
+    bt = torch.from_numpy(bt_np).to(dev)
+    lengths = torch.from_numpy(lengths_np).to(dev)
+    qg = (torch.randn((L, Hkv, G, D), generator=gen, device=dev)
+          * D ** -0.5).to(pool.dtype)
+    out_k = K1.paged_attention_pooled(qg, k_pool, v_pool, bt, lengths)
+    out_p = K1.paged_attention_plain(qg, k_pool, v_pool, bt, lengths)
+    torch.cuda.synchronize()
+    if not torch.allclose(out_k.float(), out_p.float(), atol=ATTN_TOL,
+                          rtol=ATTN_TOL):
+        raise RuntimeError("paged_attention at the prefill shape disagrees "
+                           "with plain")
+    err = float((out_k.float() - out_p.float()).abs().max())
+    flat = torch.from_numpy(seg_pages.reshape(-1)).to(dev).long()
+    kc = k_pool[flat].reshape(n_seg, seg, Hkv, D).transpose(1, 2) \
+        .repeat_interleave(G, dim=1).contiguous()
+    vc = v_pool[flat].reshape(n_seg, seg, Hkv, D).transpose(1, 2) \
+        .repeat_interleave(G, dim=1).contiguous()
+    q4 = qg.reshape(n_seg, seg, Hq, D).transpose(1, 2).contiguous()
+    kv_bytes = n_seg * seg * 2 * Hkv * D * pool.element_size()
+    row("paged_attention_prefill", "paged_attention",
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention/paged_attention.py:75",
+        _time_ms(lambda: K1.paged_attention_pooled(qg, k_pool, v_pool, bt,
+                                                   lengths)),
+        _time_ms(lambda: K1.paged_attention_plain(qg, k_pool, v_pool, bt,
+                                                  lengths), iters=10,
+                 warmup=2),
+        _bound_ms(2 * L * Hq * D * 2 + kv_bytes + bt.numel() * 4 + L * 4,
+                  4.0 * Hq * D * float(lengths_np.sum())),
+        _time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kc, vc, is_causal=True, scale=1.0)),
+        prefill_line["prefill_launches"]["paged_attention"],
+        rows=L, table_pages=P, library_call="scaled_dot_product_attention, "
+        "causal, KV copied contiguous")
+    rows[-1].update(max_abs_err=err, tolerance=ATTN_TOL)
     return rows
 
 
@@ -1199,14 +1744,25 @@ def main() -> int:
     pinned_line["device_busy_share"] = pwindow["device_busy_share"]
     cross = run_card_vs_cpu()
     print(json.dumps(cross), file=sys.stderr, flush=True)
+    pre, pre_launches, pre_tokens = run_prefill(cfg, params, tokens)
+    print(json.dumps(pre), file=sys.stderr, flush=True)
+    ppre, _ = run_prefill_pinned(cfg, params, pre_tokens)
+    print(json.dumps(ppre), file=sys.stderr, flush=True)
+    i8h, i8h_launches, i8p, i8p_launches, ieng = run_int8(cfg, params,
+                                                          pre_tokens)
+    print(json.dumps(i8h), file=sys.stderr, flush=True)
+    print(json.dumps(i8p), file=sys.stderr, flush=True)
     link = host_link_rate(peng.kv.store.pools[peng.pinned_tier].data)
     kernel_rows = (bench_kernels(cfg, eng, launches)
                    + bench_pinned_kernels(cfg, peng, pinned_launches,
-                                          launches, tail_launches, link))
+                                          launches, tail_launches, link)
+                   + bench_int8_prefill_kernels(cfg, eng, ieng, pre,
+                                                i8h_launches, i8p_launches,
+                                                link))
 
     lines += [{"kernels": kernel_rows}, {"host_link": link}, engine_line,
               pinned_line, parity, pparity, tail, padding, invariance,
-              window, pwindow, cross, _card_line()]
+              window, pwindow, cross, pre, ppre, i8h, i8p, _card_line()]
     for line in lines:
         _emit(line)
     _emit({"ok": True, "device": {

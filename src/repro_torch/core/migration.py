@@ -22,7 +22,13 @@ generic over the tiers of a :class:`~repro_torch.core.hierarchy.MemoryHierarchy`
       - host -> host: one vectorized numpy copy.
 
 Host tiers move pages in their storage format (bfloat16 as uint16 bits),
-so a round trip through the slow tier is bit-exact.
+so a round trip through the slow tier is bit-exact.  Pages bound for an
+int8 tier are quantized on the card by kernel K6 straight from the
+source pool, and only int8 bytes and scales travel on (the numpy pool
+stores them as given); pages leaving an int8 tier cross as int8 and are
+dequantized on the card (``dequant_gather``).  Pages that leave a numpy
+host tier for or from the int8 tier without a device tier on the other
+end convert in numpy (``TierStore.host_read_for``).
 
 While the fault injector is armed, every bulk move retries injected
 transient faults with exponential backoff and fails closed past the cap
@@ -49,10 +55,11 @@ import torch
 from repro_torch import obs
 from repro_torch.faults.errors import TransientMigrationFault
 from repro_torch.faults.injector import get_injector, note_recovered
+from repro_torch.kernels.page_quant import dequant_gather
 
 from . import placement
-from .tiers import (NO_SLOT, TierStore, _pad_idx_np, _pad_pages, _pow2,
-                    from_host_raw, to_host_raw)
+from .tiers import (NO_SLOT, QuantPages, TierStore, _pad_idx_np, _pad_pages,
+                    _pow2, from_host_raw, map_pages, to_host_raw)
 
 
 @dataclass
@@ -421,49 +428,67 @@ class BatchedMigrationEngine:
         self.stats = MigrationStats()
 
     # -- bulk staging ----------------------------------------------------------
-    def _stage_device_to_host(self, src_tier: int,
-                              slots: np.ndarray) -> np.ndarray:
+    def _stage_device_to_host(self, src_tier: int, slots: np.ndarray,
+                              quantize: bool = False):
         """Gather a device tier's slots into device staging
-        (``page_gather``) chunk by chunk, copy each chunk into a pinned
-        host buffer without blocking, then synchronise the stream once
-        before numpy reads any of them.  Returns the pages in host
-        storage format."""
+        (``page_gather``, or K6 when ``quantize``: the destination is the
+        int8 tier) chunk by chunk, copy each chunk into a pinned host
+        buffer without blocking, then synchronise the stream once before
+        numpy reads any of them.  Returns the pages in host storage
+        format (QuantPages when quantized)."""
         store = self.store
         slots = np.asarray(slots, np.int64)
         on_card = store.device.type == "cuda"
+
+        def to_host(g):
+            host = torch.empty(g.shape, dtype=g.dtype, pin_memory=on_card)
+            return host.copy_(g, non_blocking=on_card)
         bufs = []
         for i in range(0, slots.size, self.chunk_pages):
             chunk = slots[i:i + self.chunk_pages]
-            g = store.gather_device(src_tier, chunk)
-            host = torch.empty(g.shape, dtype=g.dtype, pin_memory=on_card)
-            host.copy_(g, non_blocking=on_card)
-            bufs.append((host, chunk.size))
+            g = store.gather_device(src_tier, chunk, quantize=quantize)
+            bufs.append((map_pages(to_host, g), chunk.size))
         if on_card:
             # the copies are asynchronous: numpy must not read the pinned
             # buffers before they have landed
             torch.cuda.current_stream(store.device).synchronize()
         # gathers come back pow2-padded; slice to true counts
+        if quantize:
+            return QuantPages(
+                np.concatenate([h.q.numpy()[:n] for h, n in bufs]),
+                np.concatenate([h.scale.numpy()[:n] for h, n in bufs]))
         return np.concatenate([to_host_raw(h)[:n] for h, n in bufs])
 
     def _stage_host_to_device(self, dst_tier: int, dst_slots: np.ndarray,
-                              raw: np.ndarray) -> None:
+                              raw) -> None:
         """Upload host pages (storage format) chunk by chunk through
         pinned buffers and scatter each chunk into its planned device
-        slots (``page_scatter``, in place).  Chunks are pow2-padded on
-        the host so the scatter sees the same index vectors as the JAX
-        engine's."""
+        slots (``page_scatter``, in place).  int8 pages (QuantPages)
+        cross as int8 and scales and are dequantized on the card
+        (``dequant_gather``) unless the destination is the int8 tier.  Chunks are pow2-padded on the host so the
+        scatter sees the same index vectors as the JAX engine's."""
         store = self.store
         dst_slots = np.asarray(dst_slots, np.int64)
         dtype = store.cfg.dtype
         on_card = store.device.type == "cuda"
+
+        def upload(t):
+            if not on_card:
+                return t
+            pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            pinned.copy_(t)
+            return pinned.to(store.device, non_blocking=True)
         c = self.chunk_pages
         for i in range(0, dst_slots.size, c):
-            v = raw[i:i + c]
-            t = from_host_raw(_pad_pages(v, _pow2(v.shape[0])), dtype)
-            if on_card:
-                pinned = torch.empty(t.shape, dtype=dtype, pin_memory=True)
-                pinned.copy_(t)
-                t = pinned.to(store.device, non_blocking=True)
+            v = _pad_pages(raw[i:i + c], _pow2(min(c, dst_slots.size - i)))
+            if isinstance(v, QuantPages):
+                t = map_pages(lambda a: upload(torch.from_numpy(a)), v)
+                if not store.is_quantized_tier(dst_tier):
+                    idx = torch.arange(v.shape[0], dtype=torch.int32,
+                                       device=store.device)
+                    t = dequant_gather(t.q, t.scale, idx, dtype)
+            else:
+                t = upload(from_host_raw(v, dtype))
             store.scatter_device(dst_tier, dst_slots[i:i + c], t)
 
     def _with_retries(self, src_tier: int, dst_tier: int, pages: int) -> None:
@@ -495,20 +520,23 @@ class BatchedMigrationEngine:
         store = self.store
         src_dev = store.is_addressable_tier(src_tier)
         dst_dev = store.is_addressable_tier(dst_tier)
+        quant = store.is_quantized_tier(dst_tier)
         with obs.span("migrate.move_group", src=src_tier, dst=dst_tier,
                       pages=int(len(src_slots))):
             self._with_retries(src_tier, dst_tier, int(len(src_slots)))
             if src_dev and dst_dev:
-                staged = store.gather_device(src_tier, src_slots)
+                staged = store.gather_device(src_tier, src_slots,
+                                             quantize=quant)
                 store.scatter_device(dst_tier, dst_slots, staged)
             elif src_dev:
-                staged = self._stage_device_to_host(src_tier, src_slots)
+                staged = self._stage_device_to_host(src_tier, src_slots,
+                                                    quantize=quant)
                 store.host_write_raw(dst_tier, dst_slots, staged)
             elif dst_dev:
-                staged = store.host_read_raw(src_tier, src_slots)
+                staged = store.host_read_for(src_tier, src_slots, dst_tier)
                 self._stage_host_to_device(dst_tier, dst_slots, staged)
             else:
-                staged = store.host_read_raw(src_tier, src_slots)
+                staged = store.host_read_for(src_tier, src_slots, dst_tier)
                 store.host_write_raw(dst_tier, dst_slots, staged)
 
     # -- integrity pre-flight --------------------------------------------------
@@ -618,6 +646,7 @@ class BatchedMigrationEngine:
             pending = pending[store.slot[pending] != NO_SLOT]
         bank_freq = None if bank_freq is None else np.array(bank_freq)
         dst_dev = store.is_addressable_tier(dst_tier)
+        quant = store.is_quantized_tier(dst_tier)
         for attempt in range(self.max_retries + 1):
             if pending.size == 0:
                 break
@@ -636,14 +665,14 @@ class BatchedMigrationEngine:
             for src_t, idx in groups.items():
                 local_of[idx] = np.arange(idx.size)
                 if not store.is_addressable_tier(src_t):
-                    staged[src_t] = store.host_read_raw(src_t,
-                                                        src_slots[idx])
+                    staged[src_t] = store.host_read_for(
+                        src_t, src_slots[idx], dst_tier)
                 elif dst_dev:
-                    staged[src_t] = store.gather_device(src_t,
-                                                        src_slots[idx])
+                    staged[src_t] = store.gather_device(
+                        src_t, src_slots[idx], quantize=quant)
                 else:
                     staged[src_t] = self._stage_device_to_host(
-                        src_t, src_slots[idx])
+                        src_t, src_slots[idx], quantize=quant)
                 store.reads_from[src_t] += idx.size
             # 3) dirty check + bulk-commit clean pages
             dirty_mask = store.version[pending] != vsnap
@@ -670,11 +699,12 @@ class BatchedMigrationEngine:
                         continue
                     li = local_of[sel]
                     buf = staged[src_t]
-                    if isinstance(buf, np.ndarray):
+                    first = buf.q if isinstance(buf, QuantPages) else buf
+                    if isinstance(first, np.ndarray):
                         vals = buf[li]
                     else:
                         vals = buf[torch.from_numpy(_pad_idx_np(li)).to(
-                            buf.device)]
+                            store.device)]
                     try:
                         self._commit_group_write(src_t, dst_tier, slots[m],
                                                  vals)

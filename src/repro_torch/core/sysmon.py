@@ -107,6 +107,21 @@ def record(state: SysmonState, page_ids: torch.Tensor, *,
     return _apply_sampling(state, d_reads, d_writes, touched_i)
 
 
+def record_dense(state: SysmonState, d_reads: torch.Tensor,
+                 d_writes: torch.Tensor) -> SysmonState:
+    """Record a bulk sequential access burst (a prefill dispatch) as ONE
+    sampling.  ``d_reads``/``d_writes`` are dense int [n_pages] event
+    totals: the raw ``reads``/``writes``/``bank_freq``/``slab_freq``
+    match replaying the burst token by token, but ``access_count``
+    advances by at most 1 and ``sample_idx`` by exactly 1, so the next
+    pass sees one streaming touch and ranks the pages sequential and
+    cold (paper Sec. 4.2)."""
+    d_reads = d_reads.to(_I32)
+    d_writes = d_writes.to(_I32)
+    touched_i = ((d_reads + d_writes) > 0).to(_I32)
+    return _apply_sampling(state, d_reads, d_writes, touched_i)
+
+
 def _apply_sampling(state: SysmonState, d_reads: torch.Tensor,
                     d_writes: torch.Tensor, touched_i: torch.Tensor
                     ) -> SysmonState:

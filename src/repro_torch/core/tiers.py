@@ -10,6 +10,8 @@ Logical pages live in one of the pools described by a
   * **host** tiers — numpy pools (the NVM/CXL analogue).  bfloat16
     payloads are stored as their **uint16 bit pattern** (bit-exact round
     trips, half the bytes of float32); float32 payloads natively;
+    ``quantize_int8`` tiers store int8 plus a float32 scale per page (the
+    lossy soft-NVM analogue, the numpy quantizer of the JAX package);
   * **pinned_host** tiers — one page-shaped tensor in pinned host memory
     in the store dtype (bf16 stays bf16), the paper's byte-addressable
     NVM: the kernels read and write it in place through its mapped
@@ -17,7 +19,15 @@ Logical pages live in one of the pools described by a
     and the serving engine attends to and appends into its pages without
     promoting them.  Host-side access (the fault injector, Start-Gap row
     swaps) goes through a zero-copy numpy view taken after the card's
-    stream has drained.  On a CPU store it is a plain CPU tensor.
+    stream has drained.  On a CPU store it is a plain CPU tensor.  An
+    int8 pinned tier is one pinned int8 tensor plus one pinned float32
+    scale tensor, both addressed in place.
+
+Pages bound for an int8 tier are quantized where they lie: kernel K6
+(``page_gather_quant``) reads the source pool on the card and only int8
+bytes and scales (a :class:`QuantPages`) travel on; pages leaving an
+int8 tier are dequantized by ``dequant_gather``.  The serving engine
+promotes an int8 tier's pages before it attends to them.
 
 A page table maps logical page -> (tier, slot); per-page version counters
 are bumped by every write so the optimistic migration path can detect
@@ -34,8 +44,8 @@ survive.
 
 While the global fault injector is armed, every write into a host or
 pinned tier records a per-page checksum (``faults.integrity``) and a
-slot whose bits drift is quarantined (``quarantine_slot``).  int8 tiers
-are not ported; constructing a store that needs one raises.
+slot whose bits drift is quarantined (``quarantine_slot``).  A hierarchy
+may hold one int8 tier.
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ from repro_torch.device import resolve_device
 from repro_torch.faults.injector import get_injector, note_recovered
 from repro_torch.faults.integrity import PageIntegrity
 from repro_torch.kernels.page_gather import page_gather, page_scatter
+from repro_torch.kernels.page_quant import dequant_gather, page_gather_quant
 
 from .allocator import SubBuddyAllocator, SubBuddyConfig
 from .hierarchy import MediumSpec, MemoryHierarchy
@@ -161,17 +172,74 @@ def _pad_idx_np(slots) -> np.ndarray:
     return slots
 
 
+@dataclass
+class QuantPages:
+    """A batch of int8 pages and their float32 scales, [k, *page] and
+    [k] (both numpy or both torch): what moves into and out of an int8
+    tier.  Indexing selects the same pages of both."""
+
+    q: object
+    scale: object
+
+    def __getitem__(self, i) -> "QuantPages":
+        return QuantPages(self.q[i], self.scale[i])
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.q.shape)
+
+
+def map_pages(fn, pages):
+    """``fn`` over a page batch, or over both arrays of a QuantPages."""
+    if isinstance(pages, QuantPages):
+        return QuantPages(fn(pages.q), fn(pages.scale))
+    return fn(pages)
+
+
+def _check_pages_match(pages, quantized: bool) -> None:
+    """int8 pages go only to an int8 tier, which takes nothing else."""
+    if isinstance(pages, QuantPages) != quantized:
+        raise TypeError("int8 pages go only to an int8 tier, and an int8 "
+                        "tier takes only int8 pages")
+
+
+def _quantize_one_np(value: np.ndarray) -> tuple[np.ndarray, float]:
+    """One page's int8 bits and scale, the JAX host tier's per-page
+    quantizer (``HostPool.write_one``: the scale in Python floats)."""
+    scale = max(float(np.max(np.abs(value))), 1e-8) / 127.0
+    return np.clip(np.round(value / scale), -127, 127).astype(np.int8), scale
+
+
+def _quantize_batch_np(values: np.ndarray) -> QuantPages:
+    """float32 pages [k, *page] as int8 pages and scales, the JAX host
+    tier's batch quantizer (``HostPool.write_batch``)."""
+    bcast = (-1,) + (1,) * (values.ndim - 1)
+    scale = np.maximum(np.max(np.abs(values), axis=tuple(
+        range(1, values.ndim))), 1e-8) / 127.0
+    q = np.clip(np.round(values / scale.reshape(bcast)), -127, 127)
+    return QuantPages(q.astype(np.int8), scale.astype(np.float32))
+
+
+def _dequantize_np(pages: QuantPages) -> np.ndarray:
+    """numpy int8 pages and scales as float32 pages (the JAX host tier's
+    ``HostPool.read_batch``)."""
+    bcast = (-1,) + (1,) * (pages.q.ndim - 1)
+    return pages.q.astype(np.float32) * pages.scale.reshape(bcast)
+
+
 def _pad_pages(pages, k_padded: int):
-    """Pad a page batch to its padded index vector by repeating the last
-    page (numpy or torch)."""
+    """Pad a page batch (numpy, torch or QuantPages) to its padded index
+    vector by repeating the last page."""
     n = pages.shape[0]
     if n == k_padded:
         return pages
-    if isinstance(pages, np.ndarray):
-        return np.concatenate([pages, np.repeat(pages[-1:], k_padded - n,
+
+    def pad(a):
+        if isinstance(a, np.ndarray):
+            return np.concatenate([a, np.repeat(a[-1:], k_padded - n,
                                                 axis=0)])
-    return torch.cat([pages, pages[-1:].expand(k_padded - n,
-                                               *pages.shape[1:])])
+        return torch.cat([a, a[-1:].expand(k_padded - n, *a.shape[1:])])
+    return map_pages(pad, pages)
 
 
 def to_host_raw(t: torch.Tensor) -> np.ndarray:
@@ -228,9 +296,10 @@ class DevicePool:
 
 class HostPool:
     """A numpy page pool in the host-tier storage format (float32
-    natively, bfloat16 as uint16 bits).  ``*_one`` take and return
-    float32 values; ``*_raw`` move the storage format untouched (the
-    migration engine's bulk path)."""
+    natively, bfloat16 as uint16 bits, or — ``quantize_int8`` — int8
+    with a float32 ``scale`` per row).  ``*_one`` take and return float32
+    values; ``*_raw`` move the storage format untouched (the migration
+    engine's bulk path; a :class:`QuantPages` for an int8 pool)."""
 
     def __init__(self, spec: MediumSpec, page_shape: tuple[int, ...],
                  dtype: torch.dtype):
@@ -239,19 +308,38 @@ class HostPool:
         self.spec = spec
         self.page_shape = page_shape
         self.dtype = dtype
-        self.data = np.zeros((spec.slots, *page_shape), _HOST_DTYPES[dtype])
+        self.quantized = spec.quantize_int8
+        self.scale = None
+        if self.quantized:
+            self.data = np.zeros((spec.slots, *page_shape), np.int8)
+            self.scale = np.ones((spec.slots,), np.float32)
+        else:
+            self.data = np.zeros((spec.slots, *page_shape),
+                                 _HOST_DTYPES[dtype])
 
     def write_one(self, phys: int, value: np.ndarray) -> None:
+        if self.quantized:
+            self.data[phys], self.scale[phys] = _quantize_one_np(value)
+            return
         v = torch.from_numpy(np.asarray(value, np.float32)).to(self.dtype)
         self.data[phys] = to_host_raw(v)
 
     def read_one(self, phys: int) -> np.ndarray:
+        if self.quantized:
+            return self.data[phys].astype(np.float32) * self.scale[phys]
         return from_host_raw(self.data[phys], self.dtype).float().numpy()
 
-    def write_raw(self, phys: np.ndarray, raw: np.ndarray) -> None:
-        self.data[phys] = raw
+    def write_raw(self, phys: np.ndarray, raw) -> None:
+        _check_pages_match(raw, self.quantized)
+        if self.quantized:
+            self.data[phys] = raw.q
+            self.scale[phys] = raw.scale
+        else:
+            self.data[phys] = raw
 
-    def read_raw(self, phys: np.ndarray) -> np.ndarray:
+    def read_raw(self, phys: np.ndarray):
+        if self.quantized:
+            return QuantPages(self.data[phys], self.scale[phys])
         return self.data[phys]
 
     def raw(self) -> np.ndarray:
@@ -259,8 +347,11 @@ class HostPool:
         return self.data
 
     def swap_rows(self, a: int, b: int) -> None:
-        """Swap two physical rows in place (Start-Gap leveling advance)."""
+        """Swap two physical rows, and their scales, in place (Start-Gap
+        leveling advance)."""
         self.data[[a, b]] = self.data[[b, a]]
+        if self.scale is not None:
+            self.scale[[a, b]] = self.scale[[b, a]]
 
 
 class PinnedHostPool:
@@ -275,7 +366,13 @@ class PinnedHostPool:
     view in host storage format (bf16 as uint16 bits) that host-side
     readers and writers use; it first waits for the card's stream, so
     it never races a queued write.  On a CPU store ``data`` is a plain
-    CPU tensor and the kernels' plain versions run."""
+    CPU tensor and the kernels' plain versions run.
+
+    A ``quantize_int8`` pool is int8 ``data`` plus a float32 ``scale`` per
+    row, both pinned: ``gather`` dequantizes to the store dtype
+    (``dequant_gather``), ``scatter`` takes :class:`QuantPages` (K6's
+    output) and copies rows and scales in place with ``page_scatter``;
+    host-side writers quantize in numpy through the views."""
 
     def __init__(self, spec: MediumSpec, page_shape: tuple[int, ...],
                  dtype: torch.dtype, device: torch.device):
@@ -285,8 +382,17 @@ class PinnedHostPool:
         self.page_shape = page_shape
         self.dtype = dtype
         self.device = device       # where the kernels that touch it run
-        self.data = torch.zeros((spec.slots, *page_shape), dtype=dtype,
-                                pin_memory=device.type == "cuda")
+        self.quantized = spec.quantize_int8
+        pin = device.type == "cuda"
+        self.scale = None
+        if self.quantized:
+            self.data = torch.zeros((spec.slots, *page_shape),
+                                    dtype=torch.int8, pin_memory=pin)
+            self.scale = torch.ones(spec.slots, dtype=torch.float32,
+                                    pin_memory=pin)
+        else:
+            self.data = torch.zeros((spec.slots, *page_shape), dtype=dtype,
+                                    pin_memory=pin)
 
     def _idx(self, phys: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(phys, np.int32)).to(self.device)
@@ -299,30 +405,52 @@ class PinnedHostPool:
         return to_host_raw(self.data)
 
     def gather(self, phys) -> torch.Tensor:
-        """Physical rows into a pow2-padded staging tensor on the store's
-        device (``page_gather`` over the mapped pool)."""
-        return page_gather(self.data, self._idx(_pad_idx_np(phys)))
+        """Physical rows into a pow2-padded staging tensor in the store
+        dtype on the store's device (``page_gather`` over the mapped pool;
+        ``dequant_gather`` for an int8 pool)."""
+        idx = self._idx(_pad_idx_np(phys))
+        if self.quantized:
+            return dequant_gather(self.data, self.scale, idx, self.dtype)
+        return page_gather(self.data, idx)
 
-    def scatter(self, phys, pages: torch.Tensor) -> None:
+    def scatter(self, phys, pages) -> None:
         """pool[phys[i]] = pages[i] in place (``page_scatter`` into the
-        mapped pool); rows not referenced are untouched."""
+        mapped pool; an int8 pool takes QuantPages and copies the scales
+        the same way); rows not referenced are untouched."""
         idx = _pad_idx_np(phys)
-        pages = _pad_pages(pages, idx.size).to(device=self.device,
-                                               dtype=self.dtype).contiguous()
-        page_scatter(self.data, self._idx(idx), pages)
+        _check_pages_match(pages, self.quantized)
+        pages = _pad_pages(pages, idx.size)
+        if self.quantized:
+            page_scatter(self.data, self._idx(idx),
+                         pages.q.to(self.device).contiguous())
+            page_scatter(self.scale, self._idx(idx),
+                         pages.scale.to(self.device).contiguous())
+            return
+        page_scatter(self.data, self._idx(idx), pages.to(
+            device=self.device, dtype=self.dtype).contiguous())
 
     def write_one(self, phys: int, value: np.ndarray) -> None:
+        if self.quantized:
+            raw = self.raw()
+            raw[phys], self.scale.numpy()[phys] = _quantize_one_np(value)
+            return
         self.scatter([phys], torch.from_numpy(
             np.asarray(value, np.float32)[None]))
 
     def read_one(self, phys: int) -> np.ndarray:
+        if self.quantized:
+            return (self.raw()[phys].astype(np.float32)
+                    * self.scale.numpy()[phys])
         return self.gather([phys])[0].float().cpu().numpy()
 
     def swap_rows(self, a: int, b: int) -> None:
-        """Swap two physical rows in place (Start-Gap leveling advance on
-        the host)."""
+        """Swap two physical rows, and their scales, in place (Start-Gap
+        leveling advance on the host)."""
         raw = self.raw()
         raw[[a, b]] = raw[[b, a]]
+        if self.scale is not None:
+            sc = self.scale.numpy()
+            sc[[a, b]] = sc[[b, a]]
 
 
 # =============================================================================
@@ -336,11 +464,9 @@ class TierStore:
             cfg = StoreConfig(n_pages=cfg.n_pages, page_shape=cfg.page_shape,
                               hierarchy=cfg.hierarchy(), dtype=cfg.dtype,
                               n_banks=cfg.n_banks, n_slabs=cfg.n_slabs)
-        for t in cfg.hierarchy:
-            if t.quantize_int8:
-                raise NotImplementedError(
-                    f"tier {t.name!r}: int8 tiers are not ported yet (they "
-                    "come with kernel K6 in a later slice)")
+        if sum(t.quantize_int8 for t in cfg.hierarchy) > 1:
+            raise NotImplementedError(
+                "a hierarchy with more than one int8 tier is not ported")
         if not cfg.hierarchy[0].is_device:
             raise ValueError("tier 0 must be a device tier")
         self.device = resolve_device(device)
@@ -426,6 +552,9 @@ class TierStore:
         """Kernels gather/scatter this tier's pool directly (device tiers
         and pinned-host tiers)."""
         return self.hierarchy[tier].is_device_addressable
+
+    def is_quantized_tier(self, tier: int) -> bool:
+        return self.hierarchy[tier].quantize_int8
 
     # -- dirty-set epochs -----------------------------------------------------
     def begin_dirty_epoch(self) -> None:
@@ -553,14 +682,21 @@ class TierStore:
         self.integrity.record(self, tier, [slot])
 
     # -- batched data access (the migration engine's bulk primitives) ----------
-    def gather_device(self, tier: int, slots) -> torch.Tensor:
+    def gather_device(self, tier: int, slots, quantize: bool = False):
         """Pack a device-addressable tier's (logical) slots into one
         pow2-padded staging tensor on the store's device; pinned tiers
-        translate through the wear remap."""
+        translate through the wear remap, and an int8 tier comes back
+        dequantized.  ``quantize`` (the destination is the int8 tier)
+        quantizes the pages where they lie with K6 and returns
+        QuantPages."""
+        phys = slots
         if self.is_pinned_tier(tier):
-            return self.pools[tier].gather(
-                self._phys(tier, np.asarray(slots, np.int64)))
-        return self.pools[tier].gather(slots)
+            phys = self._phys(tier, np.asarray(slots, np.int64))
+        if quantize:
+            idx = torch.from_numpy(_pad_idx_np(phys).astype(np.int32))
+            return QuantPages(*page_gather_quant(self.pools[tier].data,
+                                                 idx.to(self.device)))
+        return self.pools[tier].gather(phys)
 
     def scatter_device(self, tier: int, slots, pages: torch.Tensor) -> None:
         """pool[slots[i]] = pages[i] on a device-addressable tier, in
@@ -575,13 +711,32 @@ class TierStore:
             return
         self.pools[tier].scatter(slots, pages)
 
-    def host_read_raw(self, tier: int, slots: np.ndarray) -> np.ndarray:
-        """[k, *page_shape] of a host tier's slots in storage format."""
+    def host_read_raw(self, tier: int, slots: np.ndarray):
+        """[k, *page_shape] of a host tier's slots in storage format
+        (QuantPages for an int8 tier)."""
         return self.pools[tier].read_raw(
             self._phys(tier, np.asarray(slots, np.int64)))
 
-    def host_write_raw(self, tier: int, slots: np.ndarray,
-                       raw: np.ndarray) -> None:
+    def host_read_for(self, tier: int, slots: np.ndarray, dst_tier: int):
+        """``host_read_raw`` in the format a move into ``dst_tier`` needs.
+        Pages cross between the int8 tier and a float one through float32
+        in numpy, as the JAX host tiers' ``read_batch``/``write_batch``
+        move them: quantized per page for the int8 tier, dequantized to
+        the store dtype for a numpy host tier.  int8 pages bound for a
+        device-addressable float tier stay int8 and are dequantized on
+        the card."""
+        raw = self.host_read_raw(tier, slots)
+        dtype = self.cfg.dtype
+        if self.is_quantized_tier(dst_tier):      # the source is float
+            return _quantize_batch_np(
+                from_host_raw(raw, dtype).float().numpy())
+        if isinstance(raw, QuantPages) and \
+                not self.is_addressable_tier(dst_tier):
+            return to_host_raw(torch.from_numpy(_dequantize_np(raw)).to(
+                dtype))
+        return raw
+
+    def host_write_raw(self, tier: int, slots: np.ndarray, raw) -> None:
         """pool[slots[i]] = raw[i] on a host tier (storage format),
         charging wear where tracked."""
         phys = self._phys(tier, np.asarray(slots, np.int64))

@@ -8,7 +8,9 @@ writes nothing (the JAX ``mode="drop"`` rule), so the caller points the
 pool that does not hold the tail at ``n_slots``.
 
 The pools are per-layer views ``pool[:, l]`` of the
-``[slots, L, 2, page, Hkv, D]`` page pools.  On the card
+``[slots, L, 2, page, Hkv, D]`` page pools.  The packed prefill appends
+all L rows of a bucket in one call, into one pool (``pin=None``) or two;
+its padding rows carry an out-of-range slot and are dropped.  On the card
 ``csrc/kv_append.cu`` writes them in place — the second pool is pinned
 host memory, reached through its mapped device address; CPU tensors take
 ``kv_append_plain``.
@@ -36,6 +38,8 @@ def kv_append_plain(fast: torch.Tensor, pin: torch.Tensor,
     pool (masked index_put: out-of-range rows are dropped; a pool in
     host memory is written from the host)."""
     for pool, idx in ((fast, f_idx), (pin, p_idx)):
+        if pool is None:
+            continue
         keep = (idx >= 0) & (idx < pool.shape[0])
         if bool(keep.any()):
             dev = pool.device
@@ -46,6 +50,9 @@ def kv_append_plain(fast: torch.Tensor, pin: torch.Tensor,
 
 def _launch(fast, pin, f_idx, p_idx, off, k, v) -> None:
     B = k.shape[0]
+    n_pin = 0 if pin is None else pin.shape[0]
+    if pin is None:              # one pool: no second-pool row is in range
+        pin, p_idx = fast, f_idx
     dev = k.device
     if fast.dtype not in _FN or pin.dtype != fast.dtype \
             or k.dtype != fast.dtype or v.dtype != fast.dtype:
@@ -76,18 +83,19 @@ def _launch(fast, pin, f_idx, p_idx, off, k, v) -> None:
     fn = _build.function(_FN[fast.dtype], _ARGTYPES)
     err = fn(fast.data_ptr(), _build.device_address(pin), f_idx.data_ptr(),
              p_idx.data_ptr(), off.data_ptr(), k.data_ptr(), v.data_ptr(),
-             B, row, fast.shape[0], pin.shape[0], fs[0], fs[1], fs[2],
+             B, row, fast.shape[0], n_pin, fs[0], fs[1], fs[2],
              ps[0], ps[1], ps[2], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, _FN[fast.dtype])
     count_launch("kv_append")
 
 
-def kv_append(fast: torch.Tensor, pin: torch.Tensor, f_idx: torch.Tensor,
-              p_idx: torch.Tensor, off: torch.Tensor, k: torch.Tensor,
-              v: torch.Tensor) -> None:
+def kv_append(fast: torch.Tensor, pin: torch.Tensor | None,
+              f_idx: torch.Tensor, p_idx: torch.Tensor | None,
+              off: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Write k/v [B, Hkv, D] at in-page offset ``off`` of slot ``f_idx`` of
     the tier-0 view ``fast`` and slot ``p_idx`` of the second view ``pin``
-    (both [slots, 2, page, Hkv, D]); out-of-range slots write nothing."""
+    (both [slots, 2, page, Hkv, D]; ``pin`` and ``p_idx`` None for one
+    pool); out-of-range slots write nothing."""
     if k.device.type == "cpu":
         kv_append_plain(fast, pin, f_idx, p_idx, off, k, v)
         return

@@ -11,7 +11,6 @@ it runs ``paged_attention_plain``, the gather + fp32 softmax reference
 The pools may be strided views — the engine passes
 ``pool[:, layer, 0]`` of the [slots, L, 2, page, Hkv, D] page pool — and
 are never copied: the kernel takes their slot/row/head strides.
-``lengths[b]`` must be >= 1.
 
 ``paged_attention_dual`` is the dual-pool variant of the pinned-host
 NVM tier: each page of the block table lives either in the tier-0 pool
@@ -22,6 +21,9 @@ package gathers both pools and selects per page before attending
 ``paged_attention_pages``); ``paged_attention_dual_plain`` is that
 computation.  The kernel is K1 with a per-page choice of base pointer,
 so a page's attention is bit-identical wherever it lives.
+
+The packed prefill calls ``paged_attention`` and ``paged_attention_dual``
+with one row per packed position (see their docstrings).
 """
 from __future__ import annotations
 
@@ -189,7 +191,13 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_table: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
     """q [B, Hq, D] decode queries; k/v_pool [n_slots, page, Hkv, D];
-    block_table [B, n_pages]; lengths [B].  Returns [B, Hq, D]."""
+    block_table [B, n_pages]; lengths [B].  Returns [B, Hq, D].
+
+    Prefill passes one row per packed position: B = the bucket's L rows,
+    each with its own segment's block table and its causal prefix as its
+    length.  A padding row has length 0; K1 writes zeros for it (the
+    plain version the mean of its masked values) and no caller reads
+    it."""
     B, Hq, D = q.shape
     Hkv = k_pool.shape[2]
     qg = (q * D ** -0.5).reshape(B, Hkv, Hq // Hkv, D)
@@ -223,10 +231,12 @@ def paged_attention_dual(q: torch.Tensor, k_pool: torch.Tensor,
                          pool_sel: torch.Tensor,
                          lengths: torch.Tensor) -> torch.Tensor:
     """The engine-facing dual-pool wrapper: q [B, Hq, D] decode queries,
-    scaled here.  Returns [B, Hq, D]."""
+    scaled here.  Returns [B, Hq, D].  The pinned prefill passes one row
+    per packed position, as for ``paged_attention``."""
     B, Hq, D = q.shape
     Hkv = k_pool.shape[2]
     qg = (q * D ** -0.5).reshape(B, Hkv, Hq // Hkv, D)
     out = paged_attention_dual_pooled(qg, k_pool, v_pool, k_pool2, v_pool2,
                                       block_table, pool_sel, lengths)
     return out.reshape(B, Hq, D)
+

@@ -63,7 +63,8 @@ class StartGapLeveler:
 
     def advance(self, pool) -> None:
         """One gap move: swap physical rows (gap, gap+1) of the slow pool
-        through ``pool.swap_rows``."""
+        through ``pool.swap_rows`` (an int8 pool swaps the rows' scales
+        with them)."""
         a = self.stats.gap
         b = a + 1
         pool.swap_rows(a, b)

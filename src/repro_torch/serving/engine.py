@@ -33,6 +33,17 @@ dispatch run after its K steps — row swaps, remap rotation, wear charge
 order.  A dispatch whose pages all sit in tier 0 takes the single-pool
 path.
 
+**int8 tiers.**  A quantized deepest tier (the lossy soft-NVM medium)
+is never served in place, pinned or not: its pages are promoted — and
+dequantized on the card — before they are attended, and demotions into
+it are quantized on the card by kernel K6.
+
+**Prefill.**  With ``ServeConfig(prefill=True)`` every newly admitted
+request ingests its whole prompt in one bucketed, packed dispatch
+(``serving/prefill.py``) and joins the decode batch with its first token
+sampled; SysMon sees the burst as one streaming sampling.  Without it
+the prompt is replayed through the decode loop one token per step.
+
 **Faults.**  While the global fault injector is armed, every step drains
 the store's quarantine log (failing the owners of lost pages with a
 ``PageCorruptionError``), re-verifies the checksums of every pinned page
@@ -40,10 +51,10 @@ the dispatch is about to serve, refreshes the checksums of pinned rows
 the dispatch appended to, and ticks the injector last, so each
 corruption meets a detection point before the next serve.
 
-Prefill, int8 tiers, the overlapped memos plan, QoS and MoE are not
-ported; a ``ServeConfig`` asking for them raises
-``NotImplementedError``.  The KV pool takes the parameters' dtype
-(bfloat16 weights serve from a bfloat16 pool).
+The overlapped memos plan, QoS and MoE are not ported; a
+``ServeConfig`` asking for them raises ``NotImplementedError``.  The KV
+pool takes the parameters' dtype (bfloat16 weights serve from a
+bfloat16 pool).
 """
 from __future__ import annotations
 
@@ -70,6 +81,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serving.kv_cache import SERVE_TIER, PagedKVCache, PagedKVConfig
+from repro_torch.serving.prefill import (PackedGroup, PrefillRunner,
+                                         pack_prompts, replay_page_counts)
 from repro_torch.serving.scheduler import ContinuousBatcher, Request
 
 
@@ -92,18 +105,23 @@ class ServeConfig:
     # K=1 path with host-side sampling + standalone SysMon records; the
     # parity oracle of the fused dispatch
     reference: bool = False
+    # bucketed packed prefill (serving/prefill.py): newly admitted
+    # requests ingest their whole prompt in one pow2-bucket dispatch
+    # instead of replaying it through the decode loop; ignored under
+    # reference=True (the oracle is prompt replay)
+    prefill: bool = False
+    # largest bucket (pow2-rounded); None -> covers max_pages_per_seq
+    prefill_max_bucket: int | None = None
+    # pack several short prompts into one bucket row (segment-isolated)
+    prefill_pack: bool = True
     # not ported: refused at construction
     overlap_plan: bool = False
     qos: object | None = None
-    prefill: bool = False
 
     def __post_init__(self):
         asked = [name for name, on in (
             ("overlap_plan", self.overlap_plan),
-            ("qos", self.qos is not None), ("prefill", self.prefill),
-            ("int8 tiers (a later slice, with kernel K6)",
-             self.hierarchy is not None
-             and any(t.quantize_int8 for t in self.hierarchy))) if on]
+            ("qos", self.qos is not None)) if on]
         if asked:
             raise NotImplementedError(
                 f"not ported to repro_torch yet: {', '.join(asked)}")
@@ -137,8 +155,11 @@ class PagedServingEngine:
             device=self.device)
         store = self.kv.store
         # dual-pool serving: a pinned-host deepest tier is served and
-        # appended in place by the decode
+        # appended in place by the decode — unless it is int8, which
+        # cannot absorb token-granular appends: its pages are promoted
         pt = self.kv.pinned_tier
+        if pt is not None and store.is_quantized_tier(pt):
+            pt = None
         self.pinned_tier = pt
         # in-dispatch Start-Gap: the dual-pool dispatch advances the
         # pinned tier's gap itself once this many pinned writes have
@@ -159,6 +180,13 @@ class PagedServingEngine:
         self.tokens_out = 0
         self.rid = 0
         self.last_logits = None     # final inner step's logits, on device
+        self.prefill_runner = (PrefillRunner(self)
+                               if scfg.prefill and not scfg.reference
+                               else None)
+        # prompt tokens ingested by prefill since the last memos tick: the
+        # pass's sampling clock advances by them (replay would have spent
+        # that many inner decode steps)
+        self._prefill_tokens_pending = 0
 
     # -- request API -----------------------------------------------------------
     def submit(self, prompt: list[int], max_new: int) -> Request:
@@ -167,6 +195,13 @@ class PagedServingEngine:
             raise CapacityError(
                 f"sequence needs {len(prompt) + max_new} positions but "
                 f"max_pages_per_seq*page_size = {cap}")
+        if (self.prefill_runner is not None
+                and len(prompt) > self.prefill_runner.max_bucket):
+            raise CapacityError(
+                f"prompt of {len(prompt)} tokens exceeds the largest "
+                f"prefill bucket ({self.prefill_runner.max_bucket}); raise "
+                f"prefill_max_bucket (or max_pages_per_seq) or split the "
+                f"prompt")
         req = Request(self.rid, list(prompt), max_new, arrival=self.step_count)
         req.submit_ts = time.monotonic()
         req.tokens = []          # processed tokens (prompt-consumed + generated)
@@ -584,7 +619,143 @@ class PagedServingEngine:
         n_pin = self.kv.store.pools[self.pinned_tier].data.shape[0]
         return torch.arange(n_pin, dtype=torch.int32, device=self.device)
 
+    # -- bucketed packed prefill (serving/prefill.py) ----------------------------
+    def _prefill_admitted(self) -> None:
+        new = [r for r in self.batcher.active if r.pos == 0]
+        if not new:
+            return
+        pr = self.prefill_runner
+        for g in pack_prompts(
+                new, min_bucket=pr.min_bucket, max_bucket=pr.max_bucket,
+                pack=self.scfg.prefill_pack, max_segments=pr.max_segments):
+            self._prefill_group(g)
+
+    def _prefill_group(self, group: PackedGroup) -> None:
+        """One packed prefill dispatch: provision every segment's prompt
+        pages, run the dispatch, then settle the boundary with the totals
+        replaying the prompts would have charged — store accesses, one
+        SysMon streaming sampling, pinned wear and checksums — and stamp
+        each segment's first token."""
+        # provision under pressure: preempt, dropping members that were
+        # evicted themselves (they re-enter later with pos still 0), and
+        # fail the blocked request when nothing is left to preempt
+        while True:
+            self._drain_faults()
+            segs = [r for r in group.requests
+                    if not r.preempted and not r.done]
+            blocked = None
+            for r in segs:
+                if not self._ensure_pages(r, k=len(r.prompt)):
+                    blocked = r
+                    break
+            if blocked is None:
+                break
+            if not self._make_room():
+                self._fail_request(blocked, CapacityError(
+                    f"request {blocked.rid}: HBM+host pools exhausted "
+                    f"during prefill and no preemption victim remains",
+                    rid=blocked.rid, occupancy=self.kv.occupancy()))
+                note_recovered("backpressure")
+        group.requests = segs
+        if not segs:
+            return
+
+        pr = self.prefill_runner
+        store = self.kv.store
+        page = self.scfg.page_size
+        pt = self.pinned_tier
+        pages_rows = [r.pages for r in segs]
+        n_cols = pr.n_table_pages(group.bucket)
+        pool_sel = wear_tr = None
+        if pt is None:
+            page_tables, block_tables = self.kv.fill_tables(pages_rows,
+                                                            n_cols)
+        else:
+            page_tables, block_tables, pool_sel = self.kv.fill_tables_mixed(
+                pages_rows, n_cols)
+            wear_tr = store.wear_by_tier.get(pt)
+            if not pool_sel.any():
+                # every prompt page is tier-0 resident: single-pool path
+                pt = pool_sel = wear_tr = None
+        a = {k: torch.from_numpy(v).to(self.device)
+             for k, v in pr.build_args(group, block_tables, pool_sel).items()}
+        n_tok = group.total_tokens
+        t0 = time.perf_counter()
+        with obs.span("serve.prefill", step=self.step_count,
+                      bucket=group.bucket, segments=len(segs),
+                      tokens=n_tok):
+            if pt is None:
+                first, seg_logits = pr._core_plain(
+                    a["tokens"], a["local_pos"], a["row_tables"],
+                    a["lengths"], a["write_slot"], a["write_off"],
+                    a["seg_last"])
+            else:
+                first, seg_logits = pr._core_pinned(
+                    a["tokens"], a["local_pos"], a["row_tables"],
+                    a["row_sel"], a["lengths"], a["write_slot"],
+                    a["write_sel"], a["write_off"], a["seg_last"],
+                    self._pinned_remap(wear_tr))
+            first = first.cpu().numpy()
+        dt = time.perf_counter() - t0
+        self.last_logits = seg_logits
+        reg = obs.get_registry()
+        reg.histogram("serving.prefill_latency_s",
+                      "wall time of one packed prefill dispatch").observe(dt)
+        reg.counter("serving.prefill_dispatches",
+                    "packed prefill dispatches issued").inc()
+        reg.counter("serving.prefill_tokens",
+                    "prompt tokens ingested via prefill").inc(n_tok)
+
+        # boundary accounting: closed-form totals equal to the replay
+        # stream's, reported to SysMon as one streaming sampling
+        prompt_lens = [len(r.prompt) for r in segs]
+        d_reads, d_writes = replay_page_counts(prompt_lens, page_tables,
+                                               page, self.kv.n_pages)
+        self.sysmon = sysmon_mod.record_dense(
+            self.sysmon, torch.from_numpy(d_reads).to(self.device),
+            torch.from_numpy(d_writes).to(self.device))
+        if pt is None:
+            store.charge_fast_accesses(d_writes, int(d_reads.sum()))
+        else:
+            store.charge_accesses(d_writes, d_reads)
+            # the in-dispatch appends into the pinned tier bypass the
+            # store's write paths: charge their wear per token write and
+            # refresh the written rows' checksums here
+            wr_slots: list[int] = []
+            for si, lp in enumerate(prompt_lens):
+                for j in range((lp - 1) // page + 1):
+                    if pool_sel[si, j]:
+                        wr_slots.extend([int(block_tables[si, j])]
+                                        * min(page, lp - j * page))
+            if wear_tr is not None and wr_slots:
+                store._account_host_writes(
+                    pt, wear_tr.phys(np.asarray(wr_slots, np.int64)))
+            if store.integrity.enabled and wr_slots:
+                store.integrity.record(store, pt, sorted(set(wr_slots)))
+
+        # the prompt is consumed and the first token sampled: the request
+        # joins the decode batch at pos == len(prompt), or retires here
+        # when one token was all it asked for
+        for req, tok in zip(segs, first):
+            req.tokens = list(req.prompt)
+            req.generated = [int(tok)]
+            self.tokens_out += 1
+            self._stamp_first_token(req, self.step_count)
+            if req.max_new <= 1:
+                self.batcher.finish(req, self.step_count)
+                self._release_pages(req)
+        self._prefill_tokens_pending += n_tok
+
     # -- metrics -------------------------------------------------------------------
+    def _stamp_first_token(self, req: Request, step: int) -> None:
+        """Both TTFT clocks: the step that sampled the first token, and
+        the wall clock (published as ``serving.ttft_s``)."""
+        req.first_token_step = step
+        req.first_token_ts = time.monotonic()
+        obs.get_registry().histogram(
+            "serving.ttft_s", "wall-clock time to first token").observe(
+                req.ttft_s)
+
     def _publish_dispatch_metrics(self, dt: float, k: int, batch: int) -> None:
         reg = obs.get_registry()
         reg.histogram("serving.dispatch_latency_s",
@@ -629,6 +800,13 @@ class PagedServingEngine:
                     break
                 if not ok and not self._make_room():
                     break
+
+        # 1b) prefill: every newly admitted request (pos == 0) ingests its
+        # whole prompt in one packed bucketed dispatch and joins the decode
+        # batch with its first token sampled.  Requests resumed mid-prompt
+        # keep the replay path: their pool state is positional.
+        if self.prefill_runner is not None:
+            self._prefill_admitted()
 
         active = list(self.batcher.active)
         stats = {"step": self.step_count, "active": len(active)}
@@ -772,8 +950,8 @@ class PagedServingEngine:
                 req.generated.extend(new_gen)
                 self.tokens_out += len(new_gen)
                 if new_gen and not had_gen:
-                    req.first_token_step = self.step_count + int(emit_from[i])
-                    req.first_token_ts = time.monotonic()
+                    self._stamp_first_token(
+                        req, self.step_count + int(emit_from[i]))
                 seq = req.prompt + req.generated
                 p0 = int(positions[i])
                 req.tokens.extend(seq[p0:p0 + k])
@@ -785,7 +963,12 @@ class PagedServingEngine:
         # preempted pages drain to the host tier), then one bulk promotion
         # for every page it demoted out from under a running sequence
         if self.scfg.memos_enabled:
-            self.sysmon, report = self.memos.maybe_step(self.sysmon, steps=k)
+            # the sampling clock also advances by the prompt tokens prefill
+            # ingested since the last tick
+            pending = self._prefill_tokens_pending
+            self._prefill_tokens_pending = 0
+            self.sysmon, report = self.memos.maybe_step(
+                self.sysmon, steps=k + pending)
             if report is not None:
                 stats["memos"] = {
                     "migrated": report.migrations.migrated,

@@ -7,6 +7,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -83,8 +84,7 @@ def test_entry_points_raise_without_cuda(entry):
             PagedServingEngine(cfg, params, ServeConfig())
 
 
-@pytest.mark.parametrize("field,value", [("prefill", True),
-                                         ("overlap_plan", True),
+@pytest.mark.parametrize("field,value", [("overlap_plan", True),
                                          ("qos", object())])
 def test_serve_config_refuses_unported_features(field, value):
     from repro_torch.serving.engine import ServeConfig
@@ -93,19 +93,28 @@ def test_serve_config_refuses_unported_features(field, value):
 
 
 def test_serve_config_refuses_pinned_tiers():
-    """Pinned-host tiers are served (the dual-pool decode); an int8
-    pinned tier is not ported yet and is refused with the slice that
-    brings it named, by the config and by the store."""
+    """Pinned-host tiers are served (the dual-pool decode), and int8
+    tiers — numpy host and pinned — are accepted by the config and the
+    store, with prefill on; only a hierarchy with two int8 tiers is
+    refused, by the store."""
     from repro_torch.core.hierarchy import MemoryHierarchy
-    from repro_torch.core.tiers import StoreConfig, TierStore
+    from repro_torch.core.tiers import (HostPool, PinnedHostPool,
+                                        StoreConfig, TierStore)
     from repro_torch.serving.engine import ServeConfig
     ServeConfig(hierarchy=MemoryHierarchy.two_tier(8, 16, pinned_slow=True))
-    int8 = MemoryHierarchy.two_tier(8, 16, pinned_slow=True,
-                                    quantize_slow=True)
-    with pytest.raises(NotImplementedError, match="int8.*K6"):
-        ServeConfig(hierarchy=int8)
-    with pytest.raises(NotImplementedError, match="int8.*K6"):
-        TierStore(StoreConfig(n_pages=4, page_shape=(2,), hierarchy=int8),
+    for pinned, pool_cls in ((False, HostPool), (True, PinnedHostPool)):
+        int8 = MemoryHierarchy.two_tier(8, 16, pinned_slow=pinned,
+                                        quantize_slow=True)
+        ServeConfig(hierarchy=int8, prefill=True)
+        store = TierStore(StoreConfig(n_pages=4, page_shape=(2,),
+                                      hierarchy=int8), device="cpu")
+        pool = store.pools[1]
+        assert isinstance(pool, pool_cls) and pool.quantized
+        assert pool.data.dtype in (np.int8, torch.int8)
+    two = MemoryHierarchy.three_tier(4, 8, 16, quantize_nvm=True).with_tier(
+        1, residency="host", quantize_int8=True)
+    with pytest.raises(NotImplementedError, match="more than one int8"):
+        TierStore(StoreConfig(n_pages=4, page_shape=(2,), hierarchy=two),
                   device="cpu")
 
 
