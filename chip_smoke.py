@@ -58,6 +58,21 @@ prints no result line):
  13. ``int8_pinned``: over an int8 pinned-host tier with page integrity
      armed (no faults): 0 tokens may differ from phase 12, and the NVM
      int8 bytes and scales must match phase 12's at every logical slot;
+ 14. ``longctx_zamba2``: dense-cache generation (``launch.longctx_decode.
+     generate``: ``prefill`` then greedy ``decode_step``) at the full
+     width and depth of zamba2_7b in bf16: 4 prompts of 2000 tokens, 32
+     new tokens each; the prefill launches K9 ``ssd_scan`` exactly once
+     per Mamba layer (81) and K8 ``flash_attention`` once per
+     shared-attention site (11), the decode launches no kernel;
+ 15. ``longctx_mamba2``: the same for mamba2_1_3b (48 K9, no K8);
+ 16. ``longctx_probe_f32``: on float32 weights (zamba2 cut to 14 layers,
+     mamba2 at full depth) every decode step's logits agree with a fresh
+     prefill's over the same tokens within 1e-3, the argmax too unless
+     near a tie; the same probe on the full-depth bf16 models is
+     reported (``longctx_probe_bf16``), not gated;
+ 17. ``longctx_card_vs_cpu``: smoke-width mamba2 and zamba2 in float32,
+     a 37-token prompt and 5 decode steps on the card and on the CPU:
+     logits and states within 1e-4, identical tokens;
   9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
@@ -69,11 +84,14 @@ prints no result line):
      host-link rate measured in this run (a pinned -> device ``copy_``)
      for pinned host memory, operations over the bf16 peak.  Phases
      10-13 run before it; its rows add K6, ``dequant_gather``, K5 over
-     1-byte pages and K1 at the prefill shape.
+     1-byte pages and K1 at the prefill shape; phases 14-17 too, and
+     its rows add K8 (zamba2's prefill shape, a GQA shape, a 512-token
+     window; bf16 within 1e-2) and K9 (zamba2's and mamba2's shapes;
+     float32 outputs within 1e-4).
 
 Output: the card's name and power limit, the build time, the engine
-lines, the parity lines, the prefill and int8 lines, the ``{"kernels": [...]}``
-line, the card's
+lines, the parity lines, the prefill and int8 lines, the long-context
+lines, the ``{"kernels": [...]}`` line, the card's
 line again, and last ``{"ok": true, "device": {...}}``.  Exits 2
 without a CUDA device and 1 when the port's sources are not beside this
 script.
@@ -133,6 +151,32 @@ INT8_PINNED_KERNELS = INT8_HOST_KERNELS + ("page_checksum",)
 PROBE_F32_TOL = 1e-4
 PROBE_BF16_MAX_ERR = 0.2
 PROBE_TIE_MARGIN = 3e-2
+# phases 14-17, dense-cache long-context generation at full width and
+# depth in bf16: 4 prompts of 2000 tokens (15 full 128-token SSD chunks
+# and a ragged 80), 32 greedy decode steps into 2032 cache slots
+LONGCTX_BATCH, LONGCTX_PROMPT, LONGCTX_NEW = 4, 2000, 32
+LONGCTX_CACHE = LONGCTX_PROMPT + LONGCTX_NEW
+# decode logits vs a fresh prefill over the same tokens on float32
+# weights: zamba2 at full width cut to 14 layers (two shared-attention
+# sites), mamba2_1_3b at full depth, a 500-token prompt, 4 steps; a flip
+# of the argmax is allowed only under a top-2 margin of 1e-2
+LONGCTX_PROBE_LAYERS = 14
+LONGCTX_PROBE_PROMPT, LONGCTX_PROBE_STEPS = 500, 4
+LONGCTX_PROBE_TOL = 1e-3
+LONGCTX_TIE_MARGIN = 1e-2
+# smoke width, float32, the card (kernels) vs the CPU (plain versions)
+LONGCTX_CROSS_PROMPT, LONGCTX_CROSS_STEPS, LONGCTX_CROSS_TOL = 37, 5, 1e-4
+# K8's GQA row (B, S, Hq, Hkv, D), beside the zamba2 prefill shapes
+FLASH_GQA_SHAPE = (1, 2048, 32, 8, 128)
+# K8 bf16 output vs plain: the same float32 math on the same bf16 inputs,
+# summed in another order; the two outputs round to bf16 at most one ulp
+# apart (2**-8 to 2**-7 relative)
+FLASH_TOL = 1e-2
+# K9 float32 outputs vs plain: float32 FMA in both, summed in other orders
+# over up to L terms, so the error scales with the output's largest
+# magnitude: atol is SSD_TOL times max |plain| (|y| reaches ~300 at
+# zamba2's shape with these inputs), rtol SSD_TOL
+SSD_TOL = 1e-4
 
 
 def _emit(obj) -> None:
@@ -753,14 +797,7 @@ def run_card_vs_cpu() -> dict:
     params = init_params(cfg, seed=SEED, dtype=torch.float32,
                          device="cuda")
 
-    def to_cpu(tree):
-        if isinstance(tree, dict):
-            return {k: to_cpu(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_cpu(v) for v in tree]
-        return tree.cpu()
-
-    cpu_params = to_cpu(params)
+    cpu_params = _to_device(params, "cpu")
     prompts = _prompts(3, 6, cfg.vocab, SEED + 2)
     engines = []
     for dev, p in (("cuda", params), ("cpu", cpu_params)):
@@ -1687,6 +1724,336 @@ def bench_int8_prefill_kernels(cfg, eng, ieng, prefill_line: dict,
 
 
 # =============================================================================
+# phases 14-17: dense-cache long-context generation (K8, K9)
+# =============================================================================
+
+def _shared_sites(cfg) -> int:
+    k = cfg.shared_attn_every
+    return (sum(1 for l in range(cfg.n_layers) if l % k == k - 1)
+            if cfg.layout == "hybrid" and k else 0)
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def run_longctx(name: str) -> tuple[dict, dict, object, object]:
+    """``generate`` at the arch's full published width and depth in bf16
+    (random weights from SEED): LONGCTX_BATCH prompts of LONGCTX_PROMPT
+    tokens (15 full 128-token chunks and a ragged 80), then LONGCTX_NEW
+    greedy decode steps into a cache of LONGCTX_CACHE slots.  The prefill
+    must launch K9 once per Mamba layer and K8 once per shared-attention
+    site and nothing else; the decode launches no kernel."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import registry
+    from repro_torch.launch.longctx_decode import generate
+    from repro_torch.models.transformer import init_params
+    cfg = registry()[name]
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = _prompts(LONGCTX_BATCH, LONGCTX_PROMPT, cfg.vocab, SEED + 11)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = generate(params, cfg, prompts, LONGCTX_NEW, LONGCTX_CACHE)
+    launches = kernels.launch_counts()
+    want = {k: 0 for k in launches}
+    want.update(ssd_scan=cfg.n_layers, flash_attention=_shared_sites(cfg))
+    if res["prefill_launches"] != want:
+        raise RuntimeError(f"{name} prefill launched {res['prefill_launches']}"
+                           f", want {want}")
+    if any(res["decode_launches"].values()) or launches != want:
+        raise RuntimeError(f"{name} decode launched kernels: "
+                           f"{res['decode_launches']}")
+    V = cfg.vocab
+    for key in ("first_logits", "logits"):
+        if not bool(torch.isfinite(res[key][..., :V]).all()):
+            raise RuntimeError(f"{name}: non-finite {key}")
+    toks = np.asarray(res["tokens"])
+    if toks.shape != (LONGCTX_BATCH, LONGCTX_NEW) or toks.min() < 0 \
+            or toks.max() >= V:
+        raise RuntimeError(f"{name}: bad tokens of shape {toks.shape}")
+    line = {"phase": f"longctx_{name.split('_')[0]}", "arch": name,
+            "dtype": "bfloat16", "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "batch": LONGCTX_BATCH,
+            "prompt_len": LONGCTX_PROMPT, "new_tokens": LONGCTX_NEW,
+            "cache_len": LONGCTX_CACHE, "init_params_s": init_s,
+            "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+            "decode_tokens_per_s": res["decode_tokens_per_s"],
+            "first_tokens": [t[:8] for t in res["tokens"]],
+            "ssm_state_bytes": res["ssm_state_bytes"],
+            "conv_state_bytes": res["conv_state_bytes"],
+            "kv_cache_bytes": res["kv_cache_bytes"],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "prefill_launches": {k: v for k, v in
+                                 res["prefill_launches"].items() if v},
+            "decode_launches": {k: v for k, v in
+                                res["decode_launches"].items() if v},
+            "launches": launches}
+    return line, launches, params, cfg
+
+
+def _decode_vs_prefill(cfg, params, prompt: list[int], steps: int,
+                       tol: float) -> dict:
+    """Greedy decode ``steps`` tokens after ``prompt``; at each step hold
+    the decode logits (the O(1) recurrence, the dense-cache attention)
+    against the last-token logits of a fresh ``prefill`` over the prompt
+    and the tokens so far (K9's chunked scan and K8).  Counts the values
+    outside atol = rtol = ``tol``, and argmax disagreements with the
+    prefill's top-2 margin."""
+    import torch
+    from repro_torch.models import transformer as T
+    V = cfg.vocab
+    seq = list(prompt)
+
+    def tokens(ids):
+        return torch.tensor([ids], dtype=torch.int32, device="cuda")
+
+    lg, st = T.prefill(params, cfg, tokens(seq), len(prompt) + steps)
+    max_err, outside, flips = 0.0, 0, []
+    for _ in range(steps):
+        seq.append(int(lg[0, 0, :V].argmax()))
+        lg, st = T.decode_step(params, cfg, st, tokens(seq[-1:]))
+        ref, _ = T.prefill(params, cfg, tokens(seq), len(seq))
+        a, r = lg[0, 0, :V].float(), ref[0, 0, :V].float()
+        d = (a - r).abs()
+        max_err = max(max_err, float(d.max()))
+        outside += int((d > tol + tol * r.abs()).sum())
+        top2 = r.topk(2).values
+        if int(a.argmax()) != int(r.argmax()):
+            flips.append(float(top2[0] - top2[1]))
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "prompt_len": len(prompt), "steps": steps,
+            "logits_max_abs_err": max_err, "values_outside": outside,
+            "values": steps * V, "argmax_flips_margins": flips,
+            "tokens": seq[len(prompt):]}
+
+
+def run_longctx_probes(bf16_models) -> tuple[dict, dict]:
+    """``longctx_probe_f32``: float32 weights at full zamba2 width cut to
+    LONGCTX_PROBE_LAYERS layers (two shared-attention sites) and
+    mamba2_1_3b at full depth; every decode step's logits within
+    atol = rtol = LONGCTX_PROBE_TOL of a fresh prefill's, the same argmax
+    unless the top-2 margin is below LONGCTX_TIE_MARGIN.  Then the same
+    probe on the full-depth bf16 models, reported and not gated."""
+    import torch
+    from dataclasses import replace
+    from repro_torch.configs.base import registry
+    from repro_torch.models.transformer import init_params
+    f32 = {"phase": "longctx_probe_f32", "tolerance": LONGCTX_PROBE_TOL,
+           "tie_margin": LONGCTX_TIE_MARGIN,
+           "depth_cut": {"zamba2_7b": LONGCTX_PROBE_LAYERS}, "runs": []}
+    for name, layers in (("zamba2_7b", LONGCTX_PROBE_LAYERS),
+                         ("mamba2_1_3b", None)):
+        cfg = registry()[name]
+        if layers is not None:
+            cfg = replace(cfg, n_layers=layers)
+        params = init_params(cfg, seed=SEED, dtype=torch.float32,
+                             device="cuda")
+        prompt = _prompts(1, LONGCTX_PROBE_PROMPT, cfg.vocab, SEED + 13)[0]
+        run = _decode_vs_prefill(cfg, params, prompt, LONGCTX_PROBE_STEPS,
+                                 LONGCTX_PROBE_TOL)
+        del params
+        torch.cuda.empty_cache()
+        f32["runs"].append(run)
+        if run["values_outside"] or any(m >= LONGCTX_TIE_MARGIN
+                                        for m in run["argmax_flips_margins"]):
+            raise RuntimeError(f"longctx float32 probe failed: {run}")
+    bf16 = {"phase": "longctx_probe_bf16", "gated": False,
+            "tolerance_reported": LONGCTX_PROBE_TOL, "runs": []}
+    for cfg, params in bf16_models:
+        prompt = _prompts(1, LONGCTX_PROBE_PROMPT, cfg.vocab, SEED + 13)[0]
+        bf16["runs"].append(_decode_vs_prefill(
+            cfg, params, prompt, LONGCTX_PROBE_STEPS, LONGCTX_PROBE_TOL))
+    return f32, bf16
+
+
+def run_longctx_card_vs_cpu() -> dict:
+    """Smoke-width mamba2 and zamba2 in float32, the same weights on the
+    card (kernels) and on the CPU (their plain versions): 2 prompts of
+    LONGCTX_CROSS_PROMPT tokens (ragged against the smoke chunk of 8),
+    LONGCTX_CROSS_STEPS decode steps.  Logits and every state within
+    LONGCTX_CROSS_TOL, positions and tokens identical."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import registry, smoke
+    from repro_torch.launch.longctx_decode import generate
+    from repro_torch.models.transformer import init_params
+    out = {"phase": "longctx_card_vs_cpu", "tolerance": LONGCTX_CROSS_TOL,
+           "runs": []}
+    for name in ("mamba2_1_3b", "zamba2_7b"):
+        cfg = smoke(registry()[name])
+        cpu = init_params(cfg, seed=SEED, device="cpu")
+        card = _to_device(cpu, "cuda")
+        prompts = _prompts(2, LONGCTX_CROSS_PROMPT, cfg.vocab, SEED + 12)
+        cache = LONGCTX_CROSS_PROMPT + LONGCTX_CROSS_STEPS
+        kernels.reset_launch_counts()
+        got = generate(card, cfg, prompts, LONGCTX_CROSS_STEPS, cache)
+        launches = kernels.launch_counts()
+        want = generate(cpu, cfg, prompts, LONGCTX_CROSS_STEPS, cache)
+        if launches["ssd_scan"] != cfg.n_layers or \
+                launches["flash_attention"] != _shared_sites(cfg):
+            raise RuntimeError(f"{name} smoke on the card launched "
+                               f"{launches}")
+        pairs = [("first_logits", got["first_logits"],
+                  want["first_logits"]),
+                 ("logits", got["logits"], want["logits"])]
+        gs, ws = got["state"], want["state"]
+        for l, (a, b) in enumerate(zip(gs["mamba"], ws["mamba"])):
+            pairs += [(f"h{l}", a["h"], b["h"]),
+                      (f"conv{l}", a["conv"], b["conv"])]
+        for i, (a, b) in enumerate(zip(gs["attn"], ws["attn"])):
+            pairs += [(f"k{i}", a["k"], b["k"]), (f"v{i}", a["v"], b["v"])]
+            if not torch.equal(a["pos"].cpu(), b["pos"]):
+                raise RuntimeError(f"{name}: cache positions differ")
+        errs = {}
+        for what, a, b in pairs:
+            a = a.float().cpu()
+            errs[what] = float((a - b.float()).abs().max())
+            if not torch.allclose(a, b.float(), atol=LONGCTX_CROSS_TOL,
+                                  rtol=LONGCTX_CROSS_TOL):
+                raise RuntimeError(f"{name}: card vs CPU {what} differ by "
+                                   f"{errs[what]}")
+        if got["tokens"] != want["tokens"] or \
+                not torch.equal(gs["positions"].cpu(), ws["positions"]):
+            raise RuntimeError(f"{name}: card vs CPU tokens differ")
+        out["runs"].append({
+            "arch": name, "launches": {k: v for k, v in launches.items()
+                                       if v},
+            "logits_max_abs_err": max(errs["first_logits"], errs["logits"]),
+            "state_max_abs_err": max(v for k, v in errs.items()
+                                     if "logits" not in k),
+            "tokens_identical": True})
+    return out
+
+
+def bench_longctx_kernels(zlaunch: dict, mlaunch: dict) -> list[dict]:
+    """K8 and K9 against their plain versions on the card at the shapes of
+    the long-context path, with seeded random bf16 inputs: K8 at zamba2's
+    prefill shape, at a GQA shape and with a 512-token window; K9 at
+    zamba2's and mamba2's shapes.  ``launches`` is the kernel's count in
+    the zamba2 (K8, K9) or mamba2 (K9) run."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as K8
+    from repro_torch.kernels import ssd_scan as K9
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 14)
+    bf = torch.bfloat16
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def row(name, kernel, src, replaces, err, tol, ms, plain_ms, bound,
+            library_ms, launches, **extra):
+        rows.append({"name": name, "kernel": kernel, "route": "cuda",
+                     "source": src, "replaces": replaces,
+                     "launches": launches, "max_abs_err": err,
+                     "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "library_ms": library_ms, **extra})
+
+    for name, B, S, Hq, Hkv, D, window in (
+            ("flash_attention", LONGCTX_BATCH, LONGCTX_PROMPT, 32, 32, 112,
+             0),
+            ("flash_attention_gqa", *FLASH_GQA_SHAPE, 0),
+            ("flash_attention_window", LONGCTX_BATCH, LONGCTX_PROMPT, 32, 32,
+             112, 512)):
+        q, k, v = (randn(B, S, h, D).to(bf) for h in (Hq, Hkv, Hkv))
+        out = K8.flash_attention(q, k, v, window=window)
+        ref = K8.flash_attention_plain(q, k, v, window=window)
+        torch.cuda.synchronize()
+        if not torch.allclose(out.float(), ref.float(), atol=FLASH_TOL,
+                              rtol=FLASH_TOL):
+            raise RuntimeError(f"{name} kernel disagrees with plain")
+        err = float((out.float() - ref.float()).abs().max())
+        del ref
+        i = np.arange(S)
+        pairs = float(np.minimum(i + 1, window if window else S).sum())
+        G = Hq // Hkv
+        qt = q.transpose(1, 2)
+        kt = k.transpose(1, 2).repeat_interleave(G, dim=1)
+        vt = v.transpose(1, 2).repeat_interleave(G, dim=1)
+        if window:
+            ii = torch.arange(S, device=dev)
+            mask = (ii[None, :] <= ii[:, None]) & \
+                (ii[:, None] - ii[None, :] < window)
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         attn_mask=mask)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True)
+        row(name, "flash_attention",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:78",
+            err, FLASH_TOL,
+            _time_ms(lambda: K8.flash_attention(q, k, v, window=window),
+                     iters=10, warmup=2),
+            _time_ms(lambda: K8.flash_attention_plain(q, k, v,
+                                                      window=window),
+                     iters=3, warmup=1),
+            _bound_ms(2 * (2 * q.numel() + 2 * k.numel()),
+                      4.0 * B * Hq * D * pairs),
+            _time_ms(lib, iters=10, warmup=2), zlaunch["flash_attention"],
+            shape={"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
+                   "causal": True, "window": window, "dtype": "bfloat16"},
+            library_call="scaled_dot_product_attention (KV expanded to Hq "
+                         "heads outside the timing; a boolean window mask)"
+            if window else "scaled_dot_product_attention, is_causal "
+                           "(KV expanded to Hq heads outside the timing)")
+        del q, k, v, qt, kt, vt, out
+        torch.cuda.empty_cache()
+
+    for name, B, L, H, P, N, launches in (
+            ("ssd_scan", LONGCTX_BATCH, LONGCTX_PROMPT, 112, 64, 64,
+             zlaunch["ssd_scan"]),
+            ("ssd_scan_mamba2", LONGCTX_BATCH, LONGCTX_PROMPT, 64, 64, 128,
+             mlaunch["ssd_scan"])):
+        Q = 128
+        x = randn(B, L, H, P).to(bf)
+        dt = F.softplus(randn(B, L, H))
+        A = -torch.exp(0.5 * randn(H))
+        Bm, Cm = randn(B, L, N).to(bf), randn(B, L, N).to(bf)
+        y, h = K9.ssd_scan(x, dt, A, Bm, Cm, Q)
+        yp, hp = K9.ssd_scan_plain(x, dt, A, Bm, Cm, Q)
+        torch.cuda.synchronize()
+        for what, a, b in (("y", y, yp), ("h_final", h, hp)):
+            if not torch.allclose(a, b, rtol=SSD_TOL,
+                                  atol=SSD_TOL * float(b.abs().max())):
+                raise RuntimeError(f"{name} kernel {what} disagrees with "
+                                   f"plain")
+        err = max(float((y - yp).abs().max()), float((h - hp).abs().max()))
+        scale = max(float(yp.abs().max()), float(hp.abs().max()))
+        del yp, hp
+        nbytes = (2 * (x.numel() + Bm.numel() + Cm.numel()) + 4 * dt.numel()
+                  + 4 * H + 4 * y.numel() + 4 * h.numel())
+        flops = 2.0 * B * H * L * Q * (N + P) + 4.0 * B * H * L * N * P
+        row(name, "ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "src/repro/kernels/ssd_scan/ssd_scan.py:72", err, SSD_TOL,
+            _time_ms(lambda: K9.ssd_scan(x, dt, A, Bm, Cm, Q), iters=10,
+                     warmup=2),
+            _time_ms(lambda: K9.ssd_scan_plain(x, dt, A, Bm, Cm, Q),
+                     iters=3, warmup=1),
+            _bound_ms(nbytes, flops), None, launches,
+            shape={"B": B, "L": L, "H": H, "P": P, "N": N, "chunk": Q,
+                   "dtype": "bfloat16"}, output_max_abs=scale,
+            library_note="no single PyTorch call computes the SSD scan")
+        del x, dt, Bm, Cm, y, h
+        torch.cuda.empty_cache()
+    return rows
+
+
+# =============================================================================
 
 def main() -> int:
     import torch
@@ -1760,9 +2127,25 @@ def main() -> int:
                                                 i8h_launches, i8p_launches,
                                                 link))
 
+
+    zline, zlaunch, zparams, zcfg = run_longctx("zamba2_7b")
+    print(json.dumps(zline), file=sys.stderr, flush=True)
+    mline, mlaunch, mparams, mcfg = run_longctx("mamba2_1_3b")
+    print(json.dumps(mline), file=sys.stderr, flush=True)
+    probe_f32, probe_bf16 = run_longctx_probes([(zcfg, zparams),
+                                                (mcfg, mparams)])
+    del zparams, mparams
+    torch.cuda.empty_cache()
+    print(json.dumps(probe_f32), file=sys.stderr, flush=True)
+    print(json.dumps(probe_bf16), file=sys.stderr, flush=True)
+    lcross = run_longctx_card_vs_cpu()
+    print(json.dumps(lcross), file=sys.stderr, flush=True)
+    kernel_rows += bench_longctx_kernels(zlaunch, mlaunch)
+
     lines += [{"kernels": kernel_rows}, {"host_link": link}, engine_line,
               pinned_line, parity, pparity, tail, padding, invariance,
-              window, pwindow, cross, pre, ppre, i8h, i8p, _card_line()]
+              window, pwindow, cross, pre, ppre, i8h, i8p, zline, mline,
+              probe_f32, probe_bf16, lcross, _card_line()]
     for line in lines:
         _emit(line)
     _emit({"ok": True, "device": {

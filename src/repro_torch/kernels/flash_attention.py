@@ -1,0 +1,114 @@
+"""K8 — flash attention forward: causal, sliding window, GQA.
+
+Replaces ``repro.kernels.flash_attention.flash_attention.
+flash_attention_bhsd``: an online softmax over blocks of keys in float32,
+keys masked where k >= ``seq_len``, where k > q (``causal``) and where
+q - k >= ``window`` (``window`` > 0), q head h reading kv head h // G.
+``repro_torch.models.attention.attention`` calls ``flash_attention`` at
+every shared-attention site of the hybrid prefill.
+
+On CUDA tensors ``flash_attention`` launches ``csrc/flash_attention.cu``,
+which reads q [B, Sq, Hq, D] and k/v [B, Sk, Hkv, D] in place through
+their strides (no transposes, no padding of D) and applies ``scale`` to
+q in float32, as the model's ``sdpa`` does; on CPU tensors it runs
+``flash_attention_plain``: the KV-expansion ``sdpa`` in float32 with the
+``_mask_bias`` causal/window bias plus the ``seq_len`` mask.  Either
+returns [B, Sq, Hq, D] in q's type.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build, count_launch
+
+_C = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_ARGTYPES = [_C] * 4 + [_I] * 9 + [ctypes.c_float] + [_L] * 9 + [_C]
+_FN = {torch.float32: "flash_attention_f32",
+       torch.bfloat16: "flash_attention_bf16"}
+MAX_D = 128
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          seq_len: int | None = None,
+                          scale: float | None = None) -> torch.Tensor:
+    """The plain version: KV-expansion ``sdpa`` over float32 copies of
+    q, k, v with the causal/window bias and keys >= ``seq_len`` masked;
+    the result in q's type."""
+    from repro_torch.models.attention import NEG_INF, _mask_bias, sdpa_dense
+    Sq, Sk, D = q.shape[1], k.shape[1], q.shape[3]
+    dev = q.device
+    q_pos = torch.arange(Sq, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    if causal:
+        bias = _mask_bias(q_pos, k_pos, window if window > 0 else None)
+    else:
+        ok = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+        if window > 0:
+            ok = (q_pos[:, None] - k_pos[None, :]) < window
+        bias = torch.where(ok, 0.0, NEG_INF).float()
+    if seq_len is not None and seq_len < Sk:
+        bias = bias.masked_fill(k_pos[None, :] >= seq_len, NEG_INF)
+    out = sdpa_dense(q.float(), k.float(), v.float(), bias[None],
+                     D ** -0.5 if scale is None else scale)
+    return out.to(q.dtype)
+
+
+def _launch(q, k, v, causal, window, seq_len, scale):
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    for name, t in (("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on "
+                             f"{dev}")
+    if q.dtype not in _FN or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q/k/v must share float32 or "
+                        f"bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash_attention: head_dim must be unit-stride")
+    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
+    if out.numel() == 0:               # nothing to launch, nothing counted
+        return out
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    fn = _build.function(_FN[q.dtype], _ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+             Sk, Hq, Hkv, D, seq_len, int(causal), window, scale, qs[0],
+             qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, _FN[q.dtype])
+    count_launch("flash_attention")
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    seq_len: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """q [B, Sq, Hq, D]; k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, D] in q's
+    type.  ``scale`` defaults to D**-0.5; ``seq_len`` (default Sk) masks
+    the keys at and past it; ``window`` <= 0 means none."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, Sk, Hkv, D) or v.shape != k.shape or Hq % Hkv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit "
+                         f"(Hq must be a multiple of Hkv)")
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"flash_attention: D={D} outside 1..{MAX_D}")
+    seq_len = Sk if seq_len is None else int(seq_len)
+    if not 0 <= seq_len <= Sk:
+        raise ValueError(f"flash_attention: seq_len={seq_len} not in "
+                         f"0..{Sk}")
+    window = max(int(window or 0), 0)
+    scale = D ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     seq_len=seq_len, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _launch(q, k, v, causal, window, seq_len, scale)

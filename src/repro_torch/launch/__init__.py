@@ -1,0 +1,1 @@
+"""Runnable entry points of the port (``python -m repro_torch.launch.<name>``)."""

@@ -1,15 +1,25 @@
-"""Decode-time attention projections (torch twin of
-``repro.models.attention.project_qkv``).
+"""Attention (torch twin of ``repro.models.attention``): the QKV
+projections with RoPE, the causal/sliding-window mask bias, the
+KV-expansion ``sdpa`` (the plain form of kernel K8), full self-attention
+over a prompt (``attention``, on K8), and the grouped-query ``sdpa_grouped``
+with the dense or ring-buffer cache ``decode_attention`` (plain torch:
+XLA in the JAX package too).
 
 Weights keep the JAX layout: wq [d, Hq, Dh], wk/wv [d, Hkv, Dh],
 wo [Hq, Dh, d]; each projection is one ``torch.matmul`` over the
-flattened head axes.
+flattened head axes.  Shapes: x [B, S, d]; q [B, S, Hq, Dh]; k/v
+[B, S, Hkv, Dh].
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as K8
+
 from . import layers
+
+NEG_INF = -2.0e38
+_INT32_MAX = 2 ** 31 - 1
 
 
 def project_qkv(p: dict, x: torch.Tensor, cos: torch.Tensor,
@@ -32,3 +42,114 @@ def project_qkv(p: dict, x: torch.Tensor, cos: torch.Tensor,
     q = layers.apply_rope(q, cos, sin)
     k = layers.apply_rope(k, cos, sin)
     return q, k, v
+
+
+def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
+               window: int | None) -> torch.Tensor:
+    """Additive mask bias [.., Sq, Sk]: causal plus an optional sliding
+    window of ``window`` tokens of look-back (<= 0 or None: full causal).
+    Positions may be batched ([B, S]) or flat ([S])."""
+    dq = q_pos[..., :, None]
+    dk = k_pos[..., None, :]
+    ok = dk <= dq
+    if window is not None:
+        ok = ok & ((dq - dk) < (window if window > 0 else _INT32_MAX))
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def sdpa_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask_bias: torch.Tensor, scale: float,
+               soft_cap: float | None = None) -> torch.Tensor:
+    """The body of ``sdpa`` with an explicit ``scale`` (K8's plain
+    version passes its own)."""
+    Hq, Hkv = q.shape[2], k.shape[2]
+    G = Hq // Hkv
+    if G > 1:
+        k = torch.repeat_interleave(k, G, dim=2)
+        v = torch.repeat_interleave(v, G, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    if soft_cap is not None:
+        logits = torch.tanh(logits / soft_cap) * soft_cap
+    logits = logits + mask_bias[:, None, :, :]
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         mask_bias: torch.Tensor, *, soft_cap: float | None = None
+         ) -> torch.Tensor:
+    """Scaled dot-product attention, KV-expansion form.  q [B, Sq, Hq, Dh];
+    k/v [B, Sk, Hkv, Dh]; mask_bias [B|1, Sq, Sk].  GQA KV is expanded to
+    Hq heads; q is scaled by Dh**-0.5 in float32."""
+    return sdpa_dense(q, k, v, mask_bias, q.shape[3] ** -0.5, soft_cap)
+
+
+def sdpa_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask_bias: torch.Tensor, *,
+                 soft_cap: float | None = None) -> torch.Tensor:
+    """Grouped-query form (decode): never expands the KV cache.
+    q [B, Sq, Hq, Dh]; k/v [B, Sk, Hkv, Dh]; mask_bias [B, Sq, Sk]."""
+    B, Sq, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, Dh)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float() * Dh ** -0.5,
+                          k.float())
+    if soft_cap is not None:
+        logits = torch.tanh(logits / soft_cap) * soft_cap
+    logits = logits + mask_bias[:, None, None, :, :]
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
+    return out.reshape(B, Sq, Hq, Dh)
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """[B, S, Hq, Dh] x wo [Hq, Dh, d] -> [B, S, d]."""
+    B, S = out.shape[:2]
+    return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[2])
+
+
+def attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
+              cos: torch.Tensor, sin: torch.Tensor, *,
+              window: int | None = None, soft_cap: float | None = None):
+    """Full causal self-attention over a prompt x [B, S, d] on kernel K8.
+    Returns (out [B, S, d], (k, v)).
+
+    K8 masks by index, so ``positions`` must be 0..S-1 in every row, as
+    the prefill gives them (they enter only through ``cos``/``sin``).  K8
+    has no logit soft cap; no config of this path sets one."""
+    if soft_cap is not None:
+        raise NotImplementedError("attention: K8 has no logit soft cap")
+    q, k, v = project_qkv(p, x, cos, sin)
+    out = K8.flash_attention(q, k, v, causal=True, window=window or 0)
+    return _out_proj(out, p["wo"]), (k, v)
+
+
+def decode_attention(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos_cache: torch.Tensor,
+                     positions: torch.Tensor, cos: torch.Tensor,
+                     sin: torch.Tensor, *, window: int | None = None,
+                     soft_cap: float | None = None):
+    """One-token decode against a dense or ring-buffer KV cache.
+
+    x [B, 1, d]; k/v_cache [B, Smax, Hkv, Dh]; pos_cache int32 [B, Smax],
+    the token position each slot holds (-1 = empty); positions [B, 1].
+    The new K/V are written at slot ``position % Smax`` *in place* (the
+    JAX function returns new arrays; the port updates the caches it was
+    given, so decode never copies a cache).  Returns (out [B, 1, d],
+    k_cache, v_cache, pos_cache)."""
+    B = x.shape[0]
+    Smax = k_cache.shape[1]
+    q, k_new, v_new = project_qkv(p, x, cos, sin)
+    b_idx = torch.arange(B, device=x.device)
+    pos = positions[:, 0]
+    slot = pos.long() % Smax
+    k_cache[b_idx, slot] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[b_idx, slot] = v_new[:, 0].to(v_cache.dtype)
+    pos_cache[b_idx, slot] = pos.to(pos_cache.dtype)
+
+    valid = (pos_cache >= 0) & (pos_cache <= pos[:, None])
+    if window is not None and window > 0:
+        valid = valid & ((pos[:, None] - pos_cache) < window)
+    bias = torch.where(valid, 0.0, NEG_INF).float()[:, None, :]
+    out = sdpa_grouped(q, k_cache, v_cache, bias, soft_cap=soft_cap)
+    return _out_proj(out.to(x.dtype), p["wo"]), k_cache, v_cache, pos_cache

@@ -1,0 +1,273 @@
+"""Mamba-2 (SSD, state-space duality) block — torch twin of
+``repro.models.ssm``.
+
+Chunked SSD forward for prefill (``mamba_forward``, whose scan is kernel
+K9 ``kernels.ssd_scan``) and the O(1)-state decode step
+(``mamba_decode_step``, plain torch: XLA in the JAX package too).
+``ssd_chunked`` is the plain chunked scan, line by line the JAX function,
+with any number of B/C groups; K9's plain version calls it with G = 1.
+
+Layouts at every function boundary are the JAX package's: x
+[B, L, H, P], dt [B, L, H], Bm/Cm [B, L, G, N], h [B, H, N, P], conv
+state [B, d_conv-1, conv_ch].  Parameters are a dict with the leaf names
+of ``MambaParams``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ssd_scan as K9
+
+
+class MambaSpec(NamedTuple):
+    d_model: int
+    d_inner: int
+    headdim: int
+    n_heads: int
+    d_state: int
+    n_groups: int = 1
+    d_conv: int = 4
+    chunk: int = 128
+
+    @property
+    def conv_ch(self) -> int:
+        return self.d_inner + 2 * self.n_groups * self.d_state
+
+
+def make_spec(d_model: int, *, expand: int = 2, headdim: int = 64,
+              d_state: int = 128, d_conv: int = 4, chunk: int = 128
+              ) -> MambaSpec:
+    d_inner = expand * d_model
+    return MambaSpec(d_model=d_model, d_inner=d_inner, headdim=headdim,
+                     n_heads=d_inner // headdim, d_state=d_state,
+                     d_conv=d_conv, chunk=chunk)
+
+
+def init_mamba_params(spec: MambaSpec, gen: torch.Generator, *,
+                      dtype: torch.dtype = torch.float32,
+                      device: torch.device | str = "cpu") -> dict:
+    """Random weights with the JAX scales: projections normal *
+    d_model**-0.5, conv * 0.1, dt_bias -4 (softplus ~0.018), A_log 0
+    (A = -1), D 1, norm 1, out_proj * d_inner**-0.5; drawn from ``gen``
+    (on ``device``), so the values differ from ``jax.random``'s."""
+    d, di, H = spec.d_model, spec.d_inner, spec.n_heads
+    gn = spec.n_groups * spec.d_state
+
+    def normal(shape, std):
+        w = torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        return w.mul_(std).to(dtype)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    s = d ** -0.5
+    return {
+        "in_proj_z": normal((d, di), s),
+        "in_proj_x": normal((d, di), s),
+        "in_proj_B": normal((d, gn), s),
+        "in_proj_C": normal((d, gn), s),
+        "in_proj_dt": normal((d, H), s),
+        "conv_w": normal((spec.d_conv, spec.conv_ch), 0.1),
+        "conv_b": full((spec.conv_ch,), 0.0),
+        "dt_bias": full((H,), -4.0),
+        "A_log": full((H,), 0.0),
+        "D": full((H,), 1.0),
+        "norm": full((di,), 1.0),
+        "out_proj": normal((di, d), di ** -0.5),
+    }
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + exp(x)) as ``jax.nn.softplus`` (``logaddexp(x, 0)``, no
+    linear cut-off)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
+                           b: torch.Tensor) -> torch.Tensor:
+    """x [B, L, C]; w [K, C]: depthwise causal conv + silu, as the JAX sum
+    of K shifted products over a zero history (not ``F.conv1d``, which
+    runs through cuDNN, in TF32 by default, and sums in another order)."""
+    K, L = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = xp[:, 0:L, :] * w[0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + L, :] * w[i]
+    return F.silu(out + b)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                h0: torch.Tensor | None = None):
+    """Plain chunked SSD scan in float32.
+
+    x [B, L, H, P]; dt [B, L, H] (post-softplus); A [H] (negative);
+    Bm/Cm [B, L, G, N].  Returns (y [B, L, H, P], h_final [B, H, N, P]).
+    A ragged L is padded to a chunk multiple with identity steps (dt = 0).
+    """
+    Bsz, L, H, Pd = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    hpg = H // G
+    Q = chunk
+    L0 = L
+    if L % Q:
+        pad = Q - L % Q
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))       # dt=0 -> decay 1, no input
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+        L = L + pad
+    nC = L // Q
+
+    f32 = torch.float32
+    xq = x.reshape(Bsz, nC, Q, H, Pd).to(f32)
+    dtq = dt.reshape(Bsz, nC, Q, H).to(f32)
+    Bq = Bm.reshape(Bsz, nC, Q, G, N).to(f32)
+    Cq = Cm.reshape(Bsz, nC, Q, G, N).to(f32)
+
+    dA = dtq * A.to(f32)                               # [B, nC, Q, H]
+    dA_cs = torch.cumsum(dA, dim=2)                    # inclusive
+
+    # intra-chunk: att[b,c,h,i,j] = (C_i . B_j) exp(cs_i - cs_j) dt_j, j<=i
+    CB = torch.einsum("bcqgn,bckgn->bcgqk", Cq, Bq)    # [B, nC, G, Q, Q]
+    CB = torch.repeat_interleave(CB, hpg, dim=2)
+    seg = dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :]   # [B,nC,Q,Q,H]
+    seg = seg.permute(0, 1, 4, 2, 3)                   # [B, nC, H, Q, Q]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    att = torch.where(tri, CB * torch.exp(seg), torch.zeros((), dtype=f32,
+                                                            device=x.device))
+    att = att * dtq.permute(0, 1, 3, 2)[:, :, :, None, :]
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", att, xq)
+
+    # chunk states: S_c = sum_j exp(cs_end - cs_j) dt_j B_j (x) x_j
+    dA_sum = dA_cs[:, :, -1:, :]                       # [B, nC, 1, H]
+    decay_to_end = torch.exp(dA_sum - dA_cs)           # [B, nC, Q, H]
+    Bh = torch.repeat_interleave(Bq, hpg, dim=3) if hpg > 1 else Bq
+    Bh = Bh.reshape(Bsz, nC, Q, H, N)
+    states = torch.einsum("bcqh,bcqhn,bcqhp->bchnp", decay_to_end * dtq,
+                          Bh, xq)
+
+    # inter-chunk recurrence, emitting the state *before* each chunk
+    chunk_decay = torch.exp(dA_sum[:, :, 0, :])        # [B, nC, H]
+    h = (torch.zeros((Bsz, H, N, Pd), dtype=f32, device=x.device)
+         if h0 is None else h0.to(f32))
+    h_prev = []
+    for c in range(nC):
+        h_prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                # [B, nC, H, N, P]
+
+    # inter-chunk output: C_i . h_prev * exp(cs_i)
+    Ch = torch.repeat_interleave(Cq, hpg, dim=3) if hpg > 1 else Cq
+    Ch = Ch.reshape(Bsz, nC, Q, H, N)
+    y_off = torch.einsum("bcqhn,bchnp->bcqhp", Ch, h_prev)
+    y_off = y_off * torch.exp(dA_cs)[..., None]
+
+    y = (y_diag + y_off).reshape(Bsz, L, H, Pd)[:, :L0]
+    return y, h
+
+
+def mamba_forward(p: dict, spec: MambaSpec, x: torch.Tensor, *,
+                  h0: torch.Tensor | None = None,
+                  conv0: torch.Tensor | None = None,
+                  return_state: bool = False):
+    """Full Mamba-2 block over x [B, L, d] -> [B, L, d]; the scan is K9.
+
+    With ``return_state`` also returns (h_final [B, H, N, P] float32, the
+    raw conv context: the last min(L, d_conv-1) rows of x ‖ B ‖ C before
+    the convolution, as the JAX function keeps them)."""
+    Bsz, L, d = x.shape
+    H, Pd, N, G = spec.n_heads, spec.headdim, spec.d_state, spec.n_groups
+
+    z = x @ p["in_proj_z"]
+    xs = x @ p["in_proj_x"]
+    Bp = x @ p["in_proj_B"]
+    Cp = x @ p["in_proj_C"]
+    dt = x @ p["in_proj_dt"]
+
+    di, gn = spec.d_inner, G * N
+    conv_tail_raw = None
+    if return_state:
+        k = spec.d_conv - 1
+        conv_tail_raw = torch.cat([xs[:, -k:], Bp[:, -k:], Cp[:, -k:]],
+                                  dim=-1)
+
+    def conv_part(u, lo, hi, ctx=None):
+        w, b = p["conv_w"][:, lo:hi], p["conv_b"][lo:hi]
+        if ctx is not None:
+            u2 = torch.cat([ctx, u], dim=1)
+            return _causal_depthwise_conv(u2, w, b)[:, ctx.shape[1]:]
+        return _causal_depthwise_conv(u, w, b)
+
+    c0 = (None, None, None) if conv0 is None else (
+        conv0[..., :di], conv0[..., di:di + gn], conv0[..., di + gn:])
+    xs = conv_part(xs, 0, di, c0[0])
+    Bp = conv_part(Bp, di, di + gn, c0[1])
+    Cp = conv_part(Cp, di + gn, di + 2 * gn, c0[2])
+
+    xh = xs.reshape(Bsz, L, H, Pd)
+    Bm = Bp.reshape(Bsz, L, G, N)
+    Cm = Cp.reshape(Bsz, L, G, N)
+    dt = softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+
+    y, h_fin = K9.ssd_scan(xh, dt, A, Bm, Cm, spec.chunk, h0=h0)
+    y = y + xh.float() * p["D"].float()[:, None]
+    y = y.reshape(Bsz, L, spec.d_inner)
+
+    # gated RMSNorm, then the out-projection
+    y = y * F.silu(z.float())
+    var = y.square().mean(dim=-1, keepdim=True)
+    y = y * torch.rsqrt(var + 1e-6) * p["norm"].float()
+    out = y.to(x.dtype) @ p["out_proj"]
+    if return_state:
+        return out, (h_fin, conv_tail_raw)
+    return out
+
+
+def mamba_decode_step(p: dict, spec: MambaSpec, x: torch.Tensor,
+                      h: torch.Tensor, conv_state: torch.Tensor):
+    """One-token decode.  x [B, 1, d]; h [B, H, N, P]; conv_state
+    [B, d_conv-1, conv_ch] rolling raw xBC context.  Returns
+    (out [B, 1, d], h, conv_state)."""
+    Bsz = x.shape[0]
+    H, Pd, N, G = spec.n_heads, spec.headdim, spec.d_state, spec.n_groups
+
+    z = (x @ p["in_proj_z"])[:, 0]
+    xs = (x @ p["in_proj_x"])[:, 0]
+    Bp = (x @ p["in_proj_B"])[:, 0]
+    Cp = (x @ p["in_proj_C"])[:, 0]
+    dt = (x @ p["in_proj_dt"])[:, 0]
+
+    xbc = torch.cat([xs, Bp, Cp], dim=-1)              # [B, conv_ch]
+    window = torch.cat([conv_state, xbc[:, None, :]], dim=1)
+    conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
+    conv_out = F.silu(conv_out)
+    conv_state = window[:, 1:, :]
+
+    xs = conv_out[..., :spec.d_inner].reshape(Bsz, H, Pd).float()
+    Bm = conv_out[..., spec.d_inner:spec.d_inner + G * N].reshape(Bsz, G, N)
+    Cm = conv_out[..., spec.d_inner + G * N:].reshape(Bsz, G, N)
+    hpg = H // G
+    Bh = torch.repeat_interleave(Bm, hpg, dim=1).float()   # [B, H, N]
+    Ch = torch.repeat_interleave(Cm, hpg, dim=1).float()
+
+    dt = softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    dec = torch.exp(dt * A)                                # [B, H]
+    h = h * dec[:, :, None, None] + torch.einsum("bh,bhn,bhp->bhnp", dt,
+                                                 Bh, xs)
+    y = torch.einsum("bhn,bhnp->bhp", Ch, h)
+    y = y + xs * p["D"].float()[:, None]
+    y = y.reshape(Bsz, spec.d_inner)
+
+    y = y * F.silu(z.float())
+    var = y.square().mean(dim=-1, keepdim=True)
+    y = y * torch.rsqrt(var + 1e-6) * p["norm"].float()
+    out = y.to(x.dtype) @ p["out_proj"]
+    return out[:, None, :], h, conv_state

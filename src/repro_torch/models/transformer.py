@@ -1,5 +1,7 @@
-"""Dense decoder pieces the paged decode path needs (torch twin of the
-dense parts of ``repro.models.transformer``).
+"""Decoder pieces of the port (torch twin of ``repro.models.transformer``):
+the dense parts the paged decode path needs, and the dense-cache
+``prefill`` + ``decode_step`` of the ``mamba`` and ``hybrid`` layouts
+(Mamba-2 layers on kernel K9, zamba2's shared attention block on K8).
 
 Parameters are a plain dict with the JAX package's leaf names and
 layouts, except that the per-layer tree is a *list* of dicts
@@ -16,7 +18,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
-from . import layers
+from . import attention, layers, ssm
 
 
 def pad_vocab(vocab: int, multiple: int = 256) -> int:
@@ -26,24 +28,43 @@ def pad_vocab(vocab: int, multiple: int = 256) -> int:
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.layout != "attn" or cfg.is_moe or cfg.mlp_kind != "swiglu":
+    if cfg.layout in ("mamba", "hybrid"):
+        ok = not cfg.is_moe and (cfg.layout == "mamba"
+                                 or cfg.mlp_kind == "swiglu")
+    else:
+        ok = cfg.layout == "attn" and not cfg.is_moe \
+            and cfg.mlp_kind == "swiglu"
+    if not ok:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense SwiGLU attention "
-            f"decoders only (layout={cfg.layout!r}, moe={cfg.is_moe}, "
+            f"{cfg.name}: the port runs dense SwiGLU attention decoders, "
+            f"Mamba-2 and Mamba-2 + shared-attention hybrids only "
+            f"(layout={cfg.layout!r}, moe={cfg.is_moe}, "
             f"mlp={cfg.mlp_kind!r})")
     if cfg.input_mode != "tokens":
         raise NotImplementedError(f"{cfg.name}: input_mode "
                                   f"{cfg.input_mode!r} is not ported")
 
 
+def mamba_spec_of(cfg: ArchConfig) -> ssm.MambaSpec:
+    return ssm.make_spec(cfg.d_model, expand=cfg.ssm_expand,
+                         headdim=cfg.ssm_headdim, d_state=cfg.ssm_state,
+                         chunk=cfg.chunk)
+
+
 def init_params(cfg: ArchConfig, *, seed: int = 0,
                 dtype: torch.dtype = torch.float32,
                 device: str | torch.device | None = "cuda") -> dict:
     """Random weights with the JAX init scales (normal * d**-0.5, the
-    down projection * d_ff**-0.5, norms at one), drawn on ``device`` from
-    a ``torch.Generator`` seeded with ``seed``.  The draws differ from
+    down projection * d_ff**-0.5, norms at one, the Mamba-2 scales of
+    ``ssm.init_mamba_params``), drawn on ``device`` from a
+    ``torch.Generator`` seeded with ``seed``.  The draws differ from
     ``jax.random``'s; tests that compare the two packages carry the JAX
-    weights over with ``params_from_jax`` instead."""
+    weights over with ``params_from_jax`` instead.
+
+    ``mamba``/``hybrid`` layers are ``{"ln", "mamba"}``; a hybrid model
+    also has the one shared attention + SwiGLU block ``params["shared"]``
+    (``ln1``, ``ln2``, ``attn``, ``mlp``) that runs every
+    ``shared_attn_every`` layers."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -61,8 +82,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
             (d,), dtype=dtype, device=dev)
 
     s = d ** -0.5
-    layer_list = []
-    for _ in range(cfg.n_layers):
+
+    def one_attn():
         attn = {"wq": normal((d, cfg.n_heads, dh), s),
                 "wk": normal((d, cfg.n_kv_heads, dh), s),
                 "wv": normal((d, cfg.n_kv_heads, dh), s),
@@ -74,15 +95,31 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
         if cfg.qk_norm:
             attn["q_norm"] = torch.ones((dh,), dtype=dtype, device=dev)
             attn["k_norm"] = torch.ones((dh,), dtype=dtype, device=dev)
-        lp = {"ln1": ln(), "ln2": ln(), "attn": attn,
-              "mlp": {"w_gate": normal((d, cfg.d_ff), s),
-                      "w_up": normal((d, cfg.d_ff), s),
-                      "w_down": normal((cfg.d_ff, d), cfg.d_ff ** -0.5)}}
-        if cfg.gemma_norm:
-            lp["ln1_post"] = ln()
-            lp["ln2_post"] = ln()
-        layer_list.append(lp)
+        return attn
+
+    def one_mlp():
+        return {"w_gate": normal((d, cfg.d_ff), s),
+                "w_up": normal((d, cfg.d_ff), s),
+                "w_down": normal((cfg.d_ff, d), cfg.d_ff ** -0.5)}
+
+    layer_list = []
+    if cfg.layout in ("mamba", "hybrid"):
+        spec = mamba_spec_of(cfg)
+        for _ in range(cfg.n_layers):
+            layer_list.append({"ln": ln(), "mamba": ssm.init_mamba_params(
+                spec, gen, dtype=dtype, device=dev)})
+    else:
+        for _ in range(cfg.n_layers):
+            lp = {"ln1": ln(), "ln2": ln(), "attn": one_attn(),
+                  "mlp": one_mlp()}
+            if cfg.gemma_norm:
+                lp["ln1_post"] = ln()
+                lp["ln2_post"] = ln()
+            layer_list.append(lp)
     params = {"layers": layer_list, "final_norm": ln()}
+    if cfg.layout == "hybrid":
+        params["shared"] = {"ln1": ln(), "ln2": ln(), "attn": one_attn(),
+                            "mlp": one_mlp()}
     if cfg.tie_embeddings:
         params["embed"] = normal((cfg.vocab, d), s)
     else:
@@ -125,3 +162,162 @@ def ffn_block(lp: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
         y = layers.rms_norm(y, lp["ln2_post"], eps=cfg.norm_eps,
                             gemma_style=True)
     return h + y
+
+
+# =============================================================================
+# dense-cache generation: prefill, then one token per decode_step
+# =============================================================================
+
+def _check_dense_cache(cfg: ArchConfig) -> None:
+    _check_supported(cfg)
+    if cfg.layout not in ("mamba", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: the dense-cache prefill/decode of the "
+            f"{cfg.layout!r} layout is not ported (the paged engine "
+            f"serves it)")
+
+
+def _is_shared_site(cfg: ArchConfig, layer: int) -> bool:
+    k = cfg.shared_attn_every
+    return cfg.layout == "hybrid" and bool(k) and layer % k == k - 1
+
+
+def init_decode_state(cfg: ArchConfig, batch_size: int, cache_len: int, *,
+                      dtype: torch.dtype = torch.float32,
+                      start_pos: int = 0,
+                      device: str | torch.device | None = "cuda") -> dict:
+    """Empty caches for ``cache_len`` tokens of context: per Mamba layer
+    the SSM state h [B, H, N, P] (float32) and the raw conv context
+    [B, d_conv-1, conv_ch]; per shared-attention site of a hybrid a dense
+    K/V cache [B, cache_len, Hkv, Dh] with the position each slot holds
+    (-1 = empty), written as a ring at ``position % cache_len``."""
+    _check_dense_cache(cfg)
+    dev = resolve_device(device)
+    B = batch_size
+    spec = mamba_spec_of(cfg)
+    state: dict = {
+        "positions": torch.full((B,), start_pos, dtype=torch.int32,
+                                device=dev),
+        "attn": [],
+        "mamba": [{
+            "h": torch.zeros((B, spec.n_heads, spec.d_state, spec.headdim),
+                             dtype=torch.float32, device=dev),
+            "conv": torch.zeros((B, spec.d_conv - 1, spec.conv_ch),
+                                dtype=dtype, device=dev),
+        } for _ in range(cfg.n_layers)],
+    }
+    n_sites = sum(_is_shared_site(cfg, l) for l in range(cfg.n_layers))
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    state["attn"] = [{
+        "k": torch.zeros((B, cache_len, Hkv, Dh), dtype=dtype, device=dev),
+        "v": torch.zeros((B, cache_len, Hkv, Dh), dtype=dtype, device=dev),
+        "pos": torch.full((B, cache_len), -1, dtype=torch.int32,
+                          device=dev),
+    } for _ in range(n_sites)]
+    return state
+
+
+def _place(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """Write a prompt's last min(S, W) K/V rows into a cache of W slots at
+    ``position % W``, in place."""
+    S, W = k.shape[1], cache["k"].shape[1]
+    n = min(S, W)
+    pos = torch.arange(S - n, S, dtype=torch.int32, device=k.device)
+    idx = pos.long() % W
+    cache["k"][:, idx] = k[:, S - n:].to(cache["k"].dtype)
+    cache["v"][:, idx] = v[:, S - n:].to(cache["v"].dtype)
+    cache["pos"][:, idx] = pos
+    return cache
+
+
+def _conv_context(tail: torch.Tensor, spec: ssm.MambaSpec) -> torch.Tensor:
+    """The raw conv context zero-padded on the left to d_conv-1 rows: a
+    prompt shorter than that has the zero history the causal conv itself
+    assumes (the JAX prefill keeps only the prompt's rows, and its decode
+    then fails on the short window; ROADMAP C7)."""
+    return torch.nn.functional.pad(
+        tail, (0, 0, spec.d_conv - 1 - tail.shape[1], 0))
+
+
+def _shared_mlp(sp: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    x = layers.rms_norm(h, sp["ln2"], eps=cfg.norm_eps)
+    m = sp["mlp"]
+    return h + layers.swiglu_mlp(x, m["w_gate"], m["w_up"], m["w_down"])
+
+
+def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+            cache_len: int):
+    """Run a batch of equal-length prompts tokens [B, S]; returns the
+    last-token logits [B, 1, Vp] and the decode state (positions S).
+
+    Every Mamba layer runs its chunked scan on K9 and keeps its final
+    state and raw conv context; every shared-attention site of a hybrid
+    attends causally on K8 and places its K/V in the site's cache."""
+    _check_dense_cache(cfg)
+    h = embed_in(params, cfg, tokens)
+    B, S, _ = h.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=h.device).expand(B, S)
+    spec = mamba_spec_of(cfg)
+    state = init_decode_state(cfg, B, cache_len, dtype=h.dtype,
+                              start_pos=S, device=h.device)
+    if cfg.layout == "hybrid":
+        cos, sin = layers.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    ai = 0
+    for l, lp in enumerate(params["layers"]):
+        x = layers.rms_norm(h, lp["ln"], eps=cfg.norm_eps)
+        out, (hs, tail) = ssm.mamba_forward(lp["mamba"], spec, x,
+                                            return_state=True)
+        h = h + out
+        state["mamba"][l] = {"h": hs,
+                             "conv": _conv_context(tail, spec).to(h.dtype)}
+        if _is_shared_site(cfg, l):
+            sp = params["shared"]
+            x = layers.rms_norm(h, sp["ln1"], eps=cfg.norm_eps)
+            out, (k, v) = attention.attention(sp["attn"], x, positions, cos,
+                                              sin)
+            h = _shared_mlp(sp, cfg, h + out)
+            _place(state["attn"][ai], k, v)
+            ai += 1
+    h = layers.rms_norm(h, params["final_norm"], eps=cfg.norm_eps,
+                        gemma_style=cfg.gemma_norm)
+    return logits_out(params, cfg, h[:, -1:, :]), state
+
+
+def decode_step(params: dict, cfg: ArchConfig, state: dict,
+                tokens: torch.Tensor):
+    """One token per sequence, tokens [B, 1]: the O(1) Mamba-2 recurrence
+    per layer and dense-cache attention at each shared site (plain torch;
+    no kernel runs here).  Returns (logits [B, 1, Vp], the new state); the
+    attention caches are updated in place and carried over."""
+    _check_dense_cache(cfg)
+    h = embed_in(params, cfg, tokens)
+    pos = state["positions"]
+    positions = pos[:, None]
+    spec = mamba_spec_of(cfg)
+    if cfg.layout == "hybrid":
+        cos, sin = layers.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    new_attn = list(state["attn"])
+    new_mamba = list(state["mamba"])
+    ai = 0
+    for l, lp in enumerate(params["layers"]):
+        x = layers.rms_norm(h, lp["ln"], eps=cfg.norm_eps)
+        st = state["mamba"][l]
+        out, hs, cs = ssm.mamba_decode_step(lp["mamba"], spec, x, st["h"],
+                                            st["conv"])
+        h = h + out
+        new_mamba[l] = {"h": hs, "conv": cs}
+        if _is_shared_site(cfg, l):
+            sp = params["shared"]
+            x = layers.rms_norm(h, sp["ln1"], eps=cfg.norm_eps)
+            c = state["attn"][ai]
+            out, kc, vc, pc = attention.decode_attention(
+                sp["attn"], x, c["k"], c["v"], c["pos"], positions, cos, sin)
+            h = _shared_mlp(sp, cfg, h + out)
+            new_attn[ai] = {"k": kc, "v": vc, "pos": pc}
+            ai += 1
+    h = layers.rms_norm(h, params["final_norm"], eps=cfg.norm_eps,
+                        gemma_style=cfg.gemma_norm)
+    logits = logits_out(params, cfg, h)
+    return logits, {"positions": pos + 1, "attn": new_attn,
+                    "mamba": new_mamba}
