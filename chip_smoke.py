@@ -86,8 +86,14 @@ prints no result line):
      10-13 run before it; its rows add K6, ``dequant_gather``, K5 over
      1-byte pages and K1 at the prefill shape; phases 14-17 too, and
      its rows add K8 (zamba2's prefill shape, a GQA shape, a 512-token
-     window; bf16 within 1e-2) and K9 (zamba2's and mamba2's shapes;
-     float32 outputs within 1e-4).
+     window; bf16 within 1e-2, each with ``sass_hgmma``, the count of
+     HGMMA instructions in the bf16 kernel, which must not be 0; and the
+     float32 entry at the float32 probe's shape within 1e-5) and K9
+     (zamba2's and mamba2's shapes; float32 outputs within 1e-4).  K2's
+     row times the event form and SysMon's form (a ``valid`` mask, an
+     ``is_write`` flag), each also as ``device_ms`` over a CUDA graph of
+     50 captured calls beside ``index_add_``'s, and must count exactly
+     one device work node in a graph of one call.
 
 Output: the card's name and power limit, the build time, the engine
 lines, the parity lines, the prefill and int8 lines, the long-context
@@ -99,6 +105,7 @@ script.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -106,6 +113,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 # bf16 K/V, kernel vs plain, atol = rtol: ~3x the kernel's error on the
 # card, below what accumulating softmax.V in bf16 gives (checked per run)
 ATTN_TOL = 3e-3
@@ -168,6 +176,9 @@ LONGCTX_TIE_MARGIN = 1e-2
 LONGCTX_CROSS_PROMPT, LONGCTX_CROSS_STEPS, LONGCTX_CROSS_TOL = 37, 5, 1e-4
 # K8's GQA row (B, S, Hq, Hkv, D), beside the zamba2 prefill shapes
 FLASH_GQA_SHAPE = (1, 2048, 32, 8, 128)
+# K8's float32 entry (FMA units) vs plain at the float32 probe's shape:
+# the same float32 math summed in another order
+FLASH_F32_TOL = 1e-5
 # K8 bf16 output vs plain: the same float32 math on the same bf16 inputs,
 # summed in another order; the two outputs round to bf16 at most one ulp
 # apart (2**-8 to 2**-7 relative)
@@ -206,18 +217,110 @@ def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 def _bound_ms(nbytes: float, flops: float = 0.0, host_bytes: float = 0.0,
-              link_bytes_per_s: float | None = None) -> tuple[float, str]:
+              link_bytes_per_s: float | None = None,
+              flops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
     """The least time the card could take: the bytes moved in HBM over its
     rate and the bytes moved across the host link (pinned host memory)
     over the link rate measured in this run — the two channels work in
-    parallel, so the larger of the two — or the operations on the bf16
-    inputs over the card's bf16 peak, whichever is larger."""
+    parallel, so the larger of the two — or the operations on the inputs
+    over the card's peak for their type (bf16 unless given), whichever is
+    larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     if host_bytes:
         t_bytes = max(t_bytes, host_bytes / link_bytes_per_s * 1e3)
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
+
+
+def _captured(fn, calls: int, keep_graph: bool = False):
+    """A CUDA graph of ``calls`` calls of ``fn``, warmed up on a side
+    stream first."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return graph
+
+
+def _host_us(fn, calls: int = 2000) -> float:
+    """Host microseconds per call of ``fn`` (perf_counter over ``calls``
+    calls after a warm-up; the card is synchronised before and after)."""
+    import torch
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def _graph_ms(fn, calls: int = 50, replays: int = 20) -> float:
+    """Device time per call: CUDA events around replays of a graph of
+    ``calls`` captured calls, so no host work sits between them."""
+    import torch
+    graph = _captured(fn, calls)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def _graph_launches(fn) -> int:
+    """Device work nodes (kernels, memsets, copies) in a graph of one
+    call of ``fn``, read with ``cuGraphGetNodes`` from libcuda."""
+    import ctypes
+    graph = _captured(fn, 1, keep_graph=True)
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    work = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        work += kind.value in (0, 1, 2)     # KERNEL, MEMCPY, MEMSET
+    return work
+
+
+def _sass_hgmma() -> int:
+    """HGMMA instructions in K8's bf16 kernel function, from ``cuobjdump
+    -sass`` of the built library (``cuobjdump`` sits beside ``nvcc``)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        raise RuntimeError(f"{tool} missing: cannot count HGMMA")
+    _build.library()
+    sass = subprocess.run([str(tool), "-sass", _build.build_info["library"]],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            inside = "flash_wgmma_kernel" in fn.group(1)
+        elif inside and "HGMMA" in line:
+            count += 1
+    return count
 
 
 # =============================================================================
@@ -1283,13 +1386,50 @@ def bench_kernels(cfg, eng, launches: dict) -> list[dict]:
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise RuntimeError("touch_update kernel disagrees with plain")
+    # SysMon's form: raw ids, a valid mask and an is_write flag, the
+    # normalisation inside the kernel, against the CPU path's
+    valid = torch.from_numpy(np.random.RandomState(SEED + 2).rand(B * P)
+                             < 0.7).to(dev)
+    got = K2.touch_update(n_pages, ids, False, valid)
+    want = K2.touch_update(n_pages, ids.cpu(), False, valid.cpu())
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+        raise RuntimeError("touch_update (SysMon's form) disagrees with "
+                           "plain")
     z = torch.zeros(n_pages, dtype=torch.int32, device=dev)
+
+    def events():
+        return K2.touch_update_events(n_pages, ids, r, w)
+
+    def sysmon():
+        return K2.touch_update(n_pages, ids, False, valid)
+
+    def library():
+        return z.index_add_(0, ids, r)
+
     row("touch_update", "src/repro_torch/kernels/csrc/touch_update.cu",
         "src/repro/kernels/hotness_update/hotness_update.py:118", 0,
-        _time_ms(lambda: K2.touch_update_events(n_pages, ids, r, w)),
+        _time_ms(events),
         _time_ms(lambda: K2.touch_update_plain(n_pages, ids, r, w)),
-        3 * ids.numel() * 4 + 3 * n_pages * 4, 0.0,
-        _time_ms(lambda: z.index_add_(0, ids, r)), 0)
+        3 * ids.numel() * 4 + 3 * n_pages * 4, 0.0, _time_ms(library), 0)
+    k2 = rows[-1]
+    k2.update(
+        library_factor=k2["ms"] / k2["library_ms"],
+        sysmon_ms=_time_ms(sysmon), device_ms=_graph_ms(events),
+        sysmon_device_ms=_graph_ms(sysmon),
+        library_device_ms=_graph_ms(library),
+        launches_per_call=_graph_launches(events),
+        sysmon_launches_per_call=_graph_launches(sysmon),
+        events=ids.numel(), n_pages=n_pages,
+        host_us={
+            "events": _host_us(events), "sysmon": _host_us(sysmon),
+            "index_add_": _host_us(library)},
+        note="ms, sysmon_ms, library_ms: CUDA events around eager calls "
+             "(host work included); *device_ms: per call of a CUDA graph "
+             "of 50 captured calls; launches_per_call: device work nodes "
+             "in a graph of one call; host_us: host microseconds per "
+             "call")
+    if k2["launches_per_call"] != 1 or k2["sysmon_launches_per_call"] != 1:
+        raise RuntimeError(f"touch_update is not one launch per call: {k2}")
 
     # -- K3: a demotion-sized batch (pow2-padded) of whole KV pages --------
     k_mig = 16
@@ -1845,6 +1985,7 @@ def run_longctx_probes(bf16_models) -> tuple[dict, dict]:
     probe on the full-depth bf16 models, reported and not gated."""
     import torch
     from dataclasses import replace
+    from repro_torch import kernels
     from repro_torch.configs.base import registry
     from repro_torch.models.transformer import init_params
     f32 = {"phase": "longctx_probe_f32", "tolerance": LONGCTX_PROBE_TOL,
@@ -1858,8 +1999,11 @@ def run_longctx_probes(bf16_models) -> tuple[dict, dict]:
         params = init_params(cfg, seed=SEED, dtype=torch.float32,
                              device="cuda")
         prompt = _prompts(1, LONGCTX_PROBE_PROMPT, cfg.vocab, SEED + 13)[0]
+        kernels.reset_launch_counts()
         run = _decode_vs_prefill(cfg, params, prompt, LONGCTX_PROBE_STEPS,
                                  LONGCTX_PROBE_TOL)
+        run["launches"] = {k: n for k, n in kernels.launch_counts().items()
+                           if n}
         del params
         torch.cuda.empty_cache()
         f32["runs"].append(run)
@@ -1934,12 +2078,16 @@ def run_longctx_card_vs_cpu() -> dict:
     return out
 
 
-def bench_longctx_kernels(zlaunch: dict, mlaunch: dict) -> list[dict]:
+def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
+                          f32_launches: int) -> list[dict]:
     """K8 and K9 against their plain versions on the card at the shapes of
     the long-context path, with seeded random bf16 inputs: K8 at zamba2's
-    prefill shape, at a GQA shape and with a 512-token window; K9 at
-    zamba2's and mamba2's shapes.  ``launches`` is the kernel's count in
-    the zamba2 (K8, K9) or mamba2 (K9) run."""
+    prefill shape, at a GQA shape and with a 512-token window (each with
+    the HGMMA count of its bf16 kernel, the previous kernel's time and
+    the factor over SDPA), and K8's float32 entry at the float32 probe's
+    shape; K9 at zamba2's and mamba2's shapes.  ``launches`` is the
+    kernel's count in the zamba2 (K8, K9) or mamba2 (K9) run, and for the
+    float32 row in the float32 zamba2 probe (``f32_launches``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1950,9 +2098,12 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict) -> list[dict]:
     gen.manual_seed(SEED + 14)
     bf = torch.bfloat16
     rows = []
+    hgmma = _sass_hgmma()
+    gen_f32 = torch.Generator(device=dev)   # keeps K9's inputs as they were
+    gen_f32.manual_seed(SEED + 15)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
+    def randn(*shape, g=gen):
+        return torch.randn(shape, generator=g, device=dev)
 
     def row(name, kernel, src, replaces, err, tol, ms, plain_ms, bound,
             library_ms, launches, **extra):
@@ -1963,21 +2114,26 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict) -> list[dict]:
                      "bound_ms": bound[0], "bound_by": bound[1],
                      "library_ms": library_ms, **extra})
 
-    for name, B, S, Hq, Hkv, D, window in (
+    for name, B, S, Hq, Hkv, D, window, dtype in (
             ("flash_attention", LONGCTX_BATCH, LONGCTX_PROMPT, 32, 32, 112,
-             0),
-            ("flash_attention_gqa", *FLASH_GQA_SHAPE, 0),
+             0, bf),
+            ("flash_attention_gqa", *FLASH_GQA_SHAPE, 0, bf),
             ("flash_attention_window", LONGCTX_BATCH, LONGCTX_PROMPT, 32, 32,
-             112, 512)):
-        q, k, v = (randn(B, S, h, D).to(bf) for h in (Hq, Hkv, Hkv))
+             112, 512, bf),
+            ("flash_attention_f32", 1, LONGCTX_PROBE_PROMPT, 32, 32, 112, 0,
+             torch.float32)):
+        g = gen if dtype == bf else gen_f32
+        q, k, v = (randn(B, S, h, D, g=g).to(dtype) for h in (Hq, Hkv, Hkv))
         out = K8.flash_attention(q, k, v, window=window)
         ref = K8.flash_attention_plain(q, k, v, window=window)
         torch.cuda.synchronize()
-        if not torch.allclose(out.float(), ref.float(), atol=FLASH_TOL,
-                              rtol=FLASH_TOL):
+        tol = FLASH_TOL if dtype == bf else FLASH_F32_TOL
+        if not torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol):
             raise RuntimeError(f"{name} kernel disagrees with plain")
-        err = float((out.float() - ref.float()).abs().max())
-        del ref
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
+        err_at = float(ref.float().flatten()[diff.argmax()].abs())
+        del ref, diff
         i = np.arange(S)
         pairs = float(np.minimum(i + 1, window if window else S).sum())
         G = Hq // Hkv
@@ -1993,24 +2149,40 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict) -> list[dict]:
         else:
             lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                          is_causal=True)
+        size = q.element_size()
         row(name, "flash_attention",
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:78",
-            err, FLASH_TOL,
+            err, tol,
             _time_ms(lambda: K8.flash_attention(q, k, v, window=window),
                      iters=10, warmup=2),
             _time_ms(lambda: K8.flash_attention_plain(q, k, v,
                                                       window=window),
                      iters=3, warmup=1),
-            _bound_ms(2 * (2 * q.numel() + 2 * k.numel()),
-                      4.0 * B * Hq * D * pairs),
-            _time_ms(lib, iters=10, warmup=2), zlaunch["flash_attention"],
+            _bound_ms(size * (2 * q.numel() + 2 * k.numel()),
+                      4.0 * B * Hq * D * pairs,
+                      flops_per_s=BF16_FLOPS_PER_S if dtype == bf
+                      else F32_FLOPS_PER_S),
+            _time_ms(lib, iters=10, warmup=2),
+            zlaunch["flash_attention"] if dtype == bf else f32_launches,
             shape={"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
-                   "causal": True, "window": window, "dtype": "bfloat16"},
+                   "causal": True, "window": window,
+                   "dtype": str(dtype).removeprefix("torch.")},
             library_call="scaled_dot_product_attention (KV expanded to Hq "
                          "heads outside the timing; a boolean window mask)"
             if window else "scaled_dot_product_attention, is_causal "
                            "(KV expanded to Hq heads outside the timing)")
+        kr = rows[-1]
+        kr["sdpa_factor"] = kr["ms"] / kr["library_ms"]
+        kr["abs_ref_at_max_err"] = err_at
+        if dtype == bf:
+            kr["design"] = "wgmma from TMA-loaded tiles"
+            kr["sass_hgmma"] = hgmma
+            if not hgmma:
+                raise RuntimeError(f"{name}: no HGMMA in the bf16 kernel")
+        else:
+            kr["design"] = "float32 FMA (unchanged)"
+            kr["bound_note"] = "operations over the 67 TFLOP/s float32 peak"
         del q, k, v, qt, kt, vt, out
         torch.cuda.empty_cache()
 
@@ -2140,7 +2312,9 @@ def main() -> int:
     print(json.dumps(probe_bf16), file=sys.stderr, flush=True)
     lcross = run_longctx_card_vs_cpu()
     print(json.dumps(lcross), file=sys.stderr, flush=True)
-    kernel_rows += bench_longctx_kernels(zlaunch, mlaunch)
+    kernel_rows += bench_longctx_kernels(
+        zlaunch, mlaunch,
+        probe_f32["runs"][0]["launches"].get("flash_attention", 0))
 
     lines += [{"kernels": kernel_rows}, {"host_link": link}, engine_line,
               pinned_line, parity, pparity, tail, padding, invariance,

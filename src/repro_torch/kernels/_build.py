@@ -129,6 +129,15 @@ def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
     return fn
 
 
+def current_stream(index: int) -> int:
+    """The raw handle of card ``index``'s current CUDA stream, as
+    ``torch.cuda.current_stream(index).cuda_stream`` gives it but without
+    building a Stream object on every launch.  Every wrapper passes its
+    kernel this handle."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def check(err: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:

@@ -9,8 +9,10 @@ every shared-attention site of the hybrid prefill.
 
 On CUDA tensors ``flash_attention`` launches ``csrc/flash_attention.cu``,
 which reads q [B, Sq, Hq, D] and k/v [B, Sk, Hkv, D] in place through
-their strides (no transposes, no padding of D) and applies ``scale`` to
-q in float32, as the model's ``sdpa`` does; on CPU tensors it runs
+their strides (no transposes, no padding of D) and applies ``scale`` in
+float32, as the model's ``sdpa`` does: bfloat16 on the tensor cores
+(``wgmma`` from TMA-loaded tiles, so ``tma_strides`` must accept each
+operand), float32 on the FMA units.  On CPU tensors it runs
 ``flash_attention_plain``: the KV-expansion ``sdpa`` in float32 with the
 ``_mask_bias`` causal/window bias plus the ``seq_len`` mask.  Either
 returns [B, Sq, Hq, D] in q's type.
@@ -30,6 +32,37 @@ _ARGTYPES = [_C] * 4 + [_I] * 9 + [ctypes.c_float] + [_L] * 9 + [_C]
 _FN = {torch.float32: "flash_attention_f32",
        torch.bfloat16: "flash_attention_bf16"}
 MAX_D = 128
+TMA_ALIGN = 16         # bytes: TMA's base address and stride alignment
+
+
+def tma_strides(t: torch.Tensor, name: str = "q") -> tuple[int, int, int]:
+    """The (B, S, H) element strides of a bfloat16 [B, S, H, D] operand
+    as the bf16 kernel's TMA tensor map takes them, or ValueError where
+    TMA cannot address it: D not a multiple of 8, D not unit-stride, a
+    base address or a B/S/H stride not 16-byte aligned.  A dimension of
+    size 1 is never stepped, so its stride is replaced by the contiguous
+    one (an aligned value)."""
+    B, S, H, D = t.shape
+    size = t.element_size()
+    if D % (TMA_ALIGN // size) or t.stride(3) != 1:
+        raise ValueError(f"flash_attention: {name} has D={D} (stride "
+                         f"{t.stride(3)}); the bf16 kernel needs a "
+                         f"unit-stride D that is a multiple of "
+                         f"{TMA_ALIGN // size}")
+    if t.data_ptr() % TMA_ALIGN:
+        raise ValueError(f"flash_attention: {name}'s base address is not "
+                         f"{TMA_ALIGN}-byte aligned")
+    out = []
+    inner = D
+    for dim, n in ((2, H), (1, S), (0, B)):
+        st = t.stride(dim) if n > 1 else inner
+        if st * size % TMA_ALIGN:
+            raise ValueError(f"flash_attention: {name}'s stride {st} over "
+                             f"dim {dim} is not {TMA_ALIGN}-byte aligned")
+        out.append(st)
+        inner *= n
+    h, s, b = out
+    return b, s, h
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,12 +107,16 @@ def _launch(q, k, v, causal, window, seq_len, scale):
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
     if out.numel() == 0:               # nothing to launch, nothing counted
         return out
-    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    if q.dtype == torch.bfloat16:
+        qs, ks, vs = (tma_strides(t, n) for n, t in (("q", q), ("k", k),
+                                                       ("v", v)))
+    else:
+        qs, ks, vs = q.stride(), k.stride(), v.stride()
     fn = _build.function(_FN[q.dtype], _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
              Sk, Hq, Hkv, D, seq_len, int(causal), window, scale, qs[0],
              qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-             torch.cuda.current_stream(dev).cuda_stream)
+             _build.current_stream(dev.index))
     _build.check(err, _FN[q.dtype])
     count_launch("flash_attention")
     return out

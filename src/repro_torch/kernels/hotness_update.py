@@ -1,12 +1,17 @@
 """K2 — SysMon's per-sampling touch histogram (``touch_update``), and
 K7 — the pass-boundary sweep (``sysmon_pass``, at the end of the module).
 
-Replaces ``repro.kernels.hotness_update.hotness_update.touch_update_pallas``.
-``touch_update`` normalises the event list exactly as the JAX wrapper
-(``repro.kernels.hotness_update.ops.touch_update``) does — ids clipped
-in bounds, invalid events weigh 0 — then launches
-``csrc/touch_update.cu`` on CUDA tensors or runs ``touch_update_plain``
-on CPU tensors.  Integer atomics are exact, so both agree bit for bit.
+Replaces ``repro.kernels.hotness_update.hotness_update.touch_update_pallas``
+and the JAX op around it (``repro.kernels.hotness_update.ops.
+touch_update``), which normalises the event list first: ids clipped in
+bounds, invalid events weigh 0, reads and writes split by ``is_write``.
+On CUDA tensors that normalisation happens inside the kernel
+(``csrc/touch_update.cu``): ``touch_update`` hands it the raw ids, the
+``valid`` mask and ``is_write`` (a flag or a bool vector) and SysMon's
+sampling is one launch with no zero fill.  On CPU tensors the
+normalisation stays here, in Python, before ``touch_update_plain``.
+``touch_update_events`` takes explicit int32 weights (the same kernel).
+Integer atomics are exact, so kernel and plain version agree bit for bit.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ import torch
 
 from . import _build, count_launch
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+_fn = None                               # the C entry, resolved once
 
 
 def touch_update_plain(n_pages: int, ids: torch.Tensor, r: torch.Tensor,
@@ -32,33 +38,59 @@ def touch_update_plain(n_pages: int, ids: torch.Tensor, r: torch.Tensor,
     return d_reads, d_writes, touched
 
 
-def _launch(n_pages: int, ids, r, w):
-    for name, t in (("ids", ids), ("r", r), ("w", w)):
-        if t.dtype != torch.int32 or not t.is_contiguous() \
-                or t.device != ids.device or t.shape != ids.shape:
-            raise ValueError(f"touch_update: {name} must be a contiguous "
-                             f"int32 vector on {ids.device} shaped like ids")
-    z = torch.zeros(3, n_pages, dtype=torch.int32, device=ids.device)
-    d_reads, d_writes, touched = z[0], z[1], z[2]
-    if ids.numel() == 0:                # nothing to launch, nothing counted
-        return d_reads, d_writes, touched
-    fn = _build.function("touch_update", _ARGTYPES)
-    err = fn(ids.data_ptr(), r.data_ptr(), w.data_ptr(), ids.numel(),
-             d_reads.data_ptr(), d_writes.data_ptr(), touched.data_ptr(),
-             torch.cuda.current_stream(ids.device).cuda_stream)
+def _launch(n_pages: int, ids, r, w, valid, is_write, write_flag: bool):
+    """One launch: explicit int32 weights ``r``/``w``, or weights derived
+    in the kernel from the bool ``valid`` (None: all valid) and the bool
+    ``is_write`` vector (None: every event is ``write_flag``).  The host
+    work is one check per operand, one allocation and the call: SysMon
+    samples twice per decode step."""
+    global _fn
+    k, card = ids.numel(), ids.get_device()
+    for t, dtype in ((ids, torch.int32), (r, torch.int32), (w, torch.int32),
+                     (valid, torch.bool), (is_write, torch.bool)):
+        if t is not None and (t.dtype is not dtype or t.dim() != 1
+                              or t.numel() != k or t.get_device() != card
+                              or not t.is_contiguous()):
+            raise ValueError("touch_update: ids, r, w (int32) and valid, "
+                             "is_write (bool) must be contiguous vectors "
+                             "of one length on one device")
+    if k == 0:                          # nothing to launch, nothing counted
+        return ids.new_zeros((3, n_pages)).unbind(0)
+    out = ids.new_empty((3, n_pages))
+    if _fn is None:
+        _fn = _build.function("touch_update", _ARGTYPES)
+    err = _fn(ids.data_ptr(), None if r is None else r.data_ptr(),
+              None if w is None else w.data_ptr(),
+              None if valid is None else valid.data_ptr(),
+              None if is_write is None else is_write.data_ptr(),
+              write_flag, k, n_pages, out.data_ptr(),
+              _build.current_stream(card))
     _build.check(err, "touch_update")
     count_launch("touch_update")
-    return d_reads, d_writes, touched
+    return out.unbind(0)
 
 
 def touch_update_events(n_pages: int, ids: torch.Tensor, r: torch.Tensor,
                         w: torch.Tensor):
     """Kernel dispatch over an already-normalised event list."""
-    if ids.device.type == "cpu":
-        return touch_update_plain(n_pages, ids, r, w)
-    if ids.device.type != "cuda":
+    if ids.is_cuda:
+        return _launch(n_pages, ids, r, w, None, None, False)
+    if ids.device.type != "cpu":
         raise ValueError(f"touch_update: unsupported device {ids.device}")
-    return _launch(n_pages, ids, r, w)
+    return touch_update_plain(n_pages, ids, r, w)
+
+
+def _vector(t: torch.Tensor, k: int | None = None,
+            dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``t`` as a contiguous vector (of ``dtype`` and broadcast to ``k``
+    entries if given), with no op where it already is one."""
+    if dtype is not None and t.dtype is not dtype:
+        t = t.to(dtype)
+    if t.dim() != 1:
+        t = t.reshape(-1)
+    if k is not None and t.shape[0] != k:
+        t = t.expand(k)
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def touch_update(n_pages: int, page_ids: torch.Tensor, is_write=False,
@@ -70,6 +102,20 @@ def touch_update(n_pages: int, page_ids: torch.Tensor, is_write=False,
     id lists.  Returns int32 [n_pages] (d_reads, d_writes, touched) —
     counts accumulate duplicates, touched dedupes to {0, 1}."""
     dev = page_ids.device
+    if dev.type == "cuda":
+        ids = page_ids
+        if ids.dtype != torch.int32:    # clip before narrowing, as JAX
+            ids = ids.clamp(0, n_pages - 1).to(torch.int32)
+        ids = _vector(ids)
+        k = ids.shape[0]
+        flag = isinstance(is_write, bool)
+        return _launch(
+            n_pages, ids, None, None,
+            None if valid is None else _vector(valid, k, torch.bool),
+            None if flag else _vector(is_write, k, torch.bool),
+            is_write if flag else False)
+    if dev.type != "cpu":
+        raise ValueError(f"touch_update: unsupported device {dev}")
     ids = page_ids.reshape(-1).clamp(0, n_pages - 1).to(torch.int32)
     k = ids.shape[0]
     if isinstance(is_write, bool):
@@ -80,7 +126,7 @@ def touch_update(n_pages: int, page_ids: torch.Tensor, is_write=False,
     valid = valid.reshape(-1).expand(k)
     r = (valid & ~is_write).to(torch.int32)
     w = (valid & is_write).to(torch.int32)
-    return touch_update_events(n_pages, ids.contiguous(), r, w)
+    return touch_update_plain(n_pages, ids.contiguous(), r, w)
 
 
 # =============================================================================
@@ -137,7 +183,7 @@ def sysmon_pass(reads: torch.Tensor, writes: torch.Tensor,
              patterns.RD, patterns.WD, predictor.WINDOW_LEN, predictor.K_LEN,
              predictor.HI_THRESH, predictor.LO_THRESH, predictor.UN_WD,
              predictor.WD_FREQ_L, predictor.WD_FREQ_H,
-             torch.cuda.current_stream(reads.device).cuda_stream)
+             _build.current_stream(reads.device.index))
     _build.check(err, "sysmon_pass")
     count_launch("sysmon_pass")
     return wd_code, new_hist, future

@@ -84,7 +84,7 @@ def _launch(fast, pin, f_idx, p_idx, off, k, v) -> None:
     err = fn(fast.data_ptr(), _build.device_address(pin), f_idx.data_ptr(),
              p_idx.data_ptr(), off.data_ptr(), k.data_ptr(), v.data_ptr(),
              B, row, fast.shape[0], n_pin, fs[0], fs[1], fs[2],
-             ps[0], ps[1], ps[2], torch.cuda.current_stream(dev).cuda_stream)
+             ps[0], ps[1], ps[2], _build.current_stream(dev.index))
     _build.check(err, _FN[fast.dtype])
     count_launch("kv_append")
 

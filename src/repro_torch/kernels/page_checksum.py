@@ -86,7 +86,7 @@ def page_checksum(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     fn = _build.function("page_checksum", _ARGTYPES)
     err = fn(_build.device_address(pool), idx.data_ptr(), out.data_ptr(),
              idx.shape[0], page_bytes, width,
-             torch.cuda.current_stream(idx.device).cuda_stream)
+             _build.current_stream(idx.device.index))
     _build.check(err, "page_checksum")
     count_launch("page_checksum")
     return out.view(torch.uint32)

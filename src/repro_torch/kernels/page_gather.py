@@ -71,7 +71,7 @@ def page_gather(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     fn = _build.function("page_gather", _GATHER_ARGS)
     err = fn(_build.device_address(pool), idx.data_ptr(), out.data_ptr(),
              idx.shape[0], _page_bytes(pool),
-             torch.cuda.current_stream(idx.device).cuda_stream)
+             _build.current_stream(idx.device.index))
     _build.check(err, "page_gather")
     count_launch("page_gather")
     return out
@@ -95,7 +95,7 @@ def page_scatter(pool: torch.Tensor, idx: torch.Tensor,
     fn = _build.function("page_scatter", _GATHER_ARGS)
     err = fn(_build.device_address(pool), idx.data_ptr(), pages.data_ptr(),
              idx.shape[0], _page_bytes(pool),
-             torch.cuda.current_stream(idx.device).cuda_stream)
+             _build.current_stream(idx.device.index))
     _build.check(err, "page_scatter")
     count_launch("page_scatter")
     return pool

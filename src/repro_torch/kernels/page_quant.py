@@ -93,7 +93,7 @@ def page_gather_quant(pool: torch.Tensor, idx: torch.Tensor):
     fn = _build.function("page_gather_quant", _QUANT_ARGS)
     err = fn(_build.device_address(pool), idx.data_ptr(), q.data_ptr(),
              scale.data_ptr(), amax.data_ptr(), k, n, pool.element_size(),
-             torch.cuda.current_stream(idx.device).cuda_stream)
+             _build.current_stream(idx.device.index))
     _build.check(err, "page_gather_quant")
     count_launch("page_gather_quant")
     return q, scale
@@ -123,7 +123,7 @@ def dequant_gather(pool_q: torch.Tensor, pool_scale: torch.Tensor,
     err = fn(_build.device_address(pool_q), _build.device_address(pool_scale),
              idx.data_ptr(), out.data_ptr(), k, pool_q[0].numel(),
              int(dtype == torch.bfloat16),
-             torch.cuda.current_stream(idx.device).cuda_stream)
+             _build.current_stream(idx.device.index))
     _build.check(err, "dequant_gather")
     count_launch("dequant_gather")
     return out

@@ -152,7 +152,7 @@ def _launch(q, k_pool, v_pool, block_table, lengths, k_pool2=None,
     if q.numel() == 0:                  # nothing to launch, nothing counted
         return out
     ks, vs = k_pool.stride(), v_pool.stride()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.current_stream(dev.index)
     if not dual:
         fn = _build.function(_FN[q.dtype], _ARGTYPES)
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),

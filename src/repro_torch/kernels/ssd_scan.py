@@ -106,7 +106,7 @@ def _launch(x, dt, A, Bm, Cm, chunk, h0):
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
              Cm.data_ptr(), h0.data_ptr() if h0 is not None else None,
              y.data_ptr(), h_out.data_ptr(), Bsz, L, H, P, N, chunk,
-             torch.cuda.current_stream(dev).cuda_stream)
+             _build.current_stream(dev.index))
     _build.check(err, _FN[x.dtype])
     count_launch("ssd_scan")
     return y, h_out

@@ -37,7 +37,7 @@ def _launch(wear, ids, amount) -> torch.Tensor:
         return wear
     fn = _build.function("wear_update", _ARGTYPES)
     err = fn(wear.data_ptr(), ids.data_ptr(), amount.data_ptr(),
-             ids.shape[0], torch.cuda.current_stream(wear.device).cuda_stream)
+             ids.shape[0], _build.current_stream(wear.device.index))
     _build.check(err, "wear_update")
     count_launch("wear_update")
     return wear

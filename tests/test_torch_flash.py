@@ -103,6 +103,45 @@ def test_flash_attention_refuses_bad_shapes():
         K8.flash_attention(q, k, v, seq_len=9)
 
 
+@pytest.mark.parametrize("D", [16, 64, 80, 112, 128])
+def test_tma_strides_accepts_model_shapes(D):
+    """The bf16 kernel's TMA check takes every head dim the models and the
+    tests use, contiguous, and returns the (B, S, H) element strides."""
+    t = torch.zeros((2, 70, 4, D), dtype=torch.bfloat16)
+    assert K8.tma_strides(t) == (70 * 4 * D, 4 * D, D)
+
+
+def test_tma_strides_accepts_fused_qkv_views():
+    """q, k, v as strided views of a fused [B, S, 3, H, D] bf16 tensor
+    pass with their own strides; size-1 dims get the contiguous stride."""
+    qkv = torch.zeros((2, 70, 3, 4, 112), dtype=torch.bfloat16)
+    for i in range(3):
+        view = qkv[:, :, i]
+        assert not view.is_contiguous()
+        assert K8.tma_strides(view, "k") == (70 * 3 * 4 * 112, 3 * 4 * 112,
+                                             112)
+    one = torch.zeros((1, 1, 1, 64), dtype=torch.bfloat16)
+    assert K8.tma_strides(one) == (64, 64, 64)
+
+
+@pytest.mark.parametrize("case", ["D100", "offset", "stride"])
+def test_tma_strides_refuses_what_tma_cannot_address(case):
+    """D = 100 (not a multiple of 8), a view offset by one element (base
+    not 16-byte aligned) and an S stride of 100 elements are refused with
+    a message."""
+    bf = torch.bfloat16
+    if case == "D100":
+        t, match = torch.zeros((1, 8, 2, 100), dtype=bf), "D=100"
+    elif case == "offset":
+        flat = torch.zeros(2 * 64 * 4 * 64 + 1, dtype=bf)
+        t, match = flat[1:].view(2, 64, 4, 64), "base address"
+    else:
+        t, match = torch.zeros((1, 8, 100), dtype=bf)[..., :64].reshape(
+            1, 8, 1, 64), "stride 100"
+    with pytest.raises(ValueError, match=match):
+        K8.tma_strides(t)
+
+
 @pytest.mark.parametrize("window,Hq,Hkv", [(None, 4, 2), (0, 4, 4),
                                            (5, 4, 2)])
 def test_mask_bias_and_sdpa_match_jax(window, Hq, Hkv):
@@ -249,3 +288,33 @@ def test_flash_attention_kernel_reads_strided_views_cuda():
                                    v.contiguous())
     torch.cuda.synchronize()
     assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_bf16_reads_strided_views_cuda():
+    """The bf16 kernel's TMA maps over non-contiguous q, k, v views of a
+    fused [B, S, 3, H, D] tensor match the plain version on contiguous
+    copies, within the bf16 tolerance."""
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    qkv = torch.randn((2, 70, 3, 4, 112), device=dev, generator=gen).to(
+        torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    out = K8.flash_attention(q, k, v)
+    ref = K8.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                   v.contiguous())
+    torch.cuda.synchronize()
+    assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_bf16_refuses_unaligned_view_cuda():
+    """A bf16 view the TMA maps cannot address raises before any launch."""
+    dev = cuda_device()
+    flat = torch.zeros(64 * 2 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    q = flat[1:].view(1, 64, 2, 64)
+    before = kernels.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError, match="base address"):
+        K8.flash_attention(q, q, q)
+    assert kernels.launch_counts()["flash_attention"] == before

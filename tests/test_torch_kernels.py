@@ -169,6 +169,25 @@ def test_touch_update_without_mask():
         assert_same(g, r)
 
 
+@pytest.mark.parametrize("write", [True, "one"])
+def test_touch_update_broadcasts_one_element_masks(write):
+    """A one-element ``valid`` and ``is_write`` tensor apply to every
+    event, as the JAX op broadcasts them."""
+    jnp = _jnp()
+    from repro.kernels.hotness_update import touch_update
+    ids = np.array([3, 3, 0, 7, 9, -1], np.int32)
+    valid = np.array([True])
+    is_write = np.array([True]) if write == "one" else write
+    got = K2.touch_update(
+        8, torch.from_numpy(ids),
+        is_write if isinstance(is_write, bool) else torch.from_numpy(
+            is_write), torch.from_numpy(valid))
+    jw = is_write if isinstance(is_write, bool) else jnp.asarray(is_write)
+    want = touch_update(8, jnp.asarray(ids), jw, jnp.asarray(valid))
+    for g, w in zip(got, want):
+        assert_same(g, w)
+
+
 @pytest.mark.requires_cuda
 def test_touch_update_kernel_vs_plain_cuda():
     dev = cuda_device()
@@ -182,6 +201,57 @@ def test_touch_update_kernel_vs_plain_cuda():
     assert kernels.launch_counts()["touch_update"] == n0 + 1
     for g, p in zip(got, K2.touch_update_plain(512, ids, r, w)):
         assert_same(g, p)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n_pages", [512, 5000, 70000])
+@pytest.mark.parametrize("k", [1, 37, 4096])
+def test_touch_update_owner_computes_cuda(n_pages, k):
+    """The owner-computes kernel, one CTA per 2048 pages, exact against
+    the plain version: explicit weights, and SysMon's form (raw ids with
+    duplicates and out-of-range entries, a ``valid`` mask, ``is_write`` as
+    a vector and as a flag) against the CPU path's normalisation.  Each
+    call is one launch."""
+    dev = cuda_device()
+    rng = np.random.RandomState(n_pages + k)
+    ids_np = rng.randint(-5, n_pages + 5, size=k).astype(np.int32)
+    ids_np[: k // 3] = ids_np[0]                          # duplicates
+    ids_np[-1] = n_pages - 1                              # the last page
+    valid = torch.from_numpy(rng.rand(k) < 0.8)
+    is_write = torch.from_numpy(rng.rand(k) < 0.4)
+    clipped = torch.from_numpy(np.clip(ids_np, 0, n_pages - 1))
+    r = torch.from_numpy((rng.rand(k) < .5).astype(np.int32))
+    w = torch.from_numpy((rng.rand(k) < .3).astype(np.int32))
+    ids = torch.from_numpy(ids_np)
+    n0 = kernels.launch_counts()["touch_update"]
+    got = [K2.touch_update_events(n_pages, clipped.to(dev), r.to(dev),
+                                  w.to(dev)),
+           K2.touch_update(n_pages, ids.to(dev), is_write.to(dev),
+                           valid.to(dev)),
+           K2.touch_update(n_pages, ids.to(dev), True, valid.to(dev)),
+           K2.touch_update(n_pages, ids.to(dev), False)]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["touch_update"] == n0 + 4
+    want = [K2.touch_update_plain(n_pages, clipped, r, w),
+            K2.touch_update(n_pages, ids, is_write, valid),
+            K2.touch_update(n_pages, ids, True, valid),
+            K2.touch_update(n_pages, ids, False)]
+    for g3, w3 in zip(got, want):
+        for g, p in zip(g3, w3):
+            assert g.dtype == torch.int32 and g.shape == (n_pages,)
+            assert_same(g, p)
+
+
+@pytest.mark.requires_cuda
+def test_touch_update_empty_sampling_launches_nothing_cuda():
+    """k = 0 through SysMon's entry: zeros, and no launch counted."""
+    dev = cuda_device()
+    n0 = kernels.launch_counts()["touch_update"]
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    out = K2.touch_update(512, none, True,
+                          torch.zeros(0, dtype=torch.bool, device=dev))
+    assert all(int(t.abs().sum()) == 0 and t.shape == (512,) for t in out)
+    assert kernels.launch_counts()["touch_update"] == n0
 
 
 # =============================================================================
