@@ -36,15 +36,19 @@ prints no result line):
      injected and caught;
   6. what padding the decode to ``max_batch`` rows costs (one dispatch
      of 2 rows padded to 8 vs unpadded) and which dense op of the step
-     gives other bits for another number of rows;
+     gives other bits for another number of rows; then whether a row's
+     decode bits depend on the row count (``batch_invariance``): where
+     they do, the step's ops are logged to name the first that gives
+     other bits on equal inputs, and the phase fails if that is K1 or K1d;
   7. two fused dispatches under ``torch.profiler``, on the phase-2 path
      and, once pages sit in the pinned tier, on the phase-3 path: the
      device's busy share of the wall time;
   8. a small float32 model stepped on the card and on the CPU (the plain
      kernel versions): logits within 1e-3 and identical integer state;
  10. ``prefill``: the phase-2 requests with ``prefill=True``: every
-     prefill dispatch launches K1 and the KV append once per layer over
-     the bucket's rows; the tokens that differ from phase 2 (prompt
+     prefill dispatch launches K1's prefill body and the KV append once
+     per layer over the bucket's rows (K1's decode body only in the
+     decode); the tokens that differ from phase 2 (prompt
      replay) are reported; a probe of 2 prompts, each on fresh engines,
      holds one prefill dispatch against K=1 replay: a first token may
      differ only on a near tie; on float32 weights the KV pages and
@@ -52,7 +56,8 @@ prints no result line):
      matmuls must not; in bf16 their maximum errors stay within 0.2;
  11. ``prefill_pinned``: the same over the pinned-host tier, and again
      with HBM cut to 8 slots, where prompt pages land in the pinned tier
-     and K1d and the KV append must run inside the prefill dispatches;
+     and K1d's prefill body and the KV append must run inside the prefill
+     dispatches, K1d's decode body in the decode;
  12. ``int8_host``: the same over an int8 numpy host tier: K6 quantizes
      every demotion on the card, ``dequant_gather`` every promotion;
  13. ``int8_pinned``: over an int8 pinned-host tier with page integrity
@@ -68,23 +73,34 @@ prints no result line):
  16. ``longctx_probe_f32``: on float32 weights (zamba2 cut to 14 layers,
      mamba2 at full depth) every decode step's logits agree with a fresh
      prefill's over the same tokens within 1e-3, the argmax too unless
-     near a tie; the same probe on the full-depth bf16 models is
-     reported (``longctx_probe_bf16``), not gated;
+     near a tie; the same probe on the full-depth bf16 models
+     (``longctx_probe_bf16``) within 0.5, flips only under a 0.1 margin;
+     both localize the difference per Mamba layer (output and SSM state
+     after one decode step vs a fresh prefill);
  17. ``longctx_card_vs_cpu``: smoke-width mamba2 and zamba2 in float32,
      a 37-token prompt and 5 decode steps on the card and on the CPU:
      logits and states within 1e-4, identical tokens;
   9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
-     kernels and the KV append exactly; the dual-pool attention
-     bit-identical to single-pool K1 on the same pages), with CUDA-event
+     kernels and the KV append exactly; the dual-pool attention, decode
+     and prefill, bit-identical to single-pool K1 on the same pages; a
+     packed segment's prefill bits the same at every offset of a bucket
+     and beside any neighbours, ``prefill_invariance``), with CUDA-event
      timings of the kernel, the plain version and one PyTorch library
      call where one computes the same function, and the least time the
      card could take: bytes over 3.35 TB/s for HBM, bytes over the
      host-link rate measured in this run (a pinned -> device ``copy_``)
      for pinned host memory, operations over the bf16 peak.  Phases
      10-13 run before it; its rows add K6, ``dequant_gather``, K5 over
-     1-byte pages and K1 at the prefill shape; phases 14-17 too, and
+     1-byte pages, K1's and K1d's prefill bodies at the prefill shape
+     (the bf16 body's HMMA count ``sass_hmma`` must not be 0; K1 and K1d
+     also as ``device_ms`` over CUDA graphs, K1 also at shorter segments
+     and K1d with every page in HBM, K1d beside SDPA with its host-to-HBM
+     copy timed too) and K1's float32 prefill body at the float32 probe's
+     shape within 1e-5 (its launches read around that probe); every K1
+     row carries its launch ``plan`` (grid, shared memory, CTAs and warps
+     per SM by the occupancy calculator); phases 14-17 too, and
      its rows add K8 (zamba2's prefill shape, a GQA shape, a 512-token
      window; bf16 within 1e-2, each with ``sass_hgmma``, the count of
      HGMMA instructions in the bf16 kernel, which must not be 0; and the
@@ -117,6 +133,9 @@ F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 # bf16 K/V, kernel vs plain, atol = rtol: ~3x the kernel's error on the
 # card, below what accumulating softmax.V in bf16 gives (checked per run)
 ATTN_TOL = 3e-3
+# float32 K/V: K1's float32 bodies vs plain, the same float32 math summed
+# in another order
+PAGED_F32_TOL = 1e-5
 
 SEED = 0
 REQUESTS, PROMPT_LEN, NEW_TOKENS = 12, 128, 32       # the engine runs
@@ -136,16 +155,18 @@ PINNED_KERNELS = ("paged_attention_dual", "kv_append", "touch_update",
 TAIL_KERNELS = ("paged_attention_dual", "kv_append", "touch_update",
                 "wear_update", "page_checksum")
 # the prefill and int8 runs: each prefill dispatch appends its rows
-# with kv_append and attends with K1 (K1d when prompt pages sit in the
-# pinned tier); the int8 runs quantize demotions with K6 and dequantize
+# with kv_append and attends with K1's prefill body (its dual-pool entry
+# when prompt pages sit in the pinned tier), the decode with K1's decode
+# body; the int8 runs quantize demotions with K6 and dequantize
 # promotions with dequant_gather, and the armed int8-pinned run sums its
 # 1-byte pages with K5
-PREFILL_KERNELS = ("paged_attention", "kv_append", "touch_update",
-                   "page_gather", "page_scatter", "wear_update",
-                   "sysmon_pass")
-INT8_HOST_KERNELS = ("paged_attention", "kv_append", "page_gather_quant",
-                     "dequant_gather", "page_scatter", "touch_update",
-                     "wear_update", "sysmon_pass")
+PREFILL_KERNELS = ("paged_attention", "paged_attention_prefill",
+                   "kv_append", "touch_update", "page_gather",
+                   "page_scatter", "wear_update", "sysmon_pass")
+INT8_HOST_KERNELS = ("paged_attention", "paged_attention_prefill",
+                     "kv_append", "page_gather_quant", "dequant_gather",
+                     "page_scatter", "touch_update", "wear_update",
+                     "sysmon_pass")
 INT8_PINNED_KERNELS = INT8_HOST_KERNELS + ("page_checksum",)
 # prefill vs replay of the same prompt at full depth, KV pages and
 # first-token logits.  On float32 weights the two agree within 1.1e-5
@@ -172,6 +193,12 @@ LONGCTX_PROBE_LAYERS = 14
 LONGCTX_PROBE_PROMPT, LONGCTX_PROBE_STEPS = 500, 4
 LONGCTX_PROBE_TOL = 1e-3
 LONGCTX_TIE_MARGIN = 1e-2
+# the same probe on the full-depth bf16 models (ROADMAP C8): decode and
+# prefill round apart layer by layer.  Their logits differed by at most
+# 0.244 (zamba2_7b) and 0.172 (mamba2_1_3b) on the card, with argmax flips
+# at top-2 margins of 0.016 and 0.031; the limits are ~2x and ~3x those
+LONGCTX_BF16_MAX_ERR = 0.5
+LONGCTX_BF16_TIE_MARGIN = 0.1
 # smoke width, float32, the card (kernels) vs the CPU (plain versions)
 LONGCTX_CROSS_PROMPT, LONGCTX_CROSS_STEPS, LONGCTX_CROSS_TOL = 37, 5, 1e-4
 # K8's GQA row (B, S, Hq, Hkv, D), beside the zamba2 prefill shapes
@@ -231,6 +258,22 @@ def _bound_ms(nbytes: float, flops: float = 0.0, host_bytes: float = 0.0,
     t_ops = flops / flops_per_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
+
+
+def _plan(prefill: bool, dual: bool, dtype, rows: int, Hkv: int, G: int,
+          D: int) -> dict:
+    """The launch plan of K1's body for these shapes (grid CTAs, threads,
+    shared memory, CTAs per SM from the occupancy calculator, cluster
+    size) and the warps it can keep on a busy SM: the resident CTAs per
+    SM, at most the grid spread over the SMs, times the warps per CTA.
+    An upper bound from the plan, not an achieved occupancy."""
+    import torch
+    from repro_torch.kernels import paged_attention as K1
+    info = K1.launch_info(prefill, dual, dtype, rows, Hkv, G, D)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = min(info["ctas_per_sm"], -(-info["ctas"] // sms))
+    return {**info, "sms": sms,
+            "warps_per_busy_sm": per_sm * info["threads"] // 32}
 
 
 def _captured(fn, calls: int, keep_graph: bool = False):
@@ -302,13 +345,14 @@ def _graph_launches(fn) -> int:
     return work
 
 
-def _sass_hgmma() -> int:
-    """HGMMA instructions in K8's bf16 kernel function, from ``cuobjdump
+def _sass_count(function: str, opcode: str) -> int:
+    """Instructions whose opcode starts with ``opcode`` (HGMMA, HMMA) in
+    the kernel functions whose names hold ``function``, from ``cuobjdump
     -sass`` of the built library (``cuobjdump`` sits beside ``nvcc``)."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     if not tool.is_file():
-        raise RuntimeError(f"{tool} missing: cannot count HGMMA")
+        raise RuntimeError(f"{tool} missing: cannot count {opcode}")
     _build.library()
     sass = subprocess.run([str(tool), "-sass", _build.build_info["library"]],
                           capture_output=True, text=True, check=True,
@@ -317,8 +361,8 @@ def _sass_hgmma() -> int:
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            inside = "flash_wgmma_kernel" in fn.group(1)
-        elif inside and "HGMMA" in line:
+            inside = function in fn.group(1)
+        elif inside and re.search(rf"\b{opcode}\.", line):
             count += 1
     return count
 
@@ -770,6 +814,75 @@ def run_batch_padding(cfg, params) -> dict:
             "argmax_first_index_on_ties": first_wins}
 
 
+def _op_log():
+    """Wrap the decode step's dense ops and its attention, as the engine
+    module calls them, to log every call as (op, input digest per row,
+    output).  An attention call's input is its q and the K/V pages its
+    table names, digested per row (int16 bit patterns summed), so two
+    calls with equal digests read the same bits.  Returns (log, undo)."""
+    import torch
+    from repro_torch.serving import engine as E
+    log, saved = [], []
+
+    def digest(t):
+        return t.contiguous().view(torch.int16).reshape(
+            t.shape[0], -1).long().sum(dim=1)
+
+    def kv_rows(a):
+        if len(a) == 5:                      # q, k_pool, v_pool, bt, lengths
+            bt = a[3].long()
+            return digest(a[1][bt]) * 3 + digest(a[2][bt])
+        q, kf, vf, kp, vp, bt, sel, _ = a   # the dual pool
+        s = (sel > 0)[:, :, None, None, None]
+        b2 = bt.clamp(0, kp.shape[0] - 1).long().cpu()
+        b1 = bt.clamp(0, kf.shape[0] - 1).long()
+        k = torch.where(s, kp[b2].to(q.device), kf[b1])
+        v = torch.where(s, vp[b2].to(q.device), vf[b1])
+        return digest(k) * 3 + digest(v)
+
+    def wrap(mod, name, attention=False):
+        f = getattr(mod, name)
+        saved.append((mod, name, f))
+
+        def w(*a, **k):
+            out = f(*a, **k)
+            o = out[0] if isinstance(out, tuple) else out
+            x = next(t for t in a if isinstance(t, torch.Tensor))
+            x = x.reshape(x.shape[0], -1)
+            d = digest(x) * 7 + kv_rows(a) if attention else digest(x)
+            log.append((name, d, o.detach().clone()))
+            return out
+        setattr(mod, name, w)
+    for mod, name in ((E.L, "rms_norm"), (E.attn_mod, "project_qkv"),
+                      (E.T, "ffn_block"), (E.T, "logits_out")):
+        wrap(mod, name)
+    wrap(E, "paged_attention", attention=True)
+    wrap(E, "paged_attention_dual", attention=True)
+
+    def undo():
+        for mod, name, f in saved:
+            setattr(mod, name, f)
+    return log, undo
+
+
+def _first_variant_op(full: list, part: list, r: int) -> dict | None:
+    """The first logged call whose first r rows got equal inputs but
+    other output bits than in the full step, and whether any attention
+    call did so."""
+    import torch
+    first, attention = None, 0
+    for i, ((op, din, out), (op2, din2, out2)) in enumerate(zip(full, part)):
+        if not torch.equal(din[:r], din2):
+            continue
+        rows = [j for j in range(r) if not torch.equal(out[j], out2[j])]
+        if rows:
+            attention += op.startswith("paged_attention")
+            if first is None:
+                first = {"op": op, "call": i, "rows": rows,
+                         "values_differ": int((out[:r] != out2).sum())}
+    return first and {**first, "attention_calls": attention}
+
+
 def run_batch_invariance(cfg, params) -> dict:
     """Whether one decode step's bits depend on how many rows share it or
     on a row's place in the batch.  An engine with ``max_batch`` 1 (so
@@ -778,7 +891,10 @@ def run_batch_invariance(cfg, params) -> dict:
     r = 1..7, then all 8 in reverse order: every row's logits and
     sampled token are compared with its own in the 8-row step.  Once
     with every page in HBM (``_decode_core``), once with about half of
-    them in the pinned-host pool (``_decode_core_pinned``)."""
+    them in the pinned-host pool (``_decode_core_pinned``).  Where a row
+    count gives other bits, the step's ops are logged to name the first
+    one whose output differs on equal inputs (ROADMAP C5); the phase
+    fails if K1 or K1d is ever one that does."""
     import numpy as np
     import torch
     from repro_torch.core.hierarchy import MemoryHierarchy
@@ -827,12 +943,29 @@ def run_batch_invariance(cfg, params) -> dict:
             if not torch.equal(torch.argmax(part[:, :cfg.vocab], dim=-1),
                                sampled[:r]):
                 tokens.append(r)
+        first = {}
+        if bits:
+            log, undo = _op_log()
+            try:
+                step(list(range(B)))
+                full_log = list(log)
+                for r in bits:
+                    log.clear()
+                    step(list(range(r)))
+                    first[r] = _first_variant_op(full_log, list(log), r)
+            finally:
+                undo()
+            del log, full_log
         out[path] = {
             "row_counts_with_other_bits": bits,
             "row_counts_with_other_tokens": tokens,
+            "first_op_with_other_bits_on_equal_inputs": first,
             "reversed_order_identical": torch.equal(
                 step(list(range(B))[::-1]), full.flip(0)),
             "finite": bool(torch.isfinite(full.float()).all())}
+        if any(f and f["attention_calls"] for f in first.values()):
+            raise RuntimeError(f"batch_invariance ({path}): paged attention "
+                               f"gave other bits on equal inputs: {first}")
         del eng, pools
     return out
 
@@ -1047,15 +1180,18 @@ def _serve_prefill_run(cfg, params, phase: str, scfg, want, *,
 
 def run_prefill(cfg, params, replay_tokens) -> tuple[dict, dict, list]:
     """Phase 10: the engine run's requests with ``prefill=True`` over the
-    numpy host tier.  Each prefill dispatch must launch K1 and the KV
-    append once per layer (B = the bucket's rows); the tokens that differ
-    from the replaying engine run are reported."""
+    numpy host tier.  Each prefill dispatch must launch K1's prefill body
+    and the KV append once per layer over the bucket's rows, and never
+    the decode body; the tokens that differ from the replaying engine run
+    are reported."""
     out, launches, eng, toks = _serve_prefill_run(
         cfg, params, "prefill", _serve_config(prefill=True), replay_tokens)
     pl = out["prefill_launches"]
     n = cfg.n_layers * out["prefill_dispatches"]
-    if pl.get("paged_attention") != n or pl.get("kv_append") != n:
-        raise RuntimeError(f"prefill: {n} K1 and KV-append launches "
+    if pl.get("paged_attention_prefill") != n or pl.get("kv_append") != n \
+            or pl.get("paged_attention"):
+        raise RuntimeError(f"prefill: {n} launches of K1's prefill body and "
+                           f"of the KV append (and none of its decode body) "
                            f"expected inside the prefill dispatches, got "
                            f"{pl}")
     _check_launches(launches, PREFILL_KERNELS, "prefill")
@@ -1072,9 +1208,17 @@ def run_prefill(cfg, params, replay_tokens) -> tuple[dict, dict, list]:
     # the prefill and the replay must agree within PROBE_F32_TOL, and a
     # prefill in TF32 must not
     import torch
+    from repro_torch import kernels
     from repro_torch.models.transformer import init_params
     f32 = init_params(cfg, seed=SEED, dtype=torch.float32, device="cuda")
+    kernels.reset_launch_counts()
     out["probe_f32"] = run_prefill_probe(cfg, f32, tf32_control=True)
+    out["probe_f32_launches"] = {k: n for k, n in
+                                 kernels.launch_counts().items() if n}
+    if not out["probe_f32_launches"].get("paged_attention_prefill"):
+        raise RuntimeError(f"prefill probe (float32): no launch of K1's "
+                           f"float32 prefill body: "
+                           f"{out['probe_f32_launches']}")
     del f32
     torch.cuda.empty_cache()
     for row in out["probe_f32"]:
@@ -1179,23 +1323,29 @@ def run_prefill_pinned(cfg, params, prefill_tokens) -> tuple[dict, dict]:
     each), so these prefills never touch the pinned tier; a second run
     with HBM cut to 8 slots puts prompt pages there, and K1d and the KV
     append must launch inside its prefill dispatches and its prefill
-    must charge pinned wear."""
+    must charge pinned wear; its decode runs K1d's decode body."""
     from repro_torch.core.hierarchy import MemoryHierarchy
     out, launches, _, _ = _serve_prefill_run(
         cfg, params, "prefill_pinned", _serve_config(
             prefill=True, hierarchy=MemoryHierarchy.two_tier(
                 64, 512, pinned_slow=True)), prefill_tokens)
-    _check_launches(launches, ("paged_attention", "kv_append",
-                               "touch_update", "wear_update",
+    _check_launches(launches, ("paged_attention", "paged_attention_prefill",
+                               "kv_append", "touch_update", "wear_update",
                                "sysmon_pass"), "prefill_pinned")
     dual, dual_launches, _, _ = _serve_prefill_run(
         cfg, params, "prefill_pinned_hbm8", _serve_config(
             prefill=True, fast_slots=8, hierarchy=MemoryHierarchy.two_tier(
                 8, 512, pinned_slow=True)), prefill_tokens)
     pl = dual["prefill_launches"]
-    if not (pl.get("paged_attention_dual") and pl.get("kv_append")):
-        raise RuntimeError(f"prefill_pinned: K1d and the KV append never "
-                           f"ran inside a prefill dispatch: {pl}")
+    if not (pl.get("paged_attention_prefill_dual") and pl.get("kv_append")) \
+            or pl.get("paged_attention_dual") or pl.get("paged_attention"):
+        raise RuntimeError(f"prefill_pinned: K1d's prefill body and the KV "
+                           f"append must run inside the prefill dispatches, "
+                           f"the decode bodies never: {pl}")
+    if dual_launches["paged_attention_dual"] \
+            <= pl.get("paged_attention_dual", 0):
+        raise RuntimeError("prefill_pinned: K1d's decode body never ran in "
+                           "the decode")
     if not dual["prefill_slow_wear_writes"]:
         raise RuntimeError("prefill_pinned: the prefill dispatches charged "
                            "no pinned wear")
@@ -1368,7 +1518,17 @@ def bench_kernels(cfg, eng, launches: dict) -> list[dict]:
         nbytes, flops,
         _time_ms(lambda: F.scaled_dot_product_attention(
             q4, kc, vc, attn_mask=mask, scale=1.0)), ATTN_TOL)
-    rows[-1]["bf16_accumulating_max_abs_err"] = foil_err
+    rows[-1].update(
+        bf16_accumulating_max_abs_err=foil_err,
+        device_ms=_graph_ms(lambda: K1.paged_attention_pooled(
+            q, k_pool, v_pool, bt, lengths)),
+        library_device_ms=_graph_ms(lambda: F.scaled_dot_product_attention(
+            q4, kc, vc, attn_mask=mask, scale=1.0)),
+        library_call="scaled_dot_product_attention, KV gathered contiguous "
+                     "and expanded to Hq heads outside the timing",
+        note="ms, library_ms: CUDA events around eager calls (host work "
+             "included); *device_ms: per call of a CUDA graph of 50 calls",
+        plan=_plan(False, False, pool.dtype, B, Hkv, G, D))
 
     # -- K2: the two samplings of an inner step: reads over B*P block-table
     # entries, then one write per sequence on its tail page -------------
@@ -1489,6 +1649,9 @@ def bench_kernels(cfg, eng, launches: dict) -> list[dict]:
         _time_ms(lambda: K4.wear_update_plain(wbuf, wid, amt)),
         2 * n_slow * 4 + 2 * wid.numel() * 4, 0.0,
         _time_ms(lambda: wbuf.index_add_(0, wid, amt)), 0)
+    rows[-1].update(
+        device_ms=_graph_ms(lambda: K4.wear_update_events(wbuf, wid, amt)),
+        library_device_ms=_graph_ms(lambda: wbuf.index_add_(0, wid, amt)))
     return rows
 
 
@@ -1513,6 +1676,45 @@ def _check_nonzero_pages(pool, rows, what: str) -> None:
     bits = pool[rows].reshape(rows.numel(), -1).view(torch.int16)
     if not bool((bits != 0).any(dim=1).all()):
         raise RuntimeError(f"{what}: the check would compare all-zero pages")
+
+
+_WITH_COPY_CALL = ("index_select of the table's pinned pages on the host, "
+                   "their copy to HBM, the HBM pages gathered beside them, "
+                   "KV expanded to Hq heads, then the same SDPA, timed "
+                   "together")
+
+
+def _sdpa_with_copy(kf, vf, kp, vp, bt_np, sel_np, G, sdpa):
+    """The library route to attention over two pools: the pinned pages a
+    table names are gathered on the host (``index_select``) and copied to
+    HBM, the HBM pages gathered beside them in table order, K/V laid out
+    [rows, Hq, S, D], then ``sdpa(k, v)``.  Returns a callable that does
+    all of it, for timing."""
+    import numpy as np
+    import torch
+    dev = kf.device
+    rows, P = bt_np.shape
+    page, Hkv, D = kf.shape[1:]
+    flat_sel = sel_np.reshape(-1) > 0
+    pin_ids = torch.from_numpy(bt_np.reshape(-1)[flat_sel]).long()
+    hbm_ids = torch.from_numpy(bt_np.reshape(-1)[~flat_sel]).long().to(dev)
+    pin_pos = torch.from_numpy(np.flatnonzero(flat_sel)).to(dev)
+    hbm_pos = torch.from_numpy(np.flatnonzero(~flat_sel)).to(dev)
+    stage = [torch.empty((len(pin_ids),) + tuple(kp.shape[1:]),
+                         dtype=kp.dtype, pin_memory=True) for _ in range(2)]
+    dest = [torch.empty((rows * P,) + tuple(kf.shape[1:]), dtype=kf.dtype,
+                        device=dev) for _ in range(2)]
+
+    def run():
+        kv = []
+        for hbm, pin, st, d in zip((kf, vf), (kp, vp), stage, dest):
+            torch.index_select(pin, 0, pin_ids, out=st)
+            d.index_copy_(0, pin_pos, st.to(dev))
+            d.index_copy_(0, hbm_pos, hbm.index_select(0, hbm_ids))
+            kv.append(d.view(rows, P * page, Hkv, D).transpose(1, 2)
+                      .repeat_interleave(G, dim=1))
+        return sdpa(*kv)
+    return run
 
 
 def bench_pinned_kernels(cfg, peng, launches: dict, engine_launches: dict,
@@ -1652,6 +1854,9 @@ def bench_pinned_kernels(cfg, peng, launches: dict, engine_launches: dict,
     q4 = q.reshape(B, Hq, 1, D)
     mask = (torch.arange(S, device=dev)[None, :]
             < lengths[:, None])[:, None, None, :]
+    with_copy = _sdpa_with_copy(kf, vf, kp, vp, bt_np, sel_np, G,
+                                lambda k, v: F.scaled_dot_product_attention(
+                                    q4, k, v, attn_mask=mask, scale=1.0))
     row("paged_attention_dual",
         "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention/ops.py:76", err,
@@ -1663,7 +1868,12 @@ def bench_pinned_kernels(cfg, peng, launches: dict, engine_launches: dict,
         _time_ms(lambda: F.scaled_dot_product_attention(
             q4, kc, vc, attn_mask=mask, scale=1.0)), ATTN_TOL,
         bit_identical_to_single_pool=True, pinned_rows=pin_rows,
-        hbm_rows=hbm_rows)
+        hbm_rows=hbm_rows,
+        device_ms=_graph_ms(lambda: K1.paged_attention_dual_pooled(*dual)),
+        plan=_plan(False, True, fast.dtype, B, Hkv, G, D),
+        library_call="SDPA, KV copied to HBM, copy not timed",
+        library_with_copy_ms=_time_ms(with_copy, iters=10, warmup=2),
+        library_with_copy_call=_WITH_COPY_CALL)
     del kmerged, vmerged, kc, vc
 
     # -- KV append: one layer's new K/V rows, half landing in the pinned pool
@@ -1699,7 +1909,10 @@ def bench_pinned_kernels(cfg, peng, launches: dict, engine_launches: dict,
         _bound_ms(2 * B * Hkv * D * 2 + (B - n_pin_rows) * row_b + B * 12,
                   host_bytes=n_pin_rows * row_b, link_bytes_per_s=rate),
         _time_ms(lambda: lib_view.index_put_(lib_idx, lib_kv)), 0,
-        library_call="index_put_ into an HBM pool view")
+        library_call="index_put_ into an HBM pool view",
+        device_ms=_graph_ms(lambda: KA.kv_append(*app)),
+        library_device_ms=_graph_ms(
+            lambda: lib_view.index_put_(lib_idx, lib_kv)))
     return rows
 
 
@@ -1811,7 +2024,7 @@ def bench_int8_prefill_kernels(cfg, eng, ieng, prefill_line: dict,
         library_note="no PyTorch call sums stored bits with odd weights "
                      "modulo 2**32")
 
-    # -- K1 at the prefill shape: 2 x 128 rows, 16-page tables ---------------
+    # -- K1's prefill body: 2 x 128 rows, 16-page tables ---------------------
     page = eng.scfg.page_size
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = Hq // Hkv
@@ -1829,13 +2042,13 @@ def bench_int8_prefill_kernels(cfg, eng, ieng, prefill_line: dict,
     lengths = torch.from_numpy(lengths_np).to(dev)
     qg = (torch.randn((L, Hkv, G, D), generator=gen, device=dev)
           * D ** -0.5).to(pool.dtype)
-    out_k = K1.paged_attention_pooled(qg, k_pool, v_pool, bt, lengths)
-    out_p = K1.paged_attention_plain(qg, k_pool, v_pool, bt, lengths)
+    args = (qg, k_pool, v_pool, bt, lengths)
+    out_k = K1.paged_attention_prefill_pooled(*args)
+    out_p = K1.paged_attention_plain(*args)
     torch.cuda.synchronize()
     if not torch.allclose(out_k.float(), out_p.float(), atol=ATTN_TOL,
                           rtol=ATTN_TOL):
-        raise RuntimeError("paged_attention at the prefill shape disagrees "
-                           "with plain")
+        raise RuntimeError("paged_attention_prefill disagrees with plain")
     err = float((out_k.float() - out_p.float()).abs().max())
     flat = torch.from_numpy(seg_pages.reshape(-1)).to(dev).long()
     kc = k_pool[flat].reshape(n_seg, seg, Hkv, D).transpose(1, 2) \
@@ -1844,23 +2057,298 @@ def bench_int8_prefill_kernels(cfg, eng, ieng, prefill_line: dict,
         .repeat_interleave(G, dim=1).contiguous()
     q4 = qg.reshape(n_seg, seg, Hq, D).transpose(1, 2).contiguous()
     kv_bytes = n_seg * seg * 2 * Hkv * D * pool.element_size()
-    row("paged_attention_prefill", "paged_attention",
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, kc, vc, is_causal=True,
+                                              scale=1.0)
+    hmma = _sass_count("paged_prefill_bf16_kernel", "HMMA")
+    if not hmma:
+        raise RuntimeError("paged_attention_prefill: no HMMA in the bf16 "
+                           "prefill body")
+    row("paged_attention_prefill", "paged_attention_prefill",
         "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention/paged_attention.py:75",
-        _time_ms(lambda: K1.paged_attention_pooled(qg, k_pool, v_pool, bt,
-                                                   lengths)),
-        _time_ms(lambda: K1.paged_attention_plain(qg, k_pool, v_pool, bt,
-                                                  lengths), iters=10,
+        _time_ms(lambda: K1.paged_attention_prefill_pooled(*args)),
+        _time_ms(lambda: K1.paged_attention_plain(*args), iters=10,
                  warmup=2),
         _bound_ms(2 * L * Hq * D * 2 + kv_bytes + bt.numel() * 4 + L * 4,
                   4.0 * Hq * D * float(lengths_np.sum())),
-        _time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kc, vc, is_causal=True, scale=1.0)),
-        prefill_line["prefill_launches"]["paged_attention"],
+        _time_ms(sdpa), prefill_line["prefill_launches"][
+            "paged_attention_prefill"],
         rows=L, table_pages=P, library_call="scaled_dot_product_attention, "
-        "causal, KV copied contiguous")
+        "causal, KV copied contiguous", sass_hmma=hmma,
+        device_ms=_graph_ms(lambda: K1.paged_attention_prefill_pooled(*args)),
+        library_device_ms=_graph_ms(sdpa),
+        plan=_plan(True, False, pool.dtype, L, Hkv, G, D))
     rows[-1].update(max_abs_err=err, tolerance=ATTN_TOL)
+    # the same body on two segments of s tokens in a 2s-row bucket: a CTA
+    # walks up to s / 16 key blocks in series, so the device time against
+    # s shows the cost of each block beside the fixed cost of a launch
+    by_seg = {}
+    for s in (16, 32, 64):
+        bt_s, len_s = _packed_bucket([(i * s, s, bt_np[i * seg])
+                                      for i in range(n_seg)], n_seg * s, P)
+        a_s = (qg[:n_seg * s].contiguous(), k_pool, v_pool,
+               torch.from_numpy(bt_s).to(dev),
+               torch.from_numpy(len_s).to(dev))
+        by_seg[s] = _graph_ms(lambda: K1.paged_attention_prefill_pooled(*a_s))
+    by_seg[seg] = rows[-1]["device_ms"]
+    rows[-1]["device_ms_by_segment_tokens"] = by_seg
+
+    # -- K1's float32 prefill body at the float32 probe's shape: one
+    # 128-row segment in its 128-row bucket, 8-page tables, float32 pools
+    fp = pool[:, 0].float()
+    fk, fv = fp[:, 0], fp[:, 1]
+    Lf, Pf = seg, seg // page
+    bt_f, len_f = _packed_bucket([(0, seg, seg_pages[0])], Lf, Pf)
+    qf = torch.randn((Lf, Hkv, G, D), generator=gen, device=dev) * D ** -0.5
+    fargs = (qf, fk, fv, torch.from_numpy(bt_f).to(dev),
+             torch.from_numpy(len_f).to(dev))
+    out_k = K1.paged_attention_prefill_pooled(*fargs)
+    out_p = K1.paged_attention_plain(*fargs)
+    torch.cuda.synchronize()
+    if not torch.allclose(out_k, out_p, atol=PAGED_F32_TOL,
+                          rtol=PAGED_F32_TOL):
+        raise RuntimeError("paged_attention_prefill (float32) disagrees "
+                           "with plain")
+    err = float((out_k - out_p).abs().max())
+    flat = torch.from_numpy(seg_pages[0]).to(dev).long()
+    kcf, vcf = (t[flat].reshape(1, seg, Hkv, D).transpose(1, 2)
+                .repeat_interleave(G, dim=1).contiguous() for t in (fk, fv))
+    q4f = qf.reshape(1, seg, Hq, D).transpose(1, 2).contiguous()
+
+    def sdpa_f32():
+        return F.scaled_dot_product_attention(q4f, kcf, vcf, is_causal=True,
+                                              scale=1.0)
+    row("paged_attention_prefill_f32", "paged_attention_prefill",
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention/paged_attention.py:75",
+        _time_ms(lambda: K1.paged_attention_prefill_pooled(*fargs)),
+        _time_ms(lambda: K1.paged_attention_plain(*fargs), iters=10,
+                 warmup=2),
+        _bound_ms(2 * Lf * Hq * D * 4 + seg * 2 * Hkv * D * 4 + Lf * Pf * 4
+                  + Lf * 4, 4.0 * Hq * D * float(len_f.sum()),
+                  flops_per_s=F32_FLOPS_PER_S),
+        _time_ms(sdpa_f32), prefill_line["probe_f32_launches"][
+            "paged_attention_prefill"],
+        rows=Lf, table_pages=Pf, dtype="float32",
+        library_call="scaled_dot_product_attention, causal, float32, KV "
+                     "copied contiguous",
+        launches_run="the float32 prefill probe (prefill and TF32 control "
+                     "dispatches)",
+        bound_note="operations over the 67 TFLOP/s float32 peak",
+        device_ms=_graph_ms(lambda: K1.paged_attention_prefill_pooled(
+            *fargs)),
+        library_device_ms=_graph_ms(sdpa_f32),
+        plan=_plan(True, False, torch.float32, Lf, Hkv, G, D))
+    rows[-1].update(max_abs_err=err, tolerance=PAGED_F32_TOL)
+    del fp, fk, fv, kcf, vcf
     return rows
+
+
+def _packed_bucket(segs: list, L: int, P: int):
+    """Per-row tables and lengths of a bucket of ``L`` rows holding each
+    segment (offset, length, table) as ``PrefillRunner.build_args`` lays
+    it out; padding rows have table 0 and length 0."""
+    import numpy as np
+    bt = np.zeros((L, P), np.int32)
+    lengths = np.zeros(L, np.int32)
+    for off, n, table in segs:
+        bt[off:off + n] = table
+        lengths[off:off + n] = np.arange(1, n + 1)
+    return bt, lengths
+
+
+def bench_prefill_dual(cfg, peng, prefill_launches: dict,
+                       link: dict) -> list[dict]:
+    """K1d's prefill body at the prefill shape (two 128-row segments in a
+    256-row bucket, 16-page tables) with about half of each segment's
+    pages in the pinned pool of the pinned engine: within ATTN_TOL of its
+    plain version and bit-identical to the single-pool prefill over the
+    same pages merged into one HBM pool.  The pools hold the seeded random
+    values ``bench_pinned_kernels`` wrote."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as K1
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    rng = np.random.RandomState(SEED + 9)
+    store = peng.kv.store
+    fast = store.fast_pool
+    pin = store.pools[peng.pinned_tier].data
+    n_fast, n_pin = fast.shape[0], pin.shape[0]
+    page = peng.scfg.page_size
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = Hq // Hkv
+    seg, n_seg = PROMPT_LEN, 2
+    L, P, live = seg * n_seg, seg * n_seg // page, seg // page
+    sels = (rng.rand(n_seg, P) < 0.5).astype(np.int32)
+    tables = np.where(sels > 0,
+                      np.stack([rng.permutation(n_pin)[:P]
+                                for _ in range(n_seg)]),
+                      np.stack([rng.permutation(n_fast)[:P]
+                                for _ in range(n_seg)])).astype(np.int32)
+    bt_np, lengths_np = _packed_bucket(
+        [(i * seg, seg, tables[i]) for i in range(n_seg)], L, P)
+    sel_np = np.repeat(sels, seg, axis=0)
+    _check_nonzero_pages(pin, np.unique(tables[:, :live][sels[:, :live] > 0]),
+                         "paged_attention_prefill_dual (pinned pages)")
+    l = 0
+    kf, vf, kp, vp = fast[:, l, 0], fast[:, l, 1], pin[:, l, 0], pin[:, l, 1]
+    bt = torch.from_numpy(bt_np).to(dev)
+    sel = torch.from_numpy(sel_np).to(dev)
+    lengths = torch.from_numpy(lengths_np).to(dev)
+    qg = (torch.randn((L, Hkv, G, D), generator=gen, device=dev)
+          * D ** -0.5).to(fast.dtype)
+    dual = (qg, kf, vf, kp, vp, bt, sel, lengths)
+    out_k = K1.paged_attention_prefill_dual_pooled(*dual)
+    out_p = K1.paged_attention_dual_plain(*dual)
+    kmerged = torch.cat([kf, kp.to(dev)])
+    vmerged = torch.cat([vf, vp.to(dev)])
+    btm = torch.where(sel > 0, bt + n_fast, bt).to(torch.int32)
+    out_s = K1.paged_attention_prefill_pooled(qg, kmerged, vmerged, btm,
+                                              lengths)
+    torch.cuda.synchronize()
+    if not torch.allclose(out_k.float(), out_p.float(), atol=ATTN_TOL,
+                          rtol=ATTN_TOL):
+        raise RuntimeError("paged_attention_prefill_dual disagrees with "
+                           "plain")
+    if not torch.equal(out_k, out_s):
+        raise RuntimeError("paged_attention_prefill_dual is not "
+                           "bit-identical to the single-pool prefill on the "
+                           "same pages")
+    err = float((out_k.float() - out_p.float()).abs().max())
+    row_b = 2 * Hkv * D * fast.element_size()
+    pin_rows = int(sum(min(page, seg - j * page) for i in range(n_seg)
+                       for j in range(live) if sels[i, j]))
+    hbm_rows = n_seg * seg - pin_rows
+    q4 = qg.reshape(n_seg, seg, Hq, D).transpose(1, 2).contiguous()
+
+    def sdpa(k, v):
+        return F.scaled_dot_product_attention(q4, k, v, is_causal=True,
+                                              scale=1.0)
+    # the yardsticks read each segment's live pages only
+    seg_bt, seg_sel = tables[:, :live], sels[:, :live]
+    merged_ids = torch.from_numpy(np.where(seg_sel > 0, seg_bt + n_fast,
+                                           seg_bt)).to(dev).long()
+    kc, vc = (pool[merged_ids].reshape(n_seg, seg, Hkv, D).transpose(1, 2)
+              .repeat_interleave(G, dim=1).contiguous()
+              for pool in (kmerged, vmerged))
+    with_copy = _sdpa_with_copy(kf, vf, kp, vp, seg_bt, seg_sel, G, sdpa)
+    no_pin = torch.zeros_like(sel)
+    bound = _bound_ms(2 * L * Hq * D * 2 + hbm_rows * row_b + bt.numel() * 8
+                      + L * 4, 4.0 * Hq * D * float(lengths_np.sum()),
+                      host_bytes=pin_rows * row_b,
+                      link_bytes_per_s=link["bytes_per_s"])
+    row = {"name": "paged_attention_prefill_dual",
+           "kernel": "paged_attention_prefill_dual", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+           "replaces": "src/repro/kernels/paged_attention/ops.py:68",
+           "launches": prefill_launches.get("paged_attention_prefill_dual",
+                                            0),
+           "max_abs_err": err, "tolerance": ATTN_TOL,
+           "ms": _time_ms(lambda: K1.paged_attention_prefill_dual_pooled(
+               *dual)),
+           "plain_ms": _time_ms(lambda: K1.paged_attention_dual_plain(*dual),
+                                iters=5, warmup=1),
+           "bound_ms": bound[0], "bound_by": bound[1],
+           "library_ms": _time_ms(lambda: sdpa(kc, vc)),
+           "library_call": "SDPA, causal, KV copied to HBM, copy not timed",
+           "library_with_copy_ms": _time_ms(with_copy, iters=10, warmup=2),
+           "library_with_copy_call": _WITH_COPY_CALL,
+           "device_ms": _graph_ms(lambda: K1.paged_attention_prefill_dual_pooled(
+               *dual)),
+           # the same call with every page in HBM (the merged pool, pool_sel
+           # 0): the time the body takes when no byte crosses the host link
+           "device_ms_all_hbm": _graph_ms(
+               lambda: K1.paged_attention_prefill_dual_pooled(
+                   qg, kmerged, vmerged, kp, vp, btm, no_pin, lengths)),
+           "plan": _plan(True, True, fast.dtype, L, Hkv, G, D),
+           "bit_identical_to_single_pool": True, "rows": L, "table_pages": P,
+           "pinned_rows": pin_rows, "hbm_rows": hbm_rows,
+           "launches_run": "prefill_pinned.hbm8_run prefill dispatches"}
+    del kmerged, vmerged, kc, vc
+    return [row]
+
+
+def run_prefill_invariance(cfg, eng, peng) -> dict:
+    """Whether a packed segment's bits in K1's prefill body depend on
+    where it sits: a 100-row segment is placed alone at the head of a
+    256-row bucket, then at other offsets (across the 64-row tiles) next
+    to other segments and padding; every row must give the bits it gave
+    alone.  Once over the HBM pool (``paged_attention_prefill``), once
+    with about half of the segment's pages pinned
+    (``paged_attention_prefill_dual``), at the engine's widths."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as K1
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 10)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    page = eng.scfg.page_size
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    L, seg = 256, 100
+    P = L // page
+    placements = [(37, [(0, 37), (137, 80)]), (150, []),
+                  (64, [(0, 64), (164, 90)]), (3, [(0, 3), (103, 128)])]
+    out = {"phase": "prefill_invariance", "bucket_rows": L,
+           "segment_rows": seg, "placements": [p for p, _ in placements]}
+    fast = eng.kv.store.fast_pool
+    pfast = peng.kv.store.fast_pool
+    pin = peng.kv.store.pools[peng.pinned_tier].data
+    for path in ("hbm", "dual_pool"):
+        n_fast = (fast if path == "hbm" else pfast).shape[0]
+        n_pin = pin.shape[0]
+
+        def table():
+            if path == "hbm":
+                return rng.permutation(n_fast)[:P].astype(np.int32), \
+                    np.zeros(P, np.int32)
+            sel = (rng.rand(P) < 0.5).astype(np.int32)
+            return np.where(sel > 0, rng.permutation(n_pin)[:P],
+                            rng.permutation(n_fast)[:P]).astype(np.int32), sel
+        mine, mine_sel = table()
+        q_seg = torch.randn((seg, Hq, D), generator=gen, device=dev).to(
+            fast.dtype)
+
+        def run(off, others):
+            segs, sels = [(off, seg, mine)], [(off, seg, mine_sel)]
+            for o, n in others:
+                t, sl = table()
+                segs.append((o, n, t))
+                sels.append((o, n, sl))
+            bt, lengths = _packed_bucket(segs, L, P)
+            sel, _ = _packed_bucket(sels, L, P)
+            q = torch.randn((L, Hq, D), generator=gen, device=dev).to(
+                fast.dtype)
+            q[off:off + seg] = q_seg
+            bt, sel, lengths = (torch.from_numpy(a).to(dev)
+                                for a in (bt, sel, lengths))
+            if path == "hbm":
+                o = K1.paged_attention_prefill(q, fast[:, 0, 0],
+                                               fast[:, 0, 1], bt, lengths)
+            else:
+                o = K1.paged_attention_prefill_dual(
+                    q, pfast[:, 0, 0], pfast[:, 0, 1], pin[:, 0, 0],
+                    pin[:, 0, 1], bt, sel, lengths)
+            return o[off:off + seg]
+
+        alone = run(0, [])
+        differ = {}
+        for off, others in placements:
+            got = run(off, others)
+            bad = int((got != alone).reshape(seg, -1).any(1).sum())
+            if bad:
+                differ[off] = bad
+        out[path] = {"rows_with_other_bits": differ,
+                     "finite": bool(torch.isfinite(alone.float()).all())}
+        if differ or not out[path]["finite"]:
+            raise RuntimeError(f"prefill_invariance ({path}): rows with "
+                               f"other bits at offsets {differ}")
+    return out
 
 
 # =============================================================================
@@ -1976,13 +2464,62 @@ def _decode_vs_prefill(cfg, params, prompt: list[int], steps: int,
             "tokens": seq[len(prompt):]}
 
 
+def _layer_errors(cfg, params, prompt: list[int]) -> list[dict]:
+    """Where decode and prefill part: after ``prefill(prompt)``, one
+    ``decode_step`` of the greedy token against a fresh ``prefill`` over
+    prompt + token.  Per Mamba layer, the largest difference of its
+    output at the new position (step recurrence vs K9's chunked scan,
+    relative to the prefill output's largest magnitude too) and of its
+    final SSM state h."""
+    import torch
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as T
+    seen = {"prefill": [], "decode": []}
+    fwd, dec = ssm.mamba_forward, ssm.mamba_decode_step
+
+    def fwd_hook(*a, **k):
+        out, st = fwd(*a, **k)
+        seen["prefill"].append(out[:, -1].float())
+        return out, st
+
+    def dec_hook(*a, **k):
+        out, h, c = dec(*a, **k)
+        seen["decode"].append(out[:, -1].float())
+        return out, h, c
+
+    def tokens(ids):
+        return torch.tensor([ids], dtype=torch.int32, device="cuda")
+    lg, st = T.prefill(params, cfg, tokens(prompt), len(prompt) + 1)
+    nxt = int(lg[0, 0, :cfg.vocab].argmax())
+    ssm.mamba_forward, ssm.mamba_decode_step = fwd_hook, dec_hook
+    try:
+        _, st_d = T.decode_step(params, cfg, st, tokens([nxt]))
+        _, st_p = T.prefill(params, cfg, tokens(prompt + [nxt]),
+                            len(prompt) + 1)
+    finally:
+        ssm.mamba_forward, ssm.mamba_decode_step = fwd, dec
+    out = []
+    for l, (a, b) in enumerate(zip(seen["decode"], seen["prefill"])):
+        ha, hb = st_d["mamba"][l]["h"], st_p["mamba"][l]["h"]
+        out.append({"layer": l,
+                    "out_max_abs_err": round(float((a - b).abs().max()), 6),
+                    "out_rel_err": round(float((a - b).abs().max()
+                                               / b.abs().max()), 6),
+                    "h_max_abs_err": round(float((ha - hb).abs().max()), 6),
+                    "h_rel_err": round(float((ha - hb).abs().max()
+                                             / hb.abs().max()), 6)})
+    return out
+
+
 def run_longctx_probes(bf16_models) -> tuple[dict, dict]:
     """``longctx_probe_f32``: float32 weights at full zamba2 width cut to
     LONGCTX_PROBE_LAYERS layers (two shared-attention sites) and
     mamba2_1_3b at full depth; every decode step's logits within
     atol = rtol = LONGCTX_PROBE_TOL of a fresh prefill's, the same argmax
     unless the top-2 margin is below LONGCTX_TIE_MARGIN.  Then the same
-    probe on the full-depth bf16 models, reported and not gated."""
+    probe on the full-depth bf16 models, gated at LONGCTX_BF16_MAX_ERR and
+    LONGCTX_BF16_TIE_MARGIN (ROADMAP C8).  Each run also localizes the
+    difference per Mamba layer (``_layer_errors``)."""
     import torch
     from dataclasses import replace
     from repro_torch import kernels
@@ -2004,18 +2541,28 @@ def run_longctx_probes(bf16_models) -> tuple[dict, dict]:
                                  LONGCTX_PROBE_TOL)
         run["launches"] = {k: n for k, n in kernels.launch_counts().items()
                            if n}
+        run["by_layer"] = _layer_errors(cfg, params, prompt)
         del params
         torch.cuda.empty_cache()
         f32["runs"].append(run)
         if run["values_outside"] or any(m >= LONGCTX_TIE_MARGIN
                                         for m in run["argmax_flips_margins"]):
             raise RuntimeError(f"longctx float32 probe failed: {run}")
-    bf16 = {"phase": "longctx_probe_bf16", "gated": False,
+    bf16 = {"phase": "longctx_probe_bf16", "gated": True,
+            "max_abs_err_limit": LONGCTX_BF16_MAX_ERR,
+            "tie_margin": LONGCTX_BF16_TIE_MARGIN,
             "tolerance_reported": LONGCTX_PROBE_TOL, "runs": []}
     for cfg, params in bf16_models:
         prompt = _prompts(1, LONGCTX_PROBE_PROMPT, cfg.vocab, SEED + 13)[0]
-        bf16["runs"].append(_decode_vs_prefill(
-            cfg, params, prompt, LONGCTX_PROBE_STEPS, LONGCTX_PROBE_TOL))
+        run = _decode_vs_prefill(cfg, params, prompt, LONGCTX_PROBE_STEPS,
+                                 LONGCTX_PROBE_TOL)
+        run["by_layer"] = _layer_errors(cfg, params, prompt)
+        bf16["runs"].append(run)
+        if run["logits_max_abs_err"] > LONGCTX_BF16_MAX_ERR or any(
+                m >= LONGCTX_BF16_TIE_MARGIN
+                for m in run["argmax_flips_margins"]):
+            raise RuntimeError(f"longctx bf16 probe failed: "
+                               f"{ {k: v for k, v in run.items() if k != 'by_layer'} }")
     return f32, bf16
 
 
@@ -2098,7 +2645,7 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
     gen.manual_seed(SEED + 14)
     bf = torch.bfloat16
     rows = []
-    hgmma = _sass_hgmma()
+    hgmma = _sass_count("flash_wgmma_kernel", "HGMMA")
     gen_f32 = torch.Generator(device=dev)   # keeps K9's inputs as they were
     gen_f32.manual_seed(SEED + 15)
 
@@ -2297,7 +2844,12 @@ def main() -> int:
                                           launches, tail_launches, link)
                    + bench_int8_prefill_kernels(cfg, eng, ieng, pre,
                                                 i8h_launches, i8p_launches,
-                                                link))
+                                                link)
+                   + bench_prefill_dual(cfg, peng,
+                                        ppre["hbm8_run"]["prefill_launches"],
+                                        link))
+    pinv = run_prefill_invariance(cfg, eng, peng)
+    print(json.dumps(pinv), file=sys.stderr, flush=True)
 
 
     zline, zlaunch, zparams, zcfg = run_longctx("zamba2_7b")
@@ -2318,7 +2870,7 @@ def main() -> int:
 
     lines += [{"kernels": kernel_rows}, {"host_link": link}, engine_line,
               pinned_line, parity, pparity, tail, padding, invariance,
-              window, pwindow, cross, pre, ppre, i8h, i8p, zline, mline,
+              pinv, window, pwindow, cross, pre, ppre, i8h, i8p, zline, mline,
               probe_f32, probe_bf16, lcross, _card_line()]
     for line in lines:
         _emit(line)

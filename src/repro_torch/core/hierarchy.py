@@ -73,10 +73,10 @@ class MediumSpec:
 
     ``pinned_host`` is the NVM/CXL analogue with device addressability:
     the serving engine attends to and appends into its pages in place.
-    ``quantize_int8`` is part of the description so specs stay
-    interchangeable with the JAX package's; this package's ``TierStore``
-    refuses it with ``NotImplementedError`` until the int8 tiers are
-    ported with kernel K6.
+    ``quantize_int8`` tiers are served by this package's ``TierStore``
+    (numpy host or pinned host; demotions quantize with kernel K6,
+    promotions dequantize with ``dequant_gather``); it refuses only a
+    hierarchy with more than one int8 tier, with ``NotImplementedError``.
     """
 
     name: str

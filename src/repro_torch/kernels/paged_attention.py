@@ -1,29 +1,38 @@
-"""K1 — paged decode attention over the memos-managed KV page pool.
+"""K1 — paged attention over the memos-managed KV page pool: decode and
+packed prefill, over one pool or two.
 
-``paged_attention`` is the engine-facing wrapper (q [B, Hq, D], scaled
-here); ``paged_attention_pooled`` takes q pre-scaled as [B, Hkv, G, D],
-like the Pallas kernel it replaces
+``paged_attention`` is the engine-facing decode wrapper (q [B, Hq, D],
+scaled here); ``paged_attention_pooled`` takes q pre-scaled as
+[B, Hkv, G, D], like the Pallas kernel it replaces
 (``repro.kernels.paged_attention.paged_attention.paged_attention_pooled``).
-On CUDA tensors it launches ``csrc/paged_attention.cu``; on CPU tensors
-it runs ``paged_attention_plain``, the gather + fp32 softmax reference
-(``repro.kernels.paged_attention.ref.paged_attention_ref``).
+``paged_attention_prefill`` / ``_prefill_pooled`` take the JAX
+``paged_attention_prefill`` signature: one query row per packed position
+of a prefill bucket, each with its own segment's block table and its
+causal prefix as its length.  On CUDA tensors they launch the decode or
+the prefill body of ``csrc/paged_attention.cu``; on CPU tensors they run
+``paged_attention_plain``, the gather + fp32 softmax reference
+(``repro.kernels.paged_attention.ref.paged_attention_ref``), which
+computes both.
 
 The pools may be strided views — the engine passes
 ``pool[:, layer, 0]`` of the [slots, L, 2, page, Hkv, D] page pool — and
-are never copied: the kernel takes their slot/row/head strides.
+are never copied: the kernels take their slot/row/head strides.
 
-``paged_attention_dual`` is the dual-pool variant of the pinned-host
-NVM tier: each page of the block table lives either in the tier-0 pool
-or in a second pool (``pool_sel`` = 1), which on the card is pinned host
-memory read in place through its mapped device address.  The JAX
-package gathers both pools and selects per page before attending
-(``repro.serving.engine._decode_core_pinned`` over
-``paged_attention_pages``); ``paged_attention_dual_plain`` is that
-computation.  The kernel is K1 with a per-page choice of base pointer,
-so a page's attention is bit-identical wherever it lives.
+``paged_attention_dual`` and ``paged_attention_prefill_dual`` are the
+dual-pool variants of the pinned-host NVM tier: each page of a table
+lives either in the tier-0 pool or in a second pool (``pool_sel`` = 1),
+which on the card is pinned host memory read in place through its mapped
+device address.  The JAX package gathers both pools and selects per page
+before attending (``repro.serving.engine._decode_core_pinned`` over
+``paged_attention_pages``, ``paged_attention_prefill_pages``);
+``paged_attention_dual_plain`` is that computation.  The kernels choose
+a base pointer per page and nothing else, so the dual form is
+bit-identical to the single-pool one on the same pages.
 
-The packed prefill calls ``paged_attention`` and ``paged_attention_dual``
-with one row per packed position (see their docstrings).
+The decode and prefill bodies sum in different orders, so a prefill
+position no longer equals a decode step at that position bitwise (the
+JAX docstring of ``paged_attention_prefill`` promises that); the two
+agree within the float tolerance.
 """
 from __future__ import annotations
 
@@ -38,12 +47,33 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = [_C] * 6 + [_I] * 6 + [_L] * 6 + [_C]
 _DUAL_ARGTYPES = [_C] * 9 + [_I] * 6 + [_L] * 12 + [_C]
-_FN = {torch.float32: "paged_attention_f32",
-       torch.bfloat16: "paged_attention_bf16"}
-_DUAL_FN = {torch.float32: "paged_attention_dual_f32",
-            torch.bfloat16: "paged_attention_dual_bf16"}
+# (prefill, dual) -> the launch count's name; its C entries add _f32/_bf16
+_NAMES = {(False, False): "paged_attention",
+          (False, True): "paged_attention_dual",
+          (True, False): "paged_attention_prefill",
+          (True, True): "paged_attention_prefill_dual"}
+_SUFFIX = {torch.float32: "_f32", torch.bfloat16: "_bf16"}
 MAX_G = 8
 MAX_D = 256
+
+
+def launch_info(prefill: bool, dual: bool, dtype: torch.dtype, rows: int,
+                Hkv: int, G: int, D: int) -> dict:
+    """How the body for these shapes launches on the current card (the
+    plan ``csrc/paged_attention.cu`` launches with; builds the kernels):
+    grid CTAs, threads per CTA, dynamic shared memory bytes, CTAs
+    resident per SM by the occupancy calculator, and the cluster size.
+    ``rows`` is B for decode, the bucket's L for prefill.  Shared memory
+    depends on G and D only: pages stream through the rings in blocks of
+    16 keys, so every page size is taken."""
+    info = (ctypes.c_int * 5)()
+    fn = _build.function("paged_attention_launch_info",
+                         [_I] * 7 + [ctypes.POINTER(ctypes.c_int)])
+    _build.check(fn(int(prefill), int(dual), int(dtype == torch.bfloat16),
+                    rows, Hkv, G, D, info), "paged_attention_launch_info")
+    ctas, threads, smem, per_sm, cluster = info
+    return {"ctas": ctas, "threads": threads, "smem_bytes": smem,
+            "ctas_per_sm": per_sm, "cluster": cluster}
 
 
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -92,10 +122,11 @@ def _attend_pages(q: torch.Tensor, k_pages: torch.Tensor,
     return torch.einsum("bhgk,bkhd->bhgd", w, v).to(q.dtype)
 
 
-def _launch(q, k_pool, v_pool, block_table, lengths, k_pool2=None,
-            v_pool2=None, pool_sel=None) -> torch.Tensor:
-    """Validate and launch K1; with a second pool and ``pool_sel`` the
-    dual-pool entry point (the second pool may be pinned host memory)."""
+def _launch(q, k_pool, v_pool, block_table, lengths, k_pool2, v_pool2,
+            pool_sel, prefill: bool) -> torch.Tensor:
+    """Validate and launch K1's decode or prefill body; with a second
+    pool and ``pool_sel`` its dual-pool entry (the second pool may be
+    pinned host memory)."""
     B, Hkv, G, D = q.shape
     n_slots, page, hkv_pool, d_pool = k_pool.shape
     P = block_table.shape[1]
@@ -121,7 +152,7 @@ def _launch(q, k_pool, v_pool, block_table, lengths, k_pool2=None,
             raise ValueError("paged_attention: pool_sel must be a "
                              "contiguous int32 tensor shaped like "
                              "block_table on q's device")
-    if q.dtype not in _FN or k_pool.dtype != q.dtype \
+    if q.dtype not in _SUFFIX or k_pool.dtype != q.dtype \
             or v_pool.dtype != q.dtype:
         raise TypeError(f"paged_attention: q/k/v must share float32 or "
                         f"bfloat16, got {q.dtype}/{k_pool.dtype}/"
@@ -142,67 +173,88 @@ def _launch(q, k_pool, v_pool, block_table, lengths, k_pool2=None,
                          "be contiguous")
     if k_pool.stride(3) != 1 or v_pool.stride(3) != 1:
         raise ValueError("paged_attention: pool head_dim must be unit-stride")
-    if not 1 <= G <= MAX_G or not 1 <= D <= MAX_D:
+    if not 1 <= G <= MAX_G or not 8 <= D <= MAX_D or D % 8:
         raise ValueError(f"paged_attention: G={G} (max {MAX_G}), D={D} "
-                         f"(max {MAX_D}) outside the kernel's range")
-    if 4 * (G * D + G * page + 3 * G) > 48 * 1024:
-        raise ValueError("paged_attention: page too large for the kernel's "
-                         "shared-memory tile")
+                         f"(a multiple of 8, max {MAX_D}) outside the "
+                         f"kernel's range")
+    # the kernels copy K/V rows 16 bytes at a time (a pinned pool's mapped
+    # device address has its host address's offset within the allocation)
+    el = q.element_size()
+    for t in (k_pool, v_pool) + ((k_pool2, v_pool2) if dual else ()):
+        st = t.stride()
+        if t.data_ptr() % 16 or (st[0] * el) % 16 or (st[1] * el) % 16 \
+                or (st[2] * el) % 16:
+            raise ValueError("paged_attention: a pool's base or slot/row/"
+                             "head stride is not 16-byte aligned")
     out = torch.empty_like(q)
     if q.numel() == 0:                  # nothing to launch, nothing counted
         return out
     ks, vs = k_pool.stride(), v_pool.stride()
     stream = _build.current_stream(dev.index)
+    name = _NAMES[(prefill, dual)]
+    fn_name = name + _SUFFIX[q.dtype]
     if not dual:
-        fn = _build.function(_FN[q.dtype], _ARGTYPES)
+        fn = _build.function(fn_name, _ARGTYPES)
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                  B, Hkv, G, D, page, P, ks[0], ks[1], ks[2], vs[0], vs[1],
                  vs[2], stream)
-        _build.check(err, _FN[q.dtype])
-        count_launch("paged_attention")
-        return out
-    k2s, v2s = k_pool2.stride(), v_pool2.stride()
-    fn = _build.function(_DUAL_FN[q.dtype], _DUAL_ARGTYPES)
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             _build.device_address(k_pool2), _build.device_address(v_pool2),
-             block_table.data_ptr(), pool_sel.data_ptr(), lengths.data_ptr(),
-             out.data_ptr(), B, Hkv, G, D, page, P, ks[0], ks[1], ks[2],
-             vs[0], vs[1], vs[2], k2s[0], k2s[1], k2s[2], v2s[0], v2s[1],
-             v2s[2], stream)
-    _build.check(err, _DUAL_FN[q.dtype])
-    count_launch("paged_attention_dual")
+    else:
+        k2s, v2s = k_pool2.stride(), v_pool2.stride()
+        fn = _build.function(fn_name, _DUAL_ARGTYPES)
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 _build.device_address(k_pool2),
+                 _build.device_address(v_pool2), block_table.data_ptr(),
+                 pool_sel.data_ptr(), lengths.data_ptr(), out.data_ptr(), B,
+                 Hkv, G, D, page, P, ks[0], ks[1], ks[2], vs[0], vs[1],
+                 vs[2], k2s[0], k2s[1], k2s[2], v2s[0], v2s[1], v2s[2],
+                 stream)
+    _build.check(err, fn_name)
+    count_launch(name)
     return out
+
+
+def _pooled(prefill: bool, q, k_pool, v_pool, block_table, lengths,
+            k_pool2=None, v_pool2=None, pool_sel=None) -> torch.Tensor:
+    """The plain version for CPU tensors, else the kernel (or raise)."""
+    if q.device.type == "cpu":
+        if pool_sel is None:
+            return paged_attention_plain(q, k_pool, v_pool, block_table,
+                                         lengths)
+        return paged_attention_dual_plain(q, k_pool, v_pool, k_pool2,
+                                          v_pool2, block_table, pool_sel,
+                                          lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    return _launch(q, k_pool, v_pool, block_table, lengths, k_pool2, v_pool2,
+                   pool_sel, prefill)
+
+
+def _grouped(q: torch.Tensor, Hkv: int) -> torch.Tensor:
+    """Engine queries [rows, Hq, D] scaled by D**-0.5 and grouped as
+    [rows, Hkv, G, D]."""
+    B, Hq, D = q.shape
+    return (q * D ** -0.5).reshape(B, Hkv, Hq // Hkv, D)
 
 
 def paged_attention_pooled(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_table: torch.Tensor,
                            lengths: torch.Tensor) -> torch.Tensor:
     """q pre-scaled [B, Hkv, G, D]; k/v_pool [n_slots, page, Hkv, D];
-    block_table int32 [B, n_pages]; lengths int32 [B] -> [B, Hkv, G, D]."""
-    if q.device.type == "cpu":
-        return paged_attention_plain(q, k_pool, v_pool, block_table, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention: unsupported device {q.device}")
-    return _launch(q, k_pool, v_pool, block_table, lengths)
+    block_table int32 [B, n_pages]; lengths int32 [B] -> [B, Hkv, G, D].
+    A row of length 0 gives zeros on the card (the plain version the
+    mean of its masked values)."""
+    return _pooled(False, q, k_pool, v_pool, block_table, lengths)
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_table: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
     """q [B, Hq, D] decode queries; k/v_pool [n_slots, page, Hkv, D];
-    block_table [B, n_pages]; lengths [B].  Returns [B, Hq, D].
-
-    Prefill passes one row per packed position: B = the bucket's L rows,
-    each with its own segment's block table and its causal prefix as its
-    length.  A padding row has length 0; K1 writes zeros for it (the
-    plain version the mean of its masked values) and no caller reads
-    it."""
-    B, Hq, D = q.shape
-    Hkv = k_pool.shape[2]
-    qg = (q * D ** -0.5).reshape(B, Hkv, Hq // Hkv, D)
-    out = paged_attention_pooled(qg, k_pool, v_pool, block_table, lengths)
-    return out.reshape(B, Hq, D)
+    block_table [B, n_pages]; lengths [B].  Returns [B, Hq, D]."""
+    out = paged_attention_pooled(_grouped(q, k_pool.shape[2]), k_pool,
+                                 v_pool, block_table, lengths)
+    return out.reshape(q.shape)
 
 
 def paged_attention_dual_pooled(q: torch.Tensor, k_pool: torch.Tensor,
@@ -215,13 +267,7 @@ def paged_attention_dual_pooled(q: torch.Tensor, k_pool: torch.Tensor,
     0) and k/v_pool2 [n_slots2, page, Hkv, D]; block_table int32 [B, P]
     holds each page's slot in its own pool and pool_sel int32 [B, P] is 1
     for the second pool -> [B, Hkv, G, D]."""
-    if q.device.type == "cpu":
-        return paged_attention_dual_plain(q, k_pool, v_pool, k_pool2,
-                                          v_pool2, block_table, pool_sel,
-                                          lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention: unsupported device {q.device}")
-    return _launch(q, k_pool, v_pool, block_table, lengths, k_pool2,
+    return _pooled(False, q, k_pool, v_pool, block_table, lengths, k_pool2,
                    v_pool2, pool_sel)
 
 
@@ -230,13 +276,60 @@ def paged_attention_dual(q: torch.Tensor, k_pool: torch.Tensor,
                          v_pool2: torch.Tensor, block_table: torch.Tensor,
                          pool_sel: torch.Tensor,
                          lengths: torch.Tensor) -> torch.Tensor:
-    """The engine-facing dual-pool wrapper: q [B, Hq, D] decode queries,
-    scaled here.  Returns [B, Hq, D].  The pinned prefill passes one row
-    per packed position, as for ``paged_attention``."""
-    B, Hq, D = q.shape
-    Hkv = k_pool.shape[2]
-    qg = (q * D ** -0.5).reshape(B, Hkv, Hq // Hkv, D)
-    out = paged_attention_dual_pooled(qg, k_pool, v_pool, k_pool2, v_pool2,
-                                      block_table, pool_sel, lengths)
-    return out.reshape(B, Hq, D)
+    """The engine-facing dual-pool decode: q [B, Hq, D] decode queries,
+    scaled here.  Returns [B, Hq, D]."""
+    out = paged_attention_dual_pooled(_grouped(q, k_pool.shape[2]), k_pool,
+                                      v_pool, k_pool2, v_pool2, block_table,
+                                      pool_sel, lengths)
+    return out.reshape(q.shape)
 
+
+def paged_attention_prefill_pooled(q: torch.Tensor, k_pool: torch.Tensor,
+                                   v_pool: torch.Tensor,
+                                   row_tables: torch.Tensor,
+                                   lengths: torch.Tensor) -> torch.Tensor:
+    """Packed prefill, q pre-scaled [L, Hkv, G, D]: row i attends through
+    its own table row_tables[i] (int32 [L, Pp], the pages of its
+    segment) to positions < lengths[i] (its causal prefix; 0 for a
+    padding row, which gives zeros on the card).  -> [L, Hkv, G, D]."""
+    return _pooled(True, q, k_pool, v_pool, row_tables, lengths)
+
+
+def paged_attention_prefill(q: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, row_tables: torch.Tensor,
+                            lengths: torch.Tensor) -> torch.Tensor:
+    """The JAX ``paged_attention_prefill``: q [L, Hq, D], one row per
+    packed position, scaled here; row_tables [L, Pp]; lengths [L].
+    Returns [L, Hq, D]."""
+    out = paged_attention_prefill_pooled(_grouped(q, k_pool.shape[2]),
+                                         k_pool, v_pool, row_tables, lengths)
+    return out.reshape(q.shape)
+
+
+def paged_attention_prefill_dual_pooled(q: torch.Tensor,
+                                        k_pool: torch.Tensor,
+                                        v_pool: torch.Tensor,
+                                        k_pool2: torch.Tensor,
+                                        v_pool2: torch.Tensor,
+                                        row_tables: torch.Tensor,
+                                        pool_sel: torch.Tensor,
+                                        lengths: torch.Tensor
+                                        ) -> torch.Tensor:
+    """The packed prefill over two pools: row_tables [L, Pp] hold each
+    page's slot in its own pool, pool_sel [L, Pp] is 1 for the second."""
+    return _pooled(True, q, k_pool, v_pool, row_tables, lengths, k_pool2,
+                   v_pool2, pool_sel)
+
+
+def paged_attention_prefill_dual(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor, k_pool2: torch.Tensor,
+                                 v_pool2: torch.Tensor,
+                                 row_tables: torch.Tensor,
+                                 pool_sel: torch.Tensor,
+                                 lengths: torch.Tensor) -> torch.Tensor:
+    """The JAX ``paged_attention_prefill_pages`` over the two pools in
+    place: q [L, Hq, D] scaled here.  Returns [L, Hq, D]."""
+    out = paged_attention_prefill_dual_pooled(
+        _grouped(q, k_pool.shape[2]), k_pool, v_pool, k_pool2, v_pool2,
+        row_tables, pool_sel, lengths)
+    return out.reshape(q.shape)

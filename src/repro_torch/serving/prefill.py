@@ -11,19 +11,21 @@ newly admitted prompts are ingested in **one dispatch per pow2 bucket**:
     admission order (``pack_prompts``).  Segment isolation is structural:
     each packed position attends through a *per-row block table* that
     lists only its own segment's KV pages, and the causal mask is the
-    decode kernel's ``lengths`` mask;
+    ``lengths`` mask;
   * **one dispatch** — every packed position's K/V lands in the pools
     positionally (``kv_append`` of all L rows; padding rows carry an
-    out-of-range slot and are dropped), the attention is the decode
-    kernel with one row per position (``paged_attention``, or
-    the dual-pool ``paged_attention_dual`` when prompt pages sit
-    in the pinned-host tier), and the first sampled token of every
-    segment comes back with the dispatch.
+    out-of-range slot and are dropped), the attention is K1's prefill
+    body with one row per position (``paged_attention_prefill``, or
+    ``paged_attention_prefill_dual`` when prompt pages sit in the
+    pinned-host tier: each segment's pages are read once for all of its
+    rows), and the first sampled token of every segment comes back with
+    the dispatch.
 
 The per-layer op sequence mirrors the decode step's (same append, same
 masked attention, same projections and FFN), so a position's output is
 the decode step's at that position up to the float summation order of
-the dense math, which runs on the bucket's L rows.  The engine reports
+the dense math, which runs on the bucket's L rows, and of the attention
+(the prefill body sums in another order than the decode body).  The engine reports
 the burst to SysMon as one ``record_dense`` streaming sampling with the
 exact replay totals (``replay_page_counts``), so the next memos pass sees
 a sequential, cold write burst.  PyTorch runs eagerly: there is nothing
@@ -37,8 +39,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.kv_append import kv_append
-from repro_torch.kernels.paged_attention import (paged_attention,
-                                                 paged_attention_dual)
+from repro_torch.kernels.paged_attention import (
+    paged_attention_prefill, paged_attention_prefill_dual)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -196,8 +198,8 @@ class PrefillRunner:
 
         def attend(l, q, k, v):
             kv_append(pool[:, l], None, write_slot, None, write_off, k, v)
-            return paged_attention(q, *eng.kv.layer_pools(l), row_tables,
-                                   lengths)
+            return paged_attention_prefill(q, *eng.kv.layer_pools(l),
+                                           row_tables, lengths)
         return self._layers(tokens, local_pos, seg_last, attend)
 
     def _core_pinned(self, tokens, local_pos, row_tables, pool_sel, lengths,
@@ -225,7 +227,7 @@ class PrefillRunner:
 
         def attend(l, q, k, v):
             kv_append(fast[:, l], pin[:, l], f_idx, p_idx, write_off, k, v)
-            return paged_attention_dual(
+            return paged_attention_prefill_dual(
                 q, fast[:, l, 0], fast[:, l, 1], pin[:, l, 0], pin[:, l, 1],
                 row_tables, pool_sel, lengths)
         return self._layers(tokens, local_pos, seg_last, attend)

@@ -226,8 +226,8 @@ def test_prefill_engine_matches_jax(models, memos):
 
 def test_prefill_dispatch_goes_through_the_kernels(models, monkeypatch):
     """The three short prompts pack into one bucket-16 dispatch: per
-    layer one KV append and one K1 call over the bucket's 16 rows, and
-    the prefill metrics count it."""
+    layer one KV append and one call of K1's prefill entry over the
+    bucket's 16 rows, and the prefill metrics count it."""
     obs.reset()
     tcfg, tparams, _, _ = models
     eng = PagedServingEngine(tcfg, tparams, ServeConfig(
@@ -242,10 +242,10 @@ def test_prefill_dispatch_goes_through_the_kernels(models, monkeypatch):
             return fn(*a)
         monkeypatch.setattr(prefill, name, wrapped)
     spy("kv_append", prefill.kv_append, 5)
-    spy("paged_attention", prefill.paged_attention, 0)
+    spy("paged_attention_prefill", prefill.paged_attention_prefill, 0)
     eng.step()
     assert calls == [("kv_append", 16),
-                     ("paged_attention", 16)] * tcfg.n_layers
+                     ("paged_attention_prefill", 16)] * tcfg.n_layers
     reg = obs.get_registry()
     assert reg.counter("serving.prefill_dispatches").value == 1
     assert reg.counter("serving.prefill_tokens").value == 15
