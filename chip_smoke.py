@@ -105,7 +105,13 @@ prints no result line):
      window; bf16 within 1e-2, each with ``sass_hgmma``, the count of
      HGMMA instructions in the bf16 kernel, which must not be 0; and the
      float32 entry at the float32 probe's shape within 1e-5) and K9
-     (zamba2's and mamba2's shapes; float32 outputs within 1e-4).  K2's
+     (zamba2's and mamba2's shapes in bf16 and the float32 probe's shape
+     in float32; outputs within 1e-4 of their largest magnitude; each
+     with ``device_ms`` over a CUDA graph, the device work nodes of one
+     call, its launch plan and, in bf16, ``sass_hmma``, the HMMA count
+     of its three tensor-core kernels, none of which may be 0), and the
+     ``ssd_scan_passes`` line times K9's four kernels one by one under
+     ``torch.profiler`` at both bf16 shapes.  K2's
      row times the event form and SysMon's form (a ``valid`` mask, an
      ``is_write`` flag), each also as ``device_ms`` over a CUDA graph of
      50 captured calls beside ``index_add_``'s, and must count exactly
@@ -113,7 +119,7 @@ prints no result line):
 
 Output: the card's name and power limit, the build time, the engine
 lines, the parity lines, the prefill and int8 lines, the long-context
-lines, the ``{"kernels": [...]}`` line, the card's
+lines, the ``{"kernels": [...]}`` line, the K9 pass times, the card's
 line again, and last ``{"ok": true, "device": {...}}``.  Exits 2
 without a CUDA device and 1 when the port's sources are not beside this
 script.
@@ -215,6 +221,9 @@ FLASH_TOL = 1e-2
 # magnitude: atol is SSD_TOL times max |plain| (|y| reaches ~300 at
 # zamba2's shape with these inputs), rtol SSD_TOL
 SSD_TOL = 1e-4
+# K9's kernels with tensor-core products in bf16 (``sass_hmma``)
+SSD_TENSOR_CORE_KERNELS = ("ssd_prologue_kernelI13__nv_bfloat16",
+                           "ssd_states_bf16_kernel", "ssd_output_bf16_kernel")
 
 
 def _emit(obj) -> None:
@@ -322,6 +331,31 @@ def _graph_ms(fn, calls: int = 50, replays: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * calls)
+
+
+def _kernel_ms(fn, names, calls: int = 10) -> dict:
+    """For each of ``names``: the kernels whose names hold it in a
+    ``torch.profiler`` trace of ``calls`` calls of ``fn`` (after one
+    warm-up call), as the mean device ms of one traced instance and the
+    number of instances traced (a trace may drop records, so the mean is
+    taken over what it kept)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = {n: [] for n in names}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in e.name:
+                spans[n].append((e.time_range.end - e.time_range.start) / 1e3)
+    return {n: {"ms": sum(v) / len(v) if v else None, "instances": len(v)}
+            for n, v in spans.items()}
 
 
 def _graph_launches(fn) -> int:
@@ -2626,15 +2660,20 @@ def run_longctx_card_vs_cpu() -> dict:
 
 
 def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
-                          f32_launches: int) -> list[dict]:
+                          f32_launches: dict) -> tuple[list[dict], dict]:
     """K8 and K9 against their plain versions on the card at the shapes of
     the long-context path, with seeded random bf16 inputs: K8 at zamba2's
     prefill shape, at a GQA shape and with a 512-token window (each with
-    the HGMMA count of its bf16 kernel, the previous kernel's time and
-    the factor over SDPA), and K8's float32 entry at the float32 probe's
-    shape; K9 at zamba2's and mamba2's shapes.  ``launches`` is the
-    kernel's count in the zamba2 (K8, K9) or mamba2 (K9) run, and for the
-    float32 row in the float32 zamba2 probe (``f32_launches``)."""
+    the HGMMA count of its bf16 kernel and the factor over SDPA), and
+    K8's float32 entry at the float32 probe's shape; K9 at zamba2's and
+    mamba2's shapes and its float32 entry at the float32 probe's shape,
+    each with its device time over a CUDA graph, the device work nodes
+    of one call and its launch plan.
+    ``launches`` is the kernel's count in the zamba2 (K8, K9) or mamba2
+    (K9) run, and for the float32 rows in the float32 zamba2 probe
+    (``f32_launches``, that run's counts).  Returns the rows and the
+    ``ssd_scan_passes`` line: K9's kernels timed one by one at both bf16
+    shapes."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2711,7 +2750,8 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
                       flops_per_s=BF16_FLOPS_PER_S if dtype == bf
                       else F32_FLOPS_PER_S),
             _time_ms(lib, iters=10, warmup=2),
-            zlaunch["flash_attention"] if dtype == bf else f32_launches,
+            zlaunch["flash_attention"] if dtype == bf
+            else f32_launches.get("flash_attention", 0),
             shape={"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
                    "causal": True, "window": window,
                    "dtype": str(dtype).removeprefix("torch.")},
@@ -2733,16 +2773,24 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
         del q, k, v, qt, kt, vt, out
         torch.cuda.empty_cache()
 
-    for name, B, L, H, P, N, launches in (
-            ("ssd_scan", LONGCTX_BATCH, LONGCTX_PROMPT, 112, 64, 64,
+    sass = {k: _sass_count(k, "HMMA") for k in SSD_TENSOR_CORE_KERNELS}
+    if not all(sass.values()):
+        raise RuntimeError(f"ssd_scan: a bf16 kernel has no HMMA: {sass}")
+    passes = []
+    for name, B, L, H, P, N, dtype, launches in (
+            ("ssd_scan", LONGCTX_BATCH, LONGCTX_PROMPT, 112, 64, 64, bf,
              zlaunch["ssd_scan"]),
             ("ssd_scan_mamba2", LONGCTX_BATCH, LONGCTX_PROMPT, 64, 64, 128,
-             mlaunch["ssd_scan"])):
+             bf, mlaunch["ssd_scan"]),
+            ("ssd_scan_f32", 1, LONGCTX_PROBE_PROMPT, 112, 64, 64,
+             torch.float32, f32_launches.get("ssd_scan", 0))):
         Q = 128
-        x = randn(B, L, H, P).to(bf)
-        dt = F.softplus(randn(B, L, H))
-        A = -torch.exp(0.5 * randn(H))
-        Bm, Cm = randn(B, L, N).to(bf), randn(B, L, N).to(bf)
+        g = gen if dtype == bf else gen_f32
+        x = randn(B, L, H, P, g=g).to(dtype)
+        dt = F.softplus(randn(B, L, H, g=g))
+        A = -torch.exp(0.5 * randn(H, g=g))
+        Bm, Cm = (randn(B, L, N, g=g).to(dtype),
+                  randn(B, L, N, g=g).to(dtype))
         y, h = K9.ssd_scan(x, dt, A, Bm, Cm, Q)
         yp, hp = K9.ssd_scan_plain(x, dt, A, Bm, Cm, Q)
         torch.cuda.synchronize()
@@ -2754,22 +2802,56 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
         err = max(float((y - yp).abs().max()), float((h - hp).abs().max()))
         scale = max(float(yp.abs().max()), float(hp.abs().max()))
         del yp, hp
-        nbytes = (2 * (x.numel() + Bm.numel() + Cm.numel()) + 4 * dt.numel()
-                  + 4 * H + 4 * y.numel() + 4 * h.numel())
-        flops = 2.0 * B * H * L * Q * (N + P) + 4.0 * B * H * L * N * P
+        size = x.element_size()
+        nbytes = (size * (x.numel() + Bm.numel() + Cm.numel())
+                  + 4 * dt.numel() + 4 * H + 4 * y.numel() + 4 * h.numel())
+        # the products the function needs: per chunk of q steps the
+        # q (q + 1) / 2 pairs j <= i of C.B^T once for all heads (G = 1)
+        # and of its decayed product with x per head; per step and head
+        # the chunk states and C.h_prev
+        steps = [min(Q, L - t0) for t0 in range(0, L, Q)]
+        pairs = sum(n * (n + 1) // 2 for n in steps)
+        flops = (2.0 * B * pairs * (N + H * P)
+                 + 4.0 * B * H * L * N * P)
+
+        def call():
+            return K9.ssd_scan(x, dt, A, Bm, Cm, Q)
         row(name, "ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "src/repro/kernels/ssd_scan/ssd_scan.py:72", err, SSD_TOL,
-            _time_ms(lambda: K9.ssd_scan(x, dt, A, Bm, Cm, Q), iters=10,
-                     warmup=2),
+            _time_ms(call, iters=10, warmup=2),
             _time_ms(lambda: K9.ssd_scan_plain(x, dt, A, Bm, Cm, Q),
                      iters=3, warmup=1),
-            _bound_ms(nbytes, flops), None, launches,
+            _bound_ms(nbytes, flops,
+                      flops_per_s=BF16_FLOPS_PER_S if dtype == bf
+                      else F32_FLOPS_PER_S),
+            None, launches,
             shape={"B": B, "L": L, "H": H, "P": P, "N": N, "chunk": Q,
-                   "dtype": "bfloat16"}, output_max_abs=scale,
-            library_note="no single PyTorch call computes the SSD scan")
+                   "dtype": str(dtype).removeprefix("torch.")},
+            output_max_abs=scale,
+            library_note="no single PyTorch call computes the SSD scan",
+            device_ms=_graph_ms(call, calls=10, replays=10),
+            kernels_per_call=_graph_launches(call),
+            plan=K9.launch_info(B, L, H, P, N, Q, dtype))
+        kr = rows[-1]
+        if dtype == bf:
+            kr["design"] = ("chunk-parallel: prologue (cumsum, C.B^T once "
+                            "per chunk), chunk states, state passing, chunk "
+                            "output; mma.sync with float32 operands in two "
+                            "bf16 terms")
+            kr["sass_hmma"] = sass
+            passes.append({"name": name, "calls": 10,
+                           "ms": _kernel_ms(call, K9.PASSES, calls=10)})
+        else:
+            kr["design"] = ("the same four passes, products on float32 FMA "
+                            "(float32 probe only)")
+            kr["bound_note"] = "operations over the 67 TFLOP/s float32 peak"
         del x, dt, Bm, Cm, y, h
         torch.cuda.empty_cache()
-    return rows
+    pass_line = {"phase": "ssd_scan_passes", "runs": passes,
+                 "note": "device ms of one launch of each of K9's kernels "
+                         "(one each per call), the mean of the instances "
+                         "torch.profiler traced over the calls"}
+    return rows, pass_line
 
 
 # =============================================================================
@@ -2864,14 +2946,14 @@ def main() -> int:
     print(json.dumps(probe_bf16), file=sys.stderr, flush=True)
     lcross = run_longctx_card_vs_cpu()
     print(json.dumps(lcross), file=sys.stderr, flush=True)
-    kernel_rows += bench_longctx_kernels(
-        zlaunch, mlaunch,
-        probe_f32["runs"][0]["launches"].get("flash_attention", 0))
+    longctx_rows, ssd_passes = bench_longctx_kernels(
+        zlaunch, mlaunch, probe_f32["runs"][0]["launches"])
+    kernel_rows += longctx_rows
 
     lines += [{"kernels": kernel_rows}, {"host_link": link}, engine_line,
               pinned_line, parity, pparity, tail, padding, invariance,
               pinv, window, pwindow, cross, pre, ppre, i8h, i8p, zline, mline,
-              probe_f32, probe_bf16, lcross, _card_line()]
+              probe_f32, probe_bf16, lcross, ssd_passes, _card_line()]
     for line in lines:
         _emit(line)
     _emit({"ok": True, "device": {

@@ -285,10 +285,6 @@ constexpr int kQChunk = kBQ * kRowBytes;        // one 64-column box of Q
 constexpr int kKVChunk = kBK * kRowBytes;       // one 64-column box of K/V
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
                "r"(count)

@@ -1,322 +1,1024 @@
-// K9: the Mamba-2 SSD chunked scan.
+// K9: the Mamba-2 SSD chunked scan, chunk-parallel.
 //
 // Replaces repro/kernels/ssd_scan/ssd_scan.py::ssd_scan_pallas (grid
 // (B, n_chunks); the chunk axis runs in order on the TPU, so the state
 // h [H, N, P] of every head persists in VMEM scratch from chunk to
-// chunk).  It computes what that kernel computes: per chunk of Q steps
-// the dA cumsum, the intra-chunk attention form
-// y_diag = (C.B^T o exp(seg) o dt) . x over j <= i, the inter-chunk
-// output y_off = (C . h_prev) o exp(dA_cs), and the state update
-// h = h * exp(dA_sum) + sum_j exp(dA_sum - dA_cs_j) dt_j B_j (x) x_j;
-// y and the final state come out in float32.  B and C are shared by all
-// heads (G = 1), as the Pallas kernel takes them.
+// chunk).  It computes what that kernel computes: with cs the inclusive
+// cumsum of dt * A within a chunk of Q steps,
+//   y_i    = sum_{j<=i} (C_i.B_j) exp(cs_i - cs_j) dt_j x_j
+//            + exp(cs_i) C_i.h_prev,
+//   h_next = h_prev exp(cs_end) + sum_j exp(cs_end - cs_j) dt_j B_j (x) x_j,
+// y and the final state in float32.  B and C are shared by all heads
+// (G = 1), as the Pallas kernel takes them.
 //
 // What changes from the TPU design: blocks run in no order on Hopper, so
-// nothing can carry from one block to the next.  One CTA owns one
-// (batch, head) and walks its chunks in a loop, keeping that head's
-// state h [N, P] in shared memory (16 KB at zamba2's N = P = 64, 32 KB
-// at mamba2's N = 128); zamba2's B = 4, H = 112 gives 448 CTAs for 132
-// SMs.  A ragged last chunk is masked in the kernel: steps past L load
-// dt = 0 and zero x, B, C (identity steps, exactly what padding gives)
-// and write no y, so the wrapper never copies its inputs.  exp() of the
-// intra-chunk decay is taken only where j <= i (the TPU form takes it
-// over the whole square and selects the upper triangle away), and a
-// warp's rows stop their j loop at their own diagonal.
+// nothing carries from one block to the next.  Only the state recurrence
+// is serial over chunks, and it is one multiply-add per state element per
+// chunk, so the scan runs as four launches, each parallel over chunks:
+//   1. prologue, one CTA per (batch, chunk): cs of every head, written
+//      [B, nc, H, Qp] (a warp per head: runs per lane, then a shuffle
+//      scan of the runs), and CB = C.B^T [B, nc, Qp, Qp], the 16x16
+//      tiles on and below the diagonal, once for all heads;
+//   2. chunk states, one CTA per (batch, chunk, head): S = B^T . (w o x),
+//      w_j = exp(cs_end - cs_j) dt_j, written [B, nc, H, N, P];
+//   3. state passing, one thread per (batch, head, 4 state elements):
+//      h_prev[c + 1] = h_prev[c] exp(cs_end,c) + S[c] over the nc chunks
+//      from h0 (or 0), h_prev written over S in place, then h_final;
+//   4. chunk output, one CTA per (batch, chunk, head):
+//      y = (CB o exp(cs_i - cs_j) o dt_j, j <= i) . x + exp(cs_i) C.h_prev;
+//      16-row tiles of y skip every 16-column tile of j above the
+//      diagonal; a warp takes one m-tile, or m-tiles t and M-1-t when
+//      there are more tiles than warps.
+// Q is padded to Qp (a multiple of 16) and a ragged last chunk is masked
+// in the kernels: steps past the chunk or past L load dt = 0 and zero x,
+// B, C (identity steps, exactly what padding gives) and write no y, so
+// nothing is padded or copied outside.  The workspace (cs, CB and the
+// chunk states, sized by ssd_scan_workspace) comes from the wrapper, and
+// passes 2 and 4 read dt from the input; the kernels allocate
+// nothing, sync nothing and use no atomics, and each work item's split is
+// fixed by (L, H, P, N, Q), so the bits of a sequence do not depend on
+// the batch around it.  Each kernel's shared-memory limit is raised at
+// its first launch only, so a CUDA graph can capture a call.
 //
-// Shared memory per CTA (float32): x [Q, P], B [Q, N+1] (padded so the
-// lanes of a warp, one j each, hit distinct banks), C [Q, N], h [N, P],
-// one 32-row tile of the attention form [32, Q], and four [Q] vectors:
-// 211 KB at Q = 128, P = 64, N = 128, so one CTA per SM.  Every product
-// is a float32 FMA from shared memory into registers (4 rows x up to 4
-// columns per thread); no TF32, no bf16 accumulation, no tensor cores.
-// Each head's CTA recomputes C.B^T, which all heads share (G = 1): the
-// price of one CTA per head.
+// Arithmetic.  bf16 entry: C.B^T, and every product whose other operand
+// is bf16 input, run on the tensor cores (mma.sync m16n8k16, bf16 in,
+// float32 accumulate), where bf16 products are exact.  The float32
+// operand of the other three products (w o x in the states, h_prev in
+// C.h_prev, the decayed CB in y) is split into kTerms = 2 bf16 terms,
+// t = hi + lo with hi = bf16(t), lo = bf16(t - hi), which hold t to
+// 2**-17 (one term, 2**-9, does not hold the 1e-4 tolerance), and the
+// products of both terms are summed in float32.  float32 entry: the same
+// passes with every product a float32 FMA (no TF32).
 //
-// Bound on the H100: x, B, C and dt read once, y (float32) written once,
-// h_final written once; operations ~ 2*B*H*L*Q*(N+P) (attention form,
-// the full square) + 4*B*H*L*N*P (chunk states and y_off).  At zamba2's
-// prefill shape (B 4, L 2000, H 112, P 64, N 64, Q 128, bf16 x/B/C) that
-// is ~44 GFLOP against ~357 MB (y in float32 is two thirds of it):
-// 0.045 ms at the bf16 tensor-core rate, 0.107 ms at 3.35 TB/s, so bytes
-// bound it.  This first kernel runs its ~44 GFLOP on the float32 FMA
-// units from shared memory, far from that bound; tensor cores and a
-// chunk-parallel two-pass design are later work.
+// Bound on the H100: x, B, C and dt read once, y (float32) and h_final
+// written once: ~357 MB at zamba2's prefill shape (B 4, L 2000, H 112,
+// P 64, N 64, Q 128, bf16), 0.107 ms at 3.35 TB/s; ~22 GFLOP (C.B^T's
+// triangle once per chunk, its decayed product with x per head, the
+// states and C.h_prev), 0.022 ms at the bf16 tensor-core rate: bytes
+// bound it.  The passes move more than
+// that: x is read twice, and the chunk states (B nc H N P float32, 117 MB
+// at zamba2's shape) are written, read and written, and read again, ~0.83
+// GB in all (0.25 ms at 3.35 TB/s); CB is read from L2 by every head.
+// The bf16 passes run 8 warps a CTA: the chunk states as (16 state rows,
+// half the columns) items, the chunk output as m-tiles of 16 rows.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kTileRows = kWarps * kRowsPerWarp;   // rows of a y tile
-constexpr int kMaxQ = 256;
-constexpr int kMaxColGroups = 4;                   // P <= 128
-constexpr int kMaxJGroups = kMaxQ / 32;
-constexpr int kMaxN = 128;
-constexpr int kMaxStateRows = kMaxN / kWarps;      // N rows per warp
+using bf = __nv_bfloat16;
 
-size_t smem_bytes(int Q, int P, int N) {
-  return sizeof(float) * (static_cast<size_t>(Q) * P + Q * (N + 1) +
-                          Q * N + N * P + kTileRows * Q + 4 * Q);
+constexpr int kMaxQ = 256;
+constexpr int kMaxP = 128;
+constexpr int kMaxN = 128;
+constexpr int kTerms = 2;           // bf16 terms of a float32 operand
+constexpr int kPrologueThreads = 256;
+constexpr int kTileThreads = 256;   // passes 2 and 4, bf16
+constexpr int kF32Threads = 256;    // passes 2 and 4, float32
+constexpr int kPassThreads = 256;   // pass 3
+constexpr int kF32JBlock = 64;      // steps per shared-memory block, f32 pass 2
+constexpr int kPassUnroll = 8;      // chunks whose states pass 3 loads at once
+constexpr int kPassVec = 4;         // state elements per thread, pass 3
+
+__host__ __device__ constexpr int pad16(int v) { return (v + 15) / 16 * 16; }
+// bf16 shared-memory row stride: padded to the k-steps, plus 8 so the
+// eight rows of an ldmatrix hit distinct banks
+__host__ __device__ constexpr int bf_stride(int cols) { return pad16(cols) + 8; }
+
+struct Dims {
+  int L, H, P, N, Q, Qp, nc;
+};
+
+// t = out[0] + out[1] + ... to 2**-(9 * kTerms)
+__device__ __forceinline__ void split_bf16(float t, bf (&out)[kTerms]) {
+#pragma unroll
+  for (int k = 0; k < kTerms; ++k) {
+    out[k] = __float2bfloat16(t);
+    t -= __bfloat162float(out[k]);
+  }
 }
 
+// Elements [c0, c0 + 8) of a row (zero past `cols` or when !live), 16
+// bytes at a time where the row allows it.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const T* __restrict__ Bm,
-                const T* __restrict__ Cm, const float* __restrict__ h0,
-                float* __restrict__ y, float* __restrict__ h_out, int L,
-                int H, int P, int N, int Q) {
-  extern __shared__ float smem[];
-  const int bstride = N + 1;
-  float* x_s = smem;                   // [Q, P]
-  float* b_s = x_s + Q * P;            // [Q, N+1]
-  float* c_s = b_s + Q * bstride;      // [Q, N]
-  float* h_s = c_s + Q * N;            // [N, P]
-  float* att_s = h_s + N * P;          // [kTileRows, Q]
-  float* dt_s = att_s + kTileRows * Q; // [Q]
-  float* cs_s = dt_s + Q;              // [Q] inclusive cumsum of dt * A
-  float* w_s = cs_s + Q;               // [Q] exp(cs_end - cs_j) * dt_j
-  float* ecs_s = w_s + Q;              // [Q] exp(cs_i)
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int hd = bh - b * H;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const float a = A[hd];
-  const long long hbase = static_cast<long long>(bh) * N * P;
-
-  for (int i = tid; i < N * P; i += kThreads)
-    h_s[i] = h0 != nullptr ? h0[hbase + i] : 0.f;
-
-  const int n_chunks = (L + Q - 1) / Q;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int t0 = c * Q;
-    const int nv = min(Q, L - t0);     // live steps of this chunk
-    __syncthreads();                   // the previous chunk is done
-    const long long row0 = static_cast<long long>(b) * L + t0;
-    for (int i = tid; i < Q * P; i += kThreads) {
-      const int j = i / P;
-      const int p = i - j * P;
-      x_s[i] = j < nv ? to_float(x[((row0 + j) * H + hd) * P + p]) : 0.f;
+__device__ __forceinline__ void load8(float (&v)[8], const T* row, int c0,
+                                      int cols, bool live, bool vec) {
+  if (live && vec && c0 + 8 <= cols) {
+    if constexpr (sizeof(T) == 2) {
+      const uint4 u = *reinterpret_cast<const uint4*>(row + c0);
+      const bf* e = reinterpret_cast<const bf*>(&u);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(e[k]);
+    } else {
+      const float4 a = *reinterpret_cast<const float4*>(row + c0);
+      const float4 b = *reinterpret_cast<const float4*>(row + c0 + 4);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
     }
-    for (int i = tid; i < Q * N; i += kThreads) {
-      const int j = i / N;
-      const int n = i - j * N;
-      float bv = 0.f, cv = 0.f;
-      if (j < nv) {
-        bv = to_float(Bm[(row0 + j) * N + n]);
-        cv = to_float(Cm[(row0 + j) * N + n]);
-      }
-      b_s[j * bstride + n] = bv;
-      c_s[i] = cv;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    v[k] = live && c0 + k < cols ? to_float(row[c0 + k]) : 0.f;
+}
+
+// Whether rows of `cols` elements at stride `ld` from `p` can be read 16
+// bytes at a time.
+template <typename T>
+__device__ __forceinline__ bool vec_ok(const T* p, int cols, long long ld) {
+  constexpr int per = 16 / sizeof(T);
+  return cols % per == 0 && ld % per == 0 &&
+         (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Rows [0, rows_pad) of a [*, cols] bf16 matrix at row stride ld into
+// shared memory at row stride sd: rows >= live and columns >= cols up to
+// pad16(cols) are zero.  16-byte rows go by cp.async, all in flight at
+// once; the caller waits (cp_async_wait_all) and syncs.
+__device__ __forceinline__ void load_bf16_rows(bf* dst, int sd, const bf* src,
+                                               long long ld, int live,
+                                               int rows_pad, int cols, int tid,
+                                               int nthreads) {
+  const bool vec = vec_ok(src, cols, ld);
+  const int groups = pad16(cols) / 8;
+  for (int i = tid; i < rows_pad * groups; i += nthreads) {
+    const int r = i / groups;
+    const int c0 = (i - r * groups) * 8;
+    bf* out = dst + r * sd + c0;
+    if (vec) {
+      const bool pred = r < live && c0 < cols;
+      cp_async16(out, pred ? src + r * ld + c0 : src, pred);
+      continue;
     }
-    for (int j = tid; j < Q; j += kThreads)
-      dt_s[j] = j < nv ? dt[(row0 + j) * H + hd] : 0.f;
+    float v[8];
+    load8(v, src + r * ld, c0, cols, r < live, false);
+    uint4 u;
+    bf* e = reinterpret_cast<bf*>(&u);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) e[k] = __float2bfloat16(v[k]);
+    *reinterpret_cast<uint4*>(out) = u;
+  }
+}
+
+// Stores a pair of float32 outputs at columns p, p + 1 < cols of a row
+// (8 bytes at once where cols is even).
+__device__ __forceinline__ void store2(float* row, int p, int cols, float a,
+                                       float b) {
+  if ((cols & 1) == 0 && p + 1 < cols) {
+    *reinterpret_cast<float2*>(row + p) = make_float2(a, b);
+    return;
+  }
+  if (p < cols) row[p] = a;
+  if (p + 1 < cols) row[p + 1] = b;
+}
+
+// =============================================================================
+// 1. prologue: cs, dt per head and CB = C.B^T, one CTA per (chunk, batch)
+// =============================================================================
+
+template <typename T>
+__global__ void __launch_bounds__(kPrologueThreads)
+    ssd_prologue_kernel(const float* __restrict__ dt,
+                        const float* __restrict__ A, const T* __restrict__ Bm,
+                        const T* __restrict__ Cm, float* __restrict__ cs,
+                        float* __restrict__ cb, Dims d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kWarps = kPrologueThreads / 32;
+  const int c = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t0 = c * d.Q;
+  const int nv = min(d.Q, d.L - t0);              // live steps
+  const long long row0 = static_cast<long long>(b) * d.L + t0;
+  const long long bc = static_cast<long long>(b) * d.nc + c;
+  const int Qp = d.Qp;
+
+  // cs = inclusive cumsum of dt * A: lane l takes steps [l*per, l*per+per)
+  const int per = (Qp + 31) / 32;                 // <= 8
+  for (int h = warp; h < d.H; h += kWarps) {
+    const float a = A[h];
+    float dv[8], run[8];
+    float tot = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int j = lane * per + k;
+      dv[k] = k < per && j < nv ? dt[(row0 + j) * d.H + h] : 0.f;
+      tot += __fmul_rn(dv[k], a);
+      run[k] = tot;
+    }
+    float inc = tot;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float v = __shfl_up_sync(0xffffffffu, inc, off);
+      if (lane >= off) inc += v;
+    }
+    float excl = __shfl_up_sync(0xffffffffu, inc, 1);
+    if (lane == 0) excl = 0.f;
+    float* cs_h = cs + (bc * d.H + h) * Qp;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int j = lane * per + k;
+      if (k < per && j < Qp) cs_h[j] = excl + run[k];
+    }
+  }
+
+  // CB tiles (mi, mj), mj <= mi, of 16 x 16, taken by warps in turn
+  float* cbc = cb + bc * Qp * Qp;
+  const int M = Qp / 16;
+  if constexpr (sizeof(T) == 2) {
+    const int sN = bf_stride(d.N);
+    bf* c_s = reinterpret_cast<bf*>(smem_raw);   // [Qp][sN]
+    bf* b_s = c_s + Qp * sN;                     // [Qp][sN]
+    load_bf16_rows(c_s, sN, Cm + row0 * d.N, d.N, nv, Qp, d.N, tid,
+                   kPrologueThreads);
+    load_bf16_rows(b_s, sN, Bm + row0 * d.N, d.N, nv, Qp, d.N, tid,
+                   kPrologueThreads);
+    cp_async_wait_all();
     __syncthreads();
-
-    // inclusive cumsum of dA = dt * A: each lane a run of steps, then a
-    // warp scan of the runs' totals
-    if (warp == 0) {
-      const int per = (Q + 31) / 32;
-      const int lo = lane * per;
-      float run = 0.f;
-      for (int k = 0; k < per; ++k) {
-        const int j = lo + k;
-        if (j < Q) {
-          run += dt_s[j] * a;
-          cs_s[j] = run;
+    const int ksteps = pad16(d.N) / 16;
+    int t = 0;
+    for (int mi = 0; mi < M; ++mi)
+      for (int mj = 0; mj <= mi; ++mj, ++t) {
+        if (t % kWarps != warp) continue;
+        float s[2][4] = {};
+        for (int kk = 0; kk < ksteps; ++kk) {
+          uint32_t fa[4], fb[4];
+          ldsm_x4(fa, c_s + (mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                sN + kk * 16 + (lane >> 4) * 8);
+          ldsm_x4(fb, b_s + (mj * 16 + (lane & 7) + (lane >> 4) * 8) * sN +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(s[0], fa, fb[0], fb[1]);
+          mma_bf16(s[1], fa, fb[2], fb[3]);
+        }
+        const int r = mi * 16 + (lane >> 2);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int col = mj * 16 + nt * 8 + (lane & 3) * 2;
+          *reinterpret_cast<float2*>(cbc + r * Qp + col) =
+              make_float2(s[nt][0], s[nt][1]);
+          *reinterpret_cast<float2*>(cbc + (r + 8) * Qp + col) =
+              make_float2(s[nt][2], s[nt][3]);
         }
       }
-      float tot = run;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, tot, off);
-        if (lane >= off) tot += v;
-      }
-      const float excl = tot - run;
-      for (int k = 0; k < per; ++k) {
-        const int j = lo + k;
-        if (j < Q) cs_s[j] += excl;
-      }
+  } else {
+    // float32: B in shared memory, a warp per row i, lanes over j; C_i is
+    // read once per n by all lanes of the warp
+    const int sN = d.N + 1;
+    float* b_s = reinterpret_cast<float*>(smem_raw);   // [Qp][N + 1]
+    for (int i = tid; i < Qp * d.N; i += kPrologueThreads) {
+      const int j = i / d.N, n = i - j * d.N;
+      b_s[j * sN + n] = j < nv ? Bm[(row0 + j) * d.N + n] : 0.f;
     }
     __syncthreads();
-    const float cs_end = cs_s[Q - 1];
-    for (int j = tid; j < Q; j += kThreads) {
-      w_s[j] = expf(cs_end - cs_s[j]) * dt_s[j];
-      ecs_s[j] = expf(cs_s[j]);
-    }
-    __syncthreads();
-
-    // y, one tile of kTileRows rows at a time; a warp owns 4 rows of the
-    // tile (its rows of att_s too), a lane the columns lane + 32 * cg
-    for (int i0 = 0; i0 < nv; i0 += kTileRows) {
-      const int r0 = i0 + warp * kRowsPerWarp;
-      if (r0 < nv) {
-        int ir[kRowsPerWarp];
+    for (int i = warp; i < Qp; i += kWarps) {
+      const int jlim = (i / 16 + 1) * 16;
+      const float* crow = Cm + (row0 + i) * d.N;
+      float acc[kMaxQ / 32];
 #pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) ir[r] = min(r0 + r, Q - 1);
-        const int jmax = min(Q, r0 + kRowsPerWarp);  // j <= the last row
-        float* att_w = att_s + warp * kRowsPerWarp * Q;
+      for (int g = 0; g < kMaxQ / 32; ++g) acc[g] = 0.f;
+      for (int n = 0; n < d.N; ++n) {
+        const float cv = i < nv ? crow[n] : 0.f;
 #pragma unroll
-        for (int cg = 0; cg < kMaxJGroups; ++cg) {
-          if (32 * cg >= jmax) break;
-          const int j = lane + 32 * cg;
-          float dot[kRowsPerWarp];
-#pragma unroll
-          for (int r = 0; r < kRowsPerWarp; ++r) dot[r] = 0.f;
-          if (j < jmax) {
-            const float* br = b_s + j * bstride;
-            for (int n = 0; n < N; ++n) {
-              const float bv = br[n];
-#pragma unroll
-              for (int r = 0; r < kRowsPerWarp; ++r)
-                dot[r] = fmaf(c_s[ir[r] * N + n], bv, dot[r]);
-            }
-#pragma unroll
-            for (int r = 0; r < kRowsPerWarp; ++r) {
-              const int i = r0 + r;
-              float v = 0.f;
-              if (j <= i && i < Q)
-                v = dot[r] * expf(cs_s[i] - cs_s[j]) * dt_s[j];
-              att_w[r * Q + j] = v;
-            }
-          }
-        }
-        __syncwarp();
-
-        float accd[kRowsPerWarp][kMaxColGroups];
-        float acco[kRowsPerWarp][kMaxColGroups];
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-          for (int cg = 0; cg < kMaxColGroups; ++cg) {
-            accd[r][cg] = 0.f;
-            acco[r][cg] = 0.f;
-          }
-        for (int j = 0; j < jmax; ++j) {      // y_diag
-          float xv[kMaxColGroups];
-#pragma unroll
-          for (int cg = 0; cg < kMaxColGroups; ++cg) {
-            const int p = lane + 32 * cg;
-            xv[cg] = p < P ? x_s[j * P + p] : 0.f;
-          }
-#pragma unroll
-          for (int r = 0; r < kRowsPerWarp; ++r) {
-            const float av = att_w[r * Q + j];
-#pragma unroll
-            for (int cg = 0; cg < kMaxColGroups; ++cg)
-              accd[r][cg] = fmaf(av, xv[cg], accd[r][cg]);
-          }
-        }
-        for (int n = 0; n < N; ++n) {         // C . h_prev
-          float hv[kMaxColGroups];
-#pragma unroll
-          for (int cg = 0; cg < kMaxColGroups; ++cg) {
-            const int p = lane + 32 * cg;
-            hv[cg] = p < P ? h_s[n * P + p] : 0.f;
-          }
-#pragma unroll
-          for (int r = 0; r < kRowsPerWarp; ++r) {
-            const float cv = c_s[ir[r] * N + n];
-#pragma unroll
-            for (int cg = 0; cg < kMaxColGroups; ++cg)
-              acco[r][cg] = fmaf(cv, hv[cg], acco[r][cg]);
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const int i = r0 + r;
-          if (i >= nv) continue;
-          const float e = ecs_s[i];
-          float* yr = y + ((row0 + i) * H + hd) * P;
-#pragma unroll
-          for (int cg = 0; cg < kMaxColGroups; ++cg) {
-            const int p = lane + 32 * cg;
-            if (p < P) yr[p] = accd[r][cg] + acco[r][cg] * e;
-          }
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();                   // every read of h_prev is done
-
-    // state update: a warp owns rows n = warp + kWarps * r of h
-    const float dec = expf(cs_end);
-    float acc[kMaxStateRows][kMaxColGroups];
-#pragma unroll
-    for (int r = 0; r < kMaxStateRows; ++r)
-#pragma unroll
-      for (int cg = 0; cg < kMaxColGroups; ++cg) acc[r][cg] = 0.f;
-    for (int j = 0; j < nv; ++j) {     // steps past nv add exactly 0
-      const float wj = w_s[j];
-      float xw[kMaxColGroups];
-#pragma unroll
-      for (int cg = 0; cg < kMaxColGroups; ++cg) {
-        const int p = lane + 32 * cg;
-        xw[cg] = p < P ? wj * x_s[j * P + p] : 0.f;
-      }
-      const float* br = b_s + j * bstride;
-#pragma unroll
-      for (int r = 0; r < kMaxStateRows; ++r) {
-        const int n = warp + kWarps * r;
-        if (n < N) {
-          const float bv = br[n];
-#pragma unroll
-          for (int cg = 0; cg < kMaxColGroups; ++cg)
-            acc[r][cg] = fmaf(bv, xw[cg], acc[r][cg]);
+        for (int g = 0; g < kMaxQ / 32; ++g) {
+          const int j = g * 32 + lane;
+          if (j < jlim) acc[g] = fmaf(cv, b_s[j * sN + n], acc[g]);
         }
       }
-    }
 #pragma unroll
-    for (int r = 0; r < kMaxStateRows; ++r) {
-      const int n = warp + kWarps * r;
-      if (n >= N) continue;
-#pragma unroll
-      for (int cg = 0; cg < kMaxColGroups; ++cg) {
-        const int p = lane + 32 * cg;
-        if (p < P) h_s[n * P + p] = h_s[n * P + p] * dec + acc[r][cg];
+      for (int g = 0; g < kMaxQ / 32; ++g) {
+        const int j = g * 32 + lane;
+        if (j < jlim) cbc[i * Qp + j] = acc[g];
       }
     }
   }
+}
+
+// =============================================================================
+// 2. chunk states S = B^T . (w o x), one CTA per (chunk, head, batch)
+// =============================================================================
+
+// bf16: NT n-tiles of 8 columns cover P.  A = B^T from B [Qp][N] by
+// ldmatrix.trans; the B operand (w o x) in kTerms bf16 terms.
+template <int NT>
+__global__ void __launch_bounds__(kTileThreads)
+    ssd_states_bf16_kernel(const bf* __restrict__ x, const bf* __restrict__ Bm,
+                           const float* __restrict__ cs,
+                           const float* __restrict__ dt,
+                           float* __restrict__ st, Dims d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kWarps = kTileThreads / 32;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t0 = c * d.Q;
+  const int nv = min(d.Q, d.L - t0);
+  const long long row0 = static_cast<long long>(b) * d.L + t0;
+  const long long bc = static_cast<long long>(b) * d.nc + c;
+  const int Qp = d.Qp, P = d.P, N = d.N;
+  const int sN = bf_stride(N), sP = bf_stride(P);
+  bf* b_s = reinterpret_cast<bf*>(smem_raw);     // [Qp][sN]
+  bf* wx_s = b_s + Qp * sN;                      // [kTerms][Qp][sP]
+  float* w_s = reinterpret_cast<float*>(wx_s + kTerms * Qp * sP);  // [Qp]
+
+  const float* cs_h = cs + (bc * d.H + h) * Qp;
+  const float cs_end = cs_h[Qp - 1];
+  for (int j = tid; j < Qp; j += kTileThreads)
+    w_s[j] = j < nv ? expf(cs_end - cs_h[j]) * dt[(row0 + j) * d.H + h] : 0.f;
+  // B, and x raw into the last term's rows; then w o x split in place
+  // (each thread rewrites only the elements it read)
+  bf* x_raw = wx_s + (kTerms - 1) * Qp * sP;
+  load_bf16_rows(b_s, sN, Bm + row0 * N, N, nv, Qp, N, tid, kTileThreads);
+  load_bf16_rows(x_raw, sP, x + row0 * d.H * P + static_cast<long long>(h) * P,
+                 static_cast<long long>(d.H) * P, nv, Qp, P, tid,
+                 kTileThreads);
+  cp_async_wait_all();
   __syncthreads();
-  for (int i = tid; i < N * P; i += kThreads) h_out[hbase + i] = h_s[i];
+  {
+    const int groups = pad16(P) / 8;
+    for (int i = tid; i < Qp * groups; i += kTileThreads) {
+      const int j = i / groups;
+      const int c0 = (i - j * groups) * 8;
+      const uint4 raw = *reinterpret_cast<const uint4*>(x_raw + j * sP + c0);
+      const bf* xv = reinterpret_cast<const bf*>(&raw);
+      const float w = w_s[j];
+      uint4 u[kTerms];
+#pragma unroll
+      for (int k = 0; k < 8; k += 2) {
+        bf t0s[kTerms], t1s[kTerms];
+        split_bf16(w * __bfloat162float(xv[k]), t0s);
+        split_bf16(w * __bfloat162float(xv[k + 1]), t1s);
+#pragma unroll
+        for (int t = 0; t < kTerms; ++t)
+          reinterpret_cast<uint32_t*>(&u[t])[k / 2] = pack_bf16(t0s[t],
+                                                                t1s[t]);
+      }
+#pragma unroll
+      for (int t = 0; t < kTerms; ++t)
+        *reinterpret_cast<uint4*>(wx_s + (t * Qp + j) * sP + c0) = u[t];
+    }
+  }
+  __syncthreads();
+
+  const int ksteps = (nv + 15) / 16;             // j tiles with a live step
+  float* st_h = st + (bc * d.H + h) * N * P;
+  // work items (m-tile of 16 state rows, half of the columns), in turn
+  constexpr int kHalf = NT / 2;                  // n-tiles of an item
+  for (int it = warp; it < pad16(N) / 16 * 2; it += kWarps) {
+    const int mt = it >> 1;
+    const int nt0 = (it & 1) * kHalf;
+    if (nt0 * 8 >= P) continue;
+    float acc[kHalf][4] = {};
+    for (int ks = 0; ks < ksteps; ++ks) {
+      uint32_t fa[4];
+      ldsm_x4_trans(fa, b_s + (ks * 16 + (lane & 7) + (lane >> 4) * 8) * sN +
+                            mt * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int np = 0; np < kHalf / 2; ++np) {
+        const int c0 = (nt0 + 2 * np) * 8;
+        if (c0 >= P) break;
+#pragma unroll
+        for (int t = 0; t < kTerms; ++t) {
+          uint32_t fv[4];
+          ldsm_x4_trans(fv, wx_s + (t * Qp + ks * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * sP +
+                                c0 + (lane >> 4) * 8);
+          mma_bf16(acc[2 * np], fa, fv[0], fv[1]);
+          mma_bf16(acc[2 * np + 1], fa, fv[2], fv[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int n = mt * 16 + (lane >> 2) + hf * 8;
+      if (n >= N) continue;
+#pragma unroll
+      for (int nt = 0; nt < kHalf; ++nt)
+        store2(st_h + n * P, (nt0 + nt) * 8 + (lane & 3) * 2, P,
+               acc[nt][hf * 2], acc[nt][hf * 2 + 1]);
+    }
+  }
+}
+
+// float32: a warp owns state rows n = warp + 8 r, a lane columns
+// lane + 32 g; steps stream through shared memory kF32JBlock at a time.
+__global__ void __launch_bounds__(kF32Threads)
+    ssd_states_f32_kernel(const float* __restrict__ x,
+                          const float* __restrict__ Bm,
+                          const float* __restrict__ cs,
+                          const float* __restrict__ dt,
+                          float* __restrict__ st, Dims d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kWarps = kF32Threads / 32;
+  constexpr int kRows = kMaxN / kWarps;
+  constexpr int kCols = kMaxP / 32;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t0 = c * d.Q;
+  const int nv = min(d.Q, d.L - t0);
+  const long long row0 = static_cast<long long>(b) * d.L + t0;
+  const long long bc = static_cast<long long>(b) * d.nc + c;
+  const int Qp = d.Qp, P = d.P, N = d.N;
+  float* b_s = reinterpret_cast<float*>(smem_raw);   // [kF32JBlock][N]
+  float* wx_s = b_s + kF32JBlock * N;                // [kF32JBlock][P]
+  float* w_s = wx_s + kF32JBlock * P;                // [Qp]
+
+  const float* cs_h = cs + (bc * d.H + h) * Qp;
+  const float cs_end = cs_h[Qp - 1];
+  for (int j = tid; j < Qp; j += kF32Threads)
+    w_s[j] = j < nv ? expf(cs_end - cs_h[j]) * dt[(row0 + j) * d.H + h] : 0.f;
+  float acc[kRows][kCols];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int g = 0; g < kCols; ++g) acc[r][g] = 0.f;
+  const float* xh = x + row0 * d.H * P + static_cast<long long>(h) * P;
+  for (int j0 = 0; j0 < nv; j0 += kF32JBlock) {
+    const int nj = min(kF32JBlock, nv - j0);
+    __syncthreads();                      // w_s written; last block read
+    for (int i = tid; i < nj * N; i += kF32Threads) {
+      const int j = i / N, n = i - j * N;
+      b_s[i] = Bm[(row0 + j0 + j) * N + n];
+    }
+    for (int i = tid; i < nj * P; i += kF32Threads) {
+      const int j = i / P, p = i - j * P;
+      wx_s[i] = w_s[j0 + j] * xh[(j0 + j) * static_cast<long long>(d.H) * P
+                                 + p];
+    }
+    __syncthreads();
+    for (int j = 0; j < nj; ++j) {
+      float xv[kCols];
+#pragma unroll
+      for (int g = 0; g < kCols; ++g) {
+        const int p = lane + 32 * g;
+        xv[g] = p < P ? wx_s[j * P + p] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int n = warp + kWarps * r;
+        if (n < N) {
+          const float bv = b_s[j * N + n];
+#pragma unroll
+          for (int g = 0; g < kCols; ++g) acc[r][g] = fmaf(bv, xv[g], acc[r][g]);
+        }
+      }
+    }
+  }
+  float* st_h = st + (bc * d.H + h) * N * P;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int n = warp + kWarps * r;
+    if (n >= N) continue;
+#pragma unroll
+    for (int g = 0; g < kCols; ++g) {
+      const int p = lane + 32 * g;
+      if (p < P) st_h[n * P + p] = acc[r][g];
+    }
+  }
+}
+
+// =============================================================================
+// 3. state passing over the chunks, one thread per (4 state elements,
+//    head, batch): h_prev written over the chunk states, then h_final
+// =============================================================================
+
+__global__ void __launch_bounds__(kPassThreads)
+    ssd_state_passing_kernel(const float* __restrict__ cs, float* st,
+                             const float* __restrict__ h0,
+                             float* __restrict__ h_out, Dims d) {
+  const int NP = d.N * d.P;
+  const int e0 = (blockIdx.x * kPassThreads + threadIdx.x) * kPassVec;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (e0 >= NP) return;
+  const int ne = min(kPassVec, NP - e0);
+  const bool vec = ne == kPassVec && NP % kPassVec == 0;
+  const long long bh = static_cast<long long>(b) * d.H + h;
+  auto ld4 = [&](const float* p, float (&v)[kPassVec]) {
+    if (vec && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+      const float4 u = *reinterpret_cast<const float4*>(p);
+      v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPassVec; ++k) v[k] = k < ne ? p[k] : 0.f;
+    }
+  };
+  auto st4 = [&](float* p, const float (&v)[kPassVec]) {
+    if (vec) {
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPassVec; ++k)
+        if (k < ne) p[k] = v[k];
+    }
+  };
+  float hv[kPassVec];
+  if (h0 != nullptr) {
+    ld4(h0 + bh * NP + e0, hv);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPassVec; ++k) hv[k] = 0.f;
+  }
+  // kPassUnroll chunks' states in flight at once, then the recurrence
+  for (int c0 = 0; c0 < d.nc; c0 += kPassUnroll) {
+    float s[kPassUnroll][kPassVec], dec[kPassUnroll];
+#pragma unroll
+    for (int u = 0; u < kPassUnroll; ++u) {
+      const long long bch =
+          (static_cast<long long>(b) * d.nc + min(c0 + u, d.nc - 1)) * d.H + h;
+      ld4(st + bch * NP + e0, s[u]);
+      dec[u] = expf(cs[bch * d.Qp + d.Qp - 1]);
+    }
+#pragma unroll
+    for (int u = 0; u < kPassUnroll; ++u) {
+      if (c0 + u >= d.nc) break;
+      const long long bch = (static_cast<long long>(b) * d.nc + c0 + u) *
+                                d.H + h;
+      st4(st + bch * NP + e0, hv);
+#pragma unroll
+      for (int k = 0; k < kPassVec; ++k) hv[k] = hv[k] * dec[u] + s[u][k];
+    }
+  }
+  st4(h_out + bh * NP + e0, hv);
+}
+
+// =============================================================================
+// 4. chunk output, one CTA per (chunk, head, batch)
+// =============================================================================
+
+// The m-tiles of Qp rows a warp takes: one each while there are no more
+// tiles than warps, else pairs (q, M-1-q) for q = warp, warp + kWarps,
+// ..., so each warp's share of the triangle is even.
+template <int kWarps, typename Body>
+__device__ __forceinline__ void for_each_mtile(int M, int warp, Body body) {
+  if (M <= kWarps) {
+    if (warp < M) body(warp);
+    return;
+  }
+  for (int q = warp; q < (M + 1) / 2; q += kWarps) {
+    body(q);
+    if (M - 1 - q != q) body(M - 1 - q);
+  }
+}
+
+// bf16: y_off = C . h_prev with C from shared memory (A, ldmatrix) and
+// h_prev in kTerms bf16 terms (B, ldmatrix.trans); then y_diag = att . x
+// with att built in registers in the A layout from CB (read from L2),
+// cs and dt, split into kTerms terms.
+// (At most 80 registers, so three CTAs share an SM at P <= 64.)
+template <int NT>
+__global__ void __launch_bounds__(kTileThreads, NT == 8 ? 3 : 1)
+    ssd_output_bf16_kernel(const bf* __restrict__ x, const bf* __restrict__ Cm,
+                           const float* __restrict__ cs,
+                           const float* __restrict__ dt,
+                           const float* __restrict__ cb,
+                           const float* __restrict__ st,
+                           float* __restrict__ y, Dims d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kWarps = kTileThreads / 32;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t0 = c * d.Q;
+  const int nv = min(d.Q, d.L - t0);
+  const long long row0 = static_cast<long long>(b) * d.L + t0;
+  const long long bc = static_cast<long long>(b) * d.nc + c;
+  const int Qp = d.Qp, P = d.P, N = d.N, Np = pad16(N);
+  const int sN = bf_stride(N), sP = bf_stride(P);
+  bf* c_s = reinterpret_cast<bf*>(smem_raw);     // [Qp][sN]
+  bf* x_s = c_s + Qp * sN;                       // [Qp][sP]
+  bf* h_s = x_s + Qp * sP;                       // [kTerms][Np][sP]
+  float* cs_s = reinterpret_cast<float*>(h_s + kTerms * Np * sP);  // [Qp]
+  float* dt_s = cs_s + Qp;                       // [Qp]
+  float* ecs_s = dt_s + Qp;                      // [Qp] exp(cs_i)
+
+  const float* cs_h = cs + (bc * d.H + h) * Qp;
+  for (int j = tid; j < Qp; j += kTileThreads) {
+    const float v = cs_h[j];
+    cs_s[j] = v;
+    dt_s[j] = j < nv ? dt[(row0 + j) * d.H + h] : 0.f;
+    ecs_s[j] = expf(v);
+  }
+  load_bf16_rows(c_s, sN, Cm + row0 * N, N, nv, Qp, N, tid, kTileThreads);
+  load_bf16_rows(x_s, sP, x + row0 * d.H * P + static_cast<long long>(h) * P,
+                 static_cast<long long>(d.H) * P, nv, Qp, P, tid,
+                 kTileThreads);
+  {
+    // h_prev in kTerms bf16 terms; a thread loads kHBatch groups of 8
+    // before it converts any, so their latencies overlap
+    constexpr int kHBatch = 4;
+    const float* hp = st + (bc * d.H + h) * N * P;
+    const bool vec = vec_ok(hp, P, P);
+    const int groups = pad16(P) / 8;
+    const int total = Np * groups;
+    for (int i0 = tid; i0 < total; i0 += kHBatch * kTileThreads) {
+      float v[kHBatch][8];
+#pragma unroll
+      for (int k = 0; k < kHBatch; ++k) {
+        const int i = i0 + k * kTileThreads;
+        const int n = i / groups;
+        load8(v[k], hp + static_cast<long long>(n) * P, (i - n * groups) * 8,
+              P, i < total && n < N, vec);
+      }
+#pragma unroll
+      for (int k = 0; k < kHBatch; ++k) {
+        const int i = i0 + k * kTileThreads;
+        if (i >= total) break;
+        const int n = i / groups;
+        const int c0 = (i - n * groups) * 8;
+        uint4 u[kTerms];
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          bf a[kTerms], b[kTerms];
+          split_bf16(v[k][e], a);
+          split_bf16(v[k][e + 1], b);
+#pragma unroll
+          for (int t = 0; t < kTerms; ++t)
+            reinterpret_cast<uint32_t*>(&u[t])[e / 2] = pack_bf16(a[t], b[t]);
+        }
+#pragma unroll
+        for (int t = 0; t < kTerms; ++t)
+          *reinterpret_cast<uint4*>(h_s + (t * Np + n) * sP + c0) = u[t];
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const float* cbc = cb + bc * Qp * Qp;
+  const int M = (nv + 15) / 16;                  // m-tiles with a live row
+  for_each_mtile<kWarps>(M, warp, [&](int mt) {
+    const int r0 = mt * 16 + (lane >> 2);        // this thread's rows r0, r0+8
+    // C.B^T at rows r0 (+8), columns js*16 + (lane&3)*2 + {0,1} (+8), read
+    // from L2 one j tile ahead of its use
+    const float* cb_t = cbc + r0 * Qp + (lane & 3) * 2;
+    auto load_cb = [&](int js, float2 (&v)[4]) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        v[q] = __ldg(reinterpret_cast<const float2*>(
+            cb_t + (q & 1) * 8 * Qp + js * 16 + (q >> 1) * 8));
+    };
+    float2 cbv[4], cbn[4] = {};
+    load_cb(0, cbv);
+    float acc[NT][4] = {};
+    // y_off = C . h_prev
+    for (int kk = 0; kk < Np / 16; ++kk) {
+      uint32_t fa[4];
+      ldsm_x4(fa, c_s + (mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * sN +
+                      kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        if (np * 16 >= P) break;
+#pragma unroll
+        for (int t = 0; t < kTerms; ++t) {
+          uint32_t fv[4];
+          ldsm_x4_trans(fv, h_s + (t * Np + kk * 16 + (lane & 7) +
+                                   ((lane >> 3) & 1) * 8) * sP +
+                                np * 16 + (lane >> 4) * 8);
+          mma_bf16(acc[2 * np], fa, fv[0], fv[1]);
+          mma_bf16(acc[2 * np + 1], fa, fv[2], fv[3]);
+        }
+      }
+    }
+    const float e0 = ecs_s[r0], e1 = ecs_s[r0 + 8];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      acc[nt][0] *= e0;
+      acc[nt][1] *= e0;
+      acc[nt][2] *= e1;
+      acc[nt][3] *= e1;
+    }
+    // y_diag = att . x over the j tiles up to the diagonal
+    const float cs0 = cs_s[r0], cs1 = cs_s[r0 + 8];
+    for (int js = 0; js <= mt; ++js) {
+      if (js < mt) load_cb(js + 1, cbn);
+      // att at rows r0 (+8), columns j0 + {0, 1} (+8)
+      const int j0 = js * 16 + (lane & 3) * 2;
+      float av[4][2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = r0 + (q & 1) * 8;
+        const int j = j0 + (q >> 1) * 8;
+        const float ci = (q & 1) ? cs1 : cs0;
+        av[q][0] = j <= i ? cbv[q].x * expf(ci - cs_s[j]) * dt_s[j] : 0.f;
+        av[q][1] = j + 1 <= i
+                       ? cbv[q].y * expf(ci - cs_s[j + 1]) * dt_s[j + 1]
+                       : 0.f;
+      }
+      uint32_t ap[kTerms][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        bf lo[kTerms], hi[kTerms];
+        split_bf16(av[q][0], lo);
+        split_bf16(av[q][1], hi);
+#pragma unroll
+        for (int t = 0; t < kTerms; ++t) ap[t][q] = pack_bf16(lo[t], hi[t]);
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        if (np * 16 >= P) break;
+        uint32_t fv[4];
+        ldsm_x4_trans(fv, x_s + (js * 16 + (lane & 7) +
+                                 ((lane >> 3) & 1) * 8) * sP +
+                              np * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int t = 0; t < kTerms; ++t) {
+          mma_bf16(acc[2 * np], ap[t], fv[0], fv[1]);
+          mma_bf16(acc[2 * np + 1], ap[t], fv[2], fv[3]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) cbv[q] = cbn[q];
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int i = r0 + hf * 8;
+      if (i >= nv) continue;
+      float* yr = y + ((row0 + i) * d.H + h) * P;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        store2(yr, nt * 8 + (lane & 3) * 2, P, acc[nt][hf * 2],
+               acc[nt][hf * 2 + 1]);
+    }
+  });
+}
+
+// float32: a warp takes 4 rows at a time (pairs of row groups from both
+// ends of the chunk), a lane columns lane + 32 g.  x and h_prev sit in
+// shared memory; C rows and CB are read from L2.  For y_diag each lane
+// computes att for one j of the 4 rows and the warp shares it by shuffle.
+__global__ void __launch_bounds__(kF32Threads)
+    ssd_output_f32_kernel(const float* __restrict__ x,
+                          const float* __restrict__ Cm,
+                          const float* __restrict__ cs,
+                          const float* __restrict__ dt,
+                          const float* __restrict__ cb,
+                          const float* __restrict__ st,
+                          float* __restrict__ y, Dims d) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kWarps = kF32Threads / 32;
+  constexpr int kR = 4;                          // rows per warp at a time
+  constexpr int kCols = kMaxP / 32;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t0 = c * d.Q;
+  const int nv = min(d.Q, d.L - t0);
+  const long long row0 = static_cast<long long>(b) * d.L + t0;
+  const long long bc = static_cast<long long>(b) * d.nc + c;
+  const int Qp = d.Qp, P = d.P, N = d.N;
+  float* x_s = reinterpret_cast<float*>(smem_raw);   // [Qp][P]
+  float* h_s = x_s + Qp * P;                         // [N][P]
+  float* cs_s = h_s + N * P;                         // [Qp]
+  float* dt_s = cs_s + Qp;                           // [Qp]
+
+  const float* cs_h = cs + (bc * d.H + h) * Qp;
+  for (int j = tid; j < Qp; j += kF32Threads) {
+    cs_s[j] = cs_h[j];
+    dt_s[j] = j < nv ? dt[(row0 + j) * d.H + h] : 0.f;
+  }
+  const float* xh = x + row0 * d.H * P + static_cast<long long>(h) * P;
+  for (int i = tid; i < Qp * P; i += kF32Threads) {
+    const int j = i / P, p = i - j * P;
+    x_s[i] = j < nv ? xh[j * static_cast<long long>(d.H) * P + p] : 0.f;
+  }
+  const float* hp = st + (bc * d.H + h) * N * P;
+  for (int i = tid; i < N * P; i += kF32Threads) h_s[i] = hp[i];
+  __syncthreads();
+
+  const float* cbc = cb + bc * Qp * Qp;
+  const int G = (nv + kR - 1) / kR;              // row groups with a live row
+  for_each_mtile<kWarps>(G, warp, [&](int g) {
+    const int i0 = g * kR;
+    float accd[kR][kCols], acco[kR][kCols];
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) accd[r][q] = acco[r][q] = 0.f;
+    // C . h_prev
+    for (int n = 0; n < N; ++n) {
+      float hv[kCols];
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) {
+        const int p = lane + 32 * q;
+        hv[q] = p < P ? h_s[n * P + p] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int i = i0 + r;
+        const float cv = i < nv ? Cm[(row0 + i) * N + n] : 0.f;
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) acco[r][q] = fmaf(cv, hv[q], acco[r][q]);
+      }
+    }
+    // att . x over j <= the group's last row
+    const int jmax = min(Qp, i0 + kR);
+    for (int jb = 0; jb < jmax; jb += 32) {
+      const int jl = jb + lane;
+      float att[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int i = i0 + r;
+        att[r] = jl <= i && i < Qp
+                     ? cbc[i * Qp + jl] * expf(cs_s[i] - cs_s[jl]) * dt_s[jl]
+                     : 0.f;
+      }
+      const int nj = min(32, jmax - jb);
+      for (int jj = 0; jj < nj; ++jj) {
+        const int j = jb + jj;
+        float xv[kCols];
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) {
+          const int p = lane + 32 * q;
+          xv[q] = p < P ? x_s[j * P + p] : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          const float a = __shfl_sync(0xffffffffu, att[r], jj);
+#pragma unroll
+          for (int q = 0; q < kCols; ++q) accd[r][q] = fmaf(a, xv[q], accd[r][q]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int i = i0 + r;
+      if (i >= nv) continue;
+      const float e = expf(cs_s[i]);
+      float* yr = y + ((row0 + i) * d.H + h) * P;
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) {
+        const int p = lane + 32 * q;
+        if (p < P) yr[p] = accd[r][q] + acco[r][q] * e;
+      }
+    }
+  });
+}
+
+// =============================================================================
+// launch plans
+// =============================================================================
+
+struct Plan {
+  const void* kernel;
+  int* granted;          // the shared-memory limit raised so far
+  dim3 grid;
+  int threads;
+  size_t smem;
+};
+
+constexpr int kPasses = 4;
+
+size_t prologue_smem(bool bf16, const Dims& d) {
+  return bf16 ? 2 * static_cast<size_t>(d.Qp) * bf_stride(d.N) * 2
+              : static_cast<size_t>(d.Qp) * (d.N + 1) * 4;
+}
+size_t states_smem(bool bf16, const Dims& d) {
+  return bf16 ? static_cast<size_t>(d.Qp) * bf_stride(d.N) * 2 +
+                    static_cast<size_t>(kTerms) * d.Qp * bf_stride(d.P) * 2 +
+                    4 * d.Qp
+              : 4 * (static_cast<size_t>(kF32JBlock) * (d.N + d.P) + d.Qp);
+}
+size_t output_smem(bool bf16, const Dims& d) {
+  return bf16 ? static_cast<size_t>(d.Qp) * (bf_stride(d.N) + bf_stride(d.P)) *
+                        2 +
+                    static_cast<size_t>(kTerms) * pad16(d.N) * bf_stride(d.P) *
+                        2 +
+                    12 * d.Qp
+              : 4 * (static_cast<size_t>(d.Qp) * d.P + d.N * d.P + 2 * d.Qp);
 }
 
 template <typename T>
+void make_plans(int B, const Dims& d, Plan (&pl)[kPasses]) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  static int granted[6] = {0, 0, 0, 0, 0, 0};
+  const dim3 tiles(d.nc, d.H, B);
+  pl[0] = {(const void*)ssd_prologue_kernel<T>, &granted[0], dim3(d.nc, B),
+           kPrologueThreads, prologue_smem(kBf16, d)};
+  if constexpr (kBf16) {
+    const bool wide = d.P > 64;
+    pl[1] = {wide ? (const void*)ssd_states_bf16_kernel<16>
+                  : (const void*)ssd_states_bf16_kernel<8>,
+             &granted[wide ? 2 : 1], tiles, kTileThreads,
+             states_smem(true, d)};
+    pl[3] = {wide ? (const void*)ssd_output_bf16_kernel<16>
+                  : (const void*)ssd_output_bf16_kernel<8>,
+             &granted[wide ? 4 : 3], tiles, kTileThreads,
+             output_smem(true, d)};
+  } else {
+    pl[1] = {(const void*)ssd_states_f32_kernel, &granted[1], tiles,
+             kF32Threads, states_smem(false, d)};
+    pl[3] = {(const void*)ssd_output_f32_kernel, &granted[3], tiles,
+             kF32Threads, output_smem(false, d)};
+  }
+  pl[2] = {(const void*)ssd_state_passing_kernel, &granted[5],
+           dim3((d.N * d.P + kPassThreads * kPassVec - 1) /
+                    (kPassThreads * kPassVec),
+                d.H, B),
+           kPassThreads, 0};
+}
+
+// Raise the kernel's dynamic shared-memory limit to the plan's need if no
+// launch has yet: later launches make no API call, so a CUDA graph can
+// capture them (one card per process).
+cudaError_t allow_smem(const Plan& pl) {
+  if (pl.smem <= 48 * 1024 || static_cast<int>(pl.smem) <= *pl.granted)
+    return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      pl.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(pl.smem));
+  if (err == cudaSuccess) *pl.granted = static_cast<int>(pl.smem);
+  return err;
+}
+
+bool dims_of(int L, int H, int P, int N, int Q, Dims* d) {
+  if (Q < 1 || Q > kMaxQ || P < 1 || P > kMaxP || N < 1 || N > kMaxN ||
+      L < 1 || H < 1)
+    return false;
+  *d = {L, H, P, N, Q, pad16(Q), (L + Q - 1) / Q};
+  return true;
+}
+
+// Launches the four kernels of a call, in order, on `stream`: each plan's
+// kernel with its arguments (the bf16 and float32 kernels of a pass take
+// the same arguments).
+template <typename T>
 int launch(const void* x, const float* dt, const float* A, const void* Bm,
-           const void* Cm, const float* h0, float* y, float* h_out, int B,
-           int L, int H, int P, int N, int Q, cudaStream_t stream) {
-  if (Q < 1 || Q > kMaxQ || P < 1 || P > 32 * kMaxColGroups || N < 1 ||
-      N > kMaxN)
+           const void* Cm, const float* h0, float* y, float* h_out, float* cs,
+           float* cb, float* st, int B, int L, int H, int P, int N, int Q,
+           cudaStream_t stream) {
+  Dims d;
+  if (!dims_of(L, H, P, N, Q, &d) || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(Q, P, N);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_scan_kernel<T><<<B * H, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), h0, y, h_out, L, H, P, N, Q);
+  Plan pl[kPasses];
+  make_plans<T>(B, d, pl);
+  void* prologue[] = {&dt, &A, &Bm, &Cm, &cs, &cb, &d};
+  void* states[] = {&x, &Bm, &cs, &dt, &st, &d};
+  void* passing[] = {&cs, &st, &h0, &h_out, &d};
+  void* output[] = {&x, &Cm, &cs, &dt, &cb, &st, &y, &d};
+  void** args[kPasses] = {prologue, states, passing, output};
+  for (int k = 0; k < kPasses; ++k) {
+    cudaError_t err = allow_smem(pl[k]);
+    if (err == cudaSuccess)
+      err = cudaLaunchKernel(pl[k].kernel, pl[k].grid, dim3(pl[k].threads),
+                             args[k], pl[k].smem, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-EXPORT int ssd_scan_f32(const void* x, const float* dt, const float* A,
-                        const void* Bm, const void* Cm, const float* h0,
-                        float* y, float* h_out, int B, int L, int H, int P,
-                        int N, int Q, cudaStream_t stream) {
-  return launch<float>(x, dt, A, Bm, Cm, h0, y, h_out, B, L, H, P, N, Q,
-                       stream);
+// x [B, L, H, P], dt [B, L, H], A [H], Bm/Cm [B, L, N], h0 [B, H, N, P]
+// or null; y [B, L, H, P], h_out [B, H, N, P]; the float32 workspace cs,
+// cb and st as ssd_scan_workspace sizes it.
+#define SSD_SCAN_ENTRY(NAME, T)                                               \
+  EXPORT int NAME(const void* x, const float* dt, const float* A,             \
+                  const void* Bm, const void* Cm, const float* h0, float* y,  \
+                  float* h_out, float* cs, float* cb, float* st, int B,       \
+                  int L, int H, int P, int N, int Q, cudaStream_t stream) {   \
+    return launch<T>(x, dt, A, Bm, Cm, h0, y, h_out, cs, cb, st, B, L, H, P,  \
+                     N, Q, stream);                                           \
+  }
+
+SSD_SCAN_ENTRY(ssd_scan_f32, float)
+SSD_SCAN_ENTRY(ssd_scan_bf16, __nv_bfloat16)
+
+// How a call launches, for measurement: for each of the four kernels in
+// order, info[5k .. 5k+4] = CTAs in the grid, threads per CTA, dynamic
+// shared memory bytes, CTAs resident per SM (the occupancy calculator,
+// after the shared-memory limit is raised), 1 (no clusters).
+EXPORT int ssd_scan_launch_info(int bf16, int B, int L, int H, int P, int N,
+                                int Q, int* info) {
+  Dims d;
+  if (!dims_of(L, H, P, N, Q, &d) || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan pl[kPasses];
+  if (bf16)
+    make_plans<__nv_bfloat16>(B, d, pl);
+  else
+    make_plans<float>(B, d, pl);
+  for (int k = 0; k < kPasses; ++k) {
+    cudaError_t err = allow_smem(pl[k]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pl[k].kernel, pl[k].threads, pl[k].smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    info[5 * k] = static_cast<int>(pl[k].grid.x * pl[k].grid.y * pl[k].grid.z);
+    info[5 * k + 1] = pl[k].threads;
+    info[5 * k + 2] = static_cast<int>(pl[k].smem);
+    info[5 * k + 3] = per_sm;
+    info[5 * k + 4] = 1;
+  }
+  return 0;
 }
 
-EXPORT int ssd_scan_bf16(const void* x, const float* dt, const float* A,
-                         const void* Bm, const void* Cm, const float* h0,
-                         float* y, float* h_out, int B, int L, int H, int P,
-                         int N, int Q, cudaStream_t stream) {
-  return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, h0, y, h_out, B, L, H, P,
-                               N, Q, stream);
+// The float32 workspace of a call, in elements, in the entry's order
+// (nc = ceil(L / Q), Qp = Q rounded up to 16): elems[0] cs [B, nc, H, Qp],
+// elems[1] cb = C.B^T [B, nc, Qp, Qp], elems[2] st, the chunk states and
+// then h_prev, [B, nc, H, N, P].
+EXPORT int ssd_scan_workspace(int B, int L, int H, int P, int N, int Q,
+                              long long* elems) {
+  Dims d;
+  if (!dims_of(L, H, P, N, Q, &d) || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long bnc = static_cast<long long>(B) * d.nc;
+  elems[0] = bnc * d.H * d.Qp;
+  elems[1] = bnc * d.Qp * d.Qp;
+  elems[2] = bnc * d.H * d.N * d.P;
+  return 0;
 }

@@ -6,12 +6,27 @@ shared by all heads, chunk) and return (y [B, L, H, P] float32, h_final
 [B, H, N, P] float32).  ``mamba_forward`` calls ``ssd_scan`` in every
 Mamba layer of the dense-cache prefill.
 
-On CUDA tensors ``ssd_scan`` launches ``csrc/ssd_scan.cu`` (one CTA per
-(batch, head) walking the chunks with the state in shared memory; a
-ragged last chunk is masked in the kernel as identity steps, dt = 0, so
-nothing is padded or copied); on CPU tensors it runs ``ssd_scan_plain``,
-the plain chunked scan ``repro_torch.models.ssm.ssd_chunked`` with one
-group.  An initial state ``h0`` is taken as ``ssd_chunked`` takes it.
+On CUDA tensors ``ssd_scan`` launches ``csrc/ssd_scan.cu``: four kernels,
+each parallel over chunks (a prologue per chunk with the dt * A cumsum of
+every head and C.B^T shared by all heads; the chunk states per (chunk,
+head); the state passing over chunks per state element; the chunk
+output per (chunk, head)), the bf16 entry's products on the tensor cores
+with each float32 operand split into two bf16 terms, the float32
+entry's on the FMA units.  A ragged last chunk is masked in the kernels
+as identity steps (dt = 0), so nothing is padded or copied.  The wrapper
+allocates the kernels' float32 workspace from torch's caching allocator,
+in the sizes the kernel source reports (``workspace_elems``: cs
+[B, nc, H, Qp], C.B^T [B, nc, Qp, Qp], the chunk states
+[B, nc, H, N, P]; 125 MB at zamba2's prefill shape), so a call
+allocates nothing else, makes no host sync, and can be captured in a
+CUDA graph.  Its least work moves x, B, C, dt, y and
+h_final once (~357 MB at zamba2's shape, 0.107 ms at 3.35 TB/s); the
+chunk states, written and read three times over, make up most of the
+rest.
+
+On CPU tensors it runs ``ssd_scan_plain``, the plain chunked scan
+``repro_torch.models.ssm.ssd_chunked`` with one group.  An initial state
+``h0`` is taken as ``ssd_chunked`` takes it.
 """
 from __future__ import annotations
 
@@ -23,21 +38,54 @@ from . import _build, count_launch
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_C] * 8 + [_I] * 6 + [_C]
+_ARGTYPES = [_C] * 11 + [_I] * 6 + [_C]
 _FN = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
 MAX_CHUNK = 256
 MAX_P = 128
 MAX_N = 128
-_TILE_ROWS = 32
-SMEM_LIMIT = 232448                 # bytes of shared memory a CTA may use
+PASSES = ("ssd_prologue", "ssd_states", "ssd_state_passing", "ssd_output")
 
 
-def smem_bytes(chunk: int, P: int, N: int) -> int:
-    """Shared memory of one CTA (float32 x, padded B, C, h, a 32-row tile
-    of the attention form and four per-step vectors)."""
-    Q = chunk
-    return 4 * (Q * P + Q * (N + 1) + Q * N + N * P + _TILE_ROWS * Q
-                + 4 * Q)
+def workspace_elems(B: int, L: int, H: int, P: int, N: int,
+                    chunk: int) -> list[int]:
+    """Float32 elements of the workspace buffers one call allocates (cs,
+    C.B^T, chunk states), as the kernel source sizes them (builds the
+    kernels)."""
+    _check_range(chunk, P, N)
+    elems = (ctypes.c_longlong * 3)()
+    fn = _build.function("ssd_scan_workspace",
+                         [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong)])
+    _build.check(fn(B, L, H, P, N, chunk, elems), "ssd_scan_workspace")
+    return list(elems)
+
+
+def launch_info(B: int, L: int, H: int, P: int, N: int, chunk: int,
+                dtype: torch.dtype) -> dict:
+    """How one call launches on the current card (builds the kernels):
+    for each of its kernels, in order, the grid's CTAs, threads per CTA,
+    dynamic shared memory bytes and CTAs resident per SM by the
+    occupancy calculator; and the workspace bytes."""
+    _check_range(chunk, P, N)
+    info = (ctypes.c_int * (5 * len(PASSES)))()
+    fn = _build.function("ssd_scan_launch_info",
+                         [_I] * 7 + [ctypes.POINTER(ctypes.c_int)])
+    _build.check(fn(int(dtype == torch.bfloat16), B, L, H, P, N, chunk,
+                    info), "ssd_scan_launch_info")
+    kernels = [{"name": name, "ctas": info[5 * k],
+                "threads": info[5 * k + 1], "smem_bytes": info[5 * k + 2],
+                "ctas_per_sm": info[5 * k + 3]}
+               for k, name in enumerate(PASSES)]
+    return {"kernels": kernels,
+            "workspace_bytes": 4 * sum(workspace_elems(B, L, H, P, N,
+                                                       chunk))}
+
+
+def _check_range(chunk: int, P: int, N: int) -> None:
+    if not (1 <= chunk <= MAX_CHUNK and 1 <= P <= MAX_P
+            and 1 <= N <= MAX_N):
+        raise ValueError(f"ssd_scan: chunk={chunk} (max {MAX_CHUNK}), P={P} "
+                         f"(max {MAX_P}), N={N} (max {MAX_N}) outside the "
+                         f"kernel's range")
 
 
 def _one_group(m: torch.Tensor, name: str) -> torch.Tensor:
@@ -76,15 +124,6 @@ def _launch(x, dt, A, Bm, Cm, chunk, h0):
         raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, Bm "
                          f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)} disagree")
-    if not (1 <= chunk <= MAX_CHUNK and 1 <= P <= MAX_P
-            and 1 <= N <= MAX_N):
-        raise ValueError(f"ssd_scan: chunk={chunk} (max {MAX_CHUNK}), P={P} "
-                         f"(max {MAX_P}), N={N} (max {MAX_N}) outside the "
-                         f"kernel's range")
-    if smem_bytes(chunk, P, N) > SMEM_LIMIT:
-        raise ValueError(f"ssd_scan: chunk={chunk}, P={P}, N={N} need "
-                         f"{smem_bytes(chunk, P, N)} B of shared memory "
-                         f"(limit {SMEM_LIMIT})")
     for name, t in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm),
                     ("h0", h0)):
         if t is not None and t.device != dev:
@@ -102,11 +141,13 @@ def _launch(x, dt, A, Bm, Cm, chunk, h0):
     if Bsz * H == 0 or L == 0:         # nothing to launch, nothing counted
         h_out.copy_(h0 if h0 is not None else torch.zeros_like(h_out))
         return y, h_out
+    ws = [torch.empty(n, dtype=torch.float32, device=dev)
+          for n in workspace_elems(Bsz, L, H, P, N, chunk)]
     fn = _build.function(_FN[x.dtype], _ARGTYPES)
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
              Cm.data_ptr(), h0.data_ptr() if h0 is not None else None,
-             y.data_ptr(), h_out.data_ptr(), Bsz, L, H, P, N, chunk,
-             _build.current_stream(dev.index))
+             y.data_ptr(), h_out.data_ptr(), *(w.data_ptr() for w in ws),
+             Bsz, L, H, P, N, chunk, _build.current_stream(dev.index))
     _build.check(err, _FN[x.dtype])
     count_launch("ssd_scan")
     return y, h_out
@@ -117,8 +158,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              h0: torch.Tensor | None = None):
     """x [B, L, H, P]; dt [B, L, H]; A [H]; Bm/Cm [B, L, N] or
     [B, L, 1, N]; optional h0 [B, H, N, P].  Returns (y [B, L, H, P],
-    h_final [B, H, N, P]), both float32."""
+    h_final [B, H, N, P]), both float32.  G > 1 and a chunk, P or N
+    outside the kernel's range are refused on every device."""
     Bm, Cm = _one_group(Bm, "Bm"), _one_group(Cm, "Cm")
+    _check_range(chunk, x.shape[-1], Bm.shape[-1])
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk, h0=h0)
     if x.device.type != "cuda":

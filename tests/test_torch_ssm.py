@@ -262,24 +262,45 @@ def test_decode_continues_the_scan():
 # the CUDA kernel on the card
 # =============================================================================
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,L,H,P,N,chunk,with_h0", [
+# the card cases: the first five since the kernel was written, then
+# L around one chunk, the widest tiles (P = N = 128, chunk 256), odd sizes
+# (scalar loads, padded tiles), and zamba2's and mamba2's full prefill
+# shapes
+KERNEL_SHAPES = [
     (2, 64, 4, 8, 16, 16, False), (1, 37, 2, 8, 8, 16, True),
     (2, 300, 6, 64, 64, 128, False), (1, 200, 4, 64, 128, 128, True),
-    (1, 45, 3, 16, 16, 8, False)])
+    (1, 45, 3, 16, 16, 8, False),
+    (2, 1, 8, 64, 64, 128, True), (2, 127, 8, 64, 64, 128, False),
+    (2, 128, 8, 64, 128, 128, True), (2, 129, 8, 64, 128, 128, False),
+    (1, 300, 4, 128, 128, 256, True), (1, 50, 3, 5, 7, 13, True),
+    (4, 2000, 112, 64, 64, 128, False), (4, 2000, 64, 64, 128, 128, False)]
+
+
+def _card_inputs(B, L, H, P, N, dtype, seed=9, with_h0=False):
+    dev = cuda_device()
+    x, dt, A, Bm, Cm = _t(*_scan_inputs(B, L, H, P, N, seed=seed),
+                          device=dev)
+    h0 = None
+    if with_h0:
+        h0 = torch.from_numpy(np.random.RandomState(seed + 1).standard_normal(
+            (B, H, N, P)).astype(np.float32)).to(dev)
+    return x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype), h0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,P,N,chunk,with_h0", KERNEL_SHAPES)
 def test_ssd_scan_kernel_vs_plain_cuda(dtype, B, L, H, P, N, chunk,
                                        with_h0):
     """K9 against its plain version on the same card inputs, ragged last
-    chunks and an initial state included.  Both are float32 FMA summed in
-    other orders over up to L terms, so the error scales with the largest
-    magnitude of the output (|y| reaches ~300 at L = 300): atol is 1e-4
-    of that magnitude, rtol 1e-4."""
-    dev = cuda_device()
-    x, dt, A, Bm, Cm = _t(*_scan_inputs(B, L, H, P, N, seed=9),
-                          device=dev)
-    x, Bm, Cm = x.to(dtype), Bm.to(dtype), Cm.to(dtype)
-    h0 = (torch.randn((B, H, N, P), device=dev) if with_h0 else None)
+    chunks and an initial state included.  float32: FMA in both, summed
+    in other orders over up to L terms; bf16: the kernel's tensor-core
+    products hold each float32 operand to 2**-17 in two bf16 terms.
+    Either way the error scales with the largest magnitude of the output
+    (|y| reaches ~300 at L = 300): atol is 1e-4 of that magnitude, rtol
+    1e-4."""
+    x, dt, A, Bm, Cm, h0 = _card_inputs(B, L, H, P, N, dtype,
+                                        with_h0=with_h0)
     before = kernels.launch_counts()["ssd_scan"]
     y, h = K9.ssd_scan(x, dt, A, Bm, Cm, chunk, h0=h0)
     torch.cuda.synchronize()
@@ -288,6 +309,75 @@ def test_ssd_scan_kernel_vs_plain_cuda(dtype, B, L, H, P, N, chunk,
     for got, want in ((y, yp), (h, hp)):
         assert_close(got, want, atol=1e-4 * float(want.abs().max()),
                      rtol=1e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_bits_cuda(dtype):
+    """Two calls give the same bits, and each sequence of a batch of 4
+    (with its initial state) gives the bits it gives alone: the split of
+    the work depends on (L, H, P, N, chunk) only."""
+    x, dt, A, Bm, Cm, h0 = _card_inputs(4, 300, 8, 64, 64, dtype,
+                                        with_h0=True)
+    y, h = K9.ssd_scan(x, dt, A, Bm, Cm, 128, h0=h0)
+    y2, h2 = K9.ssd_scan(x, dt, A, Bm, Cm, 128, h0=h0)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    for b in range(4):
+        one = slice(b, b + 1)
+        yb, hb = K9.ssd_scan(x[one], dt[one], A, Bm[one], Cm[one], 128,
+                             h0=h0[one])
+        assert torch.equal(yb, y[one]) and torch.equal(hb, h[one]), b
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_graph_cuda(dtype):
+    """One call captured in a CUDA graph replays to the eager call's bits
+    (the workspace comes from the graph's pool, no launch makes an API
+    call); the launch count moves by one per eager call."""
+    x, dt, A, Bm, Cm, h0 = _card_inputs(2, 300, 8, 64, 64, dtype,
+                                        with_h0=True)
+    before = kernels.launch_counts()["ssd_scan"]
+    y, h = K9.ssd_scan(x, dt, A, Bm, Cm, 128, h0=h0)
+    assert kernels.launch_counts()["ssd_scan"] == before + 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K9.ssd_scan(x, dt, A, Bm, Cm, 128, h0=h0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        yg, hg = K9.ssd_scan(x, dt, A, Bm, Cm, 128, h0=h0)
+    yg.zero_()
+    hg.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(yg, y) and torch.equal(hg, h)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,P,N,chunk", [
+    (4, 2000, 112, 64, 64, 128), (4, 2000, 64, 64, 128, 128),
+    (1, 300, 4, 128, 128, 256), (1, 50, 3, 5, 7, 13)])
+def test_ssd_scan_launch_info_cuda(dtype, B, L, H, P, N, chunk):
+    """``launch_info`` reports the four kernels a call launches, with
+    grids that follow the shapes (a CTA per chunk, per (chunk, head),
+    per 1024 state elements of a head, per (chunk, head)), shared memory
+    within the card's 227 KB, at least one CTA resident per SM, and the
+    workspace of cs, C.B^T and the chunk states."""
+    cuda_device()
+    info = K9.launch_info(B, L, H, P, N, chunk, dtype)
+    nc = -(-L // chunk)
+    assert [k["name"] for k in info["kernels"]] == list(K9.PASSES)
+    assert [k["ctas"] for k in info["kernels"]] == [
+        nc * B, nc * H * B, -(-(N * P) // 1024) * H * B, nc * H * B]
+    for k in info["kernels"]:
+        assert 0 <= k["smem_bytes"] <= 227 * 1024, k
+        assert k["ctas_per_sm"] >= 1, k
+    Qp = -(-chunk // 16) * 16
+    assert info["workspace_bytes"] == 4 * B * nc * (H * Qp + Qp * Qp
+                                                    + H * N * P)
 
 
 @pytest.mark.requires_cuda
