@@ -86,25 +86,34 @@ prints no result line):
      kernels and the KV append exactly; the dual-pool attention, decode
      and prefill, bit-identical to single-pool K1 on the same pages; a
      packed segment's prefill bits the same at every offset of a bucket
-     and beside any neighbours, ``prefill_invariance``), with CUDA-event
+     and beside any neighbours, ``prefill_invariance``, in bf16 and in
+     float32), with CUDA-event
      timings of the kernel, the plain version and one PyTorch library
      call where one computes the same function, and the least time the
      card could take: bytes over 3.35 TB/s for HBM, bytes over the
      host-link rate measured in this run (a pinned -> device ``copy_``)
-     for pinned host memory, operations over the bf16 peak.  Phases
+     for pinned host memory, operations over the bf16 peak (float32
+     rows: over 494.7/3 TFLOP/s, 3xTF32 on the tensor cores, with
+     ``bound_fma_ms`` over the 67 TFLOP/s FMA peak beside it; each also
+     gives SDPA's own error against the plain version and the kernels
+     SDPA runs).  Phases
      10-13 run before it; its rows add K6, ``dequant_gather``, K5 over
      1-byte pages, K1's and K1d's prefill bodies at the prefill shape
      (the bf16 body's HMMA count ``sass_hmma`` must not be 0; K1 and K1d
      also as ``device_ms`` over CUDA graphs, K1 also at shorter segments
      and K1d with every page in HBM, K1d beside SDPA with its host-to-HBM
-     copy timed too) and K1's float32 prefill body at the float32 probe's
-     shape within 1e-5 (its launches read around that probe); every K1
+     copy timed too), K1's float32 prefill body (3xTF32 on the tensor
+     cores) at the float32 probe's shape and at the engine's bucket
+     within 1e-5 (its launches read around that probe; ``sass_hmma`` must
+     not be 0) and K1's float32 decode body at the engine's decode shape
+     within 1e-5 (its launches: that probe's replay); every K1
      row carries its launch ``plan`` (grid, shared memory, CTAs and warps
      per SM by the occupancy calculator); phases 14-17 too, and
      its rows add K8 (zamba2's prefill shape, a GQA shape, a 512-token
      window; bf16 within 1e-2, each with ``sass_hgmma``, the count of
      HGMMA instructions in the bf16 kernel, which must not be 0; and the
-     float32 entry at the float32 probe's shape within 1e-5) and K9
+     float32 entry, 3xTF32 on the tensor cores, at the float32 probe's
+     shape and at zamba2's within 1e-5, ``sass_hmma`` not 0) and K9
      (zamba2's and mamba2's shapes in bf16 and the float32 probe's shape
      in float32; outputs within 1e-4 of their largest magnitude; each
      with ``device_ms`` over a CUDA graph, the device work nodes of one
@@ -136,11 +145,17 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# float32-accurate products on the tensor cores: three TF32 products each
+# (3xTF32) at the 494.7 TFLOP/s dense TF32 peak.  Every float32 row's
+# bound_ms takes this rate, whichever way its kernel computes;
+# bound_fma_ms beside it takes F32_FLOPS_PER_S.
+F32_TC_FLOPS_PER_S = 494.7e12 / 3
 # bf16 K/V, kernel vs plain, atol = rtol: ~3x the kernel's error on the
 # card, below what accumulating softmax.V in bf16 gives (checked per run)
 ATTN_TOL = 3e-3
-# float32 K/V: K1's float32 bodies vs plain, the same float32 math summed
-# in another order
+# float32 K/V: K1's float32 bodies vs plain, float32-accurate products
+# (FMA in decode, 3xTF32 on the tensor cores in prefill) summed in another
+# order
 PAGED_F32_TOL = 1e-5
 
 SEED = 0
@@ -209,8 +224,9 @@ LONGCTX_BF16_TIE_MARGIN = 0.1
 LONGCTX_CROSS_PROMPT, LONGCTX_CROSS_STEPS, LONGCTX_CROSS_TOL = 37, 5, 1e-4
 # K8's GQA row (B, S, Hq, Hkv, D), beside the zamba2 prefill shapes
 FLASH_GQA_SHAPE = (1, 2048, 32, 8, 128)
-# K8's float32 entry (FMA units) vs plain at the float32 probe's shape:
-# the same float32 math summed in another order
+# K8's float32 entry (3xTF32 on the tensor cores) vs plain at the float32
+# probe's and zamba2's shapes: float32-accurate products summed in another
+# order
 FLASH_F32_TOL = 1e-5
 # K8 bf16 output vs plain: the same float32 math on the same bf16 inputs,
 # summed in another order; the two outputs round to bf16 at most one ulp
@@ -379,26 +395,71 @@ def _graph_launches(fn) -> int:
     return work
 
 
+_SASS: list[str] = []
+
+
 def _sass_count(function: str, opcode: str) -> int:
     """Instructions whose opcode starts with ``opcode`` (HGMMA, HMMA) in
     the kernel functions whose names hold ``function``, from ``cuobjdump
-    -sass`` of the built library (``cuobjdump`` sits beside ``nvcc``)."""
+    -sass`` of the built library (``cuobjdump`` sits beside ``nvcc``;
+    disassembled once a run)."""
     from repro_torch.kernels import _build
-    tool = Path(_build.nvcc()).with_name("cuobjdump")
-    if not tool.is_file():
-        raise RuntimeError(f"{tool} missing: cannot count {opcode}")
-    _build.library()
-    sass = subprocess.run([str(tool), "-sass", _build.build_info["library"]],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
+    if not _SASS:
+        tool = Path(_build.nvcc()).with_name("cuobjdump")
+        if not tool.is_file():
+            raise RuntimeError(f"{tool} missing: cannot count {opcode}")
+        _build.library()
+        _SASS.append(subprocess.run(
+            [str(tool), "-sass", _build.build_info["library"]],
+            capture_output=True, text=True, check=True, timeout=300).stdout)
     count, inside = 0, False
-    for line in sass.splitlines():
+    for line in _SASS[0].splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
             inside = function in fn.group(1)
         elif inside and re.search(rf"\b{opcode}\.", line):
             count += 1
     return count
+
+
+def _device_kernels(fn, calls: int = 5, tries: int = 3) -> list[str]:
+    """The names of the device kernels ``fn`` launches (a
+    ``torch.profiler`` trace of ``calls`` calls after a warm-up call;
+    traced again, up to ``tries`` times, while a trace keeps no kernel
+    record): which kernel a library call runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    names: set[str] = set()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            on_device = (getattr(e, "device_type", None)
+                         == torch.autograd.DeviceType.CUDA
+                         or getattr(e, "self_device_time_total", 0) > 0)
+            if on_device and not e.key.startswith(
+                    ("aten::", "cuda", "Memcpy", "Memset", "Activity")):
+                names.add(e.key)
+        if names:
+            break
+    return sorted(names)
+
+
+def _f32_bounds(nbytes: float, flops: float) -> dict:
+    """A float32 row's bounds: ``bound_ms`` with the products on the
+    tensor cores at 3xTF32's rate, ``bound_fma_ms`` on the FMA units."""
+    bound, by = _bound_ms(nbytes, flops, flops_per_s=F32_TC_FLOPS_PER_S)
+    fma, fma_by = _bound_ms(nbytes, flops, flops_per_s=F32_FLOPS_PER_S)
+    return {"bound_ms": bound, "bound_by": by, "bound_fma_ms": fma,
+            "bound_fma_by": fma_by,
+            "bound_note": "operations over 494.7/3 TFLOP/s (3xTF32 on the "
+                          "tensor cores); bound_fma_ms over the 67 TFLOP/s "
+                          "float32 FMA peak"}
 
 
 # =============================================================================
@@ -2129,8 +2190,13 @@ def bench_int8_prefill_kernels(cfg, eng, ieng, prefill_line: dict,
     by_seg[seg] = rows[-1]["device_ms"]
     rows[-1]["device_ms_by_segment_tokens"] = by_seg
 
-    # -- K1's float32 prefill body at the float32 probe's shape: one
-    # 128-row segment in its 128-row bucket, 8-page tables, float32 pools
+    # -- K1's float32 prefill body (3xTF32 on the tensor cores) at the
+    # float32 probe's shape: one 128-row segment in its 128-row bucket,
+    # 8-page tables, float32 pools; and at the engine's bucket
+    hmma_f32 = _sass_count("paged_prefill_f32_kernel", "HMMA")
+    if not hmma_f32:
+        raise RuntimeError("paged_attention_prefill: no HMMA in the float32 "
+                           "prefill body")
     fp = pool[:, 0].float()
     fk, fv = fp[:, 0], fp[:, 1]
     Lf, Pf = seg, seg // page
@@ -2146,14 +2212,24 @@ def bench_int8_prefill_kernels(cfg, eng, ieng, prefill_line: dict,
         raise RuntimeError("paged_attention_prefill (float32) disagrees "
                            "with plain")
     err = float((out_k - out_p).abs().max())
-    flat = torch.from_numpy(seg_pages[0]).to(dev).long()
-    kcf, vcf = (t[flat].reshape(1, seg, Hkv, D).transpose(1, 2)
-                .repeat_interleave(G, dim=1).contiguous() for t in (fk, fv))
-    q4f = qf.reshape(1, seg, Hq, D).transpose(1, 2).contiguous()
 
-    def sdpa_f32():
-        return F.scaled_dot_product_attention(q4f, kcf, vcf, is_causal=True,
-                                              scale=1.0)
+    def segments_f32(q, n):
+        """SDPA's operands over the first n segments: q, K, V as [n, Hq,
+        seg, D], K and V copied contiguous and expanded to Hq heads."""
+        flat = torch.from_numpy(seg_pages[:n].reshape(-1)).to(dev).long()
+        kv = (t[flat].reshape(n, seg, Hkv, D).transpose(1, 2)
+              .repeat_interleave(G, dim=1).contiguous() for t in (fk, fv))
+        return (q.reshape(n, seg, Hq, D).transpose(1, 2).contiguous(), *kv)
+
+    def sdpa_causal(q4, kc, vc):
+        return lambda: F.scaled_dot_product_attention(q4, kc, vc,
+                                                      is_causal=True,
+                                                      scale=1.0)
+
+    def library_err(lib, want, n):
+        got = lib().transpose(1, 2).reshape(n * seg, Hkv, G, D)
+        return float((got - want).abs().max())
+    sdpa_f32 = sdpa_causal(*segments_f32(qf, 1))
     row("paged_attention_prefill_f32", "paged_attention_prefill",
         "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention/paged_attention.py:75",
@@ -2162,21 +2238,111 @@ def bench_int8_prefill_kernels(cfg, eng, ieng, prefill_line: dict,
                  warmup=2),
         _bound_ms(2 * Lf * Hq * D * 4 + seg * 2 * Hkv * D * 4 + Lf * Pf * 4
                   + Lf * 4, 4.0 * Hq * D * float(len_f.sum()),
-                  flops_per_s=F32_FLOPS_PER_S),
+                  flops_per_s=F32_TC_FLOPS_PER_S),
         _time_ms(sdpa_f32), prefill_line["probe_f32_launches"][
             "paged_attention_prefill"],
         rows=Lf, table_pages=Pf, dtype="float32",
+        design="row-tiled as the bf16 body, every product 3xTF32 on "
+               "mma.sync m16n8k8",
+        sass_hmma=hmma_f32,
         library_call="scaled_dot_product_attention, causal, float32, KV "
                      "copied contiguous",
+        library_kernels=_device_kernels(sdpa_f32),
+        library_max_abs_err=library_err(sdpa_f32, out_p, 1),
         launches_run="the float32 prefill probe (prefill and TF32 control "
                      "dispatches)",
-        bound_note="operations over the 67 TFLOP/s float32 peak",
         device_ms=_graph_ms(lambda: K1.paged_attention_prefill_pooled(
             *fargs)),
         library_device_ms=_graph_ms(sdpa_f32),
         plan=_plan(True, False, torch.float32, Lf, Hkv, G, D))
-    rows[-1].update(max_abs_err=err, tolerance=PAGED_F32_TOL)
-    del fp, fk, fv, kcf, vcf
+    rows[-1].update(max_abs_err=err, tolerance=PAGED_F32_TOL,
+                    **_f32_bounds(2 * Lf * Hq * D * 4 + seg * 2 * Hkv * D * 4
+                                  + Lf * Pf * 4 + Lf * 4,
+                                  4.0 * Hq * D * float(len_f.sum())))
+    # the engine's bucket: the bf16 row's two 128-token segments in 256
+    # rows with 16-page tables, on the float32 pools
+    qb = torch.randn((L, Hkv, G, D), generator=gen, device=dev) * D ** -0.5
+    bargs = (qb, fk, fv, bt, lengths)
+    out_k = K1.paged_attention_prefill_pooled(*bargs)
+    out_p = K1.paged_attention_plain(*bargs)
+    torch.cuda.synchronize()
+    if not torch.allclose(out_k, out_p, atol=PAGED_F32_TOL,
+                          rtol=PAGED_F32_TOL):
+        raise RuntimeError("paged_attention_prefill (float32, engine "
+                           "bucket) disagrees with plain")
+    sdpa_b = sdpa_causal(*segments_f32(qb, n_seg))
+    nbytes = 2 * L * Hq * D * 4 + kv_bytes * 2 + bt.numel() * 4 + L * 4
+    flops = 4.0 * Hq * D * float(lengths_np.sum())
+    rows[-1]["engine_bucket"] = {
+        "rows": L, "table_pages": P,
+        "max_abs_err": float((out_k - out_p).abs().max()),
+        "ms": _time_ms(lambda: K1.paged_attention_prefill_pooled(*bargs)),
+        "device_ms": _graph_ms(lambda: K1.paged_attention_prefill_pooled(
+            *bargs)),
+        "library_ms": _time_ms(sdpa_b),
+        "library_device_ms": _graph_ms(sdpa_b),
+        "library_max_abs_err": library_err(sdpa_b, out_p, n_seg),
+        **_f32_bounds(nbytes, flops),
+        "plan": _plan(True, False, torch.float32, L, Hkv, G, D)}
+
+    # -- K1's float32 decode body at the engine's decode shape: batch 8,
+    # contexts the run reached, 16-page tables, float32 pools (FMA units;
+    # the float32 prefill probe's replay launches it)
+    Bd, Pd = eng.scfg.max_batch, eng.scfg.max_pages_per_seq
+    len_d = rng.randint(PROMPT_LEN + 1, PROMPT_LEN + NEW_TOKENS + 1, size=Bd)
+    bt_d = torch.from_numpy(np.stack([rng.permutation(fp.shape[0])[:Pd]
+                                      for _ in range(Bd)]).astype(np.int32)
+                            ).to(dev)
+    ld = torch.from_numpy(len_d.astype(np.int32)).to(dev)
+    qd = torch.randn((Bd, Hkv, G, D), generator=gen, device=dev) * D ** -0.5
+    dargs = (qd, fk, fv, bt_d, ld)
+    out_k = K1.paged_attention_pooled(*dargs)
+    out_p = K1.paged_attention_plain(*dargs)
+    torch.cuda.synchronize()
+    if not torch.allclose(out_k, out_p, atol=PAGED_F32_TOL,
+                          rtol=PAGED_F32_TOL):
+        raise RuntimeError("paged_attention (float32 decode) disagrees with "
+                           "plain")
+    S = Pd * page
+    kcd, vcd = (t[bt_d.long()].reshape(Bd, S, Hkv, D).transpose(1, 2)
+                .repeat_interleave(G, dim=1).contiguous() for t in (fk, fv))
+    q4d = qd.reshape(Bd, Hq, 1, D)
+    mask_d = (torch.arange(S, device=dev)[None, :]
+              < ld[:, None])[:, None, None, :]
+
+    def sdpa_dec():
+        return F.scaled_dot_product_attention(q4d, kcd, vcd, attn_mask=mask_d,
+                                              scale=1.0)
+    live = int(len_d.sum())
+    nbytes = 2 * Bd * Hq * D * 4 + 2 * live * Hkv * D * 4 + Bd * Pd * 4 + Bd * 4
+    flops = 4.0 * Hq * D * live
+    row("paged_attention_f32", "paged_attention",
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention/paged_attention.py:75",
+        _time_ms(lambda: K1.paged_attention_pooled(*dargs)),
+        _time_ms(lambda: K1.paged_attention_plain(*dargs), iters=10,
+                 warmup=2),
+        _bound_ms(nbytes, flops, flops_per_s=F32_TC_FLOPS_PER_S),
+        _time_ms(sdpa_dec),
+        prefill_line["probe_f32_launches"].get("paged_attention", 0),
+        batch=Bd, contexts=[int(x) for x in len_d], table_pages=Pd,
+        dtype="float32",
+        design="the decode body (split over a cluster of 8 CTAs) on the FMA "
+               "units, not redesigned here",
+        sass_hmma=_sass_count("paged_decode_kernelIf", "HMMA"),
+        library_call="scaled_dot_product_attention, float32, KV gathered "
+                     "contiguous and expanded to Hq heads outside the timing",
+        library_kernels=_device_kernels(sdpa_dec),
+        library_max_abs_err=float((sdpa_dec().reshape(Bd, Hkv, G, D)
+                                   - out_p).abs().max()),
+        launches_run="the float32 prefill probe's replay (K=1 decode of "
+                     "every prompt position)",
+        device_ms=_graph_ms(lambda: K1.paged_attention_pooled(*dargs)),
+        library_device_ms=_graph_ms(sdpa_dec),
+        plan=_plan(False, False, torch.float32, Bd, Hkv, G, D))
+    rows[-1].update(max_abs_err=float((out_k - out_p).abs().max()),
+                    tolerance=PAGED_F32_TOL, **_f32_bounds(nbytes, flops))
+    del fp, fk, fv, kcd, vcd
     return rows
 
 
@@ -2314,7 +2480,8 @@ def run_prefill_invariance(cfg, eng, peng) -> dict:
     to other segments and padding; every row must give the bits it gave
     alone.  Once over the HBM pool (``paged_attention_prefill``), once
     with about half of the segment's pages pinned
-    (``paged_attention_prefill_dual``), at the engine's widths."""
+    (``paged_attention_prefill_dual``), at the engine's widths; both again
+    in float32 (the float32 body) over float32 copies of layer 0."""
     import numpy as np
     import torch
     from repro_torch.kernels import paged_attention as K1
@@ -2333,12 +2500,18 @@ def run_prefill_invariance(cfg, eng, peng) -> dict:
     fast = eng.kv.store.fast_pool
     pfast = peng.kv.store.fast_pool
     pin = peng.kv.store.pools[peng.pinned_tier].data
-    for path in ("hbm", "dual_pool"):
-        n_fast = (fast if path == "hbm" else pfast).shape[0]
+    # each path's HBM pool and pinned pool (None: one pool); the float32
+    # paths run the float32 body over float32 copies of layer 0
+    paths = {"hbm": (fast, None), "dual_pool": (pfast, pin),
+             "hbm_f32": (fast[:, :1].float(), None),
+             "dual_pool_f32": (pfast[:, :1].float(),
+                               pin[:, :1].float().pin_memory())}
+    for path, (hbm, pinned) in paths.items():
+        n_fast = hbm.shape[0]
         n_pin = pin.shape[0]
 
         def table():
-            if path == "hbm":
+            if pinned is None:
                 return rng.permutation(n_fast)[:P].astype(np.int32), \
                     np.zeros(P, np.int32)
             sel = (rng.rand(P) < 0.5).astype(np.int32)
@@ -2346,7 +2519,7 @@ def run_prefill_invariance(cfg, eng, peng) -> dict:
                             rng.permutation(n_fast)[:P]).astype(np.int32), sel
         mine, mine_sel = table()
         q_seg = torch.randn((seg, Hq, D), generator=gen, device=dev).to(
-            fast.dtype)
+            hbm.dtype)
 
         def run(off, others):
             segs, sels = [(off, seg, mine)], [(off, seg, mine_sel)]
@@ -2357,17 +2530,17 @@ def run_prefill_invariance(cfg, eng, peng) -> dict:
             bt, lengths = _packed_bucket(segs, L, P)
             sel, _ = _packed_bucket(sels, L, P)
             q = torch.randn((L, Hq, D), generator=gen, device=dev).to(
-                fast.dtype)
+                hbm.dtype)
             q[off:off + seg] = q_seg
             bt, sel, lengths = (torch.from_numpy(a).to(dev)
                                 for a in (bt, sel, lengths))
-            if path == "hbm":
-                o = K1.paged_attention_prefill(q, fast[:, 0, 0],
-                                               fast[:, 0, 1], bt, lengths)
+            if pinned is None:
+                o = K1.paged_attention_prefill(q, hbm[:, 0, 0], hbm[:, 0, 1],
+                                               bt, lengths)
             else:
                 o = K1.paged_attention_prefill_dual(
-                    q, pfast[:, 0, 0], pfast[:, 0, 1], pin[:, 0, 0],
-                    pin[:, 0, 1], bt, sel, lengths)
+                    q, hbm[:, 0, 0], hbm[:, 0, 1], pinned[:, 0, 0],
+                    pinned[:, 0, 1], bt, sel, lengths)
             return o[off:off + seg]
 
         alone = run(0, [])
@@ -2659,13 +2832,32 @@ def run_longctx_card_vs_cpu() -> dict:
     return out
 
 
+def _flash_f32_extra(K8, q, k, v, out, lib, hmma: int) -> dict:
+    """What a float32 K8 row adds: its design, HMMA count, device times
+    (CUDA graphs of 10 calls) of the kernel and of SDPA, SDPA's own error
+    against the plain version and the kernels SDPA runs, and the plan."""
+    B, S, Hq, D = q.shape
+    ref = K8.flash_attention_plain(q, k, v)
+    lib_err = float((lib().transpose(1, 2) - ref).abs().max())
+    del ref
+    return {"design": "3xTF32 on mma.sync m16n8k8 from a cp.async ring",
+            "sass_hmma": hmma,
+            "device_ms": _graph_ms(lambda: K8.flash_attention(q, k, v),
+                                   calls=10, replays=10),
+            "library_device_ms": _graph_ms(lib, calls=10, replays=10),
+            "library_max_abs_err": lib_err,
+            "library_kernels": _device_kernels(lib),
+            "plan": K8.launch_info(B, S, Hq, D)}
+
+
 def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
                           f32_launches: dict) -> tuple[list[dict], dict]:
     """K8 and K9 against their plain versions on the card at the shapes of
     the long-context path, with seeded random bf16 inputs: K8 at zamba2's
     prefill shape, at a GQA shape and with a 512-token window (each with
     the HGMMA count of its bf16 kernel and the factor over SDPA), and
-    K8's float32 entry at the float32 probe's shape; K9 at zamba2's and
+    K8's float32 entry at the float32 probe's shape and at zamba2's (its
+    HMMA count, device times, SDPA's error and kernels); K9 at zamba2's and
     mamba2's shapes and its float32 entry at the float32 probe's shape,
     each with its device time over a CUDA graph, the device work nodes
     of one call and its launch plan.
@@ -2685,6 +2877,10 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
     bf = torch.bfloat16
     rows = []
     hgmma = _sass_count("flash_wgmma_kernel", "HGMMA")
+    hmma_f32 = _sass_count("flash_f32_kernel", "HMMA")
+    if not hmma_f32:
+        raise RuntimeError("flash_attention_f32: no HMMA in the float32 "
+                           "kernel")
     gen_f32 = torch.Generator(device=dev)   # keeps K9's inputs as they were
     gen_f32.manual_seed(SEED + 15)
 
@@ -2748,7 +2944,7 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
             _bound_ms(size * (2 * q.numel() + 2 * k.numel()),
                       4.0 * B * Hq * D * pairs,
                       flops_per_s=BF16_FLOPS_PER_S if dtype == bf
-                      else F32_FLOPS_PER_S),
+                      else F32_TC_FLOPS_PER_S),
             _time_ms(lib, iters=10, warmup=2),
             zlaunch["flash_attention"] if dtype == bf
             else f32_launches.get("flash_attention", 0),
@@ -2768,9 +2964,37 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
             if not hgmma:
                 raise RuntimeError(f"{name}: no HGMMA in the bf16 kernel")
         else:
-            kr["design"] = "float32 FMA (unchanged)"
-            kr["bound_note"] = "operations over the 67 TFLOP/s float32 peak"
-        del q, k, v, qt, kt, vt, out
+            kr.update(_f32_bounds(size * (2 * q.numel() + 2 * k.numel()),
+                                  4.0 * B * Hq * D * pairs))
+            kr.update(_flash_f32_extra(K8, q, k, v, out, lib, hmma_f32))
+            # zamba2's prefill shape in float32, new inputs after the
+            # probe shape's
+            zq, zk, zv = (randn(LONGCTX_BATCH, LONGCTX_PROMPT, 32, 112,
+                                g=gen_f32) for _ in range(3))
+            zout = K8.flash_attention(zq, zk, zv)
+            zref = K8.flash_attention_plain(zq, zk, zv)
+            torch.cuda.synchronize()
+            if not torch.allclose(zout, zref, atol=tol, rtol=tol):
+                raise RuntimeError(f"{name} kernel disagrees with plain at "
+                                   f"zamba2's shape")
+            zerr = float((zout - zref).abs().max())
+            del zref
+            zlib = (lambda a, b, c: lambda: F.scaled_dot_product_attention(
+                a, b, c, is_causal=True))(*(t.transpose(1, 2)
+                                             for t in (zq, zk, zv)))
+            zpairs = float(np.arange(1, LONGCTX_PROMPT + 1).sum())
+            kr["zamba2_shape"] = {
+                "shape": {"B": LONGCTX_BATCH, "S": LONGCTX_PROMPT, "Hq": 32,
+                          "Hkv": 32, "D": 112},
+                "max_abs_err": zerr,
+                "ms": _time_ms(lambda: K8.flash_attention(zq, zk, zv),
+                               iters=5, warmup=1),
+                "library_ms": _time_ms(zlib, iters=5, warmup=1),
+                **_f32_bounds(4 * 4 * zq.numel(),
+                              4.0 * LONGCTX_BATCH * 32 * 112 * zpairs),
+                **_flash_f32_extra(K8, zq, zk, zv, zout, zlib, hmma_f32)}
+            del zq, zk, zv, zout, zlib
+        del q, k, v, qt, kt, vt, out, lib
         torch.cuda.empty_cache()
 
     sass = {k: _sass_count(k, "HMMA") for k in SSD_TENSOR_CORE_KERNELS}
@@ -2823,7 +3047,7 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
                      iters=3, warmup=1),
             _bound_ms(nbytes, flops,
                       flops_per_s=BF16_FLOPS_PER_S if dtype == bf
-                      else F32_FLOPS_PER_S),
+                      else F32_TC_FLOPS_PER_S),
             None, launches,
             shape={"B": B, "L": L, "H": H, "P": P, "N": N, "chunk": Q,
                    "dtype": str(dtype).removeprefix("torch.")},
@@ -2844,7 +3068,7 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
         else:
             kr["design"] = ("the same four passes, products on float32 FMA "
                             "(float32 probe only)")
-            kr["bound_note"] = "operations over the 67 TFLOP/s float32 peak"
+            kr.update(_f32_bounds(nbytes, flops))
         del x, dt, Bm, Cm, y, h
         torch.cuda.empty_cache()
     pass_line = {"phase": "ssd_scan_passes", "runs": passes,

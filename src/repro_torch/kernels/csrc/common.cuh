@@ -80,3 +80,51 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
   return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
+
+// float32 products on the tensor cores to float32 accuracy (3xTF32), for
+// K1's float32 prefill body and K8's float32 entry.  A float32 x is split
+// into two TF32 terms: big, x rounded to nearest (ties away from zero) at
+// 10 mantissa bits with the low 13 bits cleared, and small = x - big,
+// exact in float32, whose low 13 bits the tensor cores ignore (they read
+// a TF32 operand truncated: measured on the H100), so small counts as
+// trunc(x - big), within 2**-21 of |x|.  A product a.b is then
+// small_a.big_b + big_a.small_b + big_a.big_b in float32 (the dropped
+// small.small term is ~2**-22 of |a||b|).  Three instructions a split
+// (add, mask, subtract).  tests/test_torch_f32_tc.py emulates this
+// arithmetic on the CPU.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+// the terms of a 4-register fragment held as float32 bits
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[4],
+                                           uint32_t (&big)[4],
+                                           uint32_t (&small)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split_tf32(__uint_as_float(x[i]), big[i], small[i]);
+}
+// c += a . b on the tensor cores, TF32 in, float32 accumulate (m16n8k8:
+// a rows g and g + 8, columns t and t + 4; b column g, rows t and t + 4;
+// c rows g and g + 8, columns 2t and 2t + 1, with g = lane / 4, t = lane % 4)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// c += a . b to float32 accuracy from the terms of a and b, the two
+// correction products first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           uint32_t b0_big, uint32_t b1_big,
+                                           uint32_t b0_small,
+                                           uint32_t b1_small) {
+  mma_tf32(c, a_small, b0_big, b1_big);
+  mma_tf32(c, a_big, b0_small, b1_small);
+  mma_tf32(c, a_big, b0_big, b1_big);
+}

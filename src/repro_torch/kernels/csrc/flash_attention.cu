@@ -62,12 +62,43 @@
 // - The grid launches the heaviest causal q blocks first (blockIdx.y
 //   reversed, b * Hq + h on blockIdx.x), so the long rows do not trail.
 //
-// flash_attention_f32 -- the float32 FMA kernel (kept for the float32
-// probes: tensor cores in float32 would be TF32): 4 warps, each owning
-// 16 of 64 query rows; scores q . k^T for a 64-key block with lanes over
-// keys (k rows padded to D+1 floats so the lanes hit distinct banks), row
-// max and sum by warp shuffles, P staged in shared memory, then acc =
-// acc * alpha + P . V with lanes over D.
+// flash_attention_f32 -- 3xTF32 on mma.sync from a cp.async ring:
+// - CTA: 8 warps, each owning one 16-row m-tile (128 q rows per CTA), the
+//   grid ordered heaviest causal q block first as in the bf16 entry.  Q is
+//   loaded once, scaled in float32, into shared memory; 64-key K and V
+//   tiles stream through a 2-stage cp.async ring (16-byte copies where
+//   every row is 16-byte aligned, 4-byte copies otherwise, so any view
+//   with a unit stride over D is read in place).  D is padded to the
+//   k-step of 8 in shared memory with zeros.  A warp skips the tiles none
+//   of its rows can see.
+// - Products: every float32 operand is split into a big and a small TF32
+//   term on the fragment load and each product is small.big + big.small +
+//   big.big on mma.sync m16n8k8 with float32 accumulate (common.cuh): the
+//   accuracy of float32 FMA (the CPU emulation in
+//   tests/test_torch_f32_tc.py stays within 3-6 % of the 1e-5 limit
+//   against a float64 reference; one TF32 term misses it 30-80x).  S = Q.K^T takes both fragments from
+//   ldmatrix (a 32-bit element is a pair of b16).  wgmma would take TF32
+//   only K-major from shared memory, so P.V would need V transposed; here
+//   P stays in registers: the accumulator layout holds keys 2t, 2t + 1 of
+//   each 8-key n-tile, which become the columns t, t + 4 of a k-step, and
+//   V's B fragment reads those key rows with scalar loads.
+// - Softmax in float32 with expf, masks only on tiles that straddle an
+//   edge, row sums per thread reduced once at the end.
+// - Sums: mma.sync rounds its float32 sum toward zero
+//   (tools/mma_tf32_probe.cu), so with one accumulator per output fed by
+//   every tile's mma.sync the error against plain grew with the keys
+//   (6.0e-6 at zamba2's shape on the card).  S keeps its big products and
+//   its corrections in separate accumulators, and each tile's P.V starts
+//   from zero and is added to O in float32 (O * alpha + P.V): 2.3-2.5e-6
+//   there, about SDPA's own 2.4e-6.
+// - Bound: operations, over the 494.7 TFLOP/s TF32 peak / 3 (~165 TFLOP/s
+//   of float32 products).  mma.sync m16n8k8 TF32 reaches ~305 TFLOP/s on
+//   the H100 (tools/mma_tf32_probe.cu), and SDPA's float32 kernel (CUTLASS
+//   fmha, sm80 code, mma.sync too) runs at about a third of that.  At
+//   zamba2's prefill shape this entry takes ~4.0 ms on the device, SDPA
+//   3.2; at the float32 probe's shape 0.125 against 0.088
+//   (tools/f32_lines.py on an H100).  wgmma (TF32 only K-major from shared
+//   memory, so V transposed there) is the next step.
 #include <cuda.h>  // CUtensorMap and its enums only: no -lcuda
 
 #include "common.cuh"
@@ -75,177 +106,282 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxD = 128;                      // both entries
 
 // ============================================================================
-// float32: FMA from shared memory
+// float32: 3xTF32 on mma.sync from a cp.async ring
 // ============================================================================
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBQ = 64;                         // query rows per CTA
-constexpr int kBK = 64;                         // keys per block
-constexpr int kRows = kBQ / kWarps;             // query rows per warp
-constexpr int kKeyGroups = kBK / 32;            // keys per lane
-constexpr int kMaxD = 128;
-constexpr int kMaxDGroups = kMaxD / 32;         // D columns per lane
+namespace f32 {
 
-size_t smem_bytes(int D) {
-  return sizeof(float) * (static_cast<size_t>(kBQ) * D + kBK * (D + 1) +
-                          kBK * D + kBQ * kBK);
+constexpr int kWarps = 8;                       // one 16-row m-tile each
+constexpr int kThreads = kWarps * 32;
+constexpr int kBQ = kWarps * 16;                // query rows per CTA
+constexpr int kBK = 64;                         // keys per tile
+constexpr int kStages = 2;                      // K/V ring depth
+constexpr int kNT = kMaxD / 8;                  // 8-column tiles of D
+
+// shared-memory row stride (floats): D padded to the k-step of 8, plus 4,
+// so ldmatrix rows and the scalar V loads miss each other's banks
+__host__ __device__ __forceinline__ constexpr int stride(int D) {
+  return (D + 7) / 8 * 8 + 4;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int Hq, int Hkv, int D, int seq_len,
-                       int causal, int window, float scale, long long q_sb,
-                       long long q_ss, long long q_sh, long long k_sb,
-                       long long k_ss, long long k_sh, long long v_sb,
-                       long long v_ss, long long v_sh) {
-  extern __shared__ float smem[];
-  const int kstride = D + 1;
-  float* q_s = smem;                    // [kBQ, D], scaled
-  float* k_s = q_s + kBQ * D;           // [kBK, D+1]
-  float* v_s = k_s + kBK * kstride;     // [kBK, D]
-  float* p_s = v_s + kBK * D;           // [kBQ, kBK] probabilities
+constexpr size_t smem_bytes(int D) {
+  return 4 * static_cast<size_t>(stride(D)) * (kBQ + kStages * 2 * kBK);
+}
+static_assert(smem_bytes(kMaxD) <= 227 * 1024, "flash f32 smem");
 
-  const int q0 = blockIdx.x * kBQ;
-  const int b = blockIdx.y / Hq;
-  const int h = blockIdx.y - b * Hq;
+// 4 bytes global -> shared, zero-filled when pred is false
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int Sq,
+                 int Sk, int Hq, int Hkv, int D, int seq_len, int causal,
+                 int window, float scale, long long q_sb, long long q_ss,
+                 long long q_sh, long long k_sb, long long k_ss,
+                 long long k_sh, long long v_sb, long long v_ss,
+                 long long v_sh, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int sr = stride(D);
+  const int dp = sr - 4;                        // D padded to 8
+  float* q_s = reinterpret_cast<float*>(smem_raw);   // [kBQ][sr], scaled
+  float* ring = q_s + kBQ * sr;                 // [stage][K|V][kBK][sr]
+
+  const int bh = blockIdx.x;
+  const int b = bh / Hq;
+  const int h = bh - b * Hq;
   const int hk = h / (Hq / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // heaviest first
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
 
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb_ptr = k + b * k_sb + hk * k_sh;
-  const T* vb_ptr = v + b * v_sb + hk * v_sh;
-
+  // the padding columns D .. dp - 1 of every tile row read as zeros
+  if (dp > D) {
+    const int pad = dp - D;
+    for (int i = tid; i < (kBQ + kStages * 2 * kBK) * pad; i += kThreads)
+      q_s[(i / pad) * sr + D + i % pad] = 0.f;
+  }
+  // Q scaled in float32 (as the model's sdpa scales q); rows past Sq zero
+  const float* qb = q + b * q_sb + h * q_sh;
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D;
     const int d = i - r * D;
-    q_s[i] = q0 + r < Sq ? to_float(qb[(q0 + r) * q_ss + d]) * scale : 0.f;
+    q_s[r * sr + d] =
+        q0 + r < Sq ? qb[static_cast<long long>(q0 + r) * q_ss + d] * scale
+                    : 0.f;
   }
 
-  float m[kRows], l[kRows], acc[kRows][kMaxDGroups];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int g = 0; g < kMaxDGroups; ++g) acc[r][g] = 0.f;
-  }
-
-  // the key range any row of this CTA can see
+  // the key range any row of this CTA can see, in tiles of kBK
   int k_hi = min(seq_len, Sk);
   if (causal) k_hi = min(k_hi, min(Sq, q0 + kBQ));
-  int k_lo = 0;
-  if (window > 0) k_lo = max(0, q0 - window + 1) / kBK * kBK;
-  const int row_base = warp * kRows;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
+  const float* kp = k + b * k_sb + hk * k_sh;
+  const float* vp = v + b * v_sb + hk * v_sh;
 
-  for (int kb = k_lo; kb < k_hi; kb += kBK) {
-    __syncthreads();                    // q_s loaded / last block consumed
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int j = i / D;
-      const int d = i - j * D;
-      const int key = kb + j;
-      float kv = 0.f, vv = 0.f;
-      if (key < Sk) {
-        kv = to_float(kb_ptr[key * k_ss + d]);
-        vv = to_float(vb_ptr[key * v_ss + d]);
-      }
-      k_s[j * kstride + d] = kv;
-      v_s[i] = vv;
-    }
-    __syncthreads();
-
-    float s[kRows][kKeyGroups];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int c = 0; c < kKeyGroups; ++c) s[r][c] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float kv[kKeyGroups];
-#pragma unroll
-      for (int c = 0; c < kKeyGroups; ++c)
-        kv[c] = k_s[(lane + 32 * c) * kstride + d];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float qv = q_s[(row_base + r) * D + d];
-#pragma unroll
-        for (int c = 0; c < kKeyGroups; ++c) s[r][c] = fmaf(qv, kv[c], s[r][c]);
+  // tile i into stage i % kStages, one commit group; key rows at or past
+  // Sk are zero-filled
+  auto issue = [&](int i) {
+    if (i < n_tiles) {
+      const int kb = k_lo + i * kBK;
+      float* ks = ring + (i % kStages) * 2 * kBK * sr;
+      float* vs = ks + kBK * sr;
+      const int ept = vec ? 4 : 1;              // floats per copy
+      const int cpr = D / ept;
+      const int n = kBK * cpr;
+      for (int x = tid; x < 2 * n; x += kThreads) {
+        const bool isv = x >= n;
+        const int j = isv ? x - n : x;
+        const int r = j / cpr;
+        const int c = (j - r * cpr) * ept;
+        const int key = kb + r;
+        const bool live = key < Sk;
+        const float* src = live ? (isv ? vp + key * v_ss : kp + key * k_ss) + c
+                                : kp;
+        float* dst = (isv ? vs : ks) + r * sr + c;
+        if (vec)
+          cp_async16(dst, src, live);
+        else
+          cp_async4(dst, src, live);
       }
     }
+    cp_async_commit();
+  };
 
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qpos = q0 + row_base + r;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < kKeyGroups; ++c) {
-        const int key = kb + lane + 32 * c;
-        bool ok = key < seq_len;
-        if (causal) ok = ok && key <= qpos;
-        if (window > 0) ok = ok && (qpos - key) < window;
-        if (!ok) s[r][c] = kNegInf;
-        mx = fmaxf(mx, s[r][c]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < kKeyGroups; ++c) {
-        const float p = expf(s[r][c] - m_new);
-        p_s[(row_base + r) * kBK + lane + 32 * c] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[r] = l[r] * alpha + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int g = 0; g < kMaxDGroups; ++g) acc[r][g] *= alpha;
-    }
-    __syncwarp();
+  // this warp's rows wq .. wq + 15 (this thread: wq + g and wq + g + 8)
+  // and the keys they can see, [w_lo, w_hi)
+  const int wq = q0 + warp * 16;
+  const int r0 = wq + g;
+  const int r1 = r0 + 8;
+  int w_hi = min(seq_len, Sk);
+  if (causal) w_hi = min(w_hi, wq + 16);
+  const int w_lo = window > 0 ? max(0, wq - window + 1) : 0;
+  if (wq >= Sq) w_hi = 0;
 
-    for (int j = 0; j < kBK; ++j) {
-      float vv[kMaxDGroups];
+  float o[kNT][4];
 #pragma unroll
-      for (int g = 0; g < kMaxDGroups; ++g) {
-        const int d = lane + 32 * g;
-        vv[g] = d < D ? v_s[j * D + d] : 0.f;
+  for (int nt = 0; nt < kNT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  issue(0);
+  for (int i = 0; i < n_tiles; ++i) {
+    issue(i + 1);
+    cp_async_wait<1>();
+    __syncthreads();                            // tile i and Q landed
+    const int kb = k_lo + i * kBK;
+    if (kb < w_hi && kb + kBK > w_lo) {         // warp-uniform
+      const float* ks = ring + (i % kStages) * 2 * kBK * sr;
+      const float* vs = ks + kBK * sr;
+      // -- S = Q . K^T: 8 n-tiles of 8 keys, 3xTF32, the big products and
+      // the two corrections in separate accumulators ------------------------
+      float sb[8][4], sc[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sb[nt][e] = sc[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kNT; ++kk) {
+        if (kk * 8 >= dp) break;
+        uint32_t fa[4], ab[4], as[4];
+        ldsm_x4(fa, q_s + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                              sr + kk * 8 + (lane >> 4) * 4);
+        split_tf32(fa, ab, as);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {        // keys 16 np .. 16 np + 15
+          uint32_t fb[4], bb[4], bs[4];
+          ldsm_x4(fb, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * sr +
+                          kk * 8 + ((lane >> 3) & 1) * 4);
+          split_tf32(fb, bb, bs);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int nt = 2 * np + h2;
+            mma_tf32(sc[nt], as, bb[2 * h2], bb[2 * h2 + 1]);
+            mma_tf32(sc[nt], ab, bs[2 * h2], bs[2 * h2 + 1]);
+            mma_tf32(sb[nt], ab, bb[2 * h2], bb[2 * h2 + 1]);
+          }
+        }
+      }
+      float s[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = sc[nt][e] + sb[nt][e];
+      // -- online softmax in float32 ---------------------------------------
+      const bool edge = kb + kBK > seq_len || (causal && kb + kBK - 1 > wq) ||
+                        (window > 0 && wq + 15 - kb >= window);
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[nt][e];
+          if (edge) {
+            const int key = kb + nt * 8 + 2 * t + (e & 1);
+            const int qpos = (e & 2) ? r1 : r0;
+            bool ok = key < seq_len;
+            if (causal) ok = ok && key <= qpos;
+            if (window > 0) ok = ok && qpos - key < window;
+            if (!ok) x = kNegInf;
+          }
+          s[nt][e] = x;
+          if (e & 2) mx1 = fmaxf(mx1, x);
+          else mx0 = fmaxf(mx0, x);
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[nt][e] - ((e & 2) ? mn1 : mn0));
+          s[nt][e] = p;
+          if (e & 2) sum1 += p;
+          else sum0 += p;
+        }
+      l0 = l0 * alpha0 + sum0;                  // per-thread partial sums
+      l1 = l1 * alpha1 + sum1;
+      // -- O = O * alpha + P . V, P . V in a fresh accumulator per tile: k-step
+      // j is n-tile j of S, its columns t, t + 4 the keys 8j + 2t, 8j + 2t +
+      // 1; V's B fragment reads those key rows ------------------------------
+      float pv[kNT][4];
+#pragma unroll
+      for (int dn = 0; dn < kNT; ++dn) pv[dn][0] = pv[dn][1] = pv[dn][2] = pv[dn][3] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t pb[4], ps[4];
+        split_tf32(s[j][0], pb[0], ps[0]);
+        split_tf32(s[j][2], pb[1], ps[1]);
+        split_tf32(s[j][1], pb[2], ps[2]);
+        split_tf32(s[j][3], pb[3], ps[3]);
+        const float* v0 = vs + (8 * j + 2 * t) * sr + g;
+#pragma unroll
+        for (int dn = 0; dn < kNT; ++dn) {
+          if (dn * 8 >= dp) break;
+          uint32_t vb0, vs0, vb1, vs1;
+          split_tf32(v0[dn * 8], vb0, vs0);
+          split_tf32(v0[sr + dn * 8], vb1, vs1);
+          mma_3xtf32(pv[dn], pb, ps, vb0, vb1, vs0, vs1);
+        }
       }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = p_s[(row_base + r) * kBK + j];
-#pragma unroll
-        for (int g = 0; g < kMaxDGroups; ++g)
-          acc[r][g] = fmaf(p, vv[g], acc[r][g]);
+      for (int dn = 0; dn < kNT; ++dn) {
+        o[dn][0] = o[dn][0] * alpha0 + pv[dn][0];
+        o[dn][1] = o[dn][1] * alpha0 + pv[dn][1];
+        o[dn][2] = o[dn][2] * alpha1 + pv[dn][2];
+        o[dn][3] = o[dn][3] * alpha1 + pv[dn][3];
       }
     }
+    __syncthreads();                            // stage i % 2 is refilled
   }
+  cp_async_wait<0>();
 
+  // -- epilogue: quad-reduce l, normalise, store ---------------------------
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
   const long long o_ss = static_cast<long long>(Hq) * D;
-  T* ob = out + static_cast<long long>(b) * Sq * o_ss + h * D;
+  float* ob = out + static_cast<long long>(b) * Sq * o_ss +
+              static_cast<long long>(h) * D;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qpos = q0 + row_base + r;
-    if (qpos >= Sq) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+  for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
-    for (int g = 0; g < kMaxDGroups; ++g) {
-      const int d = lane + 32 * g;
-      if (d < D) ob[qpos * o_ss + d] = from_float<T>(acc[r][g] * inv);
+    for (int e = 0; e < 4; ++e) {
+      const int col = nt * 8 + 2 * t + (e & 1);
+      const int r = (e & 2) ? r1 : r0;
+      if (col < D && r < Sq)
+        ob[r * o_ss + col] = o[nt][e] * ((e & 2) ? inv1 : inv0);
     }
   }
 }
 
-template <typename T>
+// The plan: one CTA of kThreads per (128 query rows, b * Hq + h).
+dim3 grid_of(int B, int Sq, int Hq) {
+  return dim3(B * Hq, (Sq + kBQ - 1) / kBQ);
+}
+
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int Hq, int Hkv, int D, int seq_len, int causal,
            int window, float scale, long long q_sb, long long q_ss,
@@ -254,19 +390,33 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            cudaStream_t stream) {
   if (D < 1 || D > kMaxD || Hkv < 1 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * Hq);
-  flash_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv, D,
-      seq_len, causal, window, scale, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-      v_sb, v_ss, v_sh);
+  // K and V rows copied 16 bytes at a time where every row is 16-byte
+  // aligned, else 4 bytes at a time
+  auto a16 = [](const void* p, long long sb, long long ss, long long sh) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 &&
+           ss % 4 == 0 && sh % 4 == 0;
+  };
+  const int vec = D % 4 == 0 && a16(k, k_sb, k_ss, k_sh) &&
+                  a16(v, v_sb, v_ss, v_sh);
+  // raise the shared-memory limit once, to the largest D: later launches
+  // make no API call, so a CUDA graph can capture them
+  static bool granted = false;
+  if (!granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_bytes(kMaxD)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = true;
+  }
+  flash_f32_kernel<<<grid_of(B, Sq, Hq), kThreads, smem_bytes(D), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, Hq, Hkv,
+      D, seq_len, causal, window, scale, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+      v_sb, v_ss, v_sh, vec);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace f32
 
 // ============================================================================
 // bf16: wgmma from TMA-loaded tiles
@@ -716,9 +866,32 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       long long v_ss, long long v_sh, cudaStream_t stream
 
 EXPORT int flash_attention_f32(FLASH_ARGS) {
-  return launch<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, seq_len, causal,
-                       window, scale, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                       v_sb, v_ss, v_sh, stream);
+  return f32::launch(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, seq_len, causal,
+                     window, scale, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                     v_ss, v_sh, stream);
+}
+
+// How the float32 entry launches, for measurement: info[0..3] = CTAs in
+// the grid, threads per CTA, dynamic shared memory bytes, CTAs resident
+// per SM (the occupancy calculator, after the shared-memory limit is
+// raised).
+EXPORT int flash_attention_f32_launch_info(int B, int Sq, int Hq, int D,
+                                           int* info) {
+  if (D < 1 || D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      f32::flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(f32::smem_bytes(kMaxD)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, f32::flash_f32_kernel, f32::kThreads, f32::smem_bytes(D));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid = f32::grid_of(B, Sq, Hq);
+  info[0] = static_cast<int>(grid.x * grid.y);
+  info[1] = f32::kThreads;
+  info[2] = static_cast<int>(f32::smem_bytes(D));
+  info[3] = per_sm;
+  return 0;
 }
 
 EXPORT int flash_attention_bf16(FLASH_ARGS) {

@@ -78,9 +78,20 @@
 //    16-row m-tiles (4 warps x 1 for one pool, 8 x 2 or 8 x 1 for two);
 //    P stays in registers (the accumulator layout is the A fragment); S
 //    sums even and odd k-steps in two chains.
-//    float32: FMA units (TF32 would fail the float32 prefill checks), four
-//    lanes per query row, each holding its quarter of the row's q in
-//    registers.
+//    float32: the same structure with every product in 3xTF32 (each
+//    float32 operand split into a big and a small TF32 term on the fragment
+//    load, S = Q.K^T and O += P.V as small.big + big.small + big.big on
+//    mma.sync m16n8k8, float32 accumulate; common.cuh).  The choice came
+//    from the CPU emulation in tests/test_torch_f32_tc.py: 3xTF32 stays
+//    within 3-7 % of the 1e-5 limit against a float64 reference, one TF32
+//    term (what TF32 matmuls do) or two products miss it 20-120x, and bf16
+//    terms hold only with three per operand and six products on m16n8k16,
+//    the same tensor-core instructions with a costlier split.  A float32
+//    tile takes twice the bf16 one's shared memory: the ring stays at 3
+//    stages of 16 keys (166 KB at D 256).  At the float32 probe's shape
+//    this body takes ~0.046 ms on the device, ~3x SDPA's float32
+//    (tools/f32_lines.py on an H100): as in the bf16 body, one warp per
+//    scheduler walks the key blocks in series.
 //    The two bodies differ in summation order, so position p of a
 //    prefill no longer equals a decode step at p bitwise (the JAX
 //    docstring's promise); within tolerance it does.
@@ -102,11 +113,8 @@ constexpr float kNegInf = -1e30f;
 constexpr int kCluster = 8;        // decode: CTAs splitting a row's pages
 constexpr int kDecThreads = 128;
 constexpr int kTileRows = 64;      // prefill: rows per tile
-constexpr int kPass = 64;          // prefill float32: query rows per pass
 constexpr int kStages = 3;         // prefill: depth of the key-block ring
 constexpr int kKeyBlock = 16;      // keys per copied and softmax block
-constexpr int kF32Lanes = 4;       // prefill float32: lanes per query row
-constexpr int kF32Threads = kPass * kF32Lanes;
 constexpr size_t kMaxSmem = 227 * 1024 - 1024;   // dynamic, after statics
 
 // One pool: K and V base pointers and element strides of slot, row, head.
@@ -722,32 +730,52 @@ __global__ void __launch_bounds__(WARPS * 32, 1)
   });
 }
 
-constexpr size_t prefill_f32_smem(int D) {
-  return sizeof(float) * static_cast<size_t>(kPass * (D + 16) +   // Q
-                                             2 * kStages * kKeyBlock * D);
+// shared-memory row stride (floats) of the float32 body: D (a multiple of
+// 8, the TF32 k-step) plus 4, so the 8 rows of an ldmatrix of Q or K, and
+// the keys 2t, 2t + 1 x columns g of the scalar V loads, miss each other's
+// banks
+__host__ __device__ __forceinline__ constexpr int f32_stride(int D) {
+  return (D + 7) / 8 * 8 + 4;
 }
 
-// float32 body: FMA units, kF32Lanes lanes per query row, each lane owning
-// the float4 columns 4 * lane' + 16 * j of D.
-template <int DMAX>
-__global__ void __launch_bounds__(kF32Threads, 1)
+constexpr size_t prefill_f32_smem(int D, int pass) {
+  return 4 * static_cast<size_t>(f32_stride(D)) *
+         (pass + 2 * kStages * kKeyBlock);              // Q, the K/V ring
+}
+
+// float32 body: the bf16 body's structure (WARPS warps of one 16-row
+// m-tile each, a pass of WARPS * 16 query rows; NT n-tiles of 8 columns
+// cover D) with every product in 3xTF32 (common.cuh).  Q, K and V land in
+// shared memory as float32 and are split into their TF32 terms on the
+// fragment load.  S = Q.K^T: ldmatrix gives the TF32 A and B fragments
+// directly (a 32-bit element is a pair of b16), the big.big products and
+// the two corrections in separate accumulators, even and odd k-steps apart.
+// O += P.V: the accumulator layout holds keys 2t, 2t + 1 of each 8-key
+// n-tile, so P is the A fragment of a k-step whose columns t, t + 4 are
+// those keys, and V's B fragment reads the same keys (rows 2t, 2t + 1)
+// with scalar loads (ldmatrix.trans would split 32-bit elements).
+template <int WARPS, int NT>
+__global__ void __launch_bounds__(WARPS * 32, 1)
     paged_prefill_f32_kernel(const float* __restrict__ q, Pool p0, Pool p1,
                              const int32_t* __restrict__ block_table,
                              const int32_t* __restrict__ pool_sel,
                              const int32_t* __restrict__ lengths,
                              float* __restrict__ out, int L, int Hkv, int G,
                              int D, int page, int Pp) {
-  constexpr int NJ = DMAX / 16;
+  constexpr int kThreads = WARPS * 32;
+  constexpr int kRows = WARPS * 16;                    // query rows per pass
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int len_s[kTileRows];
   __shared__ unsigned int mask_s[2];
-  const int qs = D + 16;
-  float* q_s = reinterpret_cast<float*>(smem_raw);     // [kPass][qs]
-  float* ring = q_s + kPass * qs;         // [kStages][K|V][kKeyBlock][D]
+  const int sr = f32_stride(D);
+  float* q_s = reinterpret_cast<float*>(smem_raw);     // [kRows][sr]
+  float* ring = q_s + kRows * sr;         // [kStages][K|V][kKeyBlock][sr]
 
   const int tid = threadIdx.x;
-  const int qr = tid / kF32Lanes;
-  const int sub = tid % kF32Lanes;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int h = blockIdx.y;
   const int t0 = blockIdx.x * kTileRows;
   const int nrows = min(kTileRows, L - t0);
@@ -755,116 +783,143 @@ __global__ void __launch_bounds__(kF32Threads, 1)
   const unsigned long long starts =
       run_starts(block_table, pool_sel, t0, nrows, Pp, mask_s);
 
-  for_each_pass(starts, nrows, G, kPass, [&](int r0, int a, int nq) {
+  for_each_pass(starts, nrows, G, kRows, [&](int r0, int a, int nq) {
     const long long trow = static_cast<long long>(t0 + r0) * Pp;
     const int plen = pass_length(len_s, r0, a, nq, G);
     int n_pages = plen > 0 ? (plen + page - 1) / page : 0;
     if (n_pages > Pp) n_pages = Pp;
+    // Q of the pass: query row j is (row t0 + r0 + (a + j) / G, head
+    // (a + j) % G); rows past nq in a used m-tile are zero-filled
     {
       const int cpr = D / 4;
-      for (int i = tid; i < nq * cpr; i += kF32Threads) {
+      const int rows = (nq + 15) / 16 * 16;
+      for (int i = tid; i < rows * cpr; i += kThreads) {
         const int j = i / cpr;
         const int c = (i - j * cpr) * 4;
         const int qi = a + j;
-        cp_async16(q_s + j * qs + c,
-                   q + ((static_cast<long long>(t0 + r0 + qi / G) * Hkv + h) *
-                            G + qi % G) * D + c,
-                   true);
+        const bool live = j < nq;
+        const float* src =
+            live ? q + ((static_cast<long long>(t0 + r0 + qi / G) * Hkv + h) *
+                            G + qi % G) * D + c
+                 : q;
+        cp_async16(q_s + j * sr + c, src, live);
       }
     }
-    BlockIssuer<float> is{ring, kStages, D, p0, p1, block_table + trow,
+    BlockIssuer<float> is{ring, kStages, sr, p0, p1, block_table + trow,
                           pool_sel != nullptr ? pool_sel + trow : nullptr,
-                          Pp, 0, 1, page, h, D, tid, kF32Threads, plen,
+                          Pp, 0, 1, page, h, D, tid, kThreads, plen,
                           n_pages};
     is.start();
 #pragma unroll
     for (int i = 0; i < kStages - 1; ++i) is.issue();
 
-    const bool mine = qr < nq;
-    const int len = mine ? len_s[r0 + (a + qr) / G] : 0;
-    float acc[NJ][4];
+    // this thread: rows g and g + 8 of the warp's m-tile
+    const int m0 = warp * 16;
+    float o[NT][4];
+    float m[2], l[2];
+    int len_r[2];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    float m = kNegInf, l = 0.f;
-    float4 qv[NJ];             // this lane's columns of its query row
+    for (int nt = 0; nt < NT; ++nt)
+      o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int j = m0 + g + hf * 8;
+      m[hf] = kNegInf;
+      l[hf] = 0.f;
+      len_r[hf] = j < nq ? len_s[r0 + (a + j) / G] : 0;
+    }
 
     // block kb of page ip, while the next kStages - 1 are in flight
     for (int u = 0, ip = 0, kb = 0; ip < n_pages; ++u) {
       is.issue();
       cp_async_wait<kStages - 1>();
       __syncthreads();
-      const float* ks = ring + (u % kStages) * 2 * kKeyBlock * D;
-      const float* vs = ks + kKeyBlock * D;
-      if (u == 0) {            // Q landed with the first block
+      const float* ks = ring + (u % kStages) * 2 * kKeyBlock * sr;
+      const float* vs = ks + kKeyBlock * sr;
+      if (m0 < nq) {                                     // warp-uniform
+        // S = Q . K^T over this block of 16 keys (n-tiles 0, 1): big
+        // products and corrections apart, even and odd k-steps apart
+        float sb[2][2][4] = {}, sc[2][2][4] = {};
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int d = sub * 4 + j * 16;
-          if (d < D)
-            qv[j] = *reinterpret_cast<const float4*>(q_s + qr * qs + d);
-        }
-      }
-      {
-        float s[kKeyBlock];
+        for (int kk = 0; kk < NT; ++kk) {
+          if (kk * 8 >= D) break;
+          uint32_t fa[4], fb[4], ab[4], as[4], bb[4], bs[4];
+          ldsm_x4(fa, q_s + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * sr +
+                          kk * 8 + (lane >> 4) * 4);
+          ldsm_x4(fb, ks + ((lane & 7) + (lane >> 4) * 8) * sr + kk * 8 +
+                          ((lane >> 3) & 1) * 4);
+          split_tf32(fa, ab, as);
+          split_tf32(fb, bb, bs);
 #pragma unroll
-        for (int t = 0; t < kKeyBlock; ++t) {
-          float part = 0.f;
-          if (kb + t < page) {
-            const float* krow = ks + t * D;
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-              const int d = sub * 4 + j * 16;
-              if (d < D) {
-                const float4 kv = *reinterpret_cast<const float4*>(krow + d);
-                part += qv[j].x * kv.x + qv[j].y * kv.y + qv[j].z * kv.z +
-                        qv[j].w * kv.w;
-              }
-            }
-          }
-          part += __shfl_xor_sync(0xffffffffu, part, 1);
-          part += __shfl_xor_sync(0xffffffffu, part, 2);
-          s[t] = part;
-        }
-        const int lim = min(page, len - ip * page);
-        float mx = kNegInf;
-#pragma unroll
-        for (int t = 0; t < kKeyBlock; ++t)
-          if (kb + t < lim) mx = fmaxf(mx, s[t]);
-        const float m_new = fmaxf(m, mx);
-        const float alpha = expf(m - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int t = 0; t < kKeyBlock; ++t) {
-          s[t] = kb + t < lim ? expf(s[t] - m_new) : 0.f;
-          sum += s[t];
-        }
-        l = l * alpha + sum;
-        m = m_new;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int d = sub * 4 + j * 16;
-          if (d < D) {
-            float4 o = make_float4(acc[j][0] * alpha, acc[j][1] * alpha,
-                                   acc[j][2] * alpha, acc[j][3] * alpha);
-#pragma unroll
-            for (int t = 0; t < kKeyBlock; ++t) {
-              if (kb + t < page) {
-                const float4 vv =
-                    *reinterpret_cast<const float4*>(vs + t * D + d);
-                o.x += s[t] * vv.x;
-                o.y += s[t] * vv.y;
-                o.z += s[t] * vv.z;
-                o.w += s[t] * vv.w;
-              }
-            }
-            acc[j][0] = o.x;
-            acc[j][1] = o.y;
-            acc[j][2] = o.z;
-            acc[j][3] = o.w;
+          for (int nt = 0; nt < 2; ++nt) {
+            mma_tf32(sc[kk & 1][nt], as, bb[2 * nt], bb[2 * nt + 1]);
+            mma_tf32(sc[kk & 1][nt], ab, bs[2 * nt], bs[2 * nt + 1]);
+            mma_tf32(sb[kk & 1][nt], ab, bb[2 * nt], bb[2 * nt + 1]);
           }
         }
+        // online softmax per row; this thread holds keys
+        // kb + nt*8 + 2t + e of rows g (regs 0,1) and g + 8 (regs 2,3)
+        float p[2][4];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int lim = min(page, len_r[hf] - ip * page);
+          bool ok[2][2];
+          float sv[2][2];
+          float mx = kNegInf;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = hf * 2 + e;
+              sv[nt][e] = (sc[0][nt][i] + sc[1][nt][i]) +
+                          (sb[0][nt][i] + sb[1][nt][i]);
+              ok[nt][e] = kb + nt * 8 + t * 2 + e < lim;
+              if (ok[nt][e]) mx = fmaxf(mx, sv[nt][e]);
+            }
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[hf], mx);
+          const float alpha = expf(m[hf] - m_new);
+          float sum = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float pv = ok[nt][e] ? expf(sv[nt][e] - m_new) : 0.f;
+              p[nt][hf * 2 + e] = pv;
+              sum += pv;
+            }
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          l[hf] = l[hf] * alpha + sum;
+          m[hf] = m_new;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            o[nt][hf * 2] *= alpha;
+            o[nt][hf * 2 + 1] *= alpha;
+          }
+        }
+        // O += P . V: k-step j is n-tile j of S, its columns t, t + 4 the
+        // keys 8j + 2t, 8j + 2t + 1
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t pb[4], ps[4];
+          split_tf32(p[j][0], pb[0], ps[0]);
+          split_tf32(p[j][2], pb[1], ps[1]);
+          split_tf32(p[j][1], pb[2], ps[2]);
+          split_tf32(p[j][3], pb[3], ps[3]);
+          const float* v0 = vs + (8 * j + 2 * t) * sr + g;
+#pragma unroll
+          for (int dn = 0; dn < NT; ++dn) {
+            if (dn * 8 >= D) break;
+            uint32_t vb0, vs0, vb1, vs1;
+            split_tf32(v0[dn * 8], vb0, vs0);
+            split_tf32(v0[sr + dn * 8], vb1, vs1);
+            mma_3xtf32(o[dn], pb, ps, vb0, vb1, vs0, vs1);
+          }
+        }
       }
-      __syncthreads();
+      __syncthreads();       // the ring stage is rewritten next
       kb += kKeyBlock;
       if (kb >= is.rows(ip)) {
         kb = 0;
@@ -873,21 +928,25 @@ __global__ void __launch_bounds__(kF32Threads, 1)
     }
     cp_async_wait<0>();
 
-    if (mine) {
-      const int qi = a + qr;
-      float* orow = out + ((static_cast<long long>(t0 + r0 + qi / G) * Hkv +
-                            h) * G + qi % G) * D;
-      const float den = fmaxf(l, 1e-30f);
+    // out = O / max(l, 1e-30) for the pass's query rows
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = sub * 4 + j * 16;
-        if (d < D)
-          *reinterpret_cast<float4*>(orow + d) =
-              make_float4(acc[j][0] / den, acc[j][1] / den, acc[j][2] / den,
-                          acc[j][3] / den);
+    for (int hf = 0; hf < 2; ++hf) {
+      const int j = m0 + g + hf * 8;
+      if (j < nq) {
+        const int qi = a + j;
+        float* orow = out + ((static_cast<long long>(t0 + r0 + qi / G) * Hkv +
+                              h) * G + qi % G) * D;
+        const float den = fmaxf(l[hf], 1e-30f);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int d = nt * 8 + t * 2;
+          if (d < D)
+            *reinterpret_cast<float2*>(orow + d) =
+                make_float2(o[nt][hf * 2] / den, o[nt][hf * 2 + 1] / den);
+        }
       }
     }
-    __syncthreads();
+    __syncthreads();         // q_s and the ring are refilled next pass
   });
 }
 
@@ -911,7 +970,7 @@ Plan plan_of(const void* kernel, int& granted, dim3 grid, int threads,
 // Every body fits the card's shared memory at the largest G and D, and
 // none depends on the page size (pages stream in key blocks).
 static_assert(decode_smem<float>(kMaxG, kMaxD) <= kMaxSmem, "decode smem");
-static_assert(prefill_f32_smem(kMaxD) <= kMaxSmem, "f32 prefill smem");
+static_assert(prefill_f32_smem(kMaxD, 64) <= kMaxSmem, "f32 prefill smem");
 static_assert(prefill_bf16_smem(kMaxD, 128) <= kMaxSmem, "bf16 smem");
 static_assert(prefill_bf16_smem(128, 256) <= kMaxSmem, "bf16 dual smem");
 
@@ -954,22 +1013,25 @@ Plan make_plan<__nv_bfloat16>(bool prefill, bool dual, int B, int Hkv,
                   : bf16_plan<8, 1, 32>(B, Hkv, G, D);
 }
 
-// float32 prefill: passes of kPass query rows over the G CTAs of a tile.
+// float32 prefill, one pool or two: passes of 64 query rows (4 warps of
+// one m-tile) over the G CTAs of a tile; the dual pool takes the same plan,
+// so a row's arithmetic is the same in both.
+template <int NT>
+Plan f32_plan(int L, int Hkv, int G, int D) {
+  static int granted = 0;
+  return plan_of((const void*)paged_prefill_f32_kernel<4, NT>, granted,
+                 dim3(tiles(L), Hkv, G), 4 * 32, prefill_f32_smem(D, 64));
+}
+
 template <>
 Plan make_plan<float>(bool prefill, bool /*dual*/, int B, int Hkv, int G,
                       int D) {
-  static int granted[3] = {0, 0, 0};
+  static int granted = 0;
   if (!prefill)
-    return plan_of((const void*)paged_decode_kernel<float>, granted[0],
+    return plan_of((const void*)paged_decode_kernel<float>, granted,
                    dim3(B, Hkv, kCluster), kDecThreads,
                    decode_smem<float>(G, D), true);
-  const dim3 grid(tiles(B), Hkv, G);
-  return D <= 128 ? plan_of((const void*)paged_prefill_f32_kernel<128>,
-                            granted[1], grid, kF32Threads,
-                            prefill_f32_smem(D))
-                  : plan_of((const void*)paged_prefill_f32_kernel<256>,
-                            granted[2], grid, kF32Threads,
-                            prefill_f32_smem(D));
+  return D <= 128 ? f32_plan<16>(B, Hkv, G, D) : f32_plan<32>(B, Hkv, G, D);
 }
 
 // Raise the plan's kernel's dynamic shared-memory limit to its need if no

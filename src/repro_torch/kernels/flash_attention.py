@@ -12,7 +12,9 @@ which reads q [B, Sq, Hq, D] and k/v [B, Sk, Hkv, D] in place through
 their strides (no transposes, no padding of D) and applies ``scale`` in
 float32, as the model's ``sdpa`` does: bfloat16 on the tensor cores
 (``wgmma`` from TMA-loaded tiles, so ``tma_strides`` must accept each
-operand), float32 on the FMA units.  On CPU tensors it runs
+operand), float32 on the tensor cores too, to float32 accuracy (3xTF32
+``mma.sync``: each operand split into two TF32 terms, three products; any
+view with a unit stride over D).  On CPU tensors it runs
 ``flash_attention_plain``: the KV-expansion ``sdpa`` in float32 with the
 ``_mask_bias`` causal/window bias plus the ``seq_len`` mask.  Either
 returns [B, Sq, Hq, D] in q's type.
@@ -63,6 +65,19 @@ def tma_strides(t: torch.Tensor, name: str = "q") -> tuple[int, int, int]:
         inner *= n
     h, s, b = out
     return b, s, h
+
+
+def launch_info(B: int, Sq: int, Hq: int, D: int) -> dict:
+    """How the float32 entry launches for these shapes on the current card
+    (builds the kernels): grid CTAs, threads per CTA, dynamic shared
+    memory bytes and CTAs resident per SM by the occupancy calculator."""
+    info = (ctypes.c_int * 4)()
+    fn = _build.function("flash_attention_f32_launch_info",
+                         [_I] * 4 + [ctypes.POINTER(ctypes.c_int)])
+    _build.check(fn(B, Sq, Hq, D, info), "flash_attention_f32_launch_info")
+    ctas, threads, smem, per_sm = info
+    return {"ctas": ctas, "threads": threads, "smem_bytes": smem,
+            "ctas_per_sm": per_sm}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -318,3 +318,63 @@ def test_flash_attention_bf16_refuses_unaligned_view_cuda():
     with pytest.raises(ValueError, match="base address"):
         K8.flash_attention(q, q, q)
     assert kernels.launch_counts()["flash_attention"] == before
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("D,offset", [(13, 0), (36, 1), (64, 1), (112, 0)])
+def test_flash_attention_f32_unaligned_rows_cuda(D, offset):
+    """The float32 entry reads rows that are not 16-byte aligned (D not a
+    multiple of 4, or a base one float off) 4 bytes at a time, D padded to
+    the k-step in shared memory, within 1e-5 of the plain version."""
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(D)
+    B, S, Hq, Hkv = 2, 150, 4, 2
+    n = [B * S * h * D for h in (Hq, Hkv, Hkv)]
+    flat = torch.randn(offset + sum(n), device=dev, generator=gen)
+    q, k, v = (flat[offset + a:offset + a + m].view(B, S, h, D) for a, m, h
+               in ((0, n[0], Hq), (n[0], n[1], Hkv),
+                   (n[0] + n[1], n[2], Hkv)))
+    out = K8.flash_attention(q, k, v, window=40)
+    ref = K8.flash_attention_plain(q, k, v, window=40)
+    torch.cuda.synchronize()
+    assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_f32_graph_replay_and_bits_cuda():
+    """The float32 entry (3xTF32 on the tensor cores) captured in a CUDA
+    graph replays the bits of an eager call, and repeated calls give equal
+    bits."""
+    dev = cuda_device()
+    q, k, v = _t(*_qkv(1, 500, 500, 8, 8, 112, seed=4), device=dev)
+
+    def fn():
+        return K8.flash_attention(q, k, v)
+    eager = fn()
+    assert torch.equal(fn(), eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,S,Hq,D", [(1, 500, 32, 112), (4, 2000, 32, 112),
+                                      (2, 77, 2, 16)])
+def test_flash_attention_f32_launch_plan_cuda(B, S, Hq, D):
+    """The float32 entry's plan: one CTA of 8 warps per 128 query rows and
+    (batch, head), shared memory for Q and a 2-stage ring of 64-key K and V
+    tiles at a row stride of D padded to 8, plus 4."""
+    cuda_device()
+    info = K8.launch_info(B, S, Hq, D)
+    assert info["threads"] == 256, info
+    assert info["ctas"] == B * Hq * -(-S // 128), info
+    assert info["smem_bytes"] == 4 * (-(-D // 8) * 8 + 4) * (128 + 256), info
+    assert info["ctas_per_sm"] >= 1, info

@@ -456,3 +456,59 @@ def test_launch_plans_fit_every_config_cuda(arch):
                 assert info["ctas_per_sm"] >= 1, info
                 assert info["cluster"] == (1 if prefill else 8), info
 
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dual", [False, True])
+def test_f32_prefill_graph_replay_and_bits_cuda(dual):
+    """The float32 prefill body (3xTF32 on the tensor cores) captured in a
+    CUDA graph replays the bits of an eager call, and repeated calls give
+    equal bits, on one pool and on two."""
+    dev = cuda_device()
+    Hkv, G, D, page = 8, 4, 128, 16
+    fast, q, tables, lengths = _bucket((128, 100), 256, page, 16,
+                                       n_slots=40, Hq=Hkv * G, Hkv=Hkv, D=D,
+                                       seed=11)
+    tf, tq, tt, tl = _on(dev, torch.float32, fast, q, tables, lengths)
+    qg = _scaled(tq, Hkv).contiguous()
+    if dual:
+        first = np.where(np.arange(256) < 128, 0, 128)
+        sel, bt = _selected(np.random.RandomState(12), tables, 40, 40, first)
+        tp = tf.cpu().pin_memory()
+        args = (qg, tf[:, 0, 0], tf[:, 0, 1], tp[:, 0, 0], tp[:, 0, 1],
+                torch.from_numpy(bt).to(dev), torch.from_numpy(sel).to(dev),
+                tl)
+        fn = K1.paged_attention_prefill_dual_pooled
+    else:
+        args = (qg, tf[:, 0, 0], tf[:, 0, 1], tt, tl)
+        fn = K1.paged_attention_prefill_pooled
+    eager = fn(*args)
+    assert torch.equal(fn(*args), eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_f32_prefill_launch_plan_cuda(D):
+    """The float32 prefill plan: 4 warps of one 16-row m-tile, passes of 64
+    query rows over the G CTAs of each 64-row tile, shared memory for Q and
+    a 3-stage ring of 16 float32 keys at a row stride of D + 4 floats, the
+    same plan on two pools."""
+    cuda_device()
+    Hkv, G, L = 8, 4, 256
+    for dual in (False, True):
+        info = K1.launch_info(True, dual, torch.float32, L, Hkv, G, D)
+        assert info["threads"] == 128, info
+        assert info["ctas"] == L // 64 * Hkv * G, info
+        assert info["smem_bytes"] == 4 * (D + 4) * (64 + 2 * 3 * 16), info
+        assert info["ctas_per_sm"] >= 1 and info["cluster"] == 1, info

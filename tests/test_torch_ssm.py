@@ -121,6 +121,62 @@ def test_ssd_chunked_groups_and_h0_match_jax(G, with_h0):
     assert_close(h, jh)
 
 
+# The first computation of a fresh process on two intra-op threads, as in
+# the test worker where ROADMAP C10 showed: the plain scan's exponentials
+# were the process's first parallel call into MKL's vector math, whose
+# set-up by two threads at once left one thread's half of the call far
+# off float32 rounding.
+_FRESH_SCAN = r"""
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import repro_torch
+from repro_torch.models.ssm import ssd_chunked
+rng = np.random.RandomState(2)
+x = rng.standard_normal((2, 64, 4, 8)).astype(np.float32)
+dt = np.log1p(np.exp(rng.standard_normal((2, 64, 4)))).astype(np.float32)
+A = (-np.exp(rng.standard_normal(4) * 0.5)).astype(np.float32)
+Bm = rng.standard_normal((2, 64, 16)).astype(np.float32)
+Cm = rng.standard_normal((2, 64, 16)).astype(np.float32)
+y, _ = ssd_chunked(*(torch.from_numpy(a) for a in (x, dt, A)),
+                   torch.from_numpy(Bm)[:, :, None],
+                   torch.from_numpy(Cm)[:, :, None], 16)
+h = np.zeros((2, 4, 16, 8))
+want = []
+for t in range(64):
+    h = h * np.exp(dt[:, t] * A.astype(np.float64))[..., None, None] \
+        + np.einsum("bh,bn,bhp->bhnp", dt[:, t], Bm[:, t], x[:, t])
+    want.append(np.einsum("bn,bhnp->bhp", Cm[:, t], h))
+want = np.stack(want, axis=1)
+excess = np.abs(y.numpy() - want) / (1e-4 * (1 + np.abs(want)))
+print(float(excess.max()))
+"""
+
+
+def test_plain_scan_first_call_in_fresh_processes():
+    """ROADMAP C10: ``ssd_chunked`` as the first computation of a fresh
+    process on two intra-op threads (importing ``repro_torch`` sets up
+    MKL's vector math from one thread first), in 32 processes, 8 at a
+    time: y within 1e-4 of a float64 recurrence in every one.  With the
+    repair undone this test failed in 3 of 4 runs."""
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(__file__), "..", "src"),
+         os.environ.get("PYTHONPATH", "")]))
+    excess = []
+    for _ in range(4):
+        procs = [subprocess.Popen([sys.executable, "-c", _FRESH_SCAN],
+                                  env=env, stdout=subprocess.PIPE, text=True)
+                 for _ in range(8)]
+        for p in procs:
+            out, _ = p.communicate(timeout=300)
+            assert p.returncode == 0
+            excess.append(float(out.split()[-1]))
+    assert max(excess) < 1, excess
+
+
 def test_ssd_scan_refuses_groups():
     """K9 shares B/C across all heads, as the Pallas kernel does: more
     than one group is refused before any device choice."""
