@@ -13,7 +13,10 @@ prints no result line):
      full published width of qwen3_4b in bfloat16, with random weights
      drawn on the card from a seed.  The HBM pool is smaller than the
      batch's demand, so preemption, demotion, promotion and slow-tier
-     wear all happen; the kernel launch counts are read around this run;
+     wear all happen; the kernel launch counts are read around this run
+     (in this and every serving run ``qkv_rope_append``, the qk-norm,
+     RoPE and KV append of a layer, must launch exactly once per layer
+     per decode inner step and per prefill dispatch);
   3. the same requests served over ``MemoryHierarchy.two_tier(64, 512,
      pinned_slow=True)``: the NVM tier is pinned host memory the card
      reads and writes in place (dual-pool decode, in-dispatch wear and
@@ -42,11 +45,14 @@ prints no result line):
      other bits on equal inputs, and the phase fails if that is K1 or K1d;
   7. two fused dispatches under ``torch.profiler``, on the phase-2 path
      and, once pages sit in the pinned tier, on the phase-3 path: the
-     device's busy share of the wall time;
+     device's busy share of the wall time and the device operations per
+     inner step, also with ``qkv_rope_append`` replaced by the parent
+     tree's eager ops (``parent_ops``); no qk-norm or RoPE op may run
+     outside the kernel;
   8. a small float32 model stepped on the card and on the CPU (the plain
      kernel versions): logits within 1e-3 and identical integer state;
  10. ``prefill``: the phase-2 requests with ``prefill=True``: every
-     prefill dispatch launches K1's prefill body and the KV append once
+     prefill dispatch launches K1's prefill body and qkv_rope_append once
      per layer over the bucket's rows (K1's decode body only in the
      decode); the tokens that differ from phase 2 (prompt
      replay) are reported; a probe of 2 prompts, each on fresh engines,
@@ -56,7 +62,7 @@ prints no result line):
      matmuls must not; in bf16 their maximum errors stay within 0.2;
  11. ``prefill_pinned``: the same over the pinned-host tier, and again
      with HBM cut to 8 slots, where prompt pages land in the pinned tier
-     and K1d's prefill body and the KV append must run inside the prefill
+     and K1d's prefill body and qkv_rope_append must run inside the prefill
      dispatches, K1d's decode body in the decode;
  12. ``int8_host``: the same over an int8 numpy host tier: K6 quantizes
      every demotion on the card, ``dequant_gather`` every promotion;
@@ -83,7 +89,8 @@ prints no result line):
   9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
-     kernels and the KV append exactly; the dual-pool attention, decode
+     kernels exactly, ``qkv_rope_append`` within one bf16 ulp (the
+     norm's sum of squares in another order); the dual-pool attention, decode
      and prefill, bit-identical to single-pool K1 on the same pages; a
      packed segment's prefill bits the same at every offset of a bucket
      and beside any neighbours, ``prefill_invariance``, in bf16 and in
@@ -97,7 +104,10 @@ prints no result line):
      ``bound_fma_ms`` over the 67 TFLOP/s FMA peak beside it; each also
      gives SDPA's own error against the plain version and the kernels
      SDPA runs).  Phases
-     10-13 run before it; its rows add K6, ``dequant_gather``, K5 over
+     10-13 run before it; ``qkv_rope_append``'s row adds the device time
+     of the parent's eager ops it replaced and a 256-row prefill bucket;
+     its rows add K6 (one device work node a call, its cluster plan),
+     ``dequant_gather``, K5 over
      1-byte pages, K1's and K1d's prefill bodies at the prefill shape
      (the bf16 body's HMMA count ``sass_hmma`` must not be 0; K1 and K1d
      also as ``device_ms`` over CUDA graphs, K1 also at shorter segments
@@ -168,24 +178,28 @@ FAULT_SEED, FLIP_RATE, STUCK_RATE = 3, 5e-4, 2e-4
 TAIL_FAULT_SEED, TAIL_FLIP_RATE, TAIL_STUCK_RATE = 6, 1e-2, 5e-3
 # kernels each engine run must launch (its path); the rest of KERNELS
 # belongs to the other run
-ENGINE_KERNELS = ("paged_attention", "touch_update", "page_gather",
-                  "page_scatter", "wear_update", "sysmon_pass")
-PINNED_KERNELS = ("paged_attention_dual", "kv_append", "touch_update",
+# (every decode inner step and every prefill dispatch also launches
+# qkv_rope_append once per layer: _check_rope_append counts it exactly)
+ENGINE_KERNELS = ("paged_attention", "qkv_rope_append", "touch_update",
+                  "page_gather", "page_scatter", "wear_update",
+                  "sysmon_pass")
+PINNED_KERNELS = ("paged_attention_dual", "qkv_rope_append", "touch_update",
                   "wear_update", "page_checksum", "sysmon_pass")
 # the pinned-tail run: memos off, so no pass sweep
-TAIL_KERNELS = ("paged_attention_dual", "kv_append", "touch_update",
+TAIL_KERNELS = ("paged_attention_dual", "qkv_rope_append", "touch_update",
                 "wear_update", "page_checksum")
 # the prefill and int8 runs: each prefill dispatch appends its rows
-# with kv_append and attends with K1's prefill body (its dual-pool entry
-# when prompt pages sit in the pinned tier), the decode with K1's decode
-# body; the int8 runs quantize demotions with K6 and dequantize
+# with qkv_rope_append and attends with K1's prefill body (its dual-pool
+# entry when prompt pages sit in the pinned tier), the decode with K1's
+# decode body; the int8 runs quantize demotions with K6 and dequantize
 # promotions with dequant_gather, and the armed int8-pinned run sums its
 # 1-byte pages with K5
 PREFILL_KERNELS = ("paged_attention", "paged_attention_prefill",
-                   "kv_append", "touch_update", "page_gather",
+                   "qkv_rope_append", "touch_update", "page_gather",
                    "page_scatter", "wear_update", "sysmon_pass")
 INT8_HOST_KERNELS = ("paged_attention", "paged_attention_prefill",
-                     "kv_append", "page_gather_quant", "dequant_gather",
+                     "qkv_rope_append", "page_gather_quant",
+                     "dequant_gather",
                      "page_scatter", "touch_update", "wear_update",
                      "sysmon_pass")
 INT8_PINNED_KERNELS = INT8_HOST_KERNELS + ("page_checksum",)
@@ -497,6 +511,86 @@ def _check_launches(launches: dict, path: tuple[str, ...], run: str) -> None:
                            f"{missing}")
 
 
+def _check_rope_append(launches: dict, cfg, hist: list, run: str,
+                       prefill_dispatches: int = 0) -> int:
+    """``qkv_rope_append`` launched exactly once per layer for every
+    decode inner step and every prefill dispatch of the run (its qk-norm,
+    RoPE and append ran nowhere else).  Returns the inner steps."""
+    inner = sum(h.get("decode_block", 0) for h in hist)
+    want = cfg.n_layers * (inner + prefill_dispatches)
+    if launches["qkv_rope_append"] != want:
+        raise RuntimeError(f"{run}: {launches['qkv_rope_append']} launches "
+                           f"of qkv_rope_append, {want} expected ({inner} "
+                           f"inner steps, {prefill_dispatches} prefill "
+                           f"dispatches, {cfg.n_layers} layers)")
+    return inner
+
+
+def _ulps_apart(got, want) -> int:
+    """The most bf16 ulps (at the larger magnitude) between two tensors
+    of equal shape, compared in float32."""
+    import torch
+    g, w = got.float().cpu(), want.float().cpu()
+    big = torch.maximum(g.abs(), w.abs()).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return int(torch.ceil(((g - w).abs() / ulp).max()).item())
+
+
+def _parent_rope_append():
+    """The ops the parent tree ran around the KV append of the
+    single-pool decode, for ``qkv_rope_append``'s arguments with one
+    pool: eager qk-norm and RoPE of q and k, ``q * D**-0.5`` grouped, and
+    two ``index_put_`` of the K/V rows (slot and offset made long once
+    per step, as the parent did).  Stands in for ``qkv_rope_append`` to
+    count and time what the fused kernel replaced."""
+    from repro_torch.models import layers as L
+    memo = {}
+
+    def run(q, k, v, q_norm, k_norm, cos, sin, fast, pin, f_idx, p_idx,
+            off):
+        if pin is not None:
+            raise RuntimeError("the parent composition is for one pool")
+        if memo.get("key") is not f_idx:
+            memo.update(key=f_idx, rows=f_idx.long(), off=off.long())
+        if q_norm is not None:
+            q, k = L.rms_norm(q, q_norm), L.rms_norm(k, k_norm)
+        q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+        fast[memo["rows"], 0, memo["off"]] = k
+        fast[memo["rows"], 1, memo["off"]] = v
+        R, Hq, D = q.shape
+        return (q * D ** -0.5).reshape(R, k.shape[1], Hq // k.shape[1], D)
+    return run
+
+
+class _QkOps:
+    """Counts the calls of ``rms_norm`` and ``apply_rope`` on head-shaped
+    tensors (last dim head_dim, a head axis before it): the qk-norm and
+    RoPE the paged serving path runs inside ``qkv_rope_append`` and
+    nowhere else.  A context manager over the ``layers`` module."""
+
+    def __init__(self, head_dim: int):
+        self.head_dim, self.calls, self.saved = head_dim, 0, []
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        for name in ("rms_norm", "apply_rope"):
+            f = getattr(layers, name)
+            self.saved.append((name, f))
+
+            def counted(x, *a, _f=f, **k):
+                if x.dim() >= 3 and x.shape[-1] == self.head_dim:
+                    self.calls += 1
+                return _f(x, *a, **k)
+            setattr(layers, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        for name, f in self.saved:
+            setattr(layers, name, f)
+
+
 def _corrupted_tokens(reqs, want: list[list[int]]) -> tuple[int, dict]:
     """Tokens that differ from ``want`` (the fault-free run's tokens per
     request): a completed request must match it whole, a failed one must
@@ -579,6 +673,8 @@ def run_engine(cfg, params) -> tuple[dict, dict, object, list]:
             raise RuntimeError(f"engine run has {key} == 0: the memos path "
                                f"did not run")
     _check_launches(launches, ENGINE_KERNELS, "engine")
+    out["decode_inner_steps"] = _check_rope_append(launches, cfg, hist,
+                                                   "engine")
     return out, launches, eng, [r.generated for r in reqs]
 
 
@@ -680,6 +776,8 @@ def run_engine_pinned(cfg, params, want: list[list[int]]
         raise RuntimeError("pinned run's last logits are non-finite or "
                            "misshapen")
     _check_launches(launches, PINNED_KERNELS, "pinned")
+    out["decode_inner_steps"] = _check_rope_append(launches, cfg, hist,
+                                                   "pinned_faults")
     return out, launches, eng
 
 
@@ -705,6 +803,7 @@ def run_fused_vs_reference(cfg, params, pinned: bool = False
     total must not).  Returns the line and the fused run's tokens."""
     import numpy as np
     import torch
+    from repro_torch import kernels
     from repro_torch.serving.engine import PagedServingEngine
     prompts = _prompts(4, PARITY_PROMPT_LEN, cfg.vocab, SEED + 1)
     runs = {}
@@ -715,8 +814,13 @@ def run_fused_vs_reference(cfg, params, pinned: bool = False
             reference=ref, memos_enabled=False)
         eng = PagedServingEngine(cfg, params, scfg, device="cuda")
         reqs = [eng.submit(p, PARITY_NEW_TOKENS) for p in prompts]
-        eng.run()
+        kernels.reset_launch_counts()
+        hist = eng.run()
         torch.cuda.synchronize()
+        _check_rope_append(kernels.launch_counts(), cfg, hist,
+                           "fused_vs_reference" + ("_pinned" if pinned
+                                                   else "")
+                           + ("_reference" if ref else "_fused"))
         state = {f: getattr(eng.sysmon, f).cpu().numpy()
                  for f in eng.sysmon._fields}
         store = eng.kv.store
@@ -787,9 +891,10 @@ def run_pinned_tail_faults(cfg, params, want: list[list[int]]
                 device="cuda")
             reqs = [eng.submit(p, PARITY_NEW_TOKENS) for p in prompts]
             kernels.reset_launch_counts()
-            eng.run()
+            hist = eng.run()
             torch.cuda.synchronize()
             launches = kernels.launch_counts()
+            _check_rope_append(launches, cfg, hist, "pinned-tail")
         finally:
             faults.reset()
         store = eng.kv.store
@@ -870,9 +975,6 @@ def run_batch_padding(cfg, params) -> dict:
         params["embed"].dtype)
     a = torch.randn((8, cfg.n_heads * cfg.head_dim), generator=gen,
                     device="cuda").to(h.dtype)
-    cos, sin = L.rope_angles(torch.zeros((8, 1), dtype=torch.int32,
-                                         device="cuda"),
-                             cfg.head_dim, cfg.rope_theta)
     wo = lp["attn"]["wo"]
     z = T.logits_out(params, cfg, h)[:, 0]
     tied = torch.sort(torch.randint(0, cfg.vocab, (8, 2), generator=gen,
@@ -882,8 +984,8 @@ def run_batch_padding(cfg, params) -> dict:
         "rms_norm": lambda r: L.rms_norm(h[:r], lp["ln1"], eps=cfg.norm_eps,
                                          gemma_style=cfg.gemma_norm),
         "qkv_projection": lambda r: torch.cat([
-            t.reshape(r, -1) for t in attn_mod.project_qkv(
-                lp["attn"], h[:r], cos[:r], sin[:r])], dim=1),
+            t.reshape(r, -1) for t in attn_mod.project_raw(
+                lp["attn"], h[:r])], dim=1),
         "wo_matmul": lambda r: a[:r] @ wo.reshape(-1, wo.shape[-1]),
         "ffn_block": lambda r: T.ffn_block(lp, cfg, h[:r]),
         "logits": lambda r: T.logits_out(params, cfg, h[:r]),
@@ -948,11 +1050,12 @@ def _op_log():
             log.append((name, d, o.detach().clone()))
             return out
         setattr(mod, name, w)
-    for mod, name in ((E.L, "rms_norm"), (E.attn_mod, "project_qkv"),
-                      (E.T, "ffn_block"), (E.T, "logits_out")):
+    for mod, name in ((E.L, "rms_norm"), (E.attn_mod, "project_raw"),
+                      (E, "rope_append"), (E.T, "ffn_block"),
+                      (E.T, "logits_out")):
         wrap(mod, name)
-    wrap(E, "paged_attention", attention=True)
-    wrap(E, "paged_attention_dual", attention=True)
+    wrap(E, "paged_attention_pooled", attention=True)
+    wrap(E, "paged_attention_dual_pooled", attention=True)
 
     def undo():
         for mod, name, f in saved:
@@ -1065,17 +1168,24 @@ def run_batch_invariance(cfg, params) -> dict:
     return out
 
 
-def run_profiled_window(cfg, params, pinned: bool = False) -> dict:
+def run_profiled_window(cfg, params, pinned: bool = False,
+                        parent: bool = False) -> dict:
     """Two fused dispatches of a fresh engine under ``torch.profiler``
     (device activity only): the device's busy share of the host wall
-    time, from the union of the kernel and copy intervals it traced.
-    With ``pinned`` the engine serves the engine run's requests over the
-    pinned-host tier and the window opens once pages sit there, so both
-    dispatches take the dual-pool path."""
+    time, from the union of the kernel and copy intervals it traced, and
+    the device operations per decode inner step.  With ``pinned`` the
+    engine serves the engine run's requests over the pinned-host tier
+    and the window opens once pages sit there, so both dispatches take
+    the dual-pool path.  With ``parent`` (one pool only) the engine's
+    ``qkv_rope_append`` is replaced by the parent tree's eager ops
+    (``_parent_rope_append``): the op count the fused kernel replaced.
+    Head-shaped rms_norm/apply_rope calls outside the kernel are counted
+    and must be 0 on the kernel's path."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.hierarchy import MemoryHierarchy
+    from repro_torch.serving import engine as E
     from repro_torch.serving.engine import PagedServingEngine
     if pinned:
         scfg = _serve_config(hierarchy=MemoryHierarchy.two_tier(
@@ -1095,11 +1205,21 @@ def run_profiled_window(cfg, params, pinned: bool = False) -> dict:
             and not eng.batcher.all_done():
         eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ks = [eng.step().get("decode_block", 0) for _ in range(2)]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    fused = E.rope_append
+    if parent:
+        E.rope_append = _parent_rope_append()
+    try:
+        with _QkOps(cfg.head_dim) as qk, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ks = [eng.step().get("decode_block", 0) for _ in range(2)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        E.rope_append = fused
+    if not parent and qk.calls:
+        raise RuntimeError(f"profiled window: {qk.calls} qk-norm/RoPE ops "
+                           f"ran outside qkv_rope_append")
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -1108,10 +1228,14 @@ def run_profiled_window(cfg, params, pinned: bool = False) -> dict:
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    return {"phase": "profiled_window" + ("_pinned" if pinned else ""),
+    return {"phase": "profiled_window" + ("_pinned" if pinned else "")
+            + ("_parent_ops" if parent else ""),
             "dispatches": 2, "inner_steps": ks,
             "batch": scfg.max_batch, "wall_s": wall,
-            "device_events": len(spans), "device_busy_s": busy_us * 1e-6,
+            "device_events": len(spans),
+            "device_ops_per_inner_step": len(spans) / max(sum(ks), 1),
+            "qk_norm_rope_ops": qk.calls,
+            "device_busy_s": busy_us * 1e-6,
             "device_busy_share": busy_us * 1e-6 / wall if spans else None}
 
 
@@ -1218,10 +1342,11 @@ def _serve_prefill_run(cfg, params, phase: str, scfg, want, *,
         obs.reset()
         obs.configure(trace=True)
         kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        hist = eng.run()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        with _QkOps(cfg.head_dim) as qk:
+            t0 = time.perf_counter()
+            hist = eng.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
         launches = kernels.launch_counts()
         obs.configure(trace=False)
     finally:
@@ -1257,6 +1382,8 @@ def _serve_prefill_run(cfg, params, phase: str, scfg, want, *,
         "slow_wear_max": wear.max_wear(), "slow_writes": wear.writes_total,
         "tokens_differ": differ, "first_difference": _first_difference(wrong),
         "launches": launches,
+        # head-shaped rms_norm/apply_rope calls outside qkv_rope_append
+        "qk_norm_rope_ops": qk.calls,
         "span_seconds": {**dict.fromkeys(("serve.prefill", "serve.dispatch",
                                           "migrate.move_group"), 0.0),
                          **_span_seconds()},
@@ -1270,6 +1397,11 @@ def _serve_prefill_run(cfg, params, phase: str, scfg, want, *,
         raise RuntimeError(f"{phase}: last logits non-finite or misshapen")
     if not out["prefill_dispatches"]:
         raise RuntimeError(f"{phase}: no prefill dispatch ran")
+    if qk.calls:
+        raise RuntimeError(f"{phase}: {qk.calls} qk-norm/RoPE ops ran "
+                           f"outside qkv_rope_append")
+    _check_rope_append(launches, cfg, hist, phase,
+                       out["prefill_dispatches"])
     return out, launches, eng, [r.generated for r in reqs]
 
 
@@ -1283,12 +1415,12 @@ def run_prefill(cfg, params, replay_tokens) -> tuple[dict, dict, list]:
         cfg, params, "prefill", _serve_config(prefill=True), replay_tokens)
     pl = out["prefill_launches"]
     n = cfg.n_layers * out["prefill_dispatches"]
-    if pl.get("paged_attention_prefill") != n or pl.get("kv_append") != n \
-            or pl.get("paged_attention"):
+    if pl.get("paged_attention_prefill") != n \
+            or pl.get("qkv_rope_append") != n or pl.get("paged_attention"):
         raise RuntimeError(f"prefill: {n} launches of K1's prefill body and "
-                           f"of the KV append (and none of its decode body) "
-                           f"expected inside the prefill dispatches, got "
-                           f"{pl}")
+                           f"of qkv_rope_append (and none of K1's decode "
+                           f"body) expected inside the prefill dispatches, "
+                           f"got {pl}")
     _check_launches(launches, PREFILL_KERNELS, "prefill")
     for key in ("traffic_0_1_bytes", "traffic_1_0_bytes", "slow_wear_max"):
         if not out[key]:
@@ -1425,18 +1557,22 @@ def run_prefill_pinned(cfg, params, prefill_tokens) -> tuple[dict, dict]:
             prefill=True, hierarchy=MemoryHierarchy.two_tier(
                 64, 512, pinned_slow=True)), prefill_tokens)
     _check_launches(launches, ("paged_attention", "paged_attention_prefill",
-                               "kv_append", "touch_update", "wear_update",
-                               "sysmon_pass"), "prefill_pinned")
+                               "qkv_rope_append", "touch_update",
+                               "wear_update", "sysmon_pass"),
+                    "prefill_pinned")
     dual, dual_launches, _, _ = _serve_prefill_run(
         cfg, params, "prefill_pinned_hbm8", _serve_config(
             prefill=True, fast_slots=8, hierarchy=MemoryHierarchy.two_tier(
                 8, 512, pinned_slow=True)), prefill_tokens)
     pl = dual["prefill_launches"]
-    if not (pl.get("paged_attention_prefill_dual") and pl.get("kv_append")) \
+    n = cfg.n_layers * dual["prefill_dispatches"]
+    if pl.get("paged_attention_prefill_dual") != n \
+            or pl.get("qkv_rope_append") != n \
             or pl.get("paged_attention_dual") or pl.get("paged_attention"):
-        raise RuntimeError(f"prefill_pinned: K1d's prefill body and the KV "
-                           f"append must run inside the prefill dispatches, "
-                           f"the decode bodies never: {pl}")
+        raise RuntimeError(f"prefill_pinned: {n} launches of K1d's prefill "
+                           f"body and of qkv_rope_append must run inside the "
+                           f"prefill dispatches, the decode bodies never: "
+                           f"{pl}")
     if dual_launches["paged_attention_dual"] \
             <= pl.get("paged_attention_dual", 0):
         raise RuntimeError("prefill_pinned: K1d's decode body never ran in "
@@ -1823,7 +1959,6 @@ def bench_pinned_kernels(cfg, peng, launches: dict, engine_launches: dict,
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import hotness_update as K2
-    from repro_torch.kernels import kv_append as KA
     from repro_torch.kernels import page_checksum as K5
     from repro_torch.kernels import paged_attention as K1
 
@@ -1971,25 +2106,83 @@ def bench_pinned_kernels(cfg, peng, launches: dict, engine_launches: dict,
         library_with_copy_call=_WITH_COPY_CALL)
     del kmerged, vmerged, kc, vc
 
-    # -- KV append: one layer's new K/V rows, half landing in the pinned pool
-    sfast = fast[:16].clone()
-    spin = torch.empty(pin[:16].shape, dtype=pin.dtype, pin_memory=True)
-    spin.copy_(pin[:16])
-    k = torch.randn((B, Hkv, D), generator=gen, device=dev).to(fast.dtype)
-    v = torch.randn((B, Hkv, D), generator=gen, device=dev).to(fast.dtype)
+    # -- qkv_rope_append: one layer of the decode step, qk-norm on, half
+    # -- of the new K/V rows landing in the pinned pool; and a 256-row
+    # -- prefill bucket (two 128-token segments, the last page's rows
+    # -- padding), over one pool and over two with half the pages pinned
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    ap = peng.params["layers"][l]["attn"]
+
+    def pinned_copy(t):
+        c = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        c.copy_(t)
+        return c
+    sfast, spin = fast[:16].clone(), pinned_copy(pin[:16])
+
+    def rows_of(R, H):
+        return torch.randn((R, H, D), generator=gen, device=dev).to(
+            fast.dtype)
+    q, k, v = rows_of(B, Hq), rows_of(B, Hkv), rows_of(B, Hkv)
+    pos = torch.from_numpy(rng.randint(PROMPT_LEN, PROMPT_LEN + NEW_TOKENS,
+                                       (B, 1)).astype(np.int32)).to(dev)
+    cos, sin = (t[:, 0] for t in L.rope_angles(pos, D, cfg.rope_theta))
     to_pin = torch.from_numpy(rng.rand(B) < 0.5).to(dev)
     slot = torch.from_numpy(rng.permutation(16)[:B].astype(np.int32)).to(dev)
     f_idx = torch.where(to_pin, 16, slot).to(torch.int32)
     p_idx = torch.where(to_pin, slot, 16).to(torch.int32)
     off = torch.from_numpy(rng.randint(0, page, B).astype(np.int32)).to(dev)
-    app = (sfast[:, l], spin[:, l], f_idx, p_idx, off, k, v)
-    wf, wp = sfast.clone(), spin.clone()
-    KA.kv_append(*app)
-    KA.kv_append_plain(wf[:, l], wp[:, l], f_idx, p_idx, off, k, v)
-    torch.cuda.synchronize()
-    if not (torch.equal(sfast, wf) and torch.equal(spin, wp)):
-        raise RuntimeError("kv_append kernel disagrees with plain")
+    head = (q, k, v, ap.get("q_norm"), ap.get("k_norm"), cos, sin)
+    app = head + (sfast[:, l], spin[:, l], f_idx, p_idx, off)
+    Lb, nb = 2 * PROMPT_LEN, 2 * PROMPT_LEN // page
+    bq, bk, bv = rows_of(Lb, Hq), rows_of(Lb, Hkv), rows_of(Lb, Hkv)
+    bpos = (torch.arange(Lb, device=dev, dtype=torch.int32)
+            % PROMPT_LEN)[:, None]
+    bcos, bsin = (t[:, 0] for t in L.rope_angles(bpos, D, cfg.rope_theta))
+    bhead = (bq, bk, bv, ap.get("q_norm"), ap.get("k_norm"), bcos, bsin)
+    brow = torch.arange(Lb, device=dev, dtype=torch.int32)
+    bpage, boff = brow // page, brow % page
+    pad = brow >= Lb - page
+    pinned_page = torch.from_numpy(rng.rand(nb) < 0.5).to(dev)[bpage]
+    b1_idx = torch.where(pad, nb, bpage).to(torch.int32)
+    bf_idx = torch.where(pad | pinned_page, nb, bpage).to(torch.int32)
+    bp_idx = torch.where(pinned_page & ~pad, bpage, nb).to(torch.int32)
+    bfast, bpin = fast[:nb].clone(), pinned_copy(pin[:nb])
+    # timed as the one-pool prefill gives it, with no padding (so that
+    # the parent's index_put_ of the yardstick stays in range)
+    bucket = bhead + (bfast[:, l], None, bpage, None, boff)
+
+    def vs_plain(hd, fbase, pbase, fi, pi, o):
+        """The kernel and plain, each on its own copy of the pools (the
+        pinned pool copied into pinned memory): (kernel, plain) pairs of
+        q and of every pool."""
+        outs = []
+        for fn in (A.rope_append, A.rope_append_plain):
+            f = fbase.clone()
+            p = None if pbase is None else pinned_copy(pbase)
+            qo = fn(*hd, f[:, l], None if p is None else p[:, l], fi, pi, o)
+            outs.append([qo, f] + ([] if p is None else [p]))
+        torch.cuda.synchronize()
+        return list(zip(*outs))
+    cases = {"decode_two_pools": vs_plain(head, sfast, spin, f_idx, p_idx,
+                                          off),
+             "bucket_one_pool": vs_plain(bhead, bfast, None, b1_idx, None,
+                                         boff),
+             "bucket_two_pools": vs_plain(bhead, bfast, bpin, bf_idx,
+                                          bp_idx, boff)}
+    ulps_by_case = {c: max(_ulps_apart(a, b) for a, b in pairs)
+                    for c, pairs in cases.items()}
+    ulps = max(ulps_by_case.values())
+    if ulps > 1:
+        raise RuntimeError(f"qkv_rope_append kernel is {ulps_by_case} bf16 "
+                           f"ulps from plain (1 allowed)")
+    err = max(float((a.float().cpu() - b.float().cpu()).abs().max())
+              for pairs in cases.values() for a, b in pairs)
     n_pin_rows = int(to_pin.sum())
+    # the parent's ops on the single-pool decode, all rows into HBM: the
+    # eager qk-norm, RoPE and q scale, two index_put_ of the K/V rows
+    parent = _parent_rope_append()
+    hbm = head + (sfast[:, l], None, slot, None, off)
     # yardstick: one index_put_ of the K and V rows into an HBM pool view
     # (every row lands in HBM: PyTorch has no in-place write of pinned
     # host memory from the card)
@@ -1997,17 +2190,42 @@ def bench_pinned_kernels(cfg, peng, launches: dict, engine_launches: dict,
     lib_idx = (slot.long()[:, None], torch.arange(2, device=dev)[None, :],
                off.long()[:, None])
     lib_kv = torch.stack([k, v], dim=1)
-    row("kv_append", "src/repro_torch/kernels/csrc/kv_append.cu",
-        "src/repro/serving/engine.py:435", 0,
-        _time_ms(lambda: KA.kv_append(*app)),
-        _time_ms(lambda: KA.kv_append_plain(*app)),
-        _bound_ms(2 * B * Hkv * D * 2 + (B - n_pin_rows) * row_b + B * 12,
-                  host_bytes=n_pin_rows * row_b, link_bytes_per_s=rate),
-        _time_ms(lambda: lib_view.index_put_(lib_idx, lib_kv)), 0,
-        library_call="index_put_ into an HBM pool view",
-        device_ms=_graph_ms(lambda: KA.kv_append(*app)),
+    el = fast.element_size()
+    nbytes = (B * (Hq + 2 * Hkv) * D * el + 2 * B * (D // 2) * 4
+              + 2 * D * el + 3 * B * 4 + B * Hq * D * el
+              + (B - n_pin_rows) * row_b)
+    bucket_bytes = (Lb * (2 * Hq + 4 * Hkv) * D * el + 2 * Lb * (D // 2) * 4
+                    + 2 * D * el + 2 * Lb * 4)
+    row("qkv_rope_append", "src/repro_torch/kernels/csrc/kv_append.cu",
+        "src/repro/models/attention.py:55 + src/repro/serving/"
+        "engine.py:435", err,
+        _time_ms(lambda: A.rope_append(*app)),
+        _time_ms(lambda: A.rope_append_plain(*app)),
+        _bound_ms(nbytes, host_bytes=n_pin_rows * row_b,
+                  link_bytes_per_s=rate),
+        _time_ms(lambda: lib_view.index_put_(lib_idx, lib_kv)), 1,
+        tolerance_unit="bf16 ulps (the norm's sum of squares in another "
+                       "order)", ulps_apart=ulps,
+        ulps_apart_by_case=ulps_by_case, qk_norm=True,
+        pinned_rows=n_pin_rows, launches_engine_run=engine_launches.get(
+            "qkv_rope_append", 0),
+        library_call="index_put_ of the K/V rows into an HBM pool view",
+        device_ms=_graph_ms(lambda: A.rope_append(*app)),
         library_device_ms=_graph_ms(
-            lambda: lib_view.index_put_(lib_idx, lib_kv)))
+            lambda: lib_view.index_put_(lib_idx, lib_kv)),
+        replaced_ops_device_ms=_graph_ms(lambda: parent(*hbm)),
+        replaced_ops_launches=_graph_launches(lambda: parent(*hbm)),
+        replaced_ops_note="the parent tree's per-layer ops around the "
+                          "append on the single-pool decode (rms_norm and "
+                          "apply_rope of q and k, q * D**-0.5, two "
+                          "index_put_), every row into HBM, as a CUDA graph",
+        launches_per_call=_graph_launches(lambda: A.rope_append(*app)),
+        prefill_bucket_rows=Lb,
+        device_ms_prefill_bucket=_graph_ms(
+            lambda: A.rope_append(*bucket)),
+        bound_ms_prefill_bucket=_bound_ms(bucket_bytes)[0],
+        replaced_ops_device_ms_prefill_bucket=_graph_ms(
+            lambda: parent(*bucket)))
     return rows
 
 
@@ -2064,6 +2282,12 @@ def bench_int8_prefill_kernels(cfg, eng, ieng, prefill_line: dict,
     torch.cuda.synchronize()
     if not (torch.equal(q, qp) and torch.equal(s, sp)):
         raise RuntimeError("page_gather_quant kernel disagrees with plain")
+    plan = K6.launch_info(n_elem, pool.element_size(), k)
+    per_call = _graph_launches(lambda: K6.page_gather_quant(pool, idx))
+    if per_call != 1:
+        raise RuntimeError(f"page_gather_quant: {per_call} device work "
+                           f"nodes in a graph of one call (one launch, no "
+                           f"memset expected)")
     row("page_gather_quant", "page_gather_quant",
         "src/repro_torch/kernels/csrc/page_quant.cu",
         "src/repro/kernels/page_gather/page_gather.py:94",
@@ -2073,6 +2297,8 @@ def bench_int8_prefill_kernels(cfg, eng, ieng, prefill_line: dict,
         _bound_ms(k * n_elem * (pool.element_size() + 1) + k * 8),
         None, int8_host_launches["page_gather_quant"], pages=k,
         launches_int8_pinned_run=int8_pin_launches["page_gather_quant"],
+        device_ms=_graph_ms(lambda: K6.page_gather_quant(pool, idx)),
+        launches_per_call=per_call, plan=plan,
         library_note="no single PyTorch call gathers pages and quantizes "
                      "each with its own scale")
 
@@ -3130,6 +3356,14 @@ def main() -> int:
     invariance = run_batch_invariance(cfg, params)
     print(json.dumps(invariance), file=sys.stderr, flush=True)
     window = run_profiled_window(cfg, params)
+    print(json.dumps(window), file=sys.stderr, flush=True)
+    pwindow_parent = run_profiled_window(cfg, params, parent=True)
+    window["parent_ops"] = {k: pwindow_parent[k] for k in (
+        "inner_steps", "device_events", "device_ops_per_inner_step",
+        "qk_norm_rope_ops", "device_busy_share", "wall_s")}
+    window["parent_ops_note"] = (
+        "the same window with qkv_rope_append replaced by the parent "
+        "tree's eager qk-norm, RoPE, q scale and index_put_ append")
     print(json.dumps(window), file=sys.stderr, flush=True)
     pwindow = run_profiled_window(cfg, params, pinned=True)
     print(json.dumps(pwindow), file=sys.stderr, flush=True)

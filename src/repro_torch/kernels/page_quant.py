@@ -15,7 +15,10 @@ scatter applies after it).
 The index vector says where the work runs: CPU tensors take the plain
 versions; on the card ``csrc/page_quant.cu`` reads the pool in place —
 HBM, or pinned host memory through its mapped device address — and
-allocates its outputs on idx's device.
+allocates its outputs on idx's device.  K6 is one launch: a
+thread-block cluster per page holds the page in its CTAs' shared memory
+(``launch_info`` is the plan) and combines their absmax through
+distributed shared memory.
 """
 from __future__ import annotations
 
@@ -26,10 +29,44 @@ import torch
 from . import _build, count_launch
 
 _C = ctypes.c_void_p
-_QUANT_ARGS = [_C] * 5 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _C]
-_DEQUANT_ARGS = [_C] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                            _C]
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_QUANT_ARGS = [_C] * 4 + [_I, _L, _I, _I, _L, _L, _I, _C]
+_DEQUANT_ARGS = [_C] * 4 + [_I, _L, _I, _C]
 _SRC_DTYPES = (torch.float32, torch.bfloat16)
+THREADS = 1024
+UNIT = 16                   # values a thread quantizes into one 16-byte store
+MAX_CLUSTER = 16            # non-portable cluster size (H100)
+MIN_SLICE_BYTES = 32 * 1024  # the least a CTA of a cluster is given
+# shared memory a CTA may stage: the 227 KB a block can use, less 1 KB
+# for the kernel's static shared memory (the first launch of a plan has
+# the card confirm it, and that its clusters fit)
+SMEM_BYTES = 227 * 1024 - 1024
+
+
+def launch_info(n_elems: int, elem_bytes: int, k: int,
+                aligned: bool = True) -> dict:
+    """K6's plan for k pages of ``n_elems`` values of ``elem_bytes``:
+    a cluster of ``cluster`` CTAs per page (grid [cluster, k]), CTA r
+    taking units [r * per, (r + 1) * per) of the page — units of 16
+    values when the page is 16-byte aligned (``vec``), else single
+    values — and staging the first ``held_units`` of them in
+    ``smem_bytes`` of shared memory; the rest of its slice
+    (``reread_units``) is read from the pool a second time.  Unaligned
+    pages stage nothing."""
+    vec = bool(aligned) and n_elems % UNIT == 0
+    unit = UNIT if vec else 1
+    units = n_elems // unit
+    unit_bytes = unit * elem_bytes
+    want = -(-n_elems * elem_bytes // MIN_SLICE_BYTES)
+    cluster = max(1, min(MAX_CLUSTER, want, units))
+    per = -(-units // cluster)
+    cluster = -(-units // per)          # every CTA gets a non-empty slice
+    held = min(per, SMEM_BYTES // unit_bytes) if vec else 0
+    return {"cluster": cluster, "grid": [cluster, k], "threads": THREADS,
+            "vec": vec, "unit_elems": unit, "units_per_cta": per,
+            "slice_elems": per * unit, "held_units": held,
+            "smem_bytes": held * unit_bytes, "reread_units": per - held}
 
 
 def quantize_pages_plain(pages: torch.Tensor):
@@ -89,10 +126,12 @@ def page_gather_quant(pool: torch.Tensor, idx: torch.Tensor):
     n = pool[0].numel() if pool.shape[0] else 0
     if q.numel() == 0:                 # nothing to launch, nothing counted
         return q, scale
-    amax = torch.empty(k, dtype=torch.int32, device=idx.device)
+    base = _build.device_address(pool)
+    plan = launch_info(n, pool.element_size(), k, aligned=base % 16 == 0)
     fn = _build.function("page_gather_quant", _QUANT_ARGS)
-    err = fn(_build.device_address(pool), idx.data_ptr(), q.data_ptr(),
-             scale.data_ptr(), amax.data_ptr(), k, n, pool.element_size(),
+    err = fn(base, idx.data_ptr(), q.data_ptr(), scale.data_ptr(), k, n,
+             pool.element_size(), plan["cluster"], plan["units_per_cta"],
+             plan["held_units"], int(plan["vec"]),
              _build.current_stream(idx.device.index))
     _build.check(err, "page_gather_quant")
     count_launch("page_gather_quant")

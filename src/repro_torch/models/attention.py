@@ -15,17 +15,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as K8
+from repro_torch.kernels import kv_append as KA
 
 from . import layers
 
 NEG_INF = -2.0e38
 _INT32_MAX = 2 ** 31 - 1
+QK_NORM_EPS = 1e-6      # the per-head qk-norm's eps (rms_norm's default)
 
 
-def project_qkv(p: dict, x: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor):
-    """Project + (optional bias, qk-norm) + RoPE.  x: [B, S, d] ->
-    q [B, S, Hq, Dh], k/v [B, S, Hkv, Dh]."""
+def project_raw(p: dict, x: torch.Tensor):
+    """The projections with their optional bias, before qk-norm and RoPE
+    (the paged serving path hands them to ``qkv_rope_append``).
+    x: [B, S, d] -> q [B, S, Hq, Dh], k/v [B, S, Hkv, Dh]."""
     B, S, d = x.shape
 
     def proj(w):
@@ -36,12 +38,61 @@ def project_qkv(p: dict, x: torch.Tensor, cos: torch.Tensor,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    if p.get("q_norm") is not None:
-        q = layers.rms_norm(q, p["q_norm"])
-        k = layers.rms_norm(k, p["k_norm"])
-    q = layers.apply_rope(q, cos, sin)
-    k = layers.apply_rope(k, cos, sin)
     return q, k, v
+
+
+def project_qkv(p: dict, x: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor):
+    """Project + (optional bias, qk-norm) + RoPE.  x: [B, S, d] ->
+    q [B, S, Hq, Dh], k/v [B, S, Hkv, Dh]."""
+    q, k, v = project_raw(p, x)
+    q, k = norm_rope(q, k, p.get("q_norm"), p.get("k_norm"), cos, sin)
+    return q, k, v
+
+
+def norm_rope(q: torch.Tensor, k: torch.Tensor, q_norm, k_norm,
+              cos: torch.Tensor, sin: torch.Tensor):
+    """The per-head qk-norm (weights ``q_norm``/``k_norm`` [Dh], or None)
+    and RoPE of q and k."""
+    if q_norm is not None:
+        q = layers.rms_norm(q, q_norm, eps=QK_NORM_EPS)
+        k = layers.rms_norm(k, k_norm, eps=QK_NORM_EPS)
+    return layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin)
+
+
+def rope_append_plain(q, k, v, q_norm, k_norm, cos, sin, fast, pin, f_idx,
+                      p_idx, off) -> torch.Tensor:
+    """``rope_append``'s eager composition, the one CPU tensors take (and
+    the version the kernel is held to on the card): ``norm_rope``, the
+    masked append, then q * Dh**-0.5 grouped in the pool dtype."""
+    q, k = norm_rope(q, k, q_norm, k_norm, cos, sin)
+    KA.kv_append_plain(fast, pin, f_idx, p_idx, off, k, v)
+    R, Hq, D = q.shape
+    Hkv = k.shape[1]
+    return (q * D ** -0.5).reshape(R, Hkv, Hq // Hkv, D).to(fast.dtype)
+
+
+def rope_append(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                q_norm: torch.Tensor | None, k_norm: torch.Tensor | None,
+                cos: torch.Tensor, sin: torch.Tensor, fast: torch.Tensor,
+                pin: torch.Tensor | None, f_idx: torch.Tensor,
+                p_idx: torch.Tensor | None, off: torch.Tensor
+                ) -> torch.Tensor:
+    """The paged path's attention input of one layer: raw projections
+    q [R, Hq, Dh], k/v [R, Hkv, Dh] (bias added), qk-norm weights [Dh]
+    (or None), float32 RoPE tables cos/sin [R, Dh/2].  K is normed,
+    rotated and written with V at in-page offset ``off`` of slot
+    ``f_idx`` of ``fast`` and slot ``p_idx`` of ``pin`` (views [slots, 2,
+    page, Hkv, Dh]; ``pin``/``p_idx`` None for one pool; out-of-range
+    slots write nothing).  Returns q normed, rotated and scaled by
+    Dh**-0.5 as [R, Hkv, G, Dh] in the pool dtype.  CUDA tensors: one
+    launch of ``kernels.kv_append.qkv_rope_append``; CPU tensors:
+    ``rope_append_plain``."""
+    if q.device.type == "cpu":
+        return rope_append_plain(q, k, v, q_norm, k_norm, cos, sin, fast,
+                                 pin, f_idx, p_idx, off)
+    return KA.qkv_rope_append(q, k, v, q_norm, k_norm, cos, sin, fast, pin,
+                              f_idx, p_idx, off, eps=QK_NORM_EPS)
 
 
 def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,

@@ -25,7 +25,8 @@ paper's byte-addressable NVM), its pages are served in place: the block
 tables carry each page's slot in its own pool plus a per-page pool
 select, the paged-attention kernel's dual-pool variant reads pinned
 pages through their mapped device address, and the new token's K/V
-lands in whichever pool holds the tail page (``kv_append``).  Pinned
+lands in whichever pool holds the tail page (``qkv_rope_append``, which
+also applies the qk-norm and RoPE).  Pinned
 tail writes charge the tier's wear counters on the device
 (``wear_update``) every inner step; Start-Gap advances earned by the
 dispatch run after its K steps — row swaps, remap rotation, wear charge
@@ -73,11 +74,11 @@ from repro_torch.core.tiers import NO_SLOT
 from repro_torch.device import resolve_device
 from repro_torch.faults.errors import CapacityError, PageCorruptionError
 from repro_torch.faults.injector import get_injector, note_recovered
-from repro_torch.kernels.kv_append import kv_append
-from repro_torch.kernels.paged_attention import (paged_attention,
-                                                 paged_attention_dual)
+from repro_torch.kernels.paged_attention import (paged_attention_dual_pooled,
+                                                 paged_attention_pooled)
 from repro_torch.kernels.wear_update import wear_update_events
 from repro_torch.models import attention as attn_mod
+from repro_torch.models.attention import rope_append
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serving.kv_cache import SERVE_TIER, PagedKVCache, PagedKVConfig
@@ -313,10 +314,12 @@ class PagedServingEngine:
     # -- model compute -------------------------------------------------------------
     def _decode_layers(self, tokens: torch.Tensor, positions: torch.Tensor,
                        attend) -> torch.Tensor:
-        """The layer stack of one decode step.  ``attend(l, q, k, v)``
-        stores the new token's K/V of layer ``l`` (q [B, Hkv, G, D], k/v
-        [B, Hkv, D]) and returns the paged attention over the pools
-        [B, Hkv, G, D].  Returns logits [B, Vp].
+        """The layer stack of one decode step.  ``attend(l, qkv)`` gets
+        layer ``l``'s raw projections of the new token with their qk-norm
+        weights and RoPE tables — the first seven arguments of
+        ``attention.rope_append`` (q [B, Hq, D], k/v [B, Hkv, D], cos/sin
+        [B, D/2]) — stores its K/V and returns the paged attention over
+        the pools [B, Hkv, G, D].  Returns logits [B, Vp].
 
         The dense math runs on ``max_batch`` rows whatever B is (zero
         rows pad the batch): the card's matmul and reduction kernels pick
@@ -330,11 +333,14 @@ class PagedServingEngine:
         h = T.embed_in(params, cfg, _pad_rows(tokens.long(), R)[:, None])
         cos, sin = L.rope_angles(_pad_rows(positions, R)[:, None],
                                  cfg.head_dim, cfg.rope_theta)
+        cos, sin = cos[:B, 0], sin[:B, 0]
         for l, lp in enumerate(params["layers"]):
             x = L.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
                            gemma_style=cfg.gemma_norm)
-            q, k, v = attn_mod.project_qkv(lp["attn"], x, cos, sin)
-            out = attend(l, q[:B, 0], k[:B, 0], v[:B, 0])
+            ap = lp["attn"]
+            q, k, v = attn_mod.project_raw(ap, x)
+            out = attend(l, (q[:B, 0], k[:B, 0], v[:B, 0], ap.get("q_norm"),
+                             ap.get("k_norm"), cos, sin))
             wo = lp["attn"]["wo"]
             out = _pad_rows(out.reshape(B, -1), R) \
                 @ wo.reshape(-1, wo.shape[-1])
@@ -356,14 +362,13 @@ class PagedServingEngine:
         pool = self.kv.store.fast_pool
         b_idx = torch.arange(tokens.shape[0], device=tokens.device)
         pos = positions.long()
-        slot = block_tables.long()[b_idx, pos // page]
-        off = pos % page
+        f_idx = block_tables[b_idx, pos // page].to(torch.int32)
+        off = (pos % page).to(torch.int32)
 
-        def attend(l, q, k, v):
-            pool[slot, l, 0, off] = k.to(pool.dtype)
-            pool[slot, l, 1, off] = v.to(pool.dtype)
-            return paged_attention(q, *self.kv.layer_pools(l), block_tables,
-                                   lengths)
+        def attend(l, qkv):
+            q = rope_append(*qkv, pool[:, l], None, f_idx, None, off)
+            return paged_attention_pooled(q, *self.kv.layer_pools(l),
+                                          block_tables, lengths)
         return self._decode_layers(tokens, positions, attend)
 
     def _decode_core_pinned(self, tokens: torch.Tensor,
@@ -373,8 +378,8 @@ class PagedServingEngine:
                             remap: torch.Tensor) -> torch.Tensor:
         """One decode step with the KV split across the tier-0 pool and
         the pinned-host pool: pages are attended wherever they live
-        (``paged_attention_dual``) and the new token's K/V lands in
-        whichever pool holds the tail page (``kv_append``).
+        (``paged_attention_dual_pooled``) and the new token's K/V lands in
+        whichever pool holds the tail page (``qkv_rope_append``).
 
         block_tables [B, P] hold each page's slot *in its own pool* — the
         tier-0 slot, or the pinned pool's **logical** slot, translated
@@ -403,9 +408,10 @@ class PagedServingEngine:
         f_idx = torch.where(sel_tail, n_fast, slot).to(torch.int32)
         p_idx = torch.where(sel_tail, slot, n_pin).to(torch.int32)
 
-        def attend(l, q, k, v):
-            kv_append(fast[:, l], pin[:, l], f_idx, p_idx, off, k, v)
-            return paged_attention_dual(
+        def attend(l, qkv):
+            q = rope_append(*qkv, fast[:, l], pin[:, l], f_idx, p_idx,
+                                off)
+            return paged_attention_dual_pooled(
                 q, fast[:, l, 0], fast[:, l, 1], pin[:, l, 0], pin[:, l, 1],
                 block_tables, pool_sel, lengths)
         return self._decode_layers(tokens, positions, attend)

@@ -13,10 +13,11 @@ newly admitted prompts are ingested in **one dispatch per pow2 bucket**:
     lists only its own segment's KV pages, and the causal mask is the
     ``lengths`` mask;
   * **one dispatch** — every packed position's K/V lands in the pools
-    positionally (``kv_append`` of all L rows; padding rows carry an
-    out-of-range slot and are dropped), the attention is K1's prefill
-    body with one row per position (``paged_attention_prefill``, or
-    ``paged_attention_prefill_dual`` when prompt pages sit in the
+    positionally (one ``qkv_rope_append`` of all L rows per layer, with
+    the qk-norm and RoPE; padding rows carry an out-of-range slot and are
+    dropped), the attention is K1's prefill body with one row per
+    position (``paged_attention_prefill_pooled``, or
+    ``paged_attention_prefill_dual_pooled`` when prompt pages sit in the
     pinned-host tier: each segment's pages are read once for all of its
     rows), and the first sampled token of every segment comes back with
     the dispatch.
@@ -38,10 +39,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch.kernels.kv_append import kv_append
 from repro_torch.kernels.paged_attention import (
-    paged_attention_prefill, paged_attention_prefill_dual)
+    paged_attention_prefill_dual_pooled, paged_attention_prefill_pooled)
 from repro_torch.models import attention as attn_mod
+from repro_torch.models.attention import rope_append
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -161,21 +162,26 @@ class PrefillRunner:
     def _layers(self, tokens: torch.Tensor, local_pos: torch.Tensor,
                 seg_last: torch.Tensor, attend):
         """The decode step's layer stack over the bucket's L positions as
-        one sequence [1, L, d].  ``attend(l, q, k, v)`` stores layer
-        ``l``'s K/V (k/v [L, Hkv, D]) and returns the paged attention of
-        q [L, Hq, D].  Returns (first sampled token [S], logits [S, Vp])
-        at each segment's last position."""
+        one sequence [1, L, d].  ``attend(l, qkv)`` gets layer ``l``'s raw
+        projections with their qk-norm weights and RoPE tables — the first
+        seven arguments of ``attention.rope_append`` (q [L, Hq, D], k/v
+        [L, Hkv, D], cos/sin [L, D/2]) — stores its K/V and returns the
+        paged attention [L, Hkv, G, D].  Returns (first sampled token [S],
+        logits [S, Vp]) at each segment's last position."""
         eng = self.eng
         cfg, params = eng.cfg, eng.params
         n = tokens.shape[0]
         h = T.embed_in(params, cfg, tokens.long()[None, :])
         cos, sin = L.rope_angles(local_pos[None, :], cfg.head_dim,
                                  cfg.rope_theta)
+        cos, sin = cos[0], sin[0]
         for l, lp in enumerate(params["layers"]):
             x = L.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
                            gemma_style=cfg.gemma_norm)
-            q, k, v = attn_mod.project_qkv(lp["attn"], x, cos, sin)
-            out = attend(l, q[0], k[0], v[0])
+            ap = lp["attn"]
+            q, k, v = attn_mod.project_raw(ap, x)
+            out = attend(l, (q[0], k[0], v[0], ap.get("q_norm"),
+                             ap.get("k_norm"), cos, sin))
             wo = lp["attn"]["wo"]
             h = h + (out.reshape(n, -1) @ wo.reshape(-1, wo.shape[-1]))[None]
             h = T.ffn_block(lp, cfg, h)
@@ -196,10 +202,11 @@ class PrefillRunner:
         eng = self.eng
         pool = eng.kv.store.fast_pool
 
-        def attend(l, q, k, v):
-            kv_append(pool[:, l], None, write_slot, None, write_off, k, v)
-            return paged_attention_prefill(q, *eng.kv.layer_pools(l),
-                                           row_tables, lengths)
+        def attend(l, qkv):
+            q = rope_append(*qkv, pool[:, l], None, write_slot, None,
+                                write_off)
+            return paged_attention_prefill_pooled(
+                q, *eng.kv.layer_pools(l), row_tables, lengths)
         return self._layers(tokens, local_pos, seg_last, attend)
 
     def _core_pinned(self, tokens, local_pos, row_tables, pool_sel, lengths,
@@ -225,9 +232,10 @@ class PrefillRunner:
         f_idx = torch.where(wsel, n_fast, wslot).to(torch.int32)
         p_idx = torch.where(wsel, wslot, n_pin).to(torch.int32)
 
-        def attend(l, q, k, v):
-            kv_append(fast[:, l], pin[:, l], f_idx, p_idx, write_off, k, v)
-            return paged_attention_prefill_dual(
+        def attend(l, qkv):
+            q = rope_append(*qkv, fast[:, l], pin[:, l], f_idx, p_idx,
+                                write_off)
+            return paged_attention_prefill_dual_pooled(
                 q, fast[:, l, 0], fast[:, l, 1], pin[:, l, 0], pin[:, l, 1],
                 row_tables, pool_sel, lengths)
         return self._layers(tokens, local_pos, seg_last, attend)

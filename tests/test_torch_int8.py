@@ -503,6 +503,42 @@ def test_int8_pinned_engine_matches_int8_host_engine(models):
     assert_same(hs.wear.wear_counts(), ps.wear.wear_counts())
 
 
+# the serving page (36 layers x [2, 16, 8, 128]), smaller aligned pages, a
+# page of odd size and the serving page at an unaligned base
+K6_PAGES = [(1179648, 2, True), (1179648, 4, True), (65536, 2, True),
+            (272, 4, True), (16, 2, True), (1179647, 2, True),
+            (105, 4, True), (12345, 2, True), (1179648, 2, False),
+            (65536, 4, False)]
+
+
+@pytest.mark.parametrize("k", [1, 16])
+@pytest.mark.parametrize("n_elems,elem_bytes,aligned", K6_PAGES)
+def test_page_gather_quant_launch_plan_covers_every_page(n_elems, elem_bytes,
+                                                         aligned, k):
+    """K6's plan: the cluster's slices cover each page exactly once, every
+    CTA gets a non-empty slice, what a CTA stages fits its shared memory,
+    and at the serving shape a bf16 page is read from its pool once."""
+    plan = K6.launch_info(n_elems, elem_bytes, k, aligned=aligned)
+    c, per, unit = plan["cluster"], plan["units_per_cta"], plan["unit_elems"]
+    assert plan["grid"] == [c, k] and 1 <= c <= K6.MAX_CLUSTER
+    assert plan["vec"] == (aligned and n_elems % 16 == 0)
+    assert unit == (16 if plan["vec"] else 1)
+    units = n_elems // unit
+    assert units * unit == n_elems               # units tile the page
+    assert (c - 1) * per < units <= c * per      # each CTA has a slice
+    assert 0 <= plan["held_units"] <= per
+    assert plan["reread_units"] == per - plan["held_units"]
+    assert plan["smem_bytes"] == plan["held_units"] * unit * elem_bytes
+    assert plan["smem_bytes"] <= K6.SMEM_BYTES < 227 * 1024
+    if not plan["vec"]:
+        assert plan["held_units"] == 0
+    elif per * unit * elem_bytes <= K6.SMEM_BYTES:
+        assert plan["reread_units"] == 0          # the slice is held whole
+    if (n_elems, elem_bytes, aligned) == (1179648, 2, True):
+        assert (c, plan["smem_bytes"], plan["reread_units"]) \
+            == (16, 147456, 0)
+
+
 # =============================================================================
 # the kernels on the card
 # =============================================================================
@@ -528,6 +564,68 @@ def test_page_gather_quant_kernel_vs_plain_cuda(dtype):
     one = torch.zeros(1, dtype=torch.int32, device=dev)
     assert torch.equal(K6.page_gather_quant(ties, one)[0],
                        K6.page_gather_quant_plain(ties, one)[0])
+
+
+def _quant_pool(shape, dtype, source, dev, seed):
+    """A pool [slots, *shape] of seeded values on the card ("hbm"), in
+    pinned host memory ("pinned"), or on the card at a base 2 or 4 bytes
+    past 16-byte alignment ("unaligned"); slot 1 all zero."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = int(np.prod(shape))
+    flat = (torch.randn(20 * n + 1, generator=gen, device=dev) * 3).to(dtype)
+    pool = (flat[1:] if source == "unaligned" else flat[:-1]).view(20, *shape)
+    pool[1] = 0
+    if source == "pinned":
+        pool = pool.cpu().pin_memory()
+    return pool
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("source", ["hbm", "pinned", "unaligned"])
+@pytest.mark.parametrize("shape", [(36, 2, 16, 8, 128), (3, 5, 7)])
+@pytest.mark.parametrize("k", [1, 4, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_page_gather_quant_cluster_vs_plain_cuda(dtype, k, shape, source):
+    """K6 vs plain, exact, over the serving page (bf16 held whole, float32
+    held in part and the rest read again) and an odd page, from HBM,
+    pinned host memory and an unaligned base; one launch a call; pages
+    repeated as the pow2 padding repeats them."""
+    dev = cuda_device()
+    pool = _quant_pool(shape, dtype, source, dev, k)
+    rng = np.random.RandomState(k)
+    idx = torch.from_numpy(np.resize(rng.permutation(20)[:max(1, k - 2)],
+                                     k).astype(np.int32)).to(dev)
+    kernels.reset_launch_counts()
+    q, s = K6.page_gather_quant(pool, idx)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["page_gather_quant"] == 1
+    qp, sp = K6.page_gather_quant_plain(pool, idx)
+    assert torch.equal(q, qp.to(dev)) and torch.equal(s, sp.to(dev))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("source", ["hbm", "pinned"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_page_gather_quant_graph_replay_cuda(dtype, source):
+    """A CUDA graph of one K6 call, replayed on another index vector,
+    equals the eager call (its attributes are raised by the first call
+    only, and it makes no host sync, memset or allocation)."""
+    dev = cuda_device()
+    pool = _quant_pool((36, 2, 16, 8, 128), dtype, source, dev, 5)
+    idx = torch.arange(16, dtype=torch.int32, device=dev)
+    K6.page_gather_quant(pool, idx)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        q, s = K6.page_gather_quant(pool, idx)
+    idx.copy_(torch.arange(19, 3, -1, dtype=torch.int32, device=dev))
+    g.replay()
+    torch.cuda.synchronize()
+    qe, se = K6.page_gather_quant(pool, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qe) and torch.equal(s, se)
+    qp, sp = K6.page_gather_quant_plain(pool, idx)
+    assert torch.equal(q, qp.to(dev)) and torch.equal(s, sp.to(dev))
 
 
 @pytest.mark.requires_cuda

@@ -635,31 +635,6 @@ def test_paged_attention_dual_kernel_vs_plain_cuda(dtype, tol):
     assert_same(got.float(), single.float())
 
 
-@pytest.mark.requires_cuda
-def test_kv_append_kernel_vs_plain_cuda():
-    dev = cuda_device()
-    rng = np.random.RandomState(11)
-    fast, pin, *_ = _dual_inputs(11, Hkv=8, D=128, page=16, n_fast=6,
-                                 n_pin=9)
-    tf = torch.from_numpy(fast).to(dev, torch.bfloat16)
-    tp = torch.from_numpy(pin).to(torch.bfloat16).pin_memory()
-    k = torch.from_numpy(rng.standard_normal((4, 8, 128)).astype(
-        np.float32)).to(dev, torch.bfloat16)
-    v = -k
-    f_idx = torch.tensor([6, 2, 6, 5], dtype=torch.int32, device=dev)
-    p_idx = torch.tensor([2, 9, 8, 9], dtype=torch.int32, device=dev)
-    off = torch.tensor([15, 0, 3, 7], dtype=torch.int32, device=dev)
-    wf, wp = tf.cpu().clone(), tp.clone()
-    n0 = kernels.launch_counts()["kv_append"]
-    KA.kv_append(tf[:, 1], tp[:, 1], f_idx, p_idx, off, k, v)
-    torch.cuda.synchronize()
-    assert kernels.launch_counts()["kv_append"] == n0 + 1
-    KA.kv_append_plain(wf[:, 1], wp[:, 1], f_idx.cpu(), p_idx.cpu(),
-                       off.cpu(), k.cpu(), v.cpu())
-    assert_same(tf.cpu().float(), wf.float())
-    assert_same(tp.float(), wp.float())
-
-
 def test_new_wrappers_on_cpu_never_launch_or_build():
     """The slice's wrappers take their plain versions for CPU tensors:
     no launch is counted and nothing is built."""

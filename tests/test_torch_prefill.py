@@ -226,8 +226,9 @@ def test_prefill_engine_matches_jax(models, memos):
 
 def test_prefill_dispatch_goes_through_the_kernels(models, monkeypatch):
     """The three short prompts pack into one bucket-16 dispatch: per
-    layer one KV append and one call of K1's prefill entry over the
-    bucket's 16 rows, and the prefill metrics count it."""
+    layer one fused qk-norm + RoPE + KV append and one call of K1's
+    prefill entry over the bucket's 16 rows, and the prefill metrics
+    count it."""
     obs.reset()
     tcfg, tparams, _, _ = models
     eng = PagedServingEngine(tcfg, tparams, ServeConfig(
@@ -241,11 +242,12 @@ def test_prefill_dispatch_goes_through_the_kernels(models, monkeypatch):
             calls.append((name, a[rows_arg].shape[0]))
             return fn(*a)
         monkeypatch.setattr(prefill, name, wrapped)
-    spy("kv_append", prefill.kv_append, 5)
-    spy("paged_attention_prefill", prefill.paged_attention_prefill, 0)
+    spy("rope_append", prefill.rope_append, 0)
+    spy("paged_attention_prefill_pooled",
+        prefill.paged_attention_prefill_pooled, 0)
     eng.step()
-    assert calls == [("kv_append", 16),
-                     ("paged_attention_prefill", 16)] * tcfg.n_layers
+    assert calls == [("rope_append", 16),
+                     ("paged_attention_prefill_pooled", 16)] * tcfg.n_layers
     reg = obs.get_registry()
     assert reg.counter("serving.prefill_dispatches").value == 1
     assert reg.counter("serving.prefill_tokens").value == 15
