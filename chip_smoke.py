@@ -86,6 +86,11 @@ prints no result line):
  17. ``longctx_card_vs_cpu``: smoke-width mamba2 and zamba2 in float32,
      a 37-token prompt and 5 decode steps on the card and on the CPU:
      logits and states within 1e-4, identical tokens;
+ 18. ``longctx_mamba2_f32`` and ``longctx_zamba2_f32``: phases 15 and 14
+     on float32 weights (the JAX package's default type) at full width
+     and depth: the prefill launches K9's float32 entry once per Mamba
+     layer (48; 81) and K8's float32 entry once per shared site (0; 11),
+     the decode none;
   9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
@@ -124,17 +129,21 @@ prints no result line):
      HGMMA instructions in the bf16 kernel, which must not be 0; and the
      float32 entry, 3xTF32 on the tensor cores, at the float32 probe's
      shape and at zamba2's within 1e-5, ``sass_hmma`` not 0) and K9
-     (zamba2's and mamba2's shapes in bf16 and the float32 probe's shape
-     in float32; outputs within 1e-4 of their largest magnitude; each
-     with ``device_ms`` over a CUDA graph, the device work nodes of one
-     call, its launch plan and, in bf16, ``sass_hmma``, the HMMA count
-     of its three tensor-core kernels, none of which may be 0), and the
+     (zamba2's and mamba2's shapes in bf16, and in float32 the float32
+     probe's shape and zamba2's and mamba2's prefill shapes; outputs
+     within 1e-4 of their largest magnitude; each with ``device_ms`` over
+     a CUDA graph, the device work nodes of one call, its launch plan and
+     ``sass_hmma``, the HMMA count of its entry's three tensor-core
+     kernels, none of which may be 0; float32 rows with ``bound_ms`` at
+     494.7/3 TFLOP/s beside ``bound_fma_ms``), and the
      ``ssd_scan_passes`` line times K9's four kernels one by one under
-     ``torch.profiler`` at both bf16 shapes.  K2's
+     ``torch.profiler`` at every K9 shape.  K2's
      row times the event form and SysMon's form (a ``valid`` mask, an
      ``is_write`` flag), each also as ``device_ms`` over a CUDA graph of
      50 captured calls beside ``index_add_``'s, and must count exactly
-     one device work node in a graph of one call.
+     one device work node in a graph of one call; K7's row adds its
+     ``device_ms`` the same way beside an empty one-thread kernel's
+     (``empty_kernel_device_ms``, the launch floor).
 
 Output: the card's name and power limit, the build time, the engine
 lines, the parity lines, the prefill and int8 lines, the long-context
@@ -246,14 +255,18 @@ FLASH_F32_TOL = 1e-5
 # summed in another order; the two outputs round to bf16 at most one ulp
 # apart (2**-8 to 2**-7 relative)
 FLASH_TOL = 1e-2
-# K9 float32 outputs vs plain: float32 FMA in both, summed in other orders
-# over up to L terms, so the error scales with the output's largest
+# K9 float32 outputs vs plain: float32-accurate products (3xTF32 on the
+# tensor cores in the kernel, FMA in plain) summed in other orders over
+# up to L terms, so the error scales with the output's largest
 # magnitude: atol is SSD_TOL times max |plain| (|y| reaches ~300 at
 # zamba2's shape with these inputs), rtol SSD_TOL
 SSD_TOL = 1e-4
-# K9's kernels with tensor-core products in bf16 (``sass_hmma``)
+# K9's kernels with tensor-core products (``sass_hmma``): the bf16
+# entry's (names with "bf") and the float32 entry's, 3xTF32
 SSD_TENSOR_CORE_KERNELS = ("ssd_prologue_kernelI13__nv_bfloat16",
-                           "ssd_states_bf16_kernel", "ssd_output_bf16_kernel")
+                           "ssd_states_bf16_kernel", "ssd_output_bf16_kernel",
+                           "ssd_prologue_kernelIfE", "ssd_states_f32_kernel",
+                           "ssd_output_f32_kernel")
 
 
 def _emit(obj) -> None:
@@ -462,6 +475,18 @@ def _device_kernels(fn, calls: int = 5, tries: int = 3) -> list[str]:
         if names:
             break
     return sorted(names)
+
+
+def _launch_floor():
+    """A call that launches an empty one-thread kernel on the current
+    stream: the launch floor a launch-bound kernel is read against."""
+    import ctypes
+    from repro_torch.kernels import _build
+    fn = _build.function("launch_floor", [ctypes.c_void_p])
+
+    def call():
+        _build.check(fn(_build.current_stream(0)), "launch_floor")
+    return call
 
 
 def _f32_bounds(nbytes: float, flops: float) -> dict:
@@ -2026,7 +2051,14 @@ def bench_pinned_kernels(cfg, peng, launches: dict, engine_launches: dict,
         _time_ms(lambda: K2.sysmon_pass(*args)),
         _time_ms(lambda: K2.sysmon_pass_plain(*args)),
         _bound_ms(24 * n), None, 0, pages=n,
-        launches_engine_run=engine_launches["sysmon_pass"])
+        launches_engine_run=engine_launches["sysmon_pass"],
+        device_ms=_graph_ms(lambda: K2.sysmon_pass(*args)),
+        empty_kernel_device_ms=_graph_ms(_launch_floor()),
+        launches_per_call=_graph_launches(lambda: K2.sysmon_pass(*args)),
+        note="ms: CUDA events around eager calls; device_ms: per call of "
+             "a CUDA graph of 50 captured calls, beside an empty "
+             "one-thread kernel's (launch_floor in sysmon_pass.cu) "
+             "timed the same way")
 
     # -- K1 dual-pool: batch B, half the pages in the pinned pool ------------
     l = 0
@@ -2802,9 +2834,10 @@ def _to_device(tree, dev):
     return tree.to(dev)
 
 
-def run_longctx(name: str) -> tuple[dict, dict, object, object]:
-    """``generate`` at the arch's full published width and depth in bf16
-    (random weights from SEED): LONGCTX_BATCH prompts of LONGCTX_PROMPT
+def run_longctx(name: str, dtype=None) -> tuple[dict, dict, object, object]:
+    """``generate`` at the arch's full published width and depth in
+    ``dtype`` (bf16 unless given; random weights from SEED; float32 runs
+    K9's and K8's float32 entries): LONGCTX_BATCH prompts of LONGCTX_PROMPT
     tokens (15 full 128-token chunks and a ragged 80), then LONGCTX_NEW
     greedy decode steps into a cache of LONGCTX_CACHE slots.  The prefill
     must launch K9 once per Mamba layer and K8 once per shared-attention
@@ -2815,9 +2848,10 @@ def run_longctx(name: str) -> tuple[dict, dict, object, object]:
     from repro_torch.configs.base import registry
     from repro_torch.launch.longctx_decode import generate
     from repro_torch.models.transformer import init_params
+    dtype = dtype or torch.bfloat16
     cfg = registry()[name]
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=SEED, dtype=torch.bfloat16, device="cuda")
+    params = init_params(cfg, seed=SEED, dtype=dtype, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prompts = _prompts(LONGCTX_BATCH, LONGCTX_PROMPT, cfg.vocab, SEED + 11)
@@ -2841,8 +2875,10 @@ def run_longctx(name: str) -> tuple[dict, dict, object, object]:
     if toks.shape != (LONGCTX_BATCH, LONGCTX_NEW) or toks.min() < 0 \
             or toks.max() >= V:
         raise RuntimeError(f"{name}: bad tokens of shape {toks.shape}")
-    line = {"phase": f"longctx_{name.split('_')[0]}", "arch": name,
-            "dtype": "bfloat16", "layers": cfg.n_layers,
+    f32 = "_f32" if dtype == torch.float32 else ""
+    line = {"phase": f"longctx_{name.split('_')[0]}{f32}", "arch": name,
+            "dtype": str(dtype).removeprefix("torch."),
+            "layers": cfg.n_layers,
             "d_model": cfg.d_model, "batch": LONGCTX_BATCH,
             "prompt_len": LONGCTX_PROMPT, "new_tokens": LONGCTX_NEW,
             "cache_len": LONGCTX_CACHE, "init_params_s": init_s,
@@ -3076,22 +3112,25 @@ def _flash_f32_extra(K8, q, k, v, out, lib, hmma: int) -> dict:
             "plan": K8.launch_info(B, S, Hq, D)}
 
 
-def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
-                          f32_launches: dict) -> tuple[list[dict], dict]:
+def bench_longctx_kernels(zlaunch: dict, mlaunch: dict, f32_launches: dict,
+                          full_f32_launches: dict
+                          ) -> tuple[list[dict], dict]:
     """K8 and K9 against their plain versions on the card at the shapes of
     the long-context path, with seeded random bf16 inputs: K8 at zamba2's
     prefill shape, at a GQA shape and with a 512-token window (each with
     the HGMMA count of its bf16 kernel and the factor over SDPA), and
     K8's float32 entry at the float32 probe's shape and at zamba2's (its
     HMMA count, device times, SDPA's error and kernels); K9 at zamba2's and
-    mamba2's shapes and its float32 entry at the float32 probe's shape,
-    each with its device time over a CUDA graph, the device work nodes
-    of one call and its launch plan.
+    mamba2's shapes and its float32 entry at the float32 probe's shape
+    and at zamba2's and mamba2's prefill shapes, each with its device
+    time over a CUDA graph, the device work nodes of one call, its launch
+    plan and the HMMA counts of its three tensor-core kernels.
     ``launches`` is the kernel's count in the zamba2 (K8, K9) or mamba2
-    (K9) run, and for the float32 rows in the float32 zamba2 probe
-    (``f32_launches``, that run's counts).  Returns the rows and the
-    ``ssd_scan_passes`` line: K9's kernels timed one by one at both bf16
-    shapes."""
+    (K9) run, for the float32 probe-shape rows in the float32 zamba2
+    probe (``f32_launches``, that run's counts) and for K9's full float32
+    rows in the float32 long-context runs (``full_f32_launches``, by
+    arch).  Returns the rows and the ``ssd_scan_passes`` line: K9's
+    kernels timed one by one at every shape."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3225,7 +3264,8 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
 
     sass = {k: _sass_count(k, "HMMA") for k in SSD_TENSOR_CORE_KERNELS}
     if not all(sass.values()):
-        raise RuntimeError(f"ssd_scan: a bf16 kernel has no HMMA: {sass}")
+        raise RuntimeError(f"ssd_scan: a tensor-core kernel has no HMMA: "
+                           f"{sass}")
     passes = []
     for name, B, L, H, P, N, dtype, launches in (
             ("ssd_scan", LONGCTX_BATCH, LONGCTX_PROMPT, 112, 64, 64, bf,
@@ -3233,7 +3273,12 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
             ("ssd_scan_mamba2", LONGCTX_BATCH, LONGCTX_PROMPT, 64, 64, 128,
              bf, mlaunch["ssd_scan"]),
             ("ssd_scan_f32", 1, LONGCTX_PROBE_PROMPT, 112, 64, 64,
-             torch.float32, f32_launches.get("ssd_scan", 0))):
+             torch.float32, f32_launches.get("ssd_scan", 0)),
+            ("ssd_scan_f32_zamba2", LONGCTX_BATCH, LONGCTX_PROMPT, 112, 64,
+             64, torch.float32, full_f32_launches["zamba2_7b"]["ssd_scan"]),
+            ("ssd_scan_f32_mamba2", LONGCTX_BATCH, LONGCTX_PROMPT, 64, 64,
+             128, torch.float32,
+             full_f32_launches["mamba2_1_3b"]["ssd_scan"])):
         Q = 128
         g = gen if dtype == bf else gen_f32
         x = randn(B, L, H, P, g=g).to(dtype)
@@ -3283,17 +3328,18 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict,
             kernels_per_call=_graph_launches(call),
             plan=K9.launch_info(B, L, H, P, N, Q, dtype))
         kr = rows[-1]
+        kr["sass_hmma"] = {k: v for k, v in sass.items()
+                           if ("bf" in k) == (dtype == bf)}
+        passes.append({"name": name, "calls": 10,
+                       "ms": _kernel_ms(call, K9.PASSES, calls=10)})
         if dtype == bf:
             kr["design"] = ("chunk-parallel: prologue (cumsum, C.B^T once "
                             "per chunk), chunk states, state passing, chunk "
                             "output; mma.sync with float32 operands in two "
                             "bf16 terms")
-            kr["sass_hmma"] = sass
-            passes.append({"name": name, "calls": 10,
-                           "ms": _kernel_ms(call, K9.PASSES, calls=10)})
         else:
-            kr["design"] = ("the same four passes, products on float32 FMA "
-                            "(float32 probe only)")
+            kr["design"] = ("the same four passes, every product in 3xTF32 "
+                            "on mma.sync m16n8k8")
             kr.update(_f32_bounds(nbytes, flops))
         del x, dt, Bm, Cm, y, h
         torch.cuda.empty_cache()
@@ -3404,14 +3450,23 @@ def main() -> int:
     print(json.dumps(probe_bf16), file=sys.stderr, flush=True)
     lcross = run_longctx_card_vs_cpu()
     print(json.dumps(lcross), file=sys.stderr, flush=True)
+    f32_lines, f32_launches = [], {}
+    for name in ("mamba2_1_3b", "zamba2_7b"):
+        line, f32_launches[name], f32_params, _ = run_longctx(
+            name, torch.float32)
+        del f32_params
+        torch.cuda.empty_cache()
+        print(json.dumps(line), file=sys.stderr, flush=True)
+        f32_lines.append(line)
     longctx_rows, ssd_passes = bench_longctx_kernels(
-        zlaunch, mlaunch, probe_f32["runs"][0]["launches"])
+        zlaunch, mlaunch, probe_f32["runs"][0]["launches"], f32_launches)
     kernel_rows += longctx_rows
 
     lines += [{"kernels": kernel_rows}, {"host_link": link}, engine_line,
               pinned_line, parity, pparity, tail, padding, invariance,
               pinv, window, pwindow, cross, pre, ppre, i8h, i8p, zline, mline,
-              probe_f32, probe_bf16, lcross, ssd_passes, _card_line()]
+              probe_f32, probe_bf16, lcross, *f32_lines, ssd_passes,
+              _card_line()]
     for line in lines:
         _emit(line)
     _emit({"ok": True, "device": {

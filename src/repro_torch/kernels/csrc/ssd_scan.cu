@@ -48,7 +48,13 @@
 // t = hi + lo with hi = bf16(t), lo = bf16(t - hi), which hold t to
 // 2**-17 (one term, 2**-9, does not hold the 1e-4 tolerance), and the
 // products of both terms are summed in float32.  float32 entry: the same
-// passes with every product a float32 FMA (no TF32).
+// passes with every product in 3xTF32 on mma.sync m16n8k8 (common.cuh:
+// each float32 operand split into a big and a small TF32 term on the
+// fragment load, small.big + big.small + big.big summed in float32); the
+// operands w o x and the decayed CB are formed in float32 before the
+// split.  tests/test_torch_ssd_f32_tc.py emulates it on the CPU: 3xTF32
+// holds y and h_final within 1e-5 of the largest output against a
+// float64 recurrence and the JAX package, one TF32 term misses 1e-4.
 //
 // Bound on the H100: x, B, C and dt read once, y (float32) and h_final
 // written once: ~357 MB at zamba2's prefill shape (B 4, L 2000, H 112,
@@ -59,8 +65,12 @@
 // that: x is read twice, and the chunk states (B nc H N P float32, 117 MB
 // at zamba2's shape) are written, read and written, and read again, ~0.83
 // GB in all (0.25 ms at 3.35 TB/s); CB is read from L2 by every head.
-// The bf16 passes run 8 warps a CTA: the chunk states as (16 state rows,
-// half the columns) items, the chunk output as m-tiles of 16 rows.
+// The product passes run 8 warps a CTA: the chunk states as (16 state
+// rows, half the columns) items, the chunk output as m-tiles of 16 rows.
+// float32 tiles take twice the bf16 ones' shared memory, so the float32
+// chunk states stream the steps through shared memory kF32JBlock at a
+// time, and the float32 prologue and chunk output read C's rows from
+// global memory: every in-range shape fits (static_asserts below).
 #include "common.cuh"
 
 namespace {
@@ -72,10 +82,10 @@ constexpr int kMaxP = 128;
 constexpr int kMaxN = 128;
 constexpr int kTerms = 2;           // bf16 terms of a float32 operand
 constexpr int kPrologueThreads = 256;
-constexpr int kTileThreads = 256;   // passes 2 and 4, bf16
-constexpr int kF32Threads = 256;    // passes 2 and 4, float32
+constexpr int kTileThreads = 256;   // passes 2 and 4
 constexpr int kPassThreads = 256;   // pass 3
 constexpr int kF32JBlock = 64;      // steps per shared-memory block, f32 pass 2
+constexpr int kMaxSmem = 232448;    // dynamic shared memory a CTA can have
 constexpr int kPassUnroll = 8;      // chunks whose states pass 3 loads at once
 constexpr int kPassVec = 4;         // state elements per thread, pass 3
 
@@ -83,6 +93,12 @@ __host__ __device__ constexpr int pad16(int v) { return (v + 15) / 16 * 16; }
 // bf16 shared-memory row stride: padded to the k-steps, plus 8 so the
 // eight rows of an ldmatrix hit distinct banks
 __host__ __device__ constexpr int bf_stride(int cols) { return pad16(cols) + 8; }
+__host__ __device__ constexpr int pad8(int v) { return (v + 7) / 8 * 8; }
+// float32 shared-memory row stride: padded to the TF32 k-step of 8, plus
+// 4, so the 8 rows of an ldmatrix hit distinct 16-byte bank groups and the
+// scalar fragment loads of rows 2t + e (e fixed), columns g hit 32
+// distinct banks
+__host__ __device__ constexpr int f32_stride(int cols) { return pad8(cols) + 4; }
 
 struct Dims {
   int L, H, P, N, Q, Qp, nc;
@@ -159,6 +175,37 @@ __device__ __forceinline__ void load_bf16_rows(bf* dst, int sd, const bf* src,
   }
 }
 
+// Rows [0, rows) of a [*, cols] float32 matrix at row stride ld into
+// shared memory at row stride sd, columns [0, pad8(cols)): rows >= live
+// and columns >= cols are zero.  16-byte groups go by cp.async where the
+// rows allow it (the caller waits and syncs), else by scalar loads.
+__device__ __forceinline__ void load_f32_rows(float* dst, int sd,
+                                              const float* src, long long ld,
+                                              int live, int rows, int cols,
+                                              int tid, int nthreads) {
+  const bool vec = vec_ok(src, cols, ld);
+  const int groups = pad8(cols) / 4;
+  for (int i = tid; i < rows * groups; i += nthreads) {
+    const int r = i / groups;
+    const int c0 = (i - r * groups) * 4;
+    float* out = dst + r * sd + c0;
+    if (vec) {
+      const bool pred = r < live && c0 < cols;
+      cp_async16(out, pred ? src + r * ld + c0 : src, pred);
+      continue;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      out[k] = r < live && c0 + k < cols ? src[r * ld + c0 + k] : 0.f;
+  }
+}
+
+// The TF32 terms of a float32 value read from global memory, 0 when !live.
+__device__ __forceinline__ void split_ldg(const float* p, bool live,
+                                          uint32_t& big, uint32_t& small) {
+  split_tf32(live ? __ldg(p) : 0.f, big, small);
+}
+
 // Stores a pair of float32 outputs at columns p, p + 1 < cols of a row
 // (8 bytes at once where cols is even).
 __device__ __forceinline__ void store2(float* row, int p, int cols, float a,
@@ -220,26 +267,35 @@ __global__ void __launch_bounds__(kPrologueThreads)
     }
   }
 
-  // CB tiles (mi, mj), mj <= mi, of 16 x 16, taken by warps in turn
+  // CB tiles (mi, mj), mj <= mi, of 16 x 16, taken by warps in turn.
+  // bf16: C and B in shared memory, fragments by ldmatrix.  float32: B in
+  // shared memory (the B^T fragments by ldmatrix, a 32-bit element being a
+  // pair of b16), C's rows of the tile read from global memory, 3xTF32.
   float* cbc = cb + bc * Qp * Qp;
   const int M = Qp / 16;
-  if constexpr (sizeof(T) == 2) {
-    const int sN = bf_stride(d.N);
-    bf* c_s = reinterpret_cast<bf*>(smem_raw);   // [Qp][sN]
-    bf* b_s = c_s + Qp * sN;                     // [Qp][sN]
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const int sN = kBf16 ? bf_stride(d.N) : f32_stride(d.N);
+  T* b_s = reinterpret_cast<T*>(smem_raw);       // [Qp][sN]
+  [[maybe_unused]] T* c_s = b_s + Qp * sN;       // bf16: [Qp][sN]
+  if constexpr (kBf16) {
     load_bf16_rows(c_s, sN, Cm + row0 * d.N, d.N, nv, Qp, d.N, tid,
                    kPrologueThreads);
     load_bf16_rows(b_s, sN, Bm + row0 * d.N, d.N, nv, Qp, d.N, tid,
                    kPrologueThreads);
-    cp_async_wait_all();
-    __syncthreads();
-    const int ksteps = pad16(d.N) / 16;
-    int t = 0;
-    for (int mi = 0; mi < M; ++mi)
-      for (int mj = 0; mj <= mi; ++mj, ++t) {
-        if (t % kWarps != warp) continue;
-        float s[2][4] = {};
-        for (int kk = 0; kk < ksteps; ++kk) {
+  } else {
+    load_f32_rows(b_s, sN, Bm + row0 * d.N, d.N, nv, Qp, d.N, tid,
+                  kPrologueThreads);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  const int g = lane >> 2, tq = lane & 3;
+  int t = 0;
+  for (int mi = 0; mi < M; ++mi)
+    for (int mj = 0; mj <= mi; ++mj, ++t) {
+      if (t % kWarps != warp) continue;
+      float s[2][4] = {};
+      if constexpr (kBf16) {
+        for (int kk = 0; kk < pad16(d.N) / 16; ++kk) {
           uint32_t fa[4], fb[4];
           ldsm_x4(fa, c_s + (mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                                 sN + kk * 16 + (lane >> 4) * 8);
@@ -248,47 +304,37 @@ __global__ void __launch_bounds__(kPrologueThreads)
           mma_bf16(s[0], fa, fb[0], fb[1]);
           mma_bf16(s[1], fa, fb[2], fb[3]);
         }
-        const int r = mi * 16 + (lane >> 2);
+      } else {
+        const int i0 = mi * 16 + g;
+        const float* c0 = Cm + (row0 + i0) * d.N;
+        const float* c1 = c0 + 8 * d.N;
+        const bool l0 = i0 < nv, l1 = i0 + 8 < nv;
+        for (int kk = 0; kk < pad8(d.N) / 8; ++kk) {
+          const int n0 = kk * 8 + tq, n1 = n0 + 4;
+          uint32_t ab[4], as[4], fb[4], bb[4], bs[4];
+          split_ldg(c0 + n0, l0 && n0 < d.N, ab[0], as[0]);
+          split_ldg(c1 + n0, l1 && n0 < d.N, ab[1], as[1]);
+          split_ldg(c0 + n1, l0 && n1 < d.N, ab[2], as[2]);
+          split_ldg(c1 + n1, l1 && n1 < d.N, ab[3], as[3]);
+          ldsm_x4(fb, b_s + (mj * 16 + (lane & 7) + (lane >> 4) * 8) * sN +
+                          kk * 8 + ((lane >> 3) & 1) * 4);
+          split_tf32(fb, bb, bs);
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int col = mj * 16 + nt * 8 + (lane & 3) * 2;
-          *reinterpret_cast<float2*>(cbc + r * Qp + col) =
-              make_float2(s[nt][0], s[nt][1]);
-          *reinterpret_cast<float2*>(cbc + (r + 8) * Qp + col) =
-              make_float2(s[nt][2], s[nt][3]);
+          for (int nt = 0; nt < 2; ++nt)
+            mma_3xtf32(s[nt], ab, as, bb[2 * nt], bb[2 * nt + 1],
+                       bs[2 * nt], bs[2 * nt + 1]);
         }
       }
-  } else {
-    // float32: B in shared memory, a warp per row i, lanes over j; C_i is
-    // read once per n by all lanes of the warp
-    const int sN = d.N + 1;
-    float* b_s = reinterpret_cast<float*>(smem_raw);   // [Qp][N + 1]
-    for (int i = tid; i < Qp * d.N; i += kPrologueThreads) {
-      const int j = i / d.N, n = i - j * d.N;
-      b_s[j * sN + n] = j < nv ? Bm[(row0 + j) * d.N + n] : 0.f;
-    }
-    __syncthreads();
-    for (int i = warp; i < Qp; i += kWarps) {
-      const int jlim = (i / 16 + 1) * 16;
-      const float* crow = Cm + (row0 + i) * d.N;
-      float acc[kMaxQ / 32];
+      const int r = mi * 16 + g;
 #pragma unroll
-      for (int g = 0; g < kMaxQ / 32; ++g) acc[g] = 0.f;
-      for (int n = 0; n < d.N; ++n) {
-        const float cv = i < nv ? crow[n] : 0.f;
-#pragma unroll
-        for (int g = 0; g < kMaxQ / 32; ++g) {
-          const int j = g * 32 + lane;
-          if (j < jlim) acc[g] = fmaf(cv, b_s[j * sN + n], acc[g]);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxQ / 32; ++g) {
-        const int j = g * 32 + lane;
-        if (j < jlim) cbc[i * Qp + j] = acc[g];
+      for (int nt = 0; nt < 2; ++nt) {
+        const int col = mj * 16 + nt * 8 + tq * 2;
+        *reinterpret_cast<float2*>(cbc + r * Qp + col) =
+            make_float2(s[nt][0], s[nt][1]);
+        *reinterpret_cast<float2*>(cbc + (r + 8) * Qp + col) =
+            make_float2(s[nt][2], s[nt][3]);
       }
     }
-  }
 }
 
 // =============================================================================
@@ -396,79 +442,98 @@ __global__ void __launch_bounds__(kTileThreads)
   }
 }
 
-// float32: a warp owns state rows n = warp + 8 r, a lane columns
-// lane + 32 g; steps stream through shared memory kF32JBlock at a time.
-__global__ void __launch_bounds__(kF32Threads)
+// float32: the bf16 kernel's work items with every product in 3xTF32.
+// Steps stream through shared memory kF32JBlock at a time, so each warp
+// keeps its (at most two) items' sums in registers across the blocks.  A
+// k-step takes steps j = 2t and j + 1 for its columns t and t + 4 (the
+// k order of a fragment is free): A = B^T reads B's rows j, j + 1 at
+// columns n = g, g + 8 of the m-tile, and the B operand w_j x_j is formed
+// in float32 from x's rows j, j + 1 before it is split.
+template <int NT>
+__global__ void __launch_bounds__(kTileThreads)
     ssd_states_f32_kernel(const float* __restrict__ x,
                           const float* __restrict__ Bm,
                           const float* __restrict__ cs,
                           const float* __restrict__ dt,
                           float* __restrict__ st, Dims d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kWarps = kF32Threads / 32;
-  constexpr int kRows = kMaxN / kWarps;
-  constexpr int kCols = kMaxP / 32;
+  constexpr int kWarps = kTileThreads / 32;
+  constexpr int kHalf = NT / 2;                  // n-tiles of an item
+  constexpr int kItems = 2 * (kMaxN / 16) / kWarps;   // items per warp
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
   const int t0 = c * d.Q;
   const int nv = min(d.Q, d.L - t0);
   const long long row0 = static_cast<long long>(b) * d.L + t0;
   const long long bc = static_cast<long long>(b) * d.nc + c;
   const int Qp = d.Qp, P = d.P, N = d.N;
-  float* b_s = reinterpret_cast<float*>(smem_raw);   // [kF32JBlock][N]
-  float* wx_s = b_s + kF32JBlock * N;                // [kF32JBlock][P]
-  float* w_s = wx_s + kF32JBlock * P;                // [Qp]
+  const int sN = f32_stride(N), sP = f32_stride(P);
+  float* b_s = reinterpret_cast<float*>(smem_raw);   // [kF32JBlock][sN]
+  float* x_s = b_s + kF32JBlock * sN;                // [kF32JBlock][sP]
+  float* w_s = x_s + kF32JBlock * sP;                // [Qp]
 
   const float* cs_h = cs + (bc * d.H + h) * Qp;
   const float cs_end = cs_h[Qp - 1];
-  for (int j = tid; j < Qp; j += kF32Threads)
+  for (int j = tid; j < Qp; j += kTileThreads)
     w_s[j] = j < nv ? expf(cs_end - cs_h[j]) * dt[(row0 + j) * d.H + h] : 0.f;
-  float acc[kRows][kCols];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int g = 0; g < kCols; ++g) acc[r][g] = 0.f;
-  const float* xh = x + row0 * d.H * P + static_cast<long long>(h) * P;
+  const int n_items = pad16(N) / 16 * 2;
+  float acc[kItems][kHalf][4] = {};
+  const long long ldx = static_cast<long long>(d.H) * P;
+  const float* xh = x + row0 * ldx + static_cast<long long>(h) * P;
   for (int j0 = 0; j0 < nv; j0 += kF32JBlock) {
     const int nj = min(kF32JBlock, nv - j0);
     __syncthreads();                      // w_s written; last block read
-    for (int i = tid; i < nj * N; i += kF32Threads) {
-      const int j = i / N, n = i - j * N;
-      b_s[i] = Bm[(row0 + j0 + j) * N + n];
-    }
-    for (int i = tid; i < nj * P; i += kF32Threads) {
-      const int j = i / P, p = i - j * P;
-      wx_s[i] = w_s[j0 + j] * xh[(j0 + j) * static_cast<long long>(d.H) * P
-                                 + p];
-    }
+    load_f32_rows(b_s, sN, Bm + (row0 + j0) * N, N, nj,
+                  pad8(nj), N, tid, kTileThreads);
+    load_f32_rows(x_s, sP, xh + j0 * ldx, ldx, nj, pad8(nj), P, tid,
+                  kTileThreads);
+    cp_async_wait_all();
     __syncthreads();
-    for (int j = 0; j < nj; ++j) {
-      float xv[kCols];
+    const int ksteps = (nj + 7) / 8;
 #pragma unroll
-      for (int g = 0; g < kCols; ++g) {
-        const int p = lane + 32 * g;
-        xv[g] = p < P ? wx_s[j * P + p] : 0.f;
-      }
+    for (int ii = 0; ii < kItems; ++ii) {
+      const int it = warp + ii * kWarps;
+      const int m0 = (it >> 1) * 16;
+      const int nt0 = (it & 1) * kHalf;
+      if (it >= n_items || nt0 * 8 >= P) continue;
+      for (int ks = 0; ks < ksteps; ++ks) {
+        const int j = ks * 8 + 2 * tq;
+        const float* br = b_s + j * sN + m0 + g;
+        uint32_t ab[4], as[4];
+        split_tf32(br[0], ab[0], as[0]);
+        split_tf32(br[8], ab[1], as[1]);
+        split_tf32(br[sN], ab[2], as[2]);
+        split_tf32(br[sN + 8], ab[3], as[3]);
+        const float w0 = w_s[j0 + j], w1 = w_s[j0 + j + 1];
+        const float* xr = x_s + j * sP + g;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int n = warp + kWarps * r;
-        if (n < N) {
-          const float bv = b_s[j * N + n];
-#pragma unroll
-          for (int g = 0; g < kCols; ++g) acc[r][g] = fmaf(bv, xv[g], acc[r][g]);
+        for (int nt = 0; nt < kHalf; ++nt) {
+          const int p0 = (nt0 + nt) * 8;
+          if (p0 >= P) break;
+          uint32_t vb0, vs0, vb1, vs1;
+          split_tf32(w0 * xr[p0], vb0, vs0);
+          split_tf32(w1 * xr[sP + p0], vb1, vs1);
+          mma_3xtf32(acc[ii][nt], ab, as, vb0, vb1, vs0, vs1);
         }
       }
     }
   }
   float* st_h = st + (bc * d.H + h) * N * P;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int n = warp + kWarps * r;
-    if (n >= N) continue;
+  for (int ii = 0; ii < kItems; ++ii) {
+    const int it = warp + ii * kWarps;
+    const int m0 = (it >> 1) * 16;
+    const int nt0 = (it & 1) * kHalf;
+    if (it >= n_items || nt0 * 8 >= P) continue;
 #pragma unroll
-    for (int g = 0; g < kCols; ++g) {
-      const int p = lane + 32 * g;
-      if (p < P) st_h[n * P + p] = acc[r][g];
+    for (int hf = 0; hf < 2; ++hf) {
+      const int n = m0 + g + hf * 8;
+      if (n >= N) continue;
+#pragma unroll
+      for (int nt = 0; nt < kHalf; ++nt)
+        store2(st_h + n * P, (nt0 + nt) * 8 + tq * 2, P, acc[ii][nt][hf * 2],
+               acc[ii][nt][hf * 2 + 1]);
     }
   }
 }
@@ -737,11 +802,16 @@ __global__ void __launch_bounds__(kTileThreads, NT == 8 ? 3 : 1)
   });
 }
 
-// float32: a warp takes 4 rows at a time (pairs of row groups from both
-// ends of the chunk), a lane columns lane + 32 g.  x and h_prev sit in
-// shared memory; C rows and CB are read from L2.  For y_diag each lane
-// computes att for one j of the 4 rows and the warp shares it by shuffle.
-__global__ void __launch_bounds__(kF32Threads)
+// float32: the bf16 kernel's m-tiles with every product in 3xTF32.  x
+// and h_prev sit in shared memory at the padded float32 stride; the A
+// fragments of C . h_prev are C's rows of the m-tile read from global
+// memory (L2: every head of the chunk reads them), those of att . x are
+// built in registers from CB (read from L2 one k-step ahead), cs and dt.
+// A k-step takes k = 2t and 2t + 1 for its columns t and t + 4, so CB's
+// pair comes as one float2 and x's and h_prev's B fragments are scalar
+// loads of rows 2t, 2t + 1.
+template <int NT>
+__global__ void __launch_bounds__(kTileThreads, NT == 8 ? 3 : 1)
     ssd_output_f32_kernel(const float* __restrict__ x,
                           const float* __restrict__ Cm,
                           const float* __restrict__ cs,
@@ -750,100 +820,116 @@ __global__ void __launch_bounds__(kF32Threads)
                           const float* __restrict__ st,
                           float* __restrict__ y, Dims d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kWarps = kF32Threads / 32;
-  constexpr int kR = 4;                          // rows per warp at a time
-  constexpr int kCols = kMaxP / 32;
+  constexpr int kWarps = kTileThreads / 32;
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
   const int t0 = c * d.Q;
   const int nv = min(d.Q, d.L - t0);
   const long long row0 = static_cast<long long>(b) * d.L + t0;
   const long long bc = static_cast<long long>(b) * d.nc + c;
-  const int Qp = d.Qp, P = d.P, N = d.N;
-  float* x_s = reinterpret_cast<float*>(smem_raw);   // [Qp][P]
-  float* h_s = x_s + Qp * P;                         // [N][P]
-  float* cs_s = h_s + N * P;                         // [Qp]
+  const int Qp = d.Qp, P = d.P, N = d.N, N8 = pad8(N);
+  const int sP = f32_stride(P);
+  float* x_s = reinterpret_cast<float*>(smem_raw);   // [Qp][sP]
+  float* h_s = x_s + Qp * sP;                        // [N8][sP]
+  float* cs_s = h_s + N8 * sP;                       // [Qp]
   float* dt_s = cs_s + Qp;                           // [Qp]
+  float* ecs_s = dt_s + Qp;                          // [Qp] exp(cs_i)
 
   const float* cs_h = cs + (bc * d.H + h) * Qp;
-  for (int j = tid; j < Qp; j += kF32Threads) {
-    cs_s[j] = cs_h[j];
+  for (int j = tid; j < Qp; j += kTileThreads) {
+    const float v = cs_h[j];
+    cs_s[j] = v;
     dt_s[j] = j < nv ? dt[(row0 + j) * d.H + h] : 0.f;
+    ecs_s[j] = expf(v);
   }
-  const float* xh = x + row0 * d.H * P + static_cast<long long>(h) * P;
-  for (int i = tid; i < Qp * P; i += kF32Threads) {
-    const int j = i / P, p = i - j * P;
-    x_s[i] = j < nv ? xh[j * static_cast<long long>(d.H) * P + p] : 0.f;
-  }
-  const float* hp = st + (bc * d.H + h) * N * P;
-  for (int i = tid; i < N * P; i += kF32Threads) h_s[i] = hp[i];
+  const long long ldx = static_cast<long long>(d.H) * P;
+  load_f32_rows(x_s, sP, x + row0 * ldx + static_cast<long long>(h) * P, ldx,
+                nv, Qp, P, tid, kTileThreads);
+  load_f32_rows(h_s, sP, st + (bc * d.H + h) * N * P, P, N, N8, P, tid,
+                kTileThreads);
+  cp_async_wait_all();
   __syncthreads();
 
   const float* cbc = cb + bc * Qp * Qp;
-  const int G = (nv + kR - 1) / kR;              // row groups with a live row
-  for_each_mtile<kWarps>(G, warp, [&](int g) {
-    const int i0 = g * kR;
-    float accd[kR][kCols], acco[kR][kCols];
+  const int M = (nv + 15) / 16;                  // m-tiles with a live row
+  for_each_mtile<kWarps>(M, warp, [&](int mt) {
+    const int r0 = mt * 16 + g;                  // this thread's rows r0, r0+8
+    const bool l0 = r0 < nv, l1 = r0 + 8 < nv;
+    const float* c0 = Cm + (row0 + r0) * N;
+    const float* c1 = c0 + 8 * N;
+    float acc[NT][4] = {};
+    // y_off = C . h_prev
+    for (int kk = 0; kk < N8 / 8; ++kk) {
+      const int n = kk * 8 + 2 * tq;
+      uint32_t ab[4], as[4];
+      split_ldg(c0 + n, l0 && n < N, ab[0], as[0]);
+      split_ldg(c1 + n, l1 && n < N, ab[1], as[1]);
+      split_ldg(c0 + n + 1, l0 && n + 1 < N, ab[2], as[2]);
+      split_ldg(c1 + n + 1, l1 && n + 1 < N, ab[3], as[3]);
+      const float* hr = h_s + n * sP + g;
 #pragma unroll
-    for (int r = 0; r < kR; ++r)
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) accd[r][q] = acco[r][q] = 0.f;
-    // C . h_prev
-    for (int n = 0; n < N; ++n) {
-      float hv[kCols];
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) {
-        const int p = lane + 32 * q;
-        hv[q] = p < P ? h_s[n * P + p] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const int i = i0 + r;
-        const float cv = i < nv ? Cm[(row0 + i) * N + n] : 0.f;
-#pragma unroll
-        for (int q = 0; q < kCols; ++q) acco[r][q] = fmaf(cv, hv[q], acco[r][q]);
-      }
-    }
-    // att . x over j <= the group's last row
-    const int jmax = min(Qp, i0 + kR);
-    for (int jb = 0; jb < jmax; jb += 32) {
-      const int jl = jb + lane;
-      float att[kR];
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const int i = i0 + r;
-        att[r] = jl <= i && i < Qp
-                     ? cbc[i * Qp + jl] * expf(cs_s[i] - cs_s[jl]) * dt_s[jl]
-                     : 0.f;
-      }
-      const int nj = min(32, jmax - jb);
-      for (int jj = 0; jj < nj; ++jj) {
-        const int j = jb + jj;
-        float xv[kCols];
-#pragma unroll
-        for (int q = 0; q < kCols; ++q) {
-          const int p = lane + 32 * q;
-          xv[q] = p < P ? x_s[j * P + p] : 0.f;
-        }
-#pragma unroll
-        for (int r = 0; r < kR; ++r) {
-          const float a = __shfl_sync(0xffffffffu, att[r], jj);
-#pragma unroll
-          for (int q = 0; q < kCols; ++q) accd[r][q] = fmaf(a, xv[q], accd[r][q]);
-        }
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt * 8 >= P) break;
+        uint32_t vb0, vs0, vb1, vs1;
+        split_tf32(hr[nt * 8], vb0, vs0);
+        split_tf32(hr[sP + nt * 8], vb1, vs1);
+        mma_3xtf32(acc[nt], ab, as, vb0, vb1, vs0, vs1);
       }
     }
+    const float e0 = ecs_s[r0], e1 = ecs_s[r0 + 8];
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const int i = i0 + r;
+    for (int nt = 0; nt < NT; ++nt) {
+      acc[nt][0] *= e0;
+      acc[nt][1] *= e0;
+      acc[nt][2] *= e1;
+      acc[nt][3] *= e1;
+    }
+    // y_diag = att . x over the k-steps of 8 steps up to the diagonal
+    const float cs0 = cs_s[r0], cs1 = cs_s[r0 + 8];
+    const float* cb0 = cbc + r0 * Qp + 2 * tq;
+    const float* cb1 = cb0 + 8 * Qp;
+    const int ksteps = 2 * mt + 2;
+    float2 v0 = __ldg(reinterpret_cast<const float2*>(cb0));
+    float2 v1 = __ldg(reinterpret_cast<const float2*>(cb1));
+    for (int ks = 0; ks < ksteps; ++ks) {
+      float2 n0 = v0, n1 = v1;
+      if (ks + 1 < ksteps) {
+        n0 = __ldg(reinterpret_cast<const float2*>(cb0 + (ks + 1) * 8));
+        n1 = __ldg(reinterpret_cast<const float2*>(cb1 + (ks + 1) * 8));
+      }
+      // att at rows r0 (+8), steps j, j + 1
+      const int j = ks * 8 + 2 * tq;
+      const float d0 = dt_s[j], d1 = dt_s[j + 1];
+      const float s0 = cs_s[j], s1 = cs_s[j + 1];
+      uint32_t ab[4], as[4];
+      split_tf32(j <= r0 ? v0.x * expf(cs0 - s0) * d0 : 0.f, ab[0], as[0]);
+      split_tf32(j <= r0 + 8 ? v1.x * expf(cs1 - s0) * d0 : 0.f, ab[1],
+                 as[1]);
+      split_tf32(j + 1 <= r0 ? v0.y * expf(cs0 - s1) * d1 : 0.f, ab[2],
+                 as[2]);
+      split_tf32(j + 1 <= r0 + 8 ? v1.y * expf(cs1 - s1) * d1 : 0.f, ab[3],
+                 as[3]);
+      const float* xr = x_s + j * sP + g;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt * 8 >= P) break;
+        uint32_t vb0, vs0, vb1, vs1;
+        split_tf32(xr[nt * 8], vb0, vs0);
+        split_tf32(xr[sP + nt * 8], vb1, vs1);
+        mma_3xtf32(acc[nt], ab, as, vb0, vb1, vs0, vs1);
+      }
+      v0 = n0;
+      v1 = n1;
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int i = r0 + hf * 8;
       if (i >= nv) continue;
-      const float e = expf(cs_s[i]);
       float* yr = y + ((row0 + i) * d.H + h) * P;
 #pragma unroll
-      for (int q = 0; q < kCols; ++q) {
-        const int p = lane + 32 * q;
-        if (p < P) yr[p] = accd[r][q] + acco[r][q] * e;
-      }
+      for (int nt = 0; nt < NT; ++nt)
+        store2(yr, nt * 8 + tq * 2, P, acc[nt][hf * 2], acc[nt][hf * 2 + 1]);
     }
   });
 }
@@ -862,48 +948,61 @@ struct Plan {
 
 constexpr int kPasses = 4;
 
-size_t prologue_smem(bool bf16, const Dims& d) {
-  return bf16 ? 2 * static_cast<size_t>(d.Qp) * bf_stride(d.N) * 2
-              : static_cast<size_t>(d.Qp) * (d.N + 1) * 4;
+// Dynamic shared memory of each product pass, from the tiles above
+// (tests/test_torch_ssd_f32_tc.py mirrors these sizes).
+constexpr size_t prologue_smem(bool bf16, int Qp, int N) {
+  return bf16 ? 2 * static_cast<size_t>(Qp) * bf_stride(N) * 2
+              : 4 * static_cast<size_t>(Qp) * f32_stride(N);
 }
-size_t states_smem(bool bf16, const Dims& d) {
-  return bf16 ? static_cast<size_t>(d.Qp) * bf_stride(d.N) * 2 +
-                    static_cast<size_t>(kTerms) * d.Qp * bf_stride(d.P) * 2 +
-                    4 * d.Qp
-              : 4 * (static_cast<size_t>(kF32JBlock) * (d.N + d.P) + d.Qp);
+constexpr size_t states_smem(bool bf16, int Qp, int P, int N) {
+  return bf16 ? static_cast<size_t>(Qp) * bf_stride(N) * 2 +
+                    static_cast<size_t>(kTerms) * Qp * bf_stride(P) * 2 +
+                    4 * Qp
+              : 4 * (static_cast<size_t>(kF32JBlock) *
+                         (f32_stride(N) + f32_stride(P)) +
+                     Qp);
 }
-size_t output_smem(bool bf16, const Dims& d) {
-  return bf16 ? static_cast<size_t>(d.Qp) * (bf_stride(d.N) + bf_stride(d.P)) *
+constexpr size_t output_smem(bool bf16, int Qp, int P, int N) {
+  return bf16 ? static_cast<size_t>(Qp) * (bf_stride(N) + bf_stride(P)) * 2 +
+                    static_cast<size_t>(kTerms) * pad16(N) * bf_stride(P) *
                         2 +
-                    static_cast<size_t>(kTerms) * pad16(d.N) * bf_stride(d.P) *
-                        2 +
-                    12 * d.Qp
-              : 4 * (static_cast<size_t>(d.Qp) * d.P + d.N * d.P + 2 * d.Qp);
+                    12 * Qp
+              : 4 * (static_cast<size_t>(Qp + pad8(N)) * f32_stride(P) +
+                     3 * Qp);
 }
+// the widest tiles of the range fit the card: every in-range shape does
+static_assert(prologue_smem(true, kMaxQ, kMaxN) <= kMaxSmem, "smem");
+static_assert(prologue_smem(false, kMaxQ, kMaxN) <= kMaxSmem, "smem");
+static_assert(states_smem(true, kMaxQ, kMaxP, kMaxN) <= kMaxSmem, "smem");
+static_assert(states_smem(false, kMaxQ, kMaxP, kMaxN) <= kMaxSmem, "smem");
+static_assert(output_smem(true, kMaxQ, kMaxP, kMaxN) <= kMaxSmem, "smem");
+static_assert(output_smem(false, kMaxQ, kMaxP, kMaxN) <= kMaxSmem, "smem");
 
 template <typename T>
 void make_plans(int B, const Dims& d, Plan (&pl)[kPasses]) {
   constexpr bool kBf16 = sizeof(T) == 2;
   static int granted[6] = {0, 0, 0, 0, 0, 0};
   const dim3 tiles(d.nc, d.H, B);
+  const bool wide = d.P > 64;
   pl[0] = {(const void*)ssd_prologue_kernel<T>, &granted[0], dim3(d.nc, B),
-           kPrologueThreads, prologue_smem(kBf16, d)};
+           kPrologueThreads, prologue_smem(kBf16, d.Qp, d.N)};
   if constexpr (kBf16) {
-    const bool wide = d.P > 64;
     pl[1] = {wide ? (const void*)ssd_states_bf16_kernel<16>
                   : (const void*)ssd_states_bf16_kernel<8>,
-             &granted[wide ? 2 : 1], tiles, kTileThreads,
-             states_smem(true, d)};
+             &granted[wide ? 2 : 1], tiles, kTileThreads, 0};
     pl[3] = {wide ? (const void*)ssd_output_bf16_kernel<16>
                   : (const void*)ssd_output_bf16_kernel<8>,
-             &granted[wide ? 4 : 3], tiles, kTileThreads,
-             output_smem(true, d)};
+             &granted[wide ? 4 : 3], tiles, kTileThreads, 0};
   } else {
-    pl[1] = {(const void*)ssd_states_f32_kernel, &granted[1], tiles,
-             kF32Threads, states_smem(false, d)};
-    pl[3] = {(const void*)ssd_output_f32_kernel, &granted[3], tiles,
-             kF32Threads, output_smem(false, d)};
+    pl[1] = {wide ? (const void*)ssd_states_f32_kernel<16>
+                  : (const void*)ssd_states_f32_kernel<8>,
+             &granted[wide ? 2 : 1], tiles, kTileThreads, 0};
+    pl[3] = {wide ? (const void*)ssd_output_f32_kernel<16>
+                  : (const void*)ssd_output_f32_kernel<8>,
+             &granted[wide ? 4 : 3], tiles, kTileThreads, 0};
   }
+  pl[1].smem = states_smem(kBf16, d.Qp, d.P, d.N);
+  pl[3].smem = output_smem(kBf16, d.Qp, d.P, d.N);
   pl[2] = {(const void*)ssd_state_passing_kernel, &granted[5],
            dim3((d.N * d.P + kPassThreads * kPassVec - 1) /
                     (kPassThreads * kPassVec),

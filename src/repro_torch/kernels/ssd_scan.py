@@ -10,9 +10,10 @@ On CUDA tensors ``ssd_scan`` launches ``csrc/ssd_scan.cu``: four kernels,
 each parallel over chunks (a prologue per chunk with the dt * A cumsum of
 every head and C.B^T shared by all heads; the chunk states per (chunk,
 head); the state passing over chunks per state element; the chunk
-output per (chunk, head)), the bf16 entry's products on the tensor cores
-with each float32 operand split into two bf16 terms, the float32
-entry's on the FMA units.  A ragged last chunk is masked in the kernels
+output per (chunk, head)), all products on the tensor cores: the bf16
+entry's with each float32 operand split into two bf16 terms, the float32
+entry's in 3xTF32 (each float32 operand split into two TF32 terms, three
+products summed in float32).  A ragged last chunk is masked in the kernels
 as identity steps (dt = 0), so nothing is padded or copied.  The wrapper
 allocates the kernels' float32 workspace from torch's caching allocator,
 in the sizes the kernel source reports (``workspace_elems``: cs

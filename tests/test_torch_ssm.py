@@ -320,8 +320,9 @@ def test_decode_continues_the_scan():
 
 # the card cases: the first five since the kernel was written, then
 # L around one chunk, the widest tiles (P = N = 128, chunk 256), odd sizes
-# (scalar loads, padded tiles), and zamba2's and mamba2's full prefill
-# shapes
+# (scalar loads, padded tiles), zamba2's and mamba2's full prefill
+# shapes, and the float32 long-context probe's (zamba2's heads, one
+# 500-token prompt)
 KERNEL_SHAPES = [
     (2, 64, 4, 8, 16, 16, False), (1, 37, 2, 8, 8, 16, True),
     (2, 300, 6, 64, 64, 128, False), (1, 200, 4, 64, 128, 128, True),
@@ -329,7 +330,8 @@ KERNEL_SHAPES = [
     (2, 1, 8, 64, 64, 128, True), (2, 127, 8, 64, 64, 128, False),
     (2, 128, 8, 64, 128, 128, True), (2, 129, 8, 64, 128, 128, False),
     (1, 300, 4, 128, 128, 256, True), (1, 50, 3, 5, 7, 13, True),
-    (4, 2000, 112, 64, 64, 128, False), (4, 2000, 64, 64, 128, 128, False)]
+    (4, 2000, 112, 64, 64, 128, False), (4, 2000, 64, 64, 128, 128, False),
+    (1, 500, 112, 64, 64, 128, True)]
 
 
 def _card_inputs(B, L, H, P, N, dtype, seed=9, with_h0=False):
@@ -349,9 +351,11 @@ def _card_inputs(B, L, H, P, N, dtype, seed=9, with_h0=False):
 def test_ssd_scan_kernel_vs_plain_cuda(dtype, B, L, H, P, N, chunk,
                                        with_h0):
     """K9 against its plain version on the same card inputs, ragged last
-    chunks and an initial state included.  float32: FMA in both, summed
-    in other orders over up to L terms; bf16: the kernel's tensor-core
-    products hold each float32 operand to 2**-17 in two bf16 terms.
+    chunks and an initial state included.  float32: float32-accurate
+    products in both (3xTF32 on the kernel's tensor cores, FMA in plain),
+    summed in other orders over up to L terms; bf16: the kernel's
+    tensor-core products hold each float32 operand to 2**-17 in two bf16
+    terms.
     Either way the error scales with the largest magnitude of the output
     (|y| reaches ~300 at L = 300): atol is 1e-4 of that magnitude, rtol
     1e-4."""
@@ -434,6 +438,45 @@ def test_ssd_scan_launch_info_cuda(dtype, B, L, H, P, N, chunk):
     Qp = -(-chunk // 16) * 16
     assert info["workspace_bytes"] == 4 * B * nc * (H * Qp + Qp * Qp
                                                     + H * N * P)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("H,N", [(112, 64), (64, 128)])
+def test_ssd_scan_f32_bits_across_batch_cuda(H, N):
+    """At zamba2's and mamba2's float32 prefill shapes (B 4, L 2000, with
+    an initial state) each sequence gives alone the bits it gives in the
+    batch: the float32 entry's split depends on (L, H, P, N, chunk)
+    only."""
+    x, dt, A, Bm, Cm, h0 = _card_inputs(4, 2000, H, 64, N, torch.float32,
+                                        seed=11, with_h0=True)
+    y, h = K9.ssd_scan(x, dt, A, Bm, Cm, 128, h0=h0)
+    for b in range(4):
+        one = slice(b, b + 1)
+        yb, hb = K9.ssd_scan(x[one], dt[one], A, Bm[one], Cm[one], 128,
+                             h0=h0[one])
+        assert torch.equal(yb, y[one]) and torch.equal(hb, h[one]), b
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,P,N,chunk,with_h0", [
+    (1, 257, 2, 128, 128, 256, True), (1, 513, 2, 128, 128, 256, False),
+    (2, 3, 2, 1, 1, 1, True), (1, 300, 3, 127, 121, 241, True),
+    (1, 17, 2, 128, 128, 16, False), (1, 40, 2, 128, 1, 256, True)])
+def test_ssd_scan_range_edges_cuda(dtype, B, L, H, P, N, chunk, with_h0):
+    """The edges of the range the wrapper takes launch and agree with the
+    plain version within 1e-4 of the largest output: chunk 256 with
+    P = N = 128 and ragged L (the widest tiles; the float32 chunk output
+    plans 206 KB of shared memory), chunk 1 with P = N = 1, odd sizes
+    padded to the k-steps, and a chunk longer than L."""
+    x, dt, A, Bm, Cm, h0 = _card_inputs(B, L, H, P, N, dtype, seed=13,
+                                        with_h0=with_h0)
+    y, h = K9.ssd_scan(x, dt, A, Bm, Cm, chunk, h0=h0)
+    torch.cuda.synchronize()
+    yp, hp = K9.ssd_scan_plain(x, dt, A, Bm, Cm, chunk, h0=h0)
+    for got, want in ((y, yp), (h, hp)):
+        assert_close(got, want, atol=1e-4 * float(want.abs().max()),
+                     rtol=1e-4)
 
 
 @pytest.mark.requires_cuda
