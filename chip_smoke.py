@@ -91,6 +91,24 @@ prints no result line):
      and depth: the prefill launches K9's float32 entry once per Mamba
      layer (48; 81) and K8's float32 entry once per shared site (0; 11),
      the decode none;
+ 19. ``overlap``: phase 2's requests with ``overlap_plan=True`` (the
+     memos plan on the ``memos-plan`` worker thread, overlapped with the
+     next dispatch, committed page by page at the following boundary),
+     over the pinned-host tier beside one synchronous run of that tier,
+     and over the numpy host tier beside phase 2's own run, no faults
+     (three runs, about 45 s on the card): every run's tokens
+     equal phase 2's, the overlapped runs commit passes asynchronously
+     and commit planned pages, ``memos.plan`` spans run on the worker
+     thread; reported: the plan's wall ms, the share of it hidden under
+     the dispatch, and ``serve.dispatch`` seconds with and without the
+     overlap;
+ 20. ``overlap_plan_faults``: the pinned overlapped run with page
+     integrity armed and plan faults injected in turn — worker
+     exceptions until one falls back, then plan delays of 3 s against a
+     0.25 s watchdog until one times out, then none: both fallbacks
+     (``InjectedPlanFault``, ``timeout``) must run synchronous passes,
+     the ladder must drop to ``sync`` and climb back to ``overlap``, and
+     0 tokens may differ from phase 2's;
   9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
@@ -146,7 +164,8 @@ prints no result line):
      (``empty_kernel_device_ms``, the launch floor).
 
 Output: the card's name and power limit, the build time, the engine
-lines, the parity lines, the prefill and int8 lines, the long-context
+lines, the parity lines, the overlap lines, the prefill and int8 lines,
+the long-context
 lines, the ``{"kernels": [...]}`` line, the K9 pass times, the card's
 line again, and last ``{"ok": true, "device": {...}}``.  Exits 2
 without a CUDA device and 1 when the port's sources are not beside this
@@ -185,6 +204,10 @@ FAULT_SEED, FLIP_RATE, STUCK_RATE = 3, 5e-4, 2e-4
 # the storm of the pinned-tail run (the parity phase's requests with HBM
 # cut to 8 slots, so tail pages are appended in the pinned tier)
 TAIL_FAULT_SEED, TAIL_FLIP_RATE, TAIL_STUCK_RATE = 6, 1e-2, 5e-3
+# the overlapped memos plan's fault run: a plan delay far above the
+# watchdog's timeout (a dispatch between snapshot and commit takes well
+# under PLAN_DELAY_S - PLAN_TIMEOUT_S), so a delayed plan always times out
+PLAN_FAULT_SEED, PLAN_TIMEOUT_S, PLAN_DELAY_S = 9, 0.25, 3.0
 # kernels each engine run must launch (its path); the rest of KERNELS
 # belongs to the other run
 # (every decode inner step and every prefill dispatch also launches
@@ -197,6 +220,11 @@ PINNED_KERNELS = ("paged_attention_dual", "qkv_rope_append", "touch_update",
 # the pinned-tail run: memos off, so no pass sweep
 TAIL_KERNELS = ("paged_attention_dual", "qkv_rope_append", "touch_update",
                 "wear_update", "page_checksum")
+# the overlapped runs without faults (no page integrity, so no K5): K7
+# at each snapshot, K3a/K3b in each commit's moves
+OVERLAP_PINNED_KERNELS = ("paged_attention_dual", "qkv_rope_append",
+                          "touch_update", "wear_update", "sysmon_pass",
+                          "page_gather", "page_scatter")
 # the prefill and int8 runs: each prefill dispatch appends its rows
 # with qkv_rope_append and attends with K1's prefill body (its dual-pool
 # entry when prompt pages sit in the pinned tier), the decode with K1's
@@ -954,6 +982,223 @@ def run_pinned_tail_faults(cfg, params, want: list[list[int]]
     out["launches"] = launches
     _check_launches(launches, TAIL_KERNELS, "pinned-tail")
     return out, launches
+
+
+def _plan_threads() -> list[str]:
+    """Names of the threads that recorded ``memos.plan`` spans."""
+    from repro_torch import obs
+    tr = obs.get_tracer()
+    names = tr.thread_names
+    return sorted({names.get(ev.tid, "?") for ev in tr.events()
+                   if ev.name == "memos.plan"})
+
+
+def _serve_overlap_run(cfg, params, pinned: bool, overlap: bool,
+                       want: list[list[int]]) -> dict:
+    """Phase 2's requests over the pinned-host or the numpy host tier,
+    with or without ``overlap_plan``, no faults; launches read around the
+    run.  Every request must emit ``want``'s tokens."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.core.hierarchy import MemoryHierarchy
+    from repro_torch.serving.engine import PagedServingEngine
+    kw = dict(overlap_plan=overlap)
+    if pinned:
+        kw["hierarchy"] = MemoryHierarchy.two_tier(64, 512, pinned_slow=True)
+    eng = PagedServingEngine(cfg, params, _serve_config(**kw), device="cuda")
+    reqs = [eng.submit(p, NEW_TOKENS)
+            for p in _prompts(REQUESTS, PROMPT_LEN, cfg.vocab, SEED)]
+    torch.cuda.synchronize()
+    obs.reset()
+    obs.configure(trace=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    obs.configure(trace=False)
+    eng.close()
+    span_s = _span_seconds()
+    name = ("pinned" if pinned else "host") + \
+        ("_overlap" if overlap else "_sync")
+    mem = eng.memos
+    reps = mem.reports
+    plan_ms = [r.plan_ms for r in reps if r.committed_async]
+    store = eng.kv.store
+    corrupted, wrong = _corrupted_tokens(reqs, want)
+    out = {
+        "run": name, "seconds": dt,
+        "generated_tokens_per_s": eng.tokens_out / dt,
+        "dispatches": len(hist), "memos_passes": len(reps),
+        "committed_async": sum(r.committed_async for r in reps),
+        "pages_committed": mem.pages_committed,
+        "pages_degraded": mem.pages_degraded,
+        "pages_dropped": mem.pages_dropped,
+        "migrated": sum(r.migrations.migrated for r in reps),
+        "overlap_efficiency": mem.overlap_efficiency,
+        "plan_ms_sum": float(np.sum(plan_ms)) if plan_ms else 0.0,
+        "plan_ms_mean": float(np.mean(plan_ms)) if plan_ms else None,
+        "plan_ms_max": float(np.max(plan_ms)) if plan_ms else None,
+        "plan_threads": _plan_threads(),
+        "ladder_rung": mem.ladder.rung_name,
+        "preemptions": eng.batcher.n_preempted,
+        "traffic_0_1_bytes": store.traffic[(0, 1)],
+        "traffic_1_0_bytes": store.traffic[(1, 0)],
+        "corrupted_tokens": corrupted,
+        "launches": launches,
+        "span_seconds": {k: span_s.get(k, 0.0) for k in (
+            "serve.dispatch", "serve.admit", "serve.provision",
+            "memos.pass_sync", "memos.snapshot", "memos.plan",
+            "memos.commit", "migrate.move_group")},
+    }
+    bad = [r.rid for r in reqs
+           if r.error is not None or len(r.generated) != NEW_TOKENS]
+    if bad or corrupted:
+        raise RuntimeError(f"{name}: requests {bad} incomplete, "
+                           f"{corrupted} tokens differ from the engine "
+                           f"run's (request: first bad position) {wrong}")
+    _check_rope_append(launches, cfg, hist, name)
+    if pinned:
+        _check_launches(launches, OVERLAP_PINNED_KERNELS, name)
+    else:
+        _check_launches(launches, ENGINE_KERNELS, name)
+    if overlap:
+        if not (out["committed_async"] and out["pages_committed"]):
+            raise RuntimeError(f"{name}: {out['committed_async']} async "
+                               f"commits, {out['pages_committed']} pages "
+                               f"committed")
+        if any(r.fault_fallback for r in reps) or not out["plan_threads"] \
+                or not all(t.startswith("memos-plan")
+                           for t in out["plan_threads"]):
+            raise RuntimeError(f"{name}: fallbacks "
+                               f"{[r.fault_fallback for r in reps]}, plan "
+                               f"spans on threads {out['plan_threads']}")
+    elif out["committed_async"]:
+        raise RuntimeError(f"{name}: a synchronous run committed async")
+    return out
+
+
+def run_overlap(cfg, params, want: list[list[int]], engine_line: dict
+                ) -> dict:
+    """Phase 2's requests served with the memos plan overlapped with the
+    next dispatch, over the pinned-host tier beside one synchronous run
+    of that tier, and over the numpy host tier beside phase 2's own run
+    (``engine_line``: the same configuration, requests and seed without
+    overlap, in this call).  ``want``: the engine run's tokens."""
+    runs = {r["run"]: r for r in (
+        _serve_overlap_run(cfg, params, pinned, overlap, want)
+        for pinned, overlap in ((True, False), (True, True),
+                                (False, True)))}
+    host_sync = {"seconds": engine_line["seconds"],
+                 "span_seconds": engine_line["span_seconds"]}
+    summary = {}
+    for tier, sync in (("pinned", runs["pinned_sync"]),
+                       ("host", host_sync)):
+        over = runs[f"{tier}_overlap"]
+        summary[tier] = {
+            "dispatch_s_sync": sync["span_seconds"]["serve.dispatch"],
+            "dispatch_s_overlap": over["span_seconds"]["serve.dispatch"],
+            "seconds_sync": sync["seconds"],
+            "seconds_overlap": over["seconds"],
+            "overlap_efficiency": over["overlap_efficiency"],
+            "plan_ms_mean": over["plan_ms_mean"],
+            "pass_sync_s": sync["span_seconds"]["memos.pass_sync"],
+            "snapshot_plus_commit_s": over["span_seconds"]["memos.snapshot"]
+            + over["span_seconds"]["memos.commit"]}
+    summary["host"]["sync_run"] = "engine"
+    return {"phase": "overlap", "requests": REQUESTS,
+            "prompt_len": PROMPT_LEN, "new_tokens": NEW_TOKENS,
+            "tokens_identical_to_engine": True, "runs": runs,
+            "summary": summary}
+
+
+def run_overlap_plan_faults(cfg, params, want: list[list[int]]) -> dict:
+    """The pinned overlapped run with page integrity armed and plan
+    faults injected in turn: worker exceptions until a pass falls back,
+    then plan delays of PLAN_DELAY_S against a PLAN_TIMEOUT_S watchdog
+    until one times out, then none.  Both fallbacks must run, the ladder
+    must reach sync and climb back to overlap, and no token may differ
+    from ``want``."""
+    import torch
+    from repro_torch import faults, kernels, obs
+    from repro_torch.core.hierarchy import MemoryHierarchy
+    from repro_torch.faults import RUNG_OVERLAP, FaultConfig
+    from repro_torch.serving.engine import PagedServingEngine
+    stages = [("exception", dict(plan_exception_rate=1.0), "InjectedPlanFault"),
+              ("delay", dict(plan_delay_rate=1.0, plan_delay_s=PLAN_DELAY_S),
+               "timeout"),
+              ("none", {}, None)]
+    counts = {}
+    # armed before the store is built: it latches page integrity
+    faults.configure(FaultConfig(seed=PLAN_FAULT_SEED))
+    try:
+        eng = PagedServingEngine(cfg, params, _serve_config(
+            overlap_plan=True, hierarchy=MemoryHierarchy.two_tier(
+                64, 512, pinned_slow=True)), device="cuda")
+        eng.memos.cfg.plan_timeout_s = PLAN_TIMEOUT_S
+        reqs = [eng.submit(p, NEW_TOKENS)
+                for p in _prompts(REQUESTS, PROMPT_LEN, cfg.vocab, SEED)]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stage, rungs, fallbacks, hist = 0, [], [], []
+        inj = faults.configure(FaultConfig(seed=PLAN_FAULT_SEED,
+                                           **stages[0][1]))
+        while not eng.batcher.all_done() and eng.step_count < 10_000:
+            n = len(eng.memos.reports)
+            hist.append(eng.step())
+            rungs.append(eng.memos.ladder.rung_name)
+            for r in eng.memos.reports[n:]:
+                if r.fault_fallback is not None:
+                    fallbacks.append((len(hist), r.fault_fallback))
+                    if r.fault_fallback == stages[stage][2]:
+                        for k, v in inj.counts.items():
+                            counts[k] = counts.get(k, 0) + v
+                        stage += 1
+                        inj = faults.configure(FaultConfig(
+                            seed=PLAN_FAULT_SEED, **stages[stage][1]))
+        eng.run()                   # flush the last overlapped plan
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        eng.close()
+    finally:
+        faults.reset()
+    mem = eng.memos
+    corrupted, wrong = _corrupted_tokens(reqs, want)
+    last_fault = max((i for i, _ in fallbacks), default=len(rungs))
+    climbed = "overlap" in rungs[last_fault:]
+    out = {
+        "phase": "overlap_plan_faults", "requests": REQUESTS,
+        "plan_timeout_s": PLAN_TIMEOUT_S, "plan_delay_s": PLAN_DELAY_S,
+        "fault_seed": PLAN_FAULT_SEED, "seconds": dt,
+        "stages_reached": [s[0] for s in stages[:stage + 1]],
+        "fallbacks": fallbacks, "faults_by_kind": counts,
+        "ladder_failures": mem.ladder.failures,
+        "ladder_demotions": mem.ladder.demotions,
+        "ladder_promotions": mem.ladder.promotions,
+        "rungs_by_step": rungs, "climbed_back_to_overlap": climbed,
+        "final_rung": mem.ladder.rung_name,
+        "committed_async": sum(r.committed_async for r in mem.reports),
+        "pages_committed": mem.pages_committed,
+        "memos_passes": len(mem.reports),
+        "completed": sum(r.error is None for r in reqs),
+        "corrupted_tokens": corrupted, "launches": launches,
+    }
+    reasons = {f for _, f in fallbacks}
+    if corrupted or out["completed"] != len(reqs):
+        raise RuntimeError(f"plan-fault run: {corrupted} tokens differ "
+                           f"{wrong}, {out['completed']} of {len(reqs)} "
+                           f"completed")
+    if reasons != {"InjectedPlanFault", "timeout"} or "sync" not in rungs \
+            or not climbed or mem.ladder.top != RUNG_OVERLAP:
+        raise RuntimeError(f"plan-fault run: fallbacks {fallbacks}, rungs "
+                           f"{rungs}")
+    _check_rope_append(launches, cfg, hist, "overlap_plan_faults")
+    _check_launches(launches, PINNED_KERNELS, "overlap_plan_faults")
+    return out
 
 
 def run_batch_padding(cfg, params) -> dict:
@@ -3397,6 +3642,10 @@ def main() -> int:
     print(json.dumps(pparity), file=sys.stderr, flush=True)
     tail, tail_launches = run_pinned_tail_faults(cfg, params, tail_tokens)
     print(json.dumps(tail), file=sys.stderr, flush=True)
+    overlap = run_overlap(cfg, params, tokens, engine_line)
+    print(json.dumps(overlap), file=sys.stderr, flush=True)
+    overlap_faults = run_overlap_plan_faults(cfg, params, tokens)
+    print(json.dumps(overlap_faults), file=sys.stderr, flush=True)
     padding = run_batch_padding(cfg, params)
     print(json.dumps(padding), file=sys.stderr, flush=True)
     invariance = run_batch_invariance(cfg, params)
@@ -3463,7 +3712,8 @@ def main() -> int:
     kernel_rows += longctx_rows
 
     lines += [{"kernels": kernel_rows}, {"host_link": link}, engine_line,
-              pinned_line, parity, pparity, tail, padding, invariance,
+              pinned_line, parity, pparity, tail, overlap, overlap_faults,
+              padding, invariance,
               pinv, window, pwindow, cross, pre, ppre, i8h, i8p, zline, mline,
               probe_f32, probe_bf16, lcross, *f32_lines, ssd_passes,
               _card_line()]

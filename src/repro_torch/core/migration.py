@@ -1,6 +1,6 @@
-"""Migration engine (paper Sec. 6.3, Fig. 10 step 4): plan/execute split,
+"""Migration engines (paper Sec. 6.3, Fig. 10 step 4): plan/execute split,
 generic over the tiers of a :class:`~repro_torch.core.hierarchy.MemoryHierarchy`
-— the torch twin of ``repro.core.migration``'s synchronous path.
+— the torch twin of ``repro.core.migration``.
 
   * **plan** (host) — reserve each page's destination slot per
     Algorithm 2 (coldest bank, then coldest non-reserved slab;
@@ -36,18 +36,31 @@ transient faults with exponential backoff and fails closed past the cap
 out of a host-class tier is first verified against its checksum — a
 corrupt page is quarantined, never copied forward.
 
-Two paths, as in the paper: ``locked`` (synchronous, commit
-unconditionally; promotions toward tier 0) and ``optimistic``
-(snapshot version counters, copy without blocking writers, commit only
-pages whose version did not advance, retry dirtied pages; bulk
-demotions).  The allocator call order is the JAX engine's, so both
-packages land every page in the same slot.
+Two engines implement execute: ``BatchedMigrationEngine``, the bulk
+mover above, and ``MigrationEngine``, the per-page **reference** loop
+over ``TierStore.move_page`` / ``read_page`` kept as the tests' parity
+oracle; the memos manager drives the bulk mover.  Both expose the paper's two
+paths: ``locked`` (synchronous, commit unconditionally; promotions
+toward tier 0) and ``optimistic`` (snapshot version counters, copy
+without blocking writers, commit only pages whose version did not
+advance, retry dirtied pages; bulk demotions).  The allocator call
+order is the JAX engines', so both packages land every page in the
+same slot.
+
+The asynchronous memos pass plans against a :class:`StoreView` — a
+numpy snapshot of the page table, version counters and cloned
+allocators — on a worker thread (``plan_decision``: the same grouping
+and allocator call order as ``execute_decision``), and lands the
+simulated reservations at the next dispatch boundary with
+``commit_reservations``: clone adoption on a tier that saw no
+interleaved allocator call, per-call replay patched to the live slots
+otherwise.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Iterable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
@@ -106,6 +119,24 @@ class MigrationStats:
             "by_pair": {f"{s}->{d}": n
                         for (s, d), n in sorted(self.by_pair.items())},
         }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "MigrationStats":
+        by_pair = {}
+        for k, n in d.get("by_pair", {}).items():
+            s, _, dst = k.partition("->")
+            by_pair[(int(s), int(dst))] = int(n)
+        return cls(
+            migrated=int(d.get("migrated", 0)),
+            dirty_discards=int(d.get("dirty_discards", 0)),
+            retries=int(d.get("retries", 0)),
+            retries_exhausted=int(d.get("retries_exhausted", 0)),
+            failed=int(d.get("failed", 0)),
+            bytes_moved=int(d.get("bytes_moved", 0)),
+            to_fast=int(d.get("to_fast", 0)),
+            to_slow=int(d.get("to_slow", 0)),
+            by_pair=by_pair,
+        )
 
 
 # =============================================================================
@@ -199,9 +230,13 @@ class MigrationPlan:
     migrated without moving data, like the reference).
 
     ``colors``/``masks`` record the Algorithm-2 allocator call that
-    reserved each slot (-1 = any color), as the JAX plan does.
-    ``reads_by_tier`` carries the staging read charge for plans whose
-    copy stages pages that a later check may drop.
+    reserved each slot (-1 = any color): a plan produced against a
+    :class:`StoreView` has its reservations *simulated* on cloned
+    allocators, and ``commit_reservations`` lands them on the live store
+    at commit time.  ``reads_by_tier`` carries the staging read charge
+    for optimistic plans (the unlocked copy stages every pending page,
+    including ones later dropped for capacity, so the asynchronous
+    commit charges the reads the synchronous path would).
     """
     dst_tier: int
     pages: np.ndarray       # int64 [k]
@@ -327,6 +362,31 @@ def plan_optimistic(store, pages: Iterable[int], dst_tier: int,
     )
 
 
+class StoreView:
+    """Immutable-world facade for the asynchronous plan phase.
+
+    Snapshots the placement-visible store state (page table, version
+    counters, cloned per-tier allocators) at a dispatch boundary — numpy
+    and plain Python only, so the plan worker touches no tensor and
+    issues no device work.  ``plan_locked`` / ``plan_optimistic`` run
+    against it (they only touch ``tier``/``slot``/``alloc``), simulating
+    Algorithm-2 reservations off-thread while the next dispatch runs.
+    Creating the view also records each tier allocator's generation
+    counter and opens the store's dirty-page epoch: the commit validates
+    per page against the epoch's dirty set and adopts any clone whose
+    tier saw no interleaved allocator call."""
+
+    def __init__(self, store: TierStore):
+        self.tier = store.tier.copy()
+        self.slot = store.slot.copy()
+        self.version = store.version.copy()
+        self.alloc = [a.clone() for a in store.alloc]
+        self.alloc_gen = [a.gen for a in store.alloc]
+        self.hierarchy = store.hierarchy
+        self.n_tiers = store.n_tiers
+        store.begin_dirty_epoch()
+
+
 def subset_plan(plan: MigrationPlan, keep: np.ndarray) -> MigrationPlan:
     """The sub-plan of ``plan`` restricted to the kept pages (bool mask);
     ``trivial`` and ``reads_by_tier`` carry over whole."""
@@ -361,6 +421,81 @@ def _group_decision(store, decision: placement.PlacementDecision
             continue
         (promos if dst < src else demos)[dst].append(int(p))
     return promos, demos
+
+
+def plan_decision(store, decision: placement.PlacementDecision,
+                  bank_freq: np.ndarray | None = None,
+                  slab_freq: np.ndarray | None = None,
+                  reuse_class: np.ndarray | None = None) -> list[MigrationPlan]:
+    """Reserve every migration of a ``PlacementDecision`` without moving
+    data: the same destination grouping and allocator call order as
+    ``execute_decision`` (promotions per dst tier shallowest-first via
+    the locked sequence, then demotions via the optimistic sequence), so
+    a conflict-free commit lands every page in exactly the slot the
+    synchronous pass would have picked.  ``store`` may be a live
+    ``TierStore`` or a :class:`StoreView` snapshot."""
+    promos, demos = _group_decision(store, decision)
+    plans: list[MigrationPlan] = []
+    for dst in range(store.n_tiers):
+        if promos[dst]:
+            plans.append(plan_locked(store, promos[dst], dst, bank_freq,
+                                     slab_freq, reuse_class))
+    for dst in range(store.n_tiers):
+        if demos[dst]:
+            plans.append(plan_optimistic(store, demos[dst], dst, bank_freq,
+                                         slab_freq, reuse_class))
+    return plans
+
+
+def _replay_calls(store: TierStore, plan: MigrationPlan) -> np.ndarray:
+    """Re-issue one plan's recorded allocator calls on the live store, in
+    order.  Interleaved allocator activity (tail-page provisioning,
+    promotion frees) means the live free lists no longer match the
+    snapshot clones, so a call may land on a *different* slot than the
+    plan simulated — not a conflict: the page is still clean, and the
+    slot obtained is the one a synchronous pass planning at this
+    boundary would take, so the plan is patched to it in place.  Only a
+    capacity failure (the tier full even after the any-color fallback)
+    drops a reservation.  Returns the bool landed-mask."""
+    assert plan.colors is not None and plan.masks is not None, \
+        "replay needs a plan with recorded allocator calls"
+    ok = np.zeros(len(plan), bool)
+    for i in range(len(plan)):
+        c, m = int(plan.colors[i]), int(plan.masks[i])
+        s = store.alloc[plan.dst_tier].alloc(
+            0, None if c < 0 else c, None if m < 0 else m)
+        if s is None and c >= 0:
+            s = store.alloc[plan.dst_tier].alloc(0, None)
+        if s is None:
+            continue
+        plan.dst_slots[i] = s
+        ok[i] = True
+    return ok
+
+
+def commit_reservations(store: TierStore, view: StoreView,
+                        plans: list[MigrationPlan]) -> list[np.ndarray]:
+    """Make the live allocators hold each plan's reservations; returns
+    one bool landed-mask per plan (False = no capacity left for that
+    page at commit time).  A destination tier whose live generation
+    counter still equals the snapshot's saw no allocator call during the
+    dispatch, so the view's clone — which already holds every simulated
+    reservation — becomes the live allocator (O(1), slots exactly as
+    simulated).  Tiers with interleaved activity replay the recorded
+    calls (:func:`_replay_calls`)."""
+    landed = [np.zeros(len(pl), bool) for pl in plans]
+    by_tier: dict[int, list[int]] = {}
+    for i, pl in enumerate(plans):
+        by_tier.setdefault(pl.dst_tier, []).append(i)
+    for t, idxs in by_tier.items():
+        if store.alloc[t].gen == view.alloc_gen[t]:
+            store.alloc[t] = view.alloc[t]
+            for i in idxs:
+                landed[i][:] = True
+        else:
+            for i in idxs:        # plan order == simulation order
+                landed[i] = _replay_calls(store, plans[i])
+    return landed
 
 
 def execute_decision(engine, decision: placement.PlacementDecision,
@@ -407,6 +542,121 @@ def _note_retries_exhausted(st: MigrationStats, n: int) -> None:
             "pages dropped at the optimistic dirty-retry cap").inc(n)
 
 
+# =============================================================================
+# reference engine (per-page loop) — the parity oracle
+# =============================================================================
+
+class MigrationEngine:
+    """The per-page reference engine: one ``TierStore.move_page`` per
+    locked page, one ``read_page`` per staged optimistic page.  Same
+    constructor and ``migrate_locked`` / ``migrate_optimistic`` /
+    ``execute`` signatures as :class:`BatchedMigrationEngine`, and the
+    same allocator calls in the same order, so both land every page in
+    the same slot; it has no ``execute_plan`` and so cannot serve the
+    asynchronous pass."""
+
+    def __init__(self, store: TierStore, *, max_retries: int = 3,
+                 retry_backoff_s: float = 1e-3):
+        self.store = store
+        self.max_retries = max_retries
+        self.retry_backoff_s = retry_backoff_s
+        self.stats = MigrationStats()
+
+    # -- locked path -----------------------------------------------------------
+    def migrate_locked(self, pages: Iterable[int], dst_tier: int,
+                       bank_freq: np.ndarray | None = None,
+                       slab_freq: np.ndarray | None = None,
+                       reuse_class: np.ndarray | None = None) -> MigrationStats:
+        st = MigrationStats()
+        store = self.store
+        bank_freq = None if bank_freq is None else np.array(bank_freq)
+        for p in pages:
+            src_tier = int(store.tier[p])
+            rc = None if reuse_class is None else int(reuse_class[p])
+            color, mask = target_color(store, dst_tier, bank_freq, slab_freq,
+                                       rc)
+            if not store.move_page(int(p), dst_tier, color, mask):
+                continue
+            st.migrated += 1
+            st.bytes_moved += store.page_nbytes
+            _classify(st, dst_tier, 1)
+            if src_tier != dst_tier:           # trivial moves shift no bytes
+                st.note_move(src_tier, dst_tier)
+            if bank_freq is not None:
+                # account the move so subsequent picks spread across banks
+                cfg = store.alloc[dst_tier].cfg
+                bank_freq[cfg.bank_of(int(store.slot[p]))
+                          % len(bank_freq)] += 1
+        self.stats.merge(st)
+        return st
+
+    # -- optimistic (unlocked DMA) path ---------------------------------------
+    def migrate_optimistic(self, pages: Iterable[int], dst_tier: int,
+                           bank_freq: np.ndarray | None = None,
+                           slab_freq: np.ndarray | None = None,
+                           reuse_class: np.ndarray | None = None,
+                           concurrent_writer: Callable[[], None] | None = None
+                           ) -> MigrationStats:
+        """Copy without locking; commit only pages not dirtied mid-copy.
+        ``concurrent_writer`` is a test hook invoked once between the
+        copy and the version re-check, standing in for writes that land
+        while the copy is in flight."""
+        st = MigrationStats()
+        store = self.store
+        pending = [int(p) for p in dict.fromkeys(int(p) for p in pages)
+                   if int(store.tier[p]) != dst_tier
+                   and int(store.slot[p]) != NO_SLOT]
+        bank_freq = None if bank_freq is None else np.array(bank_freq)
+        for attempt in range(self.max_retries + 1):
+            if not pending:
+                break
+            if attempt > 0:
+                st.retries += 1
+                time.sleep(self.retry_backoff_s * (1 << (attempt - 1)))
+            # 1) snapshot versions, 2) copy every pending page to staging
+            vsnap = {p: int(store.version[p]) for p in pending}
+            staged = {p: store.read_page(p) for p in pending}
+            if concurrent_writer is not None:
+                concurrent_writer()
+                concurrent_writer = None   # the writer fires once
+            # 3) dirty check + commit clean pages
+            dirty: list[int] = []
+            for p in pending:
+                if int(store.version[p]) != vsnap[p]:
+                    dirty.append(p)        # discarded: retried next attempt
+                    st.dirty_discards += 1
+                    continue
+                rc = None if reuse_class is None else int(reuse_class[p])
+                new_slot = _alloc_target_slot(store, dst_tier, bank_freq,
+                                              slab_freq, rc)
+                if new_slot is None:
+                    continue
+                old_tier, old_slot = int(store.tier[p]), int(store.slot[p])
+                if store.is_device_tier(dst_tier):
+                    store.pools[dst_tier].write_one(new_slot, staged[p])
+                else:
+                    store._host_write(dst_tier, new_slot, staged[p])
+                store.alloc[old_tier].free(old_slot, 0)
+                store.tier[p] = dst_tier
+                store.slot[p] = new_slot
+                store._mark_dirty(p)
+                store.traffic[(old_tier, dst_tier)] += store.page_nbytes
+                st.migrated += 1
+                st.bytes_moved += store.page_nbytes
+                _classify(st, dst_tier, 1)
+                st.note_move(old_tier, dst_tier)
+            pending = dirty
+        _note_retries_exhausted(st, len(pending))
+        self.stats.merge(st)
+        return st
+
+    # -- policy-selected execution ---------------------------------------------
+    def execute(self, decision: placement.PlacementDecision,
+                bank_freq: np.ndarray | None = None,
+                slab_freq: np.ndarray | None = None,
+                reuse_class: np.ndarray | None = None) -> MigrationStats:
+        return execute_decision(self, decision, bank_freq, slab_freq,
+                                reuse_class)
 
 
 # =============================================================================

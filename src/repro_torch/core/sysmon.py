@@ -64,7 +64,8 @@ class PassSummary(NamedTuple):
     slab_freq: torch.Tensor
 
     def numpy(self) -> "PassSummary":
-        """The same summary with numpy leaves (one device sync), the form
+        """The same summary with numpy leaves (one device-to-host copy per
+        field, nine in all), the form
         the host-side placement planner consumes."""
         return PassSummary(*[f.cpu().numpy() for f in self])
 

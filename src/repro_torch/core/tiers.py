@@ -271,11 +271,13 @@ class DevicePool:
                                 device=device)
 
     def write_one(self, slot: int, value) -> None:
-        self.data[slot] = torch.as_tensor(np.asarray(value, np.float32)).to(
-            device=self.data.device, dtype=self.dtype)
+        """One float32 page into ``slot`` (``page_scatter``)."""
+        self.scatter([slot], torch.from_numpy(
+            np.asarray(value, np.float32)[None]).to(self.data.device))
 
     def read_one(self, slot: int) -> np.ndarray:
-        return self.data[slot].float().cpu().numpy()
+        """One page as float32 numpy (``page_gather``)."""
+        return self.gather([slot])[0].float().cpu().numpy()
 
     def gather(self, slots) -> torch.Tensor:
         """Pack discontiguous slots into one contiguous staging tensor
@@ -325,9 +327,12 @@ class HostPool:
         self.data[phys] = to_host_raw(v)
 
     def read_one(self, phys: int) -> np.ndarray:
+        """One page as float32, a copy (a float32 pool's row would
+        otherwise come back as a view that later writes change)."""
         if self.quantized:
             return self.data[phys].astype(np.float32) * self.scale[phys]
-        return from_host_raw(self.data[phys], self.dtype).float().numpy()
+        return np.array(from_host_raw(self.data[phys],
+                                      self.dtype).float().numpy())
 
     def write_raw(self, phys: np.ndarray, raw) -> None:
         _check_pages_match(raw, self.quantized)
@@ -558,8 +563,13 @@ class TierStore:
 
     # -- dirty-set epochs -----------------------------------------------------
     def begin_dirty_epoch(self) -> None:
-        """Start recording pages whose placement (tier/slot) or contents
-        (``write_page`` / ``bump_version``) change."""
+        """Start recording pages whose plan-invalidating state changes:
+        placement (tier/slot — allocate, release, moves) and external
+        content writes (``write_page`` / ``bump_version``).  Opened when
+        an asynchronous memos pass snapshots the store; the commit reads
+        the set back and only those pages can be stale.  Dispatch access
+        charges are excluded, as in the JAX store: they account in-place
+        appends, and a commit-time migration reads the bytes fresh."""
         self._dirty_pages.clear()
         self._dirty_tracking = True
 
@@ -818,6 +828,40 @@ class TierStore:
         for t in np.unique(src_tiers):
             k = int((src_tiers == t).sum())
             self.traffic[(int(t), dst_tier)] += self.page_nbytes * k
+
+    # -- migration primitive (single page, already planned) -------------------
+    def move_page(self, page: int, dst_tier: int, color: int | None = None,
+                  color_mask: int | None = None) -> bool:
+        """Synchronous ('locked CPU copy') single-page move between any
+        two tiers, the reference migration engine's primitive: the page
+        travels as float32 through the host (device tiers read and write
+        it with ``page_gather`` / ``page_scatter``, host tiers through
+        their wear remap, checksums and per-page quantizer)."""
+        src_tier = int(self.tier[page])
+        if src_tier == dst_tier:
+            return True
+        if int(self.slot[page]) == NO_SLOT:
+            return False                   # released page: nothing to move
+        data = self.read_page(page)
+        new_slot = self.alloc[dst_tier].alloc(0, color, color_mask)
+        if new_slot is None and color is not None:
+            # Algorithm 2 exhausted its slab walk: fall back to any color
+            # rather than dropping the migration (capacity is the real bound)
+            new_slot = self.alloc[dst_tier].alloc(0, None)
+        if new_slot is None:
+            return False
+        old_slot = int(self.slot[page])
+        if self.is_device_tier(dst_tier):
+            self.pools[dst_tier].write_one(new_slot, data)
+        else:
+            self._host_write(dst_tier, new_slot, data)
+        self.alloc[src_tier].free(old_slot, 0)
+        self.integrity.drop(src_tier, [old_slot])
+        self.tier[page] = dst_tier
+        self.slot[page] = new_slot
+        self._mark_dirty(page)
+        self.traffic[(src_tier, dst_tier)] += self.page_nbytes
+        return True
 
     def tier_used(self) -> list[int]:
         """Live page count per tier."""

@@ -1,27 +1,30 @@
-"""Degradation ladder + circuit breaker (the torch twin of
-``repro.faults.degradation`` for the synchronous memos pass).
+"""Three-rung degradation ladder + circuit breaker (the torch twin of
+``repro.faults.degradation``).
 
-    rung 1  SYNC       synchronous memos pass
+    rung 2  OVERLAP    asynchronous plan on the worker thread
+    rung 1  SYNC       synchronous memos pass (no worker exposure)
     rung 0  MEMOS_OFF  no planning/migration at all — serve-only
 
-A failed pass (a migration group that faulted past its retry budget, or
-a page that failed its promotion pre-flight) demotes one rung and
-resets the health streak; after ``recovery_passes`` consecutive healthy
-passes the breaker re-promotes one rung, so a storm degrades boundedly
-and memos comes back once the media calms down.  The JAX ladder's top
-rung (the overlapped plan) waits for the asynchronous memos pass.  The
-current rung is published as the ``faults.ladder_rung`` gauge.
+A failed pass (a plan-watchdog fallback, a migration group that faulted
+past its retry budget, or a page that failed its promotion pre-flight)
+demotes one rung and resets the health streak; after
+``recovery_passes`` consecutive healthy passes the breaker re-promotes
+one rung, so a storm degrades boundedly and the pipeline climbs back to
+full overlap once it calms down.  The current rung is published as the
+``faults.ladder_rung`` gauge.
 """
 from __future__ import annotations
 
 RUNG_OFF = 0
 RUNG_SYNC = 1
+RUNG_OVERLAP = 2
 
-_RUNG_NAMES = {RUNG_OFF: "memos-off", RUNG_SYNC: "sync"}
+_RUNG_NAMES = {RUNG_OFF: "memos-off", RUNG_SYNC: "sync",
+               RUNG_OVERLAP: "overlap"}
 
 
 class DegradationLadder:
-    def __init__(self, top: int = RUNG_SYNC, recovery_passes: int = 3):
+    def __init__(self, top: int = RUNG_OVERLAP, recovery_passes: int = 3):
         if top not in _RUNG_NAMES:
             raise ValueError(f"top rung {top} is not one of "
                              f"{sorted(_RUNG_NAMES)}")
@@ -66,5 +69,6 @@ class DegradationLadder:
     def _publish(self) -> None:
         from repro_torch import obs
         obs.get_registry().gauge(
-            "faults.ladder_rung", "degradation rung: 1=sync 0=memos-off",
+            "faults.ladder_rung",
+            "degradation rung: 2=overlap 1=sync 0=memos-off",
         ).set(self.rung)

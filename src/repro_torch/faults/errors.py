@@ -1,11 +1,11 @@
 """Structured fault exceptions, split by who recovers (a copy of
-``repro.faults.errors`` without the plan-worker fault, which waits for
-the asynchronous memos pass):
+``repro.faults.errors``):
 
 * :class:`CapacityError` / :class:`PageCorruptionError` fail one
   request cleanly (``Request.error``) while the engine keeps serving;
-* :class:`TransientMigrationFault` is injected beneath the migration
-  engine's retry loop and should normally never escape to a caller.
+* :class:`TransientMigrationFault` / :class:`InjectedPlanFault` are
+  injected beneath the migration engine's retry loop and the memos
+  plan watchdog, and should normally never escape to a caller.
 """
 from __future__ import annotations
 
@@ -42,3 +42,8 @@ class PageCorruptionError(FaultError):
 class TransientMigrationFault(FaultError):
     """Injected failure of one per-(src,dst) bulk move; retried with
     backoff by the migration engine, surfaced only past the cap."""
+
+
+class InjectedPlanFault(FaultError):
+    """Injected exception inside the asynchronous plan worker; absorbed
+    by the MemosManager watchdog (sync fallback + ladder demotion)."""

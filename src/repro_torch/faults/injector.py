@@ -1,10 +1,8 @@
 """Deterministic, seeded fault injector — the torch twin of
-``repro.faults.injector`` (the media, migration and allocation sites;
-the asynchronous plan-worker site waits for the asynchronous memos
-pass).
+``repro.faults.injector``.
 
 One module-global :class:`FaultInjector` (``faults.configure(...)`` /
-``faults.reset()``) feeds three injection sites:
+``faults.reset()``) feeds four injection sites:
 
 * **NVM media errors** (:meth:`FaultInjector.tick`, called by the
   serving engine at the end of every step boundary): seeded single-bit
@@ -16,6 +14,10 @@ One module-global :class:`FaultInjector` (``faults.configure(...)`` /
   flipped through each pool's zero-copy numpy view (``pool.raw()``),
   which waits for the card's stream first, so a flip never races a
   dispatch that is still writing the pinned pool.
+* **plan-worker faults** (:meth:`maybe_plan_fault`, called inside
+  ``MemosManager._plan_job`` on the worker thread): injected exceptions
+  and artificial latency; a delay longer than ``plan_timeout_s`` is the
+  hang that trips the watchdog.
 * **migration faults** (:meth:`maybe_migration_fault`, at the head of
   every per-(src,dst) bulk move): transient failures beneath the
   migration engine's retry-with-backoff loop.
@@ -24,15 +26,18 @@ One module-global :class:`FaultInjector` (``faults.configure(...)`` /
 
 Each site draws from its own seeded stream, seeded as the JAX
 package's are, so a seed replays the same storm in both packages over
-the same store state.  Disarmed, no site touches an RNG or any state.
+the same store state; the plan stream is drawn only on the worker
+thread, so its draws never race the main thread's.  Disarmed, no site
+touches an RNG or any state.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 
-from .errors import TransientMigrationFault
+from .errors import InjectedPlanFault, TransientMigrationFault
 
 _NO_SLOT = -1      # mirrors tiers.NO_SLOT (faults sits below core)
 
@@ -44,6 +49,10 @@ class FaultConfig:
     media_flip_rate: float = 0.0      # transient single-bit flips
     media_stuck_rate: float = 0.0     # persistent stuck-at bits
     wear_bias: float = 4.0            # fault-rate multiplier slope vs. mean wear
+    # asynchronous plan worker
+    plan_exception_rate: float = 0.0  # per plan job
+    plan_delay_rate: float = 0.0      # per plan job
+    plan_delay_s: float = 0.0         # > plan_timeout_s == a hang
     # migration bulk moves
     migrate_fail_rate: float = 0.0    # per per-(src,dst) move attempt
     # allocator
@@ -56,15 +65,17 @@ class FaultInjector:
         self.cfg = cfg or FaultConfig(enabled=False)
         self.enabled = cfg is not None and self.cfg.enabled
         s = self.cfg.seed
-        # one stream per site, at the JAX package's seed offsets (s + 1
-        # is its plan-worker stream)
+        # one stream per site, at the JAX package's seed offsets: the
+        # plan stream is drawn on the worker thread, the rest on the main
+        # thread, so a seed's storm does not depend on thread interleaving
         self._rng_media = np.random.RandomState(s)
+        self._rng_plan = np.random.RandomState(s + 1)
         self._rng_migrate = np.random.RandomState(s + 2)
         self._rng_alloc = np.random.RandomState(s + 3)
         # persistent stuck-at bits: tier -> list of (phys, byte, bit, val)
         self._stuck: dict[int, list[tuple[int, int, int, int]]] = {}
-        self.counts = {"media_flip": 0, "media_stuck": 0, "migrate": 0,
-                       "alloc": 0}
+        self.counts = {"media_flip": 0, "media_stuck": 0, "plan_exception": 0,
+                       "plan_delay": 0, "migrate": 0, "alloc": 0}
 
     # -- shared accounting -----------------------------------------------------
     def _note(self, kind: str, n: int = 1) -> None:
@@ -162,7 +173,22 @@ class FaultInjector:
         flat[byte] ^= np.uint8(1 << bit)
         return True
 
-    # -- site 2: migration bulk moves -----------------------------------------
+    # -- site 2: asynchronous plan worker --------------------------------------
+    def maybe_plan_fault(self) -> None:
+        """Called inside the plan job, on the worker thread."""
+        if not self.enabled:
+            return
+        c = self.cfg
+        if (c.plan_delay_rate > 0 and c.plan_delay_s > 0
+                and self._rng_plan.random_sample() < c.plan_delay_rate):
+            self._note("plan_delay")
+            time.sleep(c.plan_delay_s)
+        if (c.plan_exception_rate > 0
+                and self._rng_plan.random_sample() < c.plan_exception_rate):
+            self._note("plan_exception")
+            raise InjectedPlanFault("injected plan-worker exception")
+
+    # -- site 3: migration bulk moves -----------------------------------------
     def maybe_migration_fault(self, src_tier: int, dst_tier: int,
                               pages: int) -> None:
         if not self.enabled or self.cfg.migrate_fail_rate <= 0:
@@ -173,7 +199,7 @@ class FaultInjector:
                 f"injected transient fault moving {pages} pages "
                 f"t{src_tier}->t{dst_tier}")
 
-    # -- site 3: allocation pressure ------------------------------------------
+    # -- site 4: allocation pressure ------------------------------------------
     def maybe_alloc_fail(self, tier: int) -> bool:
         if not self.enabled or self.cfg.alloc_fail_rate <= 0:
             return False
@@ -184,8 +210,9 @@ class FaultInjector:
 
 
 def note_recovered(kind: str, n: int = 1) -> None:
-    """Record a successful recovery action (retry landed, slot
-    quarantined, backpressure, rung re-promoted) into the obs registry."""
+    """Record a successful recovery action (retry landed, sync fallback
+    served, slot quarantined, backpressure, rung re-promoted) into the
+    obs registry."""
     from repro_torch import obs
     reg = obs.get_registry()
     reg.counter("faults.recovered", "total recovery actions").inc(n)

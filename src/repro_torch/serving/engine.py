@@ -14,7 +14,11 @@ Host-side ``step()`` runs only at dispatch boundaries, in the JAX
 engine's order: admit/resume requests, provision tail pages for the
 next K positions (shrinking K, then preempting, under HBM pressure),
 dispatch, charge accesses, retire finished sequences, and run the memos
-pass (plan + migrate + wear/energy snapshot) between dispatches.
+pass (plan + migrate + wear/energy snapshot) between dispatches.  With
+``ServeConfig(overlap_plan=True)`` the pass's plan runs on a worker
+thread across the *next* dispatch and commits at the following boundary
+(``core/memos.py``); the pages a commit demoted out from under running
+sequences are promoted back before the next snapshot.
 
 ``ServeConfig(reference=True)`` keeps the K=1 path — host argmax and
 standalone per-step SysMon records — as the parity oracle for the fused
@@ -52,8 +56,8 @@ the dispatch is about to serve, refreshes the checksums of pinned rows
 the dispatch appended to, and ticks the injector last, so each
 corruption meets a detection point before the next serve.
 
-The overlapped memos plan, QoS and MoE are not ported; a
-``ServeConfig`` asking for them raises ``NotImplementedError``.  The KV
+QoS and MoE are not ported; a ``ServeConfig`` asking for QoS raises
+``NotImplementedError``, and the engine refuses MoE archs.  The KV
 pool takes the parameters' dtype (bfloat16 weights serve from a
 bfloat16 pool).
 """
@@ -115,17 +119,17 @@ class ServeConfig:
     prefill_max_bucket: int | None = None
     # pack several short prompts into one bucket row (segment-isolated)
     prefill_pack: bool = True
-    # not ported: refused at construction
+    # overlap the memos *plan* phase with the next dispatch on a worker
+    # thread (snapshot -> plan -> commit; the pass's migrations commit at
+    # the following dispatch boundary, pages dirtied mid-plan degrade to
+    # the next pass)
     overlap_plan: bool = False
+    # not ported: refused at construction
     qos: object | None = None
 
     def __post_init__(self):
-        asked = [name for name, on in (
-            ("overlap_plan", self.overlap_plan),
-            ("qos", self.qos is not None)) if on]
-        if asked:
-            raise NotImplementedError(
-                f"not ported to repro_torch yet: {', '.join(asked)}")
+        if self.qos is not None:
+            raise NotImplementedError("not ported to repro_torch yet: qos")
 
 
 def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
@@ -175,7 +179,8 @@ class PagedServingEngine:
             n_slabs=store.cfg.n_slabs, device=self.device)
         self.memos = MemosManager(store, MemosConfig(
             interval=scfg.memos_interval, adaptive_interval=False,
-            lifetime_horizon_years=scfg.lifetime_horizon_years))
+            lifetime_horizon_years=scfg.lifetime_horizon_years,
+            async_plan=scfg.overlap_plan))
         self.batcher = ContinuousBatcher(scfg.max_batch)
         self.step_count = 0
         self.tokens_out = 0
@@ -967,20 +972,36 @@ class PagedServingEngine:
 
         # 6) memos pass between dispatches (hot pages stay; cold /
         # preempted pages drain to the host tier), then one bulk promotion
-        # for every page it demoted out from under a running sequence
+        # for every page it demoted out from under a running sequence.
+        # With overlap_plan the pass's plan runs on a worker thread across
+        # the next dispatch and commits at the following boundary
+        # (maybe_step returns that commit's report)
         if self.scfg.memos_enabled:
             # the sampling clock also advances by the prompt tokens prefill
             # ingested since the last tick
             pending = self._prefill_tokens_pending
             self._prefill_tokens_pending = 0
+            # on_commit: re-promote pages an async commit demoted out from
+            # under running sequences before the next plan snapshots, so
+            # the promotion is inside that snapshot, not a mid-plan dirt
             self.sysmon, report = self.memos.maybe_step(
-                self.sysmon, steps=k + pending)
+                self.sysmon, steps=k + pending,
+                on_commit=lambda rep: self._promote_all(
+                    list(self.batcher.active)))
             if report is not None:
                 stats["memos"] = {
                     "migrated": report.migrations.migrated,
                     "to_fast": report.migrations.to_fast,
                     "to_slow": report.migrations.to_slow,
                     "wear_pressure": report.wear_pressure,
+                    "power_pressure": report.power_pressure,
+                    "power_throttle": report.power_throttle,
+                    "power_mw": report.power_mw,
+                    "committed_async": report.committed_async,
+                    "plan_conflict": report.plan_conflict,
+                    "pages_committed": report.pages_committed,
+                    "pages_degraded": report.pages_degraded,
+                    "pages_dropped": report.pages_dropped,
                 }
                 if report.nvm is not None:
                     stats["nvm"] = {
@@ -989,7 +1010,9 @@ class PagedServingEngine:
                         "dynamic_power_mw": report.nvm.dynamic_power_mw,
                         "lifetime_years": report.nvm.lifetime_years_actual,
                     }
-                self._promote_all(list(self.batcher.active))
+                # (async commits already promoted through on_commit)
+                if not self.scfg.overlap_plan:
+                    self._promote_all(list(self.batcher.active))
         else:
             # no memos pass rolls the bandwidth window: roll it here
             store.roll_traffic_window()
@@ -1012,4 +1035,15 @@ class PagedServingEngine:
         hist = []
         while not self.batcher.all_done() and self.step_count < max_steps:
             hist.append(self.step())
+        # commit any plan still overlapping when the workload drains, so
+        # the store and telemetry are consistent for inspection
+        if self.scfg.memos_enabled:
+            report = self.memos.flush()
+            if report is not None and self.batcher.active:
+                self._promote_all(list(self.batcher.active))
         return hist
+
+    def close(self) -> None:
+        """Release the engine's background resources (the asynchronous
+        memos plan worker); safe to call more than once."""
+        self.memos.close()

@@ -6,7 +6,8 @@ where the JAX package can run (its pinned pool aborts on this CPU,
 ROADMAP C1): the same seed over the same store state must inject the
 same faults, the checksums must catch every single-bit flip, quarantine
 must retire slots the same way, and the migration retry, pre-flight and
-degradation ladder must make the same decisions.  Everything compared
+degradation ladder (overlap, sync, memos-off) must make the same
+decisions; the plan-worker site draws the same faults per seed.  Everything compared
 here is integer or stored-bit state, so it is compared exactly.  The
 last test is a media storm on the port's pinned engine: no request
 ever emits a corrupted token.
@@ -32,8 +33,9 @@ from repro_torch.core import sysmon, tiers
 from repro_torch.core.hierarchy import MemoryHierarchy
 from repro_torch.core.memos import MemosConfig, MemosManager
 from repro_torch.core.migration import BatchedMigrationEngine
-from repro_torch.faults import (RUNG_OFF, RUNG_SYNC, DegradationLadder,
-                                FaultConfig, FaultInjector,
+from repro_torch.faults import (RUNG_OFF, RUNG_OVERLAP, RUNG_SYNC,
+                                DegradationLadder, FaultConfig,
+                                FaultInjector, InjectedPlanFault,
                                 PageCorruptionError)
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import PagedServingEngine, ServeConfig
@@ -163,8 +165,8 @@ def test_injector_matches_jax_per_seed_and_inert_when_disarmed(pinned):
     jinj = jfaults.FaultInjector(jfaults.FaultConfig(**cfg))
     jn = sum(jinj.tick(jstore) for _ in range(5))
     assert outs[0][0] == outs[1][0] == jn > 0
-    assert outs[0][1] == outs[1][1] == {
-        k: jinj.counts[k] for k in outs[0][1]}
+    assert set(outs[0][1]) == set(jinj.counts)
+    assert outs[0][1] == outs[1][1] == jinj.counts
     assert_same(outs[0][2], outs[1][2])
     assert_same(outs[0][2], jstore.pools[1].data)
 
@@ -173,6 +175,43 @@ def test_injector_matches_jax_per_seed_and_inert_when_disarmed(pinned):
     off = FaultInjector(None)
     assert off.tick(store) == 0 and off.total_injected == 0
     assert_same(before, _raw(store, 1))
+
+
+@pytest.mark.parametrize("seed", [0, 21])
+def test_plan_fault_site_matches_jax_per_seed(seed):
+    """The plan-worker site draws from its own stream (seed + 1), delay
+    first, then exception: 40 jobs inject the same faults, in the same
+    order, with the same counts, as the JAX injector; the other sites'
+    streams are untouched by it."""
+    cfg = dict(seed=seed, plan_exception_rate=0.3, plan_delay_rate=0.4,
+               plan_delay_s=1e-4, migrate_fail_rate=0.5)
+    runs = []
+    for inj in (FaultInjector(FaultConfig(**cfg)),
+                jfaults.FaultInjector(jfaults.FaultConfig(**cfg))):
+        seq = []
+        for _ in range(40):
+            before = inj.counts["plan_delay"]
+            try:
+                inj.maybe_plan_fault()
+                seq.append((inj.counts["plan_delay"] - before, 0))
+            except Exception as e:
+                seq.append((inj.counts["plan_delay"] - before,
+                            type(e).__name__))
+        migrate = []
+        for _ in range(10):
+            try:
+                inj.maybe_migration_fault(0, 1, 1)
+                migrate.append(0)
+            except Exception:
+                migrate.append(1)
+        runs.append((seq, migrate, dict(inj.counts)))
+    assert runs[0] == runs[1]
+    seq, _, counts = runs[0]
+    assert counts["plan_exception"] > 0 and counts["plan_delay"] > 0
+    assert {e for _, e in seq} == {0, InjectedPlanFault.__name__}
+    off = FaultInjector(None)
+    off.maybe_plan_fault()
+    assert off.total_injected == 0
 
 
 @pytest.mark.parametrize("pinned", [False, True])
@@ -311,22 +350,28 @@ def test_promotion_preflight_quarantines_corrupt_source(pinned):
 # =============================================================================
 
 def test_ladder_unit_semantics_match_jax():
-    """The sync/memos-off ladder walks exactly as the JAX ladder with the
-    same top rung does."""
-    lad = DegradationLadder(top=RUNG_SYNC, recovery_passes=3)
-    jlad = jfaults.DegradationLadder(top=jfaults.RUNG_SYNC,
-                                     recovery_passes=3)
-    assert lad.rung == RUNG_SYNC and lad.rung_name == "sync"
-    walk = ["f", "f", "h", "h", "h", "h", "f", "h", "h", "h", "f"]
-    for op in walk:
-        a = lad.record_failure(op) if op == "f" else lad.record_healthy()
-        b = jlad.record_failure(op) if op == "f" else jlad.record_healthy()
-        assert (a, lad.rung) == (b, jlad.rung)
-    assert lad.rung == RUNG_OFF
-    assert (lad.demotions, lad.promotions, lad.failures) == \
-        (jlad.demotions, jlad.promotions, jlad.failures)
+    """The overlap/sync/memos-off ladder walks exactly as the JAX ladder
+    with the same top rung does, from either top; by default its top is
+    overlap, as the JAX ladder's is."""
+    walk = ["f", "f", "h", "h", "h", "h", "f", "h", "h", "h", "f", "f",
+            "h", "h", "h", "h", "h", "h", "h", "f"]
+    for top in (RUNG_SYNC, RUNG_OVERLAP):
+        lad = DegradationLadder(top=top, recovery_passes=3)
+        jlad = jfaults.DegradationLadder(top=top, recovery_passes=3)
+        assert lad.rung == top and lad.rung_name == jlad.rung_name
+        for op in walk:
+            a = lad.record_failure(op) if op == "f" else lad.record_healthy()
+            b = (jlad.record_failure(op) if op == "f"
+                 else jlad.record_healthy())
+            assert (a, lad.rung, lad.rung_name) == (b, jlad.rung,
+                                                    jlad.rung_name)
+        assert (lad.demotions, lad.promotions, lad.failures) == \
+            (jlad.demotions, jlad.promotions, jlad.failures)
+    assert DegradationLadder().top == jfaults.DegradationLadder().top \
+        == RUNG_OVERLAP
+    assert DegradationLadder().rung_name == "overlap"
     with pytest.raises(ValueError):
-        DegradationLadder(top=2)
+        DegradationLadder(top=3)
 
 
 def _record4(sm, record, seed=7):

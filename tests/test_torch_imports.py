@@ -87,9 +87,24 @@ def test_entry_points_raise_without_cuda(entry):
 @pytest.mark.parametrize("field,value", [("overlap_plan", True),
                                          ("qos", object())])
 def test_serve_config_refuses_unported_features(field, value):
-    from repro_torch.serving.engine import ServeConfig
-    with pytest.raises(NotImplementedError, match=field):
-        ServeConfig(**{field: value})
+    """QoS is refused at construction.  ``overlap_plan``, ported, builds
+    an engine whose memos runs the asynchronous pass with the ladder's
+    top rung at overlap."""
+    from repro_torch.configs.base import registry, smoke
+    from repro_torch.faults import RUNG_OVERLAP
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import PagedServingEngine, ServeConfig
+    if field == "qos":
+        with pytest.raises(NotImplementedError, match=field):
+            ServeConfig(**{field: value})
+        return
+    cfg = smoke(registry()["qwen3_4b"])
+    eng = PagedServingEngine(cfg, init_params(cfg, device="cpu"),
+                             ServeConfig(**{field: value}), device="cpu")
+    assert eng.memos.cfg.async_plan
+    assert eng.memos.ladder.top == eng.memos.ladder.rung == RUNG_OVERLAP
+    assert eng.memos.ladder.rung_name == "overlap"
+    eng.close()
 
 
 def test_serve_config_refuses_pinned_tiers():
