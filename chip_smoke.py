@@ -109,6 +109,32 @@ prints no result line):
      (``InjectedPlanFault``, ``timeout``) must run synchronous passes,
      the ladder must drop to ``sync`` and climb back to ``overlap``, and
      0 tokens may differ from phase 2's;
+ 21. ``qos_overload``: the committed ``benchmarks/traces/
+     mixed_overload.jsonl`` (69 requests, tenants lc/std/bat) replayed
+     on the engine's step clock at full qwen3_4b width in bf16 over
+     ``two_tier(12, 96, pinned_slow=True)`` (page 8, batch 4, K = 4,
+     memos every 8 steps, 8 pages a sequence, prefill on, synchronous
+     memos), once through a QoS-aware engine (tenant classes from
+     ``tenant_for_class``) and once through a blind one (``qos=None``):
+     every request completes, each request's tokens are the same in both
+     runs, lc's step-clock TTFT p99 (first-token step - arrival) aware
+     <= blind, and K1, ``qkv_rope_append``, K2, K3 and K7 launch;
+     reported per tenant: TTFT p50/p99 on both clocks, mean inter-token
+     latency, e2e p99, SLO attainment, and preemptions, admissions and
+     tokens/s of each run;
+ 22. ``qos_power``: ``steady_power.jsonl`` (40 requests) with a bare
+     ``QoSConfig()``, then with a budget of half that run's peak
+     modelled NVM dynamic power (``MemosReport.power_mw``, the energy
+     model's, not the card's): no governor and a peak > 0 in the free
+     run; over-budget passes and throttling in the capped one, some
+     admission while throttled and none past ``max_batch - throttle``
+     rows (the governor's width read at each ``admit`` call, not the
+     engine's argument), every request served;
+ 23. ``serve_cli``: ``repro_torch.launch.serve.main`` in this
+     process, with ``["--device", "cuda"]`` (smoke width) and with
+     ``--no-smoke`` added (qwen3_4b at published width and depth, in
+     float32): in each, the printed served count equals ``--requests``
+     (6), the migrations are > 0 and the engine's kernels launch;
   9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
@@ -164,7 +190,9 @@ prints no result line):
      (``empty_kernel_device_ms``, the launch floor).
 
 Output: the card's name and power limit, the build time, the engine
-lines, the parity lines, the overlap lines, the prefill and int8 lines,
+lines, the parity lines, the overlap lines, the QoS summary and the
+``serve_cli`` line (the full ``qos_overload`` and ``qos_power`` lines go
+to standard error), the prefill and int8 lines,
 the long-context
 lines, the ``{"kernels": [...]}`` line, the K9 pass times, the card's
 line again, and last ``{"ok": true, "device": {...}}``.  Exits 2
@@ -3596,6 +3624,421 @@ def bench_longctx_kernels(zlaunch: dict, mlaunch: dict, f32_launches: dict,
 
 
 # =============================================================================
+# phases 21-23: multi-tenant QoS trace replay and the serve entry point
+# =============================================================================
+
+TRACE_DIR = Path(__file__).resolve().parent / "benchmarks" / "traces"
+# the QoS runs in the shape of the reference's QoS benchmark engine: a
+# pinned two-tier store of 12 HBM and 96 NVM slots, 8-token pages, 4
+# rows, K = 4, memos every 8 steps, 8 pages a sequence, prefill on,
+# synchronous memos (a deterministic step timeline)
+QOS_FAST, QOS_SLOW = 12, 96
+QOS_POWER_BUDGET_FRAC = 0.5
+# kernels every QoS run must launch: K1's prefill body in each prefill
+# dispatch, the append, K2's records, K3a/K3b in the memos moves and K7
+# at each pass (the decode's K1 runs over one pool or two, as the
+# pages lie: the single- and dual-pool counts are checked together)
+QOS_KERNELS = ("qkv_rope_append", "touch_update", "page_gather",
+               "page_scatter", "sysmon_pass")
+
+
+def _qos_engine(cfg, params, qos):
+    from repro_torch.core.hierarchy import MemoryHierarchy
+    from repro_torch.serving.engine import PagedServingEngine, ServeConfig
+    return PagedServingEngine(cfg, params, ServeConfig(
+        page_size=8, max_batch=4, fast_slots=QOS_FAST, slow_slots=QOS_SLOW,
+        hierarchy=MemoryHierarchy.two_tier(QOS_FAST, QOS_SLOW,
+                                           pinned_slow=True),
+        memos_interval=8, memos_enabled=True, max_pages_per_seq=8,
+        decode_block=4, overlap_plan=False, qos=qos, prefill=True),
+        device="cuda")
+
+
+def _replay(engine, meta, events, max_steps: int = 100_000):
+    """Open-loop replay on the engine's step clock (each event submitted
+    once the clock reaches ``floor(t * steps_per_s)``).  Returns the
+    requests in event order, the steps' stats and the wall seconds."""
+    from collections import deque
+    steps_per_s = meta["steps_per_s"]
+    base = engine.step_count
+    pending = deque(events)
+    reqs, hist = {}, []
+    t0 = time.perf_counter()
+    while pending or not engine.batcher.all_done():
+        while pending and \
+                base + pending[0].step(steps_per_s) <= engine.step_count:
+            ev = pending.popleft()
+            reqs[ev.rid] = engine.submit(ev.prompt, ev.max_new,
+                                         tenant=ev.tenant)
+        hist.append(engine.step())
+        if engine.step_count - base >= max_steps:
+            raise RuntimeError("replay did not drain: scheduler wedged")
+    dt = time.perf_counter() - t0
+    return [reqs[e.rid] for e in events], hist, dt
+
+
+def _pct(vals, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(vals, np.float64), q)) \
+        if vals else None
+
+
+def _tenant_stats(meta, events, reqs) -> dict:
+    """Per tenant: TTFT on the step clock and the wall clock, mean
+    inter-token latency, e2e p99 and step-clock SLO attainment against
+    the class's ``ttft_steps``."""
+    import numpy as np
+    from repro_torch.qos.tenants import CLASS_DEFAULTS
+    out = {}
+    for tenant, cls in sorted(meta["tenants"].items()):
+        rs = [r for e, r in zip(events, reqs) if e.tenant == tenant]
+        done = [r for r in rs if r.error is None and r.finish_step is not None]
+        steps = [r.first_token_step - r.arrival for r in done]
+        ttft = [r.ttft_s for r in done]
+        itl = [(r.finish_ts - r.first_token_ts) / (len(r.generated) - 1)
+               for r in done if len(r.generated) > 1]
+        slo = CLASS_DEFAULTS[cls][2].ttft_steps
+        out[tenant] = {
+            "class": cls, "requests": len(rs), "completed": len(done),
+            "tokens": int(sum(len(r.generated) for r in rs)),
+            "ttft_steps_p50": _pct(steps, 50),
+            "ttft_steps_p99": _pct(steps, 99),
+            "ttft_ms_p50": None if not ttft else _pct(ttft, 50) * 1e3,
+            "ttft_ms_p99": None if not ttft else _pct(ttft, 99) * 1e3,
+            "itl_ms_mean": None if not itl else float(np.mean(itl)) * 1e3,
+            "e2e_ms_p99": _pct([r.e2e_s * 1e3 for r in done], 99),
+            "slo_ttft_steps": slo,
+            "slo_attainment": (None if slo is None or not steps else
+                               float(np.mean([s <= slo for s in steps]))),
+        }
+    return out
+
+
+def _watch_admissions(eng) -> list:
+    """Records (admission width, running rows after admitting) for every
+    ``admit`` call of the engine's batcher that admitted a request.  The
+    width is read from the governor at the call (``max_batch -
+    throttle``), not taken from the limit the engine passes, so a gate on
+    it tests the engine's wiring of the governor into admission."""
+    seen = []
+    orig = eng.batcher.admit
+    gov, max_batch = eng.memos.governor, eng.scfg.max_batch
+
+    def watched(limit=None):
+        width = max_batch if gov is None else gov.batch_limit(max_batch)
+        admitted = orig(limit)
+        if admitted:
+            seen.append((width, len(eng.batcher.running)))
+        return admitted
+    eng.batcher.admit = watched
+    return seen
+
+
+def _qos_run(cfg, params, qos, trace: str, run: str):
+    """One replay of ``trace`` through a fresh QoS engine, launch counts
+    set to 0 just before and read just after.  Every request must
+    complete; the launches must cover ``QOS_KERNELS`` and K1.  Returns
+    the run's line, its requests in event order, the closed engine and
+    its admissions (``_watch_admissions``)."""
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.qos import traces
+    meta, events = traces.read_trace(TRACE_DIR / f"{trace}.jsonl")
+    eng = _qos_engine(cfg, params, qos)
+    admissions = _watch_admissions(eng)
+    watch = _watch_prefill(eng)
+    torch.cuda.synchronize()
+    obs.reset()
+    kernels.reset_launch_counts()
+    reqs, hist, dt = _replay(eng, meta, events)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    flat = obs.get_registry().flat()
+    eng.close()
+    bad = [r.rid for r in reqs
+           if r.error is not None or len(r.generated) != r.max_new]
+    if bad:
+        raise RuntimeError(f"{run}: requests {bad} did not complete")
+    if not torch.isfinite(eng.last_logits.float()).all():
+        raise RuntimeError(f"{run}: non-finite logits")
+    _check_launches(launches, QOS_KERNELS, run)
+    if not watch["launches"]["paged_attention_prefill"] + \
+            watch["launches"]["paged_attention_prefill_dual"]:
+        raise RuntimeError(f"{run}: no prefill dispatch launched K1")
+    if not launches["paged_attention"] + launches["paged_attention_dual"]:
+        raise RuntimeError(f"{run}: the decode never launched K1")
+    prefills = int(flat.get("serving.prefill_dispatches", 0))
+    inner = _check_rope_append(launches, cfg, hist, run, prefills)
+    gen = sum(len(r.generated) for r in reqs)
+    reps = eng.memos.reports
+    out = {
+        "run": run, "trace": trace, "requests": len(reqs),
+        "seconds": dt, "generated": gen,
+        "generated_tokens_per_s": gen / dt,
+        "engine_steps": eng.step_count,
+        "dispatches": int(flat.get("serving.dispatches", 0)),
+        "prefill_dispatches": prefills,
+        "decode_inner_steps": inner,
+        "admissions": eng.batcher.n_admitted,
+        "preemptions": eng.batcher.n_preempted,
+        "memos_passes": len(reps),
+        "migrated": sum(r.migrations.migrated for r in reps),
+        "tenants": _tenant_stats(meta, events, reqs),
+        "launches": {k: v for k, v in launches.items() if v},
+    }
+    return out, reqs, eng, admissions
+
+
+def _page8_kernels(cfg, eng) -> list[dict]:
+    """K1's decode and prefill bodies, over one pool and over two, on the
+    QoS engine's 8-token pages (HBM and pinned pools refilled with random
+    bf16 KV after its run), against their plain versions within
+    ``ATTN_TOL``: no other phase runs page 8 at full width."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as K1
+    store = eng.kv.store
+    fast, pin = store.fast_pool, store.pools[eng.pinned_tier].data
+    dev = fast.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    rng = np.random.RandomState(SEED + 8)
+    page, P = eng.scfg.page_size, eng.scfg.max_pages_per_seq
+    Hkv, G, D = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    fast[:, 0].copy_(torch.randn(fast[:, 0].shape, generator=gen,
+                                 device=dev).to(fast.dtype))
+    pin[:, 0].copy_(torch.randn(pin[:, 0].shape, generator=gen,
+                                device=dev).to(pin.dtype).cpu())
+    kf, vf, kp, vp = fast[:, 0, 0], fast[:, 0, 1], pin[:, 0, 0], pin[:, 0, 1]
+    n_fast, n_pin = fast.shape[0], pin.shape[0]
+
+    def tables(rows):
+        sel = (rng.rand(rows, P) < 0.5).astype(np.int32)
+        bt = np.where(sel > 0,
+                      np.stack([rng.permutation(n_pin)[:P]
+                                for _ in range(rows)]),
+                      np.stack([rng.permutation(n_fast)[:P]
+                                for _ in range(rows)]))
+        single = np.stack([rng.permutation(n_fast)[:P] for _ in range(rows)])
+        return [torch.from_numpy(a.astype(np.int32)).to(dev)
+                for a in (single, bt, sel)]
+
+    # decode: batch 4, contexts up to the 64 positions a sequence holds
+    B = eng.scfg.max_batch
+    dec_len = torch.from_numpy(rng.randint(1, P * page + 1, size=B).astype(
+        np.int32)).to(dev)
+    # prefill: 4 packed segments of 16 rows, causal prefixes 1-16 after
+    # 0-48 earlier positions; one table per segment, repeated per row
+    seg_tables = [t.repeat_interleave(16, dim=0) for t in tables(4)]
+    pre_len = torch.from_numpy(np.concatenate([
+        rng.randint(0, 49) + np.arange(1, 17) for _ in range(4)]).astype(
+            np.int32)).to(dev)
+    out = []
+    for name, rows, (single, bt, sel), lengths, one, two in (
+            ("paged_attention", B, tables(B), dec_len,
+             K1.paged_attention_pooled, K1.paged_attention_dual_pooled),
+            ("paged_attention_prefill", 64, seg_tables, pre_len,
+             K1.paged_attention_prefill_pooled,
+             K1.paged_attention_prefill_dual_pooled)):
+        q = (torch.randn((rows, Hkv, G, D), generator=gen, device=dev)
+             * D ** -0.5).to(fast.dtype)
+        for entry, got, want in (
+                (name, one(q, kf, vf, single, lengths),
+                 K1.paged_attention_plain(q, kf, vf, single, lengths)),
+                (name + "_dual", two(q, kf, vf, kp, vp, bt, sel, lengths),
+                 K1.paged_attention_dual_plain(q, kf, vf, kp, vp, bt, sel,
+                                               lengths))):
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            if not torch.allclose(got.float(), want.float(), atol=ATTN_TOL,
+                                  rtol=ATTN_TOL):
+                raise RuntimeError(f"{entry} disagrees with plain at page "
+                                   f"{page}: max abs err {err}")
+            out.append({"name": entry, "page": page, "rows": rows,
+                        "max_abs_err": err, "tolerance": ATTN_TOL})
+    return out
+
+
+def run_qos_overload(cfg, params) -> dict:
+    """Phase 21: ``mixed_overload`` (69 requests of tenants lc/std/bat,
+    about twice the engine's service rate) replayed through a QoS-aware
+    engine (tenant classes, priorities, page weights) and a blind one
+    (``qos=None``).  Gates: every request completes, each request's
+    tokens are the same in both runs (greedy decode is per sequence, and
+    a row's bits do not depend on its batch or neighbours), and lc's
+    step-clock TTFT p99 in the aware run is at most the blind run's."""
+    from repro_torch.qos import (BATCH, LATENCY_CRITICAL, STANDARD,
+                                 QoSConfig, tenant_for_class)
+    qos = QoSConfig(tenants=(tenant_for_class("lc", LATENCY_CRITICAL),
+                             tenant_for_class("std", STANDARD),
+                             tenant_for_class("bat", BATCH)))
+    aware, areqs, aeng, _ = _qos_run(cfg, params, qos, "mixed_overload",
+                                     "aware")
+    blind, breqs, _, _ = _qos_run(cfg, params, None, "mixed_overload",
+                                  "blind")
+    differ, wrong = _corrupted_tokens(areqs, [r.generated for r in breqs])
+    lc_a = aware["tenants"]["lc"]["ttft_steps_p99"]
+    lc_b = blind["tenants"]["lc"]["ttft_steps_p99"]
+    out = {"phase": "qos_overload", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": "bfloat16",
+           "hierarchy": f"two_tier({QOS_FAST}, {QOS_SLOW}, pinned_slow)",
+           "aware": aware, "blind": blind,
+           "tokens_differ": differ,
+           "first_difference": _first_difference(wrong),
+           "lc_ttft_steps_p99_aware": lc_a, "lc_ttft_steps_p99_blind": lc_b,
+           "tokens_per_s_aware_over_blind":
+               aware["generated_tokens_per_s"]
+               / blind["generated_tokens_per_s"],
+           # after the runs' launch counts were read
+           "page8_kernels": _page8_kernels(cfg, aeng)}
+    if differ:
+        raise RuntimeError(f"qos_overload: {differ} tokens differ between "
+                           f"the aware and blind runs, first at "
+                           f"{out['first_difference']}")
+    if lc_a is None or lc_b is None or lc_a > lc_b:
+        raise RuntimeError(f"qos_overload: lc step-clock TTFT p99 aware "
+                           f"{lc_a} > blind {lc_b}")
+    return out
+
+
+def run_qos_power(cfg, params) -> dict:
+    """Phase 22: ``steady_power`` (40 requests) replayed with a bare
+    ``QoSConfig()``, then under a budget of half the free run's peak
+    modelled NVM dynamic power (``MemosReport.power_mw``, the energy
+    model's reading, not the card's).  Gates: the free run has no
+    governor and a peak above 0; the capped run goes over budget and
+    throttles, admits while throttled, never admits past ``max_batch -
+    throttle`` rows (the governor's width read at each ``admit``), and
+    completes every request."""
+    import numpy as np
+    from repro_torch.qos import QoSConfig
+    free, _, feng, _ = _qos_run(cfg, params, QoSConfig(), "steady_power",
+                                "uncapped")
+    free_mw = [r.power_mw for r in feng.memos.reports if r.power_mw]
+    peak = max(free_mw, default=0.0)
+    if feng.memos.governor is not None or not peak > 0:
+        raise RuntimeError(f"qos_power: free run governor "
+                           f"{feng.memos.governor}, peak {peak}")
+    budget = QOS_POWER_BUDGET_FRAC * peak
+    capped, _, ceng, admissions = _qos_run(
+        cfg, params, QoSConfig(power_budget_mw=budget), "steady_power",
+        "capped")
+    gov = ceng.memos.governor
+    cap_mw = [r.power_mw for r in ceng.memos.reports]
+    throttles = [r.power_throttle for r in ceng.memos.reports]
+    first = next((i for i, t in enumerate(throttles) if t > 0),
+                 len(throttles))
+    tail = [p for p in cap_mw[first:] if p > 0]
+    over = [(w, n) for w, n in admissions if n > w]
+    out = {"phase": "qos_power", "arch": cfg.name,
+           "power_note": "modelled NVM dynamic power (the energy model's "
+                         "power_mw over the wear tiers), not a reading "
+                         "of the card",
+           "modelled_power_mw_uncapped_peak": peak,
+           "modelled_power_mw_uncapped_mean":
+               float(np.mean(free_mw)) if free_mw else 0.0,
+           "modelled_power_budget_mw": budget,
+           "budget_frac": QOS_POWER_BUDGET_FRAC,
+           "modelled_power_mw_capped_peak": max(cap_mw, default=0.0),
+           "modelled_power_mw_capped_tail_mean":
+               float(np.mean(tail)) if tail else 0.0,
+           "over_budget_passes": gov.over_budget_passes,
+           "max_throttle": max(throttles, default=0),
+           "throttled_passes": sum(t > 0 for t in throttles),
+           "narrowest_admission": min((w for w, _ in admissions),
+                                      default=None),
+           "admissions_over_width": over,
+           "uncapped": free, "capped": capped}
+    if not (gov.over_budget_passes > 0 and out["max_throttle"] > 0):
+        raise RuntimeError(f"qos_power: the cap never throttled "
+                           f"({gov.over_budget_passes} over-budget passes)")
+    if over:
+        raise RuntimeError(f"qos_power: admitted past the governor's width "
+                           f"(width, rows): {over}")
+    if not out["narrowest_admission"] or \
+            out["narrowest_admission"] >= ceng.scfg.max_batch:
+        raise RuntimeError(f"qos_power: no admission ran while the "
+                           f"governor throttled (narrowest width "
+                           f"{out['narrowest_admission']})")
+    return out
+
+
+def _qos_summary(overload: dict, power: dict) -> dict:
+    """The QoS phases' gated and headline numbers on one short line (the
+    whole lines, with every tenant's table, go to standard error)."""
+    def run(r):
+        return {"seconds": r["seconds"],
+                "generated_tokens_per_s": r["generated_tokens_per_s"],
+                "preemptions": r["preemptions"],
+                "admissions": r["admissions"],
+                "ttft_steps_p99": {t: v["ttft_steps_p99"]
+                                   for t, v in r["tenants"].items()},
+                "ttft_ms_p99": {t: v["ttft_ms_p99"]
+                                for t, v in r["tenants"].items()},
+                "slo_attainment": {t: v["slo_attainment"]
+                                   for t, v in r["tenants"].items()}}
+    keep = ("power_note", "modelled_power_mw_uncapped_peak",
+            "modelled_power_mw_uncapped_mean", "modelled_power_budget_mw",
+            "modelled_power_mw_capped_peak",
+            "modelled_power_mw_capped_tail_mean", "over_budget_passes",
+            "max_throttle", "narrowest_admission")
+    return {"phase": "qos",
+            "overload": {"aware": run(overload["aware"]),
+                         "blind": run(overload["blind"]),
+                         "tokens_differ": overload["tokens_differ"],
+                         "tokens_per_s_aware_over_blind":
+                             overload["tokens_per_s_aware_over_blind"]},
+            "power": {**{k: power[k] for k in keep},
+                      "uncapped": run(power["uncapped"]),
+                      "capped": run(power["capped"])}}
+
+
+SERVE_CLI_ARGVS = (["--device", "cuda"],
+                   ["--device", "cuda", "--no-smoke"])
+
+
+def run_serve_cli() -> dict:
+    """Phase 23: ``repro_torch.launch.serve.main`` in this process, once
+    with its defaults (the smoke-size qwen3_4b) and once with
+    ``--no-smoke`` (qwen3_4b at published width and depth), both in
+    float32 with 6 requests.  Each run's launch counts are set to 0
+    just before it and read just after: its printed served count must
+    equal ``--requests``, its migrations must be > 0 and the engine's
+    kernels must launch."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    runs = []
+    for argv in SERVE_CLI_ARGVS:
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        torch.cuda.empty_cache()
+        lines = buf.getvalue().splitlines()
+        served = int(re.match(r"served (\d+) requests", lines[0]).group(1))
+        migrations = int(lines[2].rsplit(" ", 1)[1])
+        runs.append({"argv": argv, "lines": lines, "seconds": dt,
+                     "served": served, "requests_flag": 6,
+                     "migrations": migrations,
+                     "launches": {k: v for k, v in launches.items() if v}})
+        if rc != 0 or served != 6 or migrations <= 0:
+            raise RuntimeError(f"serve_cli {argv}: rc {rc}, served "
+                               f"{served} of 6, {migrations} migrations")
+        _check_launches(launches, ENGINE_KERNELS, f"serve_cli {argv}")
+    return {"phase": "serve_cli", "runs": runs}
+
+
+# =============================================================================
 
 def main() -> int:
     import torch
@@ -3646,6 +4089,12 @@ def main() -> int:
     print(json.dumps(overlap), file=sys.stderr, flush=True)
     overlap_faults = run_overlap_plan_faults(cfg, params, tokens)
     print(json.dumps(overlap_faults), file=sys.stderr, flush=True)
+    qos_overload = run_qos_overload(cfg, params)
+    print(json.dumps(qos_overload), file=sys.stderr, flush=True)
+    qos_power = run_qos_power(cfg, params)
+    print(json.dumps(qos_power), file=sys.stderr, flush=True)
+    serve_cli = run_serve_cli()
+    print(json.dumps(serve_cli), file=sys.stderr, flush=True)
     padding = run_batch_padding(cfg, params)
     print(json.dumps(padding), file=sys.stderr, flush=True)
     invariance = run_batch_invariance(cfg, params)
@@ -3713,6 +4162,7 @@ def main() -> int:
 
     lines += [{"kernels": kernel_rows}, {"host_link": link}, engine_line,
               pinned_line, parity, pparity, tail, overlap, overlap_faults,
+              _qos_summary(qos_overload, qos_power), serve_cli,
               padding, invariance,
               pinv, window, pwindow, cross, pre, ppre, i8h, i8p, zline, mline,
               probe_f32, probe_bf16, lcross, *f32_lines, ssd_passes,

@@ -58,8 +58,17 @@ With ``async_plan`` the pass splits into snapshot -> plan -> commit:
 A watchdog bounds the commit's wait for the worker
 (``plan_timeout_s``): a timeout or a worker exception abandons the plan,
 runs the pass synchronously against live state and demotes the ladder.
-The power governor and tenant weights of the JAX manager are not ported
-yet: every pass plans without power pressure or page weights.
+
+Multi-tenant QoS (``repro_torch.qos``)
+--------------------------------------
+With ``power_cap_mw`` set, a power governor reads each pass's summed
+wear-tier dynamic power; while it throttles, the next plan runs under
+power pressure (WD pages pinned fast, energy-ranked intermediate fill,
+WD kept out of spills) and the serving engine narrows admission.
+``set_page_weight`` records tenant page weights, which multiply
+per-page utility in placement; the weight array stays None until a
+weight other than 1.0 arrives, so an unweighted run plans exactly as
+before.  An overlapped pass snapshots both at ``begin_pass``.
 """
 from __future__ import annotations
 
@@ -74,6 +83,7 @@ from repro_torch import obs
 from repro_torch.faults.degradation import (RUNG_OFF, RUNG_OVERLAP,
                                             RUNG_SYNC, DegradationLadder)
 from repro_torch.faults.injector import get_injector, note_recovered
+from repro_torch.qos.power import PowerGovernor
 
 from . import sysmon as sysmon_mod
 from .migration import (BatchedMigrationEngine, MigrationStats, StoreView,
@@ -112,6 +122,12 @@ class MemosConfig:
     # against live state and demotes the degradation ladder.  None =
     # wait forever (no watchdog).
     plan_timeout_s: float | None = 30.0
+    # -- power cap (repro_torch.qos.power) --------------------------------
+    # budget on the summed per-wear-tier ``NvmReport.dynamic_power_mw``;
+    # while over it the governor raises a throttle level that shrinks
+    # serving-engine batch admission and plans the next pass under power
+    # pressure.  None disables the governor entirely.
+    power_cap_mw: float | None = None
 
 
 @dataclass
@@ -127,9 +143,8 @@ class MemosReport:
     nvm: object | None = None     # deepest wear-tracked tier's NvmReport
     nvm_by_tier: dict = field(default_factory=dict)  # tier -> NvmReport
     wear_pressure: bool = False   # wear penalty applied to this pass's plan
-    # the power governor's fields (no governor yet: always False / 0)
-    power_pressure: bool = False
-    power_throttle: int = 0
+    power_pressure: bool = False  # pass planned under the power governor
+    power_throttle: int = 0       # governor throttle level after this pass
     power_mw: float = 0.0         # summed per-wear-tier dynamic power
     committed_async: bool = False  # pass went through the overlapped commit
     plan_conflict: bool = False    # some planned pages were stale (degraded)
@@ -274,15 +289,15 @@ def aggregate_reports(reports: list[MemosReport]) -> dict:
 @dataclass
 class _PlanTicket:
     """One in-flight asynchronous pass: the snapshot (numpy only) plus
-    the worker future that resolves to (decision, plans, spill_plan).
-    The JAX ticket's power pressure and tenant page weights join it when
-    the power governor and tenant weights are ported."""
+    the worker future that resolves to (decision, plans, spill_plan)."""
     step: int
     summary: object               # PassSummary with numpy leaves
     view: StoreView
     wear_pressure: bool
     spilling: bool
     spill_dst: int
+    power_pressure: bool = False
+    page_weight: np.ndarray | None = None   # snapshot of tenant weights
     future: Future | None = None
     # worker-thread plan phase wall-clock bounds (monotonic ns), recorded
     # unconditionally so the overlap-efficiency metric works without
@@ -303,6 +318,15 @@ class MemosManager:
         self.meters = {t: EnergyMeter(store, tier=t,
                                       window_s=self.cfg.pass_window_s)
                        for t in store.hierarchy.wear_tiers()}
+        # power-cap governor: fed the summed per-wear-tier dynamic power
+        # at the end of every pass; its throttle level shrinks the
+        # engine's admission and puts the next plan under power pressure
+        self.governor = None
+        if self.cfg.power_cap_mw is not None:
+            self.governor = PowerGovernor(budget_mw=self.cfg.power_cap_mw)
+        # per-page tenant utility weights (lazy: None, and the planner
+        # unchanged, until a weight other than 1.0 arrives)
+        self._page_weight: np.ndarray | None = None
         self.interval = self.cfg.interval
         self._last_target: np.ndarray | None = None
         self._steps_since = 0
@@ -411,6 +435,24 @@ class MemosManager:
         return any(m.project_lifetime() < self.cfg.lifetime_horizon_years
                    for m in self.meters.values())
 
+    def _power_pressure(self) -> bool:
+        """Whether the power governor is throttling (a pass's dynamic
+        power exceeded the budget and the throttle has not fully
+        released)."""
+        return self.governor is not None and self.governor.pressure
+
+    def set_page_weight(self, pages, weight: float) -> None:
+        """Record the tenant utility weight of a set of logical pages.
+        The weight array is made on the first weight other than 1.0, so
+        an unweighted workload keeps ``page_weight=None`` and the
+        planner's decisions unchanged."""
+        if self._page_weight is None:
+            if weight == 1.0:
+                return
+            self._page_weight = np.ones(self.store.tier.shape[0],
+                                        dtype=np.float64)
+        self._page_weight[np.asarray(pages, dtype=np.int64)] = float(weight)
+
     def _spill_dst(self) -> int:
         """Bandwidth-aware spill destination: the backing tier with the
         most channel headroom, skipping capacity-exhausted pools."""
@@ -426,11 +468,17 @@ class MemosManager:
                              ) -> MemosReport:
         """Steps 3-6 of the pass against live state: plan placement,
         execute migrations, spill, close telemetry — the synchronous
-        path (also the watchdog's fallback)."""
-        penalty = self.cfg.wear_penalty if wear_pressure else 0.0
+        path (also the watchdog's fallback).  Under power pressure WD
+        pages pin fast (the wear-penalty path), WD stays out of spills
+        and intermediate-tier fill ranks media by access energy."""
+        power_pressure = self._power_pressure()
+        pressure = wear_pressure or power_pressure
+        penalty = self.cfg.wear_penalty if pressure else 0.0
         decision = plan(summary, self.store.tier.copy(),
                         max_migrations=self.cfg.max_migrations,
-                        wear_penalty=penalty, hierarchy=self.store.hierarchy)
+                        wear_penalty=penalty, hierarchy=self.store.hierarchy,
+                        page_weight=self._page_weight,
+                        energy_aware=power_pressure)
         bank_freq = np.asarray(summary.bank_freq)
         slab_freq = np.asarray(summary.slab_freq)
         reuse = np.asarray(summary.reuse_class)
@@ -444,16 +492,18 @@ class MemosManager:
             cands = self.balancer.spill_candidates(
                 np.asarray(summary.wd_code), np.asarray(summary.hotness),
                 self.store.tier, n=self.cfg.max_migrations or 64,
-                exclude_wd=wear_pressure)
+                exclude_wd=pressure)
             st = self.engine.migrate_optimistic(cands, spill_dst, bank_freq,
                                                 slab_freq, reuse)
             spilled = st.migrated
         return self._finish_pass(decision, stats, spilled, summary,
                                  wear_pressure,
+                                 power_pressure=power_pressure,
                                  fault_fallback=fault_fallback)
 
     def _finish_pass(self, decision, stats: MigrationStats, spilled: int,
                      summary, wear_pressure: bool, *,
+                     power_pressure: bool = False,
                      committed_async: bool = False,
                      pages_committed: int = 0,
                      pages_degraded: int = 0,
@@ -485,6 +535,14 @@ class MemosManager:
         self._last_pass_step = self.step_count
         self.store.roll_traffic_window()
 
+        # power-cap control loop: the governor reads the summed dynamic
+        # power of every wear-tracked tier; its throttle level shapes the
+        # next pass's plan and the engine's admission width
+        power_mw = float(sum(r.dynamic_power_mw
+                             for r in nvm_by_tier.values()))
+        if self.governor is not None and nvm_by_tier:
+            self.governor.observe(power_mw)
+
         bank_freq = np.asarray(summary.bank_freq)
         tier_pages = [int((self.store.tier == t).sum())
                       for t in range(self.store.n_tiers)]
@@ -501,8 +559,10 @@ class MemosManager:
             nvm=nvm_by_tier.get(wt[-1]) if wt else None,
             nvm_by_tier=nvm_by_tier,
             wear_pressure=wear_pressure,
-            power_mw=float(sum(r.dynamic_power_mw
-                               for r in nvm_by_tier.values())),
+            power_pressure=power_pressure,
+            power_throttle=(self.governor.throttle
+                            if self.governor is not None else 0),
+            power_mw=power_mw,
             committed_async=committed_async,
             plan_conflict=pages_degraded > 0,
             pages_committed=pages_committed,
@@ -565,6 +625,15 @@ class MemosManager:
         if report.nvm_by_tier:
             reg.gauge("power.dynamic_mw",
                       "summed wear-tier dynamic power").set(report.power_mw)
+        if self.governor is not None:
+            reg.gauge("power.throttle",
+                      "power-governor admission shrink level").set(
+                          self.governor.throttle)
+            reg.gauge("power.budget_mw", "dynamic-power budget").set(
+                self.governor.budget_mw)
+            reg.gauge("power.over_budget_passes",
+                      "passes whose power reading exceeded the budget").set(
+                          self.governor.over_budget_passes)
         for k, v in sysmon_mod.summary_metrics(summary).items():
             reg.gauge(f"sysmon.{k}").set(v)
         self.store.publish_metrics(reg)
@@ -594,6 +663,10 @@ class MemosManager:
                 wear_pressure=self._wear_pressure(),
                 spilling=self.balancer.update(fast_bw_util),
                 spill_dst=self._spill_dst(),
+                power_pressure=self._power_pressure(),
+                # a copy: a weight set mid-plan must not reach this plan
+                page_weight=(None if self._page_weight is None
+                             else self._page_weight.copy()),
             )
             ticket.future = self._submit_plan(ticket)
             self._ticket = ticket
@@ -626,11 +699,14 @@ class MemosManager:
         t.plan_t0_ns = time.monotonic_ns()
         with obs.span("memos.plan", step=t.step):
             get_injector().maybe_plan_fault()
-            penalty = self.cfg.wear_penalty if t.wear_pressure else 0.0
+            pressure = t.wear_pressure or t.power_pressure
+            penalty = self.cfg.wear_penalty if pressure else 0.0
             decision = plan(t.summary, t.view.tier.copy(),
                             max_migrations=self.cfg.max_migrations,
                             wear_penalty=penalty,
-                            hierarchy=self.store.hierarchy)
+                            hierarchy=self.store.hierarchy,
+                            page_weight=t.page_weight,
+                            energy_aware=t.power_pressure)
             bank_freq = np.asarray(t.summary.bank_freq)
             slab_freq = np.asarray(t.summary.slab_freq)
             reuse = np.asarray(t.summary.reuse_class)
@@ -642,7 +718,7 @@ class MemosManager:
                     np.asarray(t.summary.wd_code),
                     np.asarray(t.summary.hotness),
                     t.view.tier, n=self.cfg.max_migrations or 64,
-                    exclude_wd=t.wear_pressure)
+                    exclude_wd=pressure)
                 # candidates come from the snapshot's tier table, so
                 # exclude pages this pass already plans to move (the
                 # synchronous path picks candidates after migrating)
@@ -728,6 +804,7 @@ class MemosManager:
         self.plan_hidden_ns_total += hidden
         return self._finish_pass(decision, stats, spilled, t.summary,
                                  t.wear_pressure,
+                                 power_pressure=t.power_pressure,
                                  committed_async=True,
                                  pages_committed=committed,
                                  pages_degraded=degraded,

@@ -1,27 +1,29 @@
 """repro_torch.obs — spans and metrics for the port's memos pipeline.
 
-A copy of the JAX package's ``repro.obs`` tracer and registry (the
-exporters are not ported yet):
+A copy of the JAX package's ``repro.obs``:
 
   * **spans** (``obs/trace.py``) — monotonic-clock spans in a
     preallocated ring buffer, disabled by default and a true no-op while
     disabled;
   * **metrics** (``obs/metrics.py``) — counters, gauges and
     log-bucketed histograms that ``MemosManager``, ``TierStore`` and
-    ``PagedServingEngine`` publish into at pass/dispatch boundaries.
+    ``PagedServingEngine`` publish into at pass/dispatch boundaries;
+  * **exporters** (``obs/export.py``) — Chrome trace-event JSON
+    (chrome://tracing / Perfetto), JSONL and Prometheus-style text.
 
 The module-level singletons (``get_tracer()`` / ``get_registry()``) are
 the process's default sinks; tests isolate themselves with ``reset()``.
 """
 from __future__ import annotations
 
+from . import export  # noqa: F401  (re-export: obs.export.write_chrome_trace)
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 from .trace import NULL_SPAN, SpanEvent, Tracer
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "SpanEvent",
     "Tracer", "NULL_SPAN", "configure", "get_registry", "get_tracer",
-    "instant", "reset", "span", "tracing_enabled",
+    "instant", "reset", "span", "tracing_enabled", "export",
 ]
 
 _tracer = Tracer(enabled=False)

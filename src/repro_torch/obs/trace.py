@@ -2,10 +2,10 @@
 
 The paper's memos is "powered by a kernel-level monitoring module"; this
 is its user-space analogue for the repro: monotonic-clock spans recorded
-into a **preallocated ring buffer**, thread-aware so spans recorded on
-worker threads keep their thread ids (the JAX package's Chrome
-trace-event exporter is not ported yet; ``Tracer.events()`` is the
-readout).
+into a **preallocated ring buffer**, thread-aware so the asynchronous
+memos pass's worker-thread plan spans interleave correctly with the main
+thread's dispatch spans when exported to Chrome's trace-event format
+(``obs/export.py`` -> chrome://tracing / Perfetto).
 
 Design constraints, in order:
 

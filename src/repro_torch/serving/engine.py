@@ -56,10 +56,16 @@ the dispatch is about to serve, refreshes the checksums of pinned rows
 the dispatch appended to, and ticks the injector last, so each
 corruption meets a detection point before the next serve.
 
-QoS and MoE are not ported; a ``ServeConfig`` asking for QoS raises
-``NotImplementedError``, and the engine refuses MoE archs.  The KV
-pool takes the parameters' dtype (bfloat16 weights serve from a
-bfloat16 pool).
+**QoS.**  ``ServeConfig(qos=QoSConfig(...))`` (``repro_torch.qos``)
+gives each request a tenant: its priority orders admission and
+preemption, its page weight rides onto its KV pages for the memos
+planner, and per-tenant TTFT, e2e and inter-token latency histograms
+publish as ``qos.*.<tenant>``.  A power budget makes the memos governor
+narrow admission while the NVM's dynamic power is over it.  A bare
+``QoSConfig()`` serves exactly as ``qos=None``.
+
+The engine refuses MoE archs.  The KV pool takes the parameters' dtype
+(bfloat16 weights serve from a bfloat16 pool).
 """
 from __future__ import annotations
 
@@ -85,6 +91,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import rope_append
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.qos import QoSConfig
 from repro_torch.serving.kv_cache import SERVE_TIER, PagedKVCache, PagedKVConfig
 from repro_torch.serving.prefill import (PackedGroup, PrefillRunner,
                                          pack_prompts, replay_page_counts)
@@ -124,12 +131,11 @@ class ServeConfig:
     # the following dispatch boundary, pages dirtied mid-plan degrade to
     # the next pass)
     overlap_plan: bool = False
-    # not ported: refused at construction
-    qos: object | None = None
-
-    def __post_init__(self):
-        if self.qos is not None:
-            raise NotImplementedError("not ported to repro_torch yet: qos")
+    # multi-tenant QoS (repro_torch.qos): tenant classes and priorities,
+    # page utility weights into memos placement, and the dynamic-power
+    # cap.  None, or a bare QoSConfig() with no tenants and no budget,
+    # keeps every scheduler and placement decision as without QoS
+    qos: QoSConfig | None = None
 
 
 def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
@@ -177,11 +183,17 @@ class PagedServingEngine:
         self.sysmon = sysmon_mod.init(
             self.kv.n_pages, n_banks=store.cfg.n_banks,
             n_slabs=store.cfg.n_slabs, device=self.device)
+        qos = scfg.qos
         self.memos = MemosManager(store, MemosConfig(
             interval=scfg.memos_interval, adaptive_interval=False,
             lifetime_horizon_years=scfg.lifetime_horizon_years,
-            async_plan=scfg.overlap_plan))
-        self.batcher = ContinuousBatcher(scfg.max_batch)
+            async_plan=scfg.overlap_plan,
+            power_cap_mw=qos.power_budget_mw if qos is not None else None))
+        # priority-aware scheduling engages only when tenants exist: a
+        # bare QoSConfig() keeps the plain admission code path
+        self.batcher = ContinuousBatcher(
+            scfg.max_batch,
+            priority_aware=bool(qos is not None and qos.tenants))
         self.step_count = 0
         self.tokens_out = 0
         self.rid = 0
@@ -195,7 +207,8 @@ class PagedServingEngine:
         self._prefill_tokens_pending = 0
 
     # -- request API -----------------------------------------------------------
-    def submit(self, prompt: list[int], max_new: int) -> Request:
+    def submit(self, prompt: list[int], max_new: int, *,
+               tenant: str | None = None) -> Request:
         cap = self.scfg.max_pages_per_seq * self.scfg.page_size
         if len(prompt) + max_new > cap:
             raise CapacityError(
@@ -210,6 +223,13 @@ class PagedServingEngine:
                 f"prompt")
         req = Request(self.rid, list(prompt), max_new, arrival=self.step_count)
         req.submit_ts = time.monotonic()
+        if tenant is not None:
+            req.tenant = tenant
+        qos = self.scfg.qos
+        if qos is not None:
+            spec = qos.spec(tenant)
+            req.priority = spec.priority
+            req.weight = spec.page_weight
         req.tokens = []          # processed tokens (prompt-consumed + generated)
         req.generated = []
         self.rid += 1
@@ -234,9 +254,18 @@ class PagedServingEngine:
             if pid is None:
                 return False
             req.pages.append(pid)
+            if req.weight != 1.0:
+                # the tenant's utility weight rides onto the page for the
+                # memos planner (demotion resistance, ranking multiplier)
+                self.memos.set_page_weight([pid], req.weight)
         return self._promote_all([req])
 
     def _release_pages(self, req: Request) -> None:
+        """Free a retired request's pages, first resetting any tenant
+        weight to neutral: a recycled page must not keep its previous
+        owner's demotion resistance."""
+        if req.weight != 1.0 and req.pages:
+            self.memos.set_page_weight(req.pages, 1.0)
         for pid in req.pages:
             self.kv.free_page(pid)
         req.pages = []
@@ -254,11 +283,12 @@ class PagedServingEngine:
             mask = self._servable_mask(pids)
         return bool(mask.all())
 
-    def _make_room(self) -> bool:
-        """Preempt the most recent running sequence and eagerly demote its
+    def _make_room(self, max_priority: int | None = None) -> bool:
+        """Preempt a running sequence (lowest priority first, then the
+        most recent; none above ``max_priority``) and eagerly demote its
         tier-0 pages (deepest tier first), so admission is never blocked
         on a lazy memos drain."""
-        victim = self.batcher.preempt_lowest()
+        victim = self.batcher.preempt_lowest(max_priority)
         if victim is None:
             return False
         obs.get_registry().counter(
@@ -754,18 +784,47 @@ class PagedServingEngine:
             self._stamp_first_token(req, self.step_count)
             if req.max_new <= 1:
                 self.batcher.finish(req, self.step_count)
+                self._publish_finish(req)
                 self._release_pages(req)
         self._prefill_tokens_pending += n_tok
 
     # -- metrics -------------------------------------------------------------------
     def _stamp_first_token(self, req: Request, step: int) -> None:
-        """Both TTFT clocks: the step that sampled the first token, and
-        the wall clock (published as ``serving.ttft_s``)."""
+        """Both TTFT clocks: the step that sampled the first token (the
+        clock of the deterministic QoS gates), and the wall clock,
+        published aggregate and per tenant."""
         req.first_token_step = step
         req.first_token_ts = time.monotonic()
-        obs.get_registry().histogram(
-            "serving.ttft_s", "wall-clock time to first token").observe(
-                req.ttft_s)
+        self._publish_first_token(req)
+
+    def _publish_first_token(self, req: Request) -> None:
+        """Wall-clock TTFT, aggregate and per tenant (a metric-name
+        label)."""
+        if req.ttft_s is None:
+            return
+        reg = obs.get_registry()
+        reg.histogram("serving.ttft_s",
+                      "wall-clock time to first token").observe(req.ttft_s)
+        reg.histogram(f"qos.ttft_s.{req.tenant}",
+                      "per-tenant wall-clock TTFT").observe(req.ttft_s)
+
+    def _publish_finish(self, req: Request) -> None:
+        """Wall-clock end-to-end latency and mean inter-token latency of
+        a completed request, aggregate and per tenant."""
+        if req.e2e_s is None:
+            return
+        reg = obs.get_registry()
+        reg.histogram("serving.e2e_latency_s",
+                      "wall-clock submit-to-finish latency").observe(
+                          req.e2e_s)
+        reg.histogram(f"qos.e2e_s.{req.tenant}",
+                      "per-tenant wall-clock e2e latency").observe(req.e2e_s)
+        if req.first_token_ts is not None and len(req.generated) > 1:
+            itl = ((req.finish_ts - req.first_token_ts)
+                   / (len(req.generated) - 1))
+            reg.histogram(f"qos.itl_s.{req.tenant}",
+                          "per-tenant mean inter-token latency").observe(
+                              itl, n=len(req.generated) - 1)
 
     def _publish_dispatch_metrics(self, dt: float, k: int, batch: int) -> None:
         reg = obs.get_registry()
@@ -790,9 +849,15 @@ class PagedServingEngine:
         # A request that fails provisioning twice in one step is making no
         # progress — stop admitting and let dispatch/memos free capacity.
         failed: set[int] = set()
+        # power governor: while over the dynamic-power budget the
+        # admission width shrinks one slot per throttle level, so the
+        # write stream, and with it the NVM's dynamic power, backs off
+        gov = self.memos.governor
+        limit = (gov.batch_limit(self.scfg.max_batch)
+                 if gov is not None else None)
         with obs.span("serve.admit", step=self.step_count):
             while True:
-                admitted = self.batcher.admit()
+                admitted = self.batcher.admit(limit)
                 if not admitted:
                     break
                 obs.get_registry().counter(
@@ -800,16 +865,23 @@ class PagedServingEngine:
                     "requests admitted into decode slots").inc(len(admitted))
                 ok = True
                 stuck = False
+                need_room = 0
                 for req in admitted:
                     if req.start_step is None:
                         req.start_step = self.step_count
                     if not self._ensure_pages(req):
                         ok = False
+                        need_room = max(need_room, req.priority)
                         stuck = stuck or req.rid in failed
                         failed.add(req.rid)
                 if stuck:
                     break
-                if not ok and not self._make_room():
+                # admission-time preemption is priority-bounded: room for
+                # a request may only evict strictly lower priority (the
+                # provision loop below keeps unbounded preemption)
+                if not ok and not self._make_room(
+                        need_room - 1 if self.batcher.priority_aware
+                        else None):
                     break
 
         # 1b) prefill: every newly admitted request (pos == 0) ingests its
@@ -968,6 +1040,7 @@ class PagedServingEngine:
                 req.tokens.extend(seq[p0:p0 + k])
                 if len(req.generated) >= req.max_new:
                     self.batcher.finish(req, self.step_count + k - 1)
+                    self._publish_finish(req)
                     self._release_pages(req)
 
         # 6) memos pass between dispatches (hot pages stay; cold /

@@ -9,8 +9,8 @@ policy.  On resume the engine requests an *eager* promotion of the
 sequence's pages (paper Sec. 6.3's eager mode is exactly this user-driven
 path).
 
-Multi-tenant QoS (``repro.qos`` in the JAX package) adds ``tenant`` / ``priority`` /
-``deadline`` to :class:`Request` and makes both scheduler decisions
+Multi-tenant QoS (``repro_torch.qos``) adds ``tenant`` / ``priority`` /
+``weight`` to :class:`Request` and makes both scheduler decisions
 priority-aware:
 
   * **admission** (``priority_aware=True``): highest priority first;
@@ -43,15 +43,12 @@ class Request:
     prompt: list[int]
     max_new: int
     arrival: int = 0
-    # multi-tenant QoS identity (kept for parity; the engine here
-    # serves one tenant class): priority orders admission /
-    # preemption, weight multiplies per-page utility in memos placement,
-    # deadline is an absolute wall-clock completion target (monotonic
-    # seconds) or None
+    # multi-tenant QoS identity (set by the engine's submit from
+    # ServeConfig.qos): priority orders admission / preemption, weight
+    # multiplies per-page utility in memos placement
     tenant: str = "default"
     priority: int = 0
     weight: float = 1.0
-    deadline: float | None = None
     # runtime state
     tokens: list[int] = field(default_factory=list)   # processed tokens
     generated: list[int] = field(default_factory=list)

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.qos import LATENCY_CRITICAL, QoSConfig, tenant_for_class
+
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 
@@ -84,26 +86,30 @@ def test_entry_points_raise_without_cuda(entry):
             PagedServingEngine(cfg, params, ServeConfig())
 
 
-@pytest.mark.parametrize("field,value", [("overlap_plan", True),
-                                         ("qos", object())])
+@pytest.mark.parametrize("field,value", [
+    ("overlap_plan", True),
+    ("qos", QoSConfig(tenants=(tenant_for_class("lc", LATENCY_CRITICAL),),
+                      power_budget_mw=1.0))])
 def test_serve_config_refuses_unported_features(field, value):
-    """QoS is refused at construction.  ``overlap_plan``, ported, builds
-    an engine whose memos runs the asynchronous pass with the ladder's
-    top rung at overlap."""
+    """Both features are ported and accepted: ``overlap_plan`` builds an
+    engine whose memos runs the asynchronous pass with the ladder's top
+    rung at overlap; ``qos`` with tenants and a budget builds a
+    priority-aware batcher and a power governor at that budget."""
     from repro_torch.configs.base import registry, smoke
     from repro_torch.faults import RUNG_OVERLAP
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import PagedServingEngine, ServeConfig
-    if field == "qos":
-        with pytest.raises(NotImplementedError, match=field):
-            ServeConfig(**{field: value})
-        return
     cfg = smoke(registry()["qwen3_4b"])
     eng = PagedServingEngine(cfg, init_params(cfg, device="cpu"),
                              ServeConfig(**{field: value}), device="cpu")
-    assert eng.memos.cfg.async_plan
-    assert eng.memos.ladder.top == eng.memos.ladder.rung == RUNG_OVERLAP
-    assert eng.memos.ladder.rung_name == "overlap"
+    if field == "qos":
+        assert eng.batcher.priority_aware
+        assert eng.memos.governor.budget_mw == 1.0
+        assert eng.submit([1, 2], 2, tenant="lc").priority == 2
+    else:
+        assert eng.memos.cfg.async_plan
+        assert eng.memos.ladder.top == eng.memos.ladder.rung == RUNG_OVERLAP
+        assert eng.memos.ladder.rung_name == "overlap"
     eng.close()
 
 
