@@ -135,6 +135,35 @@ prints no result line):
      ``--no-smoke`` added (qwen3_4b at published width and depth, in
      float32): in each, the printed served count equals ``--requests``
      (6), the migrations are > 0 and the engine's kernels launch;
+ 24. ``moe_engine``: olmoe_1b_7b (16 layers, 64 experts, top 8) at
+     published width and depth in bf16, phase 2's serve config, 8
+     requests of 128 + 32 tokens, through the K=1 reference path and the
+     fused dispatch over the host tier, the fused dispatch over the
+     pinned tier, and prefill: fused = reference = pinned tokens and
+     expert counts, every run's counts summing to Σ(prompt + new - 1) x
+     top_k x n_layers, and ``moe_ffn`` launched twice per layer per
+     decode inner step and per prefill dispatch; the busy share of two
+     profiled fused dispatches; olmoe's case of ``batch_invariance`` (a
+     request alone and in a batch of 8: the same bits);
+ 25. ``prefill_invariance`` gains ``moe_ffn`` alone at olmoe's widths,
+     bf16 and float32: a row's bits alone, in 128 rows and in 2048;
+ 26. ``longctx_mixtral``: ``generate`` with mixtral_8x7b at full width
+     cut to 8 of 32 layers in bf16, a 4160-token prompt and 64 greedy
+     tokens, so the 4096-slot window ring wraps in both halves: the
+     prefill launches K8 once and ``moe_ffn`` twice per layer, the decode
+     ``moe_ffn`` twice per layer per token, and the K/V state is the
+     ring's; ``longctx_mixtral_probe_bf16`` and ``_f32`` (2 layers, a
+     4092-token prompt, 8 steps across position 4096) hold each decode
+     step against a fresh prefill at phase 16's gates;
+ 27. ``longctx_card_vs_cpu`` gains smoke mixtral in float32 with float
+     and with int8 caches;
+ 28. ``dense_archs``: phi3_mini_3_8b, qwen2_5_14b and gemma3_4b at
+     published width and depth in bf16, 4 requests of 64 + 16 tokens:
+     fused = reference tokens; K1's bodies and ``qkv_rope_append`` vs
+     plain at G 1 and D 96 (phi3), G 5 (qwen2.5) and D 256 (gemma3);
+ 29. ``moe_ffn``'s kernel rows (olmoe's decode and 256-row prefill
+     bucket and mixtral's prefill in bf16, olmoe's decode and the
+     mixtral probe's prefill in float32) beside ``torch._grouped_mm``;
   9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
@@ -194,13 +223,15 @@ lines, the parity lines, the overlap lines, the QoS summary and the
 ``serve_cli`` line (the full ``qos_overload`` and ``qos_power`` lines go
 to standard error), the prefill and int8 lines,
 the long-context
-lines, the ``{"kernels": [...]}`` line, the K9 pass times, the card's
-line again, and last ``{"ok": true, "device": {...}}``.  Exits 2
+lines, the ``{"kernels": [...]}`` line, the K9 pass times, the MoE,
+mixtral and dense-arch lines, the card's line again, and last ``{"ok":
+true, "device": {...}}``.  Exits 2
 without a CUDA device and 1 when the port's sources are not beside this
 script.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -1285,7 +1316,7 @@ def run_batch_padding(cfg, params) -> dict:
             t.reshape(r, -1) for t in attn_mod.project_raw(
                 lp["attn"], h[:r])], dim=1),
         "wo_matmul": lambda r: a[:r] @ wo.reshape(-1, wo.shape[-1]),
-        "ffn_block": lambda r: T.ffn_block(lp, cfg, h[:r]),
+        "ffn_block": lambda r: T.ffn_block(lp, cfg, h[:r])[0],
         "logits": lambda r: T.logits_out(params, cfg, h[:r]),
         # the sampler over logits whose maximum is tied between two
         # columns of every row: the first of the two must win
@@ -1426,8 +1457,9 @@ def run_batch_invariance(cfg, params) -> dict:
             rows = torch.tensor(rows, device="cuda")
             tok, pos, bt, lens, *sel = (c[rows].contiguous() for c in cols)
             if path == "hbm":
-                return eng._decode_core(tok, pos, bt, lens)
-            return eng._decode_core_pinned(tok, pos, bt, sel[0], lens, remap)
+                return eng._decode_core(tok, pos, bt, lens)[0]
+            return eng._decode_core_pinned(tok, pos, bt, sel[0], lens,
+                                           remap)[0]
 
         full = step(list(range(B)))
         sampled = torch.argmax(full[:, :cfg.vocab], dim=-1)
@@ -4040,6 +4072,873 @@ def run_serve_cli() -> dict:
 
 # =============================================================================
 
+# =============================================================================
+# phases 24-29: MoE serving (moe_ffn), the attn dense cache, the dense archs
+# =============================================================================
+
+MOE_ARCH = "olmoe_1b_7b"
+MOE_REQUESTS = 8                       # of PROMPT_LEN + NEW_TOKENS tokens
+# moe_ffn vs plain: |kernel - plain| <= tol * max|plain| + tol * |plain|.
+# bf16: the kernel rounds h = silu(g) * u to bf16 from float32 sums taken
+# in another order than torch.matmul's, so an element of h may land one
+# bf16 ulp (2**-8 relative) apart; float32: float32 FMA chains vs
+# torch.matmul's float32 sums over d and ff
+MOE_TOL, MOE_F32_TOL = 3e-3, 1e-5
+# longctx_mixtral: mixtral_8x7b at full width cut to 8 of 32 layers, one
+# prompt of 4160 tokens and 64 greedy tokens into a cache of 4224 slots:
+# the 4096-slot window ring wraps in the prefill and again in the decode
+MIXTRAL_LAYERS, MIXTRAL_PROMPT, MIXTRAL_NEW = 8, 4160, 64
+# its probes: 2 layers, a 4092-token prompt, 8 decode steps across
+# position 4096, each against a fresh prefill (bf16 at the
+# longctx_probe_bf16 gates, float32 within LONGCTX_PROBE_TOL)
+MIXTRAL_PROBE_LAYERS, MIXTRAL_PROBE_PROMPT, MIXTRAL_PROBE_STEPS = 2, 4092, 8
+# dense_archs: the dense archs the paged engine serves besides qwen3_4b,
+# at published width and depth in bf16, 4 requests of 64 + 16 tokens
+DENSE_ARCHS = ("phi3_mini_3_8b", "qwen2_5_14b", "gemma3_4b")
+DENSE_REQUESTS, DENSE_PROMPT, DENSE_NEW = 4, 64, 16
+MOE_KERNELS = ("paged_attention", "qkv_rope_append", "moe_ffn",
+               "touch_update", "sysmon_pass")
+
+
+def _moe_count_identity(cfg, reqs) -> int:
+    """Σ(prompt + generated - 1) x top_k x n_layers: the router's choices
+    of every processed token, once per layer."""
+    return sum(len(r.prompt) + len(r.generated) - 1 for r in reqs) \
+        * cfg.top_k * cfg.n_layers
+
+
+def _moe_serve(cfg, params, run: str, **kw) -> tuple[dict, list, object]:
+    """Serve MOE_REQUESTS requests of PROMPT_LEN + NEW_TOKENS with
+    ``_serve_config(**kw)``, the launch counts read around the run: every
+    decode inner step and every prefill dispatch launches moe_ffn twice
+    per layer and qkv_rope_append once.  Returns (line, tokens, counts)."""
+    import statistics
+
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.serving.engine import PagedServingEngine
+    eng = PagedServingEngine(cfg, params, _serve_config(**kw), device="cuda")
+    reqs = [eng.submit(p, NEW_TOKENS) for p in
+            _prompts(MOE_REQUESTS, PROMPT_LEN, cfg.vocab, SEED + 21)]
+    torch.cuda.synchronize()
+    obs.reset()
+    obs.configure(trace=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    obs.configure(trace=False)
+    eng.close()
+    bad = [r.rid for r in reqs
+           if r.error is not None or len(r.generated) != NEW_TOKENS]
+    if bad:
+        raise RuntimeError(f"moe_engine {run}: requests {bad} did not "
+                           f"complete")
+    if not torch.isfinite(eng.last_logits.float()).all():
+        raise RuntimeError(f"moe_engine {run}: non-finite logits")
+    n_pre = int(obs.get_registry().counter(
+        "serving.prefill_dispatches").value)
+    inner = _check_rope_append(launches, cfg, hist, f"moe_engine {run}",
+                               n_pre)
+    want = 2 * cfg.n_layers * (inner + n_pre)
+    if launches["moe_ffn"] != want:
+        raise RuntimeError(f"moe_engine {run}: {launches['moe_ffn']} moe_ffn "
+                           f"launches, {want} expected (2 x {cfg.n_layers} "
+                           f"layers x ({inner} inner steps + {n_pre} prefill "
+                           f"dispatches))")
+    _check_launches(launches, MOE_KERNELS, f"moe_engine {run}")
+    counts = eng.expert_counts.copy()
+    identity = _moe_count_identity(cfg, reqs)
+    # a preempted sequence keeps its pages and resumes where it stopped,
+    # so no token is routed twice: the identity holds under preemption
+    if int(counts.sum()) != identity:
+        raise RuntimeError(f"moe_engine {run}: expert counts sum to "
+                           f"{int(counts.sum())}, {identity} expected")
+    ttft = sorted(r.ttft_s for r in reqs)
+    store = eng.kv.store
+    line = {"run": run, "seconds": dt,
+            "generated_tokens_per_s": eng.tokens_out / dt,
+            "ttft_s_p50": statistics.median(ttft),
+            "ttft_s_p99": ttft[min(len(ttft) - 1,
+                                   int(round(0.99 * (len(ttft) - 1))))],
+            "dispatches": sum(1 for h in hist if "decode_block" in h),
+            "decode_inner_steps": inner, "prefill_dispatches": n_pre,
+            "preemptions": eng.batcher.n_preempted,
+            "memos_passes": len(eng.memos.reports),
+            "migrations": sum(r.migrations.migrated
+                              for r in eng.memos.reports),
+            "traffic_0_1_bytes": store.traffic[(0, 1)],
+            "traffic_1_0_bytes": store.traffic[(1, 0)],
+            "moe_ffn_launches_per_inner_step": (
+                (launches["moe_ffn"] - 2 * cfg.n_layers * n_pre) / inner
+                if inner else None),
+            "expert_counts_sum": int(counts.sum()),
+            "expert_counts_identity": identity,
+            "cold_experts": int((counts == 0).sum()),
+            "span_seconds": _span_seconds(),
+            "launches": {k: v for k, v in launches.items() if v}}
+    return line, [r.generated for r in reqs], counts
+
+
+def run_moe_engine(cfg, params) -> tuple[dict, dict]:
+    """``moe_engine``: olmoe_1b_7b at published width and depth in bf16,
+    the ``engine`` phase's serve config, 8 requests of 128 + 32 tokens:
+    the K=1 reference path and the fused dispatch over the numpy host
+    tier, the fused dispatch over the pinned-host tier, and prefill.
+    Gates: fused = reference = pinned tokens; equal expert counts on
+    those three; every run's counts sum to the identity (preempted or
+    not);
+    moe_ffn launched 2 x n_layers times per inner step and per prefill
+    dispatch.  Prefill's dense math runs on the bucket's rows (C6), so
+    its tokens and counts are reported against the replay, not gated.
+    Returns (line, the fused run's launches)."""
+    import numpy as np
+    from repro_torch.core.hierarchy import MemoryHierarchy
+    runs, toks, counts = {}, {}, {}
+    for run, kw in (("reference", {"reference": True}), ("fused", {}),
+                    ("pinned", {"hierarchy": MemoryHierarchy.two_tier(
+                        64, 512, pinned_slow=True)}),
+                    ("prefill", {"prefill": True})):
+        runs[run], toks[run], counts[run] = _moe_serve(cfg, params, run,
+                                                       **kw)
+    for run in ("reference", "pinned"):
+        if toks[run] != toks["fused"]:
+            raise RuntimeError(f"moe_engine: {run} tokens differ from the "
+                               f"fused run's")
+        if not np.array_equal(counts[run], counts["fused"]):
+            raise RuntimeError(f"moe_engine: {run} expert counts differ "
+                               f"from the fused run's")
+    window = run_profiled_window(cfg, params)
+    launches = runs["fused"].pop("launches")
+    return {"phase": "moe_engine", "arch": cfg.name,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "experts": cfg.n_experts, "top_k": cfg.top_k,
+            "dtype": "bfloat16", "requests": MOE_REQUESTS,
+            "prompt_len": PROMPT_LEN, "new_tokens": NEW_TOKENS,
+            "tokens_identical_fused_reference_pinned": True,
+            "expert_counts_equal_fused_reference_pinned": True,
+            "prefill_tokens_differ": sum(
+                a != b for x, y in zip(toks["prefill"], toks["fused"])
+                for a, b in zip(x, y)),
+            "prefill_expert_counts_l1_vs_replay": int(
+                np.abs(counts["prefill"] - counts["fused"]).sum()),
+            "expert_counts_top8": np.sort(counts["fused"])[::-1][:8]
+            .tolist(),
+            "device_busy_share": window["device_busy_share"],
+            "device_ops_per_inner_step": window["device_ops_per_inner_step"],
+            "runs": runs, "launches": launches}, launches
+
+
+def run_moe_batch_invariance(cfg, params) -> dict:
+    """``batch_invariance`` for olmoe: an engine at ``max_batch`` 8 (each
+    step pads to 8 rows and routes the padding) decodes 8 rows over
+    random KV, then the first r rows for r = 1..7 (r = 1: a request
+    alone), then all 8 reversed: every row's logits must keep the bits
+    it had in the 8-row step.  Where they do not, the step's ops are
+    logged to name the first that gave other bits on equal inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import PagedServingEngine
+    B, P = 8, 16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 22)
+    rng = np.random.RandomState(SEED + 22)
+    lengths = rng.randint(PROMPT_LEN + 1, PROMPT_LEN + NEW_TOKENS + 1,
+                          size=B)
+    eng = PagedServingEngine(cfg, params, _serve_config(
+        fast_slots=B * P, slow_slots=B * P, memos_enabled=False),
+        device="cuda")
+    pool = eng.kv.store.fast_pool
+    pool.copy_(torch.randn(pool.shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(pool.dtype))
+    slots = rng.permutation(B * P).reshape(B, P)
+    cols = [torch.from_numpy(a.astype(np.int32)).to("cuda") for a in (
+        rng.randint(0, cfg.vocab, B), lengths - 1, slots, lengths)]
+
+    def step(rows):
+        rows = torch.tensor(rows, device="cuda")
+        return eng._decode_core(*(c[rows].contiguous() for c in cols))[0]
+
+    full = step(list(range(B)))
+    bits = [r for r in range(1, B) if not torch.equal(step(list(range(r))),
+                                                      full[:r])]
+    first = {}
+    if bits:
+        log, undo = _op_log()
+        try:
+            step(list(range(B)))
+            full_log = list(log)
+            for r in bits:
+                log.clear()
+                step(list(range(r)))
+                first[r] = _first_variant_op(full_log, list(log), r)
+        finally:
+            undo()
+    out = {"arch": cfg.name, "rows": B, "contexts": lengths.tolist(),
+           "row_counts_with_other_bits": bits,
+           "first_op_with_other_bits_on_equal_inputs": first,
+           "alone_identical": 1 not in bits,
+           "reversed_order_identical": torch.equal(
+               step(list(range(B))[::-1]), full.flip(0)),
+           "finite": bool(torch.isfinite(full.float()).all())}
+    if bits or not out["reversed_order_identical"] or not out["finite"]:
+        raise RuntimeError(f"batch_invariance (olmoe): {out}")
+    del eng, pool
+    return out
+
+
+def _moe_inputs(d, ff, n_exp, tokens, top_k, dtype, seed):
+    """Rows sorted by expert as the MoE layer makes them: ``tokens``
+    tokens, each routed to ``top_k`` distinct experts of ``n_exp`` at
+    random; rows of unit scale, expert weights at d**-0.5, gate weights
+    summing to 1 per token.  Returns (xg, offs, [wg, wu, wd], gate,
+    group sizes)."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rng = np.random.RandomState(seed)
+    idx = np.argsort(rng.rand(tokens, n_exp), axis=1)[:, :top_k]
+    sizes = np.bincount(idx.reshape(-1), minlength=n_exp)
+    R = tokens * top_k
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(dtype)
+    xg = rnd(R, d)
+    w = [rnd(n_exp, d, ff, s=d ** -0.5), rnd(n_exp, d, ff, s=d ** -0.5),
+         rnd(n_exp, ff, d, s=d ** -0.5)]
+    gate = torch.rand(R, generator=gen, device=dev) / top_k
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
+                        dtype=torch.int32, device=dev)
+    return xg, offs, w, gate, sizes
+
+
+def _grouped_mm_library(xg, offs, w, gate):
+    """The grouped SwiGLU from PyTorch's own grouped GEMM
+    (``torch._grouped_mm``, three calls, with the silu product and the
+    gate scaling between them), or the reason it cannot run: the
+    library yardstick of ``moe_ffn``, used nowhere in the port.  Returns
+    (call, description) or (None, reason)."""
+    import torch
+    import torch.nn.functional as F
+    gm = getattr(torch, "_grouped_mm", None)
+    if gm is None:
+        return None, "this torch has no torch._grouped_mm"
+    if xg.dtype != torch.bfloat16:
+        return None, "torch._grouped_mm takes bfloat16 operands only"
+    ends = offs[1:].contiguous()
+    errors = []
+    for layout, ws in (("row-major", w), ("column-major", [
+            t.transpose(1, 2).contiguous().transpose(1, 2) for t in w])):
+        def call(ws=ws):
+            g = gm(xg, ws[0], offs=ends)
+            u = gm(xg, ws[1], offs=ends)
+            h = (F.silu(g.float()) * u.float()).to(xg.dtype)
+            return gm(h, ws[2], offs=ends).float() * gate[:, None]
+        try:
+            call()
+            torch.cuda.synchronize()
+            return call, (f"torch._grouped_mm x 3 ({layout} expert "
+                          f"weights), silu product and gate scaling")
+        except Exception as e:      # noqa: BLE001 - the reason is reported
+            errors.append(f"{layout}: {type(e).__name__}: {e}"[:160])
+    return None, "; ".join(errors)
+
+
+def _moe_row(name, shape, dtype, tol, launches, seed, bound_f32=False):
+    """One ``moe_ffn`` row: kernel vs plain within ``tol`` of max|plain|,
+    CUDA-event ms of the eager call, ``device_ms`` over a CUDA graph of
+    50 calls, the plain version's ms, the bound (the touched experts'
+    weights, the rows and the float32 output once; 6 R d ff operations)
+    and the library yardstick's ms."""
+    import torch
+    from repro_torch.kernels import moe_ffn as KM
+    d, ff, n_exp, tokens, top_k = shape
+    xg, offs, w, gate, sizes = _moe_inputs(d, ff, n_exp, tokens, top_k,
+                                           dtype, seed)
+    got = KM.moe_ffn(xg, offs, *w, gate)
+    want = KM.moe_ffn_plain(xg, offs, *w, gate)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    limit = tol * float(want.abs().max())
+    if not bool(((got - want).abs() <= limit + tol * want.abs()).all()):
+        raise RuntimeError(f"{name} disagrees with plain: max abs err {err} "
+                           f"(limit {limit} + {tol} x |plain|)")
+    R = tokens * top_k
+    el = xg.element_size()
+    touched = int((sizes > 0).sum())
+    nbytes = (touched * 3 * d * ff * el + R * d * el + R * d * 4 + R * 4
+              + (n_exp + 1) * 4)
+    flops = 6.0 * R * d * ff
+    lib, lib_note = _grouped_mm_library(xg, offs, w, gate)
+    # calls per timing sized to the kernel: ~0.2 s of eager calls and ~1 s
+    # of graph replays (a mixtral prefill call takes ~10^2 ms)
+    one = _time_ms(lambda: KM.moe_ffn(xg, offs, *w, gate), iters=1,
+                   warmup=1)
+    n = max(1, min(50, int(200 / max(one, 1e-3))))
+    reps = max(1, min(20, int(1000 / max(one * n, 1e-3))))
+    row = {"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
+           "replaces": "src/repro/models/moe.py:86",
+           "replaces_note": "XLA: three lax.ragged_dot in _grouped_ffn (no "
+                            "Pallas kernel)",
+           "launches": launches, "max_abs_err": err,
+           "tolerance": f"{tol} x max|plain| + {tol} x |plain|",
+           "ms": _time_ms(lambda: KM.moe_ffn(xg, offs, *w, gate), iters=n,
+                          warmup=1),
+           "device_ms": _graph_ms(lambda: KM.moe_ffn(xg, offs, *w, gate),
+                                  calls=n, replays=reps),
+           "plain_ms": _time_ms(lambda: KM.moe_ffn_plain(xg, offs, *w, gate),
+                                iters=3, warmup=1),
+           "library_ms": (_time_ms(lib, iters=n, warmup=1)
+                          if lib is not None else None),
+           "library_call": lib_note,
+           "shape": {"d": d, "ff": ff, "experts": n_exp, "tokens": tokens,
+                     "top_k": top_k, "rows": R, "touched_experts": touched,
+                     "dtype": str(dtype).removeprefix("torch.")},
+           "timing_calls": {"eager": n, "graph": n, "replays": reps},
+           "note": "ms, library_ms: CUDA events around eager calls; "
+                   "device_ms: per call of a CUDA graph of timing_calls "
+                   "calls (two launches each)"}
+    if lib is not None:
+        row["library_device_ms"] = _graph_ms(lib, calls=n, replays=reps)
+        row["library_max_abs_err"] = float((lib() - want).abs().max())
+    if bound_f32:
+        row.update(_f32_bounds(nbytes, flops))
+    else:
+        row["bound_ms"], row["bound_by"] = _bound_ms(nbytes, flops)
+    del xg, w, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def bench_moe_kernels(launches: dict) -> list[dict]:
+    """``moe_ffn``'s rows at the shapes its paths give it: olmoe's decode
+    (8 tokens x top 8 = 64 rows over 64 experts), olmoe's 256-row prefill
+    bucket (2048 rows), mixtral's long prefill (4160 x 2 rows over 8
+    experts) in bf16; olmoe's decode and the mixtral probe's prefill
+    (4092 x 2 rows) in float32.  ``launches`` holds each path's count."""
+    import torch
+    olmoe = (2048, 1024, 64)
+    mixtral = (4096, 14336, 8)
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        _moe_row("moe_ffn", (*olmoe, 8, 8), bf16, MOE_TOL,
+                 launches["moe_engine"], SEED + 30),
+        _moe_row("moe_ffn prefill", (*olmoe, 256, 8), bf16, MOE_TOL,
+                 launches["moe_prefill"], SEED + 31),
+        _moe_row("moe_ffn mixtral", (*mixtral, MIXTRAL_PROMPT, 2), bf16,
+                 MOE_TOL, launches["longctx_mixtral"], SEED + 32),
+        _moe_row("moe_ffn_f32", (*olmoe, 8, 8), f32, MOE_F32_TOL,
+                 launches["moe_f32"], SEED + 33, bound_f32=True),
+        _moe_row("moe_ffn_f32 mixtral", (*mixtral, MIXTRAL_PROBE_PROMPT, 2),
+                 f32, MOE_F32_TOL, launches["mixtral_probe_f32"],
+                 SEED + 34, bound_f32=True)]
+
+
+def run_moe_ffn_invariance() -> dict:
+    """``prefill_invariance`` for ``moe_ffn`` alone, at olmoe's widths in
+    bf16 and float32: a row's output bits in a 1-row group, in a 128-row
+    group and in a 2048-row group (at several places) are the same."""
+    import torch
+    from repro_torch.kernels import moe_ffn as KM
+    dev = torch.device("cuda")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        xg, _, w, gate, _ = _moe_inputs(2048, 1024, 1, 2048, 1, dtype,
+                                        SEED + 35)
+
+        def run(rows):
+            rows = torch.as_tensor(rows, device=dev)
+            offs = torch.tensor([0, rows.numel()], dtype=torch.int32,
+                                device=dev)
+            return KM.moe_ffn(xg[rows].contiguous(), offs, *w,
+                              gate[rows].contiguous())
+        full = run(list(range(2048)))
+        differ = []
+        for r in (0, 31, 32, 777, 2047):
+            alone = run([r])[0]
+            group = run([(r + i) % 2048 for i in range(128)])[0]
+            if not (torch.equal(alone, full[r])
+                    and torch.equal(group, full[r])):
+                differ.append(r)
+        out[str(dtype).removeprefix("torch.")] = {
+            "rows_checked": [0, 31, 32, 777, 2047],
+            "rows_with_other_bits": differ}
+        if differ:
+            raise RuntimeError(f"moe_ffn row bits depend on the group "
+                               f"({dtype}): rows {differ}")
+    return out
+
+
+def run_longctx_mixtral() -> tuple[dict, dict]:
+    """``longctx_mixtral``: ``generate`` with mixtral_8x7b at full width
+    (window 4096) cut to MIXTRAL_LAYERS layers in bf16: one prompt of
+    MIXTRAL_PROMPT tokens, MIXTRAL_NEW greedy tokens into a cache of
+    prompt + new slots, so each layer's 4096-slot ring wraps in both
+    halves.  The prefill launches K8 (windowed) once per layer and
+    moe_ffn twice per layer, the decode moe_ffn twice per layer per token
+    and nothing else; the K/V state stays the ring's whatever the
+    context.  Returns (line, launches per half)."""
+    import numpy as np
+    import torch
+    from dataclasses import replace
+    from repro_torch import kernels
+    from repro_torch.configs.base import registry
+    from repro_torch.launch.longctx_decode import generate
+    from repro_torch.models.transformer import init_decode_state, \
+        init_params
+    cfg = replace(registry()["mixtral_8x7b"], n_layers=MIXTRAL_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, dtype=torch.bfloat16,
+                         device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cache = MIXTRAL_PROMPT + MIXTRAL_NEW
+    prompt = _prompts(1, MIXTRAL_PROMPT, cfg.vocab, SEED + 23)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = generate(params, cfg, prompt, MIXTRAL_NEW, cache)
+    L = cfg.n_layers
+    want_pre = {"flash_attention": L, "moe_ffn": 2 * L}
+    want_dec = {"moe_ffn": 2 * L * MIXTRAL_NEW}
+    got_pre = {k: v for k, v in res["prefill_launches"].items() if v}
+    got_dec = {k: v for k, v in res["decode_launches"].items() if v}
+    if got_pre != want_pre or got_dec != want_dec:
+        raise RuntimeError(f"longctx_mixtral launched {got_pre} / {got_dec}"
+                           f", want {want_pre} / {want_dec}")
+    empty = init_decode_state(cfg, 1, cache, dtype=torch.bfloat16,
+                              device="cuda")
+    ring = sum(t.numel() * t.element_size() for c in empty["attn"]
+               for t in c.values())
+    if res["kv_cache_bytes"] != ring or \
+            empty["attn"][0]["k"].shape[1] != cfg.sliding_window:
+        raise RuntimeError(f"longctx_mixtral: state of {res['kv_cache_bytes']}"
+                           f" bytes, a {cfg.sliding_window}-slot ring holds "
+                           f"{ring}")
+    V = cfg.vocab
+    for key in ("first_logits", "logits"):
+        if not bool(torch.isfinite(res[key][..., :V]).all()):
+            raise RuntimeError(f"longctx_mixtral: non-finite {key}")
+    toks = np.asarray(res["tokens"])
+    if toks.shape != (1, MIXTRAL_NEW) or toks.min() < 0 or toks.max() >= V:
+        raise RuntimeError(f"longctx_mixtral: bad tokens {toks.shape}")
+    line = {"phase": "longctx_mixtral", "arch": cfg.name, "dtype": "bfloat16",
+            "layers": L, "layers_published": 32, "d_model": cfg.d_model,
+            "experts": cfg.n_experts, "top_k": cfg.top_k,
+            "window": cfg.sliding_window, "prompt_len": MIXTRAL_PROMPT,
+            "new_tokens": MIXTRAL_NEW, "cache_len": cache,
+            "init_params_s": init_s, "prefill_s": res["prefill_s"],
+            "decode_s": res["decode_s"],
+            "decode_tokens_per_s": res["decode_tokens_per_s"],
+            "first_tokens": res["tokens"][0][:8],
+            "kv_cache_bytes": res["kv_cache_bytes"],
+            "kv_cache_bytes_constant_in_context": True,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "prefill_launches": got_pre, "decode_launches": got_dec}
+    del params, res
+    torch.cuda.empty_cache()
+    return line, {"prefill": got_pre, "decode": got_dec}
+
+
+def run_mixtral_probes() -> tuple[dict, dict, int]:
+    """``longctx_mixtral_probe_bf16`` and ``_f32``: ``_decode_vs_prefill``
+    at mixtral's full width cut to MIXTRAL_PROBE_LAYERS layers, a
+    MIXTRAL_PROBE_PROMPT-token prompt and MIXTRAL_PROBE_STEPS steps, so
+    the decode crosses position 4096 and its ring wraps.  bf16 within
+    LONGCTX_BF16_MAX_ERR, argmax flips only under LONGCTX_BF16_TIE_MARGIN;
+    float32 within LONGCTX_PROBE_TOL, flips only under LONGCTX_TIE_MARGIN.
+    Returns the two lines and the float32 probe's moe_ffn launches."""
+    import torch
+    from dataclasses import replace
+    from repro_torch import kernels
+    from repro_torch.configs.base import registry
+    from repro_torch.models.transformer import init_params
+    cfg = replace(registry()["mixtral_8x7b"], n_layers=MIXTRAL_PROBE_LAYERS)
+    prompt = _prompts(1, MIXTRAL_PROBE_PROMPT, cfg.vocab, SEED + 24)[0]
+    lines, f32_launches = [], 0
+    for dtype, tol, max_err, margin in (
+            (torch.bfloat16, LONGCTX_PROBE_TOL, LONGCTX_BF16_MAX_ERR,
+             LONGCTX_BF16_TIE_MARGIN),
+            (torch.float32, LONGCTX_PROBE_TOL, None, LONGCTX_TIE_MARGIN)):
+        params = init_params(cfg, seed=SEED, dtype=dtype, device="cuda")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = _decode_vs_prefill(cfg, params, prompt, MIXTRAL_PROBE_STEPS,
+                                 tol)
+        run["seconds"] = time.perf_counter() - t0
+        run["launches"] = {k: n for k, n in kernels.launch_counts().items()
+                           if n}
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        line = {"phase": f"longctx_mixtral_probe_{name}",
+                "depth_cut": {"mixtral_8x7b": MIXTRAL_PROBE_LAYERS},
+                "tie_margin": margin, **run}
+        if max_err is None:
+            line["tolerance"] = tol
+            failed = run["values_outside"] > 0
+            f32_launches = run["launches"].get("moe_ffn", 0)
+        else:
+            line["max_abs_err_limit"] = max_err
+            failed = run["logits_max_abs_err"] > max_err
+        if failed or any(m >= margin for m in run["argmax_flips_margins"]):
+            raise RuntimeError(f"{line['phase']} failed: {line}")
+        lines.append(line)
+        del params
+        torch.cuda.empty_cache()
+    return lines[0], lines[1], f32_launches
+
+
+@contextlib.contextmanager
+def _quantize_hook(hook):
+    """Route every int8 K/V write (``attention.quantize_int8``, the prefill's
+    placement and the decode's write alike) through ``hook(orig, u)``."""
+    from repro_torch.models import attention as A
+    orig = A.quantize_int8
+    A.quantize_int8 = lambda u: hook(orig, u)
+    try:
+        yield
+    finally:
+        A.quantize_int8 = orig
+
+
+def run_mixtral_card_vs_cpu() -> list[dict]:
+    """``longctx_card_vs_cpu``'s mixtral runs: smoke-width mixtral in
+    float32 (a 16-slot ring, MoE on moe_ffn), with and without int8
+    caches, the same weights on the card and on the CPU:
+    2 prompts of LONGCTX_CROSS_PROMPT tokens, LONGCTX_CROSS_STEPS steps.
+    Logits and caches within LONGCTX_CROSS_TOL, positions and tokens
+    identical.
+
+    With int8 caches the card's K/V and the CPU's differ by ~1e-6, so an
+    element u / scale that lands near a .5 rounds to int8 values one step
+    apart, and the logits would then differ by the step's effect rather
+    than by the kernels'.  So every int8 write of the CPU run is held
+    against the card's same write (values within one step, scales within
+    LONGCTX_CROSS_TOL) and then takes the card's: both runs read the same
+    int8 caches, and their logits are held within LONGCTX_CROSS_TOL."""
+    import torch
+    from dataclasses import replace
+    from repro_torch import kernels
+    from repro_torch.configs.base import registry, smoke
+    from repro_torch.launch.longctx_decode import generate
+    from repro_torch.models.transformer import init_params
+    runs = []
+    for quant in (False, True):
+        cfg = replace(smoke(registry()["mixtral_8x7b"]), kv_cache_quant=quant)
+        cpu = init_params(cfg, seed=SEED, device="cpu")
+        card = _to_device(cpu, "cuda")
+        prompts = _prompts(2, LONGCTX_CROSS_PROMPT, cfg.vocab, SEED + 25)
+        cache = LONGCTX_CROSS_PROMPT + LONGCTX_CROSS_STEPS
+        writes = []
+        apart = {"values": 0, "scale_err": 0.0, "replayed": 0}
+
+        def record(orig, u):
+            q, sc = orig(u)
+            writes.append((q.cpu(), sc.cpu()))
+            return q, sc
+
+        def replay(orig, u):
+            q, sc = orig(u)
+            cq, cs = writes[apart["replayed"]]
+            apart["replayed"] += 1
+            if q.shape != cq.shape:
+                raise RuntimeError(f"mixtral int8 write {apart['replayed']}"
+                                   f": shapes {tuple(q.shape)} (CPU) vs "
+                                   f"{tuple(cq.shape)} (card)")
+            apart["values"] = max(apart["values"], int(
+                (q.int() - cq.int()).abs().max()))
+            apart["scale_err"] = max(apart["scale_err"], float(
+                (sc - cs).abs().max()))
+            if apart["values"] > 1 or not torch.allclose(
+                    sc, cs, atol=LONGCTX_CROSS_TOL, rtol=LONGCTX_CROSS_TOL):
+                raise RuntimeError(f"mixtral int8 write {apart['replayed']}"
+                                   f": card vs CPU {apart}")
+            return cq, cs
+
+        kernels.reset_launch_counts()
+        with _quantize_hook(record):
+            got = generate(card, cfg, prompts, LONGCTX_CROSS_STEPS, cache)
+        launches = kernels.launch_counts()
+        with _quantize_hook(replay):
+            want = generate(cpu, cfg, prompts, LONGCTX_CROSS_STEPS, cache)
+        L = cfg.n_layers
+        if launches["flash_attention"] != L or \
+                launches["moe_ffn"] != 2 * L * (1 + LONGCTX_CROSS_STEPS):
+            raise RuntimeError(f"mixtral smoke on the card launched "
+                               f"{launches}")
+        if apart["replayed"] != len(writes) or bool(writes) != quant:
+            raise RuntimeError(f"mixtral (int8 {quant}): {len(writes)} int8 "
+                               f"writes on the card, {apart['replayed']} on "
+                               f"the CPU")
+        pairs = [("first_logits", got["first_logits"],
+                  want["first_logits"]),
+                 ("logits", got["logits"], want["logits"])]
+        for l, (a, b) in enumerate(zip(got["state"]["attn"],
+                                       want["state"]["attn"])):
+            if not torch.equal(a["pos"].cpu(), b["pos"]):
+                raise RuntimeError("mixtral: cache positions differ")
+            for n in a:
+                if a[n].dtype == torch.int8:
+                    if not torch.equal(a[n].cpu(), b[n]):
+                        raise RuntimeError(f"mixtral: int8 cache {n}{l} "
+                                           f"differs")
+                elif n != "pos":
+                    pairs.append((f"{n}{l}", a[n], b[n]))
+        errs = {}
+        for what, a, b in pairs:
+            a = a.float().cpu()
+            errs[what] = float((a - b.float()).abs().max())
+            if not torch.allclose(a, b.float(), atol=LONGCTX_CROSS_TOL,
+                                  rtol=LONGCTX_CROSS_TOL):
+                raise RuntimeError(f"mixtral (int8 {quant}): card vs CPU "
+                                   f"{what} differ by {errs[what]}")
+        if got["tokens"] != want["tokens"]:
+            raise RuntimeError(f"mixtral (int8 {quant}): tokens differ")
+        run = {"arch": "mixtral_8x7b", "kv_cache_quant": quant,
+               "launches": {k: v for k, v in launches.items() if v},
+               "logits_max_abs_err": max(errs["first_logits"],
+                                         errs["logits"]),
+               "state_max_abs_err": max(v for k, v in errs.items()
+                                        if "logits" not in k),
+               "logits_tolerance": LONGCTX_CROSS_TOL,
+               "tokens_identical": True}
+        if quant:
+            run.update(int8_writes=len(writes),
+                       int8_values_apart=apart["values"],
+                       int8_scale_max_abs_err=apart["scale_err"])
+        runs.append(run)
+    return runs
+
+
+def _dense_arch_kernels(cfg, eng) -> list[dict]:
+    """K1's decode and prefill bodies and ``qkv_rope_append`` at the
+    arch's heads (G, D) on its engine's pool refilled with random bf16
+    KV, against their plain versions: K1 within ATTN_TOL, the append
+    within one bf16 ulp."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as K1
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 26)
+    rng = np.random.RandomState(SEED + 26)
+    pool = eng.kv.store.fast_pool
+    pool[:, 0].copy_(torch.randn(pool[:, 0].shape, generator=gen,
+                                 device=dev).to(pool.dtype))
+    kf, vf = pool[:, 0, 0], pool[:, 0, 1]
+    n_slots, page = pool.shape[0], eng.scfg.page_size
+    P = eng.scfg.max_pages_per_seq
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = Hq // Hkv
+
+    def tables(rows):
+        return torch.from_numpy(np.stack([
+            rng.permutation(n_slots)[:P] for _ in range(rows)]).astype(
+                np.int32)).to(dev)
+    out = []
+    B = eng.scfg.max_batch
+    dec_len = torch.from_numpy(rng.randint(1, P * page + 1, size=B).astype(
+        np.int32)).to(dev)
+    pre_len = torch.from_numpy(np.concatenate([
+        rng.randint(0, 49) + np.arange(1, 33) for _ in range(4)]).astype(
+            np.int32)).to(dev)
+    for name, rows, bt, lengths, fn in (
+            ("paged_attention", B, tables(B), dec_len,
+             K1.paged_attention_pooled),
+            ("paged_attention_prefill", 128,
+             tables(4).repeat_interleave(32, dim=0), pre_len,
+             K1.paged_attention_prefill_pooled)):
+        q = (torch.randn((rows, Hkv, G, D), generator=gen, device=dev)
+             * D ** -0.5).to(pool.dtype)
+        got = fn(q, kf, vf, bt, lengths)
+        want = K1.paged_attention_plain(q, kf, vf, bt, lengths)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), atol=ATTN_TOL,
+                              rtol=ATTN_TOL):
+            raise RuntimeError(f"{cfg.name}: {name} disagrees with plain "
+                               f"(G {G}, D {D}): max abs err {err}")
+        out.append({"name": name, "G": G, "D": D, "rows": rows,
+                     "max_abs_err": err, "tolerance": ATTN_TOL})
+    # the append: 8 decode rows into distinct slots of layer 0
+    R = 8
+    ap = eng.params["layers"][0]["attn"]
+    x = torch.randn((R, 1, cfg.d_model), generator=gen, device=dev).to(
+        pool.dtype)
+    q, k, v = A.project_raw(ap, x)
+    cos, sin = L.rope_angles(torch.arange(R, device=dev)[:, None] + 100,
+                             D, cfg.rope_theta)
+    f_idx = torch.from_numpy(rng.permutation(n_slots)[:R].astype(
+        np.int32)).to(dev)
+    off = torch.from_numpy(rng.randint(0, page, R).astype(np.int32)).to(dev)
+    args = (q[:, 0], k[:, 0], v[:, 0], ap.get("q_norm"), ap.get("k_norm"),
+            cos[:, 0].contiguous(), sin[:, 0].contiguous())
+    fast_k, fast_p = pool[:, 0].clone(), pool[:, 0].clone()
+    qk = A.rope_append(*args, fast_k, None, f_idx, None, off)
+    qp = A.rope_append_plain(*args, fast_p, None, f_idx, None, off)
+    torch.cuda.synchronize()
+    ulps = max(_ulps_apart(qk, qp), _ulps_apart(fast_k, fast_p))
+    if ulps > 1:
+        raise RuntimeError(f"{cfg.name}: qkv_rope_append {ulps} ulps from "
+                           f"plain (G {G}, D {D})")
+    out.append({"name": "qkv_rope_append", "G": G, "D": D, "rows": R,
+                "ulps_apart": ulps, "tolerance": "1 bf16 ulp"})
+    return out
+
+
+def run_dense_archs() -> dict:
+    """``dense_archs``: phi3_mini_3_8b (G 1, D 96), qwen2_5_14b (QKV bias,
+    G 5) and gemma3_4b (D 256, gemma norms, scaled and tied embeddings)
+    at published width and depth in bf16, random weights from SEED:
+    DENSE_REQUESTS requests of DENSE_PROMPT + DENSE_NEW through the fused
+    dispatch and the K=1 reference path, memos off: identical tokens,
+    qkv_rope_append once per layer per inner step; then K1's bodies and
+    the append against plain at the arch's heads."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import registry
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import PagedServingEngine
+    out = {"phase": "dense_archs", "dtype": "bfloat16",
+           "requests": DENSE_REQUESTS, "prompt_len": DENSE_PROMPT,
+           "new_tokens": DENSE_NEW, "archs": []}
+    for name in DENSE_ARCHS:
+        cfg = registry()[name]
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=SEED, dtype=torch.bfloat16,
+                             device="cuda")
+        torch.cuda.synchronize()
+        line = {"arch": name, "n_layers": cfg.n_layers,
+                "d_model": cfg.d_model, "heads": [cfg.n_heads,
+                                                  cfg.n_kv_heads],
+                "head_dim": cfg.head_dim, "vocab": cfg.vocab,
+                "init_params_s": time.perf_counter() - t0}
+        prompts = _prompts(DENSE_REQUESTS, DENSE_PROMPT, cfg.vocab, SEED + 27)
+        toks = {}
+        for run in ("fused", "reference"):
+            eng = PagedServingEngine(cfg, params, _serve_config(
+                memos_enabled=False, reference=run == "reference"),
+                device="cuda")
+            reqs = [eng.submit(p, DENSE_NEW) for p in prompts]
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            hist = eng.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            if any(r.error is not None or len(r.generated) != DENSE_NEW
+                   for r in reqs) or not bool(
+                       torch.isfinite(eng.last_logits.float()).all()):
+                raise RuntimeError(f"dense_archs {name} {run}: incomplete "
+                                   f"or non-finite")
+            _check_launches(launches, ("paged_attention", "qkv_rope_append",
+                                       "touch_update"), f"{name} {run}")
+            inner = _check_rope_append(launches, cfg, hist, f"{name} {run}")
+            toks[run] = [r.generated for r in reqs]
+            line[run] = {"seconds": dt, "inner_steps": inner,
+                         "generated_tokens_per_s": eng.tokens_out / dt}
+            if run == "fused":
+                line["kernels"] = _dense_arch_kernels(cfg, eng)
+            eng.close()
+            del eng
+        if toks["fused"] != toks["reference"]:
+            raise RuntimeError(f"dense_archs {name}: fused tokens differ "
+                               f"from the reference path's")
+        line["tokens_identical"] = True
+        line["first_tokens"] = toks["fused"][0][:8]
+        out["archs"].append(line)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_slice13() -> dict:
+    """Phases 24-29 (olmoe, mixtral and the dense archs, each model made
+    and freed in turn).  Returns their lines by name and, under "rows",
+    the moe_ffn kernel rows."""
+    import torch
+    from repro_torch.configs.base import registry
+    from repro_torch.models.transformer import init_params
+    cfg = registry()[MOE_ARCH]
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, dtype=torch.bfloat16,
+                         device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = {}
+    moe, moe_launches = run_moe_engine(cfg, params)
+    moe["init_params_s"] = init_s
+    print(json.dumps(moe), file=sys.stderr, flush=True)
+    out["moe_engine"] = moe
+    out["batch_invariance_olmoe"] = run_moe_batch_invariance(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    # the float32 olmoe decode (two layers): the float32 row's launches
+    f32_launches = _moe_f32_launches(cfg)
+    out["prefill_invariance_moe_ffn"] = run_moe_ffn_invariance()
+    lmix, lmix_launches = run_longctx_mixtral()
+    print(json.dumps(lmix), file=sys.stderr, flush=True)
+    out["longctx_mixtral"] = lmix
+    pb16, pf32, probe_launches = run_mixtral_probes()
+    print(json.dumps(pb16), file=sys.stderr, flush=True)
+    print(json.dumps(pf32), file=sys.stderr, flush=True)
+    out["probes"] = [pb16, pf32]
+    out["card_vs_cpu_mixtral"] = run_mixtral_card_vs_cpu()
+    dense = run_dense_archs()
+    print(json.dumps(dense), file=sys.stderr, flush=True)
+    out["dense_archs"] = dense
+    by_path = {
+        "moe_engine_fused": moe_launches["moe_ffn"],
+        "moe_engine_prefill": moe["runs"]["prefill"]["launches"]["moe_ffn"],
+        "longctx_mixtral_prefill": lmix_launches["prefill"]["moe_ffn"],
+        "longctx_mixtral_decode": lmix_launches["decode"]["moe_ffn"],
+        "mixtral_probe_f32": probe_launches,
+        "olmoe_f32_decode_2_layers": f32_launches}
+    rows = bench_moe_kernels({
+        "moe_engine": by_path["moe_engine_fused"],
+        "moe_prefill": by_path["moe_engine_prefill"],
+        "longctx_mixtral": by_path["longctx_mixtral_prefill"],
+        "moe_f32": f32_launches, "mixtral_probe_f32": probe_launches})
+    for r in rows:
+        r["launches_by_path"] = by_path
+    out["rows"] = rows
+    return out
+
+
+def _moe_f32_launches(cfg) -> int:
+    """The float32 decode path of olmoe (full width, cut to 2 layers): a
+    request of 16 + 8 tokens served in float32, its moe_ffn launches
+    (the float32 entry's) — 2 per layer per inner step."""
+    import torch
+    from dataclasses import replace
+    from repro_torch import kernels
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import PagedServingEngine
+    small = replace(cfg, n_layers=2)
+    params = init_params(small, seed=SEED, dtype=torch.float32,
+                         device="cuda")
+    eng = PagedServingEngine(small, params, _serve_config(
+        memos_enabled=False), device="cuda")
+    eng.submit(_prompts(1, 16, small.vocab, SEED + 28)[0], 8)
+    kernels.reset_launch_counts()
+    hist = eng.run()
+    torch.cuda.synchronize()
+    n = kernels.launch_counts()["moe_ffn"]
+    inner = sum(h.get("decode_block", 0) for h in hist)
+    if n != 2 * small.n_layers * inner:
+        raise RuntimeError(f"float32 olmoe: {n} moe_ffn launches over "
+                           f"{inner} inner steps")
+    eng.close()
+    del params, eng
+    torch.cuda.empty_cache()
+    return n
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4159,6 +5058,11 @@ def main() -> int:
     longctx_rows, ssd_passes = bench_longctx_kernels(
         zlaunch, mlaunch, probe_f32["runs"][0]["launches"], f32_launches)
     kernel_rows += longctx_rows
+    s13 = run_slice13()
+    kernel_rows += s13["rows"]
+    invariance["olmoe"] = s13["batch_invariance_olmoe"]
+    pinv["moe_ffn"] = s13["prefill_invariance_moe_ffn"]
+    lcross["runs"] += s13["card_vs_cpu_mixtral"]
 
     lines += [{"kernels": kernel_rows}, {"host_link": link}, engine_line,
               pinned_line, parity, pparity, tail, overlap, overlap_faults,
@@ -4166,7 +5070,8 @@ def main() -> int:
               padding, invariance,
               pinv, window, pwindow, cross, pre, ppre, i8h, i8p, zline, mline,
               probe_f32, probe_bf16, lcross, *f32_lines, ssd_passes,
-              _card_line()]
+              s13["moe_engine"], s13["longctx_mixtral"], *s13["probes"],
+              s13["dense_archs"], _card_line()]
     for line in lines:
         _emit(line)
     _emit({"ok": True, "device": {

@@ -16,7 +16,8 @@ KERNELS = ("paged_attention", "touch_update", "page_gather", "page_scatter",
            "wear_update", "page_checksum", "sysmon_pass",
            "paged_attention_dual", "qkv_rope_append", "page_gather_quant",
            "dequant_gather", "flash_attention", "ssd_scan",
-           "paged_attention_prefill", "paged_attention_prefill_dual")
+           "paged_attention_prefill", "paged_attention_prefill_dual",
+           "moe_ffn")
 
 _counts = dict.fromkeys(KERNELS, 0)
 

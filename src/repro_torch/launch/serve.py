@@ -8,9 +8,8 @@ lines, plus ``--device``).
     PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke  # full width
 
 The model is the arch's smoke size (its published size with
-``--no-smoke``) in float32 with random weights from seed 0.
-The port's engine serves dense attention archs only, so the JAX
-driver's MoE expert-hotness line has no counterpart here.
+``--no-smoke``) in float32 with random weights from seed 0.  An MoE arch
+(``--arch olmoe_1b_7b``) adds the JAX driver's expert-hotness line.
 """
 from __future__ import annotations
 
@@ -77,6 +76,11 @@ def main(argv: list[str] | None = None) -> int:
     print(f"tier traffic: ->host {st.traffic[(0, 1)]}B  ->HBM "
           f"{st.traffic[(1, 0)]}B  migrations "
           f"{sum(r.migrations.migrated for r in eng.memos.reports)}")
+    if eng.expert_counts is not None:
+        c = eng.expert_counts
+        print(f"expert hotness: top {np.argsort(-c)[:4].tolist()} "
+              f"(counts {np.sort(c)[::-1][:4].tolist()}), "
+              f"cold experts: {int((c == 0).sum())}/{len(c)}")
     return 0
 
 

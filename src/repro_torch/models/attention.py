@@ -2,8 +2,8 @@
 projections with RoPE, the causal/sliding-window mask bias, the
 KV-expansion ``sdpa`` (the plain form of kernel K8), full self-attention
 over a prompt (``attention``, on K8), and the grouped-query ``sdpa_grouped``
-with the dense or ring-buffer cache ``decode_attention`` (plain torch:
-XLA in the JAX package too).
+with the dense, ring-buffer or int8 cache ``decode_attention`` (plain
+torch: XLA in the JAX package too).
 
 Weights keep the JAX layout: wq [d, Hq, Dh], wk/wv [d, Hkv, Dh],
 wo [Hq, Dh, d]; each projection is one ``torch.matmul`` over the
@@ -175,32 +175,62 @@ def attention(p: dict, x: torch.Tensor, positions: torch.Tensor,
     return _out_proj(out, p["wo"]), (k, v)
 
 
+def quantize_int8(u: torch.Tensor):
+    """Per-head int8 of K/V rows u [..., Dh]: scale = max|u| / 127 in
+    float32 (at least 1e-8), values round(u / scale) clipped to +-127.
+    Returns (int8 [..., Dh], float32 scales [...])."""
+    uf = u.float()
+    sc = torch.clamp(uf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    return (torch.clamp(torch.round(uf / sc[..., None]), -127, 127)
+            .to(torch.int8), sc)
+
+
 def decode_attention(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos_cache: torch.Tensor,
                      positions: torch.Tensor, cos: torch.Tensor,
                      sin: torch.Tensor, *, window: int | None = None,
-                     soft_cap: float | None = None):
+                     soft_cap: float | None = None,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None):
     """One-token decode against a dense or ring-buffer KV cache.
 
     x [B, 1, d]; k/v_cache [B, Smax, Hkv, Dh]; pos_cache int32 [B, Smax],
     the token position each slot holds (-1 = empty); positions [B, 1].
     The new K/V are written at slot ``position % Smax`` *in place* (the
     JAX function returns new arrays; the port updates the caches it was
-    given, so decode never copies a cache).  Returns (out [B, 1, d],
-    k_cache, v_cache, pos_cache)."""
+    given, so decode never copies a cache).  With int8 caches (k/v_scale
+    given, float32 [B, Smax, Hkv]) the new K/V quantize on write
+    (``quantize_int8``) and the attention reads the cache dequantized in
+    float32.  Returns (out [B, 1, d], k_cache, v_cache, pos_cache[,
+    k_scale, v_scale])."""
     B = x.shape[0]
     Smax = k_cache.shape[1]
     q, k_new, v_new = project_qkv(p, x, cos, sin)
     b_idx = torch.arange(B, device=x.device)
     pos = positions[:, 0]
     slot = pos.long() % Smax
-    k_cache[b_idx, slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[b_idx, slot] = v_new[:, 0].to(v_cache.dtype)
+    quantized = k_scale is not None
+    if quantized:
+        k8, ks = quantize_int8(k_new[:, 0])
+        v8, vs = quantize_int8(v_new[:, 0])
+        k_cache[b_idx, slot] = k8
+        v_cache[b_idx, slot] = v8
+        k_scale[b_idx, slot] = ks
+        v_scale[b_idx, slot] = vs
+        k_read = k_cache.float() * k_scale[..., None]
+        v_read = v_cache.float() * v_scale[..., None]
+    else:
+        k_cache[b_idx, slot] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[b_idx, slot] = v_new[:, 0].to(v_cache.dtype)
+        k_read, v_read = k_cache, v_cache
     pos_cache[b_idx, slot] = pos.to(pos_cache.dtype)
 
     valid = (pos_cache >= 0) & (pos_cache <= pos[:, None])
     if window is not None and window > 0:
         valid = valid & ((pos[:, None] - pos_cache) < window)
     bias = torch.where(valid, 0.0, NEG_INF).float()[:, None, :]
-    out = sdpa_grouped(q, k_cache, v_cache, bias, soft_cap=soft_cap)
-    return _out_proj(out.to(x.dtype), p["wo"]), k_cache, v_cache, pos_cache
+    out = sdpa_grouped(q, k_read, v_read, bias, soft_cap=soft_cap)
+    out = _out_proj(out.to(x.dtype), p["wo"])
+    if quantized:
+        return out, k_cache, v_cache, pos_cache, k_scale, v_scale
+    return out, k_cache, v_cache, pos_cache

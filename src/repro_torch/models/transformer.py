@@ -1,7 +1,10 @@
 """Decoder pieces of the port (torch twin of ``repro.models.transformer``):
-the dense parts the paged decode path needs, and the dense-cache
-``prefill`` + ``decode_step`` of the ``mamba`` and ``hybrid`` layouts
-(Mamba-2 layers on kernel K9, zamba2's shared attention block on K8).
+the dense and MoE parts the paged decode path needs (the MoE FFN on
+kernel ``moe_ffn``), and the dense-cache ``prefill`` + ``decode_step``
+of every layout: ``attn`` (full-length caches, sliding-window ring
+buffers, int8 caches with per-head scales; prompt attention on K8),
+``mamba`` and ``hybrid`` (Mamba-2 layers on kernel K9, zamba2's shared
+attention block on K8).
 
 Parameters are a plain dict with the JAX package's leaf names and
 layouts, except that the per-layer tree is a *list* of dicts
@@ -18,7 +21,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
-from . import attention, layers, ssm
+from . import attention, layers, moe, ssm
 
 
 def pad_vocab(vocab: int, multiple: int = 256) -> int:
@@ -32,17 +35,17 @@ def _check_supported(cfg: ArchConfig) -> None:
         ok = not cfg.is_moe and (cfg.layout == "mamba"
                                  or cfg.mlp_kind == "swiglu")
     else:
-        ok = cfg.layout == "attn" and not cfg.is_moe \
-            and cfg.mlp_kind == "swiglu"
+        ok = cfg.layout == "attn" and cfg.mlp_kind == "swiglu"
     if not ok:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense SwiGLU attention decoders, "
-            f"Mamba-2 and Mamba-2 + shared-attention hybrids only "
+            f"{cfg.name}: the port runs SwiGLU attention decoders (dense "
+            f"or MoE), Mamba-2 and Mamba-2 + shared-attention hybrids only "
             f"(layout={cfg.layout!r}, moe={cfg.is_moe}, "
             f"mlp={cfg.mlp_kind!r})")
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"{cfg.name}: input_mode "
-                                  f"{cfg.input_mode!r} is not ported")
+    if cfg.input_mode != "tokens" or cfg.mrope_sections is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: input_mode {cfg.input_mode!r} and M-RoPE are not "
+            f"ported")
 
 
 def mamba_spec_of(cfg: ArchConfig) -> ssm.MambaSpec:
@@ -55,7 +58,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
                 dtype: torch.dtype = torch.float32,
                 device: str | torch.device | None = "cuda") -> dict:
     """Random weights with the JAX init scales (normal * d**-0.5, the
-    down projection * d_ff**-0.5, norms at one, the Mamba-2 scales of
+    down projection * d_ff**-0.5, norms at one, the expert weights of
+    ``moe.init_moe_params``, the Mamba-2 scales of
     ``ssm.init_mamba_params``), drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed``.  The draws differ from
     ``jax.random``'s; tests that compare the two packages carry the JAX
@@ -64,7 +68,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     ``mamba``/``hybrid`` layers are ``{"ln", "mamba"}``; a hybrid model
     also has the one shared attention + SwiGLU block ``params["shared"]``
     (``ln1``, ``ln2``, ``attn``, ``mlp``) that runs every
-    ``shared_attn_every`` layers."""
+    ``shared_attn_every`` layers.  An MoE arch's attention layers carry
+    ``lp["moe"]`` in place of ``lp["mlp"]``."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -110,8 +115,13 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
                 spec, gen, dtype=dtype, device=dev)})
     else:
         for _ in range(cfg.n_layers):
-            lp = {"ln1": ln(), "ln2": ln(), "attn": one_attn(),
-                  "mlp": one_mlp()}
+            lp = {"ln1": ln(), "ln2": ln(), "attn": one_attn()}
+            if cfg.is_moe:
+                lp["moe"] = moe.init_moe_params(
+                    gen, d, cfg.n_experts, cfg.expert_d_ff or cfg.d_ff,
+                    dtype=dtype, device=dev)
+            else:
+                lp["mlp"] = one_mlp()
             if cfg.gemma_norm:
                 lp["ln1_post"] = ln()
                 lp["ln2_post"] = ln()
@@ -151,81 +161,129 @@ def logits_out(params: dict, cfg: ArchConfig, h: torch.Tensor
     return logits
 
 
-def ffn_block(lp: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    """Pre-norm SwiGLU block with the optional gemma post-norm:
-    h + mlp(rms_norm(h))."""
+def ffn_block(lp: dict, cfg: ArchConfig, h: torch.Tensor,
+              valid: torch.Tensor | None = None):
+    """Pre-norm SwiGLU or MoE block with the optional gemma post-norm:
+    (h + ffn(rms_norm(h)), expert counts).  The counts are the MoE
+    router's int32 [E] histogram (None for a dense FFN), of the rows
+    where the optional bool mask ``valid`` (h's leading shape) is true:
+    padding rows are routed and computed like any other, as in the JAX
+    ``_ffn``, but do not count."""
     x = layers.rms_norm(h, lp["ln2"], eps=cfg.norm_eps,
                         gemma_style=cfg.gemma_norm)
-    m = lp["mlp"]
-    y = layers.swiglu_mlp(x, m["w_gate"], m["w_up"], m["w_down"])
+    counts = None
+    if cfg.is_moe:
+        d = x.shape[-1]
+        y, _, idx, counts = moe.moe_sorted_local(
+            x.reshape(-1, d), lp["moe"], cfg.top_k,
+            softmax_before_topk=cfg.softmax_before_topk)
+        y = y.reshape(x.shape)
+        if valid is not None:
+            counts = moe.expert_counts(idx, cfg.n_experts,
+                                       valid.reshape(-1))
+    else:
+        m = lp["mlp"]
+        y = layers.swiglu_mlp(x, m["w_gate"], m["w_up"], m["w_down"])
     if cfg.gemma_norm:
         y = layers.rms_norm(y, lp["ln2_post"], eps=cfg.norm_eps,
                             gemma_style=True)
-    return h + y
+    return h + y, counts
 
 
 # =============================================================================
 # dense-cache generation: prefill, then one token per decode_step
 # =============================================================================
 
-def _check_dense_cache(cfg: ArchConfig) -> None:
-    _check_supported(cfg)
-    if cfg.layout not in ("mamba", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the dense-cache prefill/decode of the "
-            f"{cfg.layout!r} layout is not ported (the paged engine "
-            f"serves it)")
-
-
 def _is_shared_site(cfg: ArchConfig, layer: int) -> bool:
     k = cfg.shared_attn_every
     return cfg.layout == "hybrid" and bool(k) and layer % k == k - 1
+
+
+def _rope_tables(cfg: ArchConfig, positions: torch.Tensor):
+    """((cos, sin) of local layers, (cos, sin) of global layers): gemma3's
+    global layers take ``rope_theta_global``, every other arch one pair."""
+    c, s = layers.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    if cfg.rope_theta_global is not None:
+        return (c, s), layers.rope_angles(positions, cfg.head_dim,
+                                          cfg.rope_theta_global)
+    return (c, s), (c, s)
+
+
+def _layer_rope(cfg: ArchConfig, window: int, ropes):
+    """The (cos, sin) pair of an ``attn`` layer with ``window`` (0 = a
+    global, full-causal layer)."""
+    local, glob = ropes
+    return glob if window == 0 and cfg.rope_theta_global else local
 
 
 def init_decode_state(cfg: ArchConfig, batch_size: int, cache_len: int, *,
                       dtype: torch.dtype = torch.float32,
                       start_pos: int = 0,
                       device: str | torch.device | None = "cuda") -> dict:
-    """Empty caches for ``cache_len`` tokens of context: per Mamba layer
-    the SSM state h [B, H, N, P] (float32) and the raw conv context
+    """Empty caches for ``cache_len`` tokens of context.  ``attn`` layout:
+    per layer a K/V cache [B, W, Hkv, Dh] with the position each slot
+    holds (-1 = empty), W = min(window, cache_len) for a windowed layer
+    (a ring written at ``position % W``) and ``cache_len`` for a global
+    one; with ``kv_cache_quant`` the caches are int8 with float32 scales
+    ``k_scale``/``v_scale`` [B, W, Hkv].  ``mamba``/``hybrid``: per Mamba
+    layer the SSM state h [B, H, N, P] (float32) and the raw conv context
     [B, d_conv-1, conv_ch]; per shared-attention site of a hybrid a dense
-    K/V cache [B, cache_len, Hkv, Dh] with the position each slot holds
-    (-1 = empty), written as a ring at ``position % cache_len``."""
-    _check_dense_cache(cfg)
+    K/V cache [B, cache_len, Hkv, Dh], written as a ring at ``position %
+    cache_len``."""
+    _check_supported(cfg)
     dev = resolve_device(device)
     B = batch_size
-    spec = mamba_spec_of(cfg)
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
     state: dict = {
         "positions": torch.full((B,), start_pos, dtype=torch.int32,
                                 device=dev),
-        "attn": [],
-        "mamba": [{
-            "h": torch.zeros((B, spec.n_heads, spec.d_state, spec.headdim),
-                             dtype=torch.float32, device=dev),
-            "conv": torch.zeros((B, spec.d_conv - 1, spec.conv_ch),
-                                dtype=dtype, device=dev),
-        } for _ in range(cfg.n_layers)],
-    }
+        "attn": [], "mamba": []}
+
+    def cache(W, kv_dtype, quant):
+        c = {"k": torch.zeros((B, W, Hkv, Dh), dtype=kv_dtype, device=dev),
+             "v": torch.zeros((B, W, Hkv, Dh), dtype=kv_dtype, device=dev),
+             "pos": torch.full((B, W), -1, dtype=torch.int32, device=dev)}
+        if quant:
+            c["k_scale"] = torch.zeros((B, W, Hkv), dtype=torch.float32,
+                                       device=dev)
+            c["v_scale"] = torch.zeros_like(c["k_scale"])
+        return c
+
+    if cfg.layout == "attn":
+        kv_dtype = torch.int8 if cfg.kv_cache_quant else dtype
+        state["attn"] = [
+            cache(min(w, cache_len) if w > 0 else cache_len, kv_dtype,
+                  cfg.kv_cache_quant)
+            for w in cfg.attn_window_pattern]
+        return state
+    spec = mamba_spec_of(cfg)
+    state["mamba"] = [{
+        "h": torch.zeros((B, spec.n_heads, spec.d_state, spec.headdim),
+                         dtype=torch.float32, device=dev),
+        "conv": torch.zeros((B, spec.d_conv - 1, spec.conv_ch),
+                            dtype=dtype, device=dev),
+    } for _ in range(cfg.n_layers)]
     n_sites = sum(_is_shared_site(cfg, l) for l in range(cfg.n_layers))
-    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
-    state["attn"] = [{
-        "k": torch.zeros((B, cache_len, Hkv, Dh), dtype=dtype, device=dev),
-        "v": torch.zeros((B, cache_len, Hkv, Dh), dtype=dtype, device=dev),
-        "pos": torch.full((B, cache_len), -1, dtype=torch.int32,
-                          device=dev),
-    } for _ in range(n_sites)]
+    state["attn"] = [cache(cache_len, dtype, False) for _ in range(n_sites)]
     return state
 
 
 def _place(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
     """Write a prompt's last min(S, W) K/V rows into a cache of W slots at
-    ``position % W``, in place."""
+    ``position % W``, in place; an int8 cache takes them quantized, with
+    their per-head scales."""
     S, W = k.shape[1], cache["k"].shape[1]
     n = min(S, W)
     pos = torch.arange(S - n, S, dtype=torch.int32, device=k.device)
     idx = pos.long() % W
-    cache["k"][:, idx] = k[:, S - n:].to(cache["k"].dtype)
-    cache["v"][:, idx] = v[:, S - n:].to(cache["v"].dtype)
+    if "k_scale" in cache:
+        for name, u in (("k", k), ("v", v)):
+            q, sc = attention.quantize_int8(u[:, S - n:])
+            cache[name][:, idx] = q
+            cache[name + "_scale"][:, idx] = sc
+    else:
+        cache["k"][:, idx] = k[:, S - n:].to(cache["k"].dtype)
+        cache["v"][:, idx] = v[:, S - n:].to(cache["v"].dtype)
     cache["pos"][:, idx] = pos
     return cache
 
@@ -245,40 +303,65 @@ def _shared_mlp(sp: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     return h + layers.swiglu_mlp(x, m["w_gate"], m["w_up"], m["w_down"])
 
 
+def _attn_post(lp: dict, cfg: ArchConfig, out: torch.Tensor) -> torch.Tensor:
+    """gemma's post-attention norm (identity for every other arch)."""
+    if not cfg.gemma_norm:
+        return out
+    return layers.rms_norm(out, lp["ln1_post"], eps=cfg.norm_eps,
+                           gemma_style=True)
+
+
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             cache_len: int):
     """Run a batch of equal-length prompts tokens [B, S]; returns the
     last-token logits [B, 1, Vp] and the decode state (positions S).
 
-    Every Mamba layer runs its chunked scan on K9 and keeps its final
-    state and raw conv context; every shared-attention site of a hybrid
-    attends causally on K8 and places its K/V in the site's cache."""
-    _check_dense_cache(cfg)
+    ``attn`` layout: every layer attends causally on K8 (within its
+    window, if it has one) and places its K/V in its cache, then runs its
+    FFN (MoE on ``moe_ffn``).  ``mamba``/``hybrid``: every Mamba layer
+    runs its chunked scan on K9 and keeps its final state and raw conv
+    context; every shared-attention site of a hybrid attends causally on
+    K8 and places its K/V in the site's cache."""
+    _check_supported(cfg)
     h = embed_in(params, cfg, tokens)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device).expand(B, S)
-    spec = mamba_spec_of(cfg)
     state = init_decode_state(cfg, B, cache_len, dtype=h.dtype,
                               start_pos=S, device=h.device)
-    if cfg.layout == "hybrid":
-        cos, sin = layers.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    ai = 0
-    for l, lp in enumerate(params["layers"]):
-        x = layers.rms_norm(h, lp["ln"], eps=cfg.norm_eps)
-        out, (hs, tail) = ssm.mamba_forward(lp["mamba"], spec, x,
-                                            return_state=True)
-        h = h + out
-        state["mamba"][l] = {"h": hs,
-                             "conv": _conv_context(tail, spec).to(h.dtype)}
-        if _is_shared_site(cfg, l):
-            sp = params["shared"]
-            x = layers.rms_norm(h, sp["ln1"], eps=cfg.norm_eps)
-            out, (k, v) = attention.attention(sp["attn"], x, positions, cos,
-                                              sin)
-            h = _shared_mlp(sp, cfg, h + out)
-            _place(state["attn"][ai], k, v)
-            ai += 1
+    if cfg.layout == "attn":
+        ropes = _rope_tables(cfg, positions)
+        for l, lp in enumerate(params["layers"]):
+            w = cfg.attn_window_pattern[l]
+            cos, sin = _layer_rope(cfg, w, ropes)
+            x = layers.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
+                                gemma_style=cfg.gemma_norm)
+            out, (k, v) = attention.attention(
+                lp["attn"], x, positions, cos, sin,
+                window=w if w > 0 else None, soft_cap=cfg.soft_cap)
+            h, _ = ffn_block(lp, cfg, h + _attn_post(lp, cfg, out))
+            _place(state["attn"][l], k, v)
+    else:
+        spec = mamba_spec_of(cfg)
+        if cfg.layout == "hybrid":
+            cos, sin = layers.rope_angles(positions, cfg.head_dim,
+                                          cfg.rope_theta)
+        ai = 0
+        for l, lp in enumerate(params["layers"]):
+            x = layers.rms_norm(h, lp["ln"], eps=cfg.norm_eps)
+            out, (hs, tail) = ssm.mamba_forward(lp["mamba"], spec, x,
+                                                return_state=True)
+            h = h + out
+            state["mamba"][l] = {
+                "h": hs, "conv": _conv_context(tail, spec).to(h.dtype)}
+            if _is_shared_site(cfg, l):
+                sp = params["shared"]
+                x = layers.rms_norm(h, sp["ln1"], eps=cfg.norm_eps)
+                out, (k, v) = attention.attention(sp["attn"], x, positions,
+                                                  cos, sin)
+                h = _shared_mlp(sp, cfg, h + out)
+                _place(state["attn"][ai], k, v)
+                ai += 1
     h = layers.rms_norm(h, params["final_norm"], eps=cfg.norm_eps,
                         gemma_style=cfg.gemma_norm)
     return logits_out(params, cfg, h[:, -1:, :]), state
@@ -286,36 +369,58 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 def decode_step(params: dict, cfg: ArchConfig, state: dict,
                 tokens: torch.Tensor):
-    """One token per sequence, tokens [B, 1]: the O(1) Mamba-2 recurrence
-    per layer and dense-cache attention at each shared site (plain torch;
-    no kernel runs here).  Returns (logits [B, 1, Vp], the new state); the
-    attention caches are updated in place and carried over."""
-    _check_dense_cache(cfg)
+    """One token per sequence, tokens [B, 1].  ``attn`` layout: per layer
+    the new K/V written at its cache's ring slot and attention over the
+    cache (int8 caches quantize on write and dequantize on read), then
+    the FFN (MoE on ``moe_ffn``).  ``mamba``/``hybrid``: the O(1)
+    Mamba-2 recurrence per layer and dense-cache attention at each shared
+    site.  The attention here is plain torch, as it is XLA in the JAX
+    package.  Returns (logits [B, 1, Vp], the new state); the caches are
+    updated in place and carried over."""
+    _check_supported(cfg)
     h = embed_in(params, cfg, tokens)
     pos = state["positions"]
     positions = pos[:, None]
-    spec = mamba_spec_of(cfg)
-    if cfg.layout == "hybrid":
-        cos, sin = layers.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     new_attn = list(state["attn"])
     new_mamba = list(state["mamba"])
-    ai = 0
-    for l, lp in enumerate(params["layers"]):
-        x = layers.rms_norm(h, lp["ln"], eps=cfg.norm_eps)
-        st = state["mamba"][l]
-        out, hs, cs = ssm.mamba_decode_step(lp["mamba"], spec, x, st["h"],
-                                            st["conv"])
-        h = h + out
-        new_mamba[l] = {"h": hs, "conv": cs}
-        if _is_shared_site(cfg, l):
-            sp = params["shared"]
-            x = layers.rms_norm(h, sp["ln1"], eps=cfg.norm_eps)
-            c = state["attn"][ai]
-            out, kc, vc, pc = attention.decode_attention(
-                sp["attn"], x, c["k"], c["v"], c["pos"], positions, cos, sin)
-            h = _shared_mlp(sp, cfg, h + out)
-            new_attn[ai] = {"k": kc, "v": vc, "pos": pc}
-            ai += 1
+    if cfg.layout == "attn":
+        ropes = _rope_tables(cfg, positions)
+        for l, lp in enumerate(params["layers"]):
+            w = cfg.attn_window_pattern[l]
+            cos, sin = _layer_rope(cfg, w, ropes)
+            x = layers.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
+                                gemma_style=cfg.gemma_norm)
+            c = state["attn"][l]
+            out, *caches = attention.decode_attention(
+                lp["attn"], x, c["k"], c["v"], c["pos"], positions, cos,
+                sin, window=w if w > 0 else None, soft_cap=cfg.soft_cap,
+                k_scale=c.get("k_scale"), v_scale=c.get("v_scale"))
+            h, _ = ffn_block(lp, cfg, h + _attn_post(lp, cfg, out))
+            new_attn[l] = dict(zip(("k", "v", "pos", "k_scale", "v_scale"),
+                                   caches))
+    else:
+        spec = mamba_spec_of(cfg)
+        if cfg.layout == "hybrid":
+            cos, sin = layers.rope_angles(positions, cfg.head_dim,
+                                          cfg.rope_theta)
+        ai = 0
+        for l, lp in enumerate(params["layers"]):
+            x = layers.rms_norm(h, lp["ln"], eps=cfg.norm_eps)
+            st = state["mamba"][l]
+            out, hs, cs = ssm.mamba_decode_step(lp["mamba"], spec, x,
+                                                st["h"], st["conv"])
+            h = h + out
+            new_mamba[l] = {"h": hs, "conv": cs}
+            if _is_shared_site(cfg, l):
+                sp = params["shared"]
+                x = layers.rms_norm(h, sp["ln1"], eps=cfg.norm_eps)
+                c = state["attn"][ai]
+                out, kc, vc, pc = attention.decode_attention(
+                    sp["attn"], x, c["k"], c["v"], c["pos"], positions, cos,
+                    sin)
+                h = _shared_mlp(sp, cfg, h + out)
+                new_attn[ai] = {"k": kc, "v": vc, "pos": pc}
+                ai += 1
     h = layers.rms_norm(h, params["final_norm"], eps=cfg.norm_eps,
                         gemma_style=cfg.gemma_norm)
     logits = logits_out(params, cfg, h)

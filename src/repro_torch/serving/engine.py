@@ -64,8 +64,15 @@ publish as ``qos.*.<tenant>``.  A power budget makes the memos governor
 narrow admission while the NVM's dynamic power is over it.  A bare
 ``QoSConfig()`` serves exactly as ``qos=None``.
 
-The engine refuses MoE archs.  The KV pool takes the parameters' dtype
-(bfloat16 weights serve from a bfloat16 pool).
+**MoE.**  An MoE arch's FFN routes every row of a step and runs its
+experts on kernel ``moe_ffn``; the router's per-expert counts accumulate
+on the device and reach ``expert_counts`` (the paper's bank-utilization
+histogram) with each dispatch's existing host reads.  Padding rows — the
+decode's rows past the batch, a prefill bucket's rows past its prompts —
+are routed and computed like the others but not counted.
+
+The KV pool takes the parameters' dtype (bfloat16 weights serve from a
+bfloat16 pool).
 """
 from __future__ import annotations
 
@@ -148,9 +155,10 @@ def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
 class PagedServingEngine:
     def __init__(self, cfg: ArchConfig, params: dict, scfg: ServeConfig, *,
                  device: str | torch.device | None = "cuda"):
-        if cfg.layout != "attn" or cfg.is_moe:
+        if cfg.layout != "attn":
             raise NotImplementedError(
-                "the port's paged engine serves dense attention archs")
+                "the port's paged engine serves attention archs (dense "
+                "and MoE)")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -198,6 +206,10 @@ class PagedServingEngine:
         self.tokens_out = 0
         self.rid = 0
         self.last_logits = None     # final inner step's logits, on device
+        # expert hotness of an MoE arch: the router's counts of every
+        # real row served, added on the host after each dispatch
+        self.expert_counts = (np.zeros(cfg.n_experts, np.int64)
+                              if cfg.is_moe else None)
         self.prefill_runner = (PrefillRunner(self)
                                if scfg.prefill and not scfg.reference
                                else None)
@@ -348,19 +360,23 @@ class PagedServingEngine:
 
     # -- model compute -------------------------------------------------------------
     def _decode_layers(self, tokens: torch.Tensor, positions: torch.Tensor,
-                       attend) -> torch.Tensor:
+                       attend):
         """The layer stack of one decode step.  ``attend(l, qkv)`` gets
         layer ``l``'s raw projections of the new token with their qk-norm
         weights and RoPE tables — the first seven arguments of
         ``attention.rope_append`` (q [B, Hq, D], k/v [B, Hkv, D], cos/sin
         [B, D/2]) — stores its K/V and returns the paged attention over
-        the pools [B, Hkv, G, D].  Returns logits [B, Vp].
+        the pools [B, Hkv, G, D].  Returns (logits [B, Vp], expert
+        counts int32 [E] summed over the layers, or None for a dense
+        FFN).
 
         The dense math runs on ``max_batch`` rows whatever B is (zero
         rows pad the batch): the card's matmul and reduction kernels pick
         their work split by shape, so a row's bits would otherwise depend
         on how many rows share the dispatch, and the same request could
-        decode differently under another schedule."""
+        decode differently under another schedule.  An MoE FFN routes the
+        padding rows too (so every row's bits stay its own) but counts
+        only the real rows."""
         cfg = self.cfg
         params = self.params
         B = tokens.shape[0]
@@ -369,6 +385,8 @@ class PagedServingEngine:
         cos, sin = L.rope_angles(_pad_rows(positions, R)[:, None],
                                  cfg.head_dim, cfg.rope_theta)
         cos, sin = cos[:B, 0], sin[:B, 0]
+        valid = (torch.arange(R, device=h.device) < B)[:, None]
+        counts_acc = None
         for l, lp in enumerate(params["layers"]):
             x = L.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
                            gemma_style=cfg.gemma_norm)
@@ -380,19 +398,23 @@ class PagedServingEngine:
             out = _pad_rows(out.reshape(B, -1), R) \
                 @ wo.reshape(-1, wo.shape[-1])
             h = h + out[:, None, :]
-            h = T.ffn_block(lp, cfg, h)
+            h, counts = T.ffn_block(lp, cfg, h, valid=valid)
+            if counts is not None:
+                counts_acc = counts if counts_acc is None \
+                    else counts_acc + counts
         h = L.rms_norm(h, params["final_norm"], eps=cfg.norm_eps,
                        gemma_style=cfg.gemma_norm)
-        return T.logits_out(params, cfg, h)[:B, 0]
+        return T.logits_out(params, cfg, h)[:B, 0], counts_acc
 
     def _decode_core(self, tokens: torch.Tensor, positions: torch.Tensor,
                      block_tables: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor):
         """One decode step for the batch: write the new token's K/V into
         the tier-0 pool (in place) *before* attention, then run the layer
         stack through the paged-attention kernel.  tokens/positions [B];
         block_tables [B, P] int32 tier-0 slots; lengths int32 [B]
-        (including the current token).  Returns logits [B, Vp]."""
+        (including the current token).  Returns (logits [B, Vp], expert
+        counts or None), as :meth:`_decode_layers`."""
         page = self.scfg.page_size
         pool = self.kv.store.fast_pool
         b_idx = torch.arange(tokens.shape[0], device=tokens.device)
@@ -410,7 +432,7 @@ class PagedServingEngine:
                             positions: torch.Tensor,
                             block_tables: torch.Tensor,
                             pool_sel: torch.Tensor, lengths: torch.Tensor,
-                            remap: torch.Tensor) -> torch.Tensor:
+                            remap: torch.Tensor):
         """One decode step with the KV split across the tier-0 pool and
         the pinned-host pool: pages are attended wherever they live
         (``paged_attention_dual_pooled``) and the new token's K/V lands in
@@ -423,7 +445,7 @@ class PagedServingEngine:
         [B, P] is 1 for pinned pages.  The pool that does not hold a
         row's tail gets an out-of-range slot, which the append drops, so
         a numeric slot collision between the pools never clobbers a real
-        write.  Returns logits [B, Vp]."""
+        write.  Returns (logits [B, Vp], expert counts or None)."""
         page = self.scfg.page_size
         store = self.kv.store
         fast = store.fast_pool
@@ -465,12 +487,15 @@ class PagedServingEngine:
     def _k_steps(self, tokens, positions, prompt_buf, prompt_len,
                  page_tables, k_steps: int, decode, on_tail=None):
         """K inner decode steps enqueued back to back: ``decode(tokens,
-        positions)`` returns one step's logits, device-side argmax feeds
+        positions)`` returns one step's logits and expert counts (or
+        None), device-side argmax feeds
         the next step, SysMon records and the page-write counters
         accumulate on the device, and ``on_tail(tailcol)`` (if given)
         runs after each step's records.  Returns ([K, B] sampled tokens
         and [n_pages] page writes as numpy — the dispatch's only host
-        reads — and the last step's logits on the device)."""
+        reads — and the last step's logits on the device).  An MoE arch's
+        expert counts add up in the page-write counters' buffer, ride on
+        its host read and are added to ``expert_counts``."""
         cfg = self.cfg
         page = self.scfg.page_size
         dev = self.device
@@ -478,12 +503,16 @@ class PagedServingEngine:
         b_idx = torch.arange(B, device=dev)
         col = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
         ones = torch.ones(B, dtype=torch.int32, device=dev)
-        page_writes = torch.zeros(self.kv.n_pages, dtype=torch.int32,
-                                  device=dev)
+        n_pages = self.kv.n_pages
+        n_exp = cfg.n_experts if self.expert_counts is not None else 0
+        acc = torch.zeros(n_pages + n_exp, dtype=torch.int32, device=dev)
+        page_writes, expert_acc = acc[:n_pages], acc[n_pages:]
         sampled_all = torch.empty((k_steps, B), dtype=torch.int32, device=dev)
         logits = None
         for s in range(k_steps):
-            logits = decode(tokens, positions)
+            logits, counts = decode(tokens, positions)
+            if n_exp:
+                expert_acc.add_(counts)
             sampled = torch.argmax(logits[:, :cfg.vocab], dim=-1).to(
                 torch.int32)
             nxt_tok, nxt_pos = self._advance_prompt(
@@ -503,8 +532,10 @@ class PagedServingEngine:
                 on_tail(tailcol)
             sampled_all[s] = sampled
             tokens, positions = nxt_tok, nxt_pos
-        return (sampled_all.cpu().numpy(), page_writes.cpu().numpy(),
-                logits)
+        acc = acc.cpu().numpy()
+        if n_exp:
+            self.expert_counts += acc[n_pages:]
+        return sampled_all.cpu().numpy(), acc[:n_pages], logits
 
     def _fused_decode(self, tokens, positions, prompt_buf, prompt_len,
                       page_tables, block_tables, k_steps: int):
@@ -613,13 +644,13 @@ class PagedServingEngine:
         B = tokens.shape[0]
         dev = self.device
         if pool_sel is None:
-            logits = self._decode_core(
+            logits, counts = self._decode_core(
                 torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(positions).to(dev),
                 torch.from_numpy(block_tables).to(dev),
                 torch.from_numpy(positions + 1).to(dev))
         else:
-            logits = self._decode_core_pinned(
+            logits, counts = self._decode_core_pinned(
                 torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(positions).to(dev),
                 torch.from_numpy(block_tables).to(dev),
@@ -627,6 +658,8 @@ class PagedServingEngine:
                 torch.from_numpy(positions + 1).to(dev), remap)
         sampled = torch.argmax(logits[:, :self.cfg.vocab], dim=-1).cpu() \
             .numpy().astype(np.int32)[None, :]
+        if counts is not None:
+            self.expert_counts += counts.cpu().numpy()
         read_valid = np.arange(P)[None, :] <= (positions // page)[:, None]
         self.sysmon = sysmon_mod.record(
             self.sysmon, torch.from_numpy(page_tables.reshape(-1)).to(dev),
@@ -726,17 +759,23 @@ class PagedServingEngine:
                       bucket=group.bucket, segments=len(segs),
                       tokens=n_tok):
             if pt is None:
-                first, seg_logits = pr._core_plain(
+                first, seg_logits, counts = pr._core_plain(
                     a["tokens"], a["local_pos"], a["row_tables"],
                     a["lengths"], a["write_slot"], a["write_off"],
                     a["seg_last"])
             else:
-                first, seg_logits = pr._core_pinned(
+                first, seg_logits, counts = pr._core_pinned(
                     a["tokens"], a["local_pos"], a["row_tables"],
                     a["row_sel"], a["lengths"], a["write_slot"],
                     a["write_sel"], a["write_off"], a["seg_last"],
                     self._pinned_remap(wear_tr))
-            first = first.cpu().numpy()
+            if counts is not None:
+                # the dispatch's expert counts ride on its one host read
+                both = torch.cat([first, counts]).cpu().numpy()
+                first = both[:first.shape[0]]
+                self.expert_counts += both[first.shape[0]:]
+            else:
+                first = first.cpu().numpy()
         dt = time.perf_counter() - t0
         self.last_logits = seg_logits
         reg = obs.get_registry()

@@ -160,14 +160,17 @@ class PrefillRunner:
 
     # -- the layer stack ------------------------------------------------------
     def _layers(self, tokens: torch.Tensor, local_pos: torch.Tensor,
-                seg_last: torch.Tensor, attend):
+                lengths: torch.Tensor, seg_last: torch.Tensor, attend):
         """The decode step's layer stack over the bucket's L positions as
         one sequence [1, L, d].  ``attend(l, qkv)`` gets layer ``l``'s raw
         projections with their qk-norm weights and RoPE tables — the first
         seven arguments of ``attention.rope_append`` (q [L, Hq, D], k/v
         [L, Hkv, D], cos/sin [L, D/2]) — stores its K/V and returns the
         paged attention [L, Hkv, G, D].  Returns (first sampled token [S],
-        logits [S, Vp]) at each segment's last position."""
+        logits [S, Vp]) at each segment's last position, and the expert
+        counts int32 [E] of the prompt rows summed over the layers
+        (``lengths > 0``: padding rows are routed but not counted), or
+        None for a dense FFN."""
         eng = self.eng
         cfg, params = eng.cfg, eng.params
         n = tokens.shape[0]
@@ -175,6 +178,8 @@ class PrefillRunner:
         cos, sin = L.rope_angles(local_pos[None, :], cfg.head_dim,
                                  cfg.rope_theta)
         cos, sin = cos[0], sin[0]
+        valid = (lengths > 0)[None, :]
+        counts_acc = None
         for l, lp in enumerate(params["layers"]):
             x = L.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
                            gemma_style=cfg.gemma_norm)
@@ -184,13 +189,16 @@ class PrefillRunner:
                              ap.get("k_norm"), cos, sin))
             wo = lp["attn"]["wo"]
             h = h + (out.reshape(n, -1) @ wo.reshape(-1, wo.shape[-1]))[None]
-            h = T.ffn_block(lp, cfg, h)
+            h, counts = T.ffn_block(lp, cfg, h, valid=valid)
+            if counts is not None:
+                counts_acc = counts if counts_acc is None \
+                    else counts_acc + counts
         h = L.rms_norm(h[:, seg_last.long()], params["final_norm"],
                        eps=cfg.norm_eps, gemma_style=cfg.gemma_norm)
         seg_logits = T.logits_out(params, cfg, h)[0]
         first = torch.argmax(seg_logits[:, :cfg.vocab], dim=-1).to(
             torch.int32)
-        return first, seg_logits
+        return first, seg_logits, counts_acc
 
     def _core_plain(self, tokens, local_pos, row_tables, lengths,
                     write_slot, write_off, seg_last):
@@ -207,7 +215,7 @@ class PrefillRunner:
                                 write_off)
             return paged_attention_prefill_pooled(
                 q, *eng.kv.layer_pools(l), row_tables, lengths)
-        return self._layers(tokens, local_pos, seg_last, attend)
+        return self._layers(tokens, local_pos, lengths, seg_last, attend)
 
     def _core_pinned(self, tokens, local_pos, row_tables, pool_sel, lengths,
                      write_slot, write_sel, write_off, seg_last, remap):
@@ -238,7 +246,7 @@ class PrefillRunner:
             return paged_attention_prefill_dual_pooled(
                 q, fast[:, l, 0], fast[:, l, 1], pin[:, l, 0], pin[:, l, 1],
                 row_tables, pool_sel, lengths)
-        return self._layers(tokens, local_pos, seg_last, attend)
+        return self._layers(tokens, local_pos, lengths, seg_last, attend)
 
     # -- host-side argument assembly -----------------------------------------
     def build_args(self, group: PackedGroup, block_tables: np.ndarray,

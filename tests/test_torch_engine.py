@@ -173,10 +173,10 @@ def test_decode_core_teacher_forced(models):
         jlogits, _, jpool = jdecode(
             jparams, jnp.asarray(tok), jnp.asarray(pos), jnp.asarray(bt),
             jnp.asarray(pos + 1), jpool)
-        tlogits = teng._decode_core(torch.from_numpy(tok),
-                                    torch.from_numpy(pos),
-                                    torch.from_numpy(bt),
-                                    torch.from_numpy(pos + 1))
+        tlogits, _ = teng._decode_core(torch.from_numpy(tok),
+                                       torch.from_numpy(pos),
+                                       torch.from_numpy(bt),
+                                       torch.from_numpy(pos + 1))
         assert teng.kv.store.fast_pool is tpool
         assert_close(tpool, np.asarray(jpool))
         assert_close(tlogits, np.asarray(jlogits))

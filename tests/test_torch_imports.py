@@ -43,6 +43,29 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(out.stdout.strip()) > 30
 
 
+@pytest.mark.parametrize("module", ["repro_torch.models.moe",
+                                    "repro_torch.kernels.moe_ffn"])
+def test_moe_modules_import_without_jax(module):
+    """The MoE slice's modules, imported alone with ``jax`` blocked: no
+    ``repro``/``jax`` module loads, and ``moe_ffn`` is a counted kernel."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.path[:0] = [{str(SRC)!r}]
+        importlib.import_module({module!r})
+        from repro_torch import kernels
+        assert "moe_ffn" in kernels.KERNELS
+        assert kernels.launch_counts()["moe_ffn"] == 0
+        bad = sorted(m for m in sys.modules
+                     if m == "repro" or m.startswith(("repro.", "jax.",
+                                                      "jaxlib")))
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+
+
 def test_port_sources_name_no_jax_or_repro_import():
     """The same rule read from the sources, so an import inside a function
     that the import test never calls is caught too."""

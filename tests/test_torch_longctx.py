@@ -216,18 +216,45 @@ def test_longctx_main_runs_on_cpu(capsys):
     assert "mamba2_1_3b" in out and "decoded 40 tokens" in out
 
 
+def test_longctx_main_prints_both_halves(capsys):
+    """``main`` runs both halves of ``examples/longctx_decode.py``:
+    mamba2 with O(1) SSM state and no K/V, then mixtral with the K/V of
+    a 16-slot ring per layer (float32), though its prompt and horizon
+    run past the window, and the example's closing line."""
+    assert longctx_decode.main(["--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    mx = smoke(registry()["mixtral_8x7b"])
+    mb = smoke(registry()["mamba2_1_3b"])
+    spec = T.mamba_spec_of(mb)
+    ring = mx.n_layers * 2 * 16 * mx.n_kv_heads * mx.head_dim * 4
+    ssm = mb.n_layers * spec.n_heads * spec.d_state * spec.headdim * 4
+    assert mx.sliding_window == 16
+    assert lines[0].startswith("mamba2_1_3b      decoded 40 tokens past a "
+                               "24-token prompt on cpu; state: kv=0B "
+                               f"ssm={ssm}B")
+    assert lines[3].startswith("mixtral_8x7b     decoded 40 tokens past a "
+                               "24-token prompt on cpu; state: "
+                               f"kv={ring}B ssm=0B")
+    assert lines[4].startswith("  first 10: [")
+    assert lines[-1] == "ring-buffer / O(1)-state long-context decode ✓"
+    assert len(lines) == 7
+
+
 def test_dense_cache_entry_points_refuse_what_is_not_ported():
-    """The ``attn`` layout's dense cache is not in the port (the paged
-    engine serves it); the paged engine still refuses the Mamba and
-    hybrid layouts, as the JAX engine does; without a card the default
-    device raises."""
+    """The dense cache serves every layout now (``attn`` in
+    ``tests/test_torch_dense_cache_attn.py``), but not the archs whose
+    inputs are embeddings with M-RoPE (qwen2_vl) or whose FFN is a GELU
+    MLP (musicgen); the paged engine still refuses the Mamba and hybrid
+    layouts, as the JAX engine does; without a card the default device
+    raises."""
     from repro_torch.serving.engine import PagedServingEngine, ServeConfig
-    qwen = smoke(registry()["qwen3_4b"])
-    qp = T.init_params(qwen, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense-cache"):
-        T.prefill(qp, qwen, torch.zeros((1, 4), dtype=torch.int32), 8)
-    with pytest.raises(NotImplementedError, match="dense-cache"):
-        T.init_decode_state(qwen, 1, 8, device="cpu")
+    for name, what in (("qwen2_vl_72b", "input_mode"),
+                       ("musicgen_medium", "mlp='gelu'")):
+        cfg = smoke(registry()[name])
+        with pytest.raises(NotImplementedError, match=what):
+            T.init_decode_state(cfg, 1, 8, device="cpu")
+        with pytest.raises(NotImplementedError, match=what):
+            T.init_params(cfg, device="cpu")
     for name in ARCHS:
         cfg = smoke(registry()[name])
         with pytest.raises(NotImplementedError, match="paged engine"):

@@ -180,7 +180,8 @@ def test_embed_logits_and_ffn_block(arch, vocab):
     assert_close(h, jh)
     lp = tp["layers"][1]
     jlp = jax.tree.map(lambda a: a[1], jp["layers"])
-    h2 = T.ffn_block(lp, cfg, h)
+    h2, counts = T.ffn_block(lp, cfg, h)
+    assert counts is None                 # a dense FFN has no router
     jh2, _, _ = JT._ffn_block(jlp, jcfg, jh, None)
     assert_close(h2, jh2)
     logits = T.logits_out(tp, cfg, h2)

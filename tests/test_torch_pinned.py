@@ -214,7 +214,7 @@ def test_decode_core_pinned_matches_jax(models):
             jparams, jnp.asarray(tok), jnp.asarray(pos), jnp.asarray(BT),
             jnp.asarray(SEL), jnp.asarray(pos + 1), jfast, jpin,
             jnp.asarray(REMAP))
-        tlogits = teng._decode_core_pinned(
+        tlogits, _ = teng._decode_core_pinned(
             torch.from_numpy(tok), torch.from_numpy(pos),
             torch.from_numpy(BT), torch.from_numpy(SEL),
             torch.from_numpy(pos + 1), torch.from_numpy(REMAP))

@@ -294,7 +294,7 @@ def test_core_pinned_matches_jax(models):
     ja = jeng.prefill_runner.build_args(group, bt, sel)
     for k, v in a.items():
         assert_same(v, ja[k][:len(v)])
-    first, seg_logits = teng.prefill_runner._core_pinned(
+    first, seg_logits, _ = teng.prefill_runner._core_pinned(
         *(torch.from_numpy(a[k]) for k in (
             "tokens", "local_pos", "row_tables", "row_sel", "lengths",
             "write_slot", "write_sel", "write_off", "seg_last")),

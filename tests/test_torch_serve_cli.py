@@ -2,13 +2,16 @@
 ``repro.launch.serve``: on the CPU the port's ``main`` prints the same
 served / latency / tier-traffic lines as the JAX driver run in a
 subprocess (the schedule, the page traffic and the migrations do not
-depend on the weights), and without a card the default device raises.
+depend on the weights), an MoE arch also the same expert-hotness line
+(with the JAX driver's weights carried over, since the routing does
+depend on them), and without a card the default device raises.
 """
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -62,3 +65,26 @@ def test_serve_main_smoke_flag_parses_both_ways(flag):
     # size is refused here without being built
     with pytest.raises(SystemExit, match="mamba2_1_3b: paged serving"):
         serve.main(["--device", "cpu", "--arch", "mamba2_1_3b", flag])
+
+
+def test_serve_main_moe_prints_what_jax_prints(capsys, monkeypatch):
+    """``--arch olmoe_1b_7b``: the served / latency / traffic lines and
+    the expert-hotness line equal the JAX driver's, the port serving the
+    JAX driver's own weights (``init_params(cfg, PRNGKey(0))``)."""
+    jax = pytest.importorskip("jax")
+    from repro.configs import registry as jregistry
+    from repro.configs import smoke as jsmoke
+    from repro.models import transformer as JT
+    from repro_torch.convert import params_from_jax
+    jp = JT.init_params(jsmoke(jregistry()["olmoe_1b_7b"]),
+                        jax.random.PRNGKey(0))
+    np_params = jax.tree.map(np.asarray, jp)
+    monkeypatch.setattr(
+        serve.T, "init_params",
+        lambda cfg, seed, device: params_from_jax(np_params, cfg,
+                                                  device=device))
+    flags = ["--arch", "olmoe_1b_7b"]
+    assert serve.main(["--device", "cpu", *flags]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines == _jax_lines(flags)
+    assert len(lines) == 4 and lines[3].startswith("expert hotness: top ")
