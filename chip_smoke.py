@@ -162,8 +162,11 @@ prints no result line):
      fused = reference tokens; K1's bodies and ``qkv_rope_append`` vs
      plain at G 1 and D 96 (phi3), G 5 (qwen2.5) and D 256 (gemma3);
  29. ``moe_ffn``'s kernel rows (olmoe's decode and 256-row prefill
-     bucket and mixtral's prefill in bf16, olmoe's decode and the
-     mixtral probe's prefill in float32) beside ``torch._grouped_mm``;
+     bucket and mixtral's prefill and decode in bf16, olmoe's decode and
+     the mixtral probe's prefill in float32) beside ``torch._grouped_mm``,
+     each with its launch plan and the tensor-core instructions in its
+     SASS (``sass_hgmma`` of the bf16 ``wgmma`` kernels, ``sass_hmma`` of
+     the float32 3xTF32 ones; 0 fails);
   9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
@@ -4352,8 +4355,10 @@ def _moe_row(name, shape, dtype, tol, launches, seed, bound_f32=False):
     """One ``moe_ffn`` row: kernel vs plain within ``tol`` of max|plain|,
     CUDA-event ms of the eager call, ``device_ms`` over a CUDA graph of
     50 calls, the plain version's ms, the bound (the touched experts'
-    weights, the rows and the float32 output once; 6 R d ff operations)
-    and the library yardstick's ms."""
+    weights, the rows and the float32 output once; 6 R d ff operations),
+    the library yardstick's ms, the launch plan and the count of
+    tensor-core instructions in the entry's SASS (HGMMA for bf16, HMMA
+    for float32; none fails)."""
     import torch
     from repro_torch.kernels import moe_ffn as KM
     d, ff, n_exp, tokens, top_k = shape
@@ -4410,6 +4415,13 @@ def _moe_row(name, shape, dtype, tol, launches, seed, bound_f32=False):
         row.update(_f32_bounds(nbytes, flops))
     else:
         row["bound_ms"], row["bound_by"] = _bound_ms(nbytes, flops)
+    row["plan"] = KM.launch_info(dtype, R, n_exp)
+    sass = (("sass_hgmma", "moe_wgmma_kernel", "HGMMA")
+            if dtype == torch.bfloat16 else
+            ("sass_hmma", "moe_tf32_kernel", "HMMA"))
+    row[sass[0]] = _sass_count(sass[1], sass[2])
+    if not row[sass[0]]:
+        raise RuntimeError(f"{name}: no {sass[2]} in {sass[1]}'s SASS")
     del xg, w, got, want
     torch.cuda.empty_cache()
     return row
@@ -4419,8 +4431,9 @@ def bench_moe_kernels(launches: dict) -> list[dict]:
     """``moe_ffn``'s rows at the shapes its paths give it: olmoe's decode
     (8 tokens x top 8 = 64 rows over 64 experts), olmoe's 256-row prefill
     bucket (2048 rows), mixtral's long prefill (4160 x 2 rows over 8
-    experts) in bf16; olmoe's decode and the mixtral probe's prefill
-    (4092 x 2 rows) in float32.  ``launches`` holds each path's count."""
+    experts) and decode (1 token x top 2, the most weight bytes a launch)
+    in bf16; olmoe's decode and the mixtral probe's prefill (4092 x 2
+    rows) in float32.  ``launches`` holds each path's count."""
     import torch
     olmoe = (2048, 1024, 64)
     mixtral = (4096, 14336, 8)
@@ -4432,6 +4445,8 @@ def bench_moe_kernels(launches: dict) -> list[dict]:
                  launches["moe_prefill"], SEED + 31),
         _moe_row("moe_ffn mixtral", (*mixtral, MIXTRAL_PROMPT, 2), bf16,
                  MOE_TOL, launches["longctx_mixtral"], SEED + 32),
+        _moe_row("moe_ffn mixtral decode", (*mixtral, 1, 2), bf16, MOE_TOL,
+                 launches["longctx_mixtral_decode"], SEED + 36),
         _moe_row("moe_ffn_f32", (*olmoe, 8, 8), f32, MOE_F32_TOL,
                  launches["moe_f32"], SEED + 33, bound_f32=True),
         _moe_row("moe_ffn_f32 mixtral", (*mixtral, MIXTRAL_PROBE_PROMPT, 2),
@@ -4903,6 +4918,7 @@ def run_slice13() -> dict:
         "moe_engine": by_path["moe_engine_fused"],
         "moe_prefill": by_path["moe_engine_prefill"],
         "longctx_mixtral": by_path["longctx_mixtral_prefill"],
+        "longctx_mixtral_decode": by_path["longctx_mixtral_decode"],
         "moe_f32": f32_launches, "mixtral_probe_f32": probe_launches})
     for r in rows:
         r["launches_by_path"] = by_path

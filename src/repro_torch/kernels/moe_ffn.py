@@ -13,7 +13,10 @@ with every product accumulated in float32.  On CUDA tensors
 ``csrc/moe_ffn.cu`` computes it in two launches (gate/up, then down)
 that read the offsets on the device, so a decode step never waits on the
 host for the group sizes; each launch counts once under ``moe_ffn``.
-CPU tensors take ``moe_ffn_plain``, a per-expert loop of ``torch.matmul``.
+bfloat16 runs on ``wgmma`` from TMA-loaded tiles, float32 in 3xTF32 on
+``mma.sync``, both over a persistent grid of (expert, column tile, row
+tile) units.  CPU tensors take ``moe_ffn_plain``, a per-expert loop of
+``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -26,9 +29,10 @@ from . import _build, count_launch
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_C] * 5 + [_I] * 3 + [_C]
+_ARGTYPES = [_C] * 5 + [_I] * 4 + [_C]
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 TILE = 64          # D and FF must be multiples of the kernel's column tile
+MAX_EXPERTS = 256  # the kernel's unit plan in shared memory
 
 
 def moe_ffn_plain(xg: torch.Tensor, offs: torch.Tensor,
@@ -67,6 +71,9 @@ def _check(xg, offs, w_gate, w_up, w_down, gate) -> None:
                          f"and [E, ff, d] with d and ff multiples of {TILE}")
     if offs.dtype != torch.int32 or offs.shape != (E + 1,):
         raise ValueError(f"moe_ffn: offs must be int32 [E + 1] = [{E + 1}]")
+    if E > MAX_EXPERTS:
+        raise ValueError(f"moe_ffn: {E} experts, the kernel takes at most "
+                         f"{MAX_EXPERTS}")
     if gate.dtype != torch.float32 or gate.shape != (R,):
         raise ValueError(f"moe_ffn: gate must be float32 [R] = [{R}]")
     for name, t in (("xg", xg), ("offs", offs), ("w_gate", w_gate),
@@ -89,15 +96,33 @@ def _launch(xg, offs, w_gate, w_up, w_down, gate) -> torch.Tensor:
     stream = _build.current_stream(dev.index)
     fn = _build.function(f"moe_gate_up_{sfx}", _ARGTYPES)
     _build.check(fn(xg.data_ptr(), offs.data_ptr(), w_gate.data_ptr(),
-                    w_up.data_ptr(), h.data_ptr(), E, d, ff, stream),
+                    w_up.data_ptr(), h.data_ptr(), R, E, d, ff, stream),
                  f"moe_gate_up_{sfx}")
     count_launch("moe_ffn")
     fn = _build.function(f"moe_down_{sfx}", _ARGTYPES)
     _build.check(fn(h.data_ptr(), offs.data_ptr(), w_down.data_ptr(),
-                    gate.data_ptr(), y.data_ptr(), E, d, ff, stream),
+                    gate.data_ptr(), y.data_ptr(), R, E, d, ff, stream),
                  f"moe_down_{sfx}")
     count_launch("moe_ffn")
     return y
+
+
+def launch_info(dtype: torch.dtype, R: int, E: int) -> dict:
+    """How the entry for ``dtype`` launches on the card at R rows over E
+    experts, for measurement: the persistent grid's CTAs, threads,
+    dynamic shared memory, CTAs per SM, ring stages, rows a unit and
+    weight columns a unit of each launch (the kernel source's
+    constants)."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"moe_ffn: no entry for {dtype}")
+    info = (ctypes.c_int * 8)()
+    fn = _build.function("moe_ffn_launch_info",
+                         [_I, _I, _I, ctypes.POINTER(ctypes.c_int)])
+    _build.check(fn(int(dtype == torch.float32), R, E, info),
+                 "moe_ffn_launch_info")
+    keys = ("ctas", "threads", "smem_bytes", "ctas_per_sm", "stages",
+            "unit_rows", "gate_up_unit_columns", "down_unit_columns")
+    return dict(zip(keys, info))
 
 
 def moe_ffn(xg: torch.Tensor, offs: torch.Tensor, w_gate: torch.Tensor,

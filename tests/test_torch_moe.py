@@ -242,3 +242,86 @@ def test_moe_ffn_kernel_refuses_unaligned_widths():
     xg, offs, w, gate = _card_inputs(dev, torch.float32, [2, 1], 96, 64, 13)
     with pytest.raises(ValueError, match="multiples of 64"):
         KM.moe_ffn(xg, offs, *w, gate)
+
+
+def _assert_vs_plain(dtype, sizes, d, ff, seed):
+    """The kernel against its plain version on the same inputs: bf16
+    within 3e-3 of max|plain| (+ 3e-3 |plain|), float32 within 1e-5."""
+    tol = 3e-3 if dtype == torch.bfloat16 else 1e-5
+    dev = cuda_device()
+    xg, offs, w, gate = _card_inputs(dev, dtype, sizes, d, ff, seed)
+    kernels.reset_launch_counts()
+    y = KM.moe_ffn(xg, offs, *w, gate)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["moe_ffn"] == 2
+    want = KM.moe_ffn_plain(xg, offs, *w, gate)
+    assert torch.isfinite(y).all()
+    np.testing.assert_allclose(y.cpu().numpy(), want.cpu().numpy(),
+                               atol=tol * float(want.abs().max()), rtol=tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sizes", [
+    [0, 1, 63, 64, 65, 127, 128, 129, 1040],     # the row tiles' edges
+    [3, 70, 5, 130, 1, 0, 61],                   # starts off a 64 boundary
+    [0, 0, 300, 0],                              # every row in one expert
+    [1, 0, 0, 2]])                               # R 3: boxes past R
+@pytest.mark.parametrize("empty_experts", [0, 64])
+def test_moe_ffn_kernel_at_tile_edges(dtype, sizes, empty_experts):
+    """Group sizes at the kernels' 16/32/64/128-row tile edges, groups
+    that start anywhere, R not a multiple of 64 (the TMA boxes and
+    cp.async rows past R read zeros) and one expert holding every row;
+    with 64 empty experts more, R <= 32 E, the float32 entry's narrow
+    tiling (32-row units) takes the same groups."""
+    _assert_vs_plain(dtype, sizes + [0] * empty_experts, 256, 192, 21)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_ffn_kernel_at_mixtral_widths(dtype):
+    """A few rows at mixtral_8x7b's widths (d 4096, ff 14336): 112 gate/up
+    column tiles and the down reduction over 14336."""
+    _assert_vs_plain(dtype, [2, 0, 1], 4096, 14336, 22)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_ffn_graph_replay_matches_eager(dtype):
+    """The two launches captured in a CUDA graph (offsets read on the
+    device, no host sync, no API call after the first launch) replay the
+    eager call's bits, also after the routing changes in place."""
+    dev = cuda_device()
+    sizes = [5, 0, 70, 1, 0, 130, 2, 48]
+    xg, offs, w, gate = _card_inputs(dev, dtype, sizes, 256, 192, 23)
+    KM.moe_ffn(xg, offs, *w, gate)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = KM.moe_ffn(xg, offs, *w, gate)
+    for new in (sizes, [256, 0, 0, 0, 0, 0, 0, 0], [0] * 7 + [256]):
+        offs.copy_(torch.tensor(np.concatenate([[0], np.cumsum(new)]),
+                                dtype=torch.int32, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, KM.moe_ffn(xg, offs, *w, gate))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_ffn_row_bits_at_olmoe_widths(dtype):
+    """At olmoe_1b_7b's widths (d 2048, ff 1024), a row's bits alone, in a
+    128-row group and in a 2048-row group are the same."""
+    dev = cuda_device()
+    xg, _, w, gate = _card_inputs(dev, dtype, [2048], 2048, 1024, 24)
+
+    def run(rows):
+        rows = torch.as_tensor(rows, device=dev)
+        offs = torch.tensor([0, rows.numel()], dtype=torch.int32, device=dev)
+        return KM.moe_ffn(xg[rows].contiguous(), offs, *w,
+                          gate[rows].contiguous())
+    full = run(list(range(2048)))
+    for r in (0, 63, 64, 1000, 2047):
+        assert torch.equal(run([r])[0], full[r])
+        assert torch.equal(run([(r + i) % 2048 for i in range(128)])[0],
+                           full[r])
