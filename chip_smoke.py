@@ -167,6 +167,25 @@ prints no result line):
      each with its launch plan and the tensor-core instructions in its
      SASS (``sass_hgmma`` of the bf16 ``wgmma`` kernels, ``sass_hmma`` of
      the float32 3xTF32 ones; 0 fails);
+ 30. ``longctx_gemma3``: ``generate`` with gemma3_4b whole (34 layers,
+     d 2560, 8/4 heads at D 256) in bf16, 4 prompts of 2000 + 32 tokens:
+     the 29 local layers' 1024-slot rings wrap; the prefill launches K8
+     (its D-256 kernel) once per layer (34: 29 windowed, 5 causal), the
+     decode no kernel;
+ 31. ``longctx_musicgen``: musicgen_medium whole (48 layers, d 1536,
+     24/24 heads at D 64, GELU FFN) on seeded embeddings, 4 x 2000 + 32
+     teacher-forced steps (the greedy codes recorded): K8 48 in the
+     prefill, none in the decode;
+ 32. ``longctx_qwen2_vl``: qwen2_vl_72b at full width (d 8192, 64/8 heads,
+     d_ff 29568, QKV bias, text-only M-RoPE) cut to 8 of 80 layers (the
+     cut in the line), the same embeddings run: K8 8, decode none;
+ 33. ``longctx_probe_f32_s15``: the three in float32 at full width cut to
+     6 / 4 / 2 layers, a 1100-token prompt, 4 steps each against a fresh
+     prefill within 1e-3 (flips only under 1e-2); ``longctx_card_vs_cpu``
+     gains smoke gemma3 at D 256, musicgen and qwen2_vl (1e-4, identical
+     tokens); and K8's rows at D 256 (gemma3's causal and window shapes,
+     bf16 and float32, ``sass_hgmma`` / ``sass_hmma`` of the D-256
+     kernels) and at D 64 (musicgen's, bf16);
   9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
@@ -227,7 +246,8 @@ lines, the parity lines, the overlap lines, the QoS summary and the
 to standard error), the prefill and int8 lines,
 the long-context
 lines, the ``{"kernels": [...]}`` line, the K9 pass times, the MoE,
-mixtral and dense-arch lines, the card's line again, and last ``{"ok":
+mixtral and dense-arch lines, the slice-15 long-context lines, the
+card's line again, and last ``{"ok":
 true, "device": {...}}``.  Exits 2
 without a CUDA device and 1 when the port's sources are not beside this
 script.
@@ -4926,6 +4946,434 @@ def run_slice13() -> dict:
     return out
 
 
+# =============================================================================
+# phases 30-33: the last inference archs (gemma3 at D 256, musicgen's GELU
+# FFN on embeddings, qwen2_vl's M-RoPE on embeddings) on the dense cache
+# =============================================================================
+
+# gemma3_4b and musicgen_medium whole, qwen2_vl_72b at full width cut to
+# QWEN2_VL_LAYERS of 80 layers (the whole model is ~145 GB in bf16), bf16:
+# LONGCTX_BATCH prompts of LONGCTX_PROMPT tokens (the embeds archs: seeded
+# embeddings, and one seeded embedding per step) and LONGCTX_NEW steps
+S15_ARCHS = (("longctx_gemma3", "gemma3_4b", None),
+             ("longctx_musicgen", "musicgen_medium", None),
+             ("longctx_qwen2_vl", "qwen2_vl_72b", 8))
+# their float32 probes: full width cut to these depths (gemma3: 5 local
+# layers and 1 global), a prompt past gemma3's 1024-slot local ring
+S15_PROBE_LAYERS = {"gemma3_4b": 6, "musicgen_medium": 4, "qwen2_vl_72b": 2}
+S15_PROBE_PROMPT, S15_PROBE_STEPS = 1100, 4
+
+
+def _gemma3_window() -> int:
+    """gemma3's local window (1024), the window of its K8 rows."""
+    from repro_torch.configs.base import registry
+    return registry()["gemma3_4b"].local_global[1]
+
+
+def _s15_inputs(cfg, B: int, S: int, new: int, dtype, seed: int):
+    """(prompt, step_embeds) of an arch: token ids [B][S] and None, or
+    seeded embeddings [B, S, d] and [B, new, d] made on the card."""
+    import torch
+    if cfg.input_mode != "embeds":
+        return _prompts(B, S, cfg.vocab, seed), None
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    e = torch.randn((B, S + new, cfg.d_model), generator=gen,
+                    device="cuda").to(dtype)
+    return e[:, :S], e[:, S:]
+
+
+@contextlib.contextmanager
+def _k8_windows():
+    """Tally K8 calls by window (0 = full causal) while the block runs;
+    the wrapper's own launch count stays the authority, the tally only
+    splits it by shape."""
+    from collections import Counter
+    from repro_torch.models import attention as A
+    orig = A.K8.flash_attention
+    tally = Counter()
+
+    def spy(q, k, v, **kw):
+        tally[int(kw.get("window") or 0)] += 1
+        return orig(q, k, v, **kw)
+    A.K8.flash_attention = spy
+    try:
+        yield tally
+    finally:
+        A.K8.flash_attention = orig
+
+
+def run_longctx_s15(phase: str, name: str, layers: int | None
+                    ) -> tuple[dict, dict]:
+    """``phase``: ``generate`` in bf16 at the arch's full width
+    (cut to ``layers`` layers where given), LONGCTX_BATCH x
+    LONGCTX_PROMPT + LONGCTX_NEW.  The prefill launches K8 once per layer
+    and nothing else, the decode nothing; the K/V state is the empty
+    state's (gemma3's local layers a 1024-slot ring that wraps).  Returns
+    the line and the K8 launches by window."""
+    import numpy as np
+    import torch
+    from dataclasses import replace
+    from repro_torch import kernels
+    from repro_torch.configs.base import registry
+    from repro_torch.launch.longctx_decode import generate
+    from repro_torch.models.transformer import init_decode_state, \
+        init_params
+    full = registry()[name]
+    cfg = replace(full, n_layers=layers) if layers else full
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, dtype=bf, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt, steps = _s15_inputs(cfg, LONGCTX_BATCH, LONGCTX_PROMPT,
+                                LONGCTX_NEW, bf, SEED + 31)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with _k8_windows() as by_window:
+        res = generate(params, cfg, prompt, LONGCTX_NEW, LONGCTX_CACHE,
+                       step_embeds=steps)
+    L = cfg.n_layers
+    got_pre = {k: v for k, v in res["prefill_launches"].items() if v}
+    got_dec = {k: v for k, v in res["decode_launches"].items() if v}
+    if got_pre != {"flash_attention": L} or got_dec or \
+            sum(by_window.values()) != L:
+        raise RuntimeError(f"longctx {name} launched {got_pre} / {got_dec}"
+                           f" (by window {dict(by_window)}), want "
+                           f"flash_attention {L} / none")
+    empty = init_decode_state(cfg, LONGCTX_BATCH, LONGCTX_CACHE, dtype=bf,
+                              device="cuda")
+    slots = [c["k"].shape[1] for c in empty["attn"]]
+    want_bytes = sum(t.numel() * t.element_size() for c in empty["attn"]
+                     for t in c.values())
+    del empty
+    if res["kv_cache_bytes"] != want_bytes:
+        raise RuntimeError(f"longctx {name}: K/V state of "
+                           f"{res['kv_cache_bytes']} bytes, want {want_bytes}")
+    if cfg.local_global and min(slots) != cfg.local_global[1]:
+        raise RuntimeError(f"longctx {name}: local rings of {min(slots)} "
+                           f"slots")
+    V = cfg.vocab
+    for key in ("first_logits", "logits"):
+        if not bool(torch.isfinite(res[key][..., :V]).all()):
+            raise RuntimeError(f"longctx {name}: non-finite {key}")
+    toks = np.asarray(res["tokens"])
+    if toks.shape != (LONGCTX_BATCH, LONGCTX_NEW) or toks.min() < 0 \
+            or toks.max() >= V:
+        raise RuntimeError(f"longctx {name}: bad tokens {toks.shape}")
+    line = {"phase": phase, "arch": name, "dtype": "bfloat16", "layers": L,
+            "layers_published": full.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads],
+            "head_dim": cfg.head_dim, "mlp": cfg.mlp_kind,
+            "input_mode": cfg.input_mode,
+            "mrope_sections": cfg.mrope_sections,
+            "batch": LONGCTX_BATCH, "prompt_len": LONGCTX_PROMPT,
+            "new_tokens": LONGCTX_NEW, "cache_len": LONGCTX_CACHE,
+            "cache_slots_by_layer": sorted(set(slots)),
+            "init_params_s": init_s, "prefill_s": res["prefill_s"],
+            "decode_s": res["decode_s"],
+            "decode_tokens_per_s": res["decode_tokens_per_s"],
+            "first_tokens": [t[:8] for t in res["tokens"]],
+            "kv_cache_bytes": res["kv_cache_bytes"],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "prefill_launches": got_pre, "decode_launches": got_dec,
+            "flash_attention_by_window": dict(by_window)}
+    if layers:
+        line["depth_cut"] = (f"{layers} of {full.n_layers} layers: the "
+                             f"whole model is ~{full.param_count() * 2 / 1e9:.0f}"
+                             f" GB in bf16")
+    del params, res
+    torch.cuda.empty_cache()
+    return line, dict(by_window)
+
+
+def _decode_vs_prefill_embeds(cfg, params, prompt, steps, tol: float
+                              ) -> dict:
+    """``_decode_vs_prefill`` for an embeds arch: each decode step takes
+    the next given embedding; its logits against a fresh prefill over the
+    prompt and the steps so far."""
+    import torch
+    from repro_torch.models import transformer as T
+    V, S, n = cfg.vocab, prompt.shape[1], steps.shape[1]
+    lg, st = T.prefill(params, cfg, None, S + n, embeds=prompt)
+    max_err, outside, flips, codes = 0.0, 0, [], []
+    for i in range(n):
+        codes.append(int(lg[0, 0, :V].argmax()))
+        lg, st = T.decode_step(params, cfg, st, None,
+                               embeds=steps[:, i:i + 1])
+        ref, _ = T.prefill(params, cfg, None, S + i + 1,
+                           embeds=torch.cat([prompt, steps[:, :i + 1]], 1))
+        a, r = lg[0, 0, :V].float(), ref[0, 0, :V].float()
+        d = (a - r).abs()
+        max_err = max(max_err, float(d.max()))
+        outside += int((d > tol + tol * r.abs()).sum())
+        top2 = r.topk(2).values
+        if int(a.argmax()) != int(r.argmax()):
+            flips.append(float(top2[0] - top2[1]))
+    return {"arch": cfg.name, "layers": cfg.n_layers, "prompt_len": S,
+            "steps": n, "logits_max_abs_err": max_err,
+            "values_outside": outside, "values": n * V,
+            "argmax_flips_margins": flips, "codes": codes}
+
+
+def run_s15_probes() -> tuple[dict, dict]:
+    """``longctx_probe_f32_s15``: each arch in float32 at full width cut
+    to S15_PROBE_LAYERS, one S15_PROBE_PROMPT prompt and S15_PROBE_STEPS
+    decode steps, every step's logits within LONGCTX_PROBE_TOL of a fresh
+    prefill's, argmax flips only under LONGCTX_TIE_MARGIN (the dense-cache
+    gate of PERF.md section 2).  Returns the line and gemma3's K8 float32
+    launches by window."""
+    import torch
+    from dataclasses import replace
+    from repro_torch import kernels
+    from repro_torch.configs.base import registry
+    from repro_torch.models.transformer import init_params
+    line = {"phase": "longctx_probe_f32_s15", "tolerance": LONGCTX_PROBE_TOL,
+            "tie_margin": LONGCTX_TIE_MARGIN, "depth_cut": S15_PROBE_LAYERS,
+            "runs": []}
+    gemma_windows = {}
+    for name, layers in S15_PROBE_LAYERS.items():
+        cfg = replace(registry()[name], n_layers=layers)
+        params = init_params(cfg, seed=SEED, dtype=torch.float32,
+                             device="cuda")
+        kernels.reset_launch_counts()
+        with _k8_windows() as by_window:
+            if cfg.input_mode == "embeds":
+                prompt, steps = _s15_inputs(cfg, 1, S15_PROBE_PROMPT,
+                                            S15_PROBE_STEPS, torch.float32,
+                                            SEED + 32)
+                run = _decode_vs_prefill_embeds(cfg, params, prompt, steps,
+                                                LONGCTX_PROBE_TOL)
+            else:
+                prompt = _prompts(1, S15_PROBE_PROMPT, cfg.vocab,
+                                  SEED + 32)[0]
+                run = _decode_vs_prefill(cfg, params, prompt,
+                                         S15_PROBE_STEPS, LONGCTX_PROBE_TOL)
+        run["launches"] = {k: n for k, n in kernels.launch_counts().items()
+                           if n}
+        # one prefill, then a fresh prefill per step: K8 once per layer each
+        want = layers * (1 + S15_PROBE_STEPS)
+        if run["launches"] != {"flash_attention": want}:
+            raise RuntimeError(f"{name} float32 probe launched "
+                               f"{run['launches']}, want flash_attention "
+                               f"{want}")
+        run["flash_attention_by_window"] = dict(by_window)
+        if name == "gemma3_4b":
+            gemma_windows = dict(by_window)
+        line["runs"].append(run)
+        del params
+        torch.cuda.empty_cache()
+        if run["values_outside"] or any(m >= LONGCTX_TIE_MARGIN
+                                        for m in run["argmax_flips_margins"]):
+            raise RuntimeError(f"{name} float32 probe failed: {run}")
+    return line, gemma_windows
+
+
+def run_s15_card_vs_cpu() -> list[dict]:
+    """``longctx_card_vs_cpu``'s slice-15 runs: smoke-width gemma3 at its
+    published head dim of 256 (K8's float32 D-256 kernel on the card),
+    musicgen and qwen2_vl (embeddings) in float32, the same weights and
+    inputs on the card and on the CPU: 2 prompts of LONGCTX_CROSS_PROMPT,
+    LONGCTX_CROSS_STEPS steps.  Logits and caches within
+    LONGCTX_CROSS_TOL, positions and tokens identical."""
+    import numpy as np
+    import torch
+    from dataclasses import replace
+    from repro_torch import kernels
+    from repro_torch.configs.base import registry, smoke
+    from repro_torch.launch.longctx_decode import generate
+    from repro_torch.models.transformer import init_params
+    runs = []
+    for name, kw in (("gemma3_4b", {"d_head": 256}), ("musicgen_medium", {}),
+                     ("qwen2_vl_72b", {})):
+        cfg = replace(smoke(registry()[name]), **kw)
+        cpu = init_params(cfg, seed=SEED, device="cpu")
+        card = _to_device(cpu, "cuda")
+        P, n = LONGCTX_CROSS_PROMPT, LONGCTX_CROSS_STEPS
+        if cfg.input_mode == "embeds":
+            e = np.random.RandomState(SEED + 33).standard_normal(
+                (2, P + n, cfg.d_model)).astype(np.float32)
+            prompts, steps = e[:, :P], e[:, P:]
+        else:
+            prompts, steps = _prompts(2, P, cfg.vocab, SEED + 33), None
+        kernels.reset_launch_counts()
+        got = generate(card, cfg, prompts, n, P + n, step_embeds=steps)
+        launches = kernels.launch_counts()
+        want = generate(cpu, cfg, prompts, n, P + n, step_embeds=steps)
+        if {k: v for k, v in launches.items() if v} != {
+                "flash_attention": cfg.n_layers}:
+            raise RuntimeError(f"{name} smoke on the card launched "
+                               f"{launches}")
+        pairs = [("first_logits", got["first_logits"],
+                  want["first_logits"]),
+                 ("logits", got["logits"], want["logits"])]
+        for l, (a, b) in enumerate(zip(got["state"]["attn"],
+                                       want["state"]["attn"])):
+            if not torch.equal(a["pos"].cpu(), b["pos"]):
+                raise RuntimeError(f"{name}: cache positions differ")
+            pairs += [(f"k{l}", a["k"], b["k"]), (f"v{l}", a["v"], b["v"])]
+        errs = {}
+        for what, a, b in pairs:
+            a = a.float().cpu()
+            errs[what] = float((a - b.float()).abs().max())
+            if not torch.allclose(a, b.float(), atol=LONGCTX_CROSS_TOL,
+                                  rtol=LONGCTX_CROSS_TOL):
+                raise RuntimeError(f"{name}: card vs CPU {what} differ by "
+                                   f"{errs[what]}")
+        if got["tokens"] != want["tokens"]:
+            raise RuntimeError(f"{name}: card vs CPU tokens differ")
+        runs.append({"arch": name, "head_dim": cfg.head_dim,
+                     "input_mode": cfg.input_mode,
+                     "launches": {k: v for k, v in launches.items() if v},
+                     "logits_max_abs_err": max(errs["first_logits"],
+                                               errs["logits"]),
+                     "state_max_abs_err": max(v for k, v in errs.items()
+                                              if "logits" not in k),
+                     "logits_tolerance": LONGCTX_CROSS_TOL,
+                     "tokens_identical": True})
+    return runs
+
+
+def bench_s15_kernels(launches: dict) -> list[dict]:
+    """K8's rows at the new widths, seeded random inputs, against the
+    plain version on the card: D 256 at gemma3's shape (B 4, S 2000, 8/4
+    heads), causal (its global layers) and with its 1024-token window (its
+    local layers), bf16 (``flash_wgmma_d256_kernel``) and float32
+    (``flash_f32_d256_kernel``), and D 64 at musicgen's (24/24 heads,
+    causal, bf16, the D <= 128 kernel).  Each row: CUDA-event ms, the
+    device ms of a CUDA graph of 10 calls, the bound (operations over the
+    bf16 or the 3xTF32 peak), SDPA's time on the same call (KV expanded
+    to the q heads outside the timing) and the tensor-core instruction
+    count of its kernel.  ``launches`` maps a row to its count on the
+    main path."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as K8
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 34)
+    bf = torch.bfloat16
+    sass = {"bf16_d256": _sass_count("flash_wgmma_d256_kernel", "HGMMA"),
+            "f32_d256": _sass_count("flash_f32_d256_kernel", "HMMA"),
+            "bf16": _sass_count("flash_wgmma_kernel", "HGMMA")}
+    if not all(sass.values()):
+        raise RuntimeError(f"flash_attention: a kernel without tensor-core "
+                           f"instructions: {sass}")
+    rows = []
+    B, S = LONGCTX_BATCH, LONGCTX_PROMPT
+    win = _gemma3_window()
+    for name, Hq, Hkv, D, window, dtype, key in (
+            ("flash_attention_d256", 8, 4, 256, 0, bf, "bf16_d256"),
+            ("flash_attention_d256_window", 8, 4, 256, win, bf,
+             "bf16_d256"),
+            ("flash_attention_f32_d256", 8, 4, 256, 0, torch.float32,
+             "f32_d256"),
+            ("flash_attention_f32_d256_window", 8, 4, 256, win,
+             torch.float32, "f32_d256"),
+            ("flash_attention_d64", 24, 24, 64, 0, bf, "bf16")):
+        q, k, v = (torch.randn((B, S, h, D), generator=gen,
+                               device=dev).to(dtype)
+                   for h in (Hq, Hkv, Hkv))
+
+        def call():
+            return K8.flash_attention(q, k, v, window=window)
+        out = call()
+        ref = K8.flash_attention_plain(q, k, v, window=window)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL if dtype == bf else FLASH_F32_TOL
+        if not torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol):
+            raise RuntimeError(f"{name} kernel disagrees with plain")
+        err = float((out.float() - ref.float()).abs().max())
+        del ref
+        i = np.arange(S)
+        pairs = float(np.minimum(i + 1, window if window else S).sum())
+        G = Hq // Hkv
+        qt = q.transpose(1, 2)
+        kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1)
+                  for t in (k, v))
+        if window:
+            ii = torch.arange(S, device=dev)
+            mask = (ii[None, :] <= ii[:, None]) & \
+                (ii[:, None] - ii[None, :] < window)
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         attn_mask=mask)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True)
+        size = q.element_size()
+        nbytes = size * (2 * q.numel() + 2 * k.numel())
+        flops = 4.0 * B * Hq * D * pairs
+        bound, by = _bound_ms(nbytes, flops,
+                              flops_per_s=BF16_FLOPS_PER_S if dtype == bf
+                              else F32_TC_FLOPS_PER_S)
+        row = {"name": name, "kernel": "flash_attention", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention/"
+                           "flash_attention.py:78",
+               "launches": launches[name], "max_abs_err": err,
+               "tolerance": tol,
+               "ms": _time_ms(call, iters=10, warmup=2),
+               "plain_ms": _time_ms(lambda: K8.flash_attention_plain(
+                   q, k, v, window=window), iters=3, warmup=1),
+               "bound_ms": bound, "bound_by": by,
+               "library_ms": _time_ms(lib, iters=10, warmup=2),
+               "device_ms": _graph_ms(call, calls=10, replays=10),
+               "library_device_ms": _graph_ms(lib, calls=10, replays=10),
+               "shape": {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
+                         "causal": True, "window": window,
+                         "dtype": str(dtype).removeprefix("torch.")},
+               "library_call": "scaled_dot_product_attention (KV expanded "
+                               "to Hq heads outside the timing"
+                               + ("; a boolean window mask)" if window
+                                  else "; is_causal)")}
+        row["sdpa_factor"] = row["ms"] / row["library_ms"]
+        if dtype == bf:
+            row["design"] = ("wgmma from TMA-loaded tiles, "
+                             + ("4 x 64-column boxes of D, 2 stages"
+                                if D > 128 else
+                                "D padded to 2 x 64 columns in shared "
+                                "memory, 3 stages"))
+            row["sass_hgmma"] = sass[key]
+        else:
+            row["design"] = ("3xTF32 on mma.sync; 64 q rows a CTA, 32-key "
+                             "tiles, two warps per m-tile each owning half "
+                             "of D")
+            row["sass_hmma"] = sass[key]
+            row.update(_f32_bounds(nbytes, flops))
+            row["plan"] = K8.launch_info(B, S, Hq, D)
+        rows.append(row)
+        del q, k, v, qt, kt, vt, out, lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_slice15() -> dict:
+    """Phases 30-33: ``longctx_gemma3``, ``longctx_musicgen`` and
+    ``longctx_qwen2_vl`` (bf16), their float32 probes, their card-vs-CPU
+    runs and K8's rows at D 256 and D 64.  Returns the lines by name and,
+    under "rows", the kernel rows."""
+    out = {"lines": []}
+    by_window = {}
+    for phase, name, layers in S15_ARCHS:
+        line, by_window[name] = run_longctx_s15(phase, name, layers)
+        print(json.dumps(line), file=sys.stderr, flush=True)
+        out["lines"].append(line)
+    probe, f32_windows = run_s15_probes()
+    print(json.dumps(probe), file=sys.stderr, flush=True)
+    out["lines"].append(probe)
+    out["card_vs_cpu"] = run_s15_card_vs_cpu()
+    g, m = by_window["gemma3_4b"], by_window["musicgen_medium"]
+    win = _gemma3_window()
+    out["rows"] = bench_s15_kernels({
+        "flash_attention_d256": g.get(0, 0),
+        "flash_attention_d256_window": g.get(win, 0),
+        "flash_attention_f32_d256": f32_windows.get(0, 0),
+        "flash_attention_f32_d256_window": f32_windows.get(win, 0),
+        "flash_attention_d64": m.get(0, 0)})
+    return out
+
+
 def _moe_f32_launches(cfg) -> int:
     """The float32 decode path of olmoe (full width, cut to 2 layers): a
     request of 16 + 8 tokens served in float32, its moe_ffn launches
@@ -5079,6 +5527,9 @@ def main() -> int:
     invariance["olmoe"] = s13["batch_invariance_olmoe"]
     pinv["moe_ffn"] = s13["prefill_invariance_moe_ffn"]
     lcross["runs"] += s13["card_vs_cpu_mixtral"]
+    s15 = run_slice15()
+    kernel_rows += s15["rows"]
+    lcross["runs"] += s15["card_vs_cpu"]
 
     lines += [{"kernels": kernel_rows}, {"host_link": link}, engine_line,
               pinned_line, parity, pparity, tail, overlap, overlap_faults,
@@ -5087,7 +5538,7 @@ def main() -> int:
               pinv, window, pwindow, cross, pre, ppre, i8h, i8p, zline, mline,
               probe_f32, probe_bf16, lcross, *f32_lines, ssd_passes,
               s13["moe_engine"], s13["longctx_mixtral"], *s13["probes"],
-              s13["dense_archs"], _card_line()]
+              s13["dense_archs"], *s15["lines"], _card_line()]
     for line in lines:
         _emit(line)
     _emit({"ok": True, "device": {

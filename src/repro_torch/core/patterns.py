@@ -61,3 +61,11 @@ def classify_reuse(intv_cnt: torch.Tensor, intv_sum: torch.Tensor,
     thrash = (~rare) & (mean <= thrash_mean_max) & (std <= thrash_std_max)
     out = torch.where(thrash, THRASHING, FREQ_TOUCHED)
     return torch.where(rare, RARELY_TOUCHED, out).to(torch.int8)
+
+
+def bank_imbalance(bank_freq: torch.Tensor) -> torch.Tensor:
+    """Std-dev (population) of per-bank hot-page counts in float32 — the
+    paper's imbalance metric (Fig. 6 / Fig. 15)."""
+    f = bank_freq.to(torch.float32)
+    c = f - f.mean()
+    return torch.sqrt((c * c).mean())

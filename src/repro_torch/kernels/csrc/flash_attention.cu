@@ -19,8 +19,11 @@
 //   strides (unit stride over D), so the transposes to [B*H, S, D] that
 //   the Pallas wrapper makes (ops.py:36-38) go away; out is [B, Sq, Hq, D]
 //   contiguous, in q's type.
-// - Head dimension: any D up to 128 (zamba2's 112), not padded in device
-//   memory; the TPU pads D to a multiple of 128 (ops.py:46-48).
+// - Head dimension: any D up to 256 (zamba2's 112, gemma3's 256), not
+//   padded in device memory; the TPU pads D to a multiple of 128
+//   (ops.py:46-48).  Each entry has one kernel up to D 128 and one, with
+//   smaller tiles, for 128 < D <= 256 (below); the first keeps the bits it
+//   gave before D 256 was added.
 // - Scaling: the model's sdpa scales q in float32 (attention.py:118-121),
 //   the Pallas wrapper pre-scales q in q's type (ops.py:36).  Both entries
 //   apply the scale in float32, as sdpa does, never to q in bf16.
@@ -36,12 +39,19 @@
 // - CTA: two consumer warpgroups of 64 q rows each (128 rows per CTA)
 //   and one producer warp.  The producer's lane 0 loads Q once and then
 //   streams 64-key K and V tiles into a ring of kStages stages, each
-//   with a full and an empty mbarrier.  No setmaxnreg: 288 threads get
-//   up to 224 registers each, which the consumers need.
+//   with a full and an empty mbarrier.
+// - D up to 128: two 64-column boxes of D and 3 K/V stages, no
+//   setmaxnreg (138 registers a thread, within the 168 that ptxas allows
+//   288 threads).  128 < D <= 256 (flash_wgmma_d256_kernel): four boxes,
+//   so Q takes 64 KB and one stage 64 KB, and 2 stages (193 KB in all);
+//   O takes 128 float32 registers of each consumer thread, so the CTA
+//   has a whole producer warpgroup (384 threads) and setmaxnreg gives
+//   the consumers 240 registers and the producers 24 (at 288 threads
+//   and 168 registers ptxas spilled 388 bytes and serialized the wgmma).
 // - Loads: one TMA tensor map per operand over [B, S, H, D] as the model
 //   holds it (dims {D, H, S, B}, the caller's strides), D in 64-column
 //   boxes with 128-byte swizzle.  TMA's out-of-bounds zero fill pads D to
-//   128 in shared memory and the ragged S edge, so nothing is padded or
+//   a whole box in shared memory and the ragged S edge, so nothing is padded or
 //   copied in device memory.  The wrapper refuses what TMA
 //   cannot address (D not a multiple of 8, or a base or S/H/B stride not
 //   16-byte aligned).
@@ -71,6 +81,12 @@
 //   with a unit stride over D is read in place).  D is padded to the
 //   k-step of 8 in shared memory with zeros.  A warp skips the tiles none
 //   of its rows can see.
+// - 128 < D <= 256 (flash_f32_d256_kernel): at 128 rows and 64 keys the
+//   tiles would take ~400 KB of shared memory and each thread 256
+//   accumulators, so the CTA takes 64 q rows and 32-key tiles (~195 KB),
+//   and two warps share each 16-row m-tile: both compute its S over all
+//   of D, each owns half of D in P . V and the output (S's products are
+//   made twice).
 // - Products: every float32 operand is split into a big and a small TF32
 //   term on the fragment load and each product is small.big + big.small +
 //   big.big on mma.sync m16n8k8 with float32 accumulate (common.cuh): the
@@ -106,7 +122,8 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxD = 128;                      // both entries
+constexpr int kMaxD = 256;                      // both entries
+constexpr int kNarrowD = 128;                   // the first tiling's widest D
 
 // ============================================================================
 // float32: 3xTF32 on mma.sync from a cp.async ring
@@ -114,12 +131,31 @@ constexpr int kMaxD = 128;                      // both entries
 
 namespace f32 {
 
-constexpr int kWarps = 8;                       // one 16-row m-tile each
+constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kBQ = kWarps * 16;                // query rows per CTA
-constexpr int kBK = 64;                         // keys per tile
 constexpr int kStages = 2;                      // K/V ring depth
-constexpr int kNT = kMaxD / 8;                  // 8-column tiles of D
+
+// A tiling of the float32 entry.  kSplit warps share one 16-row m-tile:
+// each computes the m-tile's S over the whole of D (the same values in
+// every one of them) and owns 1 / kSplit of D's columns in P . V and the
+// output.  kBK keys per tile.
+template <int kMaxDT, int kSplitT, int kBKT>
+struct Tiling {
+  static constexpr int kMaxD = kMaxDT;
+  static constexpr int kBK = kBKT;
+  static constexpr int kRowTiles = kWarps / kSplitT;
+  static constexpr int kBQ = kRowTiles * 16;    // query rows per CTA
+  static constexpr int kKT = kMaxDT / 8;        // k-steps of S over D
+  static constexpr int kNT = kMaxDT / 8 / kSplitT;  // 8-column tiles a warp owns
+  static constexpr int kKeyTiles = kBKT / 8;    // 8-key n-tiles of S
+};
+// D <= 128: eight 16-row m-tiles, 64-key tiles (the only tiling up to
+// D 128, whose bits it keeps).  128 < D <= 256: at 128 rows and 64 keys
+// the tiles would take ~400 KB of shared memory and each warp 256 float32
+// accumulators (O and a tile's P . V), so two warps split D per m-tile
+// (64 rows a CTA) and tiles hold 32 keys: ~195 KB, 128 accumulators.
+using Narrow = Tiling<kNarrowD, 1, 64>;
+using Wide = Tiling<kMaxD, 2, 32>;
 
 // shared-memory row stride (floats): D padded to the k-step of 8, plus 4,
 // so ldmatrix rows and the scalar V loads miss each other's banks
@@ -127,10 +163,13 @@ __host__ __device__ __forceinline__ constexpr int stride(int D) {
   return (D + 7) / 8 * 8 + 4;
 }
 
+template <typename T>
 constexpr size_t smem_bytes(int D) {
-  return 4 * static_cast<size_t>(stride(D)) * (kBQ + kStages * 2 * kBK);
+  return 4 * static_cast<size_t>(stride(D)) * (T::kBQ + kStages * 2 * T::kBK);
 }
-static_assert(smem_bytes(kMaxD) <= 227 * 1024, "flash f32 smem");
+static_assert(smem_bytes<Narrow>(Narrow::kMaxD) <= 227 * 1024,
+              "flash f32 smem");
+static_assert(smem_bytes<Wide>(Wide::kMaxD) <= 227 * 1024, "flash f32 smem");
 
 // 4 bytes global -> shared, zero-filled when pred is false
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -141,14 +180,23 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int Sq,
-                 int Sk, int Hq, int Hkv, int D, int seq_len, int causal,
-                 int window, float scale, long long q_sb, long long q_ss,
-                 long long q_sh, long long k_sb, long long k_ss,
-                 long long k_sh, long long v_sb, long long v_ss,
-                 long long v_sh, int vec) {
+#define F32_ARGS                                                             \
+  const float *__restrict__ q, const float *__restrict__ k,                  \
+      const float *__restrict__ v, float *__restrict__ out, int Sq, int Sk,  \
+      int Hq, int Hkv, int D, int seq_len, int causal, int window,           \
+      float scale, long long q_sb, long long q_ss, long long q_sh,           \
+      long long k_sb, long long k_ss, long long k_sh, long long v_sb,        \
+      long long v_ss, long long v_sh, int vec
+#define F32_PASS                                                             \
+  q, k, v, out, Sq, Sk, Hq, Hkv, D, seq_len, causal, window, scale, q_sb,    \
+      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, vec
+
+template <typename T>
+__device__ __forceinline__ void flash_f32_body(F32_ARGS) {
+  constexpr int kBQ = T::kBQ;
+  constexpr int kBK = T::kBK;
+  constexpr int kNT = T::kNT;
+  constexpr int kKeyTiles = T::kKeyTiles;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int sr = stride(D);
   const int dp = sr - 4;                        // D padded to 8
@@ -163,6 +211,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int mt = warp % T::kRowTiles;           // this warp's m-tile
+  const int c0 = warp / T::kRowTiles * kNT * 8;  // its first column of D
   const int g = lane >> 2;
   const int t = lane & 3;
 
@@ -221,7 +271,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // this warp's rows wq .. wq + 15 (this thread: wq + g and wq + g + 8)
   // and the keys they can see, [w_lo, w_hi)
-  const int wq = q0 + warp * 16;
+  const int wq = q0 + mt * 16;
   const int r0 = wq + g;
   const int r1 = r0 + 8;
   int w_hi = min(seq_len, Sk);
@@ -243,22 +293,22 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (kb < w_hi && kb + kBK > w_lo) {         // warp-uniform
       const float* ks = ring + (i % kStages) * 2 * kBK * sr;
       const float* vs = ks + kBK * sr;
-      // -- S = Q . K^T: 8 n-tiles of 8 keys, 3xTF32, the big products and
+      // -- S = Q . K^T: n-tiles of 8 keys, 3xTF32, the big products and
       // the two corrections in separate accumulators ------------------------
-      float sb[8][4], sc[8][4];
+      float sb[kKeyTiles][4], sc[kKeyTiles][4];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < kKeyTiles; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sb[nt][e] = sc[nt][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kNT; ++kk) {
+      for (int kk = 0; kk < T::kKT; ++kk) {
         if (kk * 8 >= dp) break;
         uint32_t fa[4], ab[4], as[4];
-        ldsm_x4(fa, q_s + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+        ldsm_x4(fa, q_s + (mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                               sr + kk * 8 + (lane >> 4) * 4);
         split_tf32(fa, ab, as);
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {        // keys 16 np .. 16 np + 15
+        for (int np = 0; np < kKeyTiles / 2; ++np) {   // keys 16 np .. + 15
           uint32_t fb[4], bb[4], bs[4];
           ldsm_x4(fb, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * sr +
                           kk * 8 + ((lane >> 3) & 1) * 4);
@@ -272,9 +322,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
           }
         }
       }
-      float s[8][4];
+      float s[kKeyTiles][4];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < kKeyTiles; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = sc[nt][e] + sb[nt][e];
       // -- online softmax in float32 ---------------------------------------
@@ -282,7 +332,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         (window > 0 && wq + 15 - kb >= window);
       float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < kKeyTiles; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float x = s[nt][e];
@@ -309,7 +359,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       m1 = mn1;
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < kKeyTiles; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float p = expf(s[nt][e] - ((e & 2) ? mn1 : mn0));
@@ -326,16 +376,16 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int dn = 0; dn < kNT; ++dn) pv[dn][0] = pv[dn][1] = pv[dn][2] = pv[dn][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kKeyTiles; ++j) {
         uint32_t pb[4], ps[4];
         split_tf32(s[j][0], pb[0], ps[0]);
         split_tf32(s[j][2], pb[1], ps[1]);
         split_tf32(s[j][1], pb[2], ps[2]);
         split_tf32(s[j][3], pb[3], ps[3]);
-        const float* v0 = vs + (8 * j + 2 * t) * sr + g;
+        const float* v0 = vs + (8 * j + 2 * t) * sr + c0 + g;
 #pragma unroll
         for (int dn = 0; dn < kNT; ++dn) {
-          if (dn * 8 >= dp) break;
+          if (c0 + dn * 8 >= dp) break;
           uint32_t vb0, vs0, vb1, vs1;
           split_tf32(v0[dn * 8], vb0, vs0);
           split_tf32(v0[sr + dn * 8], vb1, vs1);
@@ -369,7 +419,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int col = nt * 8 + 2 * t + (e & 1);
+      const int col = c0 + nt * 8 + 2 * t + (e & 1);
       const int r = (e & 2) ? r1 : r0;
       if (col < D && r < Sq)
         ob[r * o_ss + col] = o[nt][e] * ((e & 2) ? inv1 : inv0);
@@ -377,9 +427,36 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// The plan: one CTA of kThreads per (128 query rows, b * Hq + h).
+__global__ void __launch_bounds__(kThreads, 1) flash_f32_kernel(F32_ARGS) {
+  flash_f32_body<Narrow>(F32_PASS);
+}
+__global__ void __launch_bounds__(kThreads, 1)
+flash_f32_d256_kernel(F32_ARGS) {
+  flash_f32_body<Wide>(F32_PASS);
+}
+
+// The plan: one CTA of kThreads per (kBQ query rows, b * Hq + h), in the
+// tiling of D's width.
+template <typename T>
 dim3 grid_of(int B, int Sq, int Hq) {
-  return dim3(B * Hq, (Sq + kBQ - 1) / kBQ);
+  return dim3(B * Hq, (Sq + T::kBQ - 1) / T::kBQ);
+}
+
+// Raise both kernels' shared-memory limits once, to their widest D: later
+// launches make no API call, so a CUDA graph can capture them.
+cudaError_t grant_smem() {
+  static bool granted = false;
+  if (granted) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes<Narrow>(Narrow::kMaxD)));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      flash_f32_d256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes<Wide>(Wide::kMaxD)));
+  if (err != cudaSuccess) return err;
+  granted = true;
+  return cudaSuccess;
 }
 
 int launch(const void* q, const void* k, const void* v, void* out, int B,
@@ -398,21 +475,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   };
   const int vec = D % 4 == 0 && a16(k, k_sb, k_ss, k_sh) &&
                   a16(v, v_sb, v_ss, v_sh);
-  // raise the shared-memory limit once, to the largest D: later launches
-  // make no API call, so a CUDA graph can capture them
-  static bool granted = false;
-  if (!granted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes(kMaxD)));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    granted = true;
-  }
-  flash_f32_kernel<<<grid_of(B, Sq, Hq), kThreads, smem_bytes(D), stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, Hq, Hkv,
-      D, seq_len, causal, window, scale, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-      v_sb, v_ss, v_sh, vec);
+  const cudaError_t err = grant_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(out);
+  if (D <= kNarrowD)
+    flash_f32_kernel<<<grid_of<Narrow>(B, Sq, Hq), kThreads,
+                       smem_bytes<Narrow>(D), stream>>>(
+        qf, kf, vf, of, Sq, Sk, Hq, Hkv, D, seq_len, causal, window, scale,
+        q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, vec);
+  else
+    flash_f32_d256_kernel<<<grid_of<Wide>(B, Sq, Hq), kThreads,
+                            smem_bytes<Wide>(D), stream>>>(
+        qf, kf, vf, of, Sq, Sk, Hq, Hkv, D, seq_len, causal, window, scale,
+        q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -427,9 +505,12 @@ namespace wg {
 constexpr int kConsumers = 2;                   // warpgroups of 64 q rows
 constexpr int kBQ = 64 * kConsumers;            // q rows per CTA
 constexpr int kBK = 64;                         // keys per tile
-constexpr int kStages = 3;                      // K/V ring depth
-constexpr int kDChunks = 2;                     // 64-column boxes of D
 constexpr int kThreads = 128 * kConsumers + 32;  // + one producer warp
+// D > 128: a whole producer warpgroup (one warp of it loads), so that
+// setmaxnreg can move registers from it to the consumers
+constexpr int kWideThreads = 128 * kConsumers + 128;
+constexpr int kProducerRegs = 24;               // setmaxnreg, D > 128
+constexpr int kConsumerRegs = 240;
 constexpr int kRowBytes = 128;                  // 64 bf16: one swizzle row
 constexpr int kQChunk = kBQ * kRowBytes;        // one 64-column box of Q
 constexpr int kKVChunk = kBK * kRowBytes;       // one 64-column box of K/V
@@ -450,13 +531,28 @@ __device__ __forceinline__ void key_range(int qw, int Sq, int Sk,
   if (qw >= Sq) hi = lo;                // a warpgroup past the last row
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                   const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ out, int Sq, int Sk, int Hq,
-                   int Hkv, int D, int seq_len, int causal, int window,
-                   float scale_log2) {
+// The kernel for D up to 64 * kDChunks (64-column boxes of D) with a
+// K/V ring of kStages stages: kDChunks 2, kStages 3 up to D 128;
+// kDChunks 4, kStages 2 up to D 256, where Q takes 64 KB and a stage 64 KB
+// (three would not fit beside Q) and O 128 float32 registers a thread.
+// At 288 threads ptxas gives each thread at most 168 registers (the 9
+// warps spread 3-2-2-2 over the SM's four register files), which O, S
+// and P at D 256 overflow (spills, serialized wgmma); kWide launches a
+// whole producer warpgroup and moves registers to the consumers with
+// setmaxnreg (24 producer, 240 consumer).
+template <int kDChunks, int kStages>
+struct Ring {
+  static constexpr int kSmem = 1024 + kDChunks * (kQChunk + kStages * 2 *
+                                                  kKVChunk) +
+                               8 * (1 + 2 * kStages);
+};
+static_assert(Ring<4, 2>::kSmem <= 227 * 1024, "flash bf16 smem");
+
+template <int kDChunks, int kStages, bool kWide>
+__device__ __forceinline__ void flash_wgmma_body(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    __nv_bfloat16* __restrict__ out, int Sq, int Sk, int Hq, int Hkv, int D,
+    int seq_len, int causal, int window, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   // 128B swizzle repeats every 1024 B: align the tiles to it
   const uint32_t raw = smem_u32(smem_raw);
@@ -500,9 +596,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  if (warp == 4 * kConsumers) {
+  if (warp >= 4 * kConsumers) {
     // ---- producer: Q once, then the K/V ring ----------------------------
-    if (lane == 0) {
+    if constexpr (kWide)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          kProducerRegs));
+    if (warp == 4 * kConsumers && lane == 0) {
       mbar_expect_tx(q_full, kDChunks * kQChunk);
       for (int c = 0; c < kDChunks; ++c)
         tma_load_4d(q_s + c * kQChunk, &tq, q_full, 64 * c, h, q0, b);
@@ -521,6 +620,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   // ---- consumers: one warpgroup per 64 q rows ---------------------------
+  if constexpr (kWide)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kConsumerRegs));
   const int wg = warp >> 2;
   const int qw = q0 + 64 * wg;
   const int my_lo = wg == 0 ? lo0 : lo1;
@@ -658,6 +760,23 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
 }
 
+#define WG_ARGS                                                              \
+  const __grid_constant__ CUtensorMap tq,                                    \
+      const __grid_constant__ CUtensorMap tk,                                \
+      const __grid_constant__ CUtensorMap tv,                                \
+      __nv_bfloat16 *__restrict__ out, int Sq, int Sk, int Hq, int Hkv,      \
+      int D, int seq_len, int causal, int window, float scale_log2
+#define WG_PASS                                                              \
+  tq, tk, tv, out, Sq, Sk, Hq, Hkv, D, seq_len, causal, window, scale_log2
+
+__global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(WG_ARGS) {
+  flash_wgmma_body<2, 3, false>(WG_PASS);
+}
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_wgmma_d256_kernel(WG_ARGS) {
+  flash_wgmma_body<4, 2, true>(WG_PASS);
+}
+
 // A 4-d map over [B, S, H, D] (dims innermost first: D, H, S, B), boxes of
 // 64 D columns x `rows` positions of one head, 128B swizzle, zero fill.
 bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
@@ -693,15 +812,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       !make_map(&tk, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, kBK) ||
       !make_map(&tv, v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 1024 + kDChunks * (kQChunk + kStages * 2 * kKVChunk) +
-                   8 * (1 + 2 * kStages);
+  const bool narrow = D <= kNarrowD;
+  const int smem = narrow ? Ring<2, 3>::kSmem : Ring<4, 2>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      narrow ? flash_wgmma_kernel : flash_wgmma_d256_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
-  flash_wgmma_kernel<<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, Hq, Hkv, D,
-      seq_len, causal, window, scale * kLog2e);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  if (narrow)
+    flash_wgmma_kernel<<<grid, kThreads, smem, stream>>>(
+        tq, tk, tv, o, Sq, Sk, Hq, Hkv, D, seq_len, causal, window,
+        scale * kLog2e);
+  else
+    flash_wgmma_d256_kernel<<<grid, kWideThreads, smem, stream>>>(
+        tq, tk, tv, o, Sq, Sk, Hq, Hkv, D, seq_len, causal, window,
+        scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -729,18 +855,21 @@ EXPORT int flash_attention_f32(FLASH_ARGS) {
 EXPORT int flash_attention_f32_launch_info(int B, int Sq, int Hq, int D,
                                            int* info) {
   if (D < 1 || D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      f32::flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(f32::smem_bytes(kMaxD)));
+  cudaError_t err = f32::grant_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
+  const bool narrow = D <= kNarrowD;
+  const size_t smem = narrow ? f32::smem_bytes<f32::Narrow>(D)
+                             : f32::smem_bytes<f32::Wide>(D);
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, f32::flash_f32_kernel, f32::kThreads, f32::smem_bytes(D));
+      &per_sm, narrow ? f32::flash_f32_kernel : f32::flash_f32_d256_kernel,
+      f32::kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid = f32::grid_of(B, Sq, Hq);
+  const dim3 grid = narrow ? f32::grid_of<f32::Narrow>(B, Sq, Hq)
+                           : f32::grid_of<f32::Wide>(B, Sq, Hq);
   info[0] = static_cast<int>(grid.x * grid.y);
   info[1] = f32::kThreads;
-  info[2] = static_cast<int>(f32::smem_bytes(D));
+  info[2] = static_cast<int>(smem);
   info[3] = per_sm;
   return 0;
 }

@@ -14,7 +14,9 @@ float32, as the model's ``sdpa`` does: bfloat16 on the tensor cores
 (``wgmma`` from TMA-loaded tiles, so ``tma_strides`` must accept each
 operand), float32 on the tensor cores too, to float32 accuracy (3xTF32
 ``mma.sync``: each operand split into two TF32 terms, three products; any
-view with a unit stride over D).  On CPU tensors it runs
+view with a unit stride over D), at any D up to ``MAX_D`` (each entry has
+one kernel up to D 128 and one for 128 < D <= 256).  On CPU tensors, at
+any D, it runs
 ``flash_attention_plain``: the KV-expansion ``sdpa`` in float32 with the
 ``_mask_bias`` causal/window bias plus the ``seq_len`` mask.  Either
 returns [B, Sq, Hq, D] in q's type.
@@ -33,7 +35,7 @@ _L = ctypes.c_longlong
 _ARGTYPES = [_C] * 4 + [_I] * 9 + [ctypes.c_float] + [_L] * 9 + [_C]
 _FN = {torch.float32: "flash_attention_f32",
        torch.bfloat16: "flash_attention_bf16"}
-MAX_D = 128
+MAX_D = 256            # the kernels' widest head dim (the plain version: any)
 TMA_ALIGN = 16         # bytes: TMA's base address and stride alignment
 
 
@@ -150,8 +152,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit "
                          f"(Hq must be a multiple of Hkv)")
-    if not 1 <= D <= MAX_D:
-        raise ValueError(f"flash_attention: D={D} outside 1..{MAX_D}")
     seq_len = Sk if seq_len is None else int(seq_len)
     if not 0 <= seq_len <= Sk:
         raise ValueError(f"flash_attention: seq_len={seq_len} not in "
@@ -163,4 +163,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      seq_len=seq_len, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"flash_attention: D={D} outside 1..{MAX_D} on "
+                         f"the card")
     return _launch(q, k, v, causal, window, seq_len, scale)

@@ -1,5 +1,6 @@
 """Shared neural building blocks (torch twin of ``repro.models.layers``):
-RMSNorm, interleaved-pair RoPE, SwiGLU, embedding lookups.
+RMSNorm, interleaved-pair RoPE and multimodal RoPE (M-RoPE), the SwiGLU
+and GELU MLPs, embedding lookups.
 
 Same conventions as the JAX module: plain functions over explicit
 tensors; RoPE rotates pairs (2i, 2i+1) with angles computed in float32.
@@ -32,6 +33,27 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
     return torch.cos(ang), torch.sin(ang)
 
 
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: tuple[int, ...]
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multimodal RoPE (Qwen2-VL): the head_dim/2 frequency slots split
+    into ``sections`` (temporal, height, width), each rotated by its own
+    position stream.  positions [..., S, n_sections] integers (equal
+    streams give plain RoPE); cos/sin [..., S, head_dim/2]."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope_angles: sections {sections} do not sum "
+                         f"to head_dim/2 = {half}")
+    dev = positions.device
+    exps = torch.arange(half, dtype=torch.float32, device=dev) / half
+    freq = 1.0 / (theta ** exps)
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=dev),
+        torch.tensor(sections, device=dev))
+    ang = positions[..., sec_id].float() * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
                ) -> torch.Tensor:
     """Interleaved-pair rotation.  x: [..., S, H, D]; cos/sin [..., S, D/2]
@@ -52,6 +74,13 @@ def swiglu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                w_down: torch.Tensor) -> torch.Tensor:
     """silu(x @ Wg) * (x @ Wu) @ Wd."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    """gelu(x @ Wu) @ Wd, the plain two-matrix FFN (musicgen), with the
+    tanh approximation that ``jax.nn.gelu`` uses by default."""
+    return F.gelu(x @ w_up, approximate="tanh") @ w_down
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,11 @@ kernel ``moe_ffn``), and the dense-cache ``prefill`` + ``decode_step``
 of every layout: ``attn`` (full-length caches, sliding-window ring
 buffers, int8 caches with per-head scales; prompt attention on K8),
 ``mamba`` and ``hybrid`` (Mamba-2 layers on kernel K9, zamba2's shared
-attention block on K8).
+attention block on K8).  An ``attn`` model's FFN is SwiGLU, MoE or a
+GELU MLP (musicgen); an ``input_mode="embeds"`` model (musicgen,
+qwen2_vl, whose frontends are stubbed as in the JAX package) takes
+``embeds=`` [B, S, d] in place of token ids, and qwen2_vl's text-only
+M-RoPE (all three position streams equal) is its rotary table.
 
 Parameters are a plain dict with the JAX package's leaf names and
 layouts, except that the per-layer tree is a *list* of dicts
@@ -35,17 +39,13 @@ def _check_supported(cfg: ArchConfig) -> None:
         ok = not cfg.is_moe and (cfg.layout == "mamba"
                                  or cfg.mlp_kind == "swiglu")
     else:
-        ok = cfg.layout == "attn" and cfg.mlp_kind == "swiglu"
+        ok = cfg.layout == "attn" and cfg.mlp_kind in ("swiglu", "gelu")
     if not ok:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs SwiGLU attention decoders (dense "
-            f"or MoE), Mamba-2 and Mamba-2 + shared-attention hybrids only "
+            f"{cfg.name}: the port runs attention decoders (SwiGLU, GELU or "
+            f"MoE FFN), Mamba-2 and Mamba-2 + shared-attention hybrids only "
             f"(layout={cfg.layout!r}, moe={cfg.is_moe}, "
             f"mlp={cfg.mlp_kind!r})")
-    if cfg.input_mode != "tokens" or cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: input_mode {cfg.input_mode!r} and M-RoPE are not "
-            f"ported")
 
 
 def mamba_spec_of(cfg: ArchConfig) -> ssm.MambaSpec:
@@ -69,7 +69,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     also has the one shared attention + SwiGLU block ``params["shared"]``
     (``ln1``, ``ln2``, ``attn``, ``mlp``) that runs every
     ``shared_attn_every`` layers.  An MoE arch's attention layers carry
-    ``lp["moe"]`` in place of ``lp["mlp"]``."""
+    ``lp["moe"]`` in place of ``lp["mlp"]``; a GELU arch's ``lp["mlp"]``
+    is ``{"w_up", "w_down"}``.  ``embed`` (and ``lm_head``) are drawn in
+    embeds mode too, as the JAX package draws them."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -103,6 +105,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
         return attn
 
     def one_mlp():
+        if cfg.mlp_kind == "gelu":
+            return {"w_up": normal((d, cfg.d_ff), s),
+                    "w_down": normal((cfg.d_ff, d), cfg.d_ff ** -0.5)}
         return {"w_gate": normal((d, cfg.d_ff), s),
                 "w_up": normal((d, cfg.d_ff), s),
                 "w_down": normal((cfg.d_ff, d), cfg.d_ff ** -0.5)}
@@ -138,10 +143,24 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     return params
 
 
-def embed_in(params: dict, cfg: ArchConfig, tokens: torch.Tensor
-             ) -> torch.Tensor:
-    """tokens [B, S] -> hidden [B, S, d]."""
-    h = layers.embed(tokens, params["embed"])
+def embed_in(params: dict, cfg: ArchConfig, tokens: torch.Tensor | None,
+             *, embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens [B, S] -> hidden [B, S, d]; an ``input_mode="embeds"`` arch
+    takes ``embeds`` [B, S, d] (the stubbed frontend's output) as the
+    hidden states instead, and no tokens."""
+    if cfg.input_mode == "embeds":
+        if embeds is None or tokens is not None:
+            raise ValueError(f"{cfg.name} takes embeds=[B, S, d] and no "
+                             f"tokens")
+        if embeds.dim() != 3 or embeds.shape[-1] != cfg.d_model:
+            raise ValueError(f"{cfg.name}: embeds of shape "
+                             f"{tuple(embeds.shape)}, want [B, S, "
+                             f"{cfg.d_model}]")
+        h = embeds
+    else:
+        if tokens is None or embeds is not None:
+            raise ValueError(f"{cfg.name} takes token ids and no embeds")
+        h = layers.embed(tokens, params["embed"])
     if cfg.scale_embed:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
                              device=h.device)
@@ -163,7 +182,7 @@ def logits_out(params: dict, cfg: ArchConfig, h: torch.Tensor
 
 def ffn_block(lp: dict, cfg: ArchConfig, h: torch.Tensor,
               valid: torch.Tensor | None = None):
-    """Pre-norm SwiGLU or MoE block with the optional gemma post-norm:
+    """Pre-norm SwiGLU, GELU or MoE block with the optional gemma post-norm:
     (h + ffn(rms_norm(h)), expert counts).  The counts are the MoE
     router's int32 [E] histogram (None for a dense FFN), of the rows
     where the optional bool mask ``valid`` (h's leading shape) is true:
@@ -181,6 +200,8 @@ def ffn_block(lp: dict, cfg: ArchConfig, h: torch.Tensor,
         if valid is not None:
             counts = moe.expert_counts(idx, cfg.n_experts,
                                        valid.reshape(-1))
+    elif cfg.mlp_kind == "gelu":
+        y = layers.gelu_mlp(x, lp["mlp"]["w_up"], lp["mlp"]["w_down"])
     else:
         m = lp["mlp"]
         y = layers.swiglu_mlp(x, m["w_gate"], m["w_up"], m["w_down"])
@@ -201,7 +222,14 @@ def _is_shared_site(cfg: ArchConfig, layer: int) -> bool:
 
 def _rope_tables(cfg: ArchConfig, positions: torch.Tensor):
     """((cos, sin) of local layers, (cos, sin) of global layers): gemma3's
-    global layers take ``rope_theta_global``, every other arch one pair."""
+    global layers take ``rope_theta_global``, every other arch one pair;
+    an M-RoPE arch (qwen2_vl) the text-only table, every position stream
+    the token index."""
+    if cfg.mrope_sections is not None:
+        pos3 = torch.stack([positions] * len(cfg.mrope_sections), dim=-1)
+        c, s = layers.mrope_angles(pos3, cfg.head_dim, cfg.rope_theta,
+                                   cfg.mrope_sections)
+        return (c, s), (c, s)
     c, s = layers.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     if cfg.rope_theta_global is not None:
         return (c, s), layers.rope_angles(positions, cfg.head_dim,
@@ -311,10 +339,11 @@ def _attn_post(lp: dict, cfg: ArchConfig, out: torch.Tensor) -> torch.Tensor:
                            gemma_style=True)
 
 
-def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
-            cache_len: int):
-    """Run a batch of equal-length prompts tokens [B, S]; returns the
-    last-token logits [B, 1, Vp] and the decode state (positions S).
+def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor | None,
+            cache_len: int, *, embeds: torch.Tensor | None = None):
+    """Run a batch of equal-length prompts tokens [B, S] (an embeds arch:
+    ``embeds`` [B, S, d], tokens None); returns the last-token logits
+    [B, 1, Vp] and the decode state (positions S).
 
     ``attn`` layout: every layer attends causally on K8 (within its
     window, if it has one) and places its K/V in its cache, then runs its
@@ -323,7 +352,7 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     context; every shared-attention site of a hybrid attends causally on
     K8 and places its K/V in the site's cache."""
     _check_supported(cfg)
-    h = embed_in(params, cfg, tokens)
+    h = embed_in(params, cfg, tokens, embeds=embeds)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device).expand(B, S)
@@ -368,8 +397,10 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def decode_step(params: dict, cfg: ArchConfig, state: dict,
-                tokens: torch.Tensor):
-    """One token per sequence, tokens [B, 1].  ``attn`` layout: per layer
+                tokens: torch.Tensor | None, *,
+                embeds: torch.Tensor | None = None):
+    """One token per sequence, tokens [B, 1] (an embeds arch: ``embeds``
+    [B, 1, d], tokens None).  ``attn`` layout: per layer
     the new K/V written at its cache's ring slot and attention over the
     cache (int8 caches quantize on write and dequantize on read), then
     the FFN (MoE on ``moe_ffn``).  ``mamba``/``hybrid``: the O(1)
@@ -378,7 +409,7 @@ def decode_step(params: dict, cfg: ArchConfig, state: dict,
     package.  Returns (logits [B, 1, Vp], the new state); the caches are
     updated in place and carried over."""
     _check_supported(cfg)
-    h = embed_in(params, cfg, tokens)
+    h = embed_in(params, cfg, tokens, embeds=embeds)
     pos = state["positions"]
     positions = pos[:, None]
     new_attn = list(state["attn"])

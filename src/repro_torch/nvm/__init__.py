@@ -4,7 +4,8 @@ of ``repro.nvm``: per-physical-slot wear counters fed by the
 lifetime accounting."""
 from .energy import EnergyMeter, NvmReport
 from .leveling import LevelingStats, StartGapLeveler
-from .wear import NvmWear, WearState, init_wear
+from .wear import NvmWear, WearState, init_wear, record_writes
 
-__all__ = ["NvmWear", "WearState", "init_wear", "LevelingStats",
+__all__ = ["NvmWear", "WearState", "init_wear", "record_writes",
+           "LevelingStats",
            "StartGapLeveler", "EnergyMeter", "NvmReport"]

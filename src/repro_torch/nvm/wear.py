@@ -4,6 +4,8 @@ torch twin of ``repro.nvm.wear``.
   * ``WearState`` — per-*physical*-slot int32 write counters plus the
     logical->physical remap the Start-Gap leveler rotates, as tensors on
     the store's device;
+  * ``record_writes`` — the counter update through the ``wear_update``
+    kernel (its plain version on CPU tensors);
   * ``NvmWear`` — the host-side tracker owned by ``TierStore``: it maps
     logical slow-pool slots through the remap, buffers write events on
     the host, and flushes them into the device counters with one
@@ -32,6 +34,15 @@ def init_wear(n_slots: int, device) -> WearState:
     return WearState(
         wear=torch.zeros(n_slots, dtype=torch.int32, device=device),
         remap=torch.arange(n_slots, dtype=torch.int32, device=device))
+
+
+def record_writes(state: WearState, phys_slots, amount=None,
+                  valid=None) -> WearState:
+    """Charge write events onto physical slots (one ``wear_update``
+    launch; ``valid`` masks events out).  The counters are updated in
+    place; the returned state holds the same tensors."""
+    return state._replace(wear=wear_update(state.wear, phys_slots, amount,
+                                           valid=valid))
 
 
 class NvmWear:
@@ -78,7 +89,8 @@ class NvmWear:
         ``wear_update`` launch, in place) and return the state."""
         ids = np.nonzero(self._pending)[0]
         if ids.size:
-            wear_update(self.state.wear, ids, amount=self._pending[ids])
+            self.state = record_writes(self.state, ids,
+                                       amount=self._pending[ids])
             self._pending[ids] = 0
         return self.state
 

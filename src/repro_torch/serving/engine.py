@@ -159,6 +159,12 @@ class PagedServingEngine:
             raise NotImplementedError(
                 "the port's paged engine serves attention archs (dense "
                 "and MoE)")
+        if cfg.input_mode != "tokens":
+            # requests are token ids, as in the JAX engine, which embeds
+            # {"tokens": ...} only
+            raise NotImplementedError(
+                f"{cfg.name}: the port's paged engine serves token-input "
+                f"archs, not input_mode={cfg.input_mode!r}")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "

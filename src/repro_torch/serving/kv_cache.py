@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.hierarchy import MemoryHierarchy
-from repro_torch.core.tiers import NO_SLOT, StoreConfig, TierStore
+from repro_torch.core.tiers import (NO_SLOT, StoreConfig, TierStore,
+                                    to_host_raw)
 
 SERVE_TIER = 0   # compute only ever reads tier 0 (the fastest device pool)
 
@@ -79,6 +80,11 @@ class PagedKVCache:
     def free_page(self, pid: int) -> None:
         self.store.release(pid)
         self._free_ids.append(pid)
+
+    def is_resident(self, pid: int) -> bool:
+        """Whether logical page ``pid`` is live in the serving pool."""
+        return int(self.store.tier[pid]) == SERVE_TIER and \
+            int(self.store.slot[pid]) != NO_SLOT
 
     def resident_mask(self, pids) -> np.ndarray:
         """bool [k]: which of ``pids`` are live in the serving pool."""
@@ -143,6 +149,36 @@ class PagedKVCache:
             block_tables[i, :len(pg)] = store.slot[pg].astype(np.int32)
             pool_sel[i, :len(pg)] = (store.tier[pg] == pt).astype(np.int32)
         return page_tables, block_tables, pool_sel
+
+    def write_token_kv(self, pid: int, layer_kv: torch.Tensor,
+                       offset: int) -> None:
+        """One token's K/V of every layer, layer_kv [L, 2, Hkv, Dh], at
+        in-page ``offset`` of page ``pid``, wherever it lives: in place in
+        a device pool; in place in a pinned pool's physical row (after the
+        card's queued writes to it have landed), charged to its wear and
+        integrity records; read-modify-write of a numpy host page.  Bumps
+        the page's version (the dirty bit of optimistic migration)."""
+        store = self.store
+        t, slot = int(store.tier[pid]), int(store.slot[pid])
+        assert slot != NO_SLOT
+        pool = store.pools[t]
+        if store.is_device_tier(t):
+            pool.data[slot, :, :, offset] = layer_kv.to(
+                device=pool.data.device, dtype=pool.data.dtype)
+        elif store.is_pinned_tier(t):
+            assert not pool.quantized, \
+                "token-granular appends need a lossless pinned pool"
+            phys = store._phys_one(t, slot)
+            pool.raw()[phys, :, :, offset] = to_host_raw(
+                layer_kv.to(dtype=pool.dtype).cpu())
+            store._account_host_writes(t, np.asarray([phys]))
+            store.integrity.record(store, t, [slot])
+        else:
+            page = pool.read_one(store._phys_one(t, slot))
+            page[:, :, offset] = layer_kv.float().cpu().numpy()
+            store._host_write(t, slot, page)
+        store.writes_to[t] += 1
+        store.bump_version(pid)
 
     def layer_pools(self, layer: int) -> tuple[torch.Tensor, torch.Tensor]:
         """(k_pool, v_pool) strided views [n_fast_slots, page, Hkv, Dh] of

@@ -1,0 +1,167 @@
+"""K8 (``kernels.flash_attention``) at head dim 256 (gemma3) and 64
+(musicgen).
+
+On the CPU the wrapper's plain version at D 256 is held against the
+Pallas kernel in interpret mode (which pads nothing at D 256) and the
+model's ``sdpa``, causal, with a window and non-causal, GQA 8/2 and MHA,
+and against the Pallas oracle with ``seq_len``; floats within
+``ATOL``/``RTOL`` of ``helpers.torch_parity``.
+
+The ``requires_cuda`` cases hold both CUDA entries against the plain
+version on the card at D 64 and 256 (and D 136, a width of the D-256
+kernels that is not a whole number of 64-column boxes): causal, window,
+GQA, ``seq_len``, non-causal, ragged S; float32 within 1e-5, bf16 within
+1e-2 (K8's tolerances); a CUDA-graph replay equal to the eager call; the
+float32 D-256 launch plan; and a D past 256 refused before any launch.
+They skip here.  JAX is imported inside the tests that use it.
+"""
+import numpy as np
+import pytest
+import torch
+
+from helpers.torch_parity import assert_close, cap_threads, cuda_device
+from repro_torch import kernels
+from repro_torch.kernels import flash_attention as K8
+
+cap_threads()
+
+
+def _qkv(B, S, Hq, Hkv, D, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.standard_normal((B, S, Hq, D)).astype(np.float32),
+            rng.standard_normal((B, S, Hkv, D)).astype(np.float32),
+            rng.standard_normal((B, S, Hkv, D)).astype(np.float32))
+
+
+def _t(*arrays, device="cpu"):
+    return [torch.from_numpy(np.asarray(a)).to(device) for a in arrays]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv", [(1, 128, 8, 2), (2, 64, 2, 2)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 32),
+                                           (False, 0)])
+def test_plain_d256_vs_pallas_interpret(B, S, Hq, Hkv, causal, window):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention import flash_attention
+    from repro.models import attention as jattn
+    q, k, v = _qkv(B, S, Hq, Hkv, 256, seed=S + Hq)
+    out = K8.flash_attention(*_t(q, k, v), causal=causal, window=window)
+    assert out.shape == (B, S, Hq, 256) and out.dtype == torch.float32
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    ref = flash_attention(jq, jk, jv, causal=causal, window=window, bq=64,
+                          bk=64, interpret=True)
+    assert_close(out, ref)
+    if causal:
+        pos = jnp.arange(S, dtype=jnp.int32)[None]
+        bias = jattn._mask_bias(pos, pos, window if window else None)
+        assert_close(out, jattn.sdpa(jq, jk, jv, bias))
+
+
+@pytest.mark.parametrize("causal,window,seq_len", [(True, 0, 40),
+                                                   (False, 0, 17),
+                                                   (True, 8, 33)])
+def test_plain_d256_seq_len_matches_pallas_ref(causal, window, seq_len):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention import flash_attention_ref
+    B, S, Hq, Hkv, D = 2, 48, 4, 2, 256
+    q, k, v = _qkv(B, S, Hq, Hkv, D, seed=3)
+    out = K8.flash_attention(*_t(q, k, v), causal=causal, window=window,
+                             seq_len=seq_len)
+    qf = q.transpose(0, 2, 1, 3).reshape(B * Hq, S, D) * D ** -0.5
+    kf = k.transpose(0, 2, 1, 3).reshape(B * Hkv, S, D)
+    vf = v.transpose(0, 2, 1, 3).reshape(B * Hkv, S, D)
+    ref = flash_attention_ref(jnp.asarray(qf), jnp.asarray(kf),
+                              jnp.asarray(vf), causal=causal, window=window,
+                              seq_len=seq_len)
+    assert_close(out, np.asarray(ref).reshape(B, Hq, S, D)
+                 .transpose(0, 2, 1, 3))
+
+
+# ---------------------------------------------------------------- the card
+
+CARD_CASES = [
+    # B, S, Hq, Hkv, causal, window, seq_len
+    (2, 128, 8, 4, True, 0, None),          # gemma3's GQA 2, causal
+    (1, 300, 8, 4, True, 70, None),         # a window, ragged S
+    (2, 200, 4, 1, True, 0, 150),           # GQA 4, seq_len
+    (1, 97, 4, 4, False, 0, None),          # non-causal, ragged S
+    (1, 260, 6, 3, False, 40, 230),         # non-causal window, seq_len
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("D", [64, 136, 256])
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window,seq_len", CARD_CASES)
+def test_kernel_vs_plain_d64_d256_cuda(dtype, tol, D, B, S, Hq, Hkv, causal,
+                                       window, seq_len):
+    dev = cuda_device()
+    q, k, v = (t.to(dtype) for t in _t(*_qkv(B, S, Hq, Hkv, D, seed=D + S),
+                                       device=dev))
+    before = kernels.launch_counts()["flash_attention"]
+    out = K8.flash_attention(q, k, v, causal=causal, window=window,
+                             seq_len=seq_len)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    ref = K8.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   seq_len=seq_len)
+    assert out.dtype == dtype and out.shape == (B, S, Hq, D)
+    assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 256])
+def test_graph_replay_equals_eager_cuda(dtype, D):
+    """Captured in a CUDA graph, either entry at D 64 and 256 replays the
+    bits of an eager call; two eager calls give equal bits."""
+    dev = cuda_device()
+    q, k, v = (t.to(dtype) for t in _t(*_qkv(1, 333, 8, 4, D, seed=5),
+                                       device=dev))
+
+    def fn():
+        return K8.flash_attention(q, k, v, window=100)
+    eager = fn()
+    assert torch.equal(fn(), eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,S,Hq,D", [(4, 2000, 8, 256), (1, 77, 2, 136)])
+def test_f32_d256_launch_plan_cuda(B, S, Hq, D):
+    """Past D 128 the float32 entry takes 64 query rows a CTA (two warps
+    per 16-row m-tile, each half of D) and a 2-stage ring of 32-key
+    tiles, at a row stride of D padded to 8, plus 4."""
+    cuda_device()
+    info = K8.launch_info(B, S, Hq, D)
+    assert info["threads"] == 256, info
+    assert info["ctas"] == B * Hq * -(-S // 64), info
+    assert info["smem_bytes"] == 4 * (-(-D // 8) * 8 + 4) * (64 + 128), info
+    assert info["ctas_per_sm"] >= 1, info
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d_past_256_refused_on_the_card_cuda(dtype):
+    dev = cuda_device()
+    q, k, v = (t.to(dtype) for t in _t(*_qkv(1, 16, 2, 2, 264, seed=6),
+                                       device=dev))
+    before = kernels.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError, match="D=264"):
+        K8.flash_attention(q, k, v)
+    assert kernels.launch_counts()["flash_attention"] == before
+    # the plain version takes it
+    assert K8.flash_attention_plain(q, k, v).shape == (1, 16, 2, 264)

@@ -88,10 +88,12 @@ def _no_card():
 
 
 @pytest.mark.parametrize("entry", ["init_params", "TierStore",
-                                   "PagedServingEngine"])
+                                   "PagedServingEngine", "quickstart",
+                                   "serve_paged", "longctx_decode"])
 def test_entry_points_raise_without_cuda(entry):
     """With no CUDA and no explicit ``device="cpu"`` every entry point
-    raises; it never falls back quietly."""
+    raises (the launch scripts with no ``--device``); it never falls back
+    quietly."""
     _no_card()
     from repro_torch.configs.base import registry, smoke
     from repro_torch.core.tiers import TierConfig, TierStore
@@ -99,7 +101,10 @@ def test_entry_points_raise_without_cuda(entry):
     from repro_torch.serving.engine import PagedServingEngine, ServeConfig
     cfg = smoke(registry()["qwen3_4b"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        if entry == "init_params":
+        if entry in ("quickstart", "serve_paged", "longctx_decode"):
+            import importlib
+            importlib.import_module(f"repro_torch.launch.{entry}").main([])
+        elif entry == "init_params":
             init_params(cfg)
         elif entry == "TierStore":
             TierStore(TierConfig(n_pages=4, fast_slots=2, slow_slots=4,

@@ -220,7 +220,9 @@ def test_longctx_main_prints_both_halves(capsys):
     """``main`` runs both halves of ``examples/longctx_decode.py``:
     mamba2 with O(1) SSM state and no K/V, then mixtral with the K/V of
     a 16-slot ring per layer (float32), though its prompt and horizon
-    run past the window, and the example's closing line."""
+    run past the window, then gemma3, musicgen and qwen2_vl (the last two
+    on embeddings) with caches that hold their whole context, and the
+    example's closing line."""
     assert longctx_decode.main(["--device", "cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
     mx = smoke(registry()["mixtral_8x7b"])
@@ -236,30 +238,38 @@ def test_longctx_main_prints_both_halves(capsys):
                                "24-token prompt on cpu; state: "
                                f"kv={ring}B ssm=0B")
     assert lines[4].startswith("  first 10: [")
+    # then gemma3 (tokens), musicgen and qwen2_vl (embeds), whole-context
+    # caches: three lines each
+    assert lines[6].startswith("gemma3_4b        decoded 40 tokens past a "
+                               "24-token prompt on cpu; state: kv=")
+    assert lines[9].startswith("musicgen_medium  decoded 40 steps past a "
+                               "24-frame embeds prompt on cpu; state: kv=")
+    assert lines[9].endswith("(gelu FFN, embeds in)")
+    assert lines[12].startswith("qwen2_vl_72b     decoded 40 steps past a "
+                                "24-frame embeds prompt on cpu")
     assert lines[-1] == "ring-buffer / O(1)-state long-context decode ✓"
-    assert len(lines) == 7
+    assert len(lines) == 16
 
 
 def test_dense_cache_entry_points_refuse_what_is_not_ported():
-    """The dense cache serves every layout now (``attn`` in
-    ``tests/test_torch_dense_cache_attn.py``), but not the archs whose
-    inputs are embeddings with M-RoPE (qwen2_vl) or whose FFN is a GELU
-    MLP (musicgen); the paged engine still refuses the Mamba and hybrid
-    layouts, as the JAX engine does; without a card the default device
-    raises."""
+    """The dense cache serves every arch now (the GELU and embeds archs in
+    ``tests/test_torch_embeds_archs.py``); the paged engine still refuses
+    the Mamba and hybrid layouts and the embeds archs (musicgen, qwen2_vl),
+    as the JAX engine, which embeds token ids only, does; without a card
+    the default device raises."""
     from repro_torch.serving.engine import PagedServingEngine, ServeConfig
-    for name, what in (("qwen2_vl_72b", "input_mode"),
-                       ("musicgen_medium", "mlp='gelu'")):
+    for name, what in (("qwen2_vl_72b", "input_mode='embeds'"),
+                       ("musicgen_medium", "input_mode='embeds'"),
+                       *((a, "attention archs") for a in ARCHS)):
         cfg = smoke(registry()[name])
-        with pytest.raises(NotImplementedError, match=what):
-            T.init_decode_state(cfg, 1, 8, device="cpu")
-        with pytest.raises(NotImplementedError, match=what):
-            T.init_params(cfg, device="cpu")
-    for name in ARCHS:
-        cfg = smoke(registry()[name])
+        params = T.init_params(cfg, device="cpu")
+        T.init_decode_state(cfg, 1, 8, device="cpu")
         with pytest.raises(NotImplementedError, match="paged engine"):
-            PagedServingEngine(cfg, T.init_params(cfg, device="cpu"),
-                               ServeConfig(), device="cpu")
+            PagedServingEngine(cfg, params, ServeConfig(), device="cpu")
+        with pytest.raises(NotImplementedError, match=what):
+            PagedServingEngine(cfg, params, ServeConfig(), device="cpu")
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 T.init_decode_state(cfg, 1, 8)
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                T.init_params(cfg)
