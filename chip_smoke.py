@@ -5239,13 +5239,15 @@ def bench_s15_kernels(launches: dict) -> list[dict]:
     plain version on the card: D 256 at gemma3's shape (B 4, S 2000, 8/4
     heads), causal (its global layers) and with its 1024-token window (its
     local layers), bf16 (``flash_wgmma_d256_kernel``) and float32
-    (``flash_f32_d256_kernel``), and D 64 at musicgen's (24/24 heads,
-    causal, bf16, the D <= 128 kernel).  Each row: CUDA-event ms, the
-    device ms of a CUDA graph of 10 calls, the bound (operations over the
-    bf16 or the 3xTF32 peak), SDPA's time on the same call (KV expanded
-    to the q heads outside the timing) and the tensor-core instruction
-    count of its kernel.  ``launches`` maps a row to its count on the
-    main path."""
+    (``flash_f32_d256_kernel`` on ``wgmma`` TF32 after its K/V pre-pass
+    ``flash_f32_split_kernel``), and D 64 at musicgen's (24/24 heads,
+    causal, bf16, ``flash_wgmma_d64_kernel``).  Each row: CUDA-event ms,
+    the device ms of a CUDA graph of 10 calls, the bound (operations over
+    the bf16 or the 3xTF32 peak), SDPA's time on the same call (KV
+    expanded to the q heads outside the timing) and the tensor-core
+    instruction count of its kernel; the float32 rows also the device ms
+    of the pre-pass and of the main kernel from a profiler trace.
+    ``launches`` maps a row to its count on the main path."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -5255,8 +5257,8 @@ def bench_s15_kernels(launches: dict) -> list[dict]:
     gen.manual_seed(SEED + 34)
     bf = torch.bfloat16
     sass = {"bf16_d256": _sass_count("flash_wgmma_d256_kernel", "HGMMA"),
-            "f32_d256": _sass_count("flash_f32_d256_kernel", "HMMA"),
-            "bf16": _sass_count("flash_wgmma_kernel", "HGMMA")}
+            "f32_d256": _sass_count("flash_f32_d256_kernel", "HGMMA"),
+            "bf16_d64": _sass_count("flash_wgmma_d64_kernel", "HGMMA")}
     if not all(sass.values()):
         raise RuntimeError(f"flash_attention: a kernel without tensor-core "
                            f"instructions: {sass}")
@@ -5271,7 +5273,7 @@ def bench_s15_kernels(launches: dict) -> list[dict]:
              "f32_d256"),
             ("flash_attention_f32_d256_window", 8, 4, 256, win,
              torch.float32, "f32_d256"),
-            ("flash_attention_d64", 24, 24, 64, 0, bf, "bf16")):
+            ("flash_attention_d64", 24, 24, 64, 0, bf, "bf16_d64")):
         q, k, v = (torch.randn((B, S, h, D), generator=gen,
                                device=dev).to(dtype)
                    for h in (Hq, Hkv, Hkv))
@@ -5328,20 +5330,27 @@ def bench_s15_kernels(launches: dict) -> list[dict]:
                                + ("; a boolean window mask)" if window
                                   else "; is_causal)")}
         row["sdpa_factor"] = row["ms"] / row["library_ms"]
+        row["sass_hgmma"] = sass[key]
         if dtype == bf:
             row["design"] = ("wgmma from TMA-loaded tiles, "
                              + ("4 x 64-column boxes of D, 2 stages"
                                 if D > 128 else
-                                "D padded to 2 x 64 columns in shared "
-                                "memory, 3 stages"))
-            row["sass_hgmma"] = sass[key]
+                                "one 64-column box of D, 4 stages, two "
+                                "CTAs an SM, the scale folded into the "
+                                "exponent's FFMA"))
         else:
-            row["design"] = ("3xTF32 on mma.sync; 64 q rows a CTA, 32-key "
-                             "tiles, two warps per m-tile each owning half "
-                             "of D")
-            row["sass_hmma"] = sass[key]
+            row["design"] = ("3xTF32 on wgmma after a pre-pass that splits "
+                             "K and V^T into TF32 terms in scratch; 64 q "
+                             "rows a CTA, 32-key tiles, two consumer "
+                             "warpgroups each owning half of D, partial S "
+                             "exchanged through shared memory, Q's small "
+                             "term in registers")
             row.update(_f32_bounds(nbytes, flops))
             row["plan"] = K8.launch_info(B, S, Hq, D)
+            split = _kernel_ms(call, ["flash_f32_split_kernel",
+                                      "flash_f32_d256_kernel"])
+            row["prepass_device_ms"] = split["flash_f32_split_kernel"]["ms"]
+            row["main_device_ms"] = split["flash_f32_d256_kernel"]["ms"]
         rows.append(row)
         del q, k, v, qt, kt, vt, out, lib
         torch.cuda.empty_cache()

@@ -19,11 +19,12 @@
 //   strides (unit stride over D), so the transposes to [B*H, S, D] that
 //   the Pallas wrapper makes (ops.py:36-38) go away; out is [B, Sq, Hq, D]
 //   contiguous, in q's type.
-// - Head dimension: any D up to 256 (zamba2's 112, gemma3's 256), not
-//   padded in device memory; the TPU pads D to a multiple of 128
-//   (ops.py:46-48).  Each entry has one kernel up to D 128 and one, with
-//   smaller tiles, for 128 < D <= 256 (below); the first keeps the bits it
-//   gave before D 256 was added.
+// - Head dimension: any D up to 256 (musicgen's 64, zamba2's 112,
+//   gemma3's 256), not padded in device memory; the TPU pads D to a
+//   multiple of 128 (ops.py:46-48).  bf16 has a kernel for D <= 64, one
+//   for D <= 128 and one for 128 < D <= 256; float32 one up to D 128 and
+//   one past it (below).  The D <= 128 kernels keep the bits they gave
+//   before the others were added.
 // - Scaling: the model's sdpa scales q in float32 (attention.py:118-121),
 //   the Pallas wrapper pre-scales q in q's type (ops.py:36).  Both entries
 //   apply the scale in float32, as sdpa does, never to q in bf16.
@@ -40,6 +41,18 @@
 //   and one producer warp.  The producer's lane 0 loads Q once and then
 //   streams 64-key K and V tiles into a ring of kStages stages, each
 //   with a full and an empty mbarrier.
+// - D <= 64 (flash_wgmma_d64_kernel): one 64-column box and 4 stages
+//   (Q 16 KB, a stage 16 KB, O 32 registers a thread), two CTAs an SM
+//   (95 registers a thread, no spill; 81 KB of shared memory each).  Its
+//   exponent takes S unscaled, the scale folded into one FFMA, with
+//   ex2.approx.ftz: musicgen's shape (B 4, S 2000, 24/24, causal) went
+//   0.32 -> 0.17 ms on an H100, against SDPA's 0.14.  Tried and slower
+//   there: the heads' q blocks together (0.23), a software pipeline that
+//   issues tile i's S behind tile i - 1's P.V (spills at two CTAs an SM;
+//   0.19-0.24 at one CTA of 2-4 consumer warpgroups), one-warpgroup CTAs
+//   four an SM (the same 0.17), skipping O's rescale when every alpha is
+//   1 (0.178).  Before it D <= 64 ran the D <= 128 kernel, whose second
+//   box was TMA's zero fill (0.32 ms).
 // - D up to 128: two 64-column boxes of D and 3 K/V stages, no
 //   setmaxnreg (138 registers a thread, within the 168 that ptxas allows
 //   288 threads).  128 < D <= 256 (flash_wgmma_d256_kernel): four boxes,
@@ -58,7 +71,8 @@
 // - S = Q.K^T: wgmma m64n64k16, both operands K-major from shared memory
 //   (descriptors with 128B swizzle, stride 1024 B per 8 rows, the start
 //   advanced 32 B per k-step inside the swizzle atom).
-// - Softmax: S scaled in float32 by scale * log2(e) for exp2f; masks only
+// - Softmax: S scaled in float32 by scale * log2(e) for exp2f (D <= 64:
+//   the FFMA above); masks only
 //   on tiles that straddle the seq_len, causal or window edge; row max by
 //   quad shuffles, row sums kept per thread and reduced once at the end.
 // - O += P.V: P rounded to bf16 in registers is wgmma's register A
@@ -81,12 +95,6 @@
 //   with a unit stride over D is read in place).  D is padded to the
 //   k-step of 8 in shared memory with zeros.  A warp skips the tiles none
 //   of its rows can see.
-// - 128 < D <= 256 (flash_f32_d256_kernel): at 128 rows and 64 keys the
-//   tiles would take ~400 KB of shared memory and each thread 256
-//   accumulators, so the CTA takes 64 q rows and 32-key tiles (~195 KB),
-//   and two warps share each 16-row m-tile: both compute its S over all
-//   of D, each owns half of D in P . V and the output (S's products are
-//   made twice).
 // - Products: every float32 operand is split into a big and a small TF32
 //   term on the fragment load and each product is small.big + big.small +
 //   big.big on mma.sync m16n8k8 with float32 accumulate (common.cuh): the
@@ -113,8 +121,47 @@
 //   fmha, sm80 code, mma.sync too) runs at about a third of that.  At
 //   zamba2's prefill shape this entry takes ~4.0 ms on the device, SDPA
 //   3.2; at the float32 probe's shape 0.125 against 0.088
-//   (tools/f32_lines.py on an H100).  wgmma (TF32 only K-major from shared
-//   memory, so V transposed there) is the next step.
+//   (tools/f32_lines.py on an H100).
+//
+// flash_attention_f32 past D 128 -- 3xTF32 on wgmma (flash_f32_d256_kernel):
+// - wgmma takes TF32 only K-major from shared memory, so P.V needs V^T.
+//   A pre-pass (flash_f32_split_kernel, one CTA per 32 keys x 32 columns
+//   of D x kv head x K or V, through a shared-memory transpose) writes
+//   K's big and small TF32 terms and V^T's into scratch the wrapper
+//   allocates, D padded to 256 with zeros and the keys of each 8-key group
+//   of V^T in the order P's fragment holds them (below).  It reads any
+//   view with a unit stride over D, 4 bytes at a time, and moves ~197 MB
+//   at gemma3's shape (B 4, S 2000, 8/4 heads): 0.065 ms on an H100.
+// - CTA: 64 q rows, two consumer warpgroups that own D's columns 0-127
+//   and 128-255, and a producer warpgroup (384 threads; setmaxnreg 240 /
+//   24, ptxas 168 at launch, no spill).  Shared memory (230432 B): Q's
+//   big term (64 KB, written by the consumers in the 128B-swizzled layout
+//   TMA would write), one 32-key tile of K's two terms (64 KB: per
+//   32-column box the big keys, then the small) and one of V^T's (64 KB),
+//   and a double-buffered exchange of partial S (32 KB).  K and V have a
+//   buffer each with its own full and empty barriers, so K's tile i + 1
+//   loads during tile i's softmax and P.V, and V's during S.
+// - Q is scaled in float32 and split on the load; its small term stays in
+//   registers (64 a thread) as wgmma's register A operand.
+// - S over a warpgroup's half: wgmma m64n64k8 with Q's big term against
+//   [K big | K small] (one read of A for the big product and one
+//   correction, into the accumulator's two halves) and m64n32k8 with Q's
+//   small term against K's big term: three accumulators, summed as
+//   (big.small + small.big) + big.big.  Each warpgroup writes its partial
+//   to shared memory, and after a named barrier adds the other's: a + b
+//   in both, so both hold the same S and the same P (S made once a row).
+// - P.V: P's two terms are the register A operand, each k-step of 8 keys
+//   holding keys 2t, 2t + 1 of the accumulator as columns t, t + 4, which
+//   is why V^T keeps each 8-key group in the order 0 2 4 6 1 3 5 7.  Per
+//   64-column chunk of the warpgroup's half: small.big + big.small +
+//   big.big from zero (m64n64k8), then O = O * alpha + P.V in float32, as
+//   the mma.sync kernel does against the truncated sums.
+// - Grid: one CTA per (64 q rows, b * Hq + h), heaviest causal q block
+//   first as above.  At gemma3's shape: 0.93 ms in all (parent, 3xTF32 on
+//   mma.sync with S made twice: 3.25; SDPA 1.89), 0.75 with the 1024
+//   window (2.56; SDPA's masked call 3.57).  The kernel reads ~4.2 GB of
+//   K/V terms from L2 at 64 q rows a CTA; 128 rows would halve that but
+//   do not fit in shared memory with Q's terms.
 #include <cuda.h>  // CUtensorMap and its enums only: no -lcuda
 
 #include "common.cuh"
@@ -123,7 +170,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxD = 256;                      // both entries
-constexpr int kNarrowD = 128;                   // the first tiling's widest D
+constexpr int kNarrowD = 128;     // the widest D of the D <= 128 kernels
 
 // ============================================================================
 // float32: 3xTF32 on mma.sync from a cp.async ring
@@ -135,27 +182,13 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 2;                      // K/V ring depth
 
-// A tiling of the float32 entry.  kSplit warps share one 16-row m-tile:
-// each computes the m-tile's S over the whole of D (the same values in
-// every one of them) and owns 1 / kSplit of D's columns in P . V and the
-// output.  kBK keys per tile.
-template <int kMaxDT, int kSplitT, int kBKT>
-struct Tiling {
-  static constexpr int kMaxD = kMaxDT;
-  static constexpr int kBK = kBKT;
-  static constexpr int kRowTiles = kWarps / kSplitT;
-  static constexpr int kBQ = kRowTiles * 16;    // query rows per CTA
-  static constexpr int kKT = kMaxDT / 8;        // k-steps of S over D
-  static constexpr int kNT = kMaxDT / 8 / kSplitT;  // 8-column tiles a warp owns
-  static constexpr int kKeyTiles = kBKT / 8;    // 8-key n-tiles of S
-};
-// D <= 128: eight 16-row m-tiles, 64-key tiles (the only tiling up to
-// D 128, whose bits it keeps).  128 < D <= 256: at 128 rows and 64 keys
-// the tiles would take ~400 KB of shared memory and each warp 256 float32
-// accumulators (O and a tile's P . V), so two warps split D per m-tile
-// (64 rows a CTA) and tiles hold 32 keys: ~195 KB, 128 accumulators.
-using Narrow = Tiling<kNarrowD, 1, 64>;
-using Wide = Tiling<kMaxD, 2, 32>;
+// D <= 128 (past it f32w below): each warp owns one 16-row m-tile, so a
+// CTA takes 128 q rows, over 64-key tiles.
+constexpr int kBQ = kWarps * 16;                // query rows per CTA
+constexpr int kBK = 64;                         // keys per tile
+constexpr int kKT = kNarrowD / 8;               // k-steps of S over D
+constexpr int kNT = kNarrowD / 8;               // 8-column tiles of O
+constexpr int kKeyTiles = kBK / 8;              // 8-key n-tiles of S
 
 // shared-memory row stride (floats): D padded to the k-step of 8, plus 4,
 // so ldmatrix rows and the scalar V loads miss each other's banks
@@ -163,13 +196,10 @@ __host__ __device__ __forceinline__ constexpr int stride(int D) {
   return (D + 7) / 8 * 8 + 4;
 }
 
-template <typename T>
 constexpr size_t smem_bytes(int D) {
-  return 4 * static_cast<size_t>(stride(D)) * (T::kBQ + kStages * 2 * T::kBK);
+  return 4 * static_cast<size_t>(stride(D)) * (kBQ + kStages * 2 * kBK);
 }
-static_assert(smem_bytes<Narrow>(Narrow::kMaxD) <= 227 * 1024,
-              "flash f32 smem");
-static_assert(smem_bytes<Wide>(Wide::kMaxD) <= 227 * 1024, "flash f32 smem");
+static_assert(smem_bytes(kNarrowD) <= 227 * 1024, "flash f32 smem");
 
 // 4 bytes global -> shared, zero-filled when pred is false
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -187,16 +217,8 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
       float scale, long long q_sb, long long q_ss, long long q_sh,           \
       long long k_sb, long long k_ss, long long k_sh, long long v_sb,        \
       long long v_ss, long long v_sh, int vec
-#define F32_PASS                                                             \
-  q, k, v, out, Sq, Sk, Hq, Hkv, D, seq_len, causal, window, scale, q_sb,    \
-      q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, vec
 
-template <typename T>
-__device__ __forceinline__ void flash_f32_body(F32_ARGS) {
-  constexpr int kBQ = T::kBQ;
-  constexpr int kBK = T::kBK;
-  constexpr int kNT = T::kNT;
-  constexpr int kKeyTiles = T::kKeyTiles;
+__global__ void __launch_bounds__(kThreads, 1) flash_f32_kernel(F32_ARGS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int sr = stride(D);
   const int dp = sr - 4;                        // D padded to 8
@@ -211,8 +233,7 @@ __device__ __forceinline__ void flash_f32_body(F32_ARGS) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int mt = warp % T::kRowTiles;           // this warp's m-tile
-  const int c0 = warp / T::kRowTiles * kNT * 8;  // its first column of D
+  const int mt = warp;                          // this warp's m-tile
   const int g = lane >> 2;
   const int t = lane & 3;
 
@@ -301,7 +322,7 @@ __device__ __forceinline__ void flash_f32_body(F32_ARGS) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) sb[nt][e] = sc[nt][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < T::kKT; ++kk) {
+      for (int kk = 0; kk < kKT; ++kk) {
         if (kk * 8 >= dp) break;
         uint32_t fa[4], ab[4], as[4];
         ldsm_x4(fa, q_s + (mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
@@ -382,10 +403,10 @@ __device__ __forceinline__ void flash_f32_body(F32_ARGS) {
         split_tf32(s[j][2], pb[1], ps[1]);
         split_tf32(s[j][1], pb[2], ps[2]);
         split_tf32(s[j][3], pb[3], ps[3]);
-        const float* v0 = vs + (8 * j + 2 * t) * sr + c0 + g;
+        const float* v0 = vs + (8 * j + 2 * t) * sr + g;
 #pragma unroll
         for (int dn = 0; dn < kNT; ++dn) {
-          if (c0 + dn * 8 >= dp) break;
+          if (dn * 8 >= dp) break;
           uint32_t vb0, vs0, vb1, vs1;
           split_tf32(v0[dn * 8], vb0, vs0);
           split_tf32(v0[sr + dn * 8], vb1, vs1);
@@ -419,7 +440,7 @@ __device__ __forceinline__ void flash_f32_body(F32_ARGS) {
   for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int col = c0 + nt * 8 + 2 * t + (e & 1);
+      const int col = nt * 8 + 2 * t + (e & 1);
       const int r = (e & 2) ? r1 : r0;
       if (col < D && r < Sq)
         ob[r * o_ss + col] = o[nt][e] * ((e & 2) ? inv1 : inv0);
@@ -427,36 +448,18 @@ __device__ __forceinline__ void flash_f32_body(F32_ARGS) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) flash_f32_kernel(F32_ARGS) {
-  flash_f32_body<Narrow>(F32_PASS);
-}
-__global__ void __launch_bounds__(kThreads, 1)
-flash_f32_d256_kernel(F32_ARGS) {
-  flash_f32_body<Wide>(F32_PASS);
-}
 
-// The plan: one CTA of kThreads per (kBQ query rows, b * Hq + h), in the
-// tiling of D's width.
-template <typename T>
-dim3 grid_of(int B, int Sq, int Hq) {
-  return dim3(B * Hq, (Sq + T::kBQ - 1) / T::kBQ);
-}
 
-// Raise both kernels' shared-memory limits once, to their widest D: later
+// Raise the kernel's shared-memory limit once, to its widest D: later
 // launches make no API call, so a CUDA graph can capture them.
 cudaError_t grant_smem() {
   static bool granted = false;
   if (granted) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
+  const cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes<Narrow>(Narrow::kMaxD)));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      flash_f32_d256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes<Wide>(Wide::kMaxD)));
-  if (err != cudaSuccess) return err;
-  granted = true;
-  return cudaSuccess;
+      static_cast<int>(smem_bytes(kNarrowD)));
+  if (err == cudaSuccess) granted = true;
+  return err;
 }
 
 int launch(const void* q, const void* k, const void* v, void* out, int B,
@@ -465,7 +468,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            long long q_sh, long long k_sb, long long k_ss, long long k_sh,
            long long v_sb, long long v_ss, long long v_sh,
            cudaStream_t stream) {
-  if (D < 1 || D > kMaxD || Hkv < 1 || Hq % Hkv != 0)
+  if (D < 1 || D > kNarrowD || Hkv < 1 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   // K and V rows copied 16 bytes at a time where every row is 16-byte
   // aligned, else 4 bytes at a time
@@ -481,20 +484,463 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
-  if (D <= kNarrowD)
-    flash_f32_kernel<<<grid_of<Narrow>(B, Sq, Hq), kThreads,
-                       smem_bytes<Narrow>(D), stream>>>(
-        qf, kf, vf, of, Sq, Sk, Hq, Hkv, D, seq_len, causal, window, scale,
-        q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, vec);
-  else
-    flash_f32_d256_kernel<<<grid_of<Wide>(B, Sq, Hq), kThreads,
-                            smem_bytes<Wide>(D), stream>>>(
-        qf, kf, vf, of, Sq, Sk, Hq, Hkv, D, seq_len, causal, window, scale,
-        q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, vec);
+  // one CTA of kThreads per (kBQ query rows, b * Hq + h)
+  flash_f32_kernel<<<dim3(B * Hq, (Sq + kBQ - 1) / kBQ), kThreads,
+                     smem_bytes(D), stream>>>(
+      qf, kf, vf, of, Sq, Sk, Hq, Hkv, D, seq_len, causal, window, scale,
+      q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace f32
+
+// ============================================================================
+// float32, 128 < D <= 256: 3xTF32 on wgmma, K and V split by a pre-pass
+// ============================================================================
+
+namespace f32w {
+
+constexpr int kDp = kMaxD;                      // D padded with zeros
+constexpr int kBQ = 64;                         // q rows per CTA
+constexpr int kBK = 32;                         // keys per tile
+constexpr int kThreads = 384;   // two consumer warpgroups, a producer one
+constexpr int kProducerRegs = 24;               // setmaxnreg
+constexpr int kConsumerRegs = 240;
+constexpr int kBoxes = kDp / 32;                // 32-float (128-byte) boxes
+constexpr int kQBox = kBQ * 128;                // Q's big term, one box
+constexpr int kKBox = 2 * kBK * 128;            // K's big and small, one box
+constexpr int kVTerm = kDp * 128;               // one term of a V^T tile
+constexpr int kX = kBQ * kBK;                   // floats of a partial S
+constexpr int kTileFloats = 2 * kBK * kDp;      // a tile's two terms
+constexpr int kQBytes = kBoxes * kQBox;         // 64 KB
+constexpr int kKBytes = kBoxes * kKBox;         // 64 KB
+constexpr int kVBytes = 2 * kVTerm;             // 64 KB
+constexpr int kSmem = 1024 + kQBytes + kKBytes + kVBytes + 4 * kX * 4 + 4 * 8;
+static_assert(kSmem <= 227 * 1024, "flash f32 d256 smem");
+
+// V^T's position p in a group of 8 keys holds key perm8(p): P's
+// accumulator holds keys 2t and 2t + 1 of each 8-key group, and as wgmma's
+// A operand they become the columns t and t + 4 of a k-step
+__device__ __forceinline__ int perm8(int p) { return p < 4 ? 2 * p : 2 * p - 7; }
+
+// The pre-pass: one CTA per (32-key tile x 32-column box, b * Hkv + hk, K
+// or V).  K goes to [b * Hkv + hk][tile][big | small][32 keys][256] and V
+// transposed to [b * Hkv + hk][tile][big | small][256][32 keys in perm8
+// order], D and the keys past Sk zero-filled; any view with a unit stride
+// over D is read 4 bytes at a time.
+__global__ void __launch_bounds__(256) flash_f32_split_kernel(
+    const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ ks, float* __restrict__ vts, int Sk, int Hkv, int D,
+    int n_kt, long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh) {
+  __shared__ float tile[32][33];
+  const int kt = blockIdx.x / kBoxes;
+  const int c = blockIdx.x - kt * kBoxes;
+  const int bhk = blockIdx.y;
+  const int b = bhk / Hkv;
+  const int hk = bhk - b * Hkv;
+  const bool isv = blockIdx.z != 0;
+  const float* src = isv ? v + b * v_sb + hk * v_sh : k + b * k_sb + hk * k_sh;
+  const long long ss = isv ? v_ss : k_ss;
+  const int x = threadIdx.x & 31;
+  const int y = threadIdx.x >> 5;
+  for (int r = y; r < kBK; r += 8) {
+    const int key = kt * kBK + r;
+    const int d = c * 32 + x;
+    tile[r][x] = key < Sk && d < D ? src[key * ss + d] : 0.f;
+  }
+  __syncthreads();
+  float* dst = (isv ? vts : ks) +
+               static_cast<long long>(bhk * n_kt + kt) * kTileFloats;
+  for (int r = y; r < kBK; r += 8) {
+    uint32_t big, small;
+    if (isv) {                                  // r: a column of D
+      split_tf32(tile[(x & ~7) | perm8(x & 7)][r], big, small);
+      dst[(c * 32 + r) * kBK + x] = __uint_as_float(big);
+      dst[kDp * kBK + (c * 32 + r) * kBK + x] = __uint_as_float(small);
+    } else {                                    // r: a key
+      split_tf32(tile[r][x], big, small);
+      dst[r * kDp + c * 32 + x] = __uint_as_float(big);
+      dst[kBK * kDp + r * kDp + c * 32 + x] = __uint_as_float(small);
+    }
+  }
+}
+
+// d[64 x 64] (+)= A[64 x 8] . B[8 x 64], TF32, both K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_ss64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[64 x 64] (+)= A[64 x 8] . B[8 x 64], TF32, A in registers (a0: row g,
+// column t; a1: row g + 8; a2: column t + 4; a3: both), B K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_tf32_rs64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// d[64 x 32] (+)= A[64 x 8] . B[8 x 32], TF32, A in registers
+__device__ __forceinline__ void wgmma_tf32_rs32(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(x) : "memory");
+}
+
+// One CTA per (64 q rows, b * Hq + h), the heaviest causal block of a head
+// first and the heads in order, so the K/V a head shares stay in L2.
+// Warpgroups 0 and 1 own D's columns 0-127 and 128-255; warpgroup 2 is
+// the producer (one thread of it issues TMA).
+__global__ void __launch_bounds__(kThreads, 1) flash_f32_d256_kernel(
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const float* __restrict__ q,
+    float* __restrict__ out, int Sq, int Sk, int Hq, int Hkv, int D,
+    int seq_len, int causal, int window, float scale, long long q_sb,
+    long long q_ss, long long q_sh, int n_kt) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_s = base;                    // [box][64 rows][128 B]
+  const uint32_t k_s = q_s + kQBytes;           // [box][big | small keys]
+  const uint32_t v_s = k_s + kKBytes;           // [big | small][256][128 B]
+  float* xs = reinterpret_cast<float*>(smem_raw + (v_s + kVBytes - raw));
+  const uint32_t bar = v_s + kVBytes + 4 * kX * 4;
+  const uint32_t k_full = bar, k_empty = bar + 8;
+  const uint32_t v_full = bar + 16, v_empty = bar + 24;
+
+  const int nqb = (Sq + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x / nqb;
+  const int q0 = (nqb - 1 - (blockIdx.x - bh * nqb)) * kBQ;
+  const int b = bh / Hq;
+  const int h = bh - b * Hq;
+  const int bhk = b * Hkv + h / (Hq / Hkv);
+  int hi = min(seq_len, Sk);
+  if (causal) hi = min(hi, min(Sq, q0 + kBQ));
+  const int lo = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  const int n_tiles = hi > lo ? (hi - lo + kBK - 1) / kBK : 0;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(k_full, 1);
+    mbar_init(k_empty, 256);
+    mbar_init(v_full, 1);
+    mbar_init(v_empty, 256);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ---- producer: K's tile i once S(i - 1) is done with the buffer,
+    // V's tile i once P . V(i - 1) is ---------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (warp == 8 && lane == 0) {
+      for (int i = 0; i < n_tiles; ++i) {
+        const int row = bhk * n_kt + lo / kBK + i;
+        if (i > 0) mbar_wait(k_empty, (i - 1) & 1);
+        mbar_expect_tx(k_full, kKBytes);
+        for (int c = 0; c < kBoxes; ++c)
+          tma_load_2d(k_s + c * kKBox, &tk, k_full, 32 * c, row * 2 * kBK);
+        if (i > 0) mbar_wait(v_empty, (i - 1) & 1);
+        mbar_expect_tx(v_full, kVBytes);
+        tma_load_2d(v_s, &tv, v_full, 0, row * 2 * kDp);
+        tma_load_2d(v_s + kVTerm, &tv, v_full, 0, row * 2 * kDp + kDp);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ---------------------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wg = warp >> 2;                     // its half of D
+  const int tw = threadIdx.x & 127;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rl = 16 * (warp & 3) + g;           // rows rl, rl + 8 of 64
+  const int r0 = q0 + rl;
+  const int r1 = r0 + 8;
+
+  // Q scaled in float32 and split: the small term stays in registers as
+  // the A operand of its product, the big term goes to shared memory in
+  // the 128B-swizzled layout TMA would write; each warpgroup writes and
+  // reads its own half
+  uint32_t qs[16][4];
+  const float* qb = q + b * q_sb + h * q_sh;
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = rl + 8 * (e & 1);
+      const int col = 128 * wg + 8 * kk + t + 4 * (e >> 1);
+      const float x =
+          q0 + r < Sq && col < D ? qb[(q0 + r) * q_ss + col] * scale : 0.f;
+      uint32_t big;
+      split_tf32(x, big, qs[kk][e]);
+      const int cc = col & 31;
+      st_shared(q_s + (col >> 5) * kQBox + r * 128 +
+                    (((cc >> 2) ^ (r & 7)) << 4) + (cc & 3) * 4,
+                big);
+    }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+
+  float o[2][32];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) o[c][j] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int kb = lo + i * kBK;
+    mbar_wait(k_full, i & 1);
+    // -- this half's S: Qb . [Kb | Ks] (big products left, Qb . Ks right)
+    // and Qs . Kb, three accumulators -----------------------------------------
+    float sa[32], sq[16];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sa[j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) sq[j] = 0.f;
+    fence_regs(sa);
+    fence_regs(sq);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dk =
+            desc_sw128(k_s + (4 * wg + c) * kKBox + 32 * kk, 16, 1024);
+        wgmma_tf32_ss64(
+            sa, desc_sw128(q_s + (4 * wg + c) * kQBox + 32 * kk, 16, 1024),
+            dk, (c | kk) != 0);
+        wgmma_tf32_rs32(sq, qs[4 * c + kk], dk, (c | kk) != 0);
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sa);
+    fence_regs(sq);
+    mbar_arrive(k_empty);
+
+    // -- S = (this half) + (the other half), the same bits in both ---------
+    float* xw = xs + ((i & 1) * 2 + wg) * kX;
+    const float* xo = xs + ((i & 1) * 2 + (wg ^ 1)) * kX;
+    float s[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      s[j] = (sa[16 + j] + sq[j]) + sa[j];
+      xw[j * 128 + tw] = s[j];
+    }
+    asm volatile("bar.sync 3, 256;\n" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < 16; ++j) s[j] += xo[j * 128 + tw];
+
+    // -- online softmax in float32 -----------------------------------------
+    const bool edge = kb + kBK > seq_len || (causal && kb + kBK - 1 > q0) ||
+                      (window > 0 && q0 + kBQ - 1 - kb >= window);
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float x = s[j];
+      if (edge) {
+        const int key = kb + 8 * (j >> 2) + 2 * t + (j & 1);
+        const int qpos = (j & 2) ? r1 : r0;
+        bool ok = key < seq_len;
+        if (causal) ok = ok && key <= qpos;
+        if (window > 0) ok = ok && qpos - key < window;
+        if (!ok) x = kNegInf;
+      }
+      s[j] = x;
+      if (j & 2) mx1 = fmaxf(mx1, x);
+      else mx0 = fmaxf(mx0, x);
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float p = expf(s[j] - ((j & 2) ? mn1 : mn0));
+      s[j] = p;
+      if (j & 2) sum1 += p;
+      else sum0 += p;
+    }
+    l0 = l0 * alpha0 + sum0;                    // per-thread partial sums
+    l1 = l1 * alpha1 + sum1;
+    // P's terms as A fragments: k-step j is keys 8j .. 8j + 7
+    uint32_t pb[4][4], ps[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      split_tf32(s[4 * j], pb[j][0], ps[j][0]);
+      split_tf32(s[4 * j + 2], pb[j][1], ps[j][1]);
+      split_tf32(s[4 * j + 1], pb[j][2], ps[j][2]);
+      split_tf32(s[4 * j + 3], pb[j][3], ps[j][3]);
+    }
+
+    // -- O = O * alpha + P . V, P . V from zero per tile and 64-column chunk
+    mbar_wait(v_full, i & 1);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float pv[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) pv[j] = 0.f;
+      fence_regs(pv);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        fence_regs(pb[j]);
+        fence_regs(ps[j]);
+      }
+      wgmma_fence();
+      const uint32_t vrow = v_s + (128 * wg + 64 * c) * 128;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint64_t vb = desc_sw128(vrow + 32 * j, 16, 1024);
+        const uint64_t vsm = desc_sw128(vrow + kVTerm + 32 * j, 16, 1024);
+        wgmma_tf32_rs64(pv, ps[j], vb, j != 0);
+        wgmma_tf32_rs64(pv, pb[j], vsm, 1);
+        wgmma_tf32_rs64(pv, pb[j], vb, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(pv);
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        o[c][j] = o[c][j] * ((j & 2) ? alpha1 : alpha0) + pv[j];
+    }
+    mbar_arrive(v_empty);
+  }
+
+  // -- epilogue: quad-reduce l, normalise, store -----------------------------
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const long long o_ss = static_cast<long long>(Hq) * D;
+  float* ob = out + static_cast<long long>(b) * Sq * o_ss +
+              static_cast<long long>(h) * D;
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = 128 * wg + 64 * c + 8 * (j >> 2) + 2 * t + (j & 1);
+      const int r = (j & 2) ? r1 : r0;
+      if (col < D && r < Sq)
+        ob[r * o_ss + col] = o[c][j] * ((j & 2) ? inv1 : inv0);
+    }
+}
+
+// a 2-d float32 map over [rows, cols] contiguous, boxes of 32 columns x
+// box_rows rows, 128B swizzle
+bool make_map(CUtensorMap* map, const float* ptr, uint64_t cols,
+              uint64_t rows, uint32_t box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 4};
+  const cuuint32_t box[2] = {32, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<float*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Key tiles of the scratch: at least one, so the maps have rows.
+inline int key_tiles(int Sk) { return Sk > kBK ? (Sk + kBK - 1) / kBK : 1; }
+
+cudaError_t grant_smem() {
+  static bool granted = false;
+  if (granted) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_d256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (err == cudaSuccess) granted = true;
+  return err;
+}
+
+int launch(const void* q, const void* k, const void* v, void* out,
+           void* scratch, int B, int Sq, int Sk, int Hq, int Hkv, int D,
+           int seq_len, int causal, int window, float scale, long long q_sb,
+           long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+           long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+           cudaStream_t stream) {
+  if (D <= kNarrowD || D > kMaxD || Hkv < 1 || Hq % Hkv != 0 ||
+      scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_kt = key_tiles(Sk);
+  const long long heads = static_cast<long long>(B) * Hkv;
+  float* ks = static_cast<float*>(scratch);
+  float* vts = ks + heads * n_kt * kTileFloats;
+  CUtensorMap tk, tv;
+  if (!make_map(&tk, ks, kDp, heads * n_kt * 2 * kBK, 2 * kBK) ||
+      !make_map(&tv, vts, kBK, heads * n_kt * 2 * kDp, kDp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = grant_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_f32_split_kernel<<<dim3(n_kt * kBoxes, B * Hkv, 2), 256, 0,
+                           stream>>>(
+      static_cast<const float*>(k), static_cast<const float*>(v), ks, vts,
+      Sk, Hkv, D, n_kt, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_f32_d256_kernel<<<B * Hq * ((Sq + kBQ - 1) / kBQ), kThreads, kSmem,
+                          stream>>>(
+      tk, tv, static_cast<const float*>(q), static_cast<float*>(out), Sq, Sk,
+      Hq, Hkv, D, seq_len, causal, window, scale, q_sb, q_ss, q_sh, n_kt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace f32w
 
 // ============================================================================
 // bf16: wgmma from TMA-loaded tiles
@@ -547,8 +993,21 @@ struct Ring {
                                8 * (1 + 2 * kStages);
 };
 static_assert(Ring<4, 2>::kSmem <= 227 * 1024, "flash bf16 smem");
+constexpr int kD64Stages = 4;                   // D <= 64: two CTAs an SM
+static_assert(2 * (Ring<1, kD64Stages>::kSmem + 1024) <= 228 * 1024,
+              "flash bf16 d64 smem");
 
-template <int kDChunks, int kStages, bool kWide>
+// exp2 on the MUFU unit alone (ex2.approx.ftz: no denormal scaling)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// kFold (the D <= 64 kernel) keeps S unscaled and folds the scale into
+// the exponent's FFMA, with ex2.approx.ftz: an FMUL and exp2f's denormal
+// handling fewer an element.
+template <int kDChunks, int kStages, bool kWide, bool kFold = false>
 __device__ __forceinline__ void flash_wgmma_body(
     const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
     __nv_bfloat16* __restrict__ out, int Sq, int Sk, int Hq, int Hkv, int D,
@@ -637,7 +1096,11 @@ __device__ __forceinline__ void flash_wgmma_body(
   for (int c = 0; c < kDChunks; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  // kFold masks with -2**100, whose product with the scale is exact, so
+  // in a row that has seen only masked keys fmaf(x, scale, -m * scale) is
+  // 0 and p is 1, as the unfolded arithmetic gives
+  constexpr float kMasked = kFold ? -0x1p100f : kNegInf;
+  float m0 = kMasked, m1 = kMasked, l0 = 0.f, l1 = 0.f;
 
   const uint32_t q_wg = q_s + wg * 64 * kRowBytes;
   mbar_wait(q_full, 0);
@@ -668,17 +1131,17 @@ __device__ __forceinline__ void flash_wgmma_body(
       // -- online softmax in float32, log2 domain ---------------------------
       const bool edge = kb + kBK > seq_len || (causal && kb + kBK - 1 > qw) ||
                         (window > 0 && qw + 63 - kb >= window);
-      float mx0 = kNegInf, mx1 = kNegInf;
+      float mx0 = kMasked, mx1 = kMasked;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
-        float x = sc[j] * scale_log2;
+        float x = kFold ? sc[j] : sc[j] * scale_log2;
         if (edge) {
           const int key = kb + 8 * (j >> 2) + cq + (j & 1);
           const int qpos = (j & 2) ? r1 : r0;
           bool ok = key < seq_len;
           if (causal) ok = ok && key <= qpos;
           if (window > 0) ok = ok && qpos - key < window;
-          if (!ok) x = kNegInf;
+          if (!ok) x = kMasked;
         }
         sc[j] = x;
         if (j & 2) mx1 = fmaxf(mx1, x);
@@ -690,13 +1153,19 @@ __device__ __forceinline__ void flash_wgmma_body(
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
       }
       const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+      const float alpha0 = kFold ? exp2_ftz((m0 - mn0) * scale_log2)
+                                 : exp2f(m0 - mn0);
+      const float alpha1 = kFold ? exp2_ftz((m1 - mn1) * scale_log2)
+                                 : exp2f(m1 - mn1);
       m0 = mn0;
       m1 = mn1;
+      const float ms0 = mn0 * scale_log2, ms1 = mn1 * scale_log2;
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
-        const float p = exp2f(sc[j] - ((j & 2) ? mn1 : mn0));
+        const float p =
+            kFold ? exp2_ftz(fmaf(sc[j], scale_log2, -((j & 2) ? ms1 : ms0)))
+                  : exp2f(sc[j] - ((j & 2) ? mn1 : mn0));
         sc[j] = p;
         if (j & 2) sum1 += p;
         else sum0 += p;
@@ -769,6 +1238,12 @@ __device__ __forceinline__ void flash_wgmma_body(
 #define WG_PASS                                                              \
   tq, tk, tv, out, Sq, Sk, Hq, Hkv, D, seq_len, causal, window, scale_log2
 
+// D <= 64: one box, so Q takes 16 KB, a stage 16 KB and O 32 registers a
+// thread; two CTAs share an SM (95 registers a thread, no spill).
+__global__ void __launch_bounds__(kThreads, 2)
+flash_wgmma_d64_kernel(WG_ARGS) {
+  flash_wgmma_body<1, kD64Stages, false, true>(WG_PASS);
+}
 __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(WG_ARGS) {
   flash_wgmma_body<2, 3, false>(WG_PASS);
 }
@@ -812,15 +1287,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       !make_map(&tk, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, kBK) ||
       !make_map(&tv, v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool narrow = D <= kNarrowD;
-  const int smem = narrow ? Ring<2, 3>::kSmem : Ring<4, 2>::kSmem;
+  // D <= 64: one box (two CTAs an SM); D <= 128: two; else four
+  const int kind = D <= 64 ? 0 : D <= kNarrowD ? 1 : 2;
+  const int smem = kind == 0   ? Ring<1, kD64Stages>::kSmem
+                   : kind == 1 ? Ring<2, 3>::kSmem
+                               : Ring<4, 2>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      narrow ? flash_wgmma_kernel : flash_wgmma_d256_kernel,
+      kind == 0   ? flash_wgmma_d64_kernel
+      : kind == 1 ? flash_wgmma_kernel
+                  : flash_wgmma_d256_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  if (narrow)
+  if (kind == 0)
+    flash_wgmma_d64_kernel<<<grid, kThreads, smem, stream>>>(
+        tq, tk, tv, o, Sq, Sk, Hq, Hkv, D, seq_len, causal, window,
+        scale * kLog2e);
+  else if (kind == 1)
     flash_wgmma_kernel<<<grid, kThreads, smem, stream>>>(
         tq, tk, tv, o, Sq, Sk, Hq, Hkv, D, seq_len, causal, window,
         scale * kLog2e);
@@ -842,34 +1326,48 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       long long k_sb, long long k_ss, long long k_sh, long long v_sb,        \
       long long v_ss, long long v_sh, cudaStream_t stream
 
+// D <= 128 (128 < D <= 256 takes flash_attention_f32_d256)
 EXPORT int flash_attention_f32(FLASH_ARGS) {
   return f32::launch(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, seq_len, causal,
                      window, scale, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                      v_ss, v_sh, stream);
 }
 
+// 128 < D <= 256: the pre-pass writes K's and V^T's TF32 terms into
+// `scratch`, the caller's, of 2 * B * Hkv * max(1, ceil(Sk / 32)) * 2 * 32
+// * 256 floats (kernels/flash_attention.py), then the wgmma kernel reads
+// them
+EXPORT int flash_attention_f32_d256(FLASH_ARGS, void* scratch) {
+  return f32w::launch(q, k, v, out, scratch, B, Sq, Sk, Hq, Hkv, D, seq_len,
+                      causal, window, scale, q_sb, q_ss, q_sh, k_sb, k_ss,
+                      k_sh, v_sb, v_ss, v_sh, stream);
+}
+
 // How the float32 entry launches, for measurement: info[0..3] = CTAs in
 // the grid, threads per CTA, dynamic shared memory bytes, CTAs resident
 // per SM (the occupancy calculator, after the shared-memory limit is
-// raised).
+// raised) of its main kernel.
 EXPORT int flash_attention_f32_launch_info(int B, int Sq, int Hq, int D,
                                            int* info) {
   if (D < 1 || D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = f32::grant_smem();
-  if (err != cudaSuccess) return static_cast<int>(err);
   const bool narrow = D <= kNarrowD;
-  const size_t smem = narrow ? f32::smem_bytes<f32::Narrow>(D)
-                             : f32::smem_bytes<f32::Wide>(D);
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, narrow ? f32::flash_f32_kernel : f32::flash_f32_d256_kernel,
-      f32::kThreads, smem);
+  cudaError_t err = narrow ? f32::grant_smem() : f32w::grant_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid = narrow ? f32::grid_of<f32::Narrow>(B, Sq, Hq)
-                           : f32::grid_of<f32::Wide>(B, Sq, Hq);
-  info[0] = static_cast<int>(grid.x * grid.y);
-  info[1] = f32::kThreads;
-  info[2] = static_cast<int>(smem);
+  const int threads = narrow ? f32::kThreads : f32w::kThreads;
+  const int smem =
+      narrow ? static_cast<int>(f32::smem_bytes(D)) : f32w::kSmem;
+  int per_sm = 0;
+  if (narrow)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, f32::flash_f32_kernel, threads, smem);
+  else
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, f32w::flash_f32_d256_kernel, threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = narrow ? f32::kBQ : f32w::kBQ;
+  info[0] = B * Hq * ((Sq + rows - 1) / rows);
+  info[1] = threads;
+  info[2] = smem;
   info[3] = per_sm;
   return 0;
 }

@@ -9,14 +9,16 @@ every shared-attention site of the hybrid prefill.
 
 On CUDA tensors ``flash_attention`` launches ``csrc/flash_attention.cu``,
 which reads q [B, Sq, Hq, D] and k/v [B, Sk, Hkv, D] in place through
-their strides (no transposes, no padding of D) and applies ``scale`` in
-float32, as the model's ``sdpa`` does: bfloat16 on the tensor cores
-(``wgmma`` from TMA-loaded tiles, so ``tma_strides`` must accept each
-operand), float32 on the tensor cores too, to float32 accuracy (3xTF32
-``mma.sync``: each operand split into two TF32 terms, three products; any
-view with a unit stride over D), at any D up to ``MAX_D`` (each entry has
-one kernel up to D 128 and one for 128 < D <= 256).  On CPU tensors, at
-any D, it runs
+their strides (no transposes, no padding of D in device memory) and
+applies ``scale`` in float32, as the model's ``sdpa`` does, at any D up
+to ``MAX_D``.  bfloat16 runs on ``wgmma`` from TMA-loaded tiles (so
+``tma_strides`` must accept each operand), in one kernel for D <= 64, one
+for D <= 128 and one for 128 < D <= 256.  float32 runs on the tensor cores
+to float32 accuracy (3xTF32: each operand split into two TF32 terms,
+three products; any view with a unit stride over D): up to D 128 on
+``mma.sync``, past it on ``wgmma`` after a pre-pass that writes K's and
+V^T's terms into scratch this wrapper allocates
+(``f32_scratch_floats``).  On CPU tensors, at any D, it runs
 ``flash_attention_plain``: the KV-expansion ``sdpa`` in float32 with the
 ``_mask_bias`` causal/window bias plus the ``seq_len`` mask.  Either
 returns [B, Sq, Hq, D] in q's type.
@@ -36,6 +38,8 @@ _ARGTYPES = [_C] * 4 + [_I] * 9 + [ctypes.c_float] + [_L] * 9 + [_C]
 _FN = {torch.float32: "flash_attention_f32",
        torch.bfloat16: "flash_attention_bf16"}
 MAX_D = 256            # the kernels' widest head dim (the plain version: any)
+NARROW_D = 128         # float32 past this runs the wgmma kernel and its pre-pass
+WIDE_KEY_TILE = 32     # keys per tile of that kernel (its scratch's unit)
 TMA_ALIGN = 16         # bytes: TMA's base address and stride alignment
 
 
@@ -69,10 +73,19 @@ def tma_strides(t: torch.Tensor, name: str = "q") -> tuple[int, int, int]:
     return b, s, h
 
 
+def f32_scratch_floats(B: int, Sk: int, Hkv: int) -> int:
+    """Floats of scratch the float32 entry past D 128 takes: K's and
+    V^T's two TF32 terms, D padded to 256, in tiles of 32 keys (at least
+    one), per kv head."""
+    tiles = max(1, -(-Sk // WIDE_KEY_TILE))
+    return 2 * B * Hkv * tiles * 2 * WIDE_KEY_TILE * MAX_D
+
+
 def launch_info(B: int, Sq: int, Hq: int, D: int) -> dict:
-    """How the float32 entry launches for these shapes on the current card
-    (builds the kernels): grid CTAs, threads per CTA, dynamic shared
-    memory bytes and CTAs resident per SM by the occupancy calculator."""
+    """How the float32 entry's main kernel launches for these shapes on
+    the current card (builds the kernels): grid CTAs, threads per CTA,
+    dynamic shared memory bytes and CTAs resident per SM by the occupancy
+    calculator."""
     info = (ctypes.c_int * 4)()
     fn = _build.function("flash_attention_f32_launch_info",
                          [_I] * 4 + [ctypes.POINTER(ctypes.c_int)])
@@ -124,17 +137,23 @@ def _launch(q, k, v, causal, window, seq_len, scale):
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
     if out.numel() == 0:               # nothing to launch, nothing counted
         return out
+    name, argtypes, extra = _FN[q.dtype], _ARGTYPES, ()
     if q.dtype == torch.bfloat16:
         qs, ks, vs = (tma_strides(t, n) for n, t in (("q", q), ("k", k),
                                                        ("v", v)))
     else:
         qs, ks, vs = q.stride(), k.stride(), v.stride()
-    fn = _build.function(_FN[q.dtype], _ARGTYPES)
+        if D > NARROW_D:
+            scratch = torch.empty(f32_scratch_floats(B, Sk, Hkv),
+                                  dtype=torch.float32, device=dev)
+            name, argtypes = "flash_attention_f32_d256", _ARGTYPES + [_C]
+            extra = (scratch.data_ptr(),)
+    fn = _build.function(name, argtypes)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
              Sk, Hq, Hkv, D, seq_len, int(causal), window, scale, qs[0],
              qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-             _build.current_stream(dev.index))
-    _build.check(err, _FN[q.dtype])
+             _build.current_stream(dev.index), *extra)
+    _build.check(err, name)
     count_launch("flash_attention")
     return out
 

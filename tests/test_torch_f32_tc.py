@@ -17,6 +17,12 @@ no path): K1 over a packed bucket's pages in blocks of 16 keys, a block
 never spanning two pages, with a row's keys past its length masked out of
 the maximum and given probability 0; K8 in 128-row query blocks and
 64-key tiles from the window's edge to the causal edge and ``seq_len``.
+``k8_wide`` replays K8's float32 kernel for 128 < D <= 256
+(``flash_f32_d256_kernel``, on ``wgmma``): D padded to 256, 64-row query
+blocks, 32-key tiles, and S made by two warpgroups, one per half of D,
+each from three accumulators (big.big, big.small, small.big), summed as
+(big.small + small.big) + big.big; the two halves' partials are added in
+one order, and each tile's P . V starts from zero before O * alpha + P . V.
 
 They are held within 1e-5 (``PAGED_F32_TOL`` and ``FLASH_F32_TOL``, the
 limits the kernels keep against their plain versions on the card) of the
@@ -43,6 +49,7 @@ TOL = 1e-5                 # PAGED_F32_TOL, FLASH_F32_TOL
 NEG_INF = -1e30
 KEY_BLOCK = 16             # K1: keys per block
 FLASH_BQ, FLASH_BK = 128, 64     # K8 float32: query rows per CTA, keys per tile
+WIDE_BQ, WIDE_BK, WIDE_D = 64, 32, 256   # past D 128: rows, keys, padded D
 SCHEMES = ("3xtf32", "bf16x6")   # splits that hold 1e-5
 CHEAPER = ("1xtf32", "2xtf32")   # splits that miss it
 
@@ -176,6 +183,58 @@ def k8(q, k, v, *, causal=True, window=0, seq_len=None, scheme="3xtf32"):
             m, l, o = _online_block(m, l, o,
                                     product(qb, kt.transpose(-1, -2), scheme),
                                     ok, vh[:, :, kb:kb + FLASH_BK], scheme)
+        out[:, :, q0:q0 + qb.shape[2]] = o / torch.clamp(l, min=1e-30)
+    return out.permute(0, 2, 1, 3)
+
+
+def _wide_half_s(qh, kh, scheme):
+    """One warpgroup's partial S over its half of D: [.., rows, keys]."""
+    kt = kh.transpose(-1, -2)
+    if scheme == "1xtf32":
+        return tf32(qh) @ tf32(kt)
+    (qb, qs), (kb, ks) = split(qh), split(kt)
+    return (qb @ ks + qs @ kb) + qb @ kb
+
+
+def k8_wide(q, k, v, *, causal=True, window=0, seq_len=None,
+            scheme="3xtf32"):
+    """K8's float32 kernel past D 128: q [B, Sq, Hq, D] scaled by D**-0.5
+    in float32, k/v [B, Sk, Hkv, D]; D padded with zeros to 256; 64-row
+    query blocks over 32-key tiles from the window's edge to the causal
+    edge and seq_len; S the sum of the two halves' partials; P . V per tile
+    from zero (``product``)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    seq_len = Sk if seq_len is None else seq_len
+    pad = (0, WIDE_D - D)
+    qh = torch.nn.functional.pad((q * D ** -0.5).permute(0, 2, 1, 3), pad)
+    kh = torch.nn.functional.pad(
+        k.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, 1), pad)
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, 1)
+    half = WIDE_D // 2
+    out = torch.zeros(B, Hq, Sq, D)
+    for q0 in range(0, Sq, WIDE_BQ):
+        qb = qh[:, :, q0:q0 + WIDE_BQ]
+        qpos = torch.arange(q0, q0 + qb.shape[2])[:, None]
+        hi = min(seq_len, Sk)
+        if causal:
+            hi = min(hi, Sq, q0 + WIDE_BQ)
+        lo = max(0, q0 - window + 1) // WIDE_BK * WIDE_BK if window else 0
+        m = torch.full(qb.shape[:3] + (1,), NEG_INF)
+        l = torch.zeros_like(m)
+        o = torch.zeros(qb.shape[:3] + (D,))
+        for kb in range(lo, hi, WIDE_BK):
+            kt = kh[:, :, kb:kb + WIDE_BK]
+            s = (_wide_half_s(qb[..., :half], kt[..., :half], scheme)
+                 + _wide_half_s(qb[..., half:], kt[..., half:], scheme))
+            key = torch.arange(kb, kb + kt.shape[2])[None, :]
+            ok = key < seq_len
+            if causal:
+                ok = ok & (key <= qpos)
+            if window:
+                ok = ok & (qpos - key < window)
+            m, l, o = _online_block(m, l, o, s, ok,
+                                    vh[:, :, kb:kb + WIDE_BK], scheme)
         out[:, :, q0:q0 + qb.shape[2]] = o / torch.clamp(l, min=1e-30)
     return out.permute(0, 2, 1, 3)
 
@@ -324,6 +383,34 @@ def test_k8_split_holds(scheme, case):
     assert _excess(got, want) < 1, "float64"
     assert _excess(got, _k8_pallas(q, k, v, causal, window, seq_len)) < 1, \
         "pallas"
+
+
+# K8 past D 128: (B, S, Hq, Hkv, D, causal, window, seq_len) at smoke size:
+# causal across 64-row blocks and 32-key tiles, a window, GQA with
+# seq_len at D 136 (a D padded to 256), non-causal
+WIDE = {"causal": (1, 128, 2, 1, 256, True, 0, None),
+        "window": (1, 100, 2, 2, 256, True, 24, None),
+        "gqa_seq_len_d136": (1, 96, 4, 1, 136, True, 0, 70),
+        "noncausal": (1, 72, 2, 2, 256, False, 0, None)}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_k8_wide_split_holds(case):
+    """The arithmetic of the float32 kernel past D 128 within 1e-5 of
+    float64 and of the Pallas kernel in interpret mode (through the JAX
+    op); one TF32 term per operand misses 1e-5 against float64, so the
+    test can fail."""
+    B, S, Hq, Hkv, D, causal, window, seq_len = WIDE[case]
+    q, k, v = _k8_inputs(B, S, Hq, Hkv, D, seed=S + D + 1)
+    kw = dict(causal=causal, window=window, seq_len=seq_len)
+    got = k8_wide(q, k, v, **kw)
+    want = _k8_ref64(q, k, v, causal, window, S if seq_len is None
+                     else seq_len)
+    assert _excess(got, want) < 1, "float64"
+    assert _excess(got, _k8_pallas(q, k, v, causal, window, seq_len)) < 1, \
+        "pallas"
+    assert _excess(k8_wide(q, k, v, scheme="1xtf32", **kw), want) > 1, \
+        "one TF32 term"
 
 
 @pytest.mark.parametrize("scheme", CHEAPER)

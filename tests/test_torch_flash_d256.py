@@ -11,9 +11,13 @@ The ``requires_cuda`` cases hold both CUDA entries against the plain
 version on the card at D 64 and 256 (and D 136, a width of the D-256
 kernels that is not a whole number of 64-column boxes): causal, window,
 GQA, ``seq_len``, non-causal, ragged S; float32 within 1e-5, bf16 within
-1e-2 (K8's tolerances); a CUDA-graph replay equal to the eager call; the
-float32 D-256 launch plan; and a D past 256 refused before any launch.
-They skip here.  JAX is imported inside the tests that use it.
+1e-2 (K8's tolerances).  The bf16 entry also at the edges of its three
+kernels (D 8, 56 on the D <= 64 one, 72, 128 on the D <= 128 one); the
+float32 entry past D 128 (the ``wgmma`` kernel and its pre-pass) on
+strided views whose rows are not 16-byte aligned; a CUDA-graph replay
+equal to the eager call for each new kernel; the float32 D-256 launch
+plan; and a D past 256 refused before any launch.  They skip here.  JAX
+is imported inside the tests that use it.
 """
 import numpy as np
 import pytest
@@ -113,11 +117,52 @@ def test_kernel_vs_plain_d64_d256_cuda(dtype, tol, D, B, S, Hq, Hkv, causal,
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("D", [8, 56, 72, 128])
+@pytest.mark.parametrize("B,S,Hq,Hkv,causal,window,seq_len", CARD_CASES)
+def test_bf16_kernel_edges_vs_plain_cuda(D, B, S, Hq, Hkv, causal, window,
+                                        seq_len):
+    """The bf16 entry at the edges of its kernels' ranges (D 8 and 56 on
+    the D <= 64 kernel, 72 and 128 on the D <= 128 one) within 1e-2 of
+    the plain version: causal, windowed, ``seq_len`` < Sk, non-causal."""
+    dev = cuda_device()
+    q, k, v = (t.to(torch.bfloat16) for t in _t(
+        *_qkv(B, S, Hq, Hkv, D, seed=D + S), device=dev))
+    before = kernels.launch_counts()["flash_attention"]
+    out = K8.flash_attention(q, k, v, causal=causal, window=window,
+                             seq_len=seq_len)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    ref = K8.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   seq_len=seq_len)
+    assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("D,offset", [(136, 1), (256, 1), (256, 0)])
+def test_f32_wide_strided_unaligned_views_cuda(D, offset):
+    """Past D 128 the float32 entry reads q, k and v through their
+    strides whatever their alignment (a fused-qkv view, a base one float
+    off): within 1e-5 of the plain version, causal and windowed."""
+    dev = cuda_device()
+    gen = torch.Generator(device=dev).manual_seed(D + offset)
+    B, S, Hq, Hkv = 2, 150, 4, 2
+    flat = torch.randn(offset + B * S * (Hq + 2 * Hkv) * D, device=dev,
+                       generator=gen)
+    qkv = flat[offset:].view(B, S, Hq + 2 * Hkv, D)
+    q, k, v = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + Hkv], qkv[:, :, Hq + Hkv:]
+    for window in (0, 40):
+        out = K8.flash_attention(q, k, v, window=window)
+        ref = K8.flash_attention_plain(q, k, v, window=window)
+        torch.cuda.synchronize()
+        assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("D", [64, 136, 256])
 def test_graph_replay_equals_eager_cuda(dtype, D):
-    """Captured in a CUDA graph, either entry at D 64 and 256 replays the
-    bits of an eager call; two eager calls give equal bits."""
+    """Captured in a CUDA graph, either entry at D 64, 136 and 256 replays
+    the bits of an eager call; two eager calls give equal bits."""
     dev = cuda_device()
     q, k, v = (t.to(dtype) for t in _t(*_qkv(1, 333, 8, 4, D, seed=5),
                                        device=dev))
@@ -142,15 +187,45 @@ def test_graph_replay_equals_eager_cuda(dtype, D):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("B,S,Hq,D", [(4, 2000, 8, 256), (1, 77, 2, 136)])
 def test_f32_d256_launch_plan_cuda(B, S, Hq, D):
-    """Past D 128 the float32 entry takes 64 query rows a CTA (two warps
-    per 16-row m-tile, each half of D) and a 2-stage ring of 32-key
-    tiles, at a row stride of D padded to 8, plus 4."""
+    """Past D 128 the float32 entry's main kernel takes 64 query rows a
+    CTA in three warpgroups (two consumers, each half of D, and a
+    producer), one CTA an SM: Q's big term (64 KB), one 32-key tile of K's
+    and one of V^T's two terms (64 KB each) and two double-buffered
+    partial-S exchanges (32 KB), at D padded to 256 whatever D is."""
     cuda_device()
     info = K8.launch_info(B, S, Hq, D)
-    assert info["threads"] == 256, info
+    assert info["threads"] == 384, info
     assert info["ctas"] == B * Hq * -(-S // 64), info
-    assert info["smem_bytes"] == 4 * (-(-D // 8) * 8 + 4) * (64 + 128), info
-    assert info["ctas_per_sm"] >= 1, info
+    assert info["smem_bytes"] == 1024 + 3 * 65536 + 32768 + 32, info
+    assert info["ctas_per_sm"] == 1, info
+
+
+@pytest.mark.parametrize("D", [8, 16, 56, 64])
+def test_folded_exponent_of_masked_rows(D):
+    """The D <= 64 bf16 kernel takes S unscaled and computes a
+    probability as exp2(fmaf(x, scale, -m * scale)).  It masks with
+    -2**100, whose product with the scale is exact: in a row that has
+    seen only masked keys (x = m = -2**100) the exponent is exactly 0 and
+    p is 1, as the unfolded arithmetic gives.  With -1e30 the fmaf keeps
+    the rounding error of m * scale, ~1e22, and p is 0 or inf: the
+    control."""
+    scale = np.float32(D ** -0.5 * np.log2(np.e))
+
+    def folded(x):
+        m_scaled = np.float32(x * scale)                # ms = m * scale
+        return np.float32(np.float64(x) * np.float64(scale)
+                          - np.float64(m_scaled))       # fmaf, exact
+    assert folded(np.float32(-2.0 ** 100)) == 0
+    assert abs(folded(np.float32(-1e30))) > 1e15
+
+
+def test_f32_scratch_floats():
+    """The scratch of the float32 entry past D 128: K's and V^T's two
+    terms at D 256 in 32-key tiles, at least one tile, per kv head."""
+    assert K8.f32_scratch_floats(4, 2000, 4) == 2 * 16 * 63 * 2 * 32 * 256
+    assert K8.f32_scratch_floats(1, 32, 2) == 2 * 2 * 1 * 2 * 32 * 256
+    assert K8.f32_scratch_floats(2, 33, 1) == 2 * 2 * 2 * 2 * 32 * 256
+    assert K8.f32_scratch_floats(1, 0, 1) == 2 * 1 * 1 * 2 * 32 * 256
 
 
 @pytest.mark.requires_cuda
