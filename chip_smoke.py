@@ -184,8 +184,12 @@ prints no result line):
      prefill within 1e-3 (flips only under 1e-2); ``longctx_card_vs_cpu``
      gains smoke gemma3 at D 256, musicgen and qwen2_vl (1e-4, identical
      tokens); and K8's rows at D 256 (gemma3's causal and window shapes,
-     bf16 and float32, ``sass_hgmma`` / ``sass_hmma`` of the D-256
-     kernels) and at D 64 (musicgen's, bf16);
+     bf16 and float32, ``sass_hgmma`` of the D-256 kernels; the bf16 rows
+     with the persistent kernel's launch ``plan`` and ``stream_device_ms``,
+     the time the earlier design's tiles take to stream with no math, one
+     CTA reading them and two CTAs of a cluster sharing them, from
+     ``tools/flash_d256_probe.py``) and at D 64 (musicgen's,
+     bf16);
   9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
@@ -530,6 +534,16 @@ def _graph_launches(fn) -> int:
         cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
         work += kind.value in (0, 1, 2)     # KERNEL, MEMCPY, MEMSET
     return work
+
+
+def _tool(name: str):
+    """``tools/<name>.py`` beside this script, imported as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 _SASS: list[str] = []
@@ -5238,7 +5252,7 @@ def bench_s15_kernels(launches: dict) -> list[dict]:
     """K8's rows at the new widths, seeded random inputs, against the
     plain version on the card: D 256 at gemma3's shape (B 4, S 2000, 8/4
     heads), causal (its global layers) and with its 1024-token window (its
-    local layers), bf16 (``flash_wgmma_d256_kernel``) and float32
+    local layers), bf16 (``flash_d256_kernel``) and float32
     (``flash_f32_d256_kernel`` on ``wgmma`` TF32 after its K/V pre-pass
     ``flash_f32_split_kernel``), and D 64 at musicgen's (24/24 heads,
     causal, bf16, ``flash_wgmma_d64_kernel``).  Each row: CUDA-event ms,
@@ -5246,7 +5260,12 @@ def bench_s15_kernels(launches: dict) -> list[dict]:
     the bf16 or the 3xTF32 peak), SDPA's time on the same call (KV
     expanded to the q heads outside the timing) and the tensor-core
     instruction count of its kernel; the float32 rows also the device ms
-    of the pre-pass and of the main kernel from a profiler trace.
+    of the pre-pass and of the main kernel from a profiler trace; the
+    bf16 D-256 rows the kernel's launch plan (persistent grid, registers
+    at launch; no cluster) and the device ms of streaming the earlier
+    D-256 design's tiles into shared memory with no math, each CTA reading
+    them from L2 and two CTAs of a cluster sharing them by multicast
+    (``tools/flash_d256_probe.py``'s ``stream``, built here).
     ``launches`` maps a row to its count on the main path."""
     import numpy as np
     import torch
@@ -5256,13 +5275,14 @@ def bench_s15_kernels(launches: dict) -> list[dict]:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 34)
     bf = torch.bfloat16
-    sass = {"bf16_d256": _sass_count("flash_wgmma_d256_kernel", "HGMMA"),
+    sass = {"bf16_d256": _sass_count("flash_d256_kernel", "HGMMA"),
             "f32_d256": _sass_count("flash_f32_d256_kernel", "HGMMA"),
             "bf16_d64": _sass_count("flash_wgmma_d64_kernel", "HGMMA")}
     if not all(sass.values()):
         raise RuntimeError(f"flash_attention: a kernel without tensor-core "
                            f"instructions: {sass}")
     rows = []
+    probe = probe_lib = None
     B, S = LONGCTX_BATCH, LONGCTX_PROMPT
     win = _gemma3_window()
     for name, Hq, Hkv, D, window, dtype, key in (
@@ -5331,13 +5351,28 @@ def bench_s15_kernels(launches: dict) -> list[dict]:
                                   else "; is_causal)")}
         row["sdpa_factor"] = row["ms"] / row["library_ms"]
         row["sass_hgmma"] = sass[key]
-        if dtype == bf:
-            row["design"] = ("wgmma from TMA-loaded tiles, "
-                             + ("4 x 64-column boxes of D, 2 stages"
-                                if D > 128 else
-                                "one 64-column box of D, 4 stages, two "
-                                "CTAs an SM, the scale folded into the "
-                                "exponent's FFMA"))
+        if dtype == bf and D > 128:
+            row["design"] = ("wgmma from TMA-loaded tiles, persistent (one "
+                             "CTA an SM, work items heaviest causal q "
+                             "block first in a snake), 128 q rows and "
+                             "128-key tiles, K and V one stage each on "
+                             "their own barriers, S on m64n128k16 and P.V "
+                             "on m64n256k16, the warpgroups taking turns "
+                             "on S, the scale folded into the exponent's "
+                             "FFMA")
+            row["plan"] = K8.wide_launch_info(B, S, Hq)
+            row["cluster_size"] = 1
+            if probe is None:
+                probe = _tool("flash_d256_probe")
+                probe_lib, _ = probe.build(Path(__file__).resolve().parent)
+            row["stream_device_ms"] = {
+                f"cluster{c}": _graph_ms(lambda: probe.stream(
+                    probe_lib, q, k, v, window=window, cluster=c),
+                    calls=10, replays=10) for c in (1, 2)}
+        elif dtype == bf:
+            row["design"] = ("wgmma from TMA-loaded tiles, one 64-column "
+                             "box of D, 4 stages, two CTAs an SM, the "
+                             "scale folded into the exponent's FFMA")
         else:
             row["design"] = ("3xTF32 on wgmma after a pre-pass that splits "
                              "K and V^T into TF32 terms in scratch; 64 q "

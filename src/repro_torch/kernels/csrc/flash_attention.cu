@@ -37,10 +37,10 @@
 // come near it.
 //
 // flash_attention_bf16 -- warpgroup MMA from TMA-loaded tiles:
-// - CTA: two consumer warpgroups of 64 q rows each (128 rows per CTA)
-//   and one producer warp.  The producer's lane 0 loads Q once and then
-//   streams 64-key K and V tiles into a ring of kStages stages, each
-//   with a full and an empty mbarrier.
+// - D <= 128 (flash_wgmma_body): two consumer warpgroups of 64 q rows
+//   each (128 rows per CTA) and one producer warp.  The producer's lane 0
+//   loads Q once and then streams 64-key K and V tiles into a ring of
+//   kStages stages, each with a full and an empty mbarrier.
 // - D <= 64 (flash_wgmma_d64_kernel): one 64-column box and 4 stages
 //   (Q 16 KB, a stage 16 KB, O 32 registers a thread), two CTAs an SM
 //   (95 registers a thread, no spill; 81 KB of shared memory each).  Its
@@ -53,14 +53,9 @@
 //   four an SM (the same 0.17), skipping O's rescale when every alpha is
 //   1 (0.178).  Before it D <= 64 ran the D <= 128 kernel, whose second
 //   box was TMA's zero fill (0.32 ms).
-// - D up to 128: two 64-column boxes of D and 3 K/V stages, no
-//   setmaxnreg (138 registers a thread, within the 168 that ptxas allows
-//   288 threads).  128 < D <= 256 (flash_wgmma_d256_kernel): four boxes,
-//   so Q takes 64 KB and one stage 64 KB, and 2 stages (193 KB in all);
-//   O takes 128 float32 registers of each consumer thread, so the CTA
-//   has a whole producer warpgroup (384 threads) and setmaxnreg gives
-//   the consumers 240 registers and the producers 24 (at 288 threads
-//   and 168 registers ptxas spilled 388 bytes and serialized the wgmma).
+// - D up to 128 (flash_wgmma_kernel): two 64-column boxes of D and 3 K/V
+//   stages, no setmaxnreg (138 registers a thread, within the 168 that
+//   ptxas allows 288 threads).
 // - Loads: one TMA tensor map per operand over [B, S, H, D] as the model
 //   holds it (dims {D, H, S, B}, the caller's strides), D in 64-column
 //   boxes with 128-byte swizzle.  TMA's out-of-bounds zero fill pads D to
@@ -81,10 +76,48 @@
 //   MN-major (the transpose flag bf16 allows), one m64n64k16 per 64-column
 //   chunk of D; O stays in float32 registers.
 // - Each GEMM is fenced, committed and waited on (wait_group 0) before
-//   its registers are read or written; there is no ping-pong between
-//   the warpgroups and no overlap of softmax with the next GEMM yet.
+//   its registers are read or written.
 // - The grid launches the heaviest causal q blocks first (blockIdx.y
 //   reversed, b * Hq + h on blockIdx.x), so the long rows do not trail.
+//
+// flash_attention_bf16 past D 128 -- flash_d256_kernel (gemma3's 256):
+// - What bounds it: at gemma3's shape (B 4, S 2000, 8/4 heads, causal)
+//   the whole tiles' products are ~73 GFLOP, 0.074 ms at the bf16 peak.
+//   Streaming the K/V tiles is not the floor: the earlier D-256 design's
+//   TMA pattern with no math (tools/flash_d256_probe.cu) takes 0.075 ms
+//   at 8.0 TB/s into shared memory, 0.057 with two CTAs of a cluster
+//   sharing each tile by multicast (L2 read at 5.6 TB/s).  That earlier
+//   design (flash_wgmma_body at four boxes: 64-key tiles, one barrier
+//   for K and V, P.V as 16 m64n64k16, one CTA an item) took 0.164 ms:
+//   its n = 64 products reread Q from shared memory for every 64 keys,
+//   and each CTA's Q load and epilogue were exposed, one CTA an SM.
+// - CTA: two consumer warpgroups of 64 q rows and a producer warpgroup
+//   (384 threads, setmaxnreg 232 / 40, 168 at launch, no spill).
+//   Persistent: one CTA an SM walks the items (128 q rows, b * Hq + h),
+//   heaviest causal q block first, dealt to the CTAs in a snake; the next
+//   item's Q loads once both warpgroups are past their last S.
+// - Shared memory (197680 B): Q (64 KB) and one 128-key tile each of K
+//   and V (64 KB each) with barriers of their own: K(i) is released after
+//   S(i), V(i) after P.V(i), so K(i + 1) loads under softmax(i) and
+//   P.V(i).  S is m64n128k16 (16 a tile), P.V m64n256k16 (8 a tile, V's
+//   four boxes one descriptor apart); the warpgroups take turns (named
+//   barriers) to issue S, so one's softmax runs under the other's
+//   products (FA3's ping-pong); the scale is folded into the exponent's
+//   FFMA as at D <= 64.
+// - At gemma3's shape on an H100 (tools/flash_lines.py,
+//   tools/flash_d256_probe.py, which times every plan below side by
+//   side): 0.133 ms causal (SDPA 0.145, the earlier design 0.164); the
+//   1024 window 0.119 (0.145).  Tried and slower: a two-CTA cluster per
+//   GQA pair sharing K/V by multicast (equal when persistent, 3-6 %
+//   slower one item a CTA), the in-warpgroup pipeline of S(i) under
+//   softmax(i - 1) (S and P at once spill; 0.18 ms at 64 keys), 64-key
+//   tiles with 3 K + 2 V stages in the earlier order (0.156), one item a
+//   CTA (0.143), items dealt round-robin (its busiest CTA 16 % over an
+//   even split, tests/test_torch_flash_d256_wide.py), the unfolded
+//   exponent (0.141), no turns (0.4-4.8 % slower in each of eight
+//   timings in one run).  With the softmax left out it takes 0.117 ms,
+//   with the loads 0.130, both 0.109: the products themselves run at
+//   ~68 % of the 989 TFLOP/s peak.
 //
 // flash_attention_f32 -- 3xTF32 on mma.sync from a cp.async ring:
 // - CTA: 8 warps, each owning one 16-row m-tile (128 q rows per CTA), the
@@ -955,8 +988,6 @@ constexpr int kThreads = 128 * kConsumers + 32;  // + one producer warp
 // D > 128: a whole producer warpgroup (one warp of it loads), so that
 // setmaxnreg can move registers from it to the consumers
 constexpr int kWideThreads = 128 * kConsumers + 128;
-constexpr int kProducerRegs = 24;               // setmaxnreg, D > 128
-constexpr int kConsumerRegs = 240;
 constexpr int kRowBytes = 128;                  // 64 bf16: one swizzle row
 constexpr int kQChunk = kBQ * kRowBytes;        // one 64-column box of Q
 constexpr int kKVChunk = kBK * kRowBytes;       // one 64-column box of K/V
@@ -967,32 +998,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-// Keys [lo, hi) that q rows [qw, qw + 64) of one warpgroup can see.
+// Keys [lo, hi) that q rows [qw, qw + 64) of one warpgroup can see, lo
+// a whole tile of kTileKeys.
+template <int kTileKeys = kBK>
 __device__ __forceinline__ void key_range(int qw, int Sq, int Sk,
                                           int seq_len, int causal,
                                           int window, int& lo, int& hi) {
   hi = min(seq_len, Sk);
   if (causal) hi = min(hi, min(Sq, qw + 64));
-  lo = window > 0 ? max(0, qw - window + 1) / kBK * kBK : 0;
+  lo = window > 0 ? max(0, qw - window + 1) / kTileKeys * kTileKeys : 0;
   if (qw >= Sq) hi = lo;                // a warpgroup past the last row
 }
 
 // The kernel for D up to 64 * kDChunks (64-column boxes of D) with a
-// K/V ring of kStages stages: kDChunks 2, kStages 3 up to D 128;
-// kDChunks 4, kStages 2 up to D 256, where Q takes 64 KB and a stage 64 KB
-// (three would not fit beside Q) and O 128 float32 registers a thread.
-// At 288 threads ptxas gives each thread at most 168 registers (the 9
-// warps spread 3-2-2-2 over the SM's four register files), which O, S
-// and P at D 256 overflow (spills, serialized wgmma); kWide launches a
-// whole producer warpgroup and moves registers to the consumers with
-// setmaxnreg (24 producer, 240 consumer).
+// K/V ring of kStages stages: kDChunks 1, kStages 4 up to D 64; kDChunks
+// 2, kStages 3 up to D 128 (past D 128, flash_d256_kernel below).
 template <int kDChunks, int kStages>
 struct Ring {
   static constexpr int kSmem = 1024 + kDChunks * (kQChunk + kStages * 2 *
                                                   kKVChunk) +
                                8 * (1 + 2 * kStages);
 };
-static_assert(Ring<4, 2>::kSmem <= 227 * 1024, "flash bf16 smem");
+static_assert(Ring<2, 3>::kSmem <= 227 * 1024, "flash bf16 smem");
 constexpr int kD64Stages = 4;                   // D <= 64: two CTAs an SM
 static_assert(2 * (Ring<1, kD64Stages>::kSmem + 1024) <= 228 * 1024,
               "flash bf16 d64 smem");
@@ -1007,7 +1034,7 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 // kFold (the D <= 64 kernel) keeps S unscaled and folds the scale into
 // the exponent's FFMA, with ex2.approx.ftz: an FMUL and exp2f's denormal
 // handling fewer an element.
-template <int kDChunks, int kStages, bool kWide, bool kFold = false>
+template <int kDChunks, int kStages, bool kFold = false>
 __device__ __forceinline__ void flash_wgmma_body(
     const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
     __nv_bfloat16* __restrict__ out, int Sq, int Sk, int Hq, int Hkv, int D,
@@ -1057,9 +1084,6 @@ __device__ __forceinline__ void flash_wgmma_body(
 
   if (warp >= 4 * kConsumers) {
     // ---- producer: Q once, then the K/V ring ----------------------------
-    if constexpr (kWide)
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-          kProducerRegs));
     if (warp == 4 * kConsumers && lane == 0) {
       mbar_expect_tx(q_full, kDChunks * kQChunk);
       for (int c = 0; c < kDChunks; ++c)
@@ -1079,9 +1103,6 @@ __device__ __forceinline__ void flash_wgmma_body(
   }
 
   // ---- consumers: one warpgroup per 64 q rows ---------------------------
-  if constexpr (kWide)
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-        kConsumerRegs));
   const int wg = warp >> 2;
   const int qw = q0 + 64 * wg;
   const int my_lo = wg == 0 ? lo0 : lo1;
@@ -1242,14 +1263,402 @@ __device__ __forceinline__ void flash_wgmma_body(
 // thread; two CTAs share an SM (95 registers a thread, no spill).
 __global__ void __launch_bounds__(kThreads, 2)
 flash_wgmma_d64_kernel(WG_ARGS) {
-  flash_wgmma_body<1, kD64Stages, false, true>(WG_PASS);
+  flash_wgmma_body<1, kD64Stages, true>(WG_PASS);
 }
 __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(WG_ARGS) {
-  flash_wgmma_body<2, 3, false>(WG_PASS);
+  flash_wgmma_body<2, 3>(WG_PASS);
 }
+
+// ---------------------------------------------------------------------------
+// 128 < D <= 256: flash_d256_kernel, persistent, 128-key tiles
+// ---------------------------------------------------------------------------
+
+constexpr int kWideBK = 128;                    // keys a tile
+constexpr int kWideBox = kWideBK * kRowBytes;   // 64 columns of a tile
+constexpr int kWideTile = 4 * kWideBox;         // a K or a V tile: 64 KB
+constexpr int kWideQBytes = 4 * kQChunk;        // Q, 128 rows: 64 KB
+// Q, one K and one V tile, and the full and empty barrier of each
+constexpr int kWideSmem = 1024 + kWideQBytes + 2 * kWideTile + 8 * 6;
+static_assert(kWideSmem <= 232448, "flash bf16 d256 smem");
+// setmaxnreg: the producer keeps 40 (at 24 its loop spilled), the consumers
+// 232; at most 512 a thread triple
+constexpr int kWideProducerRegs = 40;
+constexpr int kWideConsumerRegs = 232;
+static_assert(kWideProducerRegs + 2 * kWideConsumerRegs <= 504, "setmaxnreg");
+
+// d[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 256] += A[64 x 16] . B[16 x 256], A in registers (bf16 pairs), B
+// MN-major in shared memory (transpose flag set), its four 64-column boxes
+// the descriptor's leading byte offset apart
+__device__ __forceinline__ void wgmma_rs256(float (&d)[128], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// The key tiles of q rows [q0, q0 + 128): warpgroup w's keys [lo_w, hi_w)
+// and the tile count n from lo0 (warpgroup 0 starts no later).
+template <int kTileKeys>
+__device__ __forceinline__ void wide_tiles(int q0, int Sq, int Sk,
+                                           int seq_len, int causal,
+                                           int window, int& lo0, int& hi0,
+                                           int& lo1, int& hi1, int& n) {
+  key_range<kTileKeys>(q0, Sq, Sk, seq_len, causal, window, lo0, hi0);
+  key_range<kTileKeys>(q0 + 64, Sq, Sk, seq_len, causal, window, lo1, hi1);
+  const int hi = max(hi0, hi1);
+  n = hi > lo0 ? (hi - lo0 + kTileKeys - 1) / kTileKeys : 0;
+}
+
+// S = Q . K^T over one tile: 4 boxes of D x 4 k-steps of m64n128k16
+__device__ __forceinline__ void wide_s(float (&sc)[64], uint32_t q_wg,
+                                       uint32_t kt) {
+#pragma unroll
+  for (int j = 0; j < 64; ++j) sc[j] = 0.f;
+  fence_regs(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss128(sc, desc_sw128(q_wg + c * kQChunk + 32 * kk, 16, 1024),
+                  desc_sw128(kt + c * kWideBox + 32 * kk, 16, 1024),
+                  (c | kk) != 0);
+  wgmma_commit();
+}
+
+// O *= alpha (row r0's, row r1's), then O += P . V over one tile: one
+// m64n256k16 a 16-key step, V's four boxes one descriptor apart
+__device__ __forceinline__ void wide_pv(float (&o)[128], uint32_t (&pa)[32],
+                                        uint32_t vt, float alpha0,
+                                        float alpha1) {
+#pragma unroll
+  for (int j = 0; j < 128; ++j) o[j] *= (j & 2) ? alpha1 : alpha0;
+  fence_regs(o);
+  fence_regs(pa);
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < kWideBK / 16; ++t)
+    wgmma_rs256(o, pa[4 * t], pa[4 * t + 1], pa[4 * t + 2], pa[4 * t + 3],
+                desc_sw128(vt + t * 16 * kRowBytes, kWideBox, 1024));
+  wgmma_commit();
+}
+
+// The online softmax of one tile in float32, log2 domain, as
+// flash_wgmma_body's D <= 64 form: S unscaled and the scale folded into the
+// exponent's FFMA, masked with -2**100 (whose product with the scale is
+// exact) on a tile that straddles an edge, row maxima by quad shuffles, the
+// new maxima's rescale factors in alpha0/1, P packed into pa (bf16 pairs,
+// wgmma's A fragment) and per-thread row sums in l0/1.
+__device__ __forceinline__ void wide_softmax(
+    float (&sc)[64], uint32_t (&pa)[32], int kb, int qw, int r0, int r1,
+    int cq, int seq_len, int causal, int window, float scale_log2,
+    float& m0, float& m1, float& l0, float& l1, float& alpha0,
+    float& alpha1) {
+  constexpr float kMasked = -0x1p100f;
+  const bool edge = kb + kWideBK > seq_len ||
+                    (causal && kb + kWideBK - 1 > qw) ||
+                    (window > 0 && qw + 63 - kb >= window);
+  float mx0 = kMasked, mx1 = kMasked;
+#pragma unroll
+  for (int j = 0; j < 64; ++j) {
+    float x = sc[j];
+    if (edge) {
+      const int key = kb + 8 * (j >> 2) + cq + (j & 1);
+      const int qpos = (j & 2) ? r1 : r0;
+      bool ok = key < seq_len;
+      if (causal) ok = ok && key <= qpos;
+      if (window > 0) ok = ok && qpos - key < window;
+      if (!ok) x = kMasked;
+    }
+    sc[j] = x;
+    if (j & 2) mx1 = fmaxf(mx1, x);
+    else mx0 = fmaxf(mx0, x);
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  alpha0 = exp2_ftz((m0 - mn0) * scale_log2);
+  alpha1 = exp2_ftz((m1 - mn1) * scale_log2);
+  m0 = mn0;
+  m1 = mn1;
+  const float ms0 = mn0 * scale_log2, ms1 = mn1 * scale_log2;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 64; ++j) {
+    const float p = exp2_ftz(fmaf(sc[j], scale_log2, (j & 2) ? -ms1 : -ms0));
+    sc[j] = p;
+    if (j & 2) sum1 += p;
+    else sum0 += p;
+  }
+  l0 = l0 * alpha0 + sum0;
+  l1 = l1 * alpha1 + sum1;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) pa[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+}
+
+// Persistent: one CTA an SM walks the work items, (128 q rows,
+// b * Hq + h), heaviest causal q block first, in a snake over the CTAs
+// (nth below).  Warpgroups 0 and 1 consume 64 q rows each, warpgroup 2
+// produces (one thread issues TMA).  K and V have one slot each with
+// barriers of their own, their uses counted across items (g): K(g) is
+// released after S(g), V(g) after P.V(g), and Q after a warpgroup's last S
+// of the item, so the next item's Q loads under the last P.V and the
+// epilogue.  Each warpgroup runs S(g), softmax(g), P.V(g) in turn, the two
+// taking turns (named barriers 1 and 2) to issue their S, so that one's
+// softmax runs under the other's GEMMs.
 __global__ void __launch_bounds__(kWideThreads, 1)
-flash_wgmma_d256_kernel(WG_ARGS) {
-  flash_wgmma_body<4, 2, true>(WG_PASS);
+flash_d256_kernel(WG_ARGS, int B) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base;                    // [4][128 rows][128 B]
+  const uint32_t k_s = q_s + kWideQBytes;       // [4][128 keys][128 B]
+  const uint32_t v_s = k_s + kWideTile;         // [4][128 keys][128 B]
+  const uint32_t q_full = v_s + kWideTile, q_empty = q_full + 8;
+  const uint32_t k_full = q_empty + 8, k_empty = k_full + 8;
+  const uint32_t v_full = k_empty + 8, v_empty = v_full + 8;
+
+  const int nqb = (Sq + kBQ - 1) / kBQ;
+  const int heads = B * Hq;
+  const int n_items = nqb * heads;
+  // the CTA's r-th item: the items in rounds of gridDim.x, each round's
+  // order reversed from the last (a snake, so that the heavy and the light
+  // items of the causal schedule even out across CTAs)
+  auto nth = [&](int r) {
+    return r * gridDim.x +
+           ((r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  };
+  // item k: its batch row, q head and first q row
+  auto item = [&](int k, int& b, int& h, int& q0) {
+    const int y = k / heads;
+    const int x = k - y * heads;
+    b = x / Hq;
+    h = x - b * Hq;
+    q0 = (nqb - 1 - y) * kBQ;
+  };
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(k_full, 1);
+    mbar_init(v_full, 1);
+    mbar_init(q_empty, 8);                      // the consumer warps
+    mbar_init(k_empty, 8);
+    mbar_init(v_empty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // ---- producer: each item's Q once its predecessor's is released, then
+    // K(g) and V(g), each slot refilled once released ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kWideProducerRegs));
+    if (warp == 8 && lane == 0) {
+      int g = 0;                                // tiles so far, all items
+      for (int it = 0, k = nth(0); k < n_items; k = nth(++it)) {
+        int b, h, q0, lo, hi0, lo1, hi1, n;
+        item(k, b, h, q0);
+        wide_tiles<kWideBK>(q0, Sq, Sk, seq_len, causal, window, lo, hi0,
+                            lo1, hi1, n);
+        const int hk = h / (Hq / Hkv);
+        if (it > 0) mbar_wait(q_empty, (it - 1) & 1);
+        mbar_expect_tx(q_full, kWideQBytes);
+        for (int c = 0; c < 4; ++c)
+          tma_load_4d(q_s + c * kQChunk, &tq, q_full, 64 * c, h, q0, b);
+        for (int i = 0; i < n; ++i, ++g) {
+          const int kb = lo + i * kWideBK;
+          if (g > 0) mbar_wait(k_empty, (g - 1) & 1);
+          mbar_expect_tx(k_full, kWideTile);
+          for (int c = 0; c < 4; ++c)
+            tma_load_4d(k_s + c * kWideBox, &tk, k_full, 64 * c, hk, kb, b);
+          if (g > 0) mbar_wait(v_empty, (g - 1) & 1);
+          mbar_expect_tx(v_full, kWideTile);
+          for (int c = 0; c < 4; ++c)
+            tma_load_4d(v_s + c * kWideBox, &tv, v_full, 64 * c, hk, kb, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: one warpgroup per 64 q rows -----------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kWideConsumerRegs));
+  const int wg = warp >> 2;
+  const int cq = 2 * (lane & 3);
+  const int rw = 16 * (warp & 3) + (lane >> 2);     // row of 64, and + 8
+  const uint32_t q_wg = q_s + wg * 64 * kRowBytes;
+
+  auto release = [&](uint32_t bar) {    // one arrival a warp
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // Turns: both warpgroups take n + 1 an item, one a tile and one after
+  // the last, alternating across items; warpgroup 1 gives warpgroup 0 the
+  // first, and warpgroup 0 takes one more after the last item to match
+  // warpgroup 1's last pass (per item, warpgroup 1 could pass twice on
+  // warpgroup 0's barrier before warpgroup 0 reached it).  No warpgroup
+  // waits for a turn while it holds a slot the other's turn needs.
+  auto turn_wait = [&]() {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+  };
+  auto turn_pass = [&]() {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+  };
+  auto skip = [&](int g) {              // a tile none of these rows sees
+    mbar_wait(k_full, g & 1);
+    turn_wait();
+    turn_pass();
+    release(k_empty);
+    mbar_wait(v_full, g & 1);
+    release(v_empty);
+  };
+
+  if (wg == 1) turn_pass();
+  int g = 0;                                    // tiles so far, all items
+  for (int it = 0, k = nth(0); k < n_items; k = nth(++it)) {
+    int b, h, q0, lo, hi0, lo1, hi1, n;
+    item(k, b, h, q0);
+    wide_tiles<kWideBK>(q0, Sq, Sk, seq_len, causal, window, lo, hi0, lo1,
+                        hi1, n);
+    const int qw = q0 + 64 * wg;
+    const int r0 = qw + rw, r1 = r0 + 8;
+    const int my_lo = wg == 0 ? lo : lo1;
+    const int my_hi = wg == 0 ? hi0 : hi1;
+    // the item's tiles this warpgroup computes, [ib, ie); it waits for and
+    // releases the others without computing
+    const int ib = min((my_lo - lo) / kWideBK, n);
+    const int ie = my_hi > my_lo
+                       ? max(ib, min(n, (my_hi - lo + kWideBK - 1) / kWideBK))
+                       : ib;
+    float o[128];                       // [64 rows, 256 columns] of O
+#pragma unroll
+    for (int j = 0; j < 128; ++j) o[j] = 0.f;
+    float m0 = -0x1p100f, m1 = -0x1p100f, l0 = 0.f, l1 = 0.f;
+    float alpha0 = 1.f, alpha1 = 1.f;
+    mbar_wait(q_full, it & 1);
+    if (ib == ie) release(q_empty);
+
+    for (int i = 0; i < ib; ++i) skip(g + i);
+    for (int i = ib; i < ie; ++i) {
+      float sc[64];
+      uint32_t pa[32];
+      mbar_wait(k_full, (g + i) & 1);
+      turn_wait();
+      wide_s(sc, q_wg, k_s);
+      turn_pass();
+      wgmma_wait_all();
+      fence_regs(sc);
+      release(k_empty);
+      if (i == ie - 1) release(q_empty);
+      wide_softmax(sc, pa, lo + i * kWideBK, qw, r0, r1, cq, seq_len, causal,
+                   window, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+      mbar_wait(v_full, (g + i) & 1);
+      wide_pv(o, pa, v_s, alpha0, alpha1);
+      wgmma_wait_all();
+      fence_regs(o);
+      release(v_empty);
+    }
+    for (int i = ie; i < n; ++i) skip(g + i);
+    turn_wait();                        // the item's last turn
+    turn_pass();
+    g += n;
+
+    // -- epilogue: quad-reduce l, normalise, store bf16 pairs ---------------
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    const long long o_ss = static_cast<long long>(Hq) * D;
+    __nv_bfloat16* ob = out + static_cast<long long>(b) * Sq * o_ss +
+                        static_cast<long long>(h) * D;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {      // columns 8j + cq, 8j + cq + 1
+      const int col = 8 * j + cq;
+      if (col >= D) continue;           // D is a multiple of 8
+      if (r0 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + r0 * o_ss + col) =
+            pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      if (r1 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + r1 * o_ss + col) =
+            pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
+  }
+  if (wg == 0) turn_wait();
 }
 
 // A 4-d map over [B, S, H, D] (dims innermost first: D, H, S, B), boxes of
@@ -1274,6 +1683,42 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// flash_d256_kernel's grid: one CTA an SM of the current card, at most one
+// per work item (0 if the card cannot be asked)
+inline int wide_grid(int B, int Sq, int Hq) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  const long long items =
+      static_cast<long long>(B) * Hq * ((Sq + kBQ - 1) / kBQ);
+  return static_cast<int>(min(static_cast<long long>(sms), items));
+}
+
+int launch_wide(const void* q, const void* k, const void* v, void* out,
+                int B, int Sq, int Sk, int Hq, int Hkv, int D, int seq_len,
+                int causal, int window, float scale, long long q_sb,
+                long long q_ss, long long q_sh, long long k_sb,
+                long long k_ss, long long k_sh, long long v_sb,
+                long long v_ss, long long v_sh, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, B, Sq, Hq, D, q_sb, q_ss, q_sh, kBQ) ||
+      !make_map(&tk, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, kWideBK) ||
+      !make_map(&tv, v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, kWideBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_d256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWideSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = wide_grid(B, Sq, Hq);
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  flash_d256_kernel<<<grid, kWideThreads, kWideSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, Hq, Hkv, D,
+      seq_len, causal, window, scale * kLog2e, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int Hq, int Hkv, int D, int seq_len, int causal,
            int window, float scale, long long q_sb, long long q_ss,
@@ -1282,34 +1727,30 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            cudaStream_t stream) {
   if (D < 8 || D > kMaxD || D % 8 != 0 || Hkv < 1 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (D > kNarrowD)
+    return launch_wide(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, seq_len, causal,
+                       window, scale, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                       v_sb, v_ss, v_sh, stream);
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B, Sq, Hq, D, q_sb, q_ss, q_sh, kBQ) ||
       !make_map(&tk, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, kBK) ||
       !make_map(&tv, v, B, Sk, Hkv, D, v_sb, v_ss, v_sh, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  // D <= 64: one box (two CTAs an SM); D <= 128: two; else four
-  const int kind = D <= 64 ? 0 : D <= kNarrowD ? 1 : 2;
-  const int smem = kind == 0   ? Ring<1, kD64Stages>::kSmem
-                   : kind == 1 ? Ring<2, 3>::kSmem
-                               : Ring<4, 2>::kSmem;
+  // D <= 64: one box (two CTAs an SM); D <= 128: two
+  const bool narrow = D <= 64;
+  const int smem = narrow ? Ring<1, kD64Stages>::kSmem : Ring<2, 3>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      kind == 0   ? flash_wgmma_d64_kernel
-      : kind == 1 ? flash_wgmma_kernel
-                  : flash_wgmma_d256_kernel,
+      narrow ? flash_wgmma_d64_kernel : flash_wgmma_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  if (kind == 0)
+  if (narrow)
     flash_wgmma_d64_kernel<<<grid, kThreads, smem, stream>>>(
         tq, tk, tv, o, Sq, Sk, Hq, Hkv, D, seq_len, causal, window,
         scale * kLog2e);
-  else if (kind == 1)
-    flash_wgmma_kernel<<<grid, kThreads, smem, stream>>>(
-        tq, tk, tv, o, Sq, Sk, Hq, Hkv, D, seq_len, causal, window,
-        scale * kLog2e);
   else
-    flash_wgmma_d256_kernel<<<grid, kWideThreads, smem, stream>>>(
+    flash_wgmma_kernel<<<grid, kThreads, smem, stream>>>(
         tq, tk, tv, o, Sq, Sk, Hq, Hkv, D, seq_len, causal, window,
         scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
@@ -1369,6 +1810,33 @@ EXPORT int flash_attention_f32_launch_info(int B, int Sq, int Hq, int D,
   info[1] = threads;
   info[2] = smem;
   info[3] = per_sm;
+  return 0;
+}
+
+// How the bf16 entry launches past D 128, for measurement: info[0..4] =
+// CTAs in the grid (persistent: at most one an SM), threads per CTA,
+// dynamic shared memory bytes, CTAs resident per SM (the occupancy
+// calculator) and registers a thread at launch.
+EXPORT int flash_attention_bf16_wide_launch_info(int B, int Sq, int Hq,
+                                                 int* info) {
+  if (B < 1 || Sq < 1 || Hq < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      wg::flash_d256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wg::kWideSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, wg::flash_d256_kernel, wg::kWideThreads, wg::kWideSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, wg::flash_d256_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = wg::wide_grid(B, Sq, Hq);
+  info[1] = wg::kWideThreads;
+  info[2] = wg::kWideSmem;
+  info[3] = per_sm;
+  info[4] = fa.numRegs;
   return 0;
 }
 

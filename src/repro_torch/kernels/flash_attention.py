@@ -13,7 +13,8 @@ their strides (no transposes, no padding of D in device memory) and
 applies ``scale`` in float32, as the model's ``sdpa`` does, at any D up
 to ``MAX_D``.  bfloat16 runs on ``wgmma`` from TMA-loaded tiles (so
 ``tma_strides`` must accept each operand), in one kernel for D <= 64, one
-for D <= 128 and one for 128 < D <= 256.  float32 runs on the tensor cores
+for D <= 128 and one for 128 < D <= 256 (persistent, one CTA an SM;
+``wide_launch_info`` reports its plan).  float32 runs on the tensor cores
 to float32 accuracy (3xTF32: each operand split into two TF32 terms,
 three products; any view with a unit stride over D): up to D 128 on
 ``mma.sync``, past it on ``wgmma`` after a pre-pass that writes K's and
@@ -93,6 +94,22 @@ def launch_info(B: int, Sq: int, Hq: int, D: int) -> dict:
     ctas, threads, smem, per_sm = info
     return {"ctas": ctas, "threads": threads, "smem_bytes": smem,
             "ctas_per_sm": per_sm}
+
+
+def wide_launch_info(B: int, Sq: int, Hq: int) -> dict:
+    """How the bf16 entry's kernel past D 128 (``flash_d256_kernel``)
+    launches for these shapes on the current card (builds the kernels):
+    grid CTAs (persistent: at most one an SM), threads per CTA, dynamic
+    shared memory bytes, CTAs resident per SM by the occupancy calculator
+    and registers a thread at launch."""
+    info = (ctypes.c_int * 5)()
+    fn = _build.function("flash_attention_bf16_wide_launch_info",
+                         [_I] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    _build.check(fn(B, Sq, Hq, info),
+                 "flash_attention_bf16_wide_launch_info")
+    ctas, threads, smem, per_sm, regs = info
+    return {"ctas": ctas, "threads": threads, "smem_bytes": smem,
+            "ctas_per_sm": per_sm, "registers": regs}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

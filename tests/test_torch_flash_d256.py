@@ -10,9 +10,12 @@ and against the Pallas oracle with ``seq_len``; floats within
 The ``requires_cuda`` cases hold both CUDA entries against the plain
 version on the card at D 64 and 256 (and D 136, a width of the D-256
 kernels that is not a whole number of 64-column boxes): causal, window,
-GQA, ``seq_len``, non-causal, ragged S; float32 within 1e-5, bf16 within
-1e-2 (K8's tolerances).  The bf16 entry also at the edges of its three
-kernels (D 8, 56 on the D <= 64 one, 72, 128 on the D <= 128 one); the
+G 1 to 4, ``seq_len``, non-causal, ragged S; float32 within 1e-5, bf16
+within 1e-2 (K8's tolerances), four cases with more work items than an
+H100 has SMs; the bf16 kernel past D 128 gives the same bits on repeated
+runs and in a graph replay with a CTA taking several items.  The bf16
+entry also at the edges of its three kernels (D 8, 56 on the D <= 64
+one, 72, 128 on the D <= 128 one); the
 float32 entry past D 128 (the ``wgmma`` kernel and its pre-pass) on
 strided views whose rows are not 16-byte aligned; a CUDA-graph replay
 equal to the eager call for each new kernel; the float32 D-256 launch
@@ -92,6 +95,16 @@ CARD_CASES = [
     (2, 200, 4, 1, True, 0, 150),           # GQA 4, seq_len
     (1, 97, 4, 4, False, 0, None),          # non-causal, ragged S
     (1, 260, 6, 3, False, 40, 230),         # non-causal window, seq_len
+    (2, 517, 4, 2, True, 0, 400),           # G 2, ragged S, seq_len
+    (1, 333, 6, 2, True, 100, 300),         # G 3, a window that cuts tiles
+    (1, 390, 3, 3, True, 200, None),        # G 1, window, ragged S
+    (3, 150, 6, 2, False, 0, 129),          # G 3, non-causal, seq_len
+    # more items than an H100's 132 SMs: past D 128 a CTA takes two to
+    # four items (Q reloaded, barrier phases and the snake across items)
+    (2, 1100, 16, 8, True, 0, 1000),        # G 2, seq_len, 288 items
+    (2, 1100, 16, 16, True, 300, None),     # G 1, a window that cuts tiles
+    (2, 1100, 24, 8, True, 200, 1050),      # G 3, window, seq_len, 432
+    (1, 1100, 32, 16, False, 0, 1037),      # G 2, non-causal, seq_len
 ]
 
 
@@ -182,6 +195,53 @@ def test_graph_replay_equals_eager_cuda(dtype, D):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window", [(2, 700, 8, 4, 256, 0),
+                                                 (1, 900, 6, 2, 256, 256),
+                                                 (2, 300, 4, 4, 136, 0),
+                                                 (2, 1100, 16, 8, 256, 300),
+                                                 (2, 1100, 24, 8, 136, 0)])
+def test_bf16_d256_bits_repeat_cuda(B, S, Hq, Hkv, D, window):
+    """The persistent bf16 kernel past D 128 gives the same bits on three
+    runs (each item's sums in one fixed order, whichever CTA takes it;
+    the last two shapes give a CTA two to four items)."""
+    dev = cuda_device()
+    q, k, v = (t.to(torch.bfloat16) for t in _t(
+        *_qkv(B, S, Hq, Hkv, D, seed=D + S), device=dev))
+    first = K8.flash_attention(q, k, v, window=window)
+    for _ in range(2):
+        assert torch.equal(K8.flash_attention(q, k, v, window=window), first)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("D", [136, 256])
+def test_bf16_d256_many_items_graph_replay_cuda(D):
+    """Past D 128 the persistent bf16 kernel with more items than SMs (B
+    2, S 1100, 16/8 heads: 288 items), a window that cuts tiles and
+    ``seq_len`` < S: a CUDA-graph replay gives the eager call's bits, and
+    both are within 1e-2 of the plain version."""
+    dev = cuda_device()
+    q, k, v = (t.to(torch.bfloat16) for t in _t(
+        *_qkv(2, 1100, 16, 8, D, seed=D + 7), device=dev))
+
+    def fn():
+        return K8.flash_attention(q, k, v, window=300, seq_len=1000)
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    ref = K8.flash_attention_plain(q, k, v, window=300, seq_len=1000)
+    assert_close(eager.float(), ref.float(), atol=1e-2, rtol=1e-2)
 
 
 @pytest.mark.requires_cuda

@@ -3,7 +3,7 @@
 Run on a card from the root of a checkout (or of an unpacked archive of
 one):
 
-    python3 tools/flash_lines.py [LABEL]
+    python3 tools/flash_lines.py [LABEL] [--prefill N]
 
 It imports the ``chip_smoke.py`` beside it in the working directory and
 prints one JSON line: LABEL, the card, and for each shape the kernel's
@@ -17,8 +17,13 @@ D 128; bf16 and float32), the float32 long-context probe's (B 1, S 500),
 gemma3_4b's (B 4, S 2000, 8/4, D 256; causal and its 1024-token window,
 bf16 and float32) and musicgen_medium's (B 4, S 2000, 24/24, D 64,
 bf16).  A tree whose wrapper refuses a shape reports the refusal.
-Inputs are seeded random values; two trees are compared by running it in
-each, interleaved, in one call on one card.
+With ``--prefill N`` it then runs gemma3_4b's bf16 long-context
+generation at chip_smoke's sizes (whole model, seeded weights, 4 x 2000
+prompt tokens, two new tokens) N times in this one process and adds each
+run's prefill seconds; compare the later runs (the first pays the
+process's one-time costs).  Inputs are seeded random values; two trees
+are compared by running it in each, interleaved, in one call on one card
+(copy this file into a tree that lacks it).
 """
 from __future__ import annotations
 
@@ -86,6 +91,26 @@ def _line(cs, B, S, Hq, Hkv, D, window, dtype) -> dict:
     return out
 
 
+def _gemma3_prefills(cs, repeats: int) -> list[float]:
+    """gemma3_4b's bf16 prefill seconds, ``repeats`` runs of one
+    generation at chip_smoke's batch, prompt and cache (two new tokens),
+    written here so one code runs in both trees of a comparison."""
+    import torch
+    from repro_torch.configs.base import registry
+    from repro_torch.launch.longctx_decode import generate
+    from repro_torch.models.transformer import init_params
+    cfg = registry()["gemma3_4b"]
+    params = init_params(cfg, seed=cs.SEED, dtype=torch.bfloat16,
+                         device="cuda")
+    prompts = cs._prompts(cs.LONGCTX_BATCH, cs.LONGCTX_PROMPT, cfg.vocab,
+                          cs.SEED + 11)
+    out = [generate(params, cfg, prompts, 2, cs.LONGCTX_CACHE)["prefill_s"]
+           for _ in range(repeats)]
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv: list[str]) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -98,11 +123,18 @@ def main(argv: list[str]) -> int:
     sys.path[:0] = [str(root / "src"), str(root)]
     import chip_smoke as cs
     from repro_torch.kernels import _build
+    repeats = 0
+    if "--prefill" in argv:
+        i = argv.index("--prefill")
+        repeats = int(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.library()
     line = {"label": argv[0] if argv else str(root), "card": cs._card_line()}
     for name, *shape in SHAPES:
         line[name] = _line(cs, *shape)
+    if repeats:
+        line["gemma3_bf16_prefill_s"] = _gemma3_prefills(cs, repeats)
     print(json.dumps(line), flush=True)
     return 0
 
