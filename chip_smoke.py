@@ -190,6 +190,39 @@ prints no result line):
      CTA reading them and two CTAs of a cluster sharing them, from
      ``tools/flash_d256_probe.py``) and at D 64 (musicgen's,
      bf16);
+ 34. (phases 34-37 run first, right after the build, while the card is
+     empty) ``train_qwen3``: single-device training (``launch.train.
+     make_train_step``, driven as ``train_loop`` drives it: seeded float32
+     weights drawn on the card, ``SyntheticLM`` at seq 512, global batch
+     8 in 2 microbatches, AdamW, a cosine schedule warming up over 10
+     steps to 1e-3, TF32 off) of qwen3_4b at published width (d 2560,
+     32/8 heads, D 128, ff 9728, vocab 151936) cut to 24 of 36 layers
+     (float32 AdamW state for all 36, 70.6 GB, leaves no room for the
+     activations), 20 steps: every loss and grad norm finite, the mean of
+     the last 5 losses below the first 5's, the params equal after step 1
+     (its lr is 0, as in the JAX schedule) and changed after step 2;
+     reported: the median step ms, tokens/s, the peak of
+     ``torch.cuda.max_memory_allocated`` and the optimizer's share of a
+     step (``adamw.update`` alone on the trained state, CUDA events);
+ 35. ``train_mamba2`` (mamba2_1_3b whole, 48 layers) and ``train_zamba2``
+     (zamba2_7b at d 3584 cut to 14 of 81 layers, its two shared sites),
+     10 steps each: losses finite, grad norms > 0, params changed;
+ 36. ``train_card_vs_cpu``: smoke qwen3_4b, gemma3_4b, mamba2_1_3b and
+     zamba2_7b, five ``make_train_step`` steps on the card and on the
+     CPU from the same params and batches: every loss within 1e-4
+     relative, m and v after step 5 within 1e-4 of each leaf's largest,
+     the params within rtol 1e-4 / atol 1e-5 but for at most one entry
+     in 10**4 (AdamW's m / (sqrt(v) + 1e-8) turns an entry's rounding
+     relative to itself into its update, so entries far below their
+     leaf's largest gradient drift), every entry within twice the summed
+     lr;
+ 37. ``train_resume``: smoke phi3 on the card through ``train_loop``:
+     20 straight steps against 10 steps, a checkpoint and a resume to
+     20: losses, params and moments equal bit for bit; ``crash_at=12``
+     with ``ckpt_every=5`` raises and the rerun resumes at step 10.
+     ``kernels.launch_counts()`` must not change across phases 34-37
+     (training runs the plain attention and SSD scan: no K8, K9 or
+     ``moe_ffn`` launch inside a train step);
   9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
@@ -251,7 +284,7 @@ to standard error), the prefill and int8 lines,
 the long-context
 lines, the ``{"kernels": [...]}`` line, the K9 pass times, the MoE,
 mixtral and dense-arch lines, the slice-15 long-context lines, the
-card's line again, and last ``{"ok":
+training lines, the card's line again, and last ``{"ok":
 true, "device": {...}}``.  Exits 2
 without a CUDA device and 1 when the port's sources are not beside this
 script.
@@ -5447,6 +5480,270 @@ def _moe_f32_launches(cfg) -> int:
     return n
 
 
+# --- training (phases 34-37) -------------------------------------------------
+
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_LR = 512, 8, 2, 1e-3
+# full width; depth cut only where float32 AdamW state (16 B a parameter:
+# params, gradients, m, v) would not fit beside the activations in 80 GB
+TRAIN_RUNS = (("train_qwen3", "qwen3_4b", 24, 20),
+              ("train_mamba2", "mamba2_1_3b", None, 10),
+              ("train_zamba2", "zamba2_7b", 14, 10))
+TRAIN_CROSS_ARCHS = ("qwen3_4b", "gemma3_4b", "mamba2_1_3b", "zamba2_7b")
+TRAIN_CROSS_STEPS = 5
+TRAIN_LOSS_RTOL = 1e-4          # card vs CPU losses
+TRAIN_MOMENT_REL = 1e-4         # m, v: of each leaf's largest magnitude
+# params after step 5: within rtol 1e-4 / atol 1e-5 except at most one
+# entry in 10**4, and every entry within twice the summed lr.  AdamW's
+# update m / (sqrt(v) + eps) depends on each entry's gradient relative to
+# itself, so an entry far below its leaf's largest takes the leaf's
+# absolute rounding as a large relative error (3-7 such entries an arch
+# of the smoke models on an H100).
+TRAIN_TARGET = (1e-4, 1e-5)
+TRAIN_OVER_TARGET_FRAC = 1e-4
+
+
+def _digest(params) -> list[float]:
+    """Per-leaf float64 sums of a parameter tree (equal sums: unchanged)."""
+    import torch
+    from repro_torch import tree
+    return torch.stack([p.double().sum() for p in tree.leaves(params)]
+                       ).tolist()
+
+
+def _launch_delta(before: dict) -> dict:
+    from repro_torch import kernels
+    return {k: v - before.get(k, 0) for k, v in
+            kernels.launch_counts().items() if v != before.get(k, 0)}
+
+
+def run_train(phase: str, name: str, layers: int | None, steps: int
+              ) -> dict:
+    """One full-width training run on the card (phases 34, 35)."""
+    import gc
+    import math
+    import statistics
+    from dataclasses import replace
+    from functools import partial
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.configs.base import registry
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import make_train_step, micro_batches
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw, cosine_with_warmup
+    cfg = registry()[name]
+    full_layers = cfg.n_layers
+    if layers is not None:
+        cfg = replace(cfg, n_layers=layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    params = init_params(cfg, seed=SEED, dtype=torch.float32, device="cuda")
+    opt = adamw.init(params)
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    src = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED,
+                      input_mode=cfg.input_mode, d_model=cfg.d_model)
+    step_fn = make_train_step(cfg, lr_fn=partial(
+        cosine_with_warmup, peak_lr=TRAIN_LR, warmup=10, total=steps))
+    digests = [_digest(params)]
+    before = dict(kernels.launch_counts())
+    losses, gnorms, lrs, step_ms = [], [], [], []
+    for step in range(steps):
+        batch = micro_batches(src.batch(step), TRAIN_MICRO)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        lrs.append(float(m["lr"]))
+        if step < 2:
+            digests.append(_digest(params))
+    torch.cuda.synchronize()
+    launched = _launch_delta(before)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grads = tree.map_leaves(lambda p: torch.full_like(p, 1e-3), params)
+    opt_ms = _time_ms(lambda: adamw.update(grads, opt, params, lr=0.0),
+                      iters=3, warmup=1)
+    med = statistics.median(step_ms)
+    line = {
+        "phase": phase, "arch": name, "layers": cfg.n_layers,
+        "layers_published": full_layers, "d_model": cfg.d_model,
+        "params": n_params, "steps": steps, "seq": TRAIN_SEQ,
+        "global_batch": TRAIN_BATCH, "n_micro": TRAIN_MICRO,
+        "dtype": "float32", "tf32": torch.backends.cuda.matmul.allow_tf32,
+        "losses": losses, "grad_norms": gnorms, "lrs": lrs,
+        "step_ms": step_ms, "step_ms_median": med,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (med / 1e3),
+        "peak_memory_gb": peak_gb, "resident_before_gb": resident_gb,
+        "optimizer_ms": opt_ms, "optimizer_share": opt_ms / med,
+        "kernel_launches": launched,
+        "params_equal_after_step1": digests[1] == digests[0],
+        "params_changed_after_step2": digests[2] != digests[0]}
+    if layers is not None:
+        line["reduced"] = (f"{layers} of {full_layers} layers: float32 "
+                           f"AdamW state at 16 B a parameter")
+    del params, opt, grads, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = []
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        bad.append("a loss or grad norm is not finite")
+    if min(gnorms) <= 0:
+        bad.append("a grad norm is 0")
+    if not line["params_equal_after_step1"]:
+        bad.append("params moved at step 1 (lr 0)")
+    if not line["params_changed_after_step2"]:
+        bad.append("params unchanged after step 2")
+    if phase == "train_qwen3" and not (
+            statistics.mean(losses[-5:]) < statistics.mean(losses[:5])):
+        bad.append("the loss did not fall")
+    if launched:
+        bad.append(f"kernels launched in training: {launched}")
+    line["ok"] = not bad
+    if bad:
+        print(json.dumps(line), file=sys.stderr, flush=True)
+        raise RuntimeError(f"{phase}: {'; '.join(bad)}")
+    return line
+
+
+def run_train_card_vs_cpu() -> dict:
+    """Phase 36: five steps of smoke models on the card and the CPU."""
+    from functools import partial
+    import numpy as np
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.configs.base import registry, smoke
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import make_train_step, micro_batches
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw, cosine_with_warmup
+    runs, bad = [], []
+    before = dict(kernels.launch_counts())
+    for name in TRAIN_CROSS_ARCHS:
+        cfg = smoke(registry()[name])
+        src = SyntheticLM(cfg.vocab, 64, 8, seed=SEED + 36,
+                          input_mode=cfg.input_mode, d_model=cfg.d_model)
+        lr_fn = partial(cosine_with_warmup, peak_lr=TRAIN_LR, warmup=0,
+                        total=TRAIN_CROSS_STEPS)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = tree.map_leaves(
+                lambda t: t.to(dev),
+                init_params(cfg, seed=SEED, device="cpu"))
+            opt = adamw.init(params)
+            step_fn = make_train_step(cfg, lr_fn=lr_fn)
+            losses = []
+            for step in range(TRAIN_CROSS_STEPS):
+                params, opt, m = step_fn(
+                    params, opt, micro_batches(src.batch(step), 2))
+                losses.append(float(m["loss"]))
+            out[dev] = (losses, params, opt)
+        (cl, cp, co), (gl, gp, go) = out["cpu"], out["cuda"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+        lr_sum = sum(float(lr_fn(s)) for s in range(TRAIN_CROSS_STEPS))
+        rtol, atol = TRAIN_TARGET
+        moment_rel, param_err, n_over, n = 0.0, 0.0, 0, 0
+        for g, c in zip(tree.leaves((go.m, go.v)), tree.leaves((co.m, co.v))):
+            c = c.numpy()
+            scale = float(np.abs(c).max()) or 1.0
+            moment_rel = max(moment_rel, float(
+                np.abs(g.cpu().numpy() - c).max()) / scale)
+        for g, c in zip(tree.leaves(gp), tree.leaves(cp)):
+            c = c.numpy()
+            d = np.abs(g.cpu().numpy() - c)
+            n_over += int((d > atol + rtol * np.abs(c)).sum())
+            n += c.size
+            param_err = max(param_err, float(d.max()))
+        run = {"arch": name, "steps": TRAIN_CROSS_STEPS, "losses_card": gl,
+               "losses_cpu": cl, "loss_max_rel": loss_rel,
+               "moment_max_rel_of_leaf_max": moment_rel,
+               "param_max_abs": param_err, "params": n,
+               "param_entries_over_target": n_over,
+               "param_bound_2_lr_sum": 2 * lr_sum}
+        runs.append(run)
+        if not (loss_rel <= TRAIN_LOSS_RTOL
+                and moment_rel <= TRAIN_MOMENT_REL
+                and n_over <= TRAIN_OVER_TARGET_FRAC * n
+                and param_err <= 2 * lr_sum):
+            bad.append(name)
+    line = {"phase": "train_card_vs_cpu", "loss_rtol": TRAIN_LOSS_RTOL,
+            "moment_rel": TRAIN_MOMENT_REL,
+            "param_target_rtol_atol": list(TRAIN_TARGET),
+            "param_over_target_frac": TRAIN_OVER_TARGET_FRAC, "runs": runs,
+            "kernel_launches": _launch_delta(before)}
+    if bad or line["kernel_launches"]:
+        print(json.dumps(line), file=sys.stderr, flush=True)
+        raise RuntimeError(f"train_card_vs_cpu: {bad} outside the "
+                           f"tolerance or kernels launched "
+                           f"{line['kernel_launches']}")
+    return line
+
+
+def run_train_resume() -> dict:
+    """Phase 37: ``train_loop`` on the card, resumed and crashed."""
+    import tempfile
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import registry, smoke
+    from repro_torch.launch.train import train_loop
+    cfg = smoke(registry()["phi3_mini_3_8b"])
+    kw = dict(global_batch=4, seq_len=64, n_micro=1, log_every=0,
+              seed=SEED, device="cuda")
+    before = dict(kernels.launch_counts())
+    with tempfile.TemporaryDirectory() as d:
+        la, pa, oa = train_loop(cfg, steps=20, **kw)
+        lb1, _, _ = train_loop(cfg, steps=10, ckpt_dir=d, ckpt_every=10,
+                               **kw)
+        lb2, pb, ob = train_loop(cfg, steps=20, ckpt_dir=d, ckpt_every=10,
+                                 **kw)
+        same = all(torch.equal(x, y) for x, y in
+                   zip(tree.leaves((pa, oa)), tree.leaves((pb, ob))))
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            train_loop(cfg, steps=20, ckpt_dir=d, ckpt_every=5, crash_at=12,
+                       **kw)
+            crashed = False
+        except RuntimeError as e:
+            crashed = "simulated crash at step 12" in str(e)
+        saved = Checkpointer(d).steps()
+        lc, _, oc = train_loop(cfg, steps=20, ckpt_dir=d, ckpt_every=5,
+                               **kw)
+    line = {"phase": "train_resume", "arch": cfg.name,
+            "losses_straight": la, "losses_resumed": lb2,
+            "losses_equal": lb1 == la[:10] and lb2 == la[10:],
+            "params_and_moments_equal": same, "crashed_at_12": crashed,
+            "checkpoints_at_crash": saved,
+            "steps_after_crash": len(lc), "final_step": int(oc.step),
+            "kernel_launches": _launch_delta(before)}
+    if not (line["losses_equal"] and same and crashed and saved == [5, 10]
+            and len(lc) == 10 and int(oc.step) == 20
+            and not line["kernel_launches"]):
+        print(json.dumps(line), file=sys.stderr, flush=True)
+        raise RuntimeError("train_resume: a resume differs or the crash "
+                           "did not resume at step 10")
+    return line
+
+
+def run_training() -> list[dict]:
+    """Phases 34-37; no kernel may launch across any of them."""
+    from repro_torch import kernels
+    before = dict(kernels.launch_counts())
+    lines = []
+    for phase, name, layers, steps in TRAIN_RUNS:
+        lines.append(run_train(phase, name, layers, steps))
+        print(json.dumps(lines[-1]), file=sys.stderr, flush=True)
+    for fn in (run_train_card_vs_cpu, run_train_resume):
+        lines.append(fn())
+        print(json.dumps(lines[-1]), file=sys.stderr, flush=True)
+    launched = _launch_delta(before)
+    if launched:
+        raise RuntimeError(f"kernels launched in training: {launched}")
+    return lines
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5471,6 +5768,9 @@ def main() -> int:
     lines.append({"phase": "build", "seconds": time.perf_counter() - t0,
                   "nvcc_seconds": _build.build_info.get("seconds")})
     print(_build.build_info.get("ptxas", ""), file=sys.stderr, flush=True)
+    # training first, while the card is empty: float32 AdamW state for
+    # 24 full-width qwen3_4b layers takes ~65 GB at its peak
+    train_lines = run_training()
 
     cfg = registry()["qwen3_4b"]
     t0 = time.perf_counter()
@@ -5582,7 +5882,8 @@ def main() -> int:
               pinv, window, pwindow, cross, pre, ppre, i8h, i8p, zline, mline,
               probe_f32, probe_bf16, lcross, *f32_lines, ssd_passes,
               s13["moe_engine"], s13["longctx_mixtral"], *s13["probes"],
-              s13["dense_archs"], *s15["lines"], _card_line()]
+              s13["dense_archs"], *s15["lines"], *train_lines,
+              _card_line()]
     for line in lines:
         _emit(line)
     _emit({"ok": True, "device": {

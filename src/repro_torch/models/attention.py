@@ -115,9 +115,8 @@ def sdpa_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     version passes its own)."""
     Hq, Hkv = q.shape[2], k.shape[2]
     G = Hq // Hkv
-    if G > 1:
-        k = torch.repeat_interleave(k, G, dim=2)
-        v = torch.repeat_interleave(v, G, dim=2)
+    k = layers.repeat_heads(k, G, dim=2)
+    v = layers.repeat_heads(v, G, dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
     if soft_cap is not None:
         logits = torch.tanh(logits / soft_cap) * soft_cap

@@ -1,9 +1,10 @@
 """Mamba-2 (SSD, state-space duality) block — torch twin of
 ``repro.models.ssm``.
 
-Chunked SSD forward for prefill (``mamba_forward``, whose scan is kernel
-K9 ``kernels.ssd_scan``) and the O(1)-state decode step
-(``mamba_decode_step``, plain torch: XLA in the JAX package too).
+Chunked SSD forward (``mamba_forward``: the prefill's scan is kernel K9
+``kernels.ssd_scan``, training's the plain ``ssd_chunked``) and the
+O(1)-state decode step (``mamba_decode_step``, plain torch: XLA in the
+JAX package too).
 ``ssd_chunked`` is the plain chunked scan, line by line the JAX function,
 with any number of B/C groups; K9's plain version calls it with G = 1.
 
@@ -20,6 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ssd_scan as K9
+
+from . import layers
 
 
 class MambaSpec(NamedTuple):
@@ -135,7 +138,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     # intra-chunk: att[b,c,h,i,j] = (C_i . B_j) exp(cs_i - cs_j) dt_j, j<=i
     CB = torch.einsum("bcqgn,bckgn->bcgqk", Cq, Bq)    # [B, nC, G, Q, Q]
-    CB = torch.repeat_interleave(CB, hpg, dim=2)
+    CB = layers.repeat_heads(CB, hpg, dim=2)
     seg = dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :]   # [B,nC,Q,Q,H]
     seg = seg.permute(0, 1, 4, 2, 3)                   # [B, nC, H, Q, Q]
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
@@ -147,7 +150,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # chunk states: S_c = sum_j exp(cs_end - cs_j) dt_j B_j (x) x_j
     dA_sum = dA_cs[:, :, -1:, :]                       # [B, nC, 1, H]
     decay_to_end = torch.exp(dA_sum - dA_cs)           # [B, nC, Q, H]
-    Bh = torch.repeat_interleave(Bq, hpg, dim=3) if hpg > 1 else Bq
+    Bh = layers.repeat_heads(Bq, hpg, dim=3)
     Bh = Bh.reshape(Bsz, nC, Q, H, N)
     states = torch.einsum("bcqh,bcqhn,bcqhp->bchnp", decay_to_end * dtq,
                           Bh, xq)
@@ -163,7 +166,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     h_prev = torch.stack(h_prev, dim=1)                # [B, nC, H, N, P]
 
     # inter-chunk output: C_i . h_prev * exp(cs_i)
-    Ch = torch.repeat_interleave(Cq, hpg, dim=3) if hpg > 1 else Cq
+    Ch = layers.repeat_heads(Cq, hpg, dim=3)
     Ch = Ch.reshape(Bsz, nC, Q, H, N)
     y_off = torch.einsum("bcqhn,bchnp->bcqhp", Ch, h_prev)
     y_off = y_off * torch.exp(dA_cs)[..., None]
@@ -175,8 +178,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def mamba_forward(p: dict, spec: MambaSpec, x: torch.Tensor, *,
                   h0: torch.Tensor | None = None,
                   conv0: torch.Tensor | None = None,
-                  return_state: bool = False):
-    """Full Mamba-2 block over x [B, L, d] -> [B, L, d]; the scan is K9.
+                  return_state: bool = False, scan=None):
+    """Full Mamba-2 block over x [B, L, d] -> [B, L, d].  ``scan`` is the
+    chunked SSD scan, called as ``ssd_chunked``: K9 when None (the
+    prefill; the kernel has no backward), the plain ``ssd_chunked`` under
+    autograd in training, as the JAX training forward runs the jnp scan.
 
     With ``return_state`` also returns (h_final [B, H, N, P] float32, the
     raw conv context: the last min(L, d_conv-1) rows of x ‖ B ‖ C before
@@ -216,7 +222,7 @@ def mamba_forward(p: dict, spec: MambaSpec, x: torch.Tensor, *,
     dt = softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
 
-    y, h_fin = K9.ssd_scan(xh, dt, A, Bm, Cm, spec.chunk, h0=h0)
+    y, h_fin = (scan or K9.ssd_scan)(xh, dt, A, Bm, Cm, spec.chunk, h0=h0)
     y = y + xh.float() * p["D"].float()[:, None]
     y = y.reshape(Bsz, L, spec.d_inner)
 

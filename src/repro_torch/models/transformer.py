@@ -8,7 +8,9 @@ attention block on K8).  An ``attn`` model's FFN is SwiGLU, MoE or a
 GELU MLP (musicgen); an ``input_mode="embeds"`` model (musicgen,
 qwen2_vl, whose frontends are stubbed as in the JAX package) takes
 ``embeds=`` [B, S, d] in place of token ids, and qwen2_vl's text-only
-M-RoPE (all three position streams equal) is its rotary table.
+M-RoPE (all three position streams equal) is its rotary table.  The
+training forward (``forward_hidden``, ``loss_fn``) of every non-MoE arch
+runs the plain attention and SSD scan under autograd.
 
 Parameters are a plain dict with the JAX package's leaf names and
 layouts, except that the per-layer tree is a *list* of dicts
@@ -21,6 +23,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -457,3 +460,106 @@ def decode_step(params: dict, cfg: ArchConfig, state: dict,
     logits = logits_out(params, cfg, h)
     return logits, {"positions": pos + 1, "attn": new_attn,
                     "mamba": new_mamba}
+
+
+# =============================================================================
+# training forward: the loss and its gradient under autograd
+# =============================================================================
+
+def _check_trainable(cfg: ArchConfig) -> None:
+    _check_supported(cfg)
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training is not ported yet (ROADMAP A2: the "
+            f"moe_ffn kernel has no backward)")
+
+
+def _train_attn_layer(lp: dict, cfg: ArchConfig, h: torch.Tensor,
+                      window: int, cos: torch.Tensor, sin: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """One ``attn`` layer: pre-norm attention on the plain ``sdpa`` (K8
+    has no backward) with the optional gemma post-norm, then the FFN."""
+    x = layers.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
+                        gemma_style=cfg.gemma_norm)
+    q, k, v = attention.project_qkv(lp["attn"], x, cos, sin)
+    out = attention.sdpa(q, k, v, bias, soft_cap=cfg.soft_cap)
+    out = attention._out_proj(out, lp["attn"]["wo"])
+    h, _ = ffn_block(lp, cfg, h + _attn_post(lp, cfg, out))
+    return h
+
+
+def _train_mamba_layer(lp: dict, sp: dict | None, cfg: ArchConfig,
+                       spec: ssm.MambaSpec, h: torch.Tensor,
+                       cos: torch.Tensor, sin: torch.Tensor,
+                       bias: torch.Tensor) -> torch.Tensor:
+    """One Mamba-2 layer on the plain chunked scan; ``sp`` (a hybrid's
+    shared block at a shared site, else None) then attends causally with
+    the shared weights and runs the shared SwiGLU."""
+    x = layers.rms_norm(h, lp["ln"], eps=cfg.norm_eps)
+    h = h + ssm.mamba_forward(lp["mamba"], spec, x, scan=ssm.ssd_chunked)
+    if sp is not None:
+        x = layers.rms_norm(h, sp["ln1"], eps=cfg.norm_eps)
+        q, k, v = attention.project_qkv(sp["attn"], x, cos, sin)
+        out = attention._out_proj(attention.sdpa(q, k, v, bias),
+                                  sp["attn"]["wo"])
+        h = _shared_mlp(sp, cfg, h + out)
+    return h
+
+
+def forward_hidden(params: dict, cfg: ArchConfig, batch: dict):
+    """Final-normed hidden states [B, S, d] of a training batch
+    (``{"tokens": [B, S]}`` or, for an embeds arch, ``{"embeds": [B, S,
+    d]}``) and the metrics ``{"moe_aux": 0.0}``: the JAX
+    ``forward_hidden`` as a loop over the layer list with its per-layer
+    window, global-RoPE and shared-site decisions.  Attention runs the
+    plain ``sdpa`` over ``_mask_bias`` and the Mamba-2 scan the plain
+    ``ssd_chunked``, so autograd differentiates both; with ``cfg.remat``
+    each layer is a ``torch.utils.checkpoint`` (its activations are
+    recomputed in the backward).  Launches no kernel."""
+    _check_trainable(cfg)
+    h = embed_in(params, cfg, batch.get("tokens"),
+                 embeds=batch.get("embeds"))
+    B, S, _ = h.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=h.device).expand(B, S)
+    ropes = _rope_tables(cfg, positions)
+
+    def run(fn, *args):
+        if cfg.remat:
+            return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                     use_reentrant=False)
+        return fn(*args)
+
+    if cfg.layout == "attn":
+        wins = cfg.attn_window_pattern
+        biases = {w: attention._mask_bias(positions, positions, w)
+                  for w in set(wins)}
+        for l, lp in enumerate(params["layers"]):
+            cos, sin = _layer_rope(cfg, wins[l], ropes)
+            h = run(_train_attn_layer, lp, cfg, h, wins[l], cos, sin,
+                    biases[wins[l]])
+    else:
+        spec = mamba_spec_of(cfg)
+        cos, sin = ropes[0]
+        bias = (attention._mask_bias(positions, positions, None)
+                if cfg.layout == "hybrid" else None)
+        for l, lp in enumerate(params["layers"]):
+            sp = params["shared"] if _is_shared_site(cfg, l) else None
+            h = run(_train_mamba_layer, lp, sp, cfg, spec, h, cos, sin,
+                    bias)
+    h = layers.rms_norm(h, params["final_norm"], eps=cfg.norm_eps,
+                        gemma_style=cfg.gemma_norm)
+    return h, {"moe_aux": torch.zeros((), dtype=torch.float32,
+                                      device=h.device)}
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict):
+    """(total loss, metrics) of a batch with ``labels`` [B, S]: the mean
+    token cross-entropy of ``logits_out`` plus ``aux_loss_weight`` x the
+    MoE auxiliary loss (0 for the archs trained here); metrics add
+    ``ce_loss``."""
+    h, metrics = forward_hidden(params, cfg, batch)
+    logits = logits_out(params, cfg, h)
+    loss = layers.softmax_cross_entropy(logits, batch["labels"])
+    total = loss + cfg.aux_loss_weight * metrics["moe_aux"]
+    return total, dict(metrics, ce_loss=loss)

@@ -66,6 +66,29 @@ def test_moe_modules_import_without_jax(module):
     assert out.returncode == 0, out.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.launch.train", "repro_torch.optim", "repro_torch.data",
+    "repro_torch.checkpoint", "repro_torch.tree"])
+def test_training_modules_import_without_jax(module):
+    """The training slice's modules, imported alone with ``jax``
+    blocked: no ``repro``/``jax`` module loads and no kernel launches."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.path[:0] = [{str(SRC)!r}]
+        importlib.import_module({module!r})
+        from repro_torch import kernels
+        assert not any(kernels.launch_counts().values())
+        bad = sorted(m for m in sys.modules
+                     if m == "repro" or m.startswith(("repro.", "jax.",
+                                                      "jaxlib")))
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+
+
 def test_port_sources_name_no_jax_or_repro_import():
     """The same rule read from the sources, so an import inside a function
     that the import test never calls is caught too."""
@@ -89,7 +112,8 @@ def _no_card():
 
 @pytest.mark.parametrize("entry", ["init_params", "TierStore",
                                    "PagedServingEngine", "quickstart",
-                                   "serve_paged", "longctx_decode"])
+                                   "serve_paged", "longctx_decode",
+                                   "train_loop", "train"])
 def test_entry_points_raise_without_cuda(entry):
     """With no CUDA and no explicit ``device="cpu"`` every entry point
     raises (the launch scripts with no ``--device``); it never falls back
@@ -101,9 +125,13 @@ def test_entry_points_raise_without_cuda(entry):
     from repro_torch.serving.engine import PagedServingEngine, ServeConfig
     cfg = smoke(registry()["qwen3_4b"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        if entry in ("quickstart", "serve_paged", "longctx_decode"):
+        if entry in ("quickstart", "serve_paged", "longctx_decode",
+                     "train"):
             import importlib
             importlib.import_module(f"repro_torch.launch.{entry}").main([])
+        elif entry == "train_loop":
+            from repro_torch.launch.train import train_loop
+            train_loop(cfg, steps=1)
         elif entry == "init_params":
             init_params(cfg)
         elif entry == "TierStore":
