@@ -207,22 +207,41 @@ prints no result line):
  35. ``train_mamba2`` (mamba2_1_3b whole, 48 layers) and ``train_zamba2``
      (zamba2_7b at d 3584 cut to 14 of 81 layers, its two shared sites),
      10 steps each: losses finite, grad norms > 0, params changed;
- 36. ``train_card_vs_cpu``: smoke qwen3_4b, gemma3_4b, mamba2_1_3b and
-     zamba2_7b, five ``make_train_step`` steps on the card and on the
-     CPU from the same params and batches: every loss within 1e-4
-     relative, m and v after step 5 within 1e-4 of each leaf's largest,
-     the params within rtol 1e-4 / atol 1e-5 but for at most one entry
-     in 10**4 (AdamW's m / (sqrt(v) + 1e-8) turns an entry's rounding
-     relative to itself into its update, so entries far below their
-     leaf's largest gradient drift), every entry within twice the summed
-     lr;
+     ``train_olmoe`` (olmoe_1b_7b at published width, d 2048, 16/16, 64
+     experts top 8 of ff 1024, vocab 50304; 8 of 16 layers), 20 steps
+     with ``train_qwen3``'s gates, ``moe_aux`` finite and > 0, each
+     microbatch's ``expert_counts`` summing to tokens x 8 x layers, and
+     exactly 4 x layers x microbatches ``moe_ffn`` launches a step (the
+     forward and remat's recompute) and as many ``moe_ffn_bwd``, then one
+     step under the profiler for their device ms;
+ 36. ``train_card_vs_cpu``: smoke qwen3_4b, gemma3_4b, mamba2_1_3b,
+     zamba2_7b, olmoe_1b_7b and mixtral_8x7b, five ``make_train_step``
+     steps on the card and on the CPU from the same params and batches:
+     every loss within 1e-4 relative, m and v after step 5 within 1e-4
+     of each leaf's largest, the params within rtol 1e-4 / atol 1e-5 but
+     for at most one entry in 10**4 (AdamW's m / (sqrt(v) + 1e-8) turns
+     an entry's rounding relative to itself into its update, so entries
+     far below their leaf's largest gradient drift), every entry within
+     twice the summed lr; for MoE the expert counts equal at every step,
+     m and v within 1e-4 of each leaf's largest after every step taken
+     by both from the card's state before it (over the five steps apart,
+     one olmoe embedding entry whose gradient lies under AdamW's eps
+     moves its first update ~3.5e-4 apart, and the moments follow; that
+     trajectory's number is reported beside), and two backward passes on
+     the card from one state equal bit for bit;
  37. ``train_resume``: smoke phi3 on the card through ``train_loop``:
      20 straight steps against 10 steps, a checkpoint and a resume to
      20: losses, params and moments equal bit for bit; ``crash_at=12``
-     with ``ckpt_every=5`` raises and the rerun resumes at step 10.
-     ``kernels.launch_counts()`` must not change across phases 34-37
-     (training runs the plain attention and SSD scan: no K8, K9 or
-     ``moe_ffn`` launch inside a train step);
+     with ``ckpt_every=5`` raises and the rerun resumes at step 10;
+     ``train_moe_tiered``: ``launch.train_moe_tiered`` at its defaults
+     (smoke olmoe, 200 steps, a crash at 100, the restart from its
+     checkpoint) ends below loss 5.0.  Each phase's kernel launches are
+     checked: none for the dense, Mamba and hybrid archs (the plain
+     attention and SSD scan), exactly ``moe_ffn``'s and ``moe_ffn_bwd``'s
+     for MoE; then ``moe_ffn_bwd``'s rows in the kernels line (olmoe's
+     training shape and a sparse 64 rows over 64 experts, every output
+     within 1e-5 of its largest plain magnitude, empty experts' dW
+     exactly zero, ``sass_hmma`` > 0);
   9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
@@ -5487,8 +5506,12 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_LR = 512, 8, 2, 1e-3
 # params, gradients, m, v) would not fit beside the activations in 80 GB
 TRAIN_RUNS = (("train_qwen3", "qwen3_4b", 24, 20),
               ("train_mamba2", "mamba2_1_3b", None, 10),
-              ("train_zamba2", "zamba2_7b", 14, 10))
-TRAIN_CROSS_ARCHS = ("qwen3_4b", "gemma3_4b", "mamba2_1_3b", "zamba2_7b")
+              ("train_zamba2", "zamba2_7b", 14, 10),
+              ("train_olmoe", "olmoe_1b_7b", 8, 20))
+# the runs whose loss must fall (mean of the last five below the first's)
+TRAIN_FALLING = ("train_qwen3", "train_olmoe")
+TRAIN_CROSS_ARCHS = ("qwen3_4b", "gemma3_4b", "mamba2_1_3b", "zamba2_7b",
+                     "olmoe_1b_7b", "mixtral_8x7b")
 TRAIN_CROSS_STEPS = 5
 TRAIN_LOSS_RTOL = 1e-4          # card vs CPU losses
 TRAIN_MOMENT_REL = 1e-4         # m, v: of each leaf's largest magnitude
@@ -5516,9 +5539,60 @@ def _launch_delta(before: dict) -> dict:
             kernels.launch_counts().items() if v != before.get(k, 0)}
 
 
+def _train_launches(cfg, passes: int) -> dict:
+    """The kernel launches of ``passes`` microbatch forward + backward
+    passes of ``cfg`` through ``loss_fn``: none without MoE; with MoE,
+    per layer and pass, ``moe_ffn`` 2 in the forward and, under remat, 2
+    more in the recompute, and ``moe_ffn_bwd`` its 4 entries."""
+    from repro_torch.kernels.moe_ffn import BWD_LAUNCHES
+    if not cfg.is_moe:
+        return {}
+    fwd = 2 * (2 if cfg.remat else 1)
+    return {"moe_ffn": fwd * cfg.n_layers * passes,
+            "moe_ffn_bwd": BWD_LAUNCHES * cfg.n_layers * passes}
+
+
+def _add_launches(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0)
+            for k in set(total) | set(more)}
+
+
+def _profiled_train_step(step_fn, params, opt, batch) -> dict:
+    """One training step under ``torch.profiler`` (device activity):
+    its wall ms and the device ms of its ``moe_ffn`` kernels
+    (``moe_tf32_kernel``) and of each ``moe_ffn_bwd`` entry
+    (``moe_bwd_kernel<0..3>``: g/u recompute, down dgrad, x dgrad,
+    weight gradients)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fwd_us, bwd_us = 0.0, [0.0] * 4
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dur = e.time_range.end - e.time_range.start
+        if "moe_tf32_kernel" in e.name:
+            fwd_us += dur
+        m = re.search(r"moe_bwd_kernel<(\d)>", e.name)
+        if m:
+            bwd_us[int(m.group(1))] += dur
+    return {"step_ms": wall * 1e3, "moe_ffn_device_ms": fwd_us / 1e3,
+            "moe_ffn_bwd_device_ms": sum(bwd_us) / 1e3,
+            "moe_ffn_bwd_device_ms_by_entry": {
+                k: v / 1e3 for k, v in zip(
+                    ("gate_up", "down_dgrad", "x_dgrad", "weight_grads"),
+                    bwd_us)}}
+
+
 def run_train(phase: str, name: str, layers: int | None, steps: int
               ) -> dict:
-    """One full-width training run on the card (phases 34, 35)."""
+    """One full-width training run on the card (phases 34, 35, and 35b
+    for MoE): ``steps`` steps, then for MoE one more under the profiler."""
     import gc
     import math
     import statistics
@@ -5548,7 +5622,7 @@ def run_train(phase: str, name: str, layers: int | None, steps: int
         cosine_with_warmup, peak_lr=TRAIN_LR, warmup=10, total=steps))
     digests = [_digest(params)]
     before = dict(kernels.launch_counts())
-    losses, gnorms, lrs, step_ms = [], [], [], []
+    losses, gnorms, lrs, step_ms, auxes, counts = [], [], [], [], [], []
     for step in range(steps):
         batch = micro_batches(src.batch(step), TRAIN_MICRO)
         torch.cuda.synchronize()
@@ -5558,11 +5632,23 @@ def run_train(phase: str, name: str, layers: int | None, steps: int
         gnorms.append(float(m["grad_norm"]))
         step_ms.append((time.perf_counter() - t0) * 1e3)
         lrs.append(float(m["lr"]))
+        if cfg.is_moe:
+            auxes.append(float(m["moe_aux"]))
+            counts.append(m["expert_counts"].sum(dim=1).tolist())
         if step < 2:
             digests.append(_digest(params))
     torch.cuda.synchronize()
     launched = _launch_delta(before)
+    expected = _train_launches(cfg, steps * TRAIN_MICRO)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profiled = None
+    if cfg.is_moe:
+        before = dict(kernels.launch_counts())
+        profiled = _profiled_train_step(
+            step_fn, params, opt, micro_batches(src.batch(steps),
+                                                TRAIN_MICRO))
+        profiled["kernel_launches"] = _launch_delta(before)
+        expected_profiled = _train_launches(cfg, TRAIN_MICRO)
     grads = tree.map_leaves(lambda p: torch.full_like(p, 1e-3), params)
     opt_ms = _time_ms(lambda: adamw.update(grads, opt, params, lr=0.0),
                       iters=3, warmup=1)
@@ -5579,11 +5665,22 @@ def run_train(phase: str, name: str, layers: int | None, steps: int
         "peak_memory_gb": peak_gb, "resident_before_gb": resident_gb,
         "optimizer_ms": opt_ms, "optimizer_share": opt_ms / med,
         "kernel_launches": launched,
+        "kernel_launches_expected": expected,
         "params_equal_after_step1": digests[1] == digests[0],
         "params_changed_after_step2": digests[2] != digests[0]}
     if layers is not None:
         line["reduced"] = (f"{layers} of {full_layers} layers: float32 "
                            f"AdamW state at 16 B a parameter")
+    if cfg.is_moe:
+        tokens = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ
+        line.update({
+            "moe_aux": auxes, "expert_counts_sums": counts,
+            "expert_counts_sum_expected": (tokens * cfg.top_k
+                                           * cfg.n_layers),
+            "launch_formula": "per step: moe_ffn 2 x layers x n_micro x 2 "
+                              "(forward and remat's recompute), "
+                              "moe_ffn_bwd 4 x layers x n_micro",
+            "profiled_step": profiled})
     del params, opt, grads, step_fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -5596,11 +5693,20 @@ def run_train(phase: str, name: str, layers: int | None, steps: int
         bad.append("params moved at step 1 (lr 0)")
     if not line["params_changed_after_step2"]:
         bad.append("params unchanged after step 2")
-    if phase == "train_qwen3" and not (
+    if phase in TRAIN_FALLING and not (
             statistics.mean(losses[-5:]) < statistics.mean(losses[:5])):
         bad.append("the loss did not fall")
-    if launched:
-        bad.append(f"kernels launched in training: {launched}")
+    if launched != expected:
+        bad.append(f"kernel launches {launched}, expected {expected}")
+    if cfg.is_moe:
+        if not all(math.isfinite(a) and a > 0 for a in auxes):
+            bad.append("moe_aux not finite and positive")
+        want = line["expert_counts_sum_expected"]
+        if any(c != want for mb in counts for c in mb):
+            bad.append(f"expert counts do not sum to {want}")
+        if profiled["kernel_launches"] != expected_profiled:
+            bad.append(f"profiled step launched "
+                       f"{profiled['kernel_launches']}")
     line["ok"] = not bad
     if bad:
         print(json.dumps(line), file=sys.stderr, flush=True)
@@ -5608,8 +5714,79 @@ def run_train(phase: str, name: str, layers: int | None, steps: int
     return line
 
 
+def _backward_bits_repeat(cfg, params, batch) -> bool:
+    """Two backward passes of ``loss_fn`` from one state on the card give
+    identical gradients (and loss)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import transformer as T
+    leaves = tree.leaves(params)
+    out = []
+    for _ in range(2):
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = T.loss_fn(params, cfg, batch)
+        out.append((loss.detach(), torch.autograd.grad(loss, leaves)))
+        for p in leaves:
+            p.requires_grad_(False)
+    (la, ga), (lb, gb) = out
+    return torch.equal(la, lb) and all(torch.equal(a, b)
+                                       for a, b in zip(ga, gb))
+
+
+def _moment_rel(go, co) -> tuple[float, list]:
+    """The largest difference of the card's moments ``go`` from the
+    CPU's ``co`` over each leaf's largest CPU magnitude, and the three
+    worst leaves."""
+    import numpy as np
+    from repro_torch import tree
+    worst = []
+    for which, gt, ct in (("m", go.m, co.m), ("v", go.v, co.v)):
+        for leaf, g, c in zip(tree.flatten_with_names(ct)[0],
+                              tree.leaves(gt), tree.leaves(ct)):
+            c = c.cpu().numpy()
+            scale = float(np.abs(c).max()) or 1.0
+            worst.append((float(np.abs(g.cpu().numpy() - c).max()) / scale,
+                          f"{which} {leaf}"))
+    worst.sort(reverse=True)
+    return worst[0][0], [[w, r] for r, w in worst[:3]]
+
+
+def _shared_state_moments(cfg, src, lr_fn) -> tuple[float, list]:
+    """Five steps on the card; before each, the CPU takes the card's
+    params and moments and takes the same step: the largest
+    ``_moment_rel`` over the steps, each from one shared state."""
+    from repro_torch import tree
+    from repro_torch.launch.train import make_train_step, micro_batches
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw
+    params = tree.map_leaves(lambda t: t.to("cuda"),
+                             init_params(cfg, seed=SEED, device="cpu"))
+    opt = adamw.init(params)
+    card, cpu = (make_train_step(cfg, lr_fn=lr_fn) for _ in range(2))
+    rel, worst = 0.0, []
+    for step in range(TRAIN_CROSS_STEPS):
+        cp = tree.map_leaves(lambda t: t.cpu().clone(), params)
+        co = adamw.AdamWState(opt.step.cpu().clone(), *(
+            tree.map_leaves(lambda t: t.cpu().clone(), x)
+            for x in (opt.m, opt.v)))
+        mb = micro_batches(src.batch(step), 2)
+        params, opt, _ = card(params, opt, mb)
+        cp, co, _ = cpu(cp, co, mb)
+        r, w = _moment_rel(opt, co)
+        if r > rel:
+            rel, worst = r, w
+    return rel, worst
+
+
 def run_train_card_vs_cpu() -> dict:
-    """Phase 36: five steps of smoke models on the card and the CPU."""
+    """Phase 36: five steps of smoke models on the card and the CPU; for
+    MoE also the expert counts of every step, the moments of each step
+    from a shared state (``_shared_state_moments``: AdamW's eps turns a
+    gradient entry near 1e-8 that differs in its last bits into updates
+    up to lr apart, and over five steps olmoe's moments drift with one
+    such embedding entry), and two backward passes on the card from one
+    state."""
     from functools import partial
     import numpy as np
     import torch
@@ -5621,6 +5798,7 @@ def run_train_card_vs_cpu() -> dict:
     from repro_torch.optim import adamw, cosine_with_warmup
     runs, bad = [], []
     before = dict(kernels.launch_counts())
+    expected = {}
     for name in TRAIN_CROSS_ARCHS:
         cfg = smoke(registry()[name])
         src = SyntheticLM(cfg.vocab, 64, 8, seed=SEED + 36,
@@ -5634,22 +5812,22 @@ def run_train_card_vs_cpu() -> dict:
                 init_params(cfg, seed=SEED, device="cpu"))
             opt = adamw.init(params)
             step_fn = make_train_step(cfg, lr_fn=lr_fn)
-            losses = []
+            losses, counts = [], []
             for step in range(TRAIN_CROSS_STEPS):
                 params, opt, m = step_fn(
                     params, opt, micro_batches(src.batch(step), 2))
                 losses.append(float(m["loss"]))
-            out[dev] = (losses, params, opt)
-        (cl, cp, co), (gl, gp, go) = out["cpu"], out["cuda"]
+                if cfg.is_moe:
+                    counts.append(m["expert_counts"].cpu().tolist())
+            out[dev] = (losses, params, opt, counts)
+        expected = _add_launches(expected, _train_launches(
+            cfg, TRAIN_CROSS_STEPS * 2))
+        (cl, cp, co, cc), (gl, gp, go, gc) = out["cpu"], out["cuda"]
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
         lr_sum = sum(float(lr_fn(s)) for s in range(TRAIN_CROSS_STEPS))
         rtol, atol = TRAIN_TARGET
-        moment_rel, param_err, n_over, n = 0.0, 0.0, 0, 0
-        for g, c in zip(tree.leaves((go.m, go.v)), tree.leaves((co.m, co.v))):
-            c = c.numpy()
-            scale = float(np.abs(c).max()) or 1.0
-            moment_rel = max(moment_rel, float(
-                np.abs(g.cpu().numpy() - c).max()) / scale)
+        moment_rel, worst = _moment_rel(go, co)
+        param_err, n_over, n = 0.0, 0, 0
         for g, c in zip(tree.leaves(gp), tree.leaves(cp)):
             c = c.numpy()
             d = np.abs(g.cpu().numpy() - c)
@@ -5659,12 +5837,28 @@ def run_train_card_vs_cpu() -> dict:
         run = {"arch": name, "steps": TRAIN_CROSS_STEPS, "losses_card": gl,
                "losses_cpu": cl, "loss_max_rel": loss_rel,
                "moment_max_rel_of_leaf_max": moment_rel,
+               "moment_worst_leaves": worst,
                "param_max_abs": param_err, "params": n,
                "param_entries_over_target": n_over,
                "param_bound_2_lr_sum": 2 * lr_sum}
+        ok, gated_moment_rel = True, moment_rel
+        if cfg.is_moe:
+            batch = {k: torch.from_numpy(v[0]).cuda() for k, v in
+                     micro_batches(src.batch(0), 2).items()}
+            run["expert_counts_equal_every_step"] = gc == cc
+            run["backward_bits_repeat"] = _backward_bits_repeat(cfg, gp,
+                                                                batch)
+            gated_moment_rel, run["moment_shared_state_worst_leaves"] = \
+                _shared_state_moments(cfg, src, lr_fn)
+            run["moment_shared_state_max_rel_of_leaf_max"] = \
+                gated_moment_rel
+            expected = _add_launches(expected, _train_launches(
+                cfg, 2 + 2 * TRAIN_CROSS_STEPS))
+            ok = run["expert_counts_equal_every_step"] and \
+                run["backward_bits_repeat"]
         runs.append(run)
-        if not (loss_rel <= TRAIN_LOSS_RTOL
-                and moment_rel <= TRAIN_MOMENT_REL
+        if not (ok and loss_rel <= TRAIN_LOSS_RTOL
+                and gated_moment_rel <= TRAIN_MOMENT_REL
                 and n_over <= TRAIN_OVER_TARGET_FRAC * n
                 and param_err <= 2 * lr_sum):
             bad.append(name)
@@ -5672,12 +5866,13 @@ def run_train_card_vs_cpu() -> dict:
             "moment_rel": TRAIN_MOMENT_REL,
             "param_target_rtol_atol": list(TRAIN_TARGET),
             "param_over_target_frac": TRAIN_OVER_TARGET_FRAC, "runs": runs,
-            "kernel_launches": _launch_delta(before)}
-    if bad or line["kernel_launches"]:
+            "kernel_launches": _launch_delta(before),
+            "kernel_launches_expected": expected}
+    if bad or line["kernel_launches"] != expected:
         print(json.dumps(line), file=sys.stderr, flush=True)
         raise RuntimeError(f"train_card_vs_cpu: {bad} outside the "
-                           f"tolerance or kernels launched "
-                           f"{line['kernel_launches']}")
+                           f"tolerance, or kernel launches "
+                           f"{line['kernel_launches']} not {expected}")
     return line
 
 
@@ -5727,20 +5922,172 @@ def run_train_resume() -> dict:
     return line
 
 
+MOE_BWD_TOL = 1e-5       # every output within 1e-5 of its largest |plain|
+MOE_BWD_OUTPUTS = ("dxg", "dw_gate", "dw_up", "dw_down", "dgate")
+
+
+def _moe_bwd_row(name, shape, launches, launches_path, seed) -> dict:
+    """One ``moe_ffn_bwd`` row: the four launches of ``moe_ffn_backward``
+    against ``moe_ffn_backward_plain`` on the same inputs (every output
+    within ``MOE_BWD_TOL`` of its largest plain magnitude; the empty
+    experts' weight gradients exactly zero), CUDA-event ms of the eager
+    call, ``device_ms`` over a CUDA graph of calls, the plain version's
+    ms, the bounds (the rows' x and dy, the touched experts' weights,
+    the gate weights and offsets read once, dx, dgate and every expert's
+    three weight gradients written once; 16 R d ff operations: g and u
+    again, t, dx and the three weight gradients), and the HMMA count of
+    the entries' SASS.  No PyTorch call computes it."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import moe_ffn as KM
+    d, ff, n_exp, tokens, top_k = shape
+    xg, offs, w, gate, sizes = _moe_inputs(d, ff, n_exp, tokens, top_k,
+                                           torch.float32, seed)
+    R = tokens * top_k
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    dy = torch.randn((R, d), generator=gen, device="cuda")
+
+    def call():
+        return KM.moe_ffn_backward(dy, xg, offs, *w, gate)
+
+    def plain():
+        return KM.moe_ffn_backward_plain(dy, xg, offs, *w, gate)
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    errs, bad = {}, []
+    for out, g, p in zip(MOE_BWD_OUTPUTS, got, want):
+        err = float((g - p).abs().max())
+        scale = float(p.abs().max())
+        errs[out] = {"max_abs_err": err, "max_abs_plain": scale}
+        if not (torch.isfinite(g).all() and err <= MOE_BWD_TOL * scale):
+            bad.append(out)
+    empty = np.flatnonzero(sizes == 0)
+    empty_zero = all(int(torch.count_nonzero(g[e])) == 0
+                     for e in empty for g in got[1:4])
+    touched = int((sizes > 0).sum())
+    wbytes = 3 * d * ff * 4
+    nbytes = (2 * R * d * 4 + touched * wbytes + R * 4 + (n_exp + 1) * 4
+              + R * d * 4 + R * 4 + n_exp * wbytes)
+    flops = 16.0 * R * d * ff
+    # outputs and scratch a call allocates: a graph of calls holds them all
+    per_call = n_exp * wbytes + R * d * 4 + R * 4 + 3 * R * ff * 4
+    one = _time_ms(call, iters=1, warmup=1)
+    n = max(1, min(50, int(200 / max(one, 1e-3))))
+    g_calls = max(1, min(n, int(8e9 // per_call)))
+    reps = max(1, min(20, int(1000 / max(one * g_calls, 1e-3))))
+    row = {"name": name, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/moe_ffn_bwd.cu",
+           "replaces": "src/repro/models/moe.py:83",
+           "replaces_note": "XLA's gradient of the three lax.ragged_dot in "
+                            "_grouped_ffn (no Pallas kernel)",
+           "launches": launches, "launches_path": launches_path,
+           "launches_per_call": KM.BWD_LAUNCHES,
+           "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           "errors": errs,
+           "tolerance": f"{MOE_BWD_TOL} x max|plain| per output",
+           "empty_experts": len(empty),
+           "empty_experts_dw_exactly_zero": empty_zero,
+           "ms": _time_ms(call, iters=n, warmup=1),
+           "device_ms": _graph_ms(call, calls=g_calls, replays=reps),
+           "plain_ms": _time_ms(plain, iters=3, warmup=1),
+           "library_ms": None,
+           "library_call": "none: torch._grouped_mm takes bf16 only",
+           "shape": {"d": d, "ff": ff, "experts": n_exp, "tokens": tokens,
+                     "top_k": top_k, "rows": R, "touched_experts": touched,
+                     "dtype": "float32"},
+           "timing_calls": {"eager": n, "graph": g_calls, "replays": reps},
+           "note": "ms: CUDA events around eager calls; device_ms: per "
+                   "call of a CUDA graph of timing_calls calls (four "
+                   "launches each)",
+           **_f32_bounds(nbytes, flops),
+           "sass_hmma": _sass_count("moe_bwd_kernel", "HMMA")}
+    del xg, w, dy, got, want
+    torch.cuda.empty_cache()
+    if bad or not empty_zero or not row["sass_hmma"]:
+        print(json.dumps(row), file=sys.stderr, flush=True)
+        raise RuntimeError(f"{name}: outputs {bad} disagree with plain, an "
+                           f"empty expert's dW is not zero, or no HMMA")
+    return row
+
+
+def bench_moe_bwd_kernels(train_lines: list[dict]) -> list[dict]:
+    """``moe_ffn_bwd``'s rows: olmoe's training shape (2048 tokens x top
+    8 = 16384 rows over 64 experts, d 2048, ff 1024; ``train_olmoe``'s
+    launches) and a sparse one (8 tokens x top 8 = 64 rows over 64
+    experts, some empty; ``train_moe_tiered``'s launches)."""
+    by = {line["phase"]: line for line in train_lines}
+    olmoe = (2048, 1024, 64)
+    return [
+        _moe_bwd_row("moe_ffn_bwd", (*olmoe, 2048, 8),
+                     by["train_olmoe"]["kernel_launches"]["moe_ffn_bwd"],
+                     "train_olmoe", SEED + 40),
+        _moe_bwd_row("moe_ffn_bwd sparse", (*olmoe, 8, 8),
+                     by["train_moe_tiered"]["kernel_launches"]["moe_ffn_bwd"],
+                     "train_moe_tiered", SEED + 41)]
+
+
+def run_train_moe_tiered() -> dict:
+    """Phase 37b: ``launch.train_moe_tiered`` at its defaults on the card
+    (smoke olmoe, 200 steps, a crash at 100 and a restart from its
+    checkpoint): the last loss below 5.0.  Its printed lines go to
+    standard error."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.launch import train_moe_tiered as tiered
+    cfg = tiered.config()
+    steps = 200
+    before = dict(kernels.launch_counts())
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d, \
+            contextlib.redirect_stdout(sys.stderr):
+        losses, _, opt = tiered.run(cfg, steps=steps, device="cuda",
+                                    ckpt_dir=d)
+    expected = _train_launches(cfg, steps * 2)
+    line = {"phase": "train_moe_tiered", "arch": cfg.name,
+            "layers": cfg.n_layers, "steps": steps,
+            "crash_at": steps // 2, "steps_after_restart": len(losses),
+            "final_step": int(opt.step), "loss_first_after_restart":
+            losses[0], "loss_last": losses[-1],
+            "target_loss": tiered.TARGET_LOSS,
+            "seconds": time.perf_counter() - t0,
+            "kernel_launches": _launch_delta(before),
+            "kernel_launches_expected": expected}
+    if not (losses[-1] < tiered.TARGET_LOSS and len(losses) == steps // 2
+            and int(opt.step) == steps
+            and line["kernel_launches"] == expected):
+        print(json.dumps(line), file=sys.stderr, flush=True)
+        raise RuntimeError("train_moe_tiered: the loss did not end below "
+                           "5.0, the restart did not resume at 100, or the "
+                           "launches differ")
+    return line
+
+
 def run_training() -> list[dict]:
-    """Phases 34-37; no kernel may launch across any of them."""
+    """Phases 34-37b.  The dense, Mamba and hybrid steps launch no kernel;
+    the MoE steps launch exactly ``_train_launches``' counts and nothing
+    else; every phase's launches are checked, then their sum."""
     from repro_torch import kernels
     before = dict(kernels.launch_counts())
     lines = []
     for phase, name, layers, steps in TRAIN_RUNS:
         lines.append(run_train(phase, name, layers, steps))
         print(json.dumps(lines[-1]), file=sys.stderr, flush=True)
-    for fn in (run_train_card_vs_cpu, run_train_resume):
+    for fn in (run_train_card_vs_cpu, run_train_resume,
+               run_train_moe_tiered):
         lines.append(fn())
         print(json.dumps(lines[-1]), file=sys.stderr, flush=True)
+    expected = {}
+    for line in lines:
+        expected = _add_launches(expected, line.get(
+            "kernel_launches_expected", {}))
+        profiled = line.get("profiled_step")
+        if profiled:
+            expected = _add_launches(expected, profiled["kernel_launches"])
     launched = _launch_delta(before)
-    if launched:
-        raise RuntimeError(f"kernels launched in training: {launched}")
+    if launched != {k: v for k, v in expected.items() if v}:
+        raise RuntimeError(f"kernels launched in training: {launched}, "
+                           f"expected {expected}")
     return lines
 
 
@@ -5771,6 +6118,7 @@ def main() -> int:
     # training first, while the card is empty: float32 AdamW state for
     # 24 full-width qwen3_4b layers takes ~65 GB at its peak
     train_lines = run_training()
+    train_rows = bench_moe_bwd_kernels(train_lines)
 
     cfg = registry()["qwen3_4b"]
     t0 = time.perf_counter()
@@ -5874,6 +6222,7 @@ def main() -> int:
     s15 = run_slice15()
     kernel_rows += s15["rows"]
     lcross["runs"] += s15["card_vs_cpu"]
+    kernel_rows += train_rows
 
     lines += [{"kernels": kernel_rows}, {"host_link": link}, engine_line,
               pinned_line, parity, pparity, tail, overlap, overlap_faults,

@@ -17,7 +17,7 @@ KERNELS = ("paged_attention", "touch_update", "page_gather", "page_scatter",
            "paged_attention_dual", "qkv_rope_append", "page_gather_quant",
            "dequant_gather", "flash_attention", "ssd_scan",
            "paged_attention_prefill", "paged_attention_prefill_dual",
-           "moe_ffn")
+           "moe_ffn", "moe_ffn_bwd")
 
 _counts = dict.fromkeys(KERNELS, 0)
 

@@ -8,10 +8,12 @@ runnable training loop with checkpoint, restart and a simulated crash.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_4b \
         --smoke --steps 40 --device cpu
 
-Every non-MoE arch trains; an MoE arch (the default, ``olmoe_1b_7b``, as
-in the JAX launcher) raises ``NotImplementedError`` until MoE training is
-ported.  The step runs the plain attention and SSD scan under autograd:
-no kernel of ``repro_torch.kernels`` launches inside it.
+Every arch of the registry trains, MoE ones too (the default,
+``olmoe_1b_7b``, as in the JAX launcher).  The step runs the plain
+attention and SSD scan under autograd; the only kernels that launch
+inside it are an MoE layer's: ``moe_ffn`` in the forward and its
+recompute, and ``moe_ffn_bwd``, its hand-written float32 gradient, in
+the backward.
 """
 from __future__ import annotations
 
@@ -44,8 +46,11 @@ def make_train_step(cfg: ArchConfig, *, lr_fn=None, clip_norm: float = 1.0,
     only) and returned.  The step's products are full float32: TF32 is
     off inside it, whatever the caller set.  Metrics: ``loss`` (the mean
     of the microbatches' cross-entropies), ``lr``, ``grad_norm`` (before
-    clipping)."""
-    T._check_trainable(cfg)
+    clipping), as JAX's step returns them, and for an MoE arch
+    ``moe_aux`` (the mean of the microbatches' load-balancing losses) and
+    ``expert_counts`` (int32 [n_micro, E], each microbatch's histogram
+    summed over the layers)."""
+    T._check_supported(cfg)
     if lr_fn is None:
         lr_fn = lambda step: 3e-4
 
@@ -70,6 +75,8 @@ def make_train_step(cfg: ArchConfig, *, lr_fn=None, clip_norm: float = 1.0,
             p.grad = torch.zeros_like(p)
             p.requires_grad_(True)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        counts = []
         try:
             for i in range(n_micro):
                 mb = {k: torch.as_tensor(v[i]).to(dev)
@@ -77,6 +84,9 @@ def make_train_step(cfg: ArchConfig, *, lr_fn=None, clip_norm: float = 1.0,
                 total, metrics = T.loss_fn(params, cfg, mb)
                 total.backward()
                 loss_sum = loss_sum + metrics["ce_loss"].detach()
+                if cfg.is_moe:
+                    aux_sum = aux_sum + metrics["moe_aux"].detach()
+                    counts.append(metrics["expert_counts"])
         finally:
             for p, w in zip(leaves, was):
                 p.requires_grad_(w)
@@ -88,8 +98,11 @@ def make_train_step(cfg: ArchConfig, *, lr_fn=None, clip_norm: float = 1.0,
         params, opt_state, om = adamw.update(
             tree.unflatten(params, grads), opt_state, params, lr=lr,
             clip_norm=clip_norm, weight_decay=weight_decay)
-        return params, opt_state, {"loss": loss_sum / n_micro, "lr": lr,
-                                   **om}
+        out = {"loss": loss_sum / n_micro, "lr": lr, **om}
+        if cfg.is_moe:
+            out["moe_aux"] = aux_sum / n_micro
+            out["expert_counts"] = torch.stack(counts)
+        return params, opt_state, out
 
     return train_step
 

@@ -9,16 +9,18 @@ leaves: ``w_router [d, E]``, ``w_gate``/``w_up [E, d, ff]``,
 ``w_down [E, ff, d]``.
 
 Nothing here reads a tensor on the host: the sort, the group offsets,
-the kernel and the combine all stay on the device, so a decode step
-issues its MoE layers without a sync.  Expert- and tensor-parallel
-bodies and the load-balancing loss belong to training on several cards
-and are not ported.
+the kernels and the combine all stay on the device, so a decode step
+issues its MoE layers without a sync, and a training step's backward
+runs ``moe_ffn``'s hand-written gradient (``moe_ffn_backward``) the same
+way.  The load-balancing loss is ``aux_load_balance_loss``.  Expert- and
+tensor-parallel bodies belong to training on several cards and are not
+ported.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.moe_ffn import moe_ffn
+from repro_torch.kernels.moe_ffn import moe_ffn, moe_ffn_backward
 
 
 def init_moe_params(gen: torch.Generator, d_model: int, n_experts: int,
@@ -62,6 +64,17 @@ def expert_counts(idx: torch.Tensor, n_experts: int,
     return hit.sum(dim=(0, 1), dtype=torch.int32)
 
 
+def aux_load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
+                          n_experts: int) -> torch.Tensor:
+    """Switch-style load-balancing loss of router probs [T, E] and top-k
+    choices idx [T, k]: E * sum_e f_e * mean_t probs[t, e], with f_e the
+    share of the T * k choices that went to expert e (from the integer
+    counts, so only the mean of the probs carries a gradient)."""
+    T = probs.shape[0]
+    f = expert_counts(idx, n_experts).float() / max(T * idx.shape[-1], 1)
+    return n_experts * torch.sum(f * probs.mean(dim=0))
+
+
 def route(x_flat: torch.Tensor, w_router: torch.Tensor, top_k: int, *,
           softmax_before_topk: bool = True):
     """Top-k routing of x_flat [T, d].  Returns (weights [T, k] float32,
@@ -84,6 +97,54 @@ def route(x_flat: torch.Tensor, w_router: torch.Tensor, top_k: int, *,
     return w, idx, probs, expert_counts(idx, w_router.shape[1])
 
 
+def _slot_sum(rows: torch.Tensor, inv: torch.Tensor, top_k: int
+              ) -> torch.Tensor:
+    """rows [T * k, d] in sorted order back to token order, each token's k
+    slots (slot j at sorted row inv[t * k + j]) summed one after another:
+    a fixed order whatever the batch, no atomics."""
+    ys = rows[inv].reshape(inv.numel() // top_k, top_k, rows.shape[-1])
+    out = ys[:, 0]
+    for j in range(1, top_k):
+        out = out + ys[:, j]
+    return out
+
+
+class _GatherRows(torch.autograd.Function):
+    """xg = x[tok]: each token's row once per slot, in sorted order.  Its
+    backward sums a token's k slot gradients in slot order
+    (``_slot_sum``), where torch's index backward would add them with
+    atomics on the card, in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, x, tok, inv, top_k):
+        ctx.save_for_backward(inv)
+        ctx.top_k = top_k
+        return x[tok]
+
+    @staticmethod
+    def backward(ctx, dxg):
+        inv, = ctx.saved_tensors
+        return _slot_sum(dxg, inv, ctx.top_k), None, None, None
+
+
+class _GroupedFFN(torch.autograd.Function):
+    """``moe_ffn`` under autograd: the forward is the kernel (or its plain
+    version on the CPU) unchanged, the backward ``moe_ffn_backward``'s
+    kernels (its plain version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, xg, offs, w_gate, w_up, w_down, gate):
+        ctx.save_for_backward(xg, offs, w_gate, w_up, w_down, gate)
+        return moe_ffn(xg, offs, w_gate, w_up, w_down, gate)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xg, offs, w_gate, w_up, w_down, gate = ctx.saved_tensors
+        dxg, dwg, dwu, dwd, dgate = moe_ffn_backward(
+            dy, xg, offs, w_gate, w_up, w_down, gate)
+        return dxg, None, dwg, dwu, dwd, dgate
+
+
 def moe_sorted_local(x_flat: torch.Tensor, p: dict, top_k: int, *,
                      softmax_before_topk: bool = True):
     """Sort-based MoE over all experts (no dropping) of x_flat [T, d]:
@@ -94,24 +155,27 @@ def moe_sorted_local(x_flat: torch.Tensor, p: dict, top_k: int, *,
 
     JAX combines with ``.at[tok].add`` in sorted order; the port adds a
     token's k slots one after another, a fixed order whatever the batch
-    (no atomics), so the sums agree within float tolerance."""
-    T, d = x_flat.shape
+    (no atomics), so the sums agree within float tolerance.  With grad
+    enabled and an input that requires it, the gather and ``moe_ffn`` run
+    under autograd (``_GatherRows``, ``_GroupedFFN``); otherwise, as in
+    serving, they are the plain gather and the kernel's two launches."""
     E = p["w_router"].shape[1]
     w, idx, probs, counts = route(x_flat, p["w_router"], top_k,
                                   softmax_before_topk=softmax_before_topk)
     flat_e = idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
-    xg = x_flat[order // top_k]
-    offs = torch.zeros(E + 1, dtype=torch.int32, device=x_flat.device)
-    offs[1:] = torch.cumsum(counts, dim=0)
-    y = moe_ffn(xg, offs, p["w_gate"], p["w_up"], p["w_down"],
-                w.reshape(-1)[order].contiguous())
-    # back to token-major order: slot j of token t sits at sorted row
-    # inv[t * k + j]
+    tok = order // top_k
+    # slot j of token t sits at sorted row inv[t * k + j]
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=order.device)
-    ys = y[inv].reshape(T, top_k, d)
-    out = ys[:, 0]
-    for j in range(1, top_k):
-        out = out + ys[:, j]
-    return out.to(x_flat.dtype), probs, idx, counts
+    offs = torch.zeros(E + 1, dtype=torch.int32, device=x_flat.device)
+    offs[1:] = torch.cumsum(counts, dim=0)
+    gate = w.reshape(-1)[order].contiguous()
+    ws = (p["w_gate"], p["w_up"], p["w_down"])
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x_flat, gate, *ws)):
+        xg = _GatherRows.apply(x_flat, tok, inv, top_k)
+        y = _GroupedFFN.apply(xg, offs, *ws, gate)
+    else:
+        y = moe_ffn(x_flat[tok], offs, *ws, gate)
+    return _slot_sum(y, inv, top_k).to(x_flat.dtype), probs, idx, counts

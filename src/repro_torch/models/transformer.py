@@ -183,20 +183,17 @@ def logits_out(params: dict, cfg: ArchConfig, h: torch.Tensor
     return logits
 
 
-def ffn_block(lp: dict, cfg: ArchConfig, h: torch.Tensor,
-              valid: torch.Tensor | None = None):
-    """Pre-norm SwiGLU, GELU or MoE block with the optional gemma post-norm:
-    (h + ffn(rms_norm(h)), expert counts).  The counts are the MoE
-    router's int32 [E] histogram (None for a dense FFN), of the rows
-    where the optional bool mask ``valid`` (h's leading shape) is true:
-    padding rows are routed and computed like any other, as in the JAX
-    ``_ffn``, but do not count."""
+def _ffn(lp: dict, cfg: ArchConfig, h: torch.Tensor,
+         valid: torch.Tensor | None = None):
+    """``ffn_block``'s body: (h + ffn(rms_norm(h)), counts, router probs
+    [T, E], top-k idx [T, k]); the last three are None for a dense
+    FFN."""
     x = layers.rms_norm(h, lp["ln2"], eps=cfg.norm_eps,
                         gemma_style=cfg.gemma_norm)
-    counts = None
+    counts = probs = idx = None
     if cfg.is_moe:
         d = x.shape[-1]
-        y, _, idx, counts = moe.moe_sorted_local(
+        y, probs, idx, counts = moe.moe_sorted_local(
             x.reshape(-1, d), lp["moe"], cfg.top_k,
             softmax_before_topk=cfg.softmax_before_topk)
         y = y.reshape(x.shape)
@@ -211,7 +208,21 @@ def ffn_block(lp: dict, cfg: ArchConfig, h: torch.Tensor,
     if cfg.gemma_norm:
         y = layers.rms_norm(y, lp["ln2_post"], eps=cfg.norm_eps,
                             gemma_style=True)
-    return h + y, counts
+    return h + y, counts, probs, idx
+
+
+def ffn_block(lp: dict, cfg: ArchConfig, h: torch.Tensor,
+              valid: torch.Tensor | None = None):
+    """Pre-norm SwiGLU, GELU or MoE block with the optional gemma post-norm:
+    (h + ffn(rms_norm(h)), expert counts).  The counts are the MoE
+    router's int32 [E] histogram (None for a dense FFN), of the rows
+    where the optional bool mask ``valid`` (h's leading shape) is true:
+    padding rows are routed and computed like any other, as in the JAX
+    ``_ffn``, but do not count.  The load-balancing loss, which JAX's
+    ``_ffn_block`` also returns, is left to training (``forward_hidden``),
+    so serving does not compute what it would discard."""
+    h, counts, _, _ = _ffn(lp, cfg, h, valid)
+    return h, counts
 
 
 # =============================================================================
@@ -466,26 +477,22 @@ def decode_step(params: dict, cfg: ArchConfig, state: dict,
 # training forward: the loss and its gradient under autograd
 # =============================================================================
 
-def _check_trainable(cfg: ArchConfig) -> None:
-    _check_supported(cfg)
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training is not ported yet (ROADMAP A2: the "
-            f"moe_ffn kernel has no backward)")
-
-
 def _train_attn_layer(lp: dict, cfg: ArchConfig, h: torch.Tensor,
                       window: int, cos: torch.Tensor, sin: torch.Tensor,
-                      bias: torch.Tensor) -> torch.Tensor:
+                      bias: torch.Tensor):
     """One ``attn`` layer: pre-norm attention on the plain ``sdpa`` (K8
-    has no backward) with the optional gemma post-norm, then the FFN."""
+    has no backward) with the optional gemma post-norm, then the FFN.
+    Returns (h, expert counts, load-balancing loss); the last two are
+    None for a dense FFN."""
     x = layers.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
                         gemma_style=cfg.gemma_norm)
     q, k, v = attention.project_qkv(lp["attn"], x, cos, sin)
     out = attention.sdpa(q, k, v, bias, soft_cap=cfg.soft_cap)
     out = attention._out_proj(out, lp["attn"]["wo"])
-    h, _ = ffn_block(lp, cfg, h + _attn_post(lp, cfg, out))
-    return h
+    h, counts, probs, idx = _ffn(lp, cfg, h + _attn_post(lp, cfg, out))
+    aux = (moe.aux_load_balance_loss(probs, idx, cfg.n_experts)
+           if cfg.is_moe else None)
+    return h, counts, aux
 
 
 def _train_mamba_layer(lp: dict, sp: dict | None, cfg: ArchConfig,
@@ -509,14 +516,19 @@ def _train_mamba_layer(lp: dict, sp: dict | None, cfg: ArchConfig,
 def forward_hidden(params: dict, cfg: ArchConfig, batch: dict):
     """Final-normed hidden states [B, S, d] of a training batch
     (``{"tokens": [B, S]}`` or, for an embeds arch, ``{"embeds": [B, S,
-    d]}``) and the metrics ``{"moe_aux": 0.0}``: the JAX
-    ``forward_hidden`` as a loop over the layer list with its per-layer
-    window, global-RoPE and shared-site decisions.  Attention runs the
-    plain ``sdpa`` over ``_mask_bias`` and the Mamba-2 scan the plain
-    ``ssd_chunked``, so autograd differentiates both; with ``cfg.remat``
-    each layer is a ``torch.utils.checkpoint`` (its activations are
-    recomputed in the backward).  Launches no kernel."""
-    _check_trainable(cfg)
+    d]}``) and the metrics: ``moe_aux``, the load-balancing loss summed
+    over the layers (float32 0 without MoE), and for an MoE arch
+    ``expert_counts``, the int32 [E] histogram summed over the layers.
+    The JAX ``forward_hidden`` as a loop over the layer list with its
+    per-layer window, global-RoPE and shared-site decisions.  Attention
+    runs the plain ``sdpa`` over ``_mask_bias`` and the Mamba-2 scan the
+    plain ``ssd_chunked``, so autograd differentiates both; with
+    ``cfg.remat`` each layer is a ``torch.utils.checkpoint`` (its
+    activations are recomputed in the backward, and its router routes
+    the same rows again).  The only kernels it launches are an MoE
+    layer's: ``moe_ffn`` forward (2 launches a layer, 2 more in each
+    recompute) and ``moe_ffn_bwd`` in the backward (4 a layer)."""
+    _check_supported(cfg)
     h = embed_in(params, cfg, batch.get("tokens"),
                  embeds=batch.get("embeds"))
     B, S, _ = h.shape
@@ -530,14 +542,20 @@ def forward_hidden(params: dict, cfg: ArchConfig, batch: dict):
                                                      use_reentrant=False)
         return fn(*args)
 
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    counts = (torch.zeros((cfg.n_experts,), dtype=torch.int32,
+                          device=h.device) if cfg.is_moe else None)
     if cfg.layout == "attn":
         wins = cfg.attn_window_pattern
         biases = {w: attention._mask_bias(positions, positions, w)
                   for w in set(wins)}
         for l, lp in enumerate(params["layers"]):
             cos, sin = _layer_rope(cfg, wins[l], ropes)
-            h = run(_train_attn_layer, lp, cfg, h, wins[l], cos, sin,
-                    biases[wins[l]])
+            h, c, a = run(_train_attn_layer, lp, cfg, h, wins[l], cos, sin,
+                          biases[wins[l]])
+            if cfg.is_moe:
+                counts = counts + c
+                aux = aux + a
     else:
         spec = mamba_spec_of(cfg)
         cos, sin = ropes[0]
@@ -549,15 +567,16 @@ def forward_hidden(params: dict, cfg: ArchConfig, batch: dict):
                     bias)
     h = layers.rms_norm(h, params["final_norm"], eps=cfg.norm_eps,
                         gemma_style=cfg.gemma_norm)
-    return h, {"moe_aux": torch.zeros((), dtype=torch.float32,
-                                      device=h.device)}
+    metrics = {"moe_aux": aux}
+    if counts is not None:
+        metrics["expert_counts"] = counts
+    return h, metrics
 
 
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict):
     """(total loss, metrics) of a batch with ``labels`` [B, S]: the mean
     token cross-entropy of ``logits_out`` plus ``aux_loss_weight`` x the
-    MoE auxiliary loss (0 for the archs trained here); metrics add
-    ``ce_loss``."""
+    MoE load-balancing loss (0 without MoE); metrics add ``ce_loss``."""
     h, metrics = forward_hidden(params, cfg, batch)
     logits = logits_out(params, cfg, h)
     loss = layers.softmax_cross_entropy(logits, batch["labels"])

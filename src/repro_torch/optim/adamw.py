@@ -9,9 +9,11 @@ corrections of the incremented step, and weight decay inside the step,
 
 The update works in place: the parameters and moments are overwritten
 (one copy of each fits beside the gradients where two would not) and
-returned.  The JAX module's bf16 moment compression (``compress_moments``,
-which nothing there sets) and its ZeRO specs (``zero_spec(s)``, a
-multi-device matter) are not ported.
+returned.  ``init(..., compress_moments=True)`` keeps the moments in
+bf16, as the JAX module's does: each update reads them into float32,
+updates them there and stores them back rounded to bf16.  The JAX
+module's ZeRO specs (``zero_spec(s)``, a multi-device matter) are not
+ported.
 """
 from __future__ import annotations
 
@@ -24,15 +26,16 @@ from repro_torch import tree
 
 class AdamWState(NamedTuple):
     step: torch.Tensor      # int32 scalar on the parameters' device
-    m: Any                  # float32 tree shaped like the parameters
+    m: Any                  # float32 (or bf16) tree shaped like the params
     v: Any
 
 
-def init(params) -> AdamWState:
-    """Step 0 and zero moments beside every parameter."""
+def init(params, *, compress_moments: bool = False) -> AdamWState:
+    """Step 0 and zero moments beside every parameter: float32, or bf16
+    with ``compress_moments``."""
     first = tree.leaves(params)[0]
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    dt = torch.bfloat16 if compress_moments else torch.float32
+    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
     return AdamWState(step=torch.zeros((), dtype=torch.int32,
                                        device=first.device),
                       m=tree.map_leaves(zeros, params),
@@ -55,7 +58,8 @@ def update(grads, state: AdamWState, params, *, lr, b1: float = 0.9,
            clip_norm: float | None = 1.0):
     """One AdamW step; returns (params, new state, {"grad_norm"}).
     ``params``, the moments and ``grads`` (which are scaled by the clip)
-    are updated in place; ``lr`` is a float32 scalar tensor or a float."""
+    are updated in place; ``lr`` is a float32 scalar tensor or a float.
+    bf16 moments are updated in float32 and stored back in bf16."""
     g_leaves = tree.leaves(grads)
     gnorm = global_norm(grads)
     if clip_norm is not None:
@@ -72,9 +76,13 @@ def update(grads, state: AdamWState, params, *, lr, b1: float = 0.9,
     for p, g, m, v in zip(tree.leaves(params), g_leaves,
                           tree.leaves(state.m), tree.leaves(state.v)):
         g32 = g.float()
-        m.mul_(b1).add_(g32 * (1 - b1))
-        v.mul_(b2).add_(torch.square(g32) * (1 - b2))
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        m32, v32 = m.float(), v.float()     # the moments themselves if f32
+        m32.mul_(b1).add_(g32 * (1 - b1))
+        v32.mul_(b2).add_(torch.square(g32) * (1 - b2))
+        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
         delta.add_(weight_decay * p.float())
         p.copy_(p.float() - lr * delta)
+        if m32 is not m:
+            m.copy_(m32)
+            v.copy_(v32)
     return params, AdamWState(step, state.m, state.v), {"grad_norm": gnorm}

@@ -47,15 +47,17 @@ def test_port_imports_neither_jax_nor_repro():
                                     "repro_torch.kernels.moe_ffn"])
 def test_moe_modules_import_without_jax(module):
     """The MoE slice's modules, imported alone with ``jax`` blocked: no
-    ``repro``/``jax`` module loads, and ``moe_ffn`` is a counted kernel."""
+    ``repro``/``jax`` module loads, and ``moe_ffn`` and its backward
+    ``moe_ffn_bwd`` are counted kernels."""
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None
         sys.path[:0] = [{str(SRC)!r}]
         importlib.import_module({module!r})
         from repro_torch import kernels
-        assert "moe_ffn" in kernels.KERNELS
+        assert all(k in kernels.KERNELS for k in ("moe_ffn", "moe_ffn_bwd"))
         assert kernels.launch_counts()["moe_ffn"] == 0
+        assert kernels.launch_counts()["moe_ffn_bwd"] == 0
         bad = sorted(m for m in sys.modules
                      if m == "repro" or m.startswith(("repro.", "jax.",
                                                       "jaxlib")))
@@ -68,7 +70,8 @@ def test_moe_modules_import_without_jax(module):
 
 @pytest.mark.parametrize("module", [
     "repro_torch.launch.train", "repro_torch.optim", "repro_torch.data",
-    "repro_torch.checkpoint", "repro_torch.tree"])
+    "repro_torch.checkpoint", "repro_torch.tree",
+    "repro_torch.launch.train_moe_tiered"])
 def test_training_modules_import_without_jax(module):
     """The training slice's modules, imported alone with ``jax``
     blocked: no ``repro``/``jax`` module loads and no kernel launches."""

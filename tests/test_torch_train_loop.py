@@ -69,12 +69,6 @@ def test_crash_recovery():
         assert int(opt.step) == 20
 
 
-def test_moe_training_is_refused():
-    cfg = smoke(get_arch("olmoe_1b_7b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        train_loop(cfg, steps=1, device="cpu")
-
-
 def test_data_pipeline_deterministic_and_sharded():
     a = SyntheticLM(100, 16, 8, seed=3)
     b = SyntheticLM(100, 16, 8, seed=3)

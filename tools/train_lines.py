@@ -8,14 +8,16 @@ one):
 
 It imports the ``chip_smoke.py`` beside it in the working directory and,
 for each of its ``TRAIN_RUNS`` (qwen3_4b cut to 24 layers, mamba2_1_3b
-whole, zamba2_7b cut to 14 layers; float32, seq 512, batch 8 in 2
-microbatches), draws the seeded weights, takes two steps to warm up and
-then one step under ``torch.profiler`` (device activity only).  It
-prints one JSON line a run: LABEL, the card, the step's wall ms, the
-device's busy ms and share (the union of the kernel and copy intervals
-it traced), the device operations of the step, the ms of the GEMM
-kernels (names holding ``gemm``), and the eight kernels that took the
-most device time.
+whole, zamba2_7b cut to 14 layers, olmoe_1b_7b cut to 8; float32, seq
+512, batch 8 in 2 microbatches), draws the seeded weights, takes two
+steps to warm up and then one step under ``torch.profiler`` (device
+activity only).  It prints one JSON line a run: LABEL, the card, the
+step's wall ms, the device's busy ms and share (the union of the kernel
+and copy intervals it traced), the device operations of the step, the ms
+of the GEMM kernels (names holding ``gemm``), of the MoE FFN's forward
+kernels (``moe_ffn``'s, names holding ``moe_tf32_kernel``) and of its
+backward's (``moe_ffn_bwd``'s, ``moe_bwd_kernel``), and the eight
+kernels that took the most device time.
 """
 from __future__ import annotations
 
@@ -66,6 +68,9 @@ def profile_step(cfg, steps_before: int = 2) -> dict:
     for e in events:
         dur = e.time_range.end - e.time_range.start
         by_name[e.name] = by_name.get(e.name, 0.0) + dur
+
+    def ms_of(key):
+        return sum(t for n, t in by_name.items() if key in n) / 1e3
     gemm_us = sum(t for n, t in by_name.items() if "gemm" in n.lower())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     del params, opt, step_fn
@@ -74,6 +79,8 @@ def profile_step(cfg, steps_before: int = 2) -> dict:
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e3 / (wall * 1e3),
             "device_ops": len(events), "gemm_ms": gemm_us / 1e3,
+            "moe_ffn_ms": ms_of("moe_tf32_kernel"),
+            "moe_ffn_bwd_ms": ms_of("moe_bwd_kernel"),
             "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
 
 
