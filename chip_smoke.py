@@ -5543,7 +5543,8 @@ def _train_launches(cfg, passes: int) -> dict:
     """The kernel launches of ``passes`` microbatch forward + backward
     passes of ``cfg`` through ``loss_fn``: none without MoE; with MoE,
     per layer and pass, ``moe_ffn`` 2 in the forward and, under remat, 2
-    more in the recompute, and ``moe_ffn_bwd`` its 4 entries."""
+    more in the recompute (the training entry, g and u kept), and
+    ``moe_ffn_bwd`` its 3 entries."""
     from repro_torch.kernels.moe_ffn import BWD_LAUNCHES
     if not cfg.is_moe:
         return {}
@@ -5561,8 +5562,7 @@ def _profiled_train_step(step_fn, params, opt, batch) -> dict:
     """One training step under ``torch.profiler`` (device activity):
     its wall ms and the device ms of its ``moe_ffn`` kernels
     (``moe_tf32_kernel``) and of each ``moe_ffn_bwd`` entry
-    (``moe_bwd_kernel<0..3>``: g/u recompute, down dgrad, x dgrad,
-    weight gradients)."""
+    (``moe_bwd_kernel<0..2>``: down dgrad, x dgrad, weight gradients)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -5571,7 +5571,7 @@ def _profiled_train_step(step_fn, params, opt, batch) -> dict:
         step_fn(params, opt, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    fwd_us, bwd_us = 0.0, [0.0] * 4
+    fwd_us, bwd_us = 0.0, [0.0] * 3
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -5585,8 +5585,7 @@ def _profiled_train_step(step_fn, params, opt, batch) -> dict:
             "moe_ffn_bwd_device_ms": sum(bwd_us) / 1e3,
             "moe_ffn_bwd_device_ms_by_entry": {
                 k: v / 1e3 for k, v in zip(
-                    ("gate_up", "down_dgrad", "x_dgrad", "weight_grads"),
-                    bwd_us)}}
+                    ("down_dgrad", "x_dgrad", "weight_grads"), bwd_us)}}
 
 
 def run_train(phase: str, name: str, layers: int | None, steps: int
@@ -5927,18 +5926,25 @@ MOE_BWD_OUTPUTS = ("dxg", "dw_gate", "dw_up", "dw_down", "dgate")
 
 
 def _moe_bwd_row(name, shape, launches, launches_path, seed) -> dict:
-    """One ``moe_ffn_bwd`` row: the four launches of ``moe_ffn_backward``
-    against ``moe_ffn_backward_plain`` on the same inputs (every output
-    within ``MOE_BWD_TOL`` of its largest plain magnitude; the empty
-    experts' weight gradients exactly zero), CUDA-event ms of the eager
-    call, ``device_ms`` over a CUDA graph of calls, the plain version's
-    ms, the bounds (the rows' x and dy, the touched experts' weights,
-    the gate weights and offsets read once, dx, dgate and every expert's
-    three weight gradients written once; 16 R d ff operations: g and u
-    again, t, dx and the three weight gradients), and the HMMA count of
-    the entries' SASS.  No PyTorch call computes it."""
+    """One ``moe_ffn_bwd`` row: the three launches of ``moe_ffn_backward``
+    from the training forward's g, u and h (``moe_ffn_train``, made once
+    before the timing) against ``moe_ffn_backward_plain`` on the same
+    inputs (every output within ``MOE_BWD_TOL`` of its largest plain
+    magnitude; the empty experts' weight gradients exactly zero),
+    CUDA-event ms of the eager call, ``device_ms`` over a CUDA graph of
+    calls and each entry's device ms (``torch.profiler``), the plain
+    version's ms, the bounds (the rows' x and dy, the forward's g, u and
+    h, the touched experts' weights, the gate weights and offsets read
+    once, dx, dgate and every expert's three weight gradients written
+    once; 12 R d ff operations: t, dx and the three weight gradients,
+    with the parent design's 16 R d ff, which recomputed g and u, beside
+    them), and the HGMMA count of the entries' SASS.  No PyTorch call
+    computes it.  The same rows regrouped over the last half of the
+    experts check that the empty half's dW is exactly zero
+    (``half_empty_check``)."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import moe_ffn as KM
     d, ff, n_exp, tokens, top_k = shape
     xg, offs, w, gate, sizes = _moe_inputs(d, ff, n_exp, tokens, top_k,
@@ -5947,13 +5953,15 @@ def _moe_bwd_row(name, shape, launches, launches_path, seed) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed + 1)
     dy = torch.randn((R, d), generator=gen, device="cuda")
+    guh = KM.moe_ffn_train(xg, offs, *w, gate)[1:]
 
     def call():
-        return KM.moe_ffn_backward(dy, xg, offs, *w, gate)
+        return KM.moe_ffn_backward(dy, xg, offs, *w, gate, *guh)
 
     def plain():
-        return KM.moe_ffn_backward_plain(dy, xg, offs, *w, gate)
+        return KM.moe_ffn_backward_plain(dy, xg, offs, *w, gate, *guh)
     got, want = call(), plain()
+    again = call()
     torch.cuda.synchronize()
     errs, bad = {}, []
     for out, g, p in zip(MOE_BWD_OUTPUTS, got, want):
@@ -5962,20 +5970,59 @@ def _moe_bwd_row(name, shape, launches, launches_path, seed) -> dict:
         errs[out] = {"max_abs_err": err, "max_abs_plain": scale}
         if not (torch.isfinite(g).all() and err <= MOE_BWD_TOL * scale):
             bad.append(out)
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
     empty = np.flatnonzero(sizes == 0)
     empty_zero = all(int(torch.count_nonzero(g[e])) == 0
                      for e in empty for g in got[1:4])
+    del again
+    # the same rows regrouped over the last half of the experts, the first
+    # half empty: their dW exactly zero, every output within tolerance
+    half = np.zeros(n_exp, np.int64)
+    half[n_exp // 2:] = np.diff(np.linspace(0, R, n_exp - n_exp // 2 + 1)
+                                .astype(np.int64))
+    offs_h = torch.tensor(np.concatenate([[0], np.cumsum(half)]),
+                          dtype=torch.int32, device="cuda")
+    guh_h = KM.moe_ffn_train(xg, offs_h, *w, gate)[1:]
+    got_h = KM.moe_ffn_backward(dy, xg, offs_h, *w, gate, *guh_h)
+    want_h = KM.moe_ffn_backward_plain(dy, xg, offs_h, *w, gate, *guh_h)
+    torch.cuda.synchronize()
+    half_check = {
+        "empty_experts": n_exp // 2,
+        "dw_exactly_zero": all(int(torch.count_nonzero(g[e])) == 0
+                               for e in range(n_exp // 2)
+                               for g in got_h[1:4]),
+        "max_rel_err": max(float((g - p).abs().max() / p.abs().max())
+                           for g, p in zip(got_h, want_h))}
+    del got_h, want_h, guh_h
+    if not (half_check["dw_exactly_zero"]
+            and half_check["max_rel_err"] <= MOE_BWD_TOL):
+        bad.append("half_empty")
     touched = int((sizes > 0).sum())
     wbytes = 3 * d * ff * 4
-    nbytes = (2 * R * d * 4 + touched * wbytes + R * 4 + (n_exp + 1) * 4
-              + R * d * 4 + R * 4 + n_exp * wbytes)
-    flops = 16.0 * R * d * ff
+    nbytes = (2 * R * d * 4 + 3 * R * ff * 4 + touched * wbytes + R * 4
+              + (n_exp + 1) * 4 + R * d * 4 + R * 4 + n_exp * wbytes)
+    flops = 12.0 * R * d * ff
     # outputs and scratch a call allocates: a graph of calls holds them all
-    per_call = n_exp * wbytes + R * d * 4 + R * 4 + 3 * R * ff * 4
+    rp = -(-(R + 3 * n_exp) // 4) * 4
+    per_call = (n_exp * wbytes + R * d * 4 + R * 4 + 3 * ff * rp * 4
+                + R * -(-ff // KM.BWD_TILE) * 4)
     one = _time_ms(call, iters=1, warmup=1)
     n = max(1, min(50, int(200 / max(one, 1e-3))))
     g_calls = max(1, min(n, int(8e9 // per_call)))
     reps = max(1, min(20, int(1000 / max(one * g_calls, 1e-3))))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    # the mean of each entry's traced instances (a trace can drop some)
+    us, seen = [0.0] * KM.BWD_LAUNCHES, [0] * KM.BWD_LAUNCHES
+    for e in prof.events():
+        m = re.search(r"moe_bwd_kernel<(\d)>", e.name)
+        if m:
+            us[int(m.group(1))] += e.time_range.end - e.time_range.start
+            seen[int(m.group(1))] += 1
+    by_entry = [u / max(n, 1) / 1e3 for u, n in zip(us, seen)]
+    parent = _f32_bounds(nbytes - 3 * R * ff * 4, 16.0 * R * d * ff)
     row = {"name": name, "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/moe_ffn_bwd.cu",
            "replaces": "src/repro/models/moe.py:83",
@@ -5988,8 +6035,13 @@ def _moe_bwd_row(name, shape, launches, launches_path, seed) -> dict:
            "tolerance": f"{MOE_BWD_TOL} x max|plain| per output",
            "empty_experts": len(empty),
            "empty_experts_dw_exactly_zero": empty_zero,
+           "half_empty_check": half_check,
+           "bits_repeat": repeat,
            "ms": _time_ms(call, iters=n, warmup=1),
            "device_ms": _graph_ms(call, calls=g_calls, replays=reps),
+           "device_ms_by_entry": dict(zip(
+               ("down_dgrad", "x_dgrad", "weight_grads"), by_entry)),
+           "traced_instances_by_entry": seen,
            "plain_ms": _time_ms(plain, iters=3, warmup=1),
            "library_ms": None,
            "library_call": "none: torch._grouped_mm takes bf16 only",
@@ -5998,33 +6050,125 @@ def _moe_bwd_row(name, shape, launches, launches_path, seed) -> dict:
                      "dtype": "float32"},
            "timing_calls": {"eager": n, "graph": g_calls, "replays": reps},
            "note": "ms: CUDA events around eager calls; device_ms: per "
-                   "call of a CUDA graph of timing_calls calls (four "
-                   "launches each)",
+                   "call of a CUDA graph of timing_calls calls (three "
+                   "launches each); the forward's g, u, h are inputs",
            **_f32_bounds(nbytes, flops),
-           "sass_hmma": _sass_count("moe_bwd_kernel", "HMMA")}
-    del xg, w, dy, got, want
+           "flops": flops,
+           "parent_design_flops": 16.0 * R * d * ff,
+           "parent_design_bound_ms": parent["bound_ms"],
+           "parent_design_note": "four launches on mma.sync, g and u "
+                                 "recomputed: 16 R d ff operations",
+           "sass_hgmma": _sass_count("moe_bwd_kernel", "HGMMA")}
+    del xg, w, dy, got, want, guh
     torch.cuda.empty_cache()
-    if bad or not empty_zero or not row["sass_hmma"]:
+    if bad or not empty_zero or not repeat or not row["sass_hgmma"]:
         print(json.dumps(row), file=sys.stderr, flush=True)
         raise RuntimeError(f"{name}: outputs {bad} disagree with plain, an "
-                           f"empty expert's dW is not zero, or no HMMA")
+                           f"empty expert's dW is not zero, the bits do not "
+                           f"repeat, or no HGMMA")
+    return row
+
+
+def _moe_train_fwd_row(launches, seed) -> dict:
+    """The float32 ``moe_ffn`` at olmoe's training shape (2048 tokens x
+    top 8 = 16384 rows over 64 experts, d 2048, ff 1024), the serving
+    entry and the training entry (``moe_ffn_train``, g and u stored
+    beside h) timed in one place: each one's ``device_ms`` over a CUDA
+    graph, the training entry's y equal to the serving entry's bit for
+    bit, its g, u and y within ``MOE_F32_TOL`` of the plain version's
+    largest magnitude, the bound (the touched experts' weights, the rows,
+    y once and, for the training entry, g, u and h; 6 R d ff operations)
+    and ``launches`` (``train_olmoe``'s, all through the training
+    entry)."""
+    import torch
+    from repro_torch.kernels import moe_ffn as KM
+    d, ff, n_exp, tokens, top_k = 2048, 1024, 64, 2048, 8
+    xg, offs, w, gate, sizes = _moe_inputs(d, ff, n_exp, tokens, top_k,
+                                           torch.float32, seed)
+    R = tokens * top_k
+
+    def serve():
+        return KM.moe_ffn(xg, offs, *w, gate)
+
+    def train():
+        return KM.moe_ffn_train(xg, offs, *w, gate)
+    y, g, u, h = train()
+    same = bool(torch.equal(y, serve()))
+    yp, gp, up, _ = KM.moe_ffn_train_plain(xg, offs, *w, gate)
+    abs_errs = {k: float((a - b).abs().max())
+                for k, a, b in (("y", y, yp), ("g", g, gp), ("u", u, up))}
+    errs = {k: abs_errs[k] / float(b.abs().max())
+            for k, b in (("y", yp), ("g", gp), ("u", up))}
+    finite = all(bool(torch.isfinite(t).all()) for t in (y, g, u, h))
+    del yp, gp, up, y, g, u, h
+    touched = int((sizes > 0).sum())
+    nbytes = (touched * 3 * d * ff * 4 + R * d * 4 + R * d * 4 + R * 4
+              + (n_exp + 1) * 4)
+    flops = 6.0 * R * d * ff
+    calls = 10
+    row = {"name": "moe_ffn_f32 train", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
+           "replaces": "src/repro/models/moe.py:86",
+           "replaces_note": "XLA: three lax.ragged_dot in _grouped_ffn (no "
+                            "Pallas kernel)",
+           "launches": launches, "launches_path": "train_olmoe",
+           "launches_per_call": 2,
+           "max_abs_err": max(abs_errs.values()),
+           "max_abs_err_by_output": abs_errs,
+           "rel_errors": errs,
+           "tolerance": f"{MOE_F32_TOL} x max|plain|",
+           "y_bits_equal_serving": same,
+           "ms": _time_ms(train, iters=calls, warmup=1),
+           "device_ms": _graph_ms(train, calls=calls, replays=3),
+           "serving_ms": _time_ms(serve, iters=calls, warmup=1),
+           "serving_device_ms": _graph_ms(serve, calls=calls, replays=3),
+           "plain_ms": _time_ms(
+               lambda: KM.moe_ffn_train_plain(xg, offs, *w, gate), iters=2,
+               warmup=1),
+           "library_ms": None,
+           "library_call": "none: torch._grouped_mm takes bf16 only",
+           "shape": {"d": d, "ff": ff, "experts": n_exp, "tokens": tokens,
+                     "top_k": top_k, "rows": R, "touched_experts": touched,
+                     "dtype": "float32"},
+           "note": "device_ms: the training entry (g, u and h stored), "
+                   "serving_device_ms: moe_ffn (h alone), each per call of "
+                   "a CUDA graph of 10 calls; the bound is the serving "
+                   "entry's bytes, training_bound_ms adds g and u",
+           **_f32_bounds(nbytes, flops),
+           "training_bound_ms": _f32_bounds(nbytes + 2 * R * ff * 4,
+                                            flops)["bound_ms"]}
+    del xg, w
+    torch.cuda.empty_cache()
+    if not (same and finite and max(errs.values()) <= MOE_F32_TOL):
+        print(json.dumps(row), file=sys.stderr, flush=True)
+        raise RuntimeError("moe_ffn_f32 train: y differs from the serving "
+                           "entry's or g, u, y miss plain")
     return row
 
 
 def bench_moe_bwd_kernels(train_lines: list[dict]) -> list[dict]:
     """``moe_ffn_bwd``'s rows: olmoe's training shape (2048 tokens x top
     8 = 16384 rows over 64 experts, d 2048, ff 1024; ``train_olmoe``'s
-    launches) and a sparse one (8 tokens x top 8 = 64 rows over 64
-    experts, some empty; ``train_moe_tiered``'s launches)."""
+    launches) and ``train_moe_tiered``'s microbatch (smoke olmoe: 256
+    tokens x top 2 = 512 rows over 8 experts, d 128, ff 64; its
+    launches), and the float32 ``moe_ffn`` training row at olmoe's
+    training shape (``train_olmoe``'s forward launches)."""
+    from repro_torch.launch import train_moe_tiered as tiered
     by = {line["phase"]: line for line in train_lines}
     olmoe = (2048, 1024, 64)
+    cfg = tiered.config()
+    tiered_shape = (cfg.d_model, cfg.expert_d_ff, cfg.n_experts,
+                    tiered.GLOBAL_BATCH * tiered.SEQ_LEN // tiered.N_MICRO,
+                    cfg.top_k)
     return [
         _moe_bwd_row("moe_ffn_bwd", (*olmoe, 2048, 8),
                      by["train_olmoe"]["kernel_launches"]["moe_ffn_bwd"],
                      "train_olmoe", SEED + 40),
-        _moe_bwd_row("moe_ffn_bwd sparse", (*olmoe, 8, 8),
+        _moe_bwd_row("moe_ffn_bwd sparse", tiered_shape,
                      by["train_moe_tiered"]["kernel_launches"]["moe_ffn_bwd"],
-                     "train_moe_tiered", SEED + 41)]
+                     "train_moe_tiered", SEED + 41),
+        _moe_train_fwd_row(by["train_olmoe"]["kernel_launches"]["moe_ffn"],
+                           SEED + 43)]
 
 
 def run_train_moe_tiered() -> dict:

@@ -372,11 +372,12 @@ using Narrow = Cfg<1, 4, 1, 4, 32, 3, 3>;
 // GLU: weight columns 0-63 of a unit are gate's, 64-127 up's, over the
 // same 64 columns of h (a warp's first NT / 2 n8 tiles gate's, the rest
 // up's); otherwise 128 columns of y.
-template <class C, bool GLU>
+template <class C, bool GLU, bool KEEP = false>
 __global__ void __launch_bounds__(C::kThreads, C::kCtas)
 moe_tf32_kernel(const float* __restrict__ a, const int32_t* __restrict__ offs,
                 const float* __restrict__ b0, const float* __restrict__ b1,
                 const float* __restrict__ gate, float* __restrict__ out,
+                float* __restrict__ g_out, float* __restrict__ u_out,
                 int E, int K, int N) {
   constexpr int kBM = C::kBM, kStages = C::kStages, MT = C::MT, NT = C::NT;
   constexpr int kThreads = C::kThreads, kBN = C::kBN, kBS = C::kBS;
@@ -560,6 +561,13 @@ moe_tf32_kernel(const float* __restrict__ a, const int32_t* __restrict__ offs,
                   silu_mul(acc[mi][j][2 * h2], acc[mi][j + NT / 2][2 * h2]),
                   silu_mul(acc[mi][j][2 * h2 + 1],
                            acc[mi][j + NT / 2][2 * h2 + 1]));
+              if constexpr (KEEP) {             // training: g and u too
+                *reinterpret_cast<float2*>(g_out + row * N + col) =
+                    make_float2(acc[mi][j][2 * h2], acc[mi][j][2 * h2 + 1]);
+                *reinterpret_cast<float2*>(u_out + row * N + col) =
+                    make_float2(acc[mi][j + NT / 2][2 * h2],
+                                acc[mi][j + NT / 2][2 * h2 + 1]);
+              }
             }
           } else {
             const float gw = gate[row];
@@ -587,34 +595,36 @@ moe_tf32_kernel(const float* __restrict__ a, const int32_t* __restrict__ offs,
 // E are shapes, nothing is read from the card), wide ones otherwise.
 bool narrow(int R, int E) { return R <= 32 * E; }
 
-template <class C, bool GLU>
+template <class C, bool GLU, bool KEEP>
 int launch_cfg(const float* a, const int32_t* offs, const float* b0,
-               const float* b1, const float* gate, float* out, int E, int K,
-               int N, cudaStream_t stream) {
+               const float* b1, const float* gate, float* out, float* g,
+               float* u, int E, int K, int N, cudaStream_t stream) {
   static bool granted = false;
   if (!granted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        moe_tf32_kernel<C, GLU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::kSmem);
+        moe_tf32_kernel<C, GLU, KEEP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     granted = true;
   }
-  moe_tf32_kernel<C, GLU><<<sm_count() * C::kCtas, C::kThreads, C::kSmem,
-                            stream>>>(
-      a, offs, b0, b1, gate, out, E, K, N);
+  moe_tf32_kernel<C, GLU, KEEP><<<sm_count() * C::kCtas, C::kThreads,
+                                  C::kSmem, stream>>>(
+      a, offs, b0, b1, gate, out, g, u, E, K, N);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool GLU>
+// KEEP (the training entry's gate/up): g and u stored beside h
+template <bool GLU, bool KEEP = false>
 int launch(const void* a, const void* offs, const void* b0, const void* b1,
            const void* gate, void* out, int R, int E, int K, int N,
-           cudaStream_t stream) {
-  auto run = narrow(R, E) ? launch_cfg<Narrow, GLU>
-                           : launch_cfg<Wide, GLU>;
+           cudaStream_t stream, void* g = nullptr, void* u = nullptr) {
+  auto run = narrow(R, E) ? launch_cfg<Narrow, GLU, KEEP>
+                           : launch_cfg<Wide, GLU, KEEP>;
   return run(static_cast<const float*>(a), static_cast<const int32_t*>(offs),
              static_cast<const float*>(b0), static_cast<const float*>(b1),
-             static_cast<const float*>(gate), static_cast<float*>(out), E, K,
-             N, stream);
+             static_cast<const float*>(gate), static_cast<float*>(out),
+             static_cast<float*>(g), static_cast<float*>(u), E, K, N,
+             stream);
 }
 
 }  // namespace tc
@@ -641,6 +651,16 @@ EXPORT int moe_gate_up_f32(const void* x, const void* offs, const void* wg,
                            int FF, void* stream) {
   return tc::launch<true>(x, offs, wg, wu, nullptr, h, R, E, D, FF,
                           static_cast<cudaStream_t>(stream));
+}
+// The training forward's gate/up: moe_gate_up_f32's h, products and bits,
+// with g = x.Wg[e] and u = x.Wu[e] [R, FF] stored beside it for the
+// backward (moe_ffn_bwd.cu).
+EXPORT int moe_gate_up_f32_train(const void* x, const void* offs,
+                                 const void* wg, const void* wu, void* h,
+                                 void* g, void* u, int R, int E, int D,
+                                 int FF, void* stream) {
+  return tc::launch<true, true>(x, offs, wg, wu, nullptr, h, R, E, D, FF,
+                                static_cast<cudaStream_t>(stream), g, u);
 }
 EXPORT int moe_down_f32(const void* h, const void* offs, const void* wd,
                         const void* gate, void* y, int R, int E, int D,

@@ -18,13 +18,25 @@ bfloat16 runs on ``wgmma`` from TMA-loaded tiles, float32 in 3xTF32 on
 tile) units.  CPU tensors take ``moe_ffn_plain``, a per-expert loop of
 ``torch.matmul``.
 
-``moe_ffn_backward`` is its float32 gradient for training: on CUDA
-tensors ``csrc/moe_ffn_bwd.cu`` in four launches (g and u recomputed;
-the down product's input gradient with the SwiGLU backward and the gate
-weights' gradient; the rows' gradient; the three weight gradients), all
-3xTF32 on ``mma.sync``, the offsets read on the device, no atomics, each
-launch counted under ``moe_ffn_bwd``; CPU tensors take
-``moe_ffn_backward_plain``.
+``moe_ffn_train`` is the float32 forward for training: the same two
+launches, bits and count, its gate/up entry also storing the products
+g = xg . W_gate[e] and u = xg . W_up[e] beside h, which it returns for
+the backward (``moe_ffn_train_plain`` on the CPU).
+
+``moe_ffn_backward`` is the float32 gradient, from the forward's g, u
+and h: on CUDA tensors ``csrc/moe_ffn_bwd.cu`` in three launches (the
+down product's input gradient with the SwiGLU backward and the gate
+weights' partial gradients; the rows' gradient; the three weight
+gradients), each counted under ``moe_ffn_bwd``.  All three run 3xTF32 on
+``wgmma`` over a persistent grid, a producer warpgroup streaming TMA
+tiles and splitting the B operand into its two TF32 terms in shared
+memory, the offsets read on the device, no atomics.  At olmoe's training
+shape (16384 rows over 64 experts, d 2048, ff 1024) its bound is 12 R d
+ff operations at 494.7/3 TFLOP/s, 2.50 ms; on an H100 80GB HBM3 at 700 W
+it takes 5.41 ms a call, the parent design (four launches on
+``mma.sync``, g and u recomputed) 11.90 in the same run
+(``tools/moe_bwd_lines.py``; PERF.md has ``chip_smoke.py``'s row).  CPU
+tensors take ``moe_ffn_backward_plain``.
 """
 from __future__ import annotations
 
@@ -42,8 +54,9 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 TILE = 64          # D and FF must be multiples of the kernel's column tile
 MAX_EXPERTS = 256  # the kernel's unit plan in shared memory
 BWD_TILE = 128     # columns of h a dc partial of the backward sums
-BWD_LAUNCHES = 4   # moe_ffn_bwd's launches a call
-_BWD_ARGTYPES = [_I] + [_C] * 16 + [_I] * 4 + [_C]
+BWD_LAUNCHES = 3   # moe_ffn_bwd's launches a call
+_BWD_ARGTYPES = [_I] + [_C] * 19 + [_I] * 5 + [_C]
+_TRAIN_ARGTYPES = [_C] * 7 + [_I] * 4 + [_C]
 
 
 def moe_ffn_plain(xg: torch.Tensor, offs: torch.Tensor,
@@ -65,19 +78,47 @@ def moe_ffn_plain(xg: torch.Tensor, offs: torch.Tensor,
     return y
 
 
+def moe_ffn_train_plain(xg: torch.Tensor, offs: torch.Tensor,
+                        w_gate: torch.Tensor, w_up: torch.Tensor,
+                        w_down: torch.Tensor, gate: torch.Tensor):
+    """The plain training forward in float32: ``moe_ffn_plain``'s y with
+    the products g = x.Wg[e], u = x.Wu[e] and h = silu(g) u [R, ff] it
+    computes on the way.  Returns (y, g, u, h); rows of no expert (none,
+    when offs ends at R) stay zero."""
+    R, d = xg.shape
+    ff = w_gate.shape[2]
+    f32 = dict(dtype=torch.float32, device=xg.device)
+    y = torch.zeros((R, d), **f32)
+    g, u, h = (torch.zeros((R, ff), **f32) for _ in range(3))
+    bounds = offs.tolist()
+    for e in range(len(bounds) - 1):
+        a, b = bounds[e], bounds[e + 1]
+        if a == b:
+            continue
+        x = xg[a:b].float()
+        g[a:b], u[a:b] = x @ w_gate[e].float(), x @ w_up[e].float()
+        h[a:b] = F.silu(g[a:b]) * u[a:b]
+        y[a:b] = (h[a:b] @ w_down[e].float()) * gate[a:b, None]
+    return y, g, u, h
+
+
 def moe_ffn_backward_plain(dy: torch.Tensor, xg: torch.Tensor,
                            offs: torch.Tensor, w_gate: torch.Tensor,
                            w_up: torch.Tensor, w_down: torch.Tensor,
-                           gate: torch.Tensor):
+                           gate: torch.Tensor, g: torch.Tensor | None = None,
+                           u: torch.Tensor | None = None,
+                           h: torch.Tensor | None = None):
     """The plain gradient of ``moe_ffn_plain`` in float32, for output
     gradient dy [R, d]: one ``torch.matmul`` per product and expert, the
     group bounds read on the host.  For sorted row r of expert e with
     gate weight c_r: g = x.Wg, u = x.Wu, a = silu(g), h = a u; t =
     dy.Wd[e]^T, dc_r = sum_f h_rf t_rf, dh = c_r t; dg = dh u silu'(g),
     du = dh a; dxg = dg.Wg^T + du.Wu^T; dWg[e] = X_e^T.dg_e, dWu[e] =
-    X_e^T.du_e, dWd[e] = H_e^T.(c dy)_e.  Returns (dxg [R, d], dWg, dWu
-    [E, d, ff], dWd [E, ff, d], dgate [R]), all float32; an expert
-    without rows gets zero weight gradients."""
+    X_e^T.du_e, dWd[e] = H_e^T.(c dy)_e.  g, u and h [R, ff] are the
+    forward's (``moe_ffn_train_plain``) or, left out, computed here the
+    same way.  Returns (dxg [R, d], dWg, dWu [E, d, ff], dWd [E, ff, d],
+    dgate [R]), all float32; an expert without rows gets zero weight
+    gradients."""
     R, d = xg.shape
     f32 = dict(dtype=torch.float32, device=xg.device)
     dxg = torch.zeros((R, d), **f32)
@@ -92,19 +133,20 @@ def moe_ffn_backward_plain(dy: torch.Tensor, xg: torch.Tensor,
             continue
         x, dye, c = xg[a:b].float(), dy[a:b].float(), gate[a:b, None]
         wg, wu, wd = w_gate[e].float(), w_up[e].float(), w_down[e].float()
-        g, u = x @ wg, x @ wu
-        s = torch.sigmoid(g)
-        act = F.silu(g)
-        h = act * u
+        ge = x @ wg if g is None else g[a:b]
+        ue = x @ wu if u is None else u[a:b]
+        s = torch.sigmoid(ge)
+        act = F.silu(ge)
+        he = act * ue if h is None else h[a:b]
         t = dye @ wd.T
-        dgate[a:b] = (h * t).sum(dim=-1)
+        dgate[a:b] = (he * t).sum(dim=-1)
         dh = c * t
-        dg = dh * u * (s * (1 + g * (1 - s)))
+        dg = dh * ue * (s * (1 + ge * (1 - s)))
         du = dh * act
         dxg[a:b] = dg @ wg.T + du @ wu.T
         dwg[e] = x.T @ dg
         dwu[e] = x.T @ du
-        dwd[e] = h.T @ (c * dye)
+        dwd[e] = he.T @ (c * dye)
     return dxg, dwg, dwu, dwd, dgate
 
 
@@ -137,31 +179,42 @@ def _check(xg, offs, w_gate, w_up, w_down, gate) -> None:
                              f"with a 16-byte aligned base")
 
 
-def _launch(xg, offs, w_gate, w_up, w_down, gate) -> torch.Tensor:
+def _launch(xg, offs, w_gate, w_up, w_down, gate, keep=False):
+    """The two launches; ``keep`` (float32 training): the gate/up entry
+    that also stores g and u, and (y, g, u, h) returned."""
     _check(xg, offs, w_gate, w_up, w_down, gate)
     R, d = xg.shape
     E, _, ff = w_gate.shape
     dev = xg.device
     y = torch.empty((R, d), dtype=torch.float32, device=dev)
-    if R == 0:                          # nothing to launch, nothing counted
-        return y
     h = torch.empty((R, ff), dtype=xg.dtype, device=dev)
+    gu = [torch.empty((R, ff), dtype=torch.float32, device=dev)
+          for _ in range(2 if keep else 0)]
+    if R == 0:                          # nothing to launch, nothing counted
+        return (y, *gu, h) if keep else y
     sfx = _SUFFIX[xg.dtype]
     stream = _build.current_stream(dev.index)
-    fn = _build.function(f"moe_gate_up_{sfx}", _ARGTYPES)
-    _build.check(fn(xg.data_ptr(), offs.data_ptr(), w_gate.data_ptr(),
-                    w_up.data_ptr(), h.data_ptr(), R, E, d, ff, stream),
-                 f"moe_gate_up_{sfx}")
+    if keep:
+        fn = _build.function("moe_gate_up_f32_train", _TRAIN_ARGTYPES)
+        _build.check(fn(xg.data_ptr(), offs.data_ptr(), w_gate.data_ptr(),
+                        w_up.data_ptr(), h.data_ptr(), gu[0].data_ptr(),
+                        gu[1].data_ptr(), R, E, d, ff, stream),
+                     "moe_gate_up_f32_train")
+    else:
+        fn = _build.function(f"moe_gate_up_{sfx}", _ARGTYPES)
+        _build.check(fn(xg.data_ptr(), offs.data_ptr(), w_gate.data_ptr(),
+                        w_up.data_ptr(), h.data_ptr(), R, E, d, ff, stream),
+                     f"moe_gate_up_{sfx}")
     count_launch("moe_ffn")
     fn = _build.function(f"moe_down_{sfx}", _ARGTYPES)
     _build.check(fn(h.data_ptr(), offs.data_ptr(), w_down.data_ptr(),
                     gate.data_ptr(), y.data_ptr(), R, E, d, ff, stream),
                  f"moe_down_{sfx}")
     count_launch("moe_ffn")
-    return y
+    return (y, *gu, h) if keep else y
 
 
-def _launch_bwd(dy, xg, offs, w_gate, w_up, w_down, gate):
+def _launch_bwd(dy, xg, offs, w_gate, w_up, w_down, gate, g, u, h):
     _check(xg, offs, w_gate, w_up, w_down, gate)
     R, d = xg.shape
     E, _, ff = w_gate.shape
@@ -169,6 +222,14 @@ def _launch_bwd(dy, xg, offs, w_gate, w_up, w_down, gate):
             or dy.device != xg.device or dy.data_ptr() % 16:
         raise ValueError(f"moe_ffn_backward: dy must be float32 {(R, d)} "
                          f"on {xg.device} with a 16-byte aligned base")
+    for name, t in (("g", g), ("u", u), ("h", h)):
+        if t is None or t.shape != (R, ff) or t.dtype != torch.float32 \
+                or t.device != xg.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"moe_ffn_backward: the forward's {name} "
+                             f"(moe_ffn_train) must be contiguous float32 "
+                             f"{(R, ff)} on {xg.device} with a 16-byte "
+                             f"aligned base")
     f32 = dict(dtype=torch.float32, device=xg.device)
     dwg, dwu = torch.empty_like(w_gate), torch.empty_like(w_up)
     dwd = torch.empty_like(w_down)
@@ -176,9 +237,10 @@ def _launch_bwd(dy, xg, offs, w_gate, w_up, w_down, gate):
     dgate = torch.empty((R,), **f32)
     if R == 0:                          # nothing to launch, nothing counted
         return dxg, dwg.zero_(), dwu.zero_(), dwd.zero_(), dgate
-    g = torch.empty((R, ff), **f32)     # g, then dg
-    u = torch.empty((R, ff), **f32)     # u, then du
-    h = torch.empty((R, ff), **f32)
+    # the transposed intermediates: each group from a multiple of 4
+    # columns (TMA reads from 16-byte aligned inner coordinates)
+    rp = -(-(R + 3 * E) // 4) * 4
+    dgt, dut, ht = (torch.empty((ff, rp), **f32) for _ in range(3))
     part = torch.empty((R, -(-ff // BWD_TILE)), **f32)
     stream = _build.current_stream(xg.device.index)
     fn = _build.function("moe_ffn_bwd_f32", _BWD_ARGTYPES)
@@ -186,9 +248,10 @@ def _launch_bwd(dy, xg, offs, w_gate, w_up, w_down, gate):
         _build.check(fn(kind, dy.data_ptr(), xg.data_ptr(), offs.data_ptr(),
                         w_gate.data_ptr(), w_up.data_ptr(),
                         w_down.data_ptr(), gate.data_ptr(), g.data_ptr(),
-                        u.data_ptr(), h.data_ptr(), part.data_ptr(),
+                        u.data_ptr(), h.data_ptr(), dgt.data_ptr(),
+                        dut.data_ptr(), ht.data_ptr(), part.data_ptr(),
                         dxg.data_ptr(), dgate.data_ptr(), dwg.data_ptr(),
-                        dwu.data_ptr(), dwd.data_ptr(), R, E, d, ff,
+                        dwu.data_ptr(), dwd.data_ptr(), R, rp, E, d, ff,
                         stream), f"moe_ffn_bwd_f32[{kind}]")
         count_launch("moe_ffn_bwd")
     return dxg, dwg, dwu, dwd, dgate
@@ -227,21 +290,46 @@ def moe_ffn(xg: torch.Tensor, offs: torch.Tensor, w_gate: torch.Tensor,
     return _launch(xg, offs, w_gate, w_up, w_down, gate)
 
 
+def moe_ffn_train(xg: torch.Tensor, offs: torch.Tensor,
+                  w_gate: torch.Tensor, w_up: torch.Tensor,
+                  w_down: torch.Tensor, gate: torch.Tensor):
+    """``moe_ffn`` for training, float32 rows and weights: (y [R, d], g,
+    u, h [R, ff]), all float32, y and h with ``moe_ffn``'s bits and g, u
+    the gate and up products h was made from, kept for
+    ``moe_ffn_backward``.  CPU tensors: the plain version; CUDA tensors:
+    the kernel (two launches, the gate/up one storing g and u) or a
+    raise."""
+    if xg.dtype != torch.float32:
+        raise TypeError(f"moe_ffn_train: float32 only, got {xg.dtype} "
+                        f"(a bfloat16 backward is not ported: ROADMAP A2)")
+    if xg.device.type == "cpu":
+        return moe_ffn_train_plain(xg, offs, w_gate, w_up, w_down, gate)
+    if xg.device.type != "cuda":
+        raise ValueError(f"moe_ffn_train: unsupported device {xg.device}")
+    return _launch(xg, offs, w_gate, w_up, w_down, gate, keep=True)
+
+
 def moe_ffn_backward(dy: torch.Tensor, xg: torch.Tensor, offs: torch.Tensor,
                      w_gate: torch.Tensor, w_up: torch.Tensor,
-                     w_down: torch.Tensor, gate: torch.Tensor):
+                     w_down: torch.Tensor, gate: torch.Tensor,
+                     g: torch.Tensor | None = None,
+                     u: torch.Tensor | None = None,
+                     h: torch.Tensor | None = None):
     """The gradient of ``moe_ffn`` for output gradient dy [R, d], float32
-    rows and weights: (dxg [R, d], dWg, dWu [E, d, ff], dWd [E, ff, d],
-    dgate [R]), all float32.  CPU tensors: the plain version; CUDA
-    tensors: the kernels (four launches) or a raise.  bfloat16 raises:
-    no caller trains bfloat16 weights (ROADMAP A2)."""
+    rows and weights, from the forward's g, u and h (``moe_ffn_train``):
+    (dxg [R, d], dWg, dWu [E, d, ff], dWd [E, ff, d], dgate [R]), all
+    float32.  CPU tensors: the plain version (which computes g, u and h
+    when they are left out); CUDA tensors: the kernels (three launches),
+    which need them, or a raise.  bfloat16 raises: no caller trains
+    bfloat16 weights (ROADMAP A2)."""
     if xg.dtype != torch.float32:
         raise TypeError(f"moe_ffn_backward: float32 only, got {xg.dtype} "
                         f"(a bfloat16 backward is not ported: ROADMAP A2)")
     if xg.device.type == "cpu":
         return moe_ffn_backward_plain(dy, xg, offs, w_gate, w_up, w_down,
-                                      gate)
+                                      gate, g, u, h)
     if xg.device.type != "cuda":
         raise ValueError(f"moe_ffn_backward: unsupported device "
                          f"{xg.device}")
-    return _launch_bwd(dy.contiguous(), xg, offs, w_gate, w_up, w_down, gate)
+    return _launch_bwd(dy.contiguous(), xg, offs, w_gate, w_up, w_down, gate,
+                       g, u, h)

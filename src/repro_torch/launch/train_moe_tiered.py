@@ -24,6 +24,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.train import train_loop
 
 TARGET_LOSS = 5.0
+GLOBAL_BATCH, SEQ_LEN, N_MICRO = 8, 64, 2    # a step: 2 microbatches of 4
 
 
 def config(big: bool = False) -> ArchConfig:
@@ -39,20 +40,20 @@ def config(big: bool = False) -> ArchConfig:
 
 def run(cfg: ArchConfig, *, steps: int, device: torch.device,
         ckpt_dir: str, ckpt_every: int = 25):
-    """Train ``cfg`` for ``steps`` steps (global batch 8, seq 64) with a
-    simulated crash at ``steps // 2``, then restart from the newest
-    checkpoint in ``ckpt_dir`` and finish.  Returns the restarted run's
-    (losses, params, opt state)."""
+    """Train ``cfg`` for ``steps`` steps (global batch 8, seq 64, two
+    microbatches) with a simulated crash at ``steps // 2``, then restart
+    from the newest checkpoint in ``ckpt_dir`` and finish.  Returns the
+    restarted run's (losses, params, opt state)."""
     crash_at = steps // 2
+    shape = dict(global_batch=GLOBAL_BATCH, seq_len=SEQ_LEN, n_micro=N_MICRO)
     print(f"=== training with a simulated crash at step {crash_at} ===")
     try:
-        train_loop(cfg, steps=steps, global_batch=8, seq_len=64,
-                   ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
-                   crash_at=crash_at, device=device)
+        train_loop(cfg, steps=steps, **shape, ckpt_dir=ckpt_dir,
+                   ckpt_every=ckpt_every, crash_at=crash_at, device=device)
     except RuntimeError as e:
         print(f"!! {e} — restarting from the latest checkpoint")
-    losses, params, opt = train_loop(cfg, steps=steps, global_batch=8,
-                                     seq_len=64, ckpt_dir=ckpt_dir,
+    losses, params, opt = train_loop(cfg, steps=steps, **shape,
+                                     ckpt_dir=ckpt_dir,
                                      ckpt_every=ckpt_every, device=device)
     print(f"\nrecovered + finished: loss {losses[0 if losses else 0]:.4f} "
           f"... {losses[-1]:.4f}")

@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.moe_ffn import moe_ffn, moe_ffn_backward
+from repro_torch.kernels.moe_ffn import (moe_ffn, moe_ffn_backward,
+                                         moe_ffn_train)
 
 
 def init_moe_params(gen: torch.Generator, d_model: int, n_experts: int,
@@ -128,20 +129,30 @@ class _GatherRows(torch.autograd.Function):
 
 
 class _GroupedFFN(torch.autograd.Function):
-    """``moe_ffn`` under autograd: the forward is the kernel (or its plain
-    version on the CPU) unchanged, the backward ``moe_ffn_backward``'s
-    kernels (its plain version on the CPU)."""
+    """``moe_ffn`` under autograd: the float32 forward is
+    ``moe_ffn_train`` (``moe_ffn``'s launches and bits, the gate and up
+    products g and u kept beside h), the backward ``moe_ffn_backward``'s
+    kernels from that g, u and h (plain versions on the CPU).  Under
+    ``cfg.remat`` (non-reentrant checkpointing) the first forward's saved
+    tensors are dropped and the recompute's kept, one layer at a time.
+    Other types keep ``moe_ffn`` and save no g, u, h: their backward
+    raises (ROADMAP A2)."""
 
     @staticmethod
     def forward(ctx, xg, offs, w_gate, w_up, w_down, gate):
+        if xg.dtype == torch.float32:
+            y, g, u, h = moe_ffn_train(xg, offs, w_gate, w_up, w_down, gate)
+            ctx.save_for_backward(xg, offs, w_gate, w_up, w_down, gate,
+                                  g, u, h)
+            return y
         ctx.save_for_backward(xg, offs, w_gate, w_up, w_down, gate)
         return moe_ffn(xg, offs, w_gate, w_up, w_down, gate)
 
     @staticmethod
     def backward(ctx, dy):
-        xg, offs, w_gate, w_up, w_down, gate = ctx.saved_tensors
+        xg, offs, w_gate, w_up, w_down, gate, *guh = ctx.saved_tensors
         dxg, dwg, dwu, dwd, dgate = moe_ffn_backward(
-            dy, xg, offs, w_gate, w_up, w_down, gate)
+            dy, xg, offs, w_gate, w_up, w_down, gate, *guh)
         return dxg, None, dwg, dwu, dwd, dgate
 
 

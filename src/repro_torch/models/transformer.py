@@ -527,7 +527,7 @@ def forward_hidden(params: dict, cfg: ArchConfig, batch: dict):
     activations are recomputed in the backward, and its router routes
     the same rows again).  The only kernels it launches are an MoE
     layer's: ``moe_ffn`` forward (2 launches a layer, 2 more in each
-    recompute) and ``moe_ffn_bwd`` in the backward (4 a layer)."""
+    recompute) and ``moe_ffn_bwd`` in the backward (3 a layer)."""
     _check_supported(cfg)
     h = embed_in(params, cfg, batch.get("tokens"),
                  embeds=batch.get("embeds"))

@@ -21,6 +21,21 @@ against its plain version on the card (bf16 3e-3 of max|y|, float32
 misses 1e-5, and so does one float32 accumulator fed by every
 ``mma.sync`` (no per-stage sums) at mixtral's ff of 14336.
 
+``csrc/moe_ffn_bwd.cu``, the float32 backward, runs 3xTF32 on
+``wgmma.m64n128k8`` (which also reads a TF32 operand truncated and
+rounds its float32 sum toward zero: ``tools/moe_bwd_probe.py``): A split
+as above, B split by truncation (its float32 value is the big term as
+the tensor cores read it, x - trunc(x) the small one); per k8 step
+small.big, big.small, big.big, each 32-deep stage from zero and then
+added to the output's float32 sum (``mm_bwd``), over d for the down
+product's input gradient, 2 ff for the rows' and a group's rows for the
+weights'.  ``grouped_ffn_bwd``
+emulates its three launches from the forward's g, u and h and is held
+against ``jax.vjp`` of ``_grouped_ffn``; the k walk alone is held against
+float64 at olmoe's depths (d 2048, 2 ff 2048) and at the weight
+gradients' worst group (all 16384 rows of a step in one expert), where
+one TF32 term per operand misses.
+
 The kernels' shared memory and work units are sized in the kernel
 source; ``smem_bytes`` and ``units`` mirror them, so the launch plan is
 checked here at the edges of what the wrapper takes (the card test
@@ -65,14 +80,25 @@ def to_f32_toward_zero(x: torch.Tensor) -> torch.Tensor:
     return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
 
 
+def trunc_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward's B operand: the float32 value is its own big term
+    (read truncated) and x - trunc(x) the small one (read truncated)."""
+    big = trunc_tf32(x)
+    return big, trunc_tf32(x - big)
+
+
 def mm_3xtf32(a: torch.Tensor, b: torch.Tensor, scheme: str = "3xtf32",
-              stage_k: int | None = STAGE_K) -> torch.Tensor:
+              stage_k: int | None = STAGE_K,
+              b_split: str = "round") -> torch.Tensor:
     """a [R, K] . b [K, N] in float32 as the float32 entry computes it.
     ``scheme`` "1xtf32": one TF32 term per operand (the control);
-    ``stage_k`` None: one accumulator over all of K (the control)."""
+    ``stage_k`` None: one accumulator over all of K (the control);
+    ``b_split`` "trunc": B split as the backward splits it
+    (``trunc_split``)."""
     R, K = a.shape
     if scheme == "3xtf32":
-        (ab, as_), (bb, bs) = split(a), split(b)
+        (ab, as_) = split(a)
+        bb, bs = split(b) if b_split == "round" else trunc_split(b)
         terms = ((as_, bb), (ab, bs), (ab, bb))
     elif scheme == "1xtf32":
         terms = ((tf32(a), tf32(b)),)
@@ -197,6 +223,90 @@ def test_per_stage_sums_hold_at_mixtral_depth():
     want = (a.double() @ b.double()).numpy()
     assert _excess(mm_3xtf32(a, b), want, F32_TOL) <= 0.2
     assert _excess(mm_3xtf32(a, b, stage_k=None), want, F32_TOL) > 2
+
+
+# =============================================================================
+# the backward's arithmetic (csrc/moe_ffn_bwd.cu)
+# =============================================================================
+
+def mm_bwd(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
+    """The backward's products: A split as ``split_tf32`` splits it, B by
+    truncation, 32-deep stage sums."""
+    return mm_3xtf32(a, b, b_split="trunc", **kw)
+
+
+def grouped_ffn_bwd(dy, xg, sizes, wg, wu, wd, gate, mm):
+    """The backward's three launches with products from ``mm``, from the
+    forward's g = mm(x, Wg), u = mm(x, Wu) and h = silu(g) u: t =
+    dy.Wd^T over d with the SwiGLU backward and dc in the epilogue; dx =
+    [dg | du].[Wg | Wu]^T over 2 ff; dWg = X^T.dg, dWu = X^T.du and
+    dWd = ((c dy)^T.H)^T over the group's rows.  Returns (dx, dWg, dWu,
+    dWd, dgate)."""
+    R, d = xg.shape
+    dx = torch.zeros(R, d)
+    dgate = torch.zeros(R)
+    dws = [torch.zeros_like(w) for w in (wg, wu, wd)]
+    r0 = 0
+    for e, n in enumerate(sizes):
+        if n:
+            x, dye, c = xg[r0:r0 + n], dy[r0:r0 + n], gate[r0:r0 + n, None]
+            g, u = mm(x, wg[e]), mm(x, wu[e])
+            h = g / (1 + torch.exp(-g)) * u
+            t = mm(dye, wd[e].T.contiguous())
+            dgate[r0:r0 + n] = (h * t).sum(-1)
+            s = 1 / (1 + torch.exp(-g))
+            dh = c * t
+            dg = dh * u * (s * (1 + g * (1 - s)))
+            du = dh * (g / (1 + torch.exp(-g)))
+            dx[r0:r0 + n] = mm(torch.cat([dg, du], 1),
+                               torch.cat([wg[e], wu[e]], 1).T.contiguous())
+            dws[0][e] = mm(x.T.contiguous(), dg)
+            dws[1][e] = mm(x.T.contiguous(), du)
+            dws[2][e] = mm((c * dye).T.contiguous(), h).T
+        r0 += n
+    return (dx, *dws, dgate)
+
+
+def test_bwd_emulation_holds_against_jax_vjp():
+    """The backward's arithmetic against ``jax.vjp`` of ``_grouped_ffn``
+    times the gate weights on the same inputs, every output within 1e-5
+    of its largest magnitude (``chip_smoke.py``'s ``MOE_BWD_TOL``, the
+    kernel against its plain version)."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from repro.models import moe as jmoe
+    xg, wg, wu, wd, gate = _inputs(SIZES, 128, 192, 4)
+    dy = np.random.RandomState(5).standard_normal(xg.shape).astype(
+        np.float32)
+    gs = jnp.asarray(SIZES, jnp.int32)
+    _, vjp = jax.vjp(
+        lambda x, a, b, c, g: jmoe._grouped_ffn(x, gs, a, b, c) * g[:, None],
+        *(jnp.asarray(t) for t in (xg, wg, wu, wd, gate)))
+    want = vjp(jnp.asarray(dy))
+    got = grouped_ffn_bwd(*(torch.from_numpy(t) for t in (dy, xg)), SIZES,
+                          *(torch.from_numpy(t) for t in (wg, wu, wd, gate)),
+                          mm_bwd)
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float64)
+        assert float(np.abs(g.numpy() - w).max()) <= \
+            F32_TOL * float(np.abs(w).max())
+
+
+@pytest.mark.parametrize("name,K,seed", [("down dgrad over d", 2048, 6),
+                                         ("x dgrad over 2 ff", 2048, 7),
+                                         ("dW over the worst group", 16384,
+                                          8)])
+def test_bwd_k_walk_holds_at_olmoe_depth(name, K, seed):
+    """The k walk at olmoe's training depths against float64: far inside
+    1e-5 of the largest output; one TF32 term per operand misses it."""
+    rng = np.random.RandomState(seed)
+    a = torch.from_numpy(rng.standard_normal((8, K)).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal((K, 64)) * K ** -0.5)
+                         .astype(np.float32))
+    want = (a.double() @ b.double()).numpy()
+    assert _excess(mm_bwd(a, b), want, F32_TOL) <= 0.2, name
+    assert _excess(mm_bwd(a, b, scheme="1xtf32"), want, F32_TOL) > 1, name
 
 
 # =============================================================================

@@ -120,6 +120,13 @@ def test_backward_plain_matches_jax_vjp_and_autograd(T_, softmax_first,
         assert (sizes[:E // 2] == 0).all()
     ws = [_t(p[k]) for k in ("w_gate", "w_up", "w_down")]
     got = KM.moe_ffn_backward_plain(dy, xg, offs, *ws, gate)
+    # from the training forward's g, u and h: the same bits, and y is
+    # moe_ffn_plain's
+    y, g, u, h = KM.moe_ffn_train_plain(xg, offs, *ws, gate)
+    assert torch.equal(y, KM.moe_ffn_plain(xg, offs, *ws, gate))
+    kept = KM.moe_ffn_backward_plain(dy, xg, offs, *ws, gate, g, u, h)
+    for name, a, b in zip(NAMES, kept, got):
+        assert torch.equal(a, b), name
 
     gs = jnp.asarray(sizes, jnp.int32)
 
@@ -232,13 +239,18 @@ def test_a_training_step_calls_the_ffn_as_the_card_counts(monkeypatch,
                                                           remat):
     """One microbatch's loss and backward of smoke olmoe: ``moe_ffn``
     once a layer in the forward and once more in remat's recompute,
-    ``moe_ffn_backward`` once a layer — the card's launches are 2 and 4
-    of each.  The metrics carry the aux loss and the counts (tokens x
-    top_k x layers)."""
+    ``moe_ffn_backward`` once a layer — the card's launches are 2 and 3
+    of each.  Under autograd the float32 forward is ``moe_ffn_train``
+    (``moe_ffn``'s launches, g and u kept), counted with ``moe_ffn``.
+    The metrics carry the aux loss and the counts (tokens x top_k x
+    layers)."""
     fwd, bwd = [], []
     real_fwd, real_bwd = moe.moe_ffn, moe.moe_ffn_backward
+    real_train = moe.moe_ffn_train
     monkeypatch.setattr(moe, "moe_ffn",
                         lambda *a: fwd.append(1) or real_fwd(*a))
+    monkeypatch.setattr(moe, "moe_ffn_train",
+                        lambda *a: fwd.append(1) or real_train(*a))
     monkeypatch.setattr(moe, "moe_ffn_backward",
                         lambda *a: bwd.append(1) or real_bwd(*a))
     cfg = replace(smoke(registry()["olmoe_1b_7b"]), remat=remat)
@@ -255,6 +267,52 @@ def test_a_training_step_calls_the_ffn_as_the_card_counts(monkeypatch,
     assert float(metrics["moe_aux"].detach()) > 0
     assert metrics["expert_counts"].dtype == torch.int32
     assert int(metrics["expert_counts"].sum()) == 16 * cfg.top_k * L
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_grouped_ffn_hands_the_backward_the_forwards_g_u_h(monkeypatch,
+                                                            remat):
+    """Each layer's backward gets the g, u and h tensors that a forward
+    of that layer made (under remat: the recompute's, the first
+    forward's saved tensors being dropped), with the bits of the
+    recompute form: the gradients equal those of
+    ``moe_ffn_backward_plain`` computing g, u and h itself."""
+    made, handed = [], []
+    real_train, real_bwd = moe.moe_ffn_train, moe.moe_ffn_backward
+
+    def train(*a):
+        out = real_train(*a)
+        made.append(out[1:])
+        return out
+
+    def bwd(*a):
+        handed.append(a[7:])
+        got = real_bwd(*a)
+        for x, y in zip(got, KM.moe_ffn_backward_plain(*a[:7])):
+            assert torch.equal(x, y)
+        return got
+    monkeypatch.setattr(moe, "moe_ffn_train", train)
+    monkeypatch.setattr(moe, "moe_ffn_backward", bwd)
+    cfg = replace(smoke(registry()["olmoe_1b_7b"]), remat=remat)
+    params = T.init_params(cfg, seed=1, device="cpu")
+    for leaf in tree.leaves(params):
+        leaf.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab, (2, 8),
+                           generator=torch.Generator().manual_seed(2))
+    total, _ = T.loss_fn(params, cfg, {"tokens": tokens, "labels": tokens})
+    total.backward()
+    L = cfg.n_layers
+    assert len(made) == (2 if remat else 1) * L and len(handed) == L
+    ptrs = {t.data_ptr(): (i, j) for i, guh in enumerate(made)
+            for j, t in enumerate(guh)}
+    for guh in handed:
+        assert len(guh) == 3
+        where = [ptrs.get(t.data_ptr()) for t in guh]
+        assert None not in where
+        i = where[0][0]
+        assert where == [(i, 0), (i, 1), (i, 2)]
+        assert i >= L if remat else i < L
+        assert all(torch.equal(a, b) for a, b in zip(guh, made[i]))
 
 
 def test_loss_decreases_moe():
@@ -325,13 +383,15 @@ def _card_inputs(dev, sizes, d, ff, seed):
 
 
 def _assert_bwd_vs_plain(sizes, d, ff, seed):
-    """Every output of the kernels within 1e-5 of the largest magnitude
-    of the plain version's, four launches, and an expert without rows
-    has exactly zero weight gradients."""
+    """From the training forward's g, u and h, every output of the
+    kernels within 1e-5 of the largest magnitude of the plain version's,
+    three launches, and an expert without rows has exactly zero weight
+    gradients."""
     dev = cuda_device()
     dy, xg, offs, w, gate = _card_inputs(dev, sizes, d, ff, seed)
+    _, g, u, h = KM.moe_ffn_train(xg, offs, *w, gate)
     kernels.reset_launch_counts()
-    got = KM.moe_ffn_backward(dy, xg, offs, *w, gate)
+    got = KM.moe_ffn_backward(dy, xg, offs, *w, gate, g, u, h)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["moe_ffn_bwd"] == KM.BWD_LAUNCHES
     want = KM.moe_ffn_backward_plain(dy, xg, offs, *w, gate)
@@ -382,9 +442,10 @@ def test_backward_row_bits_do_not_depend_on_the_group():
     def run(rows):
         rows = torch.as_tensor(rows, device=dev)
         offs = torch.tensor([0, rows.numel()], dtype=torch.int32, device=dev)
-        return KM.moe_ffn_backward(dy[rows].contiguous(),
-                                   xg[rows].contiguous(), offs, *w,
-                                   gate[rows].contiguous())
+        x, c = xg[rows].contiguous(), gate[rows].contiguous()
+        guh = KM.moe_ffn_train(x, offs, *w, c)[1:]
+        return KM.moe_ffn_backward(dy[rows].contiguous(), x, offs, *w, c,
+                                   *guh)
     full = run(list(range(2048)))
     again = run(list(range(2048)))
     for a, b in zip(full, again):
@@ -396,12 +457,47 @@ def test_backward_row_bits_do_not_depend_on_the_group():
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("sizes,d,ff", [
+    ([0, 1, 31, 32, 33, 127, 128, 129, 300] + [0] * 64, 256, 192),
+    ([0, 40, 3, 0, 129] * 12 + [1, 0, 64, 2], 2048, 1024),
+    ([2, 0, 33, 1, 0, 0, 0, 40], 4096, 14336)])
+def test_training_gate_up_keeps_the_serving_bits(sizes, d, ff):
+    """``moe_ffn_train``'s y and h equal ``moe_ffn``'s bit for bit (the
+    serving entry's h, read back through the down launch's y), its g
+    and u are finite and within 1e-5 of the plain products, and it
+    launches as ``moe_ffn`` does."""
+    dev = cuda_device()
+    _, xg, offs, w, gate = _card_inputs(dev, sizes, d, ff, 74)
+    kernels.reset_launch_counts()
+    y, g, u, h = KM.moe_ffn_train(xg, offs, *w, gate)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["moe_ffn"] == 2
+    assert torch.equal(y, KM.moe_ffn(xg, offs, *w, gate))
+    yp, gp, up, hp = KM.moe_ffn_train_plain(xg, offs, *w, gate)
+    for name, a, b in (("g", g, gp), ("u", u, up), ("h", h, hp),
+                       ("y", y, yp)):
+        assert torch.isfinite(a).all(), name
+        _rel_close(a, b, rel=KERNEL_REL, what=name)
+    # the serving entry's h: the gate/up launch alone, through ctypes
+    from repro_torch.kernels import _build
+    hs = torch.empty_like(h)
+    fn = _build.function("moe_gate_up_f32", KM._ARGTYPES)
+    E = len(sizes)
+    _build.check(fn(xg.data_ptr(), offs.data_ptr(), w[0].data_ptr(),
+                    w[1].data_ptr(), hs.data_ptr(), xg.shape[0], E, d, ff,
+                    _build.current_stream(xg.device.index)),
+                 "moe_gate_up_f32")
+    torch.cuda.synchronize()
+    assert torch.equal(h, hs)
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "mixtral_8x7b"])
 def test_moe_training_gradients_card_vs_cpu(arch):
     """One microbatch of a smoke MoE arch: loss, expert counts and every
     gradient leaf on the card against the CPU (counts exact, gradients
     within 1e-4 of each leaf's largest), ``moe_ffn`` launched 4 times a
-    layer (forward and remat's recompute) and ``moe_ffn_bwd`` 4 times."""
+    layer (forward and remat's recompute) and ``moe_ffn_bwd`` 3 times."""
     dev = cuda_device()
     cfg = smoke(registry()[arch])
     cpu = T.init_params(cfg, seed=0, device="cpu")

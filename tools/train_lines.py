@@ -4,20 +4,22 @@ training runs.
 Run on a card from the root of a checkout (or of an unpacked archive of
 one):
 
-    python3 tools/train_lines.py [LABEL]
+    python3 tools/train_lines.py [LABEL] [--only PHASE]
 
 It imports the ``chip_smoke.py`` beside it in the working directory and,
 for each of its ``TRAIN_RUNS`` (qwen3_4b cut to 24 layers, mamba2_1_3b
 whole, zamba2_7b cut to 14 layers, olmoe_1b_7b cut to 8; float32, seq
-512, batch 8 in 2 microbatches), draws the seeded weights, takes two
-steps to warm up and then one step under ``torch.profiler`` (device
-activity only).  It prints one JSON line a run: LABEL, the card, the
-step's wall ms, the device's busy ms and share (the union of the kernel
+512, batch 8 in 2 microbatches), draws the seeded weights, takes five
+steps (the wall ms of the last four reported as ``unprofiled_step_ms``)
+and then one step under ``torch.profiler`` (device activity only).  It
+prints one JSON line a run: LABEL, the card, the step's wall ms, the device's busy ms and share (the union of the kernel
 and copy intervals it traced), the device operations of the step, the ms
 of the GEMM kernels (names holding ``gemm``), of the MoE FFN's forward
 kernels (``moe_ffn``'s, names holding ``moe_tf32_kernel``) and of its
 backward's (``moe_ffn_bwd``'s, ``moe_bwd_kernel``), and the eight
-kernels that took the most device time.
+kernels that took the most device time, and the step's peak device
+memory.  ``--only PHASE`` (``train_olmoe``, say) profiles that run
+alone.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from dataclasses import replace
 from pathlib import Path
 
 
-def profile_step(cfg, steps_before: int = 2) -> dict:
+def profile_step(cfg, steps_before: int = 5) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -43,12 +45,17 @@ def profile_step(cfg, steps_before: int = 2) -> dict:
     src = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED,
                       input_mode=cfg.input_mode, d_model=cfg.d_model)
     step_fn = make_train_step(cfg, lr_fn=lambda s: 1e-4)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
     for s in range(steps_before + 1):
         batch = micro_batches(src.batch(s), TRAIN_MICRO)
         torch.cuda.synchronize()
         if s < steps_before:
+            t0 = time.perf_counter()
             params, opt, m = step_fn(params, opt, batch)
             float(m["loss"])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
             continue
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -76,7 +83,10 @@ def profile_step(cfg, steps_before: int = 2) -> dict:
     del params, opt, step_fn
     gc.collect()
     torch.cuda.empty_cache()
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    return {"wall_ms": wall * 1e3, "unprofiled_step_ms": step_ms[1:],
+            "peak_memory_gb": peak_gb,
+            "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e3 / (wall * 1e3),
             "device_ops": len(events), "gemm_ms": gemm_us / 1e3,
             "moe_ffn_ms": ms_of("moe_tf32_kernel"),
@@ -85,7 +95,13 @@ def profile_step(cfg, steps_before: int = 2) -> dict:
 
 
 def main() -> int:
-    label = sys.argv[1] if len(sys.argv) > 1 else "tree"
+    args = sys.argv[1:]
+    only = None
+    if "--only" in args:
+        i = args.index("--only")
+        only = args[i + 1]
+        del args[i:i + 2]
+    label = args[0] if args else "tree"
     root = Path.cwd()
     sys.path[:0] = [str(root / "src"), str(root)]
     import torch
@@ -97,6 +113,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs._card_line()
     for phase, name, layers, _ in cs.TRAIN_RUNS:
+        if only and phase != only:
+            continue
         cfg = registry()[name]
         if layers is not None:
             cfg = replace(cfg, n_layers=layers)
