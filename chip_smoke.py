@@ -242,6 +242,28 @@ prints no result line):
      training shape and a sparse 64 rows over 64 experts, every output
      within 1e-5 of its largest plain magnitude, empty experts' dW
      exactly zero, ``sass_hmma`` > 0);
+ 38. ``sharded_train`` (after phase 37): one step of the multi-device
+     train step (``make_train_step(cfg, mi)``: DTensor parameters by
+     ``param_specs``, ZeRO moments, MoE on ``moe_apply``'s expert-
+     parallel branch) at full olmoe_1b_7b and qwen3_4b width, 2 layers,
+     on a (1, 1) ``("data", "model")`` mesh over NCCL (gloo's functional
+     all-gather crashed on CUDA tensors, and NCCL takes one rank a card),
+     held against the unsharded step on the same card: loss within 1e-5,
+     params within 2e-5 where |g| >= 1e-6, equal expert counts, the MoE
+     step's launches exactly ``moe_ffn``'s and ``moe_ffn_bwd``'s; step
+     ms, peak GB and ``CommDebugMode``'s collective counts reported;
+ 39. ``moe_shards``: the expert- and tensor-parallel shard bodies up to
+     their ``psum`` (``ep_shard_partial``, ``tp_shard_partial``) for each
+     shard in turn: olmoe_1b_7b at full width, 4096 tokens, 64 experts
+     over 4 shards at capacity 1.25 (an overflowing shard drops rows)
+     and 8.0 (none), mixtral_8x7b's widths with 2 experts and d_ff split
+     4 ways on 512 tokens; bf16 and float32, and float32 under autograd
+     (``moe_ffn_train``, ``moe_ffn_bwd``).  Each shard's grouped rows
+     through the kernels against plain (bf16 3e-3, float32 1e-5 of
+     max|plain|, gradients 1e-5), ``idx``, counts, ``order``, ``valid``
+     and group offsets equal to the CPU's, the EP sum at 8.0 against the
+     unsharded layer; the ``moe_ffn ep_shard`` kernel rows (bf16,
+     float32) at the overflowing shard's layout;
   9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
@@ -303,7 +325,8 @@ to standard error), the prefill and int8 lines,
 the long-context
 lines, the ``{"kernels": [...]}`` line, the K9 pass times, the MoE,
 mixtral and dense-arch lines, the slice-15 long-context lines, the
-training lines, the card's line again, and last ``{"ok":
+training lines, the ``moe_shards`` and ``sharded_train`` lines, the
+card's line again, and last ``{"ok":
 true, "device": {...}}``.  Exits 2
 without a CUDA device and 1 when the port's sources are not beside this
 script.
@@ -4437,19 +4460,22 @@ def _grouped_mm_library(xg, offs, w, gate):
     return None, "; ".join(errors)
 
 
-def _moe_row(name, shape, dtype, tol, launches, seed, bound_f32=False):
+def _moe_row(name, shape, dtype, tol, launches, seed, bound_f32=False,
+             inputs=None):
     """One ``moe_ffn`` row: kernel vs plain within ``tol`` of max|plain|,
     CUDA-event ms of the eager call, ``device_ms`` over a CUDA graph of
     50 calls, the plain version's ms, the bound (the touched experts'
     weights, the rows and the float32 output once; 6 R d ff operations),
     the library yardstick's ms, the launch plan and the count of
     tensor-core instructions in the entry's SASS (HGMMA for bf16, HMMA
-    for float32; none fails)."""
+    for float32; none fails).  ``inputs`` (xg, offs, weights, gate,
+    group sizes) replaces the random rows of ``shape`` (whose tokens x
+    top_k must then be xg's rows)."""
     import torch
     from repro_torch.kernels import moe_ffn as KM
     d, ff, n_exp, tokens, top_k = shape
-    xg, offs, w, gate, sizes = _moe_inputs(d, ff, n_exp, tokens, top_k,
-                                           dtype, seed)
+    xg, offs, w, gate, sizes = inputs or _moe_inputs(
+        d, ff, n_exp, tokens, top_k, dtype, seed)
     got = KM.moe_ffn(xg, offs, *w, gate)
     want = KM.moe_ffn_plain(xg, offs, *w, gate)
     torch.cuda.synchronize()
@@ -6235,6 +6261,411 @@ def run_training() -> list[dict]:
     return lines
 
 
+# =============================================================================
+# slice 21: the MoE shard bodies one shard after another, the sharded step
+# =============================================================================
+
+# ``moe_shards``: olmoe_1b_7b at full width, 4096 tokens (one data group),
+# experts split over 4 expert-parallel shards, at capacity 1.25 (rows are
+# dropped) and 8.0 (none are); mixtral_8x7b at full width with 2 experts,
+# d_ff split 4 ways (tensor parallel), 512 tokens.  bf16 and float32
+# forward, float32 under autograd (``moe_ffn_train``, ``moe_ffn_bwd``).
+SHARD_EP, SHARD_EP_TOKENS, SHARD_FACTORS = 4, 4096, (1.25, 8.0)
+SHARD_TP, SHARD_TP_TOKENS = 4, 512
+# ``sharded_train``: one step of the sharded train step against the
+# unsharded one on the same card, at full width and 2 layers.  The mesh
+# is (1, 1) over NCCL: gloo carries the c10d collectives for CUDA
+# tensors, but its functional all_gather_into_tensor (every DTensor
+# gather: Shard -> Replicate, full_tensor) ended the process with
+# SIGSEGV on the card's torch, and NCCL refuses two ranks on one card.
+SHARDED_BACKEND, SHARDED_MESH = "nccl", (1, 1)
+SHARDED_RUNS = (("olmoe_1b_7b", 2), ("qwen3_4b", 2))
+SHARDED_BATCH, SHARDED_SEQ, SHARDED_MICRO = 4, 512, 2
+SHARDED_LOSS_ATOL, SHARDED_PARAM_ATOL, SHARDED_GRAD_FLOOR = 1e-5, 2e-5, 1e-6
+
+
+def _shard_weights(p: dict, m: int, n: int, ep: bool) -> dict:
+    """Shard ``m`` of ``n`` of MoE weights: its experts (EP) or its d_ff
+    slice of every expert (TP), as contiguous tensors."""
+    if ep:
+        e = p["w_gate"].shape[0] // n
+        cut = {k: p[k][m * e:(m + 1) * e] for k in ("w_gate", "w_up",
+                                                     "w_down")}
+    else:
+        f = p["w_gate"].shape[2] // n
+        cut = {"w_gate": p["w_gate"][..., m * f:(m + 1) * f],
+               "w_up": p["w_up"][..., m * f:(m + 1) * f],
+               "w_down": p["w_down"][:, m * f:(m + 1) * f]}
+    return dict(p, **{k: v.contiguous() for k, v in cut.items()})
+
+
+def _shard_grouped(x, p, part, top_k):
+    """The grouped rows one shard's partial hands ``moe_ffn``: (xg, gate),
+    the rows that are not the shard's zeroed, their gate weight 0."""
+    from repro_torch.models import moe
+    w = moe.route(x, p["w_router"], top_k)[0]
+    keep = part.valid[:, None].to(x.dtype)
+    xg = (x[part.order // top_k] * keep).contiguous()
+    return xg, (w.reshape(-1)[part.order] * part.valid).contiguous()
+
+
+def _shard_kernel_check(x, ps, part, top_k, tol, grad: bool) -> dict:
+    """One shard's grouped rows through ``moe_ffn`` against
+    ``moe_ffn_plain`` on the card (``tol`` of max|plain|), and with
+    ``grad`` through ``moe_ffn_backward`` against
+    ``moe_ffn_backward_plain`` from the training entry's g, u, h (every
+    output within 1e-5 of its largest).  Comparison launches, not the
+    path's."""
+    import torch
+    from repro_torch.kernels import moe_ffn as KM
+    xg, gate = _shard_grouped(x, ps, part, top_k)
+    ws = (ps["w_gate"], ps["w_up"], ps["w_down"])
+    got = KM.moe_ffn(xg, part.offs, *ws, gate)
+    want = KM.moe_ffn_plain(xg, part.offs, *ws, gate)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not (torch.isfinite(got).all() and err <= tol * scale):
+        raise RuntimeError(f"moe_shards: moe_ffn at a shard layout: max "
+                           f"abs err {err} > {tol} x {scale}")
+    out = {"max_abs_err": err, "max_abs_plain": scale}
+    if grad:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 90)
+        dy = torch.randn(got.shape, generator=gen, device="cuda")
+        guh = KM.moe_ffn_train(xg, part.offs, *ws, gate)[1:]
+        g = KM.moe_ffn_backward(dy, xg, part.offs, *ws, gate, *guh)
+        pl = KM.moe_ffn_backward_plain(dy, xg, part.offs, *ws, gate, *guh)
+        errs = {}
+        for name, a, b in zip(MOE_BWD_OUTPUTS, g, pl):
+            e, sc = float((a - b).abs().max()), float(b.abs().max())
+            if not (torch.isfinite(a).all() and e <= MOE_BWD_TOL * sc):
+                raise RuntimeError(f"moe_shards: moe_ffn_bwd {name} at a "
+                                   f"shard layout: {e} > {MOE_BWD_TOL} x "
+                                   f"{sc}")
+            errs[name] = e
+        out["bwd_max_abs_err"] = errs
+    return out
+
+
+def _shard_inputs(d, E, ff, tokens, dtype, seed, favour: int = 0):
+    """x [tokens, d] and MoE weights with the init scales, drawn on the
+    card from ``seed``; the router's first ``favour`` columns scaled by 4,
+    so that the shard holding those experts gets more slots than its
+    capacity at 1.25."""
+    import torch
+    from repro_torch.models import moe
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randn((tokens, d), generator=gen, device="cuda").to(dtype)
+    p = moe.init_moe_params(gen, d, E, ff, dtype=dtype, device="cuda")
+    p["w_router"][:, :favour] *= 4
+    return x, p
+
+
+def _ep_case(x, p, top_k, factor, tol, grad: bool) -> tuple[dict, dict]:
+    """The EP partials of every shard in turn (the path: their launches
+    are counted), summed in shard order; their kernels against plain;
+    ``order``, ``valid``, the group offsets, ``idx`` and the counts
+    against the CPU's routing and layout.  With ``grad`` the partials
+    run under autograd and backward.  Returns (the case's line, the last
+    shard's kernel inputs for a timing row)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import moe
+    T, E = x.shape[0], p["w_router"].shape[1]
+    e_local = E // SHARD_EP
+    cap = moe.ep_capacity(T, top_k, SHARD_EP, factor)
+    shards = [_shard_weights(p, m, SHARD_EP, True) for m in range(SHARD_EP)]
+    if grad:
+        x = x.clone().requires_grad_(True)
+        for ps in shards:
+            for k in ("w_gate", "w_up", "w_down"):
+                ps[k].requires_grad_(True)
+    before = dict(kernels.launch_counts())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.set_grad_enabled(grad):
+        parts = [moe.ep_shard_partial(x, ps, top_k, m, SHARD_EP, cap)
+                 for m, ps in enumerate(shards)]
+        total = parts[0].out
+        for part in parts[1:]:
+            total = total + part.out
+        if grad:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(SEED + 91)
+            (total * torch.randn(total.shape, generator=gen,
+                                 device="cuda")).sum().backward()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _launch_delta(before)
+    want_launch = {"moe_ffn": 2 * SHARD_EP}
+    if grad:
+        want_launch["moe_ffn_bwd"] = 3 * SHARD_EP
+    if launched != want_launch:
+        raise RuntimeError(f"moe_shards: launches {launched}, expected "
+                           f"{want_launch}")
+    # the CPU's routing and layout of the same rows
+    xd = x.detach()
+    _, idx_c, _, counts_c = moe.route(xd.cpu(), p["w_router"].detach().cpu(),
+                                      top_k)
+    layout_equal, dropped, checks = True, [], []
+    for m, (part, ps) in enumerate(zip(parts, shards)):
+        order, valid, offs, _ = moe.ep_layout(idx_c, m, e_local, cap)
+        same = (torch.equal(part.idx.cpu(), idx_c)
+                and torch.equal(part.counts.cpu(), counts_c)
+                and torch.equal(part.order.cpu(), order)
+                and torch.equal(part.valid.cpu(), valid)
+                and torch.equal(part.offs.cpu(), offs))
+        layout_equal &= same
+        mine = int(((idx_c // e_local) == m).sum())
+        dropped.append(mine - int(valid.sum()))
+        with torch.no_grad():
+            checks.append(_shard_kernel_check(
+                xd, {k: v.detach() for k, v in ps.items()}, part, top_k,
+                tol, grad))
+    if not layout_equal:
+        raise RuntimeError(f"moe_shards: EP layout at capacity {factor} "
+                           f"differs from the CPU's")
+    line = {"dtype": str(x.dtype).removeprefix("torch."),
+            "capacity_factor": factor, "capacity": cap, "grad": grad,
+            "rows_dropped_per_shard": dropped,
+            "empty_local_groups": [int((part.offs.diff() == 0).sum())
+                                   for part in parts],
+            "layout_equal_cpu": layout_equal, "launches": launched,
+            "wall_s": wall, "kernel_vs_plain": checks}
+    if factor >= 8.0 and not grad:
+        with torch.no_grad():
+            want = moe.moe_sorted_local(xd, p, top_k)[0].float()
+        err = float((total.to(xd.dtype).float() - want).abs().max())
+        line["sum_vs_unsharded"] = {"max_abs_err": err,
+                                    "max_abs_unsharded":
+                                        float(want.abs().max())}
+        if err > tol * float(want.abs().max()):
+            raise RuntimeError(f"moe_shards: EP sum vs unsharded {err}")
+    if factor < 8.0 and not any(dropped):
+        raise RuntimeError("moe_shards: capacity 1.25 dropped no row")
+    if factor >= 8.0 and any(dropped):
+        raise RuntimeError("moe_shards: capacity 8.0 dropped rows")
+    last = parts[-1]
+    xg, gate = _shard_grouped(xd, shards[-1], last, top_k)
+    ws = [shards[-1][k].detach() for k in ("w_gate", "w_up", "w_down")]
+    sizes = last.offs.diff().cpu().numpy()
+    return line, (xg, last.offs, ws, gate, sizes)
+
+
+def _tp_case(x, p, top_k, tol, grad: bool) -> dict:
+    """The TP partials (d_ff slices) in turn, summed; against the
+    unsharded layer on the card (float32 within ``tol`` of its largest;
+    bf16 within ``SHARD_TP`` ulps, one for each partial rounded to bf16
+    before the sum) and each shard's kernels against plain; the routing
+    against the CPU's."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import moe
+    shards = [_shard_weights(p, m, SHARD_TP, False) for m in range(SHARD_TP)]
+    if grad:
+        x = x.clone().requires_grad_(True)
+        for ps in shards:
+            for k in ("w_gate", "w_up", "w_down"):
+                ps[k].requires_grad_(True)
+    before = dict(kernels.launch_counts())
+    with torch.set_grad_enabled(grad):
+        parts = [moe.tp_shard_partial(x, ps, top_k) for ps in shards]
+        total = parts[0].out
+        for part in parts[1:]:
+            total = total + part.out
+        if grad:
+            total.sum().backward()
+    torch.cuda.synchronize()
+    launched = _launch_delta(before)
+    want_launch = {"moe_ffn": 2 * SHARD_TP}
+    if grad:
+        want_launch["moe_ffn_bwd"] = 3 * SHARD_TP
+    if launched != want_launch:
+        raise RuntimeError(f"moe_shards TP: launches {launched}, expected "
+                           f"{want_launch}")
+    xd = x.detach()
+    _, idx_c, _, counts_c = moe.route(xd.cpu(), p["w_router"].cpu(), top_k)
+    same = all(torch.equal(part.idx.cpu(), idx_c)
+               and torch.equal(part.counts.cpu(), counts_c)
+               for part in parts)
+    if not same:
+        raise RuntimeError("moe_shards TP: routing differs from the CPU's")
+    with torch.no_grad():
+        checks = [_shard_kernel_check(
+            xd, {k: v.detach() for k, v in ps.items()}, part, top_k, tol,
+            grad) for part, ps in zip(parts, shards)]
+        want = moe.moe_sorted_local(xd, p, top_k)[0].float()
+    err = float((total.detach().to(xd.dtype).float() - want).abs().max())
+    # JAX's TP body rounds each shard's partial to x's type before the
+    # psum: in bf16 the sum may stand one ulp of each partial apart
+    limit = (tol if xd.dtype == torch.float32 else SHARD_TP * 2 ** -8)
+    if err > limit * float(want.abs().max()):
+        raise RuntimeError(f"moe_shards TP: sum vs unsharded {err}")
+    return {"dtype": str(x.dtype).removeprefix("torch."), "grad": grad,
+            "routing_equal_cpu": same, "launches": launched,
+            "sum_vs_unsharded": {"max_abs_err": err,
+                                 "max_abs_unsharded":
+                                     float(want.abs().max()),
+                                 "limit_of_max": limit},
+            "kernel_vs_plain": checks}
+
+
+def run_moe_shards() -> tuple[dict, list[dict]]:
+    """Phase ``moe_shards``: JAX's expert- and tensor-parallel shard
+    bodies up to their ``psum`` (``ep_shard_partial``,
+    ``tp_shard_partial``) for every shard in turn on the card, at full
+    olmoe and mixtral widths.  Returns its line and the ``moe_ffn`` rows
+    at the EP shard shape (bf16 and float32, capacity 1.25)."""
+    import torch
+    from repro_torch.configs.base import registry
+    olmoe, mixtral = registry()["olmoe_1b_7b"], registry()["mixtral_8x7b"]
+    t0 = time.perf_counter()
+    line = {"phase": "moe_shards", "card": _card_line(),
+            "olmoe_ep": [], "mixtral_tp": []}
+    rows = []
+    for dtype, tol in ((torch.bfloat16, MOE_TOL),
+                       (torch.float32, MOE_F32_TOL)):
+        x, p = _shard_inputs(olmoe.d_model, olmoe.n_experts,
+                             olmoe.expert_d_ff, SHARD_EP_TOKENS, dtype,
+                             SEED + 80, favour=4)
+        for factor in SHARD_FACTORS:
+            for grad in ((False, True) if dtype == torch.float32
+                         and factor < 8.0 else (False,)):
+                case, inputs = _ep_case(x, p, olmoe.top_k, factor, tol, grad)
+                line["olmoe_ep"].append(case)
+                if factor < 8.0 and not grad:
+                    shard_rows = int(inputs[0].shape[0])
+                    rows.append(_moe_row(
+                        "moe_ffn ep_shard" + ("_f32" if dtype ==
+                                              torch.float32 else ""),
+                        (olmoe.d_model, olmoe.expert_d_ff,
+                         olmoe.n_experts // SHARD_EP, shard_rows, 1), dtype,
+                        tol, case["launches"]["moe_ffn"], SEED + 81,
+                        bound_f32=dtype == torch.float32, inputs=inputs))
+                    rows[-1]["replaces_note"] = (
+                        "XLA: the three lax.ragged_dot of _grouped_ffn "
+                        "inside _ep_shard_body (src/repro/models/moe.py:"
+                        "117), one shard's capacity of rows over its "
+                        "local experts, the rows of other shards zeroed "
+                        "in the last group")
+                del inputs
+        del x, p
+        x, p = _shard_inputs(mixtral.d_model, 2, mixtral.d_ff,
+                             SHARD_TP_TOKENS, dtype, SEED + 82)
+        for grad in ((False, True) if dtype == torch.float32 else (False,)):
+            line["mixtral_tp"].append(_tp_case(x, p, mixtral.top_k, tol,
+                                               grad))
+        del x, p
+        torch.cuda.empty_cache()
+    line["seconds"] = time.perf_counter() - t0
+    return line, rows
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _sharded_run(arch: str, layers: int, mi) -> dict:
+    """One step of ``make_train_step(cfg, mi)`` on DTensor parameters
+    against ``make_train_step(cfg)`` on the same weights and batch, on
+    the card."""
+    from dataclasses import replace
+
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch import kernels, tree
+    from repro_torch.configs.base import registry
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import make_train_step, micro_batches
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as sh
+    cfg = replace(registry()[arch], n_layers=layers)
+    params = init_params(cfg, seed=SEED, device="cuda")
+    batch = micro_batches(SyntheticLM(cfg.vocab, SHARDED_SEQ, SHARDED_BATCH,
+                                      seed=SEED).batch(0), SHARDED_MICRO)
+    ps = sh.distribute(params, mi, sh.param_specs(cfg, mi))
+    opt = adamw.init(ps)
+    step = make_train_step(cfg, mi)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kernels.launch_counts())
+    comm = CommDebugMode()
+    t0 = time.perf_counter()
+    with comm:
+        ps, opt, m = step(ps, opt, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launched = _launch_delta(before)
+    want_launch = {k: v for k, v in _train_launches(
+        cfg, SHARDED_MICRO).items() if v}
+    if launched != want_launch:
+        raise RuntimeError(f"sharded_train {arch}: launches {launched}, "
+                           f"expected {want_launch}")
+    got = [sh.full(p) for p in tree.leaves(ps)]
+    del ps, opt
+    ref = make_train_step(cfg)
+    rp, ro, rm = ref(params, adamw.init(params), batch)
+    dloss = abs(float(m["loss"]) - float(rm["loss"]))
+    worst = 0.0
+    for a, b, mo in zip(got, tree.leaves(rp), tree.leaves(ro.m)):
+        big = (mo.abs() / 0.1) >= SHARDED_GRAD_FLOOR    # m = 0.1 g
+        d = (a - b).abs()
+        worst = max(worst, float(d[big].max()) if bool(big.any()) else 0.0)
+    counts_equal = (torch.equal(m["expert_counts"], rm["expert_counts"])
+                    if cfg.is_moe else None)
+    ok = (dloss <= SHARDED_LOSS_ATOL and worst <= SHARDED_PARAM_ATOL
+          and counts_equal is not False
+          and all(bool(torch.isfinite(t).all()) for t in got))
+    line = {"arch": arch, "layers": layers, "mode": (
+                "ep" if cfg.is_moe else sh.attn_mode(cfg, mi)),
+            "loss": float(m["loss"]), "loss_unsharded": float(rm["loss"]),
+            "loss_abs_diff": dloss, "param_max_abs_diff_where_g_ge_1e-6":
+                worst, "expert_counts_equal": counts_equal,
+            "step_ms": step_ms, "peak_gb": peak,
+            "collectives": {str(k): v for k, v in
+                            comm.get_comm_counts().items()},
+            "kernel_launches": launched}
+    del got, rp, ro, params
+    torch.cuda.empty_cache()
+    if not ok:
+        raise RuntimeError(f"sharded_train: {line}")
+    return line
+
+
+def run_sharded_train() -> dict:
+    """Phase ``sharded_train``: the sharded train step (DTensor parameters
+    by ``param_specs``, ZeRO moments, the MoE expert-parallel branch on
+    ``moe_ffn``/``moe_ffn_bwd``) at full olmoe_1b_7b and qwen3_4b width,
+    2 layers, on a ``SHARDED_MESH`` mesh over ``SHARDED_BACKEND``, held
+    against the unsharded step on the same card with C2's gates."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh, make_mesh_info
+    t0 = time.perf_counter()
+    dist.init_process_group(SHARDED_BACKEND,
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mi = make_mesh_info(make_debug_mesh(*SHARDED_MESH,
+                                            device_type="cuda"))
+        runs = [_sharded_run(arch, layers, mi)
+                for arch, layers in SHARDED_RUNS]
+    finally:
+        dist.destroy_process_group()
+    return {"phase": "sharded_train", "card": _card_line(),
+            "backend": SHARDED_BACKEND, "mesh": list(SHARDED_MESH),
+            "backend_note": "gloo's functional all_gather_into_tensor "
+                            "crashed on CUDA tensors; NCCL takes one rank "
+                            "a card", "batch": SHARDED_BATCH,
+            "seq": SHARDED_SEQ, "micro": SHARDED_MICRO, "runs": runs,
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6263,6 +6694,10 @@ def main() -> int:
     # 24 full-width qwen3_4b layers takes ~65 GB at its peak
     train_lines = run_training()
     train_rows = bench_moe_bwd_kernels(train_lines)
+    sharded = run_sharded_train()
+    print(json.dumps(sharded), file=sys.stderr, flush=True)
+    shards, shard_rows = run_moe_shards()
+    print(json.dumps(shards), file=sys.stderr, flush=True)
 
     cfg = registry()["qwen3_4b"]
     t0 = time.perf_counter()
@@ -6366,7 +6801,7 @@ def main() -> int:
     s15 = run_slice15()
     kernel_rows += s15["rows"]
     lcross["runs"] += s15["card_vs_cpu"]
-    kernel_rows += train_rows
+    kernel_rows += train_rows + shard_rows
 
     lines += [{"kernels": kernel_rows}, {"host_link": link}, engine_line,
               pinned_line, parity, pparity, tail, overlap, overlap_faults,
@@ -6375,8 +6810,8 @@ def main() -> int:
               pinv, window, pwindow, cross, pre, ppre, i8h, i8p, zline, mline,
               probe_f32, probe_bf16, lcross, *f32_lines, ssd_passes,
               s13["moe_engine"], s13["longctx_mixtral"], *s13["probes"],
-              s13["dense_archs"], *s15["lines"], *train_lines,
-              _card_line()]
+              s13["dense_archs"], *s15["lines"], *train_lines, shards,
+              sharded, _card_line()]
     for line in lines:
         _emit(line)
     _emit({"ok": True, "device": {

@@ -1,4 +1,7 @@
-"""Checkpointing (torch twin of ``repro.checkpoint``'s ``Checkpointer``)."""
+"""Checkpointing and fault tolerance (torch twin of ``repro.checkpoint``)."""
 from .checkpointer import Checkpointer
+from .fault_tolerance import (ElasticMeshPlan, HeartbeatMonitor,
+                              StragglerPolicy, plan_elastic_remesh)
 
-__all__ = ["Checkpointer"]
+__all__ = ["Checkpointer", "ElasticMeshPlan", "HeartbeatMonitor",
+           "StragglerPolicy", "plan_elastic_remesh"]

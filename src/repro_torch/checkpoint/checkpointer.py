@@ -1,5 +1,5 @@
 """Asynchronous, atomic checkpointing (torch twin of
-``repro.checkpoint.checkpointer``, one device, no sharding specs).
+``repro.checkpoint.checkpointer``), on one device or over a mesh.
 
   * **step-atomic**: a checkpoint directory appears only by the rename of
     a fully written ``.tmp_step_N`` directory, so a crash mid-save never
@@ -12,10 +12,14 @@
   * **bounded retention**: the newest ``keep`` checkpoints stay;
   * **checked restore**: leaves are named by their path in the tree
     (``repro_torch.tree``); a restore whose names, shapes or dtypes differ
-    from the checkpoint's raises.
+    from the checkpoint's raises;
+  * **re-layout**: a DTensor leaf is saved whole (``full_tensor``, a
+    gather every rank joins; rank 0 writes), and ``restore(...,
+    shardings=)`` lays each leaf out on the mesh it is given, which may be
+    smaller than the one that saved it (``plan_elastic_remesh``).
 
-Leaves are torch tensors (any device; bfloat16 travels as its 16 bits)
-or numpy arrays.
+Leaves are torch tensors (any device; bfloat16 travels as its 16 bits),
+DTensors or numpy arrays.
 """
 from __future__ import annotations
 
@@ -37,8 +41,23 @@ def _dtype_name(x) -> str:
     return str(np.asarray(x).dtype)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _writes() -> bool:
+    """Whether this process writes the files: rank 0 of a process group,
+    or the only process."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _host_copy(x) -> np.ndarray:
-    """A numpy copy of a leaf; bfloat16 as its int16 bits."""
+    """A numpy copy of a leaf (a DTensor's whole tensor); bfloat16 as its
+    int16 bits."""
+    if _is_dtensor(x):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         t = x.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -60,10 +79,13 @@ class Checkpointer:
              block: bool = False) -> None:
         """Snapshot ``state`` at ``step``: every leaf is copied to host
         memory now (the card is synchronised by the copy); the files are
-        written on a thread unless ``block``."""
+        written on a thread unless ``block``.  With DTensor leaves every
+        rank calls ``save`` and rank 0 alone writes."""
         self.wait()
         names, leaves = tree.flatten_with_names(state)
         host = [_host_copy(x) for x in leaves]
+        if not _writes():
+            return
         manifest = {
             "step": step,
             "names": names,
@@ -118,12 +140,16 @@ class Checkpointer:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, like, *, step: int | None = None):
+    def restore(self, like, *, step: int | None = None, shardings=None):
         """(a tree shaped like ``like`` holding the checkpoint's values,
         its step, its ``extra``).  A tensor leaf of ``like`` comes back as
         a tensor on that leaf's device, a numpy leaf as a numpy array.
-        Raises ``ValueError`` where the checkpoint's leaf names, shapes or
-        dtypes differ from ``like``'s."""
+        ``shardings`` (the re-layout onto the current mesh): a tree shaped
+        like ``like`` whose leaves are ``(mesh, placements)`` pairs, or
+        None for a leaf that stays a plain tensor; each such leaf comes
+        back a DTensor laid out so (every rank reads the files).  Raises
+        ``ValueError`` where the checkpoint's leaf names, shapes or dtypes
+        differ from ``like``'s."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -137,6 +163,8 @@ class Checkpointer:
                 f"checkpoint/model structure mismatch: {len(names)} leaves "
                 f"{names[:4]}... vs {len(manifest['names'])} "
                 f"{manifest['names'][:4]}...")
+        layouts = ([None] * len(names) if shardings is None
+                   else _layout_leaves(shardings, names))
         out = []
         for i, (name, x) in enumerate(zip(names, leaves)):
             shape = list(x.shape)
@@ -150,8 +178,33 @@ class Checkpointer:
                 t = torch.from_numpy(arr)
                 if x.dtype == torch.bfloat16:
                     t = t.view(torch.bfloat16)
-                out.append(t.to(x.device))
+                t = t.to(x.device)
+                if layouts[i] is not None:
+                    from torch.distributed.tensor import distribute_tensor
+                    mesh, placements = layouts[i]
+                    t = distribute_tensor(t, mesh, placements)
+                out.append(t)
             else:
                 out.append(arr)
         return tree.unflatten(like, out), manifest["step"], \
             manifest.get("extra", {})
+
+
+def _layout_leaves(shardings, names: list[str]) -> list:
+    """The ``(mesh, placements)`` pair (or None) of each leaf path in
+    ``names``, looked up in ``shardings`` by path (the pairs are tuples,
+    which the tree helpers would walk into)."""
+    out = []
+    for name in names:
+        node = shardings
+        for key in name.split("/") if name else ():
+            if node is None:
+                break
+            if isinstance(node, dict):
+                node = node[key]
+            elif tree._is_namedtuple(node):
+                node = getattr(node, key)
+            else:
+                node = node[int(key)]
+        out.append(node)
+    return out

@@ -9,7 +9,10 @@ runnable training loop with checkpoint, restart and a simulated crash.
         --smoke --steps 40 --device cpu
 
 Every arch of the registry trains, MoE ones too (the default,
-``olmoe_1b_7b``, as in the JAX launcher).  The step runs the plain
+``olmoe_1b_7b``, as in the JAX launcher).  ``make_train_step(cfg, mi)``
+is the multi-device step: DTensor parameters over ``mi``'s DeviceMesh
+(``parallel.sharding``), ZeRO-laid-out gradient sums and moments
+(``init_opt_shardings``).  The step runs the plain
 attention and SSD scan under autograd; the only kernels that launch
 inside it are an MoE layer's: ``moe_ffn`` in the forward and its
 recompute, and ``moe_ffn_bwd``, its hand-written float32 gradient, in
@@ -30,9 +33,41 @@ from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, cosine_with_warmup
+from repro_torch.parallel import sharding as sh
 
 
-def make_train_step(cfg: ArchConfig, *, lr_fn=None, clip_norm: float = 1.0,
+def param_shapes(cfg: ArchConfig) -> dict:
+    """``init_params``' tree with a meta tensor of each leaf's shape in
+    place of the tensor: nothing is allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fake = T.init_params(cfg, device="cpu")
+        shapes = [tuple(p.shape) for p in tree.leaves(fake)]
+    return tree.unflatten(fake, [torch.empty(s, device="meta")
+                                 for s in shapes])
+
+
+def _zero_placements(cfg: ArchConfig, mi: sh.MeshInfo, like) -> list:
+    """The ZeRO placements of the moments and gradient sum of each leaf
+    of ``like`` (parameters or ``param_shapes``), in tree order."""
+    specs = sh.spec_leaves(sh.param_specs(cfg, mi), like)
+    return [sh.placements(adamw.zero_spec(tuple(p.shape), s, mi.dp_axes,
+                                          mi.n_data), mi.mesh)
+            for p, s in zip(tree.leaves(like), specs)]
+
+
+def init_opt_shardings(cfg: ArchConfig, mi: sh.MeshInfo) -> adamw.AdamWState:
+    """DTensor placements of ``AdamWState`` over ``mi``'s mesh: the step
+    replicated, each moment's by ``adamw.zero_specs`` (ZeRO), in trees
+    shaped like the parameters."""
+    from torch.distributed.tensor import Replicate
+    shapes = param_shapes(cfg)
+    zp = tree.unflatten(shapes, _zero_placements(cfg, mi, shapes))
+    return adamw.AdamWState(step=(Replicate(),) * mi.mesh.ndim, m=zp, v=zp)
+
+
+def make_train_step(cfg: ArchConfig, mi: sh.MeshInfo | None = None, *,
+                    lr_fn=None, clip_norm: float = 1.0,
                     weight_decay: float = 0.1):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt,
     metrics)``.
@@ -49,16 +84,34 @@ def make_train_step(cfg: ArchConfig, *, lr_fn=None, clip_norm: float = 1.0,
     clipping), as JAX's step returns them, and for an MoE arch
     ``moe_aux`` (the mean of the microbatches' load-balancing losses) and
     ``expert_counts`` (int32 [n_micro, E], each microbatch's histogram
-    summed over the layers)."""
+    summed over the layers).
+
+    With a mesh ``mi`` the parameters are DTensors laid out by
+    ``parallel.sharding.param_specs`` (``sharding.distribute``) and the
+    forward and backward run on them (``T.loss_fn(..., mi)``).  Each
+    microbatch's gradients are added into float32 sums laid out by
+    ``adamw.zero_specs``; the moments are kept in that layout (the state
+    ``adamw.init`` made is laid out so on the first step), the update
+    runs there, and the parameters are laid out by their specs again
+    after it.  The metrics are the unsharded step's, as whole tensors."""
     T._check_supported(cfg)
     if lr_fn is None:
         lr_fn = lambda step: 3e-4
+    zero = None
 
     def train_step(params, opt_state, batch):
+        nonlocal zero
         prev = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
-            return _step(params, opt_state, batch)
+            if mi is None:
+                return _step(params, opt_state, batch)
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            if zero is None:
+                zero = _zero_placements(cfg, mi, params)
+            with implicit_replication():
+                return _sharded_step(params, opt_state, batch, zero)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = prev
 
@@ -103,6 +156,63 @@ def make_train_step(cfg: ArchConfig, *, lr_fn=None, clip_norm: float = 1.0,
             out["moe_aux"] = aux_sum / n_micro
             out["expert_counts"] = torch.stack(counts)
         return params, opt_state, out
+
+    def _sharded_step(params, opt_state, batch, zero):
+        from torch.distributed.tensor import DTensor, distribute_tensor
+        leaves = tree.leaves(params)
+        n_micro = next(iter(batch.values())).shape[0]
+        dev = leaves[0].device
+        was = [p.requires_grad for p in leaves]
+        for p in leaves:
+            p.requires_grad_(True)
+        sums = [None] * len(leaves)
+        loss_sum = aux_sum = 0.0
+        counts = []
+        try:
+            for i in range(n_micro):
+                mb = {k: torch.as_tensor(v[i]).to(dev)
+                      for k, v in batch.items()}
+                total, metrics = T.loss_fn(params, cfg, mb, mi)
+                total.backward()
+                for j, p in enumerate(leaves):
+                    g = p.grad.float().redistribute(mi.mesh, zero[j])
+                    sums[j] = g if sums[j] is None else sums[j] + g
+                    p.grad = None
+                loss_sum = loss_sum + metrics["ce_loss"].detach()
+                if cfg.is_moe:
+                    aux_sum = aux_sum + metrics["moe_aux"].detach()
+                    counts.append(sh.full(metrics["expert_counts"]))
+        finally:
+            for p, w in zip(leaves, was):
+                p.requires_grad_(w)
+        for g in sums:
+            g.div_(n_micro)
+
+        def lay(t, z):
+            if not isinstance(t, DTensor):      # moments made whole
+                return distribute_tensor(t, mi.mesh, z)
+            return t if t.placements == z else t.redistribute(mi.mesh, z)
+
+        m = [lay(t, z) for t, z in zip(tree.leaves(opt_state.m), zero)]
+        v = [lay(t, z) for t, z in zip(tree.leaves(opt_state.v), zero)]
+        pz = [p.detach().redistribute(mi.mesh, z)
+              for p, z in zip(leaves, zero)]
+        lr = lr_fn(opt_state.step)
+        _, new_opt, om = adamw.update(
+            sums, adamw.AdamWState(opt_state.step, m, v), pz, lr=lr,
+            clip_norm=clip_norm, weight_decay=weight_decay)
+        with torch.no_grad():
+            for p, q in zip(leaves, pz):
+                p.copy_(q.redistribute(mi.mesh, p.placements))
+        new_opt = adamw.AdamWState(new_opt.step,
+                                   tree.unflatten(opt_state.m, m),
+                                   tree.unflatten(opt_state.v, v))
+        out = {"loss": sh.full(loss_sum) / n_micro, "lr": lr,
+               "grad_norm": sh.full(om["grad_norm"])}
+        if cfg.is_moe:
+            out["moe_aux"] = sh.full(aux_sum) / n_micro
+            out["expert_counts"] = torch.stack(counts)
+        return params, new_opt, out
 
     return train_step
 

@@ -134,6 +134,36 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return sdpa_dense(q, k, v, mask_bias, q.shape[3] ** -0.5, soft_cap)
 
 
+def sdpa_sharded(q, k, v, mask_bias: torch.Tensor, mi, *,
+                 soft_cap: float | None = None):
+    """``sdpa`` of DTensors q, k, v over ``mi``'s mesh, run on each rank's
+    shards: the batch split over the data axes and, in megatron mode
+    (the heads divide ``model``), the heads over ``model``.  k/v heads
+    that do not divide ``model`` are expanded to Hq first (replicated,
+    then each rank keeps its q heads' copies).  In context mode q, k and
+    v are whole on every ``model`` rank.  ``mask_bias`` [B, Sq, Sk] is a
+    plain tensor whose rows are equal (the training batch's positions
+    are 0..S-1 in every row)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    names = mi.mesh.mesh_dim_names
+    Hq, Hkv = q.shape[2], k.shape[2]
+    split = Hq % mi.n_model == 0
+    place = [Shard(2) if n == mi.model_axis and split
+             else Shard(0) if n in mi.dp_axes else Replicate()
+             for n in names]
+    if split and Hkv % mi.n_model:
+        whole = [Shard(0) if n in mi.dp_axes else Replicate()
+                 for n in names]
+        k = layers.repeat_heads(k.redistribute(mi.mesh, whole), Hq // Hkv,
+                                dim=2)
+        v = layers.repeat_heads(v.redistribute(mi.mesh, whole), Hq // Hkv,
+                                dim=2)
+    ql, kl, vl = (t.redistribute(mi.mesh, place).to_local()
+                  for t in (q, k, v))
+    out = sdpa(ql, kl, vl, mask_bias[:ql.shape[0]], soft_cap=soft_cap)
+    return DTensor.from_local(out, mi.mesh, place, run_check=False)
+
+
 def sdpa_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  mask_bias: torch.Tensor, *,
                  soft_cap: float | None = None) -> torch.Tensor:

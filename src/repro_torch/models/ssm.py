@@ -236,6 +236,59 @@ def mamba_forward(p: dict, spec: MambaSpec, x: torch.Tensor, *,
     return out
 
 
+def mamba_forward_sharded(p: dict, spec: MambaSpec, x, mi):
+    """``mamba_forward`` of the training step over ``mi``'s mesh, on each
+    rank's shards (DTensor has no sharding rule for the chunked scan's
+    reshapes): the heads split over ``model`` (``in_proj_z``/``_x``,
+    ``norm`` and ``out_proj``'s rows as ``param_specs`` lays them out),
+    B, C and dt computed whole on every rank and the rank's heads taken
+    from them and from the replicated conv, ``dt_bias``, ``A_log`` and
+    ``D``.  The gated RMSNorm's sum of squares over d_inner is summed
+    over ``model``, and the row-split ``out_proj``'s partial outputs too.
+    x [B, L, d] is a DTensor split over the data axes; returns the
+    block's output as one."""
+    from repro_torch.parallel.sharding import local, psum
+    if spec.n_groups != 1:
+        raise NotImplementedError("mamba_forward_sharded: one B/C group")
+    n, m = mi.n_model, mi.mesh.get_local_rank(mi.model_axis)
+    H, Pd, di, gn = spec.n_heads, spec.headdim, spec.d_inner, spec.d_state
+    if H % n:
+        raise ValueError(f"mamba_forward_sharded: {H} heads over {n} "
+                         f"model shards")
+    Hl, dil = H // n, di // n
+    heads, chans = slice(m * Hl, (m + 1) * Hl), slice(m * dil, (m + 1) * dil)
+    everyone = (mi.model_axis, *mi.dp_axes)
+    xl = local(x, mi, (mi.model_axis,))
+    pl = {k: local(v, mi, everyone if k in (
+              "in_proj_B", "in_proj_C", "in_proj_dt", "conv_w", "conv_b",
+              "dt_bias", "A_log", "D") else mi.dp_axes)
+          for k, v in p.items()}
+    Bsz, L, _ = xl.shape
+
+    z = xl @ pl["in_proj_z"]
+    xs = xl @ pl["in_proj_x"]
+    Bp = xl @ pl["in_proj_B"]
+    Cp = xl @ pl["in_proj_C"]
+    dt = (xl @ pl["in_proj_dt"])[..., heads]
+    cw, cb = pl["conv_w"], pl["conv_b"]
+    xs = _causal_depthwise_conv(xs, cw[:, chans], cb[chans])
+    Bp = _causal_depthwise_conv(Bp, cw[:, di:di + gn], cb[di:di + gn])
+    Cp = _causal_depthwise_conv(Cp, cw[:, di + gn:], cb[di + gn:])
+
+    xh = xs.reshape(Bsz, L, Hl, Pd)
+    dt = softplus(dt.float() + pl["dt_bias"][heads].float())
+    A = -torch.exp(pl["A_log"][heads].float())
+    y, _ = ssd_chunked(xh, dt, A, Bp.reshape(Bsz, L, 1, gn),
+                       Cp.reshape(Bsz, L, 1, gn), spec.chunk)
+    y = y + xh.float() * pl["D"][heads].float()[:, None]
+    y = y.reshape(Bsz, L, dil) * F.silu(z.float())
+
+    ss = psum(y.square().sum(dim=-1, keepdim=True), mi, x)
+    ss = local(ss, mi, (mi.model_axis,))
+    y = y * torch.rsqrt(ss / di + 1e-6) * pl["norm"].float()
+    return psum(y.to(xl.dtype) @ pl["out_proj"], mi, x)
+
+
 def mamba_decode_step(p: dict, spec: MambaSpec, x: torch.Tensor,
                       h: torch.Tensor, conv_state: torch.Tensor):
     """One-token decode.  x [B, 1, d]; h [B, H, N, P]; conv_state

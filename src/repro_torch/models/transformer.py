@@ -9,8 +9,12 @@ GELU MLP (musicgen); an ``input_mode="embeds"`` model (musicgen,
 qwen2_vl, whose frontends are stubbed as in the JAX package) takes
 ``embeds=`` [B, S, d] in place of token ids, and qwen2_vl's text-only
 M-RoPE (all three position streams equal) is its rotary table.  The
-training forward (``forward_hidden``, ``loss_fn``) of every non-MoE arch
-runs the plain attention and SSD scan under autograd.
+training forward (``forward_hidden``, ``loss_fn``) of every arch runs
+the plain attention and SSD scan under autograd; with a mesh
+(``mi``) it runs on DTensors, the activations laid out by
+``parallel.sharding.act_spec`` between blocks, attention and the Mamba-2
+block on each rank's shards, the MoE FFN on ``moe.moe_apply``'s
+expert- or tensor-parallel branch.
 
 Parameters are a plain dict with the JAX package's leaf names and
 layouts, except that the per-layer tree is a *list* of dicts
@@ -27,6 +31,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.parallel import sharding as sh
 
 from . import attention, layers, moe, ssm
 
@@ -147,10 +152,18 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
 
 
 def embed_in(params: dict, cfg: ArchConfig, tokens: torch.Tensor | None,
-             *, embeds: torch.Tensor | None = None) -> torch.Tensor:
+             *, embeds: torch.Tensor | None = None,
+             mi: sh.MeshInfo | None = None) -> torch.Tensor:
     """tokens [B, S] -> hidden [B, S, d]; an ``input_mode="embeds"`` arch
     takes ``embeds`` [B, S, d] (the stubbed frontend's output) as the
-    hidden states instead, and no tokens."""
+    hidden states instead, and no tokens.  With a mesh, plain tokens or
+    embeds enter split over the data axes, and the lookup is DTensor's
+    embedding over the table's shards (its gradient a sum over them)."""
+    if mi is not None:
+        if tokens is not None:
+            tokens = sh.constrain(tokens, mi, (mi.dp_axes, None))
+        if embeds is not None:
+            embeds = sh.constrain(embeds, mi, (mi.dp_axes, None, None))
     if cfg.input_mode == "embeds":
         if embeds is None or tokens is not None:
             raise ValueError(f"{cfg.name} takes embeds=[B, S, d] and no "
@@ -163,35 +176,47 @@ def embed_in(params: dict, cfg: ArchConfig, tokens: torch.Tensor | None,
     else:
         if tokens is None or embeds is not None:
             raise ValueError(f"{cfg.name} takes token ids and no embeds")
-        h = layers.embed(tokens, params["embed"])
+        h = (layers.embed(tokens, params["embed"]) if mi is None
+             else torch.nn.functional.embedding(tokens, params["embed"]))
     if cfg.scale_embed:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
                              device=h.device)
     return h
 
 
-def logits_out(params: dict, cfg: ArchConfig, h: torch.Tensor
-               ) -> torch.Tensor:
+def logits_out(params: dict, cfg: ArchConfig, h: torch.Tensor,
+               mi: sh.MeshInfo | None = None) -> torch.Tensor:
     """hidden [B, S, d] -> logits [B, S, Vp] with the padded vocabulary
-    columns masked to -1e9."""
+    columns masked to -1e9 (with a mesh by ``torch.where``: DTensor has
+    no sharding rule for every torch's in-place fill)."""
     logits = layers.unembed(
         h, params["embed"] if cfg.tie_embeddings else params["lm_head"],
         tied=cfg.tie_embeddings)
     vp = logits.shape[-1]
-    if vp != cfg.vocab:
+    if vp != cfg.vocab and mi is None:
         logits[..., cfg.vocab:] = -1e9
+    elif vp != cfg.vocab:
+        pad = torch.arange(vp, device=h.device) >= cfg.vocab
+        logits = torch.where(pad, torch.tensor(-1e9, dtype=logits.dtype,
+                                               device=h.device), logits)
     return logits
 
 
 def _ffn(lp: dict, cfg: ArchConfig, h: torch.Tensor,
-         valid: torch.Tensor | None = None):
+         valid: torch.Tensor | None = None, mi: sh.MeshInfo | None = None):
     """``ffn_block``'s body: (h + ffn(rms_norm(h)), counts, router probs
     [T, E], top-k idx [T, k]); the last three are None for a dense
-    FFN."""
+    FFN.  With a mesh the MoE FFN is ``moe.moe_apply``'s expert- or
+    tensor-parallel branch."""
     x = layers.rms_norm(h, lp["ln2"], eps=cfg.norm_eps,
                         gemma_style=cfg.gemma_norm)
     counts = probs = idx = None
-    if cfg.is_moe:
+    if cfg.is_moe and mi is not None:
+        y, probs, idx, counts = moe.moe_apply(
+            x, lp["moe"], top_k=cfg.top_k, mi=mi,
+            capacity_factor=cfg.moe_capacity_factor,
+            softmax_before_topk=cfg.softmax_before_topk)
+    elif cfg.is_moe:
         d = x.shape[-1]
         y, probs, idx, counts = moe.moe_sorted_local(
             x.reshape(-1, d), lp["moe"], cfg.top_k,
@@ -477,9 +502,18 @@ def decode_step(params: dict, cfg: ArchConfig, state: dict,
 # training forward: the loss and its gradient under autograd
 # =============================================================================
 
-def _train_attn_layer(lp: dict, cfg: ArchConfig, h: torch.Tensor,
+def _sdpa(q, k, v, bias, mi: sh.MeshInfo | None, *,
+          soft_cap: float | None = None):
+    """The training attention: the plain ``sdpa``, on each rank's shards
+    under a mesh."""
+    if mi is None:
+        return attention.sdpa(q, k, v, bias, soft_cap=soft_cap)
+    return attention.sdpa_sharded(q, k, v, bias, mi, soft_cap=soft_cap)
+
+
+def _train_attn_layer(h: torch.Tensor, lp: dict, cfg: ArchConfig,
                       window: int, cos: torch.Tensor, sin: torch.Tensor,
-                      bias: torch.Tensor):
+                      bias: torch.Tensor, mi: sh.MeshInfo | None = None):
     """One ``attn`` layer: pre-norm attention on the plain ``sdpa`` (K8
     has no backward) with the optional gemma post-norm, then the FFN.
     Returns (h, expert counts, load-balancing loss); the last two are
@@ -487,33 +521,40 @@ def _train_attn_layer(lp: dict, cfg: ArchConfig, h: torch.Tensor,
     x = layers.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
                         gemma_style=cfg.gemma_norm)
     q, k, v = attention.project_qkv(lp["attn"], x, cos, sin)
-    out = attention.sdpa(q, k, v, bias, soft_cap=cfg.soft_cap)
+    out = _sdpa(q, k, v, bias, mi, soft_cap=cfg.soft_cap)
     out = attention._out_proj(out, lp["attn"]["wo"])
-    h, counts, probs, idx = _ffn(lp, cfg, h + _attn_post(lp, cfg, out))
+    h, counts, probs, idx = _ffn(lp, cfg, h + _attn_post(lp, cfg, out),
+                                 mi=mi)
     aux = (moe.aux_load_balance_loss(probs, idx, cfg.n_experts)
            if cfg.is_moe else None)
     return h, counts, aux
 
 
-def _train_mamba_layer(lp: dict, sp: dict | None, cfg: ArchConfig,
-                       spec: ssm.MambaSpec, h: torch.Tensor,
+def _train_mamba_layer(h: torch.Tensor, lp: dict, sp: dict | None,
+                       cfg: ArchConfig, spec: ssm.MambaSpec,
                        cos: torch.Tensor, sin: torch.Tensor,
-                       bias: torch.Tensor) -> torch.Tensor:
+                       bias: torch.Tensor,
+                       mi: sh.MeshInfo | None = None) -> torch.Tensor:
     """One Mamba-2 layer on the plain chunked scan; ``sp`` (a hybrid's
     shared block at a shared site, else None) then attends causally with
     the shared weights and runs the shared SwiGLU."""
     x = layers.rms_norm(h, lp["ln"], eps=cfg.norm_eps)
-    h = h + ssm.mamba_forward(lp["mamba"], spec, x, scan=ssm.ssd_chunked)
+    if mi is None:
+        h = h + ssm.mamba_forward(lp["mamba"], spec, x,
+                                  scan=ssm.ssd_chunked)
+    else:
+        h = h + ssm.mamba_forward_sharded(lp["mamba"], spec, x, mi)
     if sp is not None:
         x = layers.rms_norm(h, sp["ln1"], eps=cfg.norm_eps)
         q, k, v = attention.project_qkv(sp["attn"], x, cos, sin)
-        out = attention._out_proj(attention.sdpa(q, k, v, bias),
+        out = attention._out_proj(_sdpa(q, k, v, bias, mi),
                                   sp["attn"]["wo"])
         h = _shared_mlp(sp, cfg, h + out)
     return h
 
 
-def forward_hidden(params: dict, cfg: ArchConfig, batch: dict):
+def forward_hidden(params: dict, cfg: ArchConfig, batch: dict,
+                   mi: sh.MeshInfo | None = None):
     """Final-normed hidden states [B, S, d] of a training batch
     (``{"tokens": [B, S]}`` or, for an embeds arch, ``{"embeds": [B, S,
     d]}``) and the metrics: ``moe_aux``, the load-balancing loss summed
@@ -530,17 +571,28 @@ def forward_hidden(params: dict, cfg: ArchConfig, batch: dict):
     recompute) and ``moe_ffn_bwd`` in the backward (3 a layer)."""
     _check_supported(cfg)
     h = embed_in(params, cfg, batch.get("tokens"),
-                 embeds=batch.get("embeds"))
+                 embeds=batch.get("embeds"), mi=mi)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device).expand(B, S)
     ropes = _rope_tables(cfg, positions)
+    if mi is not None:
+        aspec = sh.act_spec(cfg, mi, seq=True)
+        inner = sh.act_spec(cfg, mi, seq=False)
 
-    def run(fn, *args):
+    def run(fn, h, *args):
+        if mi is not None:      # gathered over the sequence for the block
+            h = sh.constrain(h, mi, inner)
         if cfg.remat:
-            return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                     use_reentrant=False)
-        return fn(*args)
+            out = torch.utils.checkpoint.checkpoint(fn, h, *args,
+                                                    use_reentrant=False)
+        else:
+            out = fn(h, *args)
+        if mi is None:
+            return out
+        if isinstance(out, tuple):
+            return (sh.constrain(out[0], mi, aspec), *out[1:])
+        return sh.constrain(out, mi, aspec)
 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     counts = (torch.zeros((cfg.n_experts,), dtype=torch.int32,
@@ -551,8 +603,8 @@ def forward_hidden(params: dict, cfg: ArchConfig, batch: dict):
                   for w in set(wins)}
         for l, lp in enumerate(params["layers"]):
             cos, sin = _layer_rope(cfg, wins[l], ropes)
-            h, c, a = run(_train_attn_layer, lp, cfg, h, wins[l], cos, sin,
-                          biases[wins[l]])
+            h, c, a = run(_train_attn_layer, h, lp, cfg, wins[l], cos,
+                          sin, biases[wins[l]], mi)
             if cfg.is_moe:
                 counts = counts + c
                 aux = aux + a
@@ -563,8 +615,8 @@ def forward_hidden(params: dict, cfg: ArchConfig, batch: dict):
                 if cfg.layout == "hybrid" else None)
         for l, lp in enumerate(params["layers"]):
             sp = params["shared"] if _is_shared_site(cfg, l) else None
-            h = run(_train_mamba_layer, lp, sp, cfg, spec, h, cos, sin,
-                    bias)
+            h = run(_train_mamba_layer, h, lp, sp, cfg, spec, cos, sin,
+                    bias, mi)
     h = layers.rms_norm(h, params["final_norm"], eps=cfg.norm_eps,
                         gemma_style=cfg.gemma_norm)
     metrics = {"moe_aux": aux}
@@ -573,12 +625,23 @@ def forward_hidden(params: dict, cfg: ArchConfig, batch: dict):
     return h, metrics
 
 
-def loss_fn(params: dict, cfg: ArchConfig, batch: dict):
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict,
+            mi: sh.MeshInfo | None = None):
     """(total loss, metrics) of a batch with ``labels`` [B, S]: the mean
     token cross-entropy of ``logits_out`` plus ``aux_loss_weight`` x the
-    MoE load-balancing loss (0 without MoE); metrics add ``ce_loss``."""
-    h, metrics = forward_hidden(params, cfg, batch)
-    logits = logits_out(params, cfg, h)
-    loss = layers.softmax_cross_entropy(logits, batch["labels"])
+    MoE load-balancing loss (0 without MoE); metrics add ``ce_loss``.
+    With a mesh (DTensor parameters, under ``implicit_replication``) the
+    final hidden states are gathered over the sequence and the logits
+    over the vocabulary (split over ``model`` by the unembedding) before
+    the cross-entropy picks each label's logit."""
+    h, metrics = forward_hidden(params, cfg, batch, mi)
+    if mi is not None:
+        h = sh.constrain(h, mi, sh.act_spec(cfg, mi, seq=False))
+    logits = logits_out(params, cfg, h, mi)
+    labels = batch["labels"]
+    if mi is not None:
+        logits = sh.constrain(logits, mi, sh.act_spec(cfg, mi, seq=False))
+        labels = sh.constrain(labels, mi, (mi.dp_axes, None))
+    loss = layers.softmax_cross_entropy(logits, labels)
     total = loss + cfg.aux_loss_weight * metrics["moe_aux"]
     return total, dict(metrics, ce_loss=loss)

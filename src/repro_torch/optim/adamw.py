@@ -11,9 +11,14 @@ The update works in place: the parameters and moments are overwritten
 (one copy of each fits beside the gradients where two would not) and
 returned.  ``init(..., compress_moments=True)`` keeps the moments in
 bf16, as the JAX module's does: each update reads them into float32,
-updates them there and stores them back rounded to bf16.  The JAX
-module's ZeRO specs (``zero_spec(s)``, a multi-device matter) are not
-ported.
+updates them there and stores them back rounded to bf16.
+
+Over a mesh the parameters, gradients and moments are DTensors and the
+same functions run on them: the global norm sums every shard's squares
+and the clip acts on the replicated result.  ZeRO (``zero_spec(s)``):
+the moments and the float32 gradient sums take the parameter's spec
+with one more, unsharded and divisible, dim split over the data axes
+(the first such dim); a spec is a tuple as in ``parallel.sharding``.
 """
 from __future__ import annotations
 
@@ -31,11 +36,12 @@ class AdamWState(NamedTuple):
 
 
 def init(params, *, compress_moments: bool = False) -> AdamWState:
-    """Step 0 and zero moments beside every parameter: float32, or bf16
-    with ``compress_moments``."""
+    """Step 0 and zero moments beside every parameter (DTensor parameters
+    get DTensor moments in their layout): float32, or bf16 with
+    ``compress_moments``."""
     first = tree.leaves(params)[0]
     dt = torch.bfloat16 if compress_moments else torch.float32
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)   # DTensors stay laid out
     return AdamWState(step=torch.zeros((), dtype=torch.int32,
                                        device=first.device),
                       m=tree.map_leaves(zeros, params),
@@ -86,3 +92,29 @@ def update(grads, state: AdamWState, params, *, lr, b1: float = 0.9,
             m.copy_(m32)
             v.copy_(v32)
     return params, AdamWState(step, state.m, state.v), {"grad_norm": gnorm}
+
+
+# --- ZeRO state specs -----------------------------------------------------------
+
+def zero_spec(shape: tuple[int, ...], pspec: tuple, dp_axes: tuple[str, ...],
+              n_data: int) -> tuple:
+    """``pspec`` with its first unsharded dim that ``n_data`` divides
+    split over the data axes (one axis name, or the tuple of them);
+    unchanged where no dim qualifies."""
+    entries = list(pspec) + [None] * (len(shape) - len(pspec))
+    for i, (dim, cur) in enumerate(zip(shape, entries)):
+        if cur is None and dim % n_data == 0 and dim > 0:
+            entries[i] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+            break
+    return tuple(entries)
+
+
+def zero_specs(param_shapes, param_specs, dp_axes: tuple[str, ...],
+               n_data: int):
+    """``zero_spec`` of every leaf: ``param_shapes`` a tree of shapes (or
+    tensors) beside its tree of specs."""
+    from repro_torch.parallel.sharding import map_with_specs
+    return map_with_specs(
+        lambda s, p: zero_spec(tuple(s.shape if hasattr(s, "shape") else s),
+                               p, dp_axes, n_data),
+        param_shapes, param_specs)

@@ -92,6 +92,33 @@ def test_training_modules_import_without_jax(module):
     assert out.returncode == 0, out.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.parallel", "repro_torch.parallel.sharding",
+    "repro_torch.launch.mesh", "repro_torch.launch.specs",
+    "repro_torch.checkpoint.fault_tolerance"])
+def test_multi_device_modules_import_without_jax(module):
+    """The multi-device slice's modules, imported alone with ``jax``
+    blocked: no ``repro``/``jax`` module loads, no kernel launches and
+    no process group is set up by the import."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.path[:0] = [{str(SRC)!r}]
+        importlib.import_module({module!r})
+        import torch.distributed as dist
+        from repro_torch import kernels
+        assert not any(kernels.launch_counts().values())
+        assert not dist.is_initialized()
+        bad = sorted(m for m in sys.modules
+                     if m == "repro" or m.startswith(("repro.", "jax.",
+                                                      "jaxlib")))
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+
+
 def test_port_sources_name_no_jax_or_repro_import():
     """The same rule read from the sources, so an import inside a function
     that the import test never calls is caught too."""
