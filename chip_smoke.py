@@ -264,6 +264,21 @@ prints no result line):
      and group offsets equal to the CPU's, the EP sum at 8.0 against the
      unsharded layer; the ``moe_ffn ep_shard`` kernel rows (bf16,
      float32) at the overflowing shard's layout;
+ 40. ``bf16_train`` (after phase 37): olmoe_1b_7b at full width, 2
+     layers, bf16 parameters, 8 steps: finite, falling losses, launches
+     exactly ``moe_ffn``'s and the bf16 ``moe_ffn_bwd``'s; the kernel
+     rows ``moe_ffn_bf16 train`` and ``moe_ffn_bwd bf16`` (each output
+     within 1e-2 of its largest plain magnitude, ``torch._grouped_mm``'s
+     time for the same products beside);
+ 41. ``sharded_serve`` (after phase 39): ``prefill`` + 32 greedy
+     ``decode_step``s with a (1, 1) NCCL mesh at full width (qwen3_4b,
+     gemma3_4b, olmoe_1b_7b, zamba2_7b cut to 4-6 layers), tokens and
+     every step's logits bit for bit the unsharded path's, K8, K9 and
+     ``moe_ffn`` launched as the path predicts;
+ 42. ``dryrun``: ``repro_torch.launch.dryrun`` in a subprocess on the
+     fake backend (one production cell per kind, every one ``ok``), and
+     the dry run's predicted peak of phase 38's olmoe step within 15 % of
+     the card's;
   9. every kernel against its plain PyTorch version on the card at the
      shapes the engine gave it (bf16 attention within atol = rtol = 3e-3,
      a limit a bf16-accumulating kernel body must fail; the integer
@@ -6593,6 +6608,12 @@ def _sharded_run(arch: str, layers: int, mi) -> dict:
     step = make_train_step(cfg, mi)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the step's own arguments on the card (the parameters' shards and the
+    # moments); what else is resident (the unsharded copy kept for the
+    # reference step) is left out of the step's peak below
+    mem_before = torch.cuda.memory_allocated()
+    arg_bytes = sum(t.to_local().numel() * t.element_size()
+                    for t in tree.leaves([ps, opt.m, opt.v]))
     before = dict(kernels.launch_counts())
     comm = CommDebugMode()
     t0 = time.perf_counter()
@@ -6600,7 +6621,9 @@ def _sharded_run(arch: str, layers: int, mi) -> dict:
         ps, opt, m = step(ps, opt, batch)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak = peak_bytes / 1e9
+    step_peak = (arg_bytes + peak_bytes - mem_before) / 1e9
     launched = _launch_delta(before)
     want_launch = {k: v for k, v in _train_launches(
         cfg, SHARDED_MICRO).items() if v}
@@ -6628,6 +6651,8 @@ def _sharded_run(arch: str, layers: int, mi) -> dict:
             "loss_abs_diff": dloss, "param_max_abs_diff_where_g_ge_1e-6":
                 worst, "expert_counts_equal": counts_equal,
             "step_ms": step_ms, "peak_gb": peak,
+            "argument_gb": arg_bytes / 1e9,
+            "step_peak_over_arguments_gb": step_peak,
             "collectives": {str(k): v for k, v in
                             comm.get_comm_counts().items()},
             "kernel_launches": launched}
@@ -6666,6 +6691,543 @@ def run_sharded_train() -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+# =============================================================================
+# slice 22: bf16-parameter training, sharded serving, the dry run
+# =============================================================================
+
+# ``bf16_train``: olmoe_1b_7b at full width cut to 2 layers, bf16
+# parameters (the dry run's PARAM_DTYPE), the training phases' batch and
+# microbatches, a constant lr
+BF16_TRAIN_LAYERS, BF16_TRAIN_STEPS, BF16_TRAIN_LR = 2, 8, 1e-3
+# bf16 moe_ffn_bwd vs its plain version (the same bf16 operands and
+# float32 sums in another order; bf16 outputs): each output within 1e-2
+# of its largest |plain|, about two bf16 ulps (2**-8) of that scale
+MOE_BF16_BWD_TOL = 1e-2
+# ``sharded_serve``: prefill + greedy decode at full width on a (1, 1)
+# NCCL mesh against the unsharded path on the same card, bit for bit;
+# depth cut (the decode under DTensor runs a few hundred host ops a
+# layer): gemma3 to one 5 local + 1 global group, zamba2 to one shared
+# site
+SERVE_RUNS = (("qwen3_4b", 4), ("gemma3_4b", 6), ("olmoe_1b_7b", 4),
+              ("zamba2_7b", 6))
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 512, 32
+# ``dryrun``: one production cell per kind (arch, shape, multi-pod,
+# analysis), traced in a subprocess on the fake backend; and the
+# sharded_train olmoe step on a (1, 1) fake mesh, whose predicted peak is
+# held within DRYRUN_PEAK_GATE of the card's
+DRYRUN_CELLS = (("olmoe_1b_7b", "train_4k", False, True),
+                ("qwen3_4b", "prefill_32k", False, False),
+                ("gemma3_4b", "decode_32k", False, False),
+                ("zamba2_7b", "long_500k", True, False))
+DRYRUN_PEAK_GATE = 0.15
+
+
+def _grouped_mm_bwd_library(dy, xg, offs, w, gate, g, u, h, sizes):
+    """The bf16 backward's five products on PyTorch's grouped GEMM
+    (``torch._grouped_mm``: t and the two dx products ragged over rows,
+    the three weight gradients ragged over the reduction), with the
+    SwiGLU backward between them in float32 as the kernel has it: the
+    library yardstick of the bf16 ``moe_ffn_bwd``, used nowhere in the
+    port.  A reduction ragged over rows must come in groups of whole
+    16-byte rows (a device assert otherwise), so the weight gradients
+    read their operands scattered into groups padded to 16 rows with
+    zeros: x and h once, before the timing; dg, du and c dy in every
+    call.  Returns (call, description) or (None, reason)."""
+    import numpy as np
+    import torch
+    gm = getattr(torch, "_grouped_mm", None)
+    if gm is None:
+        return None, "this torch has no torch._grouped_mm"
+    ends = offs[1:].contiguous()
+    bf = torch.bfloat16
+    padded = -(-sizes // 16) * 16
+    starts = np.concatenate([[0], np.cumsum(padded)])
+    dest = torch.from_numpy(np.concatenate(
+        [np.arange(starts[e], starts[e] + n) for e, n in enumerate(sizes)]
+    ).astype(np.int64)).cuda()
+    ends_p = torch.from_numpy(starts[1:].astype(np.int32)).cuda()
+    Rp = int(starts[-1])
+
+    def pad(t):
+        out = t.new_zeros((Rp, t.shape[1]))
+        out[dest] = t
+        return out
+    xt, ht = pad(xg).t().contiguous(), pad(h).t().contiguous()
+
+    def call():
+        t = gm(dy.to(bf), w[2].transpose(1, 2), offs=ends).float()
+        dh = (gate[:, None] * t).to(bf).float()
+        s = torch.sigmoid(g)
+        be = dh * u
+        dg = (be * s + (g * be) * (s * (1 - s))).to(bf)
+        du = ((g * s) * dh).to(bf)
+        dx = (gm(dg, w[0].transpose(1, 2), offs=ends).to(bf).float()
+              + gm(du, w[1].transpose(1, 2), offs=ends).to(bf).float())
+        cdy = (gate[:, None] * dy).to(bf)
+        return (dx.to(bf), gm(xt, pad(dg), offs=ends_p),
+                gm(xt, pad(du), offs=ends_p), gm(ht, pad(cdy), offs=ends_p))
+    try:
+        call()
+        torch.cuda.synchronize()
+        return call, ("torch._grouped_mm x 6 (t, two dx products, three "
+                      "weight gradients over groups padded to 16 rows) "
+                      "with the SwiGLU backward between")
+    except Exception as e:      # noqa: BLE001 - the reason is reported
+        return None, f"{type(e).__name__}: {e}"[:200]
+
+
+def _moe_bf16_bwd_row(launches: int, seed: int) -> dict:
+    """The bf16 ``moe_ffn_bwd`` at olmoe's training shape (2048 tokens x
+    top 8 = 16384 rows over 64 experts, d 2048, ff 1024; ``bf16_train``'s
+    launches): the three launches of ``moe_ffn_backward`` from the bf16
+    training forward's g, u and h against the plain version on the same
+    inputs (each output within ``MOE_BF16_BWD_TOL`` of its largest plain
+    magnitude, dtypes equal, the empty experts' weight gradients exactly
+    zero), CUDA-event ms, the plain version's, the bound (12 R d ff
+    operations over the bf16 peak; the bytes: x, dy, g, u, h, the touched
+    weights read once, dx, dgate and every expert's weight gradients
+    written once) and ``torch._grouped_mm``'s time for the same
+    products."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import moe_ffn as KM
+    d, ff, n_exp, tokens, top_k = 2048, 1024, 64, 2048, 8
+    xg, offs, w, gate, sizes = _moe_inputs(d, ff, n_exp, tokens, top_k,
+                                           torch.bfloat16, seed)
+    R = tokens * top_k
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    dy = torch.randn((R, d), generator=gen, device="cuda")
+    g, u, h = KM.moe_ffn_train(xg, offs, *w, gate)[1:]
+
+    def call():
+        return KM.moe_ffn_backward(dy, xg, offs, *w, gate, g, u, h)
+
+    def plain():
+        return KM.moe_ffn_backward_plain(dy, xg, offs, *w, gate, g, u, h)
+    got, want = call(), plain()
+    again = call()
+    torch.cuda.synchronize()
+    errs, bad = {}, []
+    for out, a, b in zip(MOE_BWD_OUTPUTS, got, want):
+        err = float((a.float() - b.float()).abs().max())
+        scale = float(b.float().abs().max())
+        errs[out] = {"max_abs_err": err, "max_abs_plain": scale,
+                     "dtype": str(a.dtype).removeprefix("torch.")}
+        if a.dtype != b.dtype or not (bool(torch.isfinite(a).all())
+                                      and err <= MOE_BF16_BWD_TOL * scale):
+            bad.append(out)
+    empty = np.flatnonzero(sizes == 0)
+    empty_zero = all(int(torch.count_nonzero(t[e])) == 0
+                     for e in empty for t in got[1:4])
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    lib, lib_note = _grouped_mm_bwd_library(dy, xg, offs, w, gate, g, u, h,
+                                            sizes)
+    touched = int((sizes > 0).sum())
+    wbytes = 3 * d * ff * 2
+    nbytes = (R * d * 2 + R * d * 4 + 2 * R * ff * 4 + R * ff * 2
+              + touched * wbytes + R * 4 + (n_exp + 1) * 4 + R * d * 2
+              + R * 4 + n_exp * wbytes)
+    flops = 12.0 * R * d * ff
+    bound, by = _bound_ms(nbytes, flops)
+    row = {"name": "moe_ffn_bwd bf16", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/moe_ffn_bwd.cu",
+           "replaces": "src/repro/models/moe.py:83",
+           "replaces_note": "XLA's gradient of the three lax.ragged_dot in "
+                            "_grouped_ffn on bf16 rows and weights (no "
+                            "Pallas kernel)",
+           "launches": launches, "launches_path": "bf16_train",
+           "launches_per_call": KM.BWD_LAUNCHES,
+           "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+           "errors": errs,
+           "tolerance": f"{MOE_BF16_BWD_TOL} x max|plain| per output",
+           "empty_experts": len(empty),
+           "empty_experts_dw_exactly_zero": empty_zero,
+           "bits_repeat": repeat,
+           "ms": _time_ms(call, iters=5, warmup=1),
+           "plain_ms": _time_ms(plain, iters=2, warmup=1),
+           "bound_ms": bound, "bound_by": by, "flops": flops,
+           "library_ms": (_time_ms(lib, iters=5, warmup=1)
+                          if lib is not None else None),
+           "library_call": lib_note,
+           "shape": {"d": d, "ff": ff, "experts": n_exp, "tokens": tokens,
+                     "top_k": top_k, "rows": R, "touched_experts": touched,
+                     "dtype": "bfloat16"},
+           "note": "ms: CUDA events around eager calls (three launches "
+                   "each); the forward's g, u, h are inputs; a simple "
+                   "design (one warpgroup a CTA, operands staged by "
+                   "plain loads, no pipelining)",
+           "sass_hgmma": _sass_count("3b16", "HGMMA")}
+    del xg, w, dy, got, want, g, u, h
+    torch.cuda.empty_cache()
+    if bad or not empty_zero or not repeat or not row["sass_hgmma"]:
+        print(json.dumps(row), file=sys.stderr, flush=True)
+        raise RuntimeError(f"moe_ffn_bwd bf16: outputs {bad} disagree with "
+                           f"plain, an empty expert's dW is not zero, the "
+                           f"bits do not repeat, or no HGMMA")
+    return row
+
+
+def _moe_bf16_train_fwd_row(launches: int, seed: int) -> dict:
+    """The bf16 training forward (``moe_ffn_train``: the serving entry's
+    wgmma kernel with g and u kept) at olmoe's training shape: its y
+    equal to ``moe_ffn``'s bit for bit, g and u within ``MOE_F32_TOL`` and
+    h within ``MOE_BF16_BWD_TOL`` of the plain version's largest
+    magnitude, ms beside the serving entry's and ``torch._grouped_mm``'s,
+    the bound (6 R d ff over the bf16 peak; bytes with g and u)."""
+    import torch
+    from repro_torch.kernels import moe_ffn as KM
+    d, ff, n_exp, tokens, top_k = 2048, 1024, 64, 2048, 8
+    xg, offs, w, gate, sizes = _moe_inputs(d, ff, n_exp, tokens, top_k,
+                                           torch.bfloat16, seed)
+    R = tokens * top_k
+
+    def train():
+        return KM.moe_ffn_train(xg, offs, *w, gate)
+
+    def serve():
+        return KM.moe_ffn(xg, offs, *w, gate)
+    y, g, u, h = train()
+    same = bool(torch.equal(y, serve()))
+    yp, gp, up, hp = KM.moe_ffn_train_plain(xg, offs, *w, gate)
+    rel = {k: float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max())
+           for k, a, b in (("y", y, yp), ("g", g, gp), ("u", u, up),
+                           ("h", h, hp))}
+    err = float((y - yp).abs().max())
+    del yp, gp, up, hp, y, g, u, h
+    lib, lib_note = _grouped_mm_library(xg, offs, w, gate)
+    touched = int((sizes > 0).sum())
+    nbytes = (touched * 3 * d * ff * 2 + R * d * 2 + R * d * 4 + R * ff * 2
+              + 2 * R * ff * 4 + R * 4 + (n_exp + 1) * 4)
+    bound, by = _bound_ms(nbytes, 6.0 * R * d * ff)
+    row = {"name": "moe_ffn_bf16 train", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
+           "replaces": "src/repro/models/moe.py:86",
+           "replaces_note": "XLA: three lax.ragged_dot in _grouped_ffn (no "
+                            "Pallas kernel)",
+           "launches": launches, "launches_path": "bf16_train",
+           "launches_per_call": 2, "max_abs_err": err, "rel_errors": rel,
+           "tolerance": f"g, u {MOE_F32_TOL}, y and h {MOE_BF16_BWD_TOL} "
+                        f"x max|plain|",
+           "y_bits_equal_serving": same,
+           "ms": _time_ms(train, iters=10, warmup=1),
+           "serving_ms": _time_ms(serve, iters=10, warmup=1),
+           "plain_ms": _time_ms(lambda: KM.moe_ffn_train_plain(
+               xg, offs, *w, gate), iters=2, warmup=1),
+           "library_ms": (_time_ms(lib, iters=10, warmup=1)
+                          if lib is not None else None),
+           "library_call": lib_note,
+           "bound_ms": bound, "bound_by": by,
+           "shape": {"d": d, "ff": ff, "experts": n_exp, "tokens": tokens,
+                     "top_k": top_k, "rows": R, "touched_experts": touched,
+                     "dtype": "bfloat16"}}
+    del xg, w
+    torch.cuda.empty_cache()
+    if not (same and rel["g"] <= MOE_F32_TOL and rel["u"] <= MOE_F32_TOL
+            and rel["y"] <= MOE_BF16_BWD_TOL
+            and rel["h"] <= MOE_BF16_BWD_TOL):
+        print(json.dumps(row), file=sys.stderr, flush=True)
+        raise RuntimeError("moe_ffn_bf16 train: y differs from the serving "
+                           "entry's or g, u, h miss plain")
+    return row
+
+
+def run_bf16_train() -> tuple[dict, list[dict]]:
+    """Phase ``bf16_train``: olmoe_1b_7b at full width, 2 layers, bf16
+    parameters, ``BF16_TRAIN_STEPS`` steps on the card: finite losses
+    that fall (the mean of the last 3 below the first 3's), parameters
+    still bf16, launches exactly ``moe_ffn``'s and the bf16
+    ``moe_ffn_bwd``'s; then the two bf16 kernel rows."""
+    import gc
+    import math
+    import statistics
+    from dataclasses import replace
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.configs.base import registry
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import make_train_step, micro_batches
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    cfg = replace(registry()["olmoe_1b_7b"], n_layers=BF16_TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=SEED, dtype=torch.bfloat16,
+                         device="cuda")
+    opt = adamw.init(params)
+    src = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    step_fn = make_train_step(cfg, lr_fn=lambda step: BF16_TRAIN_LR)
+    before = dict(kernels.launch_counts())
+    losses, gnorms, step_ms = [], [], []
+    for step in range(BF16_TRAIN_STEPS):
+        batch = micro_batches(src.batch(step), TRAIN_MICRO)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    launched = _launch_delta(before)
+    expected = _train_launches(cfg, BF16_TRAIN_STEPS * TRAIN_MICRO)
+    dtypes = sorted({str(p.dtype) for p in tree.leaves(params)})
+    line = {"phase": "bf16_train", "arch": cfg.name,
+            "layers": cfg.n_layers, "reduced": f"{cfg.n_layers} of 16 "
+            "layers", "dtype": "bfloat16", "steps": BF16_TRAIN_STEPS,
+            "lr": BF16_TRAIN_LR, "seq": TRAIN_SEQ,
+            "global_batch": TRAIN_BATCH, "n_micro": TRAIN_MICRO,
+            "losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+            "step_ms_median": statistics.median(step_ms),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "param_dtypes": dtypes, "kernel_launches": launched,
+            "kernel_launches_expected": expected}
+    del params, opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = []
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        bad.append("a loss or grad norm is not finite")
+    if not statistics.mean(losses[-3:]) < statistics.mean(losses[:3]):
+        bad.append("the loss did not fall")
+    if dtypes != ["torch.bfloat16"]:
+        bad.append(f"parameters of {dtypes} after the steps")
+    if launched != expected:
+        bad.append(f"kernel launches {launched}, expected {expected}")
+    if bad:
+        print(json.dumps(line), file=sys.stderr, flush=True)
+        raise RuntimeError(f"bf16_train: {'; '.join(bad)}")
+    rows = [_moe_bf16_train_fwd_row(launched["moe_ffn"], SEED + 50),
+            _moe_bf16_bwd_row(launched["moe_ffn_bwd"], SEED + 51)]
+    line["seconds"] = time.perf_counter() - t0
+    return line, rows
+
+
+def _serve_launches(cfg, new: int) -> tuple[dict, dict]:
+    """The kernel launches the dense-cache path predicts: in the prefill
+    K8 once per attention layer (a hybrid: per shared site), K9 once per
+    Mamba layer, ``moe_ffn`` twice per MoE layer; in each decode step
+    ``moe_ffn`` twice per MoE layer and nothing else."""
+    sites = sum(1 for l in range(cfg.n_layers)
+                if cfg.layout == "hybrid" and cfg.shared_attn_every
+                and l % cfg.shared_attn_every == cfg.shared_attn_every - 1)
+    pre = {"flash_attention": (cfg.n_layers if cfg.layout == "attn"
+                               else sites),
+           "ssd_scan": cfg.n_layers if cfg.layout != "attn" else 0,
+           "moe_ffn": 2 * cfg.n_layers if cfg.is_moe else 0}
+    dec = {"moe_ffn": 2 * cfg.n_layers * new if cfg.is_moe else 0}
+    return ({k: v for k, v in pre.items() if v},
+            {k: v for k, v in dec.items() if v})
+
+
+def _serve_run(cfg, params, prompts, mi=None) -> dict:
+    """``prefill`` + ``SERVE_NEW`` greedy ``decode_step``s (with a mesh
+    when ``mi`` is given): tokens, every step's logits, the launches of
+    the prefill and of the decode, wall seconds."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as sh
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        before = dict(kernels.launch_counts())
+        lg, st = T.prefill(params, cfg, prompts,
+                           SERVE_PROMPT + SERVE_NEW, mi=mi)
+        torch.cuda.synchronize()
+        pre = _launch_delta(before)
+        logits, toks = [sh.full(lg).float()], []
+        before = dict(kernels.launch_counts())
+        for _ in range(SERVE_NEW):
+            tok = logits[-1][:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+            toks.append(tok)
+            lg, st = T.decode_step(params, cfg, st, tok, mi=mi)
+            logits.append(sh.full(lg).float())
+        torch.cuda.synchronize()
+        dec = _launch_delta(before)
+    return {"tokens": torch.cat(toks, dim=1), "logits": torch.stack(logits),
+            "prefill_launches": pre, "decode_launches": dec,
+            "seconds": time.perf_counter() - t0}
+
+
+def run_sharded_serve() -> dict:
+    """Phase ``sharded_serve``: ``prefill`` + ``SERVE_NEW`` greedy decode
+    steps with a mesh (``SHARDED_MESH`` over ``SHARDED_BACKEND``:
+    DTensor parameters by ``param_specs``, the caches' slots over
+    ``model``, K8 and K9 on each rank's heads, MoE on ``moe_apply``'s
+    expert-parallel branch) at full width, against the unsharded path on
+    the same card and weights: tokens and every step's logits bit for
+    bit, and each run's launches those ``_serve_launches`` predicts."""
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import registry
+    from repro_torch.launch.mesh import make_debug_mesh, make_mesh_info
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel import sharding as sh
+    t0 = time.perf_counter()
+    dist.init_process_group(SHARDED_BACKEND,
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    runs, bad = [], []
+    try:
+        mi = make_mesh_info(make_debug_mesh(*SHARDED_MESH,
+                                            device_type="cuda"))
+        for arch, layers in SERVE_RUNS:
+            cfg = replace(registry()[arch], n_layers=layers)
+            params = init_params(cfg, seed=SEED, dtype=torch.bfloat16,
+                                 device="cuda")
+            prompts = torch.from_numpy(np.random.RandomState(SEED).randint(
+                0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(
+                    np.int32)).cuda()
+            plain = _serve_run(cfg, params, prompts)
+            ps = sh.distribute(params, mi, sh.param_specs(cfg, mi))
+            del params
+            shard = _serve_run(cfg, ps, prompts, mi)
+            del ps
+            torch.cuda.empty_cache()
+            want = _serve_launches(cfg, SERVE_NEW)
+            run = {"arch": arch, "layers": layers,
+                   "layers_published": registry()[arch].n_layers,
+                   "tokens_identical": bool(torch.equal(plain["tokens"],
+                                                        shard["tokens"])),
+                   "logits_bits_identical": bool(torch.equal(
+                       plain["logits"], shard["logits"])),
+                   "logits_max_abs_diff": float(
+                       (plain["logits"] - shard["logits"]).abs().max()),
+                   "finite": bool(torch.isfinite(shard["logits"]).all()),
+                   "prefill_launches": shard["prefill_launches"],
+                   "decode_launches": shard["decode_launches"],
+                   "launches_expected": {"prefill": want[0],
+                                         "decode": want[1]},
+                   "unsharded_launches": {
+                       "prefill": plain["prefill_launches"],
+                       "decode": plain["decode_launches"]},
+                   "seconds_sharded": shard["seconds"],
+                   "seconds_unsharded": plain["seconds"]}
+            runs.append(run)
+            ok = (run["tokens_identical"] and run["logits_bits_identical"]
+                  and run["finite"]
+                  and shard["prefill_launches"] == want[0]
+                  and shard["decode_launches"] == want[1]
+                  and plain["prefill_launches"] == want[0]
+                  and plain["decode_launches"] == want[1])
+            if not ok:
+                bad.append(arch)
+    finally:
+        dist.destroy_process_group()
+    line = {"phase": "sharded_serve", "card": _card_line(),
+            "backend": SHARDED_BACKEND, "mesh": list(SHARDED_MESH),
+            "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+            "new_tokens": SERVE_NEW, "dtype": "bfloat16",
+            "reduced": "depth: qwen3 4 of 36, gemma3 6 of 34, olmoe 4 of "
+                       "16, zamba2 6 of 81 layers",
+            "runs": runs, "seconds": time.perf_counter() - t0}
+    if bad:
+        print(json.dumps(line), file=sys.stderr, flush=True)
+        raise RuntimeError(f"sharded_serve: {bad} differ from the "
+                           f"unsharded path or launched other kernels")
+    return line
+
+
+_DRYRUN_CODE = """
+import json, sys, tempfile, time
+from dataclasses import replace
+sys.path.insert(0, "src")
+import torch
+from repro_torch.configs.base import ShapeConfig, registry
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import fake_world, make_debug_mesh, make_mesh_info
+cells, sharded = json.loads(sys.argv[1])
+out, tmp = [], tempfile.mkdtemp()
+for multi_pod in (False, True):
+    todo = [c for c in cells if c[2] == multi_pod]
+    if not todo:
+        continue
+    with fake_world(512 if multi_pod else 256):
+        for arch, shape, mp, analysis in todo:
+            res = D.run_and_save(arch, shape, multi_pod=mp,
+                                 analysis=analysis, out_dir=tmp)
+            out.append(res)
+arch, layers, batch, seq = sharded
+cfg = replace(registry()[arch], n_layers=layers)
+with fake_world(1):
+    mi = make_mesh_info(make_debug_mesh(1, 1, device_type="cpu"))
+    res = D.trace_config(cfg, ShapeConfig("sharded_train", seq, batch,
+                                          "train"), mi,
+                         param_dtype=torch.float32)
+print(json.dumps({"cells": out, "sharded_train": res}))
+"""
+
+
+def run_dryrun(sharded: dict) -> dict:
+    """Phase ``dryrun``: ``DRYRUN_CELLS`` traced by
+    ``repro_torch.launch.dryrun`` on the fake backend in a subprocess (the
+    fake group owns its process's default group; nothing touches the
+    card), every cell ``ok``, with its per-rank memory, operations and
+    collective bytes; and the dry run of ``sharded_train``'s olmoe step
+    (float32, 2 layers, its batch) on a (1, 1) fake mesh, whose predicted
+    peak (the step's arguments plus the live bytes' peak) must lie within
+    ``DRYRUN_PEAK_GATE`` of the card's (``step_peak_over_arguments_gb``
+    of that step in phase 38)."""
+    t0 = time.perf_counter()
+    run = next(r for r in sharded["runs"] if r["arch"] == "olmoe_1b_7b")
+    args = json.dumps([DRYRUN_CELLS, ["olmoe_1b_7b", run["layers"],
+                                      SHARDED_BATCH, SHARDED_SEQ]])
+    proc = subprocess.run([sys.executable, "-c", _DRYRUN_CODE, args],
+                          cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"dryrun: the subprocess failed:\n"
+                           f"{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    cells = []
+    for c in res["cells"]:
+        cell = {k: c.get(k) for k in ("arch", "shape", "mesh", "kind",
+                                      "analysis", "analysis_scale",
+                                      "status", "trace_s", "error")}
+        if c["status"] != "ok":
+            cell["traceback"] = c.get("traceback", "")[-1500:]
+        else:
+            cell.update({"memory": c["memory"],
+                         "flops": c["cost"]["flops"],
+                         "kernel_flops": c["cost"]["kernel_flops"],
+                         "collective_bytes": c["collectives"]["bytes"],
+                         "collective_counts": c["collectives"]["counts"]})
+        cells.append(cell)
+    pred = res["sharded_train"]["memory"]["peak_size_in_bytes"] / 1e9
+    meas = run["step_peak_over_arguments_gb"]
+    line = {"phase": "dryrun", "cells": cells,
+            "memory_cross_check": {
+                "case": "sharded_train olmoe_1b_7b, float32, "
+                        f"{run['layers']} layers, batch {SHARDED_BATCH} x "
+                        f"{SHARDED_SEQ} in {SHARDED_MICRO} microbatches, "
+                        "(1, 1) mesh",
+                "predicted_peak_gb": pred,
+                "predicted_argument_gb": res["sharded_train"]["memory"][
+                    "argument_size_in_bytes"] / 1e9,
+                "predicted_temp_gb": res["sharded_train"]["memory"][
+                    "temp_size_in_bytes"] / 1e9,
+                "measured_step_peak_gb": meas,
+                "measured_argument_gb": run["argument_gb"],
+                "measured_max_memory_allocated_gb": run["peak_gb"],
+                "rel_diff": abs(pred - meas) / meas,
+                "gate": DRYRUN_PEAK_GATE},
+            "seconds": time.perf_counter() - t0}
+    errors = [c for c in cells if c["status"] != "ok"]
+    if errors or line["memory_cross_check"]["rel_diff"] > DRYRUN_PEAK_GATE:
+        print(json.dumps(line), file=sys.stderr, flush=True)
+        raise RuntimeError(f"dryrun: {len(errors)} cells failed, or the "
+                           f"predicted peak {pred:.3f} GB is more than "
+                           f"{DRYRUN_PEAK_GATE:.0%} from the card's "
+                           f"{meas:.3f} GB")
+    return line
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6694,10 +7256,16 @@ def main() -> int:
     # 24 full-width qwen3_4b layers takes ~65 GB at its peak
     train_lines = run_training()
     train_rows = bench_moe_bwd_kernels(train_lines)
+    bf16_line, bf16_rows = run_bf16_train()
+    print(json.dumps(bf16_line), file=sys.stderr, flush=True)
     sharded = run_sharded_train()
     print(json.dumps(sharded), file=sys.stderr, flush=True)
     shards, shard_rows = run_moe_shards()
     print(json.dumps(shards), file=sys.stderr, flush=True)
+    serve_line = run_sharded_serve()
+    print(json.dumps(serve_line), file=sys.stderr, flush=True)
+    dry_line = run_dryrun(sharded)
+    print(json.dumps(dry_line), file=sys.stderr, flush=True)
 
     cfg = registry()["qwen3_4b"]
     t0 = time.perf_counter()
@@ -6801,7 +7369,7 @@ def main() -> int:
     s15 = run_slice15()
     kernel_rows += s15["rows"]
     lcross["runs"] += s15["card_vs_cpu"]
-    kernel_rows += train_rows + shard_rows
+    kernel_rows += train_rows + shard_rows + bf16_rows
 
     lines += [{"kernels": kernel_rows}, {"host_link": link}, engine_line,
               pinned_line, parity, pparity, tail, overlap, overlap_faults,
@@ -6811,7 +7379,7 @@ def main() -> int:
               probe_f32, probe_bf16, lcross, *f32_lines, ssd_passes,
               s13["moe_engine"], s13["longctx_mixtral"], *s13["probes"],
               s13["dense_archs"], *s15["lines"], *train_lines, shards,
-              sharded, _card_line()]
+              sharded, bf16_line, serve_line, dry_line, _card_line()]
     for line in lines:
         _emit(line)
     _emit({"ok": True, "device": {

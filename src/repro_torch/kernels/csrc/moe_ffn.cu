@@ -130,15 +130,17 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
 
 // GLU: out = h (bf16) from the gate (tb0) and up (tb1) products over the
 // same 128 columns; otherwise out = y (float32) from 256 columns of tb0,
-// scaled by the row's gate weight.
-template <bool GLU>
+// scaled by the row's gate weight.  KEEP (GLU, the training forward): the
+// float32 products g and u [R, N] stored beside h.
+template <bool GLU, bool KEEP = false>
 __global__ void __launch_bounds__(kThreads, 1)
 moe_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                  const __grid_constant__ CUtensorMap tb0,
                  const __grid_constant__ CUtensorMap tb1,
                  const int32_t* __restrict__ offs,
                  const float* __restrict__ gate, void* __restrict__ out,
-                 int E, int K, int N) {
+                 int E, int K, int N, float* __restrict__ gk,
+                 float* __restrict__ uk) {
   extern __shared__ uint8_t smem_raw[];
   // 128B swizzle repeats every 1024 B: align the tiles to it
   const uint32_t raw = smem_u32(smem_raw);
@@ -261,6 +263,12 @@ moe_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
           *reinterpret_cast<uint32_t*>(o + col) = pack_bf16(
               __float2bfloat16(silu_mul(acc[0][i], acc[1][i])),
               __float2bfloat16(silu_mul(acc[0][i + 1], acc[1][i + 1])));
+          if constexpr (KEEP) {
+            *reinterpret_cast<float2*>(gk + row * N + col) =
+                make_float2(acc[0][i], acc[0][i + 1]);
+            *reinterpret_cast<float2*>(uk + row * N + col) =
+                make_float2(acc[1][i], acc[1][i + 1]);
+          }
         }
       } else {
         const float gw = gate[row];
@@ -298,10 +306,10 @@ bool make_map(CUtensorMap* map, const void* ptr, int inner,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool GLU>
+template <bool GLU, bool KEEP = false>
 int launch(const void* a, const void* offs, const void* b0, const void* b1,
            const void* gate, void* out, int R, int E, int K, int N,
-           cudaStream_t stream) {
+           cudaStream_t stream, void* gk = nullptr, void* uk = nullptr) {
   CUtensorMap ta, tb0, tb1;
   const long long ek = static_cast<long long>(E) * K;
   if (!make_map(&ta, a, K, R) || !make_map(&tb0, b0, N, ek) ||
@@ -311,14 +319,15 @@ int launch(const void* a, const void* offs, const void* b0, const void* b1,
   static bool granted = false;
   if (!granted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        moe_wgmma_kernel<GLU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmem);
+        moe_wgmma_kernel<GLU, KEEP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     granted = true;
   }
-  moe_wgmma_kernel<GLU><<<sm_count(), kThreads, kSmem, stream>>>(
+  moe_wgmma_kernel<GLU, KEEP><<<sm_count(), kThreads, kSmem, stream>>>(
       ta, tb0, tb1, static_cast<const int32_t*>(offs),
-      static_cast<const float*>(gate), out, E, K, N);
+      static_cast<const float*>(gate), out, E, K, N,
+      static_cast<float*>(gk), static_cast<float*>(uk));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -639,6 +648,16 @@ EXPORT int moe_gate_up_bf16(const void* x, const void* offs, const void* wg,
                             int FF, void* stream) {
   return wg::launch<true>(x, offs, wg, wu, nullptr, h, R, E, D, FF,
                           static_cast<cudaStream_t>(stream));
+}
+// The bf16 training forward's gate/up: moe_gate_up_bf16's h, products
+// and bits, with the float32 products g = x.Wg[e] and u = x.Wu[e]
+// [R, FF] stored beside it for the backward (moe_ffn_bwd.cu).
+EXPORT int moe_gate_up_bf16_train(const void* x, const void* offs,
+                                  const void* wg, const void* wu, void* h,
+                                  void* g, void* u, int R, int E, int D,
+                                  int FF, void* stream) {
+  return wg::launch<true, true>(x, offs, wg, wu, nullptr, h, R, E, D, FF,
+                                static_cast<cudaStream_t>(stream), g, u);
 }
 EXPORT int moe_down_bf16(const void* h, const void* offs, const void* wd,
                          const void* gate, void* y, int R, int E, int D,

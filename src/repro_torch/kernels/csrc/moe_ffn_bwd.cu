@@ -635,3 +635,413 @@ EXPORT int moe_ffn_bwd_f32(int kind, const void* dy, const void* x,
     default: return launch<kDw>(m, p, s);
   }
 }
+
+// ============================================================================
+// bf16 entry: the gradient of the bf16 forward (moe_gate_up_bf16_train keeps
+// g and u in float32 beside h), on bf16 wgmma with float32 accumulation.
+//
+// Rounding points are those of the gradient XLA derives from _grouped_ffn
+// on bf16 rows and weights: dh = c t is rounded to bf16; dg and du are
+// float32 there and are rounded to bf16 here, where they become wgmma
+// operands (dy and c dy too); dx = bf16(dg.Wg^T) + bf16(du.Wu^T), the sum
+// rounded to bf16; dWg, dWu and dWd leave in bf16; dgate in float32.
+//
+// Three launches, as the float32 entry's:
+//   kDown  t = dy.Wd[e]^T (64-row x 128-column tiles of [R, FF]); the
+//          epilogue writes dg and du (bf16 [R, FF]) and each row's dc over
+//          its 128 columns: dc partials [R, ceil(FF / 128)], no atomics;
+//   kDx    dx over [R, D] tiles from two accumulators; the CTAs of column
+//          tile 0 sum each row's dc partials in column order into dgate;
+//   kDw    dWg = X^T.dg, dWu = X^T.du, dWd = H^T.(c dy), one CTA a
+//          (64 x 128 tile, product, expert), K the group's rows.
+// A CTA is one warpgroup.  Each 64-deep stage is staged by every thread
+// with plain loads (converted to bf16 and transposed where the operand
+// lies M- or N-major in device memory) into 128B-swizzled K-major tiles,
+// then four wgmma.m64n128k16; no pipelining.  Row tiles find their
+// expert from offs on the device (a CTA per possible tile; the surplus
+// exits), so nothing is read on the host.  A simple design: its times
+// and bound are in PERF.md.
+// ============================================================================
+namespace {
+namespace b16 {
+
+constexpr int kBM = 64;                  // output rows a CTA
+constexpr int kBN = 128;                 // output columns a CTA
+constexpr int kBK = 64;                  // reduction depth a stage
+constexpr int kThreads = 128;            // one warpgroup
+constexpr int kATile = kBM * 128;        // rows of 64 bf16 (128 bytes)
+constexpr int kBTile = kBN * 128;
+constexpr int kSmem = 1024 + kATile + kBTile;
+
+struct Args {
+  const float* dy;             // [R, D]
+  const __nv_bfloat16* x;      // [R, D]
+  const int32_t* offs;         // [E + 1]
+  const __nv_bfloat16* wg;     // [E, D, FF]
+  const __nv_bfloat16* wu;     // [E, D, FF]
+  const __nv_bfloat16* wd;     // [E, FF, D]
+  const float* gate;           // [R]
+  const float* g;              // the forward's g [R, FF]
+  const float* u;              // the forward's u [R, FF]
+  const __nv_bfloat16* h;      // the forward's h [R, FF]
+  __nv_bfloat16* dgb;          // dg [R, FF]
+  __nv_bfloat16* dub;          // du [R, FF]
+  float* part;                 // [R, ceil(FF / kBN)]
+  __nv_bfloat16* dx;           // [R, D]
+  float* dgate;                // [R]
+  __nv_bfloat16* dwg;          // [E, D, FF]
+  __nv_bfloat16* dwu;          // [E, D, FF]
+  __nv_bfloat16* dwd;          // [E, FF, D]
+  int R, E, D, FF;
+};
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// d[64 x 128] (+)= A[64 x 16] . B[16 x 128], both K-major in shared memory
+__device__ __forceinline__ void wgmma_k(float (&d)[64], uint64_t da,
+                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// 8 values along k, rounded to bf16, into row `row`'s 16-byte chunk `ch`
+// of a K-major tile of 128-byte rows (128B swizzle: the chunk index XORed
+// with the row's place in its 8-row atom)
+__device__ __forceinline__ void put8(uint8_t* tile, int row, int ch,
+                                     const float (&v)[8]) {
+  uint4 q;
+  q.x = pack_bf16(__float2bfloat16(v[0]), __float2bfloat16(v[1]));
+  q.y = pack_bf16(__float2bfloat16(v[2]), __float2bfloat16(v[3]));
+  q.z = pack_bf16(__float2bfloat16(v[4]), __float2bfloat16(v[5]));
+  q.w = pack_bf16(__float2bfloat16(v[6]), __float2bfloat16(v[7]));
+  *reinterpret_cast<uint4*>(tile + row * 128 + ((ch ^ (row & 7)) << 4)) = q;
+}
+
+__device__ __forceinline__ void ld8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void ld8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&q);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
+}
+
+__device__ __forceinline__ void zero8(float (&v)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = 0.f;
+}
+
+// acc[64 x 128] = A[64 x K] . B[K x 128]: la(m, k, v) / lb(n, k, v) give
+// the 8 operand values at k .. k + 7 of output row m / column n (zero past
+// the operand's edges)
+template <class LA, class LB>
+__device__ __forceinline__ void gemm(float (&acc)[64], int K, uint8_t* sa,
+                                     uint8_t* sb, LA la, LB lb) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const uint32_t a_s = smem_u32(sa), b_s = smem_u32(sb);
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    for (int c = threadIdx.x; c < kBM * 8; c += kThreads) {
+      const int row = c % kBM, ch = c / kBM;
+      float v[8];
+      la(row, k0 + 8 * ch, v);
+      put8(sa, row, ch, v);
+    }
+    for (int c = threadIdx.x; c < kBN * 8; c += kThreads) {
+      const int row = c % kBN, ch = c / kBN;
+      float v[8];
+      lb(row, k0 + 8 * ch, v);
+      put8(sb, row, ch, v);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < kBK / 16; ++t)
+      wgmma_k(acc, desc_sw128(a_s + 32 * t, 16, 1024),
+              desc_sw128(b_s + 32 * t, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ uint8_t* tiles(uint8_t* raw) {
+  const uint32_t r = smem_u32(raw);
+  return raw + (((r + 1023) & ~1023u) - r);
+}
+
+// Row tile t of all experts' groups in order (each group cut into 64-row
+// tiles): its expert and rows [r0, r1); false past the last tile.
+__device__ bool row_tile(const int32_t* offs, int E, int t, int& e, int& r0,
+                         int& r1) {
+  __shared__ int s[3];
+  if (threadIdx.x == 0) {
+    s[0] = -1;
+    int acc = 0;
+    for (int i = 0; i < E; ++i) {
+      const int a = offs[i], b = offs[i + 1];
+      const int n = cdiv(b - a, kBM);
+      if (t < acc + n) {
+        s[0] = i;
+        s[1] = a + (t - acc) * kBM;
+        s[2] = b;
+        break;
+      }
+      acc += n;
+    }
+  }
+  __syncthreads();
+  e = s[0];
+  r0 = s[1];
+  r1 = min(s[2], r0 + kBM);
+  return e >= 0;
+}
+
+// accumulator element (row, column) of this thread: rows rr(h2), columns
+// cc(j) + q, register 4 j + 2 h2 + q
+__device__ __forceinline__ int acc_row(int h2) {
+  return 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2) + 8 * h2;
+}
+__device__ __forceinline__ int acc_col(int j) {
+  return 8 * j + 2 * (threadIdx.x & 3);
+}
+
+__global__ void __launch_bounds__(kThreads) down_kernel(Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sa = tiles(smem_raw);
+  uint8_t* sb = sa + kATile;
+  int e, r0, r1;
+  if (!row_tile(p.offs, p.E, blockIdx.x, e, r0, r1)) return;
+  const int n0 = blockIdx.y * kBN, nr = r1 - r0, D = p.D, FF = p.FF;
+  float acc[64];
+  const __nv_bfloat16* wd = p.wd + static_cast<long long>(e) * FF * D;
+  gemm(acc, D, sa, sb,
+       [&](int m, int k, float (&v)[8]) {
+         if (m < nr) ld8(p.dy + static_cast<long long>(r0 + m) * D + k, v);
+         else zero8(v);
+       },
+       [&](int n, int k, float (&v)[8]) {
+         if (n0 + n < FF) ld8(wd + static_cast<long long>(n0 + n) * D + k, v);
+         else zero8(v);
+       });
+  const int nt = cdiv(FF, kBN);
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int rr = acc_row(h2);
+    const bool live = rr < nr;
+    const long long row = r0 + rr;
+    float dc = 0.f;
+    if (live) {
+      const float c = p.gate[row];
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int col = n0 + acc_col(j);
+        if (col >= FF) continue;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float t = acc[4 * j + 2 * h2 + q];
+          const long long o = row * FF + col + q;
+          dc += __bfloat162float(p.h[o]) * t;
+          const float dh = __bfloat162float(__float2bfloat16(c * t));
+          const float gv = p.g[o], uv = p.u[o];
+          const float s = 1.f / (1.f + expf(-gv));
+          const float be = dh * uv;
+          p.dgb[o] = __float2bfloat16(be * s + (gv * be) * (s * (1.f - s)));
+          p.dub[o] = __float2bfloat16((gv * s) * dh);
+        }
+      }
+    }
+    // a row's 128 columns lie in the four lanes of its quad
+    dc += __shfl_xor_sync(0xffffffffu, dc, 1);
+    dc += __shfl_xor_sync(0xffffffffu, dc, 2);
+    if (live && (threadIdx.x & 3) == 0) p.part[row * nt + blockIdx.y] = dc;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) dx_kernel(Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sa = tiles(smem_raw);
+  uint8_t* sb = sa + kATile;
+  int e, r0, r1;
+  if (!row_tile(p.offs, p.E, blockIdx.x, e, r0, r1)) return;
+  const int n0 = blockIdx.y * kBN, nr = r1 - r0, D = p.D, FF = p.FF;
+  const long long wo = static_cast<long long>(e) * D * FF;
+  float ag[64], au[64];
+  auto rows_of = [&](const __nv_bfloat16* src) {
+    return [=](int m, int k, float (&v)[8]) {
+      if (m < nr) ld8(src + static_cast<long long>(r0 + m) * FF + k, v);
+      else zero8(v);
+    };
+  };
+  auto cols_of = [&](const __nv_bfloat16* w) {
+    return [=](int n, int k, float (&v)[8]) {
+      if (n0 + n < D) ld8(w + wo + static_cast<long long>(n0 + n) * FF + k, v);
+      else zero8(v);
+    };
+  };
+  gemm(ag, FF, sa, sb, rows_of(p.dgb), cols_of(p.wg));
+  gemm(au, FF, sa, sb, rows_of(p.dub), cols_of(p.wu));
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int rr = acc_row(h2);
+    if (rr >= nr) continue;
+    const long long row = r0 + rr;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = n0 + acc_col(j);
+      if (col >= D) continue;
+      const int i = 4 * j + 2 * h2;
+      const float a0 = __bfloat162float(__float2bfloat16(ag[i])) +
+                       __bfloat162float(__float2bfloat16(au[i]));
+      const float a1 = __bfloat162float(__float2bfloat16(ag[i + 1])) +
+                       __bfloat162float(__float2bfloat16(au[i + 1]));
+      *reinterpret_cast<uint32_t*>(p.dx + row * D + col) =
+          pack_bf16(__float2bfloat16(a0), __float2bfloat16(a1));
+    }
+  }
+  if (blockIdx.y == 0 && threadIdx.x < nr) {
+    const int nt = cdiv(FF, kBN);
+    const long long row = r0 + threadIdx.x;
+    float s = 0.f;
+    for (int t = 0; t < nt; ++t) s += p.part[row * nt + t];
+    p.dgate[row] = s;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) dw_kernel(Args p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sa = tiles(smem_raw);
+  uint8_t* sb = sa + kATile;
+  const int e = blockIdx.z / 3, prod = blockIdx.z % 3;
+  const int D = p.D, FF = p.FF;
+  const int M = prod == 2 ? FF : D, N = prod == 2 ? D : FF;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  if (m0 >= M || n0 >= N) return;
+  const int a = p.offs[e], K = p.offs[e + 1] - a;
+  float acc[64];
+  if (prod < 2) {
+    const __nv_bfloat16* src = prod == 0 ? p.dgb : p.dub;
+    gemm(acc, K, sa, sb,
+         [&](int m, int k, float (&v)[8]) {     // X^T: x read M-major
+#pragma unroll
+           for (int i = 0; i < 8; ++i)
+             v[i] = k + i < K ? __bfloat162float(
+                        p.x[static_cast<long long>(a + k + i) * D + m0 + m])
+                              : 0.f;
+         },
+         [&](int n, int k, float (&v)[8]) {     // dg / du read N-major
+#pragma unroll
+           for (int i = 0; i < 8; ++i)
+             v[i] = k + i < K ? __bfloat162float(
+                        src[static_cast<long long>(a + k + i) * FF + n0 + n])
+                              : 0.f;
+         });
+  } else {
+    gemm(acc, K, sa, sb,
+         [&](int m, int k, float (&v)[8]) {     // H^T
+#pragma unroll
+           for (int i = 0; i < 8; ++i)
+             v[i] = k + i < K ? __bfloat162float(
+                        p.h[static_cast<long long>(a + k + i) * FF + m0 + m])
+                              : 0.f;
+         },
+         [&](int n, int k, float (&v)[8]) {     // c dy
+#pragma unroll
+           for (int i = 0; i < 8; ++i) {
+             const long long r = a + k + i;
+             v[i] = k + i < K ? p.gate[r] * p.dy[r * D + n0 + n] : 0.f;
+           }
+         });
+  }
+  __nv_bfloat16* out = (prod == 0 ? p.dwg : prod == 1 ? p.dwu : p.dwd) +
+                       static_cast<long long>(e) * M * N;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int m = m0 + acc_row(h2);
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int n = n0 + acc_col(j);
+      if (n >= N) continue;
+      const int i = 4 * j + 2 * h2;
+      *reinterpret_cast<uint32_t*>(out + static_cast<long long>(m) * N + n) =
+          pack_bf16(__float2bfloat16(acc[i]), __float2bfloat16(acc[i + 1]));
+    }
+  }
+}
+
+}  // namespace b16
+}  // namespace
+
+// One launch of the bf16 entry `kind` (0 down dgrad, 1 x dgrad and dgate,
+// 2 weight gradients); the wrapper calls 0-2 in order on one stream.
+// Shapes the wrapper has checked: D and FF multiples of 64, E at most
+// kMaxExperts, R >= 1, offs[E] = R, every base 16-byte aligned, all
+// tensors contiguous on the card: dy, gate, g, u, part, dgate float32;
+// x, weights, h, dgb, dub, dx and the weight gradients bf16.
+EXPORT int moe_ffn_bwd_bf16(int kind, const void* dy, const void* x,
+                            const void* offs, const void* wg, const void* wu,
+                            const void* wd, const void* gate, const void* g,
+                            const void* u, const void* h, void* dgb,
+                            void* dub, void* part, void* dx, void* dgate,
+                            void* dwg, void* dwu, void* dwd, int R, int E,
+                            int D, int FF, void* stream) {
+  using namespace b16;
+  using bf = __nv_bfloat16;
+  const Args p{static_cast<const float*>(dy), static_cast<const bf*>(x),
+               static_cast<const int32_t*>(offs), static_cast<const bf*>(wg),
+               static_cast<const bf*>(wu), static_cast<const bf*>(wd),
+               static_cast<const float*>(gate), static_cast<const float*>(g),
+               static_cast<const float*>(u), static_cast<const bf*>(h),
+               static_cast<bf*>(dgb), static_cast<bf*>(dub),
+               static_cast<float*>(part), static_cast<bf*>(dx),
+               static_cast<float*>(dgate), static_cast<bf*>(dwg),
+               static_cast<bf*>(dwu), static_cast<bf*>(dwd), R, E, D, FF};
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int tiles_r = cdiv(R, kBM) + E;
+  const int wide = D > FF ? D : FF;
+  switch (kind) {
+    case 0:
+      down_kernel<<<dim3(tiles_r, cdiv(FF, kBN)), kThreads, kSmem, s>>>(p);
+      break;
+    case 1:
+      dx_kernel<<<dim3(tiles_r, cdiv(D, kBN)), kThreads, kSmem, s>>>(p);
+      break;
+    case 2:
+      dw_kernel<<<dim3(cdiv(wide, kBM), cdiv(wide, kBN), 3 * E), kThreads,
+                  kSmem, s>>>(p);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

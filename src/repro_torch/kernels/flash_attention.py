@@ -22,7 +22,9 @@ V^T's terms into scratch this wrapper allocates
 (``f32_scratch_floats``).  On CPU tensors, at any D, it runs
 ``flash_attention_plain``: the KV-expansion ``sdpa`` in float32 with the
 ``_mask_bias`` causal/window bias plus the ``seq_len`` mask.  Either
-returns [B, Sq, Hq, D] in q's type.
+returns [B, Sq, Hq, D] in q's type.  Meta tensors (the dry run) get an
+empty output and add 4 D operations per scored (query, key) pair and
+head to ``kernels.meta_flops()``.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import ctypes
 
 import torch
 
-from . import _build, count_launch
+from . import _build, add_meta_flops, count_launch
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
@@ -138,6 +140,28 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def key_pairs(Sq: int, Sk: int, causal: bool, window: int,
+              seq_len: int) -> int:
+    """(query, key) pairs the kernel scores: keys below ``seq_len``, at
+    or before the query (``causal``) and less than ``window`` behind it
+    (``window`` > 0)."""
+    import numpy as np
+    q = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(q, seq_len - 1) if causal else np.full(Sq, seq_len - 1)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(Sq,
+                                                                  np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _meta(q, k, causal, window, seq_len):
+    """Meta tensors: the output's shape and type, and the kernel's
+    operations (QK^T and PV, 4 D a scored pair and head)."""
+    B, Sq, Hq, D = q.shape
+    add_meta_flops("flash_attention", 4.0 * B * Hq * D * key_pairs(
+        Sq, k.shape[1], causal, window, seq_len))
+    return torch.empty(q.shape, dtype=q.dtype, device="meta")
+
+
 def _launch(q, k, v, causal, window, seq_len, scale):
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -197,6 +221,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      seq_len=seq_len, scale=scale)
+    if q.device.type == "meta":
+        return _meta(q, k, causal, window, seq_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if not 1 <= D <= MAX_D:

@@ -18,13 +18,19 @@ bfloat16 runs on ``wgmma`` from TMA-loaded tiles, float32 in 3xTF32 on
 tile) units.  CPU tensors take ``moe_ffn_plain``, a per-expert loop of
 ``torch.matmul``.
 
-``moe_ffn_train`` is the float32 forward for training: the same two
-launches, bits and count, its gate/up entry also storing the products
-g = xg . W_gate[e] and u = xg . W_up[e] beside h, which it returns for
-the backward (``moe_ffn_train_plain`` on the CPU).
+``moe_ffn_train`` is the forward for training, float32 or bfloat16: the
+same two launches, bits and count, its gate/up entry also storing the
+float32 products g = xg . W_gate[e] and u = xg . W_up[e] beside h, which
+it returns for the backward (``moe_ffn_train_plain`` on the CPU).
 
-``moe_ffn_backward`` is the float32 gradient, from the forward's g, u
-and h: on CUDA tensors ``csrc/moe_ffn_bwd.cu`` in three launches (the
+``moe_ffn_backward`` is the gradient, from the forward's g, u and h.
+The bfloat16 entry (``csrc/moe_ffn_bwd.cu``'s ``moe_ffn_bwd_bf16``,
+three launches on bf16 ``wgmma`` with float32 accumulation) takes the
+rounding points of the gradient XLA derives from ``_grouped_ffn``: dh
+rounded to bf16, dx the bf16 sum of two bf16-rounded products, the
+weight gradients in bf16, dgate in float32; dg, du, dy and c dy enter
+its products rounded to bf16.  The float32 gradient: on CUDA tensors
+``csrc/moe_ffn_bwd.cu`` in three launches (the
 down product's input gradient with the SwiGLU backward and the gate
 weights' partial gradients; the rows' gradient; the three weight
 gradients), each counted under ``moe_ffn_bwd``.  All three run 3xTF32 on
@@ -36,7 +42,13 @@ ff operations at 494.7/3 TFLOP/s, 2.50 ms; on an H100 80GB HBM3 at 700 W
 it takes 5.41 ms a call, the parent design (four launches on
 ``mma.sync``, g and u recomputed) 11.90 in the same run
 (``tools/moe_bwd_lines.py``; PERF.md has ``chip_smoke.py``'s row).  CPU
-tensors take ``moe_ffn_backward_plain``.
+tensors take ``moe_ffn_backward_plain``, bfloat16 ones its bf16-in,
+float32-accumulate form with the kernel's rounding points.
+
+Meta tensors (the dry run) get empty outputs of the kernels' shapes and
+types, the backward's scratch allocated as on the card, and add the
+operations (6 R d ff forward, 12 R d ff backward, from the rows and
+widths, not the groups) to ``kernels.meta_flops()``.
 """
 from __future__ import annotations
 
@@ -45,7 +57,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from . import _build, count_launch
+from . import _build, add_meta_flops, count_launch
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +68,7 @@ MAX_EXPERTS = 256  # the kernel's unit plan in shared memory
 BWD_TILE = 128     # columns of h a dc partial of the backward sums
 BWD_LAUNCHES = 3   # moe_ffn_bwd's launches a call
 _BWD_ARGTYPES = [_I] + [_C] * 19 + [_I] * 5 + [_C]
+_BWD16_ARGTYPES = [_I] + [_C] * 18 + [_I] * 4 + [_C]
 _TRAIN_ARGTYPES = [_C] * 7 + [_I] * 4 + [_C]
 
 
@@ -81,15 +94,16 @@ def moe_ffn_plain(xg: torch.Tensor, offs: torch.Tensor,
 def moe_ffn_train_plain(xg: torch.Tensor, offs: torch.Tensor,
                         w_gate: torch.Tensor, w_up: torch.Tensor,
                         w_down: torch.Tensor, gate: torch.Tensor):
-    """The plain training forward in float32: ``moe_ffn_plain``'s y with
-    the products g = x.Wg[e], u = x.Wu[e] and h = silu(g) u [R, ff] it
+    """The plain training forward: ``moe_ffn_plain``'s y and h (h in xg's
+    type) with the float32 products g = x.Wg[e], u = x.Wu[e] [R, ff] it
     computes on the way.  Returns (y, g, u, h); rows of no expert (none,
     when offs ends at R) stay zero."""
     R, d = xg.shape
     ff = w_gate.shape[2]
     f32 = dict(dtype=torch.float32, device=xg.device)
     y = torch.zeros((R, d), **f32)
-    g, u, h = (torch.zeros((R, ff), **f32) for _ in range(3))
+    g, u = (torch.zeros((R, ff), **f32) for _ in range(2))
+    h = torch.zeros((R, ff), dtype=xg.dtype, device=xg.device)
     bounds = offs.tolist()
     for e in range(len(bounds) - 1):
         a, b = bounds[e], bounds[e + 1]
@@ -97,8 +111,8 @@ def moe_ffn_train_plain(xg: torch.Tensor, offs: torch.Tensor,
             continue
         x = xg[a:b].float()
         g[a:b], u[a:b] = x @ w_gate[e].float(), x @ w_up[e].float()
-        h[a:b] = F.silu(g[a:b]) * u[a:b]
-        y[a:b] = (h[a:b] @ w_down[e].float()) * gate[a:b, None]
+        h[a:b] = (F.silu(g[a:b]) * u[a:b]).to(xg.dtype)
+        y[a:b] = (h[a:b].float() @ w_down[e].float()) * gate[a:b, None]
     return y, g, u, h
 
 
@@ -118,7 +132,11 @@ def moe_ffn_backward_plain(dy: torch.Tensor, xg: torch.Tensor,
     forward's (``moe_ffn_train_plain``) or, left out, computed here the
     same way.  Returns (dxg [R, d], dWg, dWu [E, d, ff], dWd [E, ff, d],
     dgate [R]), all float32; an expert without rows gets zero weight
-    gradients."""
+    gradients.  bfloat16 rows and weights take ``_backward_plain_bf16``,
+    the bf16 kernel's arithmetic."""
+    if xg.dtype == torch.bfloat16:
+        return _backward_plain_bf16(dy, xg, offs, w_gate, w_up, w_down,
+                                    gate, g, u, h)
     R, d = xg.shape
     f32 = dict(dtype=torch.float32, device=xg.device)
     dxg = torch.zeros((R, d), **f32)
@@ -148,6 +166,48 @@ def moe_ffn_backward_plain(dy: torch.Tensor, xg: torch.Tensor,
         dwu[e] = x.T @ du
         dwd[e] = he.T @ (c * dye)
     return dxg, dwg, dwu, dwd, dgate
+
+
+def _backward_plain_bf16(dy, xg, offs, w_gate, w_up, w_down, gate, g, u,
+                         h):
+    """``moe_ffn_backward_plain`` for bfloat16 rows and weights: the bf16
+    kernel's arithmetic, each product's operands rounded to bf16 and
+    multiplied in float32 (``_bf``)."""
+    R, d = xg.shape
+    dev = xg.device
+    bf = torch.bfloat16
+    _bf = lambda t: t.to(bf).float()
+    dxg = torch.zeros((R, d), dtype=bf, device=dev)
+    dwg, dwu = torch.zeros_like(w_gate), torch.zeros_like(w_up)
+    dwd = torch.zeros_like(w_down)
+    dgate = torch.zeros((R,), dtype=torch.float32, device=dev)
+    bounds = offs.tolist()
+    for e in range(len(bounds) - 1):
+        a, b = bounds[e], bounds[e + 1]
+        if a == b:
+            continue
+        x, c = xg[a:b].float(), gate[a:b, None]
+        wg, wu, wd = w_gate[e].float(), w_up[e].float(), w_down[e].float()
+        ge = x @ wg if g is None else g[a:b]
+        ue = x @ wu if u is None else u[a:b]
+        he = _bf(F.silu(ge) * ue) if h is None else h[a:b].float()
+        t = _bf(dy[a:b]) @ wd.T
+        dgate[a:b] = (he * t).sum(dim=-1)
+        dh = _bf(c * t)
+        s = torch.sigmoid(ge)
+        be = dh * ue
+        dg = _bf(be * s + (ge * be) * (s * (1 - s)))
+        du = _bf((ge * s) * dh)
+        dxg[a:b] = (_bf(dg @ wg.T) + _bf(du @ wu.T)).to(bf)
+        dwg[e] = (x.T @ dg).to(bf)
+        dwu[e] = (x.T @ du).to(bf)
+        dwd[e] = (he.T @ _bf(c * dy[a:b])).to(bf)
+    return dxg, dwg, dwu, dwd, dgate
+
+
+def _check_dtype(xg, name: str) -> None:
+    if xg.dtype not in _SUFFIX:
+        raise TypeError(f"{name}: float32 or bfloat16 rows, got {xg.dtype}")
 
 
 def _check(xg, offs, w_gate, w_up, w_down, gate) -> None:
@@ -180,8 +240,8 @@ def _check(xg, offs, w_gate, w_up, w_down, gate) -> None:
 
 
 def _launch(xg, offs, w_gate, w_up, w_down, gate, keep=False):
-    """The two launches; ``keep`` (float32 training): the gate/up entry
-    that also stores g and u, and (y, g, u, h) returned."""
+    """The two launches; ``keep`` (training): the gate/up entry that also
+    stores g and u, and (y, g, u, h) returned."""
     _check(xg, offs, w_gate, w_up, w_down, gate)
     R, d = xg.shape
     E, _, ff = w_gate.shape
@@ -195,11 +255,11 @@ def _launch(xg, offs, w_gate, w_up, w_down, gate, keep=False):
     sfx = _SUFFIX[xg.dtype]
     stream = _build.current_stream(dev.index)
     if keep:
-        fn = _build.function("moe_gate_up_f32_train", _TRAIN_ARGTYPES)
+        name = f"moe_gate_up_{sfx}_train"
+        fn = _build.function(name, _TRAIN_ARGTYPES)
         _build.check(fn(xg.data_ptr(), offs.data_ptr(), w_gate.data_ptr(),
                         w_up.data_ptr(), h.data_ptr(), gu[0].data_ptr(),
-                        gu[1].data_ptr(), R, E, d, ff, stream),
-                     "moe_gate_up_f32_train")
+                        gu[1].data_ptr(), R, E, d, ff, stream), name)
     else:
         fn = _build.function(f"moe_gate_up_{sfx}", _ARGTYPES)
         _build.check(fn(xg.data_ptr(), offs.data_ptr(), w_gate.data_ptr(),
@@ -214,6 +274,27 @@ def _launch(xg, offs, w_gate, w_up, w_down, gate, keep=False):
     return (y, *gu, h) if keep else y
 
 
+def _bwd_buffers(xg, w_gate, w_up, w_down):
+    """The backward's outputs (dxg, dWg, dWu, dWd, dgate) and scratch, on
+    xg's device: float32 or, for bf16 rows, the bf16 entry's types."""
+    R, d = xg.shape
+    E, _, ff = w_gate.shape
+    f32 = dict(dtype=torch.float32, device=xg.device)
+    outs = (torch.empty((R, d), dtype=xg.dtype, device=xg.device),
+            torch.empty_like(w_gate), torch.empty_like(w_up),
+            torch.empty_like(w_down), torch.empty((R,), **f32))
+    part = torch.empty((R, -(-ff // BWD_TILE)), **f32)
+    if xg.dtype == torch.bfloat16:      # dg and du, rounded to bf16
+        scratch = [torch.empty((R, ff), dtype=xg.dtype, device=xg.device)
+                   for _ in range(2)]
+    else:
+        # the transposed intermediates: each group from a multiple of 4
+        # columns (TMA reads from 16-byte aligned inner coordinates)
+        rp = -(-(R + 3 * E) // 4) * 4
+        scratch = [torch.empty((ff, rp), **f32) for _ in range(3)]
+    return outs, scratch + [part]
+
+
 def _launch_bwd(dy, xg, offs, w_gate, w_up, w_down, gate, g, u, h):
     _check(xg, offs, w_gate, w_up, w_down, gate)
     R, d = xg.shape
@@ -223,26 +304,30 @@ def _launch_bwd(dy, xg, offs, w_gate, w_up, w_down, gate, g, u, h):
         raise ValueError(f"moe_ffn_backward: dy must be float32 {(R, d)} "
                          f"on {xg.device} with a 16-byte aligned base")
     for name, t in (("g", g), ("u", u), ("h", h)):
-        if t is None or t.shape != (R, ff) or t.dtype != torch.float32 \
+        want = xg.dtype if name == "h" else torch.float32
+        if t is None or t.shape != (R, ff) or t.dtype != want \
                 or t.device != xg.device or not t.is_contiguous() \
                 or t.data_ptr() % 16:
             raise ValueError(f"moe_ffn_backward: the forward's {name} "
-                             f"(moe_ffn_train) must be contiguous float32 "
+                             f"(moe_ffn_train) must be contiguous {want} "
                              f"{(R, ff)} on {xg.device} with a 16-byte "
                              f"aligned base")
-    f32 = dict(dtype=torch.float32, device=xg.device)
-    dwg, dwu = torch.empty_like(w_gate), torch.empty_like(w_up)
-    dwd = torch.empty_like(w_down)
-    dxg = torch.empty((R, d), **f32)
-    dgate = torch.empty((R,), **f32)
+    (dxg, dwg, dwu, dwd, dgate), scratch = _bwd_buffers(xg, w_gate, w_up,
+                                                        w_down)
     if R == 0:                          # nothing to launch, nothing counted
         return dxg, dwg.zero_(), dwu.zero_(), dwd.zero_(), dgate
-    # the transposed intermediates: each group from a multiple of 4
-    # columns (TMA reads from 16-byte aligned inner coordinates)
-    rp = -(-(R + 3 * E) // 4) * 4
-    dgt, dut, ht = (torch.empty((ff, rp), **f32) for _ in range(3))
-    part = torch.empty((R, -(-ff // BWD_TILE)), **f32)
     stream = _build.current_stream(xg.device.index)
+    if xg.dtype == torch.bfloat16:
+        fn = _build.function("moe_ffn_bwd_bf16", _BWD16_ARGTYPES)
+        args = (dy, xg, offs, w_gate, w_up, w_down, gate, g, u, h,
+                *scratch, dxg, dgate, dwg, dwu, dwd)
+        for kind in range(BWD_LAUNCHES):
+            _build.check(fn(kind, *(t.data_ptr() for t in args), R, E, d,
+                            ff, stream), f"moe_ffn_bwd_bf16[{kind}]")
+            count_launch("moe_ffn_bwd")
+        return dxg, dwg, dwu, dwd, dgate
+    dgt, dut, ht, part = scratch
+    rp = dgt.shape[1]
     fn = _build.function("moe_ffn_bwd_f32", _BWD_ARGTYPES)
     for kind in range(BWD_LAUNCHES):
         _build.check(fn(kind, dy.data_ptr(), xg.data_ptr(), offs.data_ptr(),
@@ -255,6 +340,12 @@ def _launch_bwd(dy, xg, offs, w_gate, w_up, w_down, gate, g, u, h):
                         stream), f"moe_ffn_bwd_f32[{kind}]")
         count_launch("moe_ffn_bwd")
     return dxg, dwg, dwu, dwd, dgate
+
+
+def ffn_flops(R: int, d: int, ff: int) -> float:
+    """Operations of the forward's three products over R rows: 6 R d ff
+    (the backward's five: 12 R d ff)."""
+    return 6.0 * R * d * ff
 
 
 def launch_info(dtype: torch.dtype, R: int, E: int) -> dict:
@@ -282,9 +373,14 @@ def moe_ffn(xg: torch.Tensor, offs: torch.Tensor, w_gate: torch.Tensor,
     offsets offs [E + 1], expert weights w_gate/w_up [E, d, ff] and
     w_down [E, ff, d] in xg's type, float32 gate weights [R].  Returns
     the gated expert outputs y [R, d] in float32.  CPU tensors: the plain
-    version; CUDA tensors: the kernel (two launches) or a raise."""
+    version; CUDA tensors: the kernel (two launches) or a raise; meta
+    tensors: an empty y."""
     if xg.device.type == "cpu":
         return moe_ffn_plain(xg, offs, w_gate, w_up, w_down, gate)
+    if xg.device.type == "meta":
+        R, d = xg.shape
+        add_meta_flops("moe_ffn", ffn_flops(R, d, w_gate.shape[2]))
+        return torch.empty((R, d), dtype=torch.float32, device="meta")
     if xg.device.type != "cuda":
         raise ValueError(f"moe_ffn: unsupported device {xg.device}")
     return _launch(xg, offs, w_gate, w_up, w_down, gate)
@@ -293,17 +389,23 @@ def moe_ffn(xg: torch.Tensor, offs: torch.Tensor, w_gate: torch.Tensor,
 def moe_ffn_train(xg: torch.Tensor, offs: torch.Tensor,
                   w_gate: torch.Tensor, w_up: torch.Tensor,
                   w_down: torch.Tensor, gate: torch.Tensor):
-    """``moe_ffn`` for training, float32 rows and weights: (y [R, d], g,
-    u, h [R, ff]), all float32, y and h with ``moe_ffn``'s bits and g, u
-    the gate and up products h was made from, kept for
-    ``moe_ffn_backward``.  CPU tensors: the plain version; CUDA tensors:
-    the kernel (two launches, the gate/up one storing g and u) or a
-    raise."""
-    if xg.dtype != torch.float32:
-        raise TypeError(f"moe_ffn_train: float32 only, got {xg.dtype} "
-                        f"(a bfloat16 backward is not ported: ROADMAP A2)")
+    """``moe_ffn`` for training, float32 or bfloat16 rows and weights:
+    (y [R, d] float32, g, u [R, ff] float32, h [R, ff] in xg's type), y
+    and h with ``moe_ffn``'s bits and g, u the gate and up products h was
+    made from, kept for ``moe_ffn_backward``.  CPU tensors: the plain
+    version; CUDA tensors: the kernel (two launches, the gate/up one
+    storing g and u) or a raise; meta tensors: empty outputs."""
+    _check_dtype(xg, "moe_ffn_train")
     if xg.device.type == "cpu":
         return moe_ffn_train_plain(xg, offs, w_gate, w_up, w_down, gate)
+    if xg.device.type == "meta":
+        R, d = xg.shape
+        ff = w_gate.shape[2]
+        add_meta_flops("moe_ffn", ffn_flops(R, d, ff))
+        f32 = dict(dtype=torch.float32, device="meta")
+        return (torch.empty((R, d), **f32), torch.empty((R, ff), **f32),
+                torch.empty((R, ff), **f32),
+                torch.empty((R, ff), dtype=xg.dtype, device="meta"))
     if xg.device.type != "cuda":
         raise ValueError(f"moe_ffn_train: unsupported device {xg.device}")
     return _launch(xg, offs, w_gate, w_up, w_down, gate, keep=True)
@@ -315,19 +417,21 @@ def moe_ffn_backward(dy: torch.Tensor, xg: torch.Tensor, offs: torch.Tensor,
                      g: torch.Tensor | None = None,
                      u: torch.Tensor | None = None,
                      h: torch.Tensor | None = None):
-    """The gradient of ``moe_ffn`` for output gradient dy [R, d], float32
-    rows and weights, from the forward's g, u and h (``moe_ffn_train``):
-    (dxg [R, d], dWg, dWu [E, d, ff], dWd [E, ff, d], dgate [R]), all
-    float32.  CPU tensors: the plain version (which computes g, u and h
-    when they are left out); CUDA tensors: the kernels (three launches),
-    which need them, or a raise.  bfloat16 raises: no caller trains
-    bfloat16 weights (ROADMAP A2)."""
-    if xg.dtype != torch.float32:
-        raise TypeError(f"moe_ffn_backward: float32 only, got {xg.dtype} "
-                        f"(a bfloat16 backward is not ported: ROADMAP A2)")
+    """The gradient of ``moe_ffn`` for output gradient dy [R, d] (float32),
+    from the forward's g, u and h (``moe_ffn_train``): (dxg [R, d] in xg's
+    type, dWg, dWu [E, d, ff], dWd [E, ff, d] in the weights' type, dgate
+    [R] float32).  CPU tensors: the plain version (which computes g, u
+    and h when they are left out); CUDA tensors: the kernels (three
+    launches), which need them, or a raise; meta tensors: empty outputs
+    and the scratch the kernels take."""
+    _check_dtype(xg, "moe_ffn_backward")
     if xg.device.type == "cpu":
         return moe_ffn_backward_plain(dy, xg, offs, w_gate, w_up, w_down,
                                       gate, g, u, h)
+    if xg.device.type == "meta":
+        R, d = xg.shape
+        add_meta_flops("moe_ffn_bwd", 2 * ffn_flops(R, d, w_gate.shape[2]))
+        return _bwd_buffers(xg, w_gate, w_up, w_down)[0]
     if xg.device.type != "cuda":
         raise ValueError(f"moe_ffn_backward: unsupported device "
                          f"{xg.device}")

@@ -27,7 +27,10 @@ rest.
 
 On CPU tensors it runs ``ssd_scan_plain``, the plain chunked scan
 ``repro_torch.models.ssm.ssd_chunked`` with one group.  An initial state
-``h0`` is taken as ``ssd_chunked`` takes it.
+``h0`` is taken as ``ssd_chunked`` takes it.  Meta tensors (the dry run)
+get empty outputs and add ``scan_flops`` to ``kernels.meta_flops()``;
+the workspace, whose sizes only the built kernel source reports, is not
+allocated there.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ import ctypes
 
 import torch
 
-from . import _build, count_launch
+from . import _build, add_meta_flops, count_launch
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
@@ -113,6 +116,27 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                        h0)
 
 
+def scan_flops(B: int, L: int, H: int, P: int, N: int, chunk: int
+               ) -> float:
+    """Operations of the chunked scan over ceil(L / chunk) chunks: C.B^T
+    (2 Q^2 N), the masked intra-chunk product with x (2 Q^2 H P), the
+    chunk states and the inter-chunk output (2 Q H N P each)."""
+    Q = chunk
+    nc = -(-L // Q)
+    return float(B) * nc * (2 * Q * Q * N + 2 * Q * Q * H * P
+                            + 4 * Q * H * N * P)
+
+
+def _meta(x, Bm, chunk):
+    """Meta tensors: float32 y and h_final of the kernel's shapes, and its
+    operations in ``kernels.meta_flops()``."""
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    add_meta_flops("ssd_scan", scan_flops(Bsz, L, H, P, N, chunk))
+    return (torch.empty((Bsz, L, H, P), dtype=torch.float32, device="meta"),
+            torch.empty((Bsz, H, N, P), dtype=torch.float32, device="meta"))
+
+
 def _launch(x, dt, A, Bm, Cm, chunk, h0):
     Bsz, L, H, P = x.shape
     N = Bm.shape[-1]
@@ -165,6 +189,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check_range(chunk, x.shape[-1], Bm.shape[-1])
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk, h0=h0)
+    if x.device.type == "meta":
+        return _meta(x, Bm, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
     return _launch(x, dt, A, Bm, Cm, chunk, h0)

@@ -4,11 +4,31 @@ Every function builds a ``DeviceMesh`` over the default process group,
 which the caller has set up (``torch.distributed.init_process_group``
 with its address, world size and rank) with as many ranks as the mesh
 has places.  The production meshes of 256 and 512 ranks exist only
-under the ``fake`` backend, which traces collectives without devices.
+under the ``fake`` backend, which traces collectives without devices
+(``fake_world``), as ``"cpu"`` meshes.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 from repro_torch.parallel.sharding import MeshInfo
+
+
+@contextmanager
+def fake_world(world_size: int, rank: int = 0):
+    """The default process group on torch's ``fake`` backend (a
+    ``FakeStore``): ``world_size`` ranks of which this process is
+    ``rank``, collectives traced and never run, no device and no peer.
+    The dry run builds the production meshes on it over meta tensors (the
+    JAX dry run's placeholder devices).  The group is destroyed on exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _mesh(shape: tuple[int, ...], axes: tuple[str, ...], device_type: str):

@@ -73,13 +73,15 @@ def make_train_step(cfg: ArchConfig, mi: sh.MeshInfo | None = None, *,
     metrics)``.
 
     ``batch`` leaves (numpy arrays or tensors) have a leading
-    ``[n_micro, micro_batch, ...]``.  Each microbatch's gradient is added
-    into float32 sums that start at zero, as the JAX step's scan does;
-    the sums are divided by ``n_micro`` and go to ``adamw.update`` at
-    ``lr_fn(opt_state.step)``, read before the step count is incremented.
-    Parameters and moments are updated in place (float32 parameters
-    only) and returned.  The step's products are full float32: TF32 is
-    off inside it, whatever the caller set.  Metrics: ``loss`` (the mean
+    ``[n_micro, micro_batch, ...]``.  Each microbatch's gradient (in the
+    parameter's type) is added into float32 sums, as the JAX step's scan
+    does; the sums are divided by ``n_micro`` and go to ``adamw.update``
+    at ``lr_fn(opt_state.step)``, read before the step count is
+    incremented.  Parameters (float32 or bfloat16: the update is computed
+    in float32 and cast back, as JAX's ``newp.astype(p.dtype)``) and
+    moments are updated in place and returned.  The step's float32
+    products are full float32: TF32 is off inside it, whatever the caller
+    set.  Metrics: ``loss`` (the mean
     of the microbatches' cross-entropies), ``lr``, ``grad_norm`` (before
     clipping), as JAX's step returns them, and for an MoE arch
     ``moe_aux`` (the mean of the microbatches' load-balancing losses) and
@@ -117,16 +119,13 @@ def make_train_step(cfg: ArchConfig, mi: sh.MeshInfo | None = None, *,
 
     def _step(params, opt_state, batch):
         leaves = tree.leaves(params)
-        bad = [p.dtype for p in leaves if p.dtype != torch.float32]
-        if bad:
-            raise ValueError(f"train_step trains float32 parameters, got "
-                             f"{sorted(set(map(str, bad)))}")
         dev = leaves[0].device
         n_micro = next(iter(batch.values())).shape[0]
         was = [p.requires_grad for p in leaves]
         for p in leaves:
-            p.grad = torch.zeros_like(p)
+            p.grad = None
             p.requires_grad_(True)
+        grads = [None] * len(leaves)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
         counts = []
@@ -136,16 +135,16 @@ def make_train_step(cfg: ArchConfig, mi: sh.MeshInfo | None = None, *,
                       for k, v in batch.items()}
                 total, metrics = T.loss_fn(params, cfg, mb)
                 total.backward()
+                grads = [_add_grad(s, p) for s, p in zip(grads, leaves)]
                 loss_sum = loss_sum + metrics["ce_loss"].detach()
                 if cfg.is_moe:
                     aux_sum = aux_sum + metrics["moe_aux"].detach()
                     counts.append(metrics["expert_counts"])
         finally:
             for p, w in zip(leaves, was):
+                p.grad = None
                 p.requires_grad_(w)
-        grads = [p.grad for p in leaves]
-        for p, g in zip(leaves, grads):
-            p.grad = None
+        for g in grads:
             g.div_(n_micro)
         lr = lr_fn(opt_state.step)
         params, opt_state, om = adamw.update(
@@ -175,7 +174,11 @@ def make_train_step(cfg: ArchConfig, mi: sh.MeshInfo | None = None, *,
                 total, metrics = T.loss_fn(params, cfg, mb, mi)
                 total.backward()
                 for j, p in enumerate(leaves):
-                    g = p.grad.float().redistribute(mi.mesh, zero[j])
+                    # a leaf no gradient reached (an embeds arch's
+                    # table) sums zeros, as JAX's gradient has them
+                    g = (p.grad if p.grad is not None
+                         else torch.zeros_like(p)).float()
+                    g = g.redistribute(mi.mesh, zero[j])
                     sums[j] = g if sums[j] is None else sums[j] + g
                     p.grad = None
                 loss_sum = loss_sum + metrics["ce_loss"].detach()
@@ -215,6 +218,16 @@ def make_train_step(cfg: ArchConfig, mi: sh.MeshInfo | None = None, *,
         return params, new_opt, out
 
     return train_step
+
+
+def _add_grad(total, p):
+    """``p``'s gradient (zero where none reached it) added into the float32
+    sum ``total`` (None before the first microbatch), in place; ``p.grad``
+    is cleared."""
+    g = p.grad
+    p.grad = None
+    g = torch.zeros_like(p, dtype=torch.float32) if g is None else g.float()
+    return g if total is None else total.add_(g)
 
 
 def micro_batches(raw: dict, n_micro: int) -> dict:

@@ -134,34 +134,73 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return sdpa_dense(q, k, v, mask_bias, q.shape[3] ** -0.5, soft_cap)
 
 
-def sdpa_sharded(q, k, v, mask_bias: torch.Tensor, mi, *,
-                 soft_cap: float | None = None):
-    """``sdpa`` of DTensors q, k, v over ``mi``'s mesh, run on each rank's
-    shards: the batch split over the data axes and, in megatron mode
-    (the heads divide ``model``), the heads over ``model``.  k/v heads
-    that do not divide ``model`` are expanded to Hq first (replicated,
-    then each rank keeps its q heads' copies).  In context mode q, k and
-    v are whole on every ``model`` rank.  ``mask_bias`` [B, Sq, Sk] is a
-    plain tensor whose rows are equal (the training batch's positions
-    are 0..S-1 in every row)."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    names = mi.mesh.mesh_dim_names
+def sdpa_qchunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  positions: torch.Tensor, *, window: int | None = None,
+                  soft_cap: float | None = None, q_chunk: int = 1024
+                  ) -> torch.Tensor:
+    """Query-chunked ``sdpa`` (JAX ``sdpa_qchunked``): the queries in
+    chunks of ``q_chunk``, each chunk's mask built from ``positions``
+    [B, S] and its body a ``torch.utils.checkpoint``, so no [Sq, Sk] mask
+    and no logits block larger than [B, H, q_chunk, Sk] is kept for the
+    backward.  Where ``Sq`` is not a multiple of ``q_chunk`` or is no
+    longer than it, the plain ``sdpa`` over the whole mask."""
+    import torch.utils.checkpoint
+    B, Sq, Hq, Dh = q.shape
+    G = Hq // k.shape[2]
+    k = layers.repeat_heads(k, G, dim=2)
+    v = layers.repeat_heads(v, G, dim=2)
+    if Sq % q_chunk or Sq <= q_chunk:
+        return sdpa(q, k, v, _mask_bias(positions, positions, window),
+                    soft_cap=soft_cap)
+    scale = Dh ** -0.5
+    kf = k.float()
+
+    def body(qc, qpos):
+        logits = torch.einsum("bqhd,bkhd->bhqk", qc.float() * scale, kf)
+        if soft_cap is not None:
+            logits = torch.tanh(logits / soft_cap) * soft_cap
+        logits = logits + _mask_bias(qpos, positions, window)[:, None]
+        w = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
+
+    outs = [torch.utils.checkpoint.checkpoint(
+                body, q[:, i:i + q_chunk], positions[:, i:i + q_chunk],
+                use_reentrant=False)
+            for i in range(0, Sq, q_chunk)]
+    return torch.cat(outs, dim=1)
+
+
+def _head_places(mi, split: bool) -> list:
+    """Placements of a [B, S, H, D] tensor with the batch over the data
+    axes and, where ``split``, the heads over ``model``."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(2) if n == mi.model_axis and split
+            else Shard(0) if n in mi.dp_axes else Replicate()
+            for n in mi.mesh.mesh_dim_names]
+
+
+def sdpa_sharded(q, k, v, mi, attend):
+    """Attention of DTensors q, k, v over ``mi``'s mesh, run on each rank's
+    shards by ``attend(q_local, k_local, v_local)``: the batch split over
+    the data axes and, in megatron mode (the heads divide ``model``), the
+    heads over ``model``.  k/v heads that do not divide ``model`` are
+    expanded to Hq first (replicated, then each rank keeps its q heads'
+    copies).  In context mode q, k and v are whole on every ``model``
+    rank.  The training step's ``attend`` is ``sdpa`` (or
+    ``sdpa_qchunked``), the prefill's K8."""
+    from repro_torch.parallel import sharding as sh
     Hq, Hkv = q.shape[2], k.shape[2]
     split = Hq % mi.n_model == 0
-    place = [Shard(2) if n == mi.model_axis and split
-             else Shard(0) if n in mi.dp_axes else Replicate()
-             for n in names]
+    place = _head_places(mi, split)
     if split and Hkv % mi.n_model:
-        whole = [Shard(0) if n in mi.dp_axes else Replicate()
-                 for n in names]
+        whole = _head_places(mi, False)
         k = layers.repeat_heads(k.redistribute(mi.mesh, whole), Hq // Hkv,
                                 dim=2)
         v = layers.repeat_heads(v.redistribute(mi.mesh, whole), Hq // Hkv,
                                 dim=2)
     ql, kl, vl = (t.redistribute(mi.mesh, place).to_local()
                   for t in (q, k, v))
-    out = sdpa(ql, kl, vl, mask_bias[:ql.shape[0]], soft_cap=soft_cap)
-    return DTensor.from_local(out, mi.mesh, place, run_check=False)
+    return sh.from_local(attend(ql, kl, vl), mi, place, q.shape)
 
 
 def sdpa_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -263,3 +302,93 @@ def decode_attention(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
     if quantized:
         return out, k_cache, v_cache, pos_cache, k_scale, v_scale
     return out, k_cache, v_cache, pos_cache
+
+
+def decode_attention_sharded(p: dict, x, cache: dict, pos: torch.Tensor,
+                             cos: torch.Tensor, sin: torch.Tensor, mi, *,
+                             window: int | None = None,
+                             soft_cap: float | None = None):
+    """``decode_attention`` over ``mi``'s mesh: x [B, 1, d] and the weights
+    DTensors, ``cache`` a dict of DTensors (``k``/``v`` [B, W, Hkv, Dh],
+    ``pos`` [B, W], int8 scales [B, W, Hkv]) laid out by
+    ``sharding.decode_state_specs``, ``pos`` the plain int32 [B] positions
+    of the new tokens.  q, k and v are gathered over the heads (one token:
+    a few hundred bytes a row) onto the cache's batch layout.  Each rank
+    owns a contiguous slot range of each sequence it holds (the whole
+    cache where the slots are not split); it writes the new token's K/V
+    there, in place, only if ``pos % W`` falls in its range, and attends
+    over its slots.  Where the slots are split, the ranks' partial max,
+    sum and P.V are merged over the splitting mesh dims with functional
+    collectives (distributed flash-decode); where they are not, the
+    attention is ``sdpa_grouped``'s, bit for bit.  Returns (out [B, 1, d]
+    DTensor, cache)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    from repro_torch.parallel import sharding as sh
+    kc = cache["k"]
+    W = kc.shape[1]
+    rows = sh.like_batch(kc)
+    q, k_new, v_new = project_qkv(p, x, cos, sin)
+    ql, kn, vn = (t.redistribute(mi.mesh, rows).to_local()
+                  for t in (q, k_new, v_new))
+    b0, lo = sh.local_offset(kc)[:2]
+    loc = {name: t.to_local() for name, t in cache.items()}
+    Bl, Wl = loc["k"].shape[:2]
+    pl = pos[b0:b0 + Bl]
+    b_idx = torch.arange(Bl, device=pl.device)
+    slot = pl.long() % W
+    mine = (slot >= lo) & (slot < lo + Wl)
+    at = (slot - lo).clamp(0, max(Wl - 1, 0))
+
+    def write(name, new):
+        t = loc[name]
+        m = mine.reshape(-1, *([1] * (new.dim() - 1)))
+        t[b_idx, at] = torch.where(m, new.to(t.dtype), t[b_idx, at])
+
+    quantized = "k_scale" in loc
+    if quantized:
+        k8, ks = quantize_int8(kn[:, 0])
+        v8, vs = quantize_int8(vn[:, 0])
+        for name, new in (("k", k8), ("v", v8), ("k_scale", ks),
+                          ("v_scale", vs)):
+            write(name, new)
+        k_read = loc["k"].float() * loc["k_scale"][..., None]
+        v_read = loc["v"].float() * loc["v_scale"][..., None]
+    else:
+        write("k", kn[:, 0])
+        write("v", vn[:, 0])
+        k_read, v_read = loc["k"], loc["v"]
+    write("pos", pl)
+    pc = loc["pos"]
+    valid = (pc >= 0) & (pc <= pl[:, None])
+    if window is not None and window > 0:
+        valid = valid & ((pl[:, None] - pc) < window)
+    bias = torch.where(valid, 0.0, NEG_INF).float()[:, None, :]
+    split = sh.split_dims(kc, 1)
+    if all(mi.mesh.size(d) == 1 for d in split):
+        out = sdpa_grouped(ql, k_read, v_read, bias, soft_cap=soft_cap)
+    else:
+        _, Sq, Hq, Dh = ql.shape
+        Hkv = k_read.shape[2]
+        qg = ql.reshape(Bl, Sq, Hkv, Hq // Hkv, Dh)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float() * Dh ** -0.5,
+                              k_read.float())
+        if soft_cap is not None:
+            logits = torch.tanh(logits / soft_cap) * soft_cap
+        logits = logits + bias[:, None, None, :, :]
+        m = logits.amax(dim=-1, keepdim=True)               # [b,h,g,q,1]
+        e = torch.exp(logits - m)
+        s = e.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bhgqk,bkhd->bhgqd", e, v_read.float())
+        big = m
+        for d in split:
+            big = funcol.all_reduce(big, "max", (mi.mesh, d))
+        corr = torch.exp(m - big)
+        s, o = s * corr, o * corr
+        for d in split:
+            s = funcol.all_reduce(s, "sum", (mi.mesh, d))
+            o = funcol.all_reduce(o, "sum", (mi.mesh, d))
+        out = (o / s).permute(0, 3, 1, 2, 4).reshape(Bl, Sq, Hq, Dh)
+        out = out.to(v_read.dtype)
+    out = sh.from_local(out, mi, rows, q.shape)
+    return _out_proj(out.to(x.dtype), p["wo"]), cache

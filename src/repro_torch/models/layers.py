@@ -48,9 +48,8 @@ def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
     dev = positions.device
     exps = torch.arange(half, dtype=torch.float32, device=dev) / half
     freq = 1.0 / (theta ** exps)
-    sec_id = torch.repeat_interleave(
-        torch.arange(len(sections), device=dev),
-        torch.tensor(sections, device=dev))
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=dev)
     ang = positions[..., sec_id].float() * freq
     return torch.cos(ang), torch.sin(ang)
 

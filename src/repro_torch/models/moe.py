@@ -143,24 +143,18 @@ class _GatherRows(torch.autograd.Function):
 
 
 class _GroupedFFN(torch.autograd.Function):
-    """``moe_ffn`` under autograd: the float32 forward is
-    ``moe_ffn_train`` (``moe_ffn``'s launches and bits, the gate and up
-    products g and u kept beside h), the backward ``moe_ffn_backward``'s
-    kernels from that g, u and h (plain versions on the CPU).  Under
+    """``moe_ffn`` under autograd: the forward is ``moe_ffn_train``
+    (``moe_ffn``'s launches and bits, the gate and up products g and u
+    kept beside h), the backward ``moe_ffn_backward``'s kernels from that
+    g, u and h (plain versions on the CPU), float32 or bfloat16.  Under
     ``cfg.remat`` (non-reentrant checkpointing) the first forward's saved
-    tensors are dropped and the recompute's kept, one layer at a time.
-    Other types keep ``moe_ffn`` and save no g, u, h: their backward
-    raises (ROADMAP A2)."""
+    tensors are dropped and the recompute's kept, one layer at a time."""
 
     @staticmethod
     def forward(ctx, xg, offs, w_gate, w_up, w_down, gate):
-        if xg.dtype == torch.float32:
-            y, g, u, h = moe_ffn_train(xg, offs, w_gate, w_up, w_down, gate)
-            ctx.save_for_backward(xg, offs, w_gate, w_up, w_down, gate,
-                                  g, u, h)
-            return y
-        ctx.save_for_backward(xg, offs, w_gate, w_up, w_down, gate)
-        return moe_ffn(xg, offs, w_gate, w_up, w_down, gate)
+        y, g, u, h = moe_ffn_train(xg, offs, w_gate, w_up, w_down, gate)
+        ctx.save_for_backward(xg, offs, w_gate, w_up, w_down, gate, g, u, h)
+        return y
 
     @staticmethod
     def backward(ctx, dy):

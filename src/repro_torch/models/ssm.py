@@ -236,40 +236,97 @@ def mamba_forward(p: dict, spec: MambaSpec, x: torch.Tensor, *,
     return out
 
 
-def mamba_forward_sharded(p: dict, spec: MambaSpec, x, mi):
-    """``mamba_forward`` of the training step over ``mi``'s mesh, on each
-    rank's shards (DTensor has no sharding rule for the chunked scan's
-    reshapes): the heads split over ``model`` (``in_proj_z``/``_x``,
-    ``norm`` and ``out_proj``'s rows as ``param_specs`` lays them out),
-    B, C and dt computed whole on every rank and the rank's heads taken
-    from them and from the replicated conv, ``dt_bias``, ``A_log`` and
-    ``D``.  The gated RMSNorm's sum of squares over d_inner is summed
-    over ``model``, and the row-split ``out_proj``'s partial outputs too.
-    x [B, L, d] is a DTensor split over the data axes; returns the
-    block's output as one."""
-    from repro_torch.parallel.sharding import local, psum
-    if spec.n_groups != 1:
-        raise NotImplementedError("mamba_forward_sharded: one B/C group")
+def _local_params(p: dict, mi, everyone) -> dict:
+    """Each rank's shards of the Mamba weights: B, C and dt projections,
+    conv, ``dt_bias``, ``A_log`` and ``D`` whole (their gradients partial
+    sums over ``everyone``), the rest split over ``model`` by
+    ``param_specs``."""
+    from repro_torch.parallel.sharding import local
+    whole = ("in_proj_B", "in_proj_C", "in_proj_dt", "conv_w", "conv_b",
+             "dt_bias", "A_log", "D")
+    return {k: local(v, mi, everyone if k in whole else mi.dp_axes)
+            for k, v in p.items()}
+
+
+def _head_slices(spec: MambaSpec, mi):
     n, m = mi.n_model, mi.mesh.get_local_rank(mi.model_axis)
-    H, Pd, di, gn = spec.n_heads, spec.headdim, spec.d_inner, spec.d_state
+    H, di = spec.n_heads, spec.d_inner
+    if spec.n_groups != 1:
+        raise NotImplementedError("sharded Mamba-2: one B/C group")
     if H % n:
-        raise ValueError(f"mamba_forward_sharded: {H} heads over {n} "
-                         f"model shards")
+        raise ValueError(f"sharded Mamba-2: {H} heads over {n} model shards")
     Hl, dil = H // n, di // n
-    heads, chans = slice(m * Hl, (m + 1) * Hl), slice(m * dil, (m + 1) * dil)
+    return slice(m * Hl, (m + 1) * Hl), slice(m * dil, (m + 1) * dil)
+
+
+def mamba_forward_sharded(p: dict, spec: MambaSpec, x, mi, *, scan=None,
+                          return_state: bool = False):
+    """``mamba_forward`` over ``mi``'s mesh, on each rank's shards (DTensor
+    has no sharding rule for the chunked scan's reshapes): the heads split
+    over ``model`` (``in_proj_z``/``_x``, ``norm`` and ``out_proj``'s
+    rows as ``param_specs`` lays them out), B, C and dt computed whole on
+    every rank and the rank's heads taken from them and from the
+    replicated conv, ``dt_bias``, ``A_log`` and ``D``.  The gated
+    RMSNorm's sum of squares over d_inner is summed over ``model``, and
+    the row-split ``out_proj``'s partial outputs too.  x [B, L, d] is a
+    DTensor split over the data axes; returns the block's output as one.
+    ``scan`` as ``mamba_forward``'s, the plain ``ssd_chunked`` by default
+    (training); the prefill passes K9, which runs on the rank's heads.
+    With ``return_state`` also returns the state as DTensors in the
+    decode layout (``sharding.decode_state_specs``): h [B, H, N, P] with
+    the heads over ``model``, and the raw conv context [B, d_conv-1,
+    conv_ch] (zero-padded on the left to d_conv-1 rows) with the channels
+    over ``model``, its x channels gathered over ``model`` first.  On a
+    ``model`` axis of one rank the block is ``mamba_forward`` on the
+    local tensors."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.parallel.sharding import (from_local, like_batch, local,
+                                               psum)
+    scan = scan or ssd_chunked
+    heads, chans = _head_slices(spec, mi)
     everyone = (mi.model_axis, *mi.dp_axes)
     xl = local(x, mi, (mi.model_axis,))
-    pl = {k: local(v, mi, everyone if k in (
-              "in_proj_B", "in_proj_C", "in_proj_dt", "conv_w", "conv_b",
-              "dt_bias", "A_log", "D") else mi.dp_axes)
-          for k, v in p.items()}
+    pl = _local_params(p, mi, everyone)
     Bsz, L, _ = xl.shape
+    H, Pd, di, gn = spec.n_heads, spec.headdim, spec.d_inner, spec.d_state
+    names = mi.mesh.mesh_dim_names
+    rows = like_batch(x)
 
+    def state(hs, tail):
+        tail = F.pad(tail, (0, 0, spec.d_conv - 1 - tail.shape[1], 0))
+        h_pl = [Shard(1) if n == mi.model_axis else r
+                for n, r in zip(names, rows)]
+        hs = from_local(hs, mi, h_pl, (x.shape[0], H, gn, Pd))
+        tail = from_local(tail, mi, rows,
+                          (x.shape[0], spec.d_conv - 1, spec.conv_ch))
+        return hs, tail.redistribute(mi.mesh, [
+            Shard(2) if n == mi.model_axis else r
+            for n, r in zip(names, rows)])
+
+    if mi.n_model == 1:
+        out = mamba_forward(pl, spec, xl, return_state=return_state,
+                            scan=scan)
+        y = from_local(out[0] if return_state else out, mi, rows, x.shape)
+        if not return_state:
+            return y
+        return y, state(*out[1])
+
+    Hl, dil = H // mi.n_model, di // mi.n_model
     z = xl @ pl["in_proj_z"]
     xs = xl @ pl["in_proj_x"]
     Bp = xl @ pl["in_proj_B"]
     Cp = xl @ pl["in_proj_C"]
     dt = (xl @ pl["in_proj_dt"])[..., heads]
+    tails = None
+    if return_state:
+        k = spec.d_conv - 1
+        xt = from_local(xs[:, -k:].contiguous(), mi, [
+            Shard(2) if n == mi.model_axis else r
+            for n, r in zip(names, rows)], (x.shape[0], min(k, L), di))
+        xt = xt.redistribute(mi.mesh, rows).to_local()
+        tails = torch.cat([xt, Bp[:, -k:], Cp[:, -k:]], dim=-1)
     cw, cb = pl["conv_w"], pl["conv_b"]
     xs = _causal_depthwise_conv(xs, cw[:, chans], cb[chans])
     Bp = _causal_depthwise_conv(Bp, cw[:, di:di + gn], cb[di:di + gn])
@@ -278,15 +335,93 @@ def mamba_forward_sharded(p: dict, spec: MambaSpec, x, mi):
     xh = xs.reshape(Bsz, L, Hl, Pd)
     dt = softplus(dt.float() + pl["dt_bias"][heads].float())
     A = -torch.exp(pl["A_log"][heads].float())
-    y, _ = ssd_chunked(xh, dt, A, Bp.reshape(Bsz, L, 1, gn),
-                       Cp.reshape(Bsz, L, 1, gn), spec.chunk)
+    y, h_fin = scan(xh, dt, A, Bp.reshape(Bsz, L, 1, gn),
+                    Cp.reshape(Bsz, L, 1, gn), spec.chunk)
     y = y + xh.float() * pl["D"][heads].float()[:, None]
     y = y.reshape(Bsz, L, dil) * F.silu(z.float())
 
     ss = psum(y.square().sum(dim=-1, keepdim=True), mi, x)
     ss = local(ss, mi, (mi.model_axis,))
     y = y * torch.rsqrt(ss / di + 1e-6) * pl["norm"].float()
-    return psum(y.to(xl.dtype) @ pl["out_proj"], mi, x)
+    out = psum(y.to(xl.dtype) @ pl["out_proj"], mi, x)
+    if not return_state:
+        return out
+    return out, state(h_fin, tails)
+
+
+def mamba_decode_step_sharded(p: dict, spec: MambaSpec, x, h, conv_state,
+                              mi):
+    """``mamba_decode_step`` over ``mi``'s mesh in the JAX decode layout:
+    x [B, 1, d], h [B, H, N, P] with the heads over ``model``, the raw
+    conv context [B, d_conv-1, conv_ch] with its channels over ``model``
+    (DTensors, the batch over the data axes or whole).  The channel split
+    cuts across x | B | C, which every head reads, so the step gathers
+    the context and the new token's x channels over ``model`` (two small
+    all-gathers), runs the conv over the whole window, and keeps its own
+    channels of the new context; the recurrence runs on the rank's heads,
+    the gated norm's sum of squares and ``out_proj``'s partial outputs
+    are summed over ``model``.  Returns (out [B, 1, d], h, conv_state) as
+    DTensors in their input layouts.  On a ``model`` axis of one rank it
+    is ``mamba_decode_step`` on the local tensors."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.parallel.sharding import (from_local, like_batch, local,
+                                               local_offset, psum)
+    rows = like_batch(h)
+    names = mi.mesh.mesh_dim_names
+    xl = x.redistribute(mi.mesh, rows).to_local()
+    pl = _local_params(p, mi, (mi.model_axis, *mi.dp_axes))
+    hl = h.to_local()
+    out_shape = (h.shape[0], 1, spec.d_model)
+
+    def back(out, hs, cs):
+        return (from_local(out, mi, rows, out_shape),
+                from_local(hs, mi, h.placements, h.shape),
+                from_local(cs, mi, conv_state.placements, conv_state.shape))
+
+    if mi.n_model == 1:
+        return back(*mamba_decode_step(pl, spec, xl, hl,
+                                       conv_state.to_local()))
+    heads, chans = _head_slices(spec, mi)
+    Bsz = xl.shape[0]
+    H, Pd, N, di = spec.n_heads, spec.headdim, spec.d_state, spec.d_inner
+    Hl, dil = H // mi.n_model, di // mi.n_model
+    z = (xl @ pl["in_proj_z"])[:, 0]
+    xs = (xl @ pl["in_proj_x"])[:, 0]
+    Bp = (xl @ pl["in_proj_B"])[:, 0]
+    Cp = (xl @ pl["in_proj_C"])[:, 0]
+    dt = (xl @ pl["in_proj_dt"])[:, 0, heads]
+    xs_all = from_local(xs, mi, [
+        Shard(1) if n == mi.model_axis else r for n, r in zip(names, rows)],
+        (h.shape[0], di))
+    xs_all = xs_all.redistribute(mi.mesh, rows).to_local()
+    ctx = conv_state.redistribute(mi.mesh, rows).to_local()
+    xbc = torch.cat([xs_all, Bp, Cp], dim=-1)            # [B, conv_ch]
+    window = torch.cat([ctx, xbc[:, None, :]], dim=1)
+    conv_out = F.silu(torch.einsum("bkc,kc->bc", window, pl["conv_w"])
+                      + pl["conv_b"])
+    lo, c0 = local_offset(conv_state)[2], conv_state.to_local().shape[2]
+    new_ctx = window[:, 1:, lo:lo + c0]
+
+    xh = conv_out[:, chans].reshape(Bsz, Hl, Pd).float()
+    Bm = conv_out[:, di:di + N].float()
+    Cm = conv_out[:, di + N:].float()
+    dt = softplus(dt.float() + pl["dt_bias"][heads].float())
+    A = -torch.exp(pl["A_log"][heads].float())
+    dec = torch.exp(dt * A)
+    hs = hl * dec[:, :, None, None] + torch.einsum("bh,bn,bhp->bhnp", dt,
+                                                   Bm, xh)
+    y = torch.einsum("bn,bhnp->bhp", Cm, hs)
+    y = y + xh * pl["D"][heads].float()[:, None]
+    y = y.reshape(Bsz, dil) * F.silu(z.float())
+    like = from_local(xl[:, 0], mi, rows, (h.shape[0], spec.d_model))
+    ss = local(psum(y.square().sum(dim=-1, keepdim=True), mi, like), mi,
+               (mi.model_axis,))
+    y = y * torch.rsqrt(ss / di + 1e-6) * pl["norm"].float()
+    out = local(psum(y.to(xl.dtype) @ pl["out_proj"], mi, like), mi,
+                (mi.model_axis,))
+    return back(out[:, None, :], hs, new_ctx.contiguous())
 
 
 def mamba_decode_step(p: dict, spec: MambaSpec, x: torch.Tensor,

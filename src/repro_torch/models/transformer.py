@@ -151,19 +151,29 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     return params
 
 
+def _rows(mi: sh.MeshInfo, batch: int):
+    """The spec entry of a batch of ``batch`` rows: the data axes, or
+    whole where they do not divide it."""
+    return mi.dp_axes if batch % mi.n_data == 0 else None
+
+
 def embed_in(params: dict, cfg: ArchConfig, tokens: torch.Tensor | None,
              *, embeds: torch.Tensor | None = None,
              mi: sh.MeshInfo | None = None) -> torch.Tensor:
     """tokens [B, S] -> hidden [B, S, d]; an ``input_mode="embeds"`` arch
     takes ``embeds`` [B, S, d] (the stubbed frontend's output) as the
     hidden states instead, and no tokens.  With a mesh, plain tokens or
-    embeds enter split over the data axes, and the lookup is DTensor's
-    embedding over the table's shards (its gradient a sum over them)."""
+    embeds enter split over the data axes (whole on every rank where the
+    batch does not divide over them, as a long-context decode's one
+    sequence), and the lookup is DTensor's embedding over the table's
+    shards (its gradient a sum over them)."""
     if mi is not None:
+        x = tokens if tokens is not None else embeds
+        dp = _rows(mi, x.shape[0])
         if tokens is not None:
-            tokens = sh.constrain(tokens, mi, (mi.dp_axes, None))
+            tokens = sh.constrain(tokens, mi, (dp, None))
         if embeds is not None:
-            embeds = sh.constrain(embeds, mi, (mi.dp_axes, None, None))
+            embeds = sh.constrain(embeds, mi, (dp, None, None))
     if cfg.input_mode == "embeds":
         if embeds is None or tokens is not None:
             raise ValueError(f"{cfg.name} takes embeds=[B, S, d] and no "
@@ -225,11 +235,8 @@ def _ffn(lp: dict, cfg: ArchConfig, h: torch.Tensor,
         if valid is not None:
             counts = moe.expert_counts(idx, cfg.n_experts,
                                        valid.reshape(-1))
-    elif cfg.mlp_kind == "gelu":
-        y = layers.gelu_mlp(x, lp["mlp"]["w_up"], lp["mlp"]["w_down"])
     else:
-        m = lp["mlp"]
-        y = layers.swiglu_mlp(x, m["w_gate"], m["w_up"], m["w_down"])
+        y = _mlp(lp["mlp"], cfg, x, mi)
     if cfg.gemma_norm:
         y = layers.rms_norm(y, lp["ln2_post"], eps=cfg.norm_eps,
                             gemma_style=True)
@@ -286,7 +293,8 @@ def _layer_rope(cfg: ArchConfig, window: int, ropes):
 def init_decode_state(cfg: ArchConfig, batch_size: int, cache_len: int, *,
                       dtype: torch.dtype = torch.float32,
                       start_pos: int = 0,
-                      device: str | torch.device | None = "cuda") -> dict:
+                      device: str | torch.device | None = "cuda",
+                      mi: sh.MeshInfo | None = None) -> dict:
     """Empty caches for ``cache_len`` tokens of context.  ``attn`` layout:
     per layer a K/V cache [B, W, Hkv, Dh] with the position each slot
     holds (-1 = empty), W = min(window, cache_len) for a windowed layer
@@ -296,8 +304,28 @@ def init_decode_state(cfg: ArchConfig, batch_size: int, cache_len: int, *,
     layer the SSM state h [B, H, N, P] (float32) and the raw conv context
     [B, d_conv-1, conv_ch]; per shared-attention site of a hybrid a dense
     K/V cache [B, cache_len, Hkv, Dh], written as a ring at ``position %
-    cache_len``."""
+    cache_len``.  With a mesh every leaf is a DTensor laid out as
+    ``prefill`` writes it (``sharding.decode_state_specs(...,
+    min_split=0)``: every cache's slots over ``model``), only its local
+    shard allocated (meta tensors too)."""
     _check_supported(cfg)
+    if mi is not None:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():          # the whole tree's shapes, unmade
+            shapes = init_decode_state(cfg, batch_size, cache_len,
+                                       dtype=dtype, start_pos=start_pos,
+                                       device="cpu")
+        specs = sh.decode_state_specs(shapes, mi, min_split=0)
+        fills = {"positions": start_pos, "pos": -1}
+
+        def make(t, spec, name=""):
+            if isinstance(t, dict):
+                return {k: make(t[k], spec[k], k) for k in t}
+            if isinstance(t, list):
+                return [make(a, b, name) for a, b in zip(t, spec)]
+            return sh.empty(tuple(t.shape), spec, mi, dtype=t.dtype,
+                            device=device, fill=fills.get(name, 0))
+        return make(shapes, specs)
     dev = resolve_device(device)
     B = batch_size
     Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
@@ -364,10 +392,31 @@ def _conv_context(tail: torch.Tensor, spec: ssm.MambaSpec) -> torch.Tensor:
         tail, (0, 0, spec.d_conv - 1 - tail.shape[1], 0))
 
 
-def _shared_mlp(sp: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+def _mlp(m: dict, cfg: ArchConfig, x: torch.Tensor,
+         mi: sh.MeshInfo | None = None) -> torch.Tensor:
+    """The dense FFN (SwiGLU, or GELU for musicgen).  With a mesh it runs
+    on each rank's d_ff slice of the column/row-split weights
+    (``param_specs``), the rows whole over ``model``, and the partial
+    outputs are summed over ``model`` (Megatron's MLP): DTensor would
+    take the weights' gradients whole on every rank, the gradient
+    arriving split over the sequence while the weights split d_ff."""
+    def ffn(x, m):
+        if cfg.mlp_kind == "gelu":
+            return layers.gelu_mlp(x, m["w_up"], m["w_down"])
+        return layers.swiglu_mlp(x, m["w_gate"], m["w_up"], m["w_down"])
+    if mi is None:
+        return ffn(x, m)
+    # the rows whole over model (a norm of a partial sum is one too)
+    x = x.redistribute(mi.mesh, sh.like_batch(x))
+    xl = sh.local(x, mi, (mi.model_axis,))
+    y = ffn(xl, {k: sh.local(w, mi, mi.dp_axes) for k, w in m.items()})
+    return sh.psum(y, mi, x)
+
+
+def _shared_mlp(sp: dict, cfg: ArchConfig, h: torch.Tensor,
+                mi: sh.MeshInfo | None = None) -> torch.Tensor:
     x = layers.rms_norm(h, sp["ln2"], eps=cfg.norm_eps)
-    m = sp["mlp"]
-    return h + layers.swiglu_mlp(x, m["w_gate"], m["w_up"], m["w_down"])
+    return h + _mlp(sp["mlp"], cfg, x, mi)
 
 
 def _attn_post(lp: dict, cfg: ArchConfig, out: torch.Tensor) -> torch.Tensor:
@@ -379,7 +428,8 @@ def _attn_post(lp: dict, cfg: ArchConfig, out: torch.Tensor) -> torch.Tensor:
 
 
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor | None,
-            cache_len: int, *, embeds: torch.Tensor | None = None):
+            cache_len: int, *, embeds: torch.Tensor | None = None,
+            mi: sh.MeshInfo | None = None):
     """Run a batch of equal-length prompts tokens [B, S] (an embeds arch:
     ``embeds`` [B, S, d], tokens None); returns the last-token logits
     [B, 1, Vp] and the decode state (positions S).
@@ -389,8 +439,20 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor | None,
     FFN (MoE on ``moe_ffn``).  ``mamba``/``hybrid``: every Mamba layer
     runs its chunked scan on K9 and keeps its final state and raw conv
     context; every shared-attention site of a hybrid attends causally on
-    K8 and places its K/V in the site's cache."""
+    K8 and places its K/V in the site's cache.
+
+    With a mesh ``mi`` (DTensor parameters by ``param_specs``; opened
+    under ``implicit_replication`` here, so the caller must not hold one
+    open): the prompts split over the data axes, the activations laid out
+    by ``act_spec`` between layers (JAX's constraint), K8 on each rank's
+    heads and rows, K9 on each rank's heads (``mamba_forward_sharded``),
+    the MoE FFN on ``moe.moe_apply``'s expert- or tensor-parallel branch
+    on ``moe_ffn``, and the caches written in ``kv_cache_spec``'s layout
+    (slots over ``model``, ``_place_sharded``).  The state is DTensors
+    (``init_decode_state(..., mi=)``)."""
     _check_supported(cfg)
+    if mi is not None:
+        return _prefill_sharded(params, cfg, tokens, cache_len, embeds, mi)
     h = embed_in(params, cfg, tokens, embeds=embeds)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32,
@@ -437,7 +499,8 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor | None,
 
 def decode_step(params: dict, cfg: ArchConfig, state: dict,
                 tokens: torch.Tensor | None, *,
-                embeds: torch.Tensor | None = None):
+                embeds: torch.Tensor | None = None,
+                mi: sh.MeshInfo | None = None):
     """One token per sequence, tokens [B, 1] (an embeds arch: ``embeds``
     [B, 1, d], tokens None).  ``attn`` layout: per layer
     the new K/V written at its cache's ring slot and attention over the
@@ -446,8 +509,18 @@ def decode_step(params: dict, cfg: ArchConfig, state: dict,
     Mamba-2 recurrence per layer and dense-cache attention at each shared
     site.  The attention here is plain torch, as it is XLA in the JAX
     package.  Returns (logits [B, 1, Vp], the new state); the caches are
-    updated in place and carried over."""
+    updated in place and carried over.
+
+    With a mesh ``mi`` the state is DTensors in any layout of
+    ``sharding.decode_state_specs`` (``prefill``'s, or the dry run's
+    ``decode_input_specs``): attention is
+    ``attention.decode_attention_sharded`` (each rank its slot range, the
+    partial softmax merged over the slot split), Mamba-2
+    ``ssm.mamba_decode_step_sharded``, MoE ``moe.moe_apply``; the caches
+    keep their layout (updated in place)."""
     _check_supported(cfg)
+    if mi is not None:
+        return _decode_sharded(params, cfg, state, tokens, embeds, mi)
     h = embed_in(params, cfg, tokens, embeds=embeds)
     pos = state["positions"]
     positions = pos[:, None]
@@ -498,22 +571,175 @@ def decode_step(params: dict, cfg: ArchConfig, state: dict,
                     "mamba": new_mamba}
 
 
+def _place_sharded(cache: dict, k, v, mi: sh.MeshInfo) -> dict:
+    """``_place`` of DTensor caches: each rank writes, in place, the
+    prompt rows whose ring slot falls in its slot range of the sequences
+    it holds (k/v gathered onto the cache's batch layout first)."""
+    kc = cache["k"]
+    W, S = kc.shape[1], k.shape[1]
+    n = min(S, W)
+    rows = sh.like_batch(kc)
+    kl, vl = (t.redistribute(mi.mesh, rows).to_local() for t in (k, v))
+    loc = {name: t.to_local() for name, t in cache.items()}
+    lo, Wl = sh.local_offset(kc)[1], loc["k"].shape[1]
+    src = [p for p in range(S - n, S) if lo <= p % W < lo + Wl]
+    if not src:
+        return cache
+    dev = kl.device
+    at = torch.tensor([p % W - lo for p in src], device=dev)
+    rows_at = torch.tensor(src, device=dev)
+    for name, u in (("k", kl), ("v", vl)):
+        if "k_scale" in loc:
+            q, sc = attention.quantize_int8(u[:, rows_at])
+            loc[name][:, at] = q
+            loc[name + "_scale"][:, at] = sc
+        else:
+            loc[name][:, at] = u[:, rows_at].to(loc[name].dtype)
+    loc["pos"][:, at] = rows_at.to(torch.int32)
+    return cache
+
+
+def _prefill_sharded(params, cfg, tokens, cache_len, embeds, mi):
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.kernels import flash_attention as K8
+    from repro_torch.kernels import ssd_scan as K9
+    with implicit_replication():
+        h = embed_in(params, cfg, tokens, embeds=embeds, mi=mi)
+        B, S, _ = h.shape
+        dev = h.device
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=dev).expand(B, S)
+        state = init_decode_state(cfg, B, cache_len, dtype=h.dtype,
+                                  start_pos=S, device=dev, mi=mi)
+        aspec = sh.act_spec(cfg, mi, seq=True)
+        inner = sh.act_spec(cfg, mi, seq=False)
+
+        def attend(p, x, cos, sin, window=None):
+            if cfg.soft_cap is not None:
+                raise NotImplementedError("attention: K8 has no logit soft "
+                                          "cap")
+            q, k, v = attention.project_qkv(p, x, cos, sin)
+            out = attention.sdpa_sharded(q, k, v, mi, lambda a, b, c: (
+                K8.flash_attention(a, b, c, causal=True,
+                                   window=window or 0)))
+            return attention._out_proj(out, p["wo"]), k, v
+
+        if cfg.layout == "attn":
+            ropes = _rope_tables(cfg, positions)
+            for l, lp in enumerate(params["layers"]):
+                w = cfg.attn_window_pattern[l]
+                cos, sin = _layer_rope(cfg, w, ropes)
+                h = sh.constrain(h, mi, inner)
+                x = layers.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
+                                    gemma_style=cfg.gemma_norm)
+                out, k, v = attend(lp["attn"], x, cos, sin, w)
+                h = _ffn(lp, cfg, h + _attn_post(lp, cfg, out), mi=mi)[0]
+                _place_sharded(state["attn"][l], k, v, mi)
+                h = sh.constrain(h, mi, aspec)
+        else:
+            spec = mamba_spec_of(cfg)
+            cos, sin = _rope_tables(cfg, positions)[0]
+            ai = 0
+            for l, lp in enumerate(params["layers"]):
+                h = sh.constrain(h, mi, inner)
+                x = layers.rms_norm(h, lp["ln"], eps=cfg.norm_eps)
+                out, (hs, conv) = ssm.mamba_forward_sharded(
+                    lp["mamba"], spec, x, mi, scan=K9.ssd_scan,
+                    return_state=True)
+                h = h + out
+                state["mamba"][l] = {"h": hs, "conv": conv.to(h.dtype)}
+                if _is_shared_site(cfg, l):
+                    sp = params["shared"]
+                    x = layers.rms_norm(h, sp["ln1"], eps=cfg.norm_eps)
+                    out, k, v = attend(sp["attn"], x, cos, sin)
+                    h = _shared_mlp(sp, cfg, h + out, mi)
+                    _place_sharded(state["attn"][ai], k, v, mi)
+                    ai += 1
+                h = sh.constrain(h, mi, aspec)
+        h = sh.constrain(h, mi, inner)
+        h = layers.rms_norm(h, params["final_norm"], eps=cfg.norm_eps,
+                            gemma_style=cfg.gemma_norm)
+        return logits_out(params, cfg, h[:, -1:, :], mi), state
+
+
+def _decode_sharded(params, cfg, state, tokens, embeds, mi):
+    from torch.distributed.tensor.experimental import implicit_replication
+    with implicit_replication():
+        h = embed_in(params, cfg, tokens, embeds=embeds, mi=mi)
+        # the lookup's partial sum (a vocab-split table) reduced at once:
+        # torch 2.11's DTensor cannot reduce it a second time, where the
+        # norm and the residual both read it
+        h = sh.constrain(h, mi, (_rows(mi, h.shape[0]), None, None))
+        pos = state["positions"]
+        pos_all = sh.full(pos)          # the new tokens' positions, whole
+        positions = pos_all[:, None]
+        new_attn = list(state["attn"])
+        new_mamba = list(state["mamba"])
+        if cfg.layout == "attn":
+            ropes = _rope_tables(cfg, positions)
+            for l, lp in enumerate(params["layers"]):
+                w = cfg.attn_window_pattern[l]
+                cos, sin = _layer_rope(cfg, w, ropes)
+                x = layers.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
+                                    gemma_style=cfg.gemma_norm)
+                out, new_attn[l] = attention.decode_attention_sharded(
+                    lp["attn"], x, state["attn"][l], pos_all, cos, sin, mi,
+                    window=w if w > 0 else None, soft_cap=cfg.soft_cap)
+                h = _ffn(lp, cfg, h + _attn_post(lp, cfg, out), mi=mi)[0]
+        else:
+            spec = mamba_spec_of(cfg)
+            cos, sin = _rope_tables(cfg, positions)[0]
+            ai = 0
+            for l, lp in enumerate(params["layers"]):
+                x = layers.rms_norm(h, lp["ln"], eps=cfg.norm_eps)
+                st = state["mamba"][l]
+                out, hs, cs = ssm.mamba_decode_step_sharded(
+                    lp["mamba"], spec, x, st["h"], st["conv"], mi)
+                h = h + out
+                new_mamba[l] = {"h": hs, "conv": cs}
+                if _is_shared_site(cfg, l):
+                    sp = params["shared"]
+                    x = layers.rms_norm(h, sp["ln1"], eps=cfg.norm_eps)
+                    out, new_attn[ai] = attention.decode_attention_sharded(
+                        sp["attn"], x, state["attn"][ai], pos_all, cos, sin,
+                        mi)
+                    h = _shared_mlp(sp, cfg, h + out, mi)
+                    ai += 1
+        h = layers.rms_norm(h, params["final_norm"], eps=cfg.norm_eps,
+                            gemma_style=cfg.gemma_norm)
+        logits = logits_out(params, cfg, h, mi)
+        return logits, {"positions": pos + 1, "attn": new_attn,
+                        "mamba": new_mamba}
+
+
 # =============================================================================
 # training forward: the loss and its gradient under autograd
 # =============================================================================
 
 def _sdpa(q, k, v, bias, mi: sh.MeshInfo | None, *,
-          soft_cap: float | None = None):
-    """The training attention: the plain ``sdpa``, on each rank's shards
-    under a mesh."""
+          soft_cap: float | None = None, q_chunk: int | None = None,
+          positions: torch.Tensor | None = None, window: int | None = None):
+    """The training attention: the plain ``sdpa`` over ``bias`` or, with
+    ``q_chunk`` (``cfg.attn_q_chunk``), ``sdpa_qchunked`` over
+    ``positions`` and ``window``; on each rank's shards under a mesh
+    (the training batch's rows of ``bias`` and ``positions`` are
+    equal)."""
+    def attend(q, k, v):
+        if q_chunk:
+            return attention.sdpa_qchunked(
+                q, k, v, positions[:q.shape[0]], window=window,
+                soft_cap=soft_cap, q_chunk=q_chunk)
+        return attention.sdpa(q, k, v, bias[:q.shape[0]], soft_cap=soft_cap)
     if mi is None:
-        return attention.sdpa(q, k, v, bias, soft_cap=soft_cap)
-    return attention.sdpa_sharded(q, k, v, bias, mi, soft_cap=soft_cap)
+        return attend(q, k, v)
+    return attention.sdpa_sharded(q, k, v, mi, attend)
 
 
 def _train_attn_layer(h: torch.Tensor, lp: dict, cfg: ArchConfig,
                       window: int, cos: torch.Tensor, sin: torch.Tensor,
-                      bias: torch.Tensor, mi: sh.MeshInfo | None = None):
+                      bias: torch.Tensor, positions: torch.Tensor,
+                      mi: sh.MeshInfo | None = None):
     """One ``attn`` layer: pre-norm attention on the plain ``sdpa`` (K8
     has no backward) with the optional gemma post-norm, then the FFN.
     Returns (h, expert counts, load-balancing loss); the last two are
@@ -521,7 +747,9 @@ def _train_attn_layer(h: torch.Tensor, lp: dict, cfg: ArchConfig,
     x = layers.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
                         gemma_style=cfg.gemma_norm)
     q, k, v = attention.project_qkv(lp["attn"], x, cos, sin)
-    out = _sdpa(q, k, v, bias, mi, soft_cap=cfg.soft_cap)
+    out = _sdpa(q, k, v, bias, mi, soft_cap=cfg.soft_cap,
+                q_chunk=cfg.attn_q_chunk, positions=positions,
+                window=window)
     out = attention._out_proj(out, lp["attn"]["wo"])
     h, counts, probs, idx = _ffn(lp, cfg, h + _attn_post(lp, cfg, out),
                                  mi=mi)
@@ -533,7 +761,7 @@ def _train_attn_layer(h: torch.Tensor, lp: dict, cfg: ArchConfig,
 def _train_mamba_layer(h: torch.Tensor, lp: dict, sp: dict | None,
                        cfg: ArchConfig, spec: ssm.MambaSpec,
                        cos: torch.Tensor, sin: torch.Tensor,
-                       bias: torch.Tensor,
+                       bias: torch.Tensor, positions: torch.Tensor,
                        mi: sh.MeshInfo | None = None) -> torch.Tensor:
     """One Mamba-2 layer on the plain chunked scan; ``sp`` (a hybrid's
     shared block at a shared site, else None) then attends causally with
@@ -547,9 +775,10 @@ def _train_mamba_layer(h: torch.Tensor, lp: dict, sp: dict | None,
     if sp is not None:
         x = layers.rms_norm(h, sp["ln1"], eps=cfg.norm_eps)
         q, k, v = attention.project_qkv(sp["attn"], x, cos, sin)
-        out = attention._out_proj(_sdpa(q, k, v, bias, mi),
-                                  sp["attn"]["wo"])
-        h = _shared_mlp(sp, cfg, h + out)
+        out = attention._out_proj(
+            _sdpa(q, k, v, bias, mi, q_chunk=cfg.attn_q_chunk,
+                  positions=positions), sp["attn"]["wo"])
+        h = _shared_mlp(sp, cfg, h + out, mi)
     return h
 
 
@@ -599,24 +828,26 @@ def forward_hidden(params: dict, cfg: ArchConfig, batch: dict,
                           device=h.device) if cfg.is_moe else None)
     if cfg.layout == "attn":
         wins = cfg.attn_window_pattern
-        biases = {w: attention._mask_bias(positions, positions, w)
+        # every row's positions are 0..S-1: one row's bias, broadcast
+        biases = {w: (None if cfg.attn_q_chunk else
+                      attention._mask_bias(positions[:1], positions[:1], w))
                   for w in set(wins)}
         for l, lp in enumerate(params["layers"]):
             cos, sin = _layer_rope(cfg, wins[l], ropes)
             h, c, a = run(_train_attn_layer, h, lp, cfg, wins[l], cos,
-                          sin, biases[wins[l]], mi)
+                          sin, biases[wins[l]], positions, mi)
             if cfg.is_moe:
                 counts = counts + c
                 aux = aux + a
     else:
         spec = mamba_spec_of(cfg)
         cos, sin = ropes[0]
-        bias = (attention._mask_bias(positions, positions, None)
-                if cfg.layout == "hybrid" else None)
+        bias = (attention._mask_bias(positions[:1], positions[:1], None)
+                if cfg.layout == "hybrid" and not cfg.attn_q_chunk else None)
         for l, lp in enumerate(params["layers"]):
             sp = params["shared"] if _is_shared_site(cfg, l) else None
             h = run(_train_mamba_layer, h, lp, sp, cfg, spec, cos, sin,
-                    bias, mi)
+                    bias, positions, mi)
     h = layers.rms_norm(h, params["final_norm"], eps=cfg.norm_eps,
                         gemma_style=cfg.gemma_norm)
     metrics = {"moe_aux": aux}
@@ -625,23 +856,82 @@ def forward_hidden(params: dict, cfg: ArchConfig, batch: dict,
     return h, metrics
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token negative log-likelihood of logits whose vocabulary is
+    split over the mesh dims ``dims``: each rank holds the vocabulary
+    columns ``lo`` .. ``lo + V_local`` of its rows.  The log-sum-exp's
+    max and sum and the label's logit are reduced over ``dims`` with
+    functional collectives; the gradient, softmax minus the label's
+    one-hot, is each rank's own columns (no collective)."""
+
+    @staticmethod
+    def forward(ctx, ll, labels, lo, mesh, dims):
+        from torch.distributed import _functional_collectives as funcol
+        x = ll.float()
+        m = x.amax(dim=-1)
+        for d in dims:
+            m = funcol.all_reduce(m, "max", (mesh, d))
+        se = torch.exp(x - m[..., None]).sum(dim=-1)
+        mine = (labels >= lo) & (labels < lo + x.shape[-1])
+        at = (labels - lo).clamp(0, max(x.shape[-1] - 1, 0)).long()
+        picked = torch.where(mine, torch.gather(x, -1, at[..., None])[..., 0],
+                             torch.zeros((), dtype=x.dtype, device=x.device))
+        for d in dims:
+            se = funcol.all_reduce(se, "sum", (mesh, d))
+            picked = funcol.all_reduce(picked, "sum", (mesh, d))
+        lse = m + torch.log(se)
+        ctx.save_for_backward(ll, lse, at, mine)
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        ll, lse, at, mine = ctx.saved_tensors
+        p = torch.exp(ll.float() - lse[..., None])
+        hit = torch.zeros_like(p).scatter_(-1, at[..., None],
+                                           mine[..., None].to(p.dtype))
+        return ((p - hit) * g[..., None]).to(ll.dtype), None, None, None, None
+
+
+def _sharded_cross_entropy(logits, labels, mi: sh.MeshInfo):
+    """The mean token cross-entropy of DTensor logits [B, S, V] and labels
+    [B, S], the rows split over the data axes and the vocabulary left as
+    the unembedding split it (over ``model``): each rank's token sum on
+    its rows and vocabulary columns (``_VocabParallelNLL``), summed over
+    the data axes and divided by B * S.  Nothing vocabulary-wide is
+    gathered, and DTensor, which would make the label gather's gradient
+    whole on every rank, is kept out of it."""
+    from torch.distributed.tensor import Partial, Replicate
+    rows = (mi.dp_axes, None)
+    logits = sh.constrain(logits, mi, (*rows, mi.model_axis))
+    labels = sh.constrain(labels, mi, rows)
+    nll = _VocabParallelNLL.apply(
+        sh.local(logits, mi), labels.to_local(), sh.local_offset(logits)[2],
+        mi.mesh, sh.split_dims(logits, 2))
+    total = sh.from_local(nll.sum(), mi, [
+        Partial() if n in mi.dp_axes else Replicate()
+        for n in mi.mesh.mesh_dim_names], ())
+    total = total.redistribute(mi.mesh, [Replicate()] * mi.mesh.ndim)
+    return total / labels.numel()
+
+
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict,
             mi: sh.MeshInfo | None = None):
     """(total loss, metrics) of a batch with ``labels`` [B, S]: the mean
     token cross-entropy of ``logits_out`` plus ``aux_loss_weight`` x the
     MoE load-balancing loss (0 without MoE); metrics add ``ce_loss``.
     With a mesh (DTensor parameters, under ``implicit_replication``) the
-    final hidden states are gathered over the sequence and the logits
-    over the vocabulary (split over ``model`` by the unembedding) before
-    the cross-entropy picks each label's logit."""
+    final hidden states are gathered over the sequence, and the
+    cross-entropy runs on each rank's rows and vocabulary columns (the
+    unembedding splits the vocabulary over ``model``;
+    ``_sharded_cross_entropy``)."""
     h, metrics = forward_hidden(params, cfg, batch, mi)
     if mi is not None:
         h = sh.constrain(h, mi, sh.act_spec(cfg, mi, seq=False))
     logits = logits_out(params, cfg, h, mi)
     labels = batch["labels"]
-    if mi is not None:
-        logits = sh.constrain(logits, mi, sh.act_spec(cfg, mi, seq=False))
-        labels = sh.constrain(labels, mi, (mi.dp_axes, None))
-    loss = layers.softmax_cross_entropy(logits, labels)
+    if mi is None:
+        loss = layers.softmax_cross_entropy(logits, labels)
+    else:
+        loss = _sharded_cross_entropy(logits, labels, mi)
     total = loss + cfg.aux_loss_weight * metrics["moe_aux"]
     return total, dict(metrics, ce_loss=loss)

@@ -180,6 +180,40 @@ def kv_cache_spec(mi: MeshInfo) -> Spec:
     return (data_entry(mi), mi.model_axis, None, None)
 
 
+SEQ_SPLIT_MIN = 4096    # decode state: caches of fewer slots stay whole
+
+
+def decode_state_specs(state: dict, mi: MeshInfo, *, long_ctx: bool = False,
+                       min_split: int = SEQ_SPLIT_MIN) -> dict:
+    """The spec tree of a decode state (``init_decode_state``'s tree), as
+    the JAX dry run lays it out (``specs.decode_input_specs``): the batch
+    over the data axes; a K/V cache [B, W, Hkv, Dh] and its ``pos`` (and
+    int8 scales) [B, W(, Hkv)] with the slots over ``model`` where W >=
+    ``min_split`` (ring buffers of fewer slots whole); a Mamba layer's h
+    [B, H, N, P] with the heads over ``model`` and its conv context
+    [B, d_conv-1, conv_ch] with the channels over ``model``.
+    ``long_ctx`` (one sequence, ``long_500k``): the batch whole and the
+    slots over *every* axis.  ``min_split=0`` is ``kv_cache_spec``'s
+    layout for every cache, the one ``prefill`` writes."""
+    batch = None if long_ctx else data_entry(mi)
+    axes = (*mi.dp_axes, mi.model_axis)
+    seq_axes = axes if long_ctx else mi.model_axis
+
+    def cache(c):
+        seq = seq_axes if c["k"].shape[1] >= min_split else None
+        out = {"k": (batch, seq, None, None), "v": (batch, seq, None, None),
+               "pos": (batch, seq)}
+        if "k_scale" in c:
+            out["k_scale"] = out["v_scale"] = (batch, seq, None)
+        return out
+
+    return {"positions": (batch,),
+            "attn": [cache(c) for c in state["attn"]],
+            "mamba": [{"h": (batch, mi.model_axis, None, None),
+                       "conv": (batch, None, mi.model_axis)}
+                      for _ in state["mamba"]]}
+
+
 # --- specs to DTensor placements -------------------------------------------------
 
 def placements(spec: Spec, mesh) -> tuple:
@@ -254,6 +288,63 @@ def distribute(params, mi: MeshInfo, specs):
         lambda p, s: distribute_tensor(p.detach().clone(), mi.mesh,
                                        placements(s, mi.mesh)),
         params, specs)
+
+
+def empty(shape: tuple, spec, mi: MeshInfo, *, dtype: torch.dtype,
+          device, fill=None):
+    """A DTensor of global ``shape`` laid out by ``spec`` (or a tuple of
+    DTensor placements) whose local shard is allocated here
+    (``torch.empty``, or ``torch.full`` with ``fill``): nothing whole is
+    made, so meta tensors and uneven shards work."""
+    from torch.distributed.tensor import Placement
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    pl = (tuple(spec) if spec and isinstance(spec[0], Placement)
+          else placements(spec, mi.mesh))
+    local_shape, _ = compute_local_shape_and_global_offset(shape, mi.mesh,
+                                                           pl)
+    t = (torch.empty(local_shape, dtype=dtype, device=device) if fill is None
+         else torch.full(local_shape, fill, dtype=dtype, device=device))
+    return from_local(t, mi, pl, shape)
+
+
+def from_local(t: torch.Tensor, mi: MeshInfo, places, shape: tuple):
+    """DTensor of global ``shape`` (contiguous) from each rank's shard
+    ``t`` (made contiguous) laid out by ``places`` (shards may be
+    uneven)."""
+    from torch.distributed.tensor import DTensor
+    stride, n = [], 1
+    for dim in reversed(tuple(shape)):
+        stride.insert(0, n)
+        n *= max(dim, 1)
+    return DTensor.from_local(t.contiguous(), mi.mesh, places,
+                              run_check=False,
+                              shape=tuple(shape), stride=tuple(stride))
+
+
+def local_offset(t) -> tuple[int, ...]:
+    """Where DTensor ``t``'s local shard starts in the whole tensor."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    return tuple(compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)[1])
+
+
+def split_dims(t, dim: int) -> list[int]:
+    """The mesh dims over which DTensor ``t``'s tensor dim ``dim`` is
+    split, in mesh order."""
+    from torch.distributed.tensor import Shard
+    return [i for i, pl in enumerate(t.placements)
+            if isinstance(pl, Shard) and pl.dim == dim]
+
+
+def like_batch(t, batch_dim: int = 0) -> list:
+    """Placements that keep DTensor ``t``'s split of its batch dim and
+    leave every other dim whole (the layout a shard-local block reads its
+    rows in)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(0) if isinstance(pl, Shard) and pl.dim == batch_dim
+            else Replicate() for pl in t.placements]
 
 
 def full(x) -> torch.Tensor:

@@ -95,7 +95,7 @@ def test_training_modules_import_without_jax(module):
 @pytest.mark.parametrize("module", [
     "repro_torch.parallel", "repro_torch.parallel.sharding",
     "repro_torch.launch.mesh", "repro_torch.launch.specs",
-    "repro_torch.checkpoint.fault_tolerance"])
+    "repro_torch.checkpoint.fault_tolerance", "repro_torch.launch.dryrun"])
 def test_multi_device_modules_import_without_jax(module):
     """The multi-device slice's modules, imported alone with ``jax``
     blocked: no ``repro``/``jax`` module loads, no kernel launches and

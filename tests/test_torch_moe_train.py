@@ -201,13 +201,22 @@ def test_moe_sorted_local_gradients_match_jax(T_, softmax_first, top_k):
 
 
 def test_backward_refuses_bfloat16():
+    """bfloat16 rows and weights have a backward now (their gradients
+    leave in bf16, dgate in float32); a type with no kernel entry,
+    float16, is refused on every device."""
     p = _params(60)
-    ws = [_t(p[k]).bfloat16() for k in ("w_gate", "w_up", "w_down")]
-    xg = torch.zeros((3, D), dtype=torch.bfloat16)
     offs = _t(np.array([0, 3] + [3] * (E - 1), np.int32))
-    with pytest.raises(TypeError, match="ROADMAP A2"):
-        KM.moe_ffn_backward(torch.zeros((3, D)), xg, offs, *ws,
-                            torch.ones(3))
+    for dt in (torch.bfloat16, torch.float16):
+        ws = [_t(p[k]).to(dt) for k in ("w_gate", "w_up", "w_down")]
+        xg = torch.zeros((3, D), dtype=dt)
+        if dt == torch.float16:
+            with pytest.raises(TypeError, match="float32 or bfloat16"):
+                KM.moe_ffn_backward(torch.zeros((3, D)), xg, offs, *ws,
+                                    torch.ones(3))
+            continue
+        out = KM.moe_ffn_backward(torch.zeros((3, D)), xg, offs, *ws,
+                                  torch.ones(3))
+        assert [t.dtype for t in out] == [dt] * 4 + [torch.float32]
 
 
 def test_autograd_path_only_when_a_gradient_can_flow(monkeypatch):

@@ -1,9 +1,11 @@
-"""The port's sharded train step on a mesh of several processes, each on
-its own card (NCCL), or on the CPU (gloo) to rehearse.
+"""The port's sharded train step, and its sharded ``prefill`` +
+``decode_step``, on a mesh of several processes, each on its own card
+(NCCL), or on the CPU (gloo) to rehearse.
 
 Run from the root of a checkout (or of an unpacked archive of one):
 
     python3 tools/sharded_lines.py [LABEL] [--mesh 2x2] [--device cpu]
+                                   [--only train|serve]
 
 It spawns data x model processes that form a ``("data", "model")``
 DeviceMesh (rendezvous by a file under the system's temporary
@@ -20,6 +22,18 @@ the unsharded step's |g| >= 1e-6, whether the expert counts are equal,
 the timed step's ms (rank 0's wall clock), the peak device GB of each
 rank, and the collectives ``CommDebugMode`` counted in the timed step.
 Exit 1 when a case misses C2's gates (loss 1e-5, parameters 2e-5).
+
+The serving cases (``SERVE_SMOKE``: the eight of
+``tests/test_torch_sharded_serve.py`` at smoke width; on cards
+``SERVE_FULL``, full width in float32 cut to a few layers): seeded
+weights laid out by ``param_specs``, ``prefill`` of seeded prompts into
+a cache whose slots are split over ``model``, then forced decode tokens,
+every step's logits gathered; rank 0 runs the unsharded path on the same
+weights and tokens on its own card.  One JSON line a case: the largest
+logit distance over the steps relative to the largest unsharded logit
+(held within 1e-4), whether every step's argmax agrees, the sharded
+prefill's and decode's ms (rank 0's wall clock, after a warm-up run) and
+the unsharded ones'.
 """
 from __future__ import annotations
 
@@ -40,6 +54,21 @@ SMOKE_CASES = [
     ("zamba2_7b", {}), ("gemma3_4b", {})]
 FULL_CASES = [("olmoe_1b_7b", 2), ("qwen3_4b", 2)]
 SMOKE_SHAPE, FULL_SHAPE = (4, 16, 2), (4, 512, 2)   # batch, seq, micro
+SERVE_SMOKE = [
+    ("qwen3_4b", {}), ("gemma3_4b", {}),
+    ("olmoe_1b_7b", {"moe_capacity_factor": 8.0}),
+    ("mixtral_8x7b", {"n_experts": 2}), ("mamba2_1_3b", {}),
+    ("zamba2_7b", {}), ("qwen3_4b", {"kv_cache_quant": True}),
+    ("qwen3_4b", {"attn_q_chunk": 8})]
+# full width cut to a few layers; olmoe at capacity 8.0, where no
+# expert-parallel slot is dropped (at its 1.25 the prompt's busiest shard
+# drops rows, which the unsharded path never does: GShard's semantics)
+SERVE_FULL = [("qwen3_4b", 4, {}), ("gemma3_4b", 6, {}),
+              ("olmoe_1b_7b", 4, {"moe_capacity_factor": 8.0}),
+              ("zamba2_7b", 6, {})]
+# batch, prompt, forced decode tokens, cache slots
+SERVE_SMOKE_SHAPE, SERVE_FULL_SHAPE = (4, 24, 5, 40), (2, 512, 16, 544)
+SERVE_REL = 1e-4
 
 
 def _card() -> str:
@@ -109,8 +138,64 @@ def _case(cfg, shape, mi, dev, rank) -> dict:
                             comm.get_comm_counts().items()}}
 
 
+def _serve(cfg, params, prompts, forced, cache, mi=None):
+    """Prefill, then one decode step per forced token: every step's whole
+    logits, the prefill's and the decode's wall ms."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as sh
+    sync = (torch.cuda.synchronize if prompts.device.type == "cuda"
+            else lambda: None)
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        lg, st = T.prefill(params, cfg, prompts, cache, mi=mi)
+        logits = [sh.full(lg)]
+        sync()
+        t1 = time.perf_counter()
+        for tok in forced:
+            lg, st = T.decode_step(params, cfg, st, tok, mi=mi)
+            logits.append(sh.full(lg))
+        sync()
+        t2 = time.perf_counter()
+    return logits, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def _serve_case(cfg, shape, mi, dev, rank) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel import sharding as sh
+    B, S, new, cache = shape
+    params = init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(11)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32)).to(dev)
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab, (new, B, 1)).astype(
+        np.int32)).to(dev)
+    ps = sh.distribute(params, mi, sh.param_specs(cfg, mi))
+    _serve(cfg, ps, prompts, forced[:1], cache, mi)          # warm-up
+    got, pre_ms, dec_ms = _serve(cfg, ps, prompts, forced, cache, mi)
+    if rank != 0:
+        return {}
+    _serve(cfg, params, prompts, forced[:1], cache)
+    want, ref_pre, ref_dec = _serve(cfg, params, prompts, forced, cache)
+    V = cfg.vocab
+    rel = max(float((a - b)[..., :V].abs().max() / b[..., :V].abs().max())
+              for a, b in zip(got, want))
+    agree = all(bool(torch.equal(a[..., :V].argmax(-1),
+                                 b[..., :V].argmax(-1)))
+                for a, b in zip(got, want))
+    return {"kind": "serve", "batch": B, "prompt": S, "decode_steps": new,
+            "cache": cache, "logit_max_rel": rel, "argmax_equal": agree,
+            "prefill_ms": pre_ms, "decode_ms": dec_ms,
+            "unsharded_prefill_ms": ref_pre, "unsharded_decode_ms": ref_dec}
+
+
 def _ranks(rank: int, world: int, init: str, mesh: tuple[int, int],
-           device: str, label: str, out: str) -> None:
+           device: str, label: str, out: str, only: str = "") -> None:
     sys.path[:0] = [str(ROOT / "src")]
     import torch
     import torch.distributed as dist
@@ -128,16 +213,28 @@ def _ranks(rank: int, world: int, init: str, mesh: tuple[int, int],
     lines = []
     try:
         mi = make_mesh_info(make_debug_mesh(*mesh, device_type=device))
-        cases = [(f"{a}{''.join(f'-{k}{v}' for k, v in t.items())}",
-                  replace(smoke(get_arch(a)), **t), SMOKE_SHAPE)
-                 for a, t in SMOKE_CASES]
-        if device == "cuda":
-            cases += [(f"{a}-full-{n}layers",
-                       replace(get_arch(a), n_layers=n), FULL_SHAPE)
-                      for a, n in FULL_CASES]
+        name = lambda a, t: f"{a}{''.join(f'-{k}{v}' for k, v in t.items())}"
+        cases = []
+        if only != "serve":
+            cases += [(name(a, t), replace(smoke(get_arch(a)), **t),
+                       SMOKE_SHAPE, _case) for a, t in SMOKE_CASES]
+            if device == "cuda":
+                cases += [(f"{a}-full-{n}layers",
+                           replace(get_arch(a), n_layers=n), FULL_SHAPE,
+                           _case) for a, n in FULL_CASES]
+        if only != "train":
+            cases += [(f"serve-{name(a, t)}", replace(smoke(get_arch(a)),
+                                                      **t),
+                       SERVE_SMOKE_SHAPE, _serve_case)
+                      for a, t in SERVE_SMOKE]
+            if device == "cuda":
+                cases += [(f"serve-{name(a, t)}-full-{n}layers",
+                           replace(get_arch(a), n_layers=n, **t),
+                           SERVE_FULL_SHAPE, _serve_case)
+                          for a, n, t in SERVE_FULL]
         card = _card() if rank == 0 else None
-        for name, cfg, shape in cases:
-            line = _case(cfg, shape, mi, dev, rank)
+        for name, cfg, shape, run in cases:
+            line = run(cfg, shape, mi, dev, rank)
             if rank == 0:
                 line = {"label": label, "case": name, "card": card,
                         "mesh": list(mesh), "device": device, **line}
@@ -157,6 +254,7 @@ def main(argv: list[str]) -> int:
     ap.add_argument("label", nargs="?", default="run")
     ap.add_argument("--mesh", default="2x2")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--only", default="", choices=("", "train", "serve"))
     args = ap.parse_args(argv)
     mesh = tuple(int(x) for x in args.mesh.split("x"))
     world = mesh[0] * mesh[1]
@@ -167,11 +265,14 @@ def main(argv: list[str]) -> int:
     with tempfile.TemporaryDirectory() as d:
         out = Path(d) / "lines.jsonl"
         mp.spawn(_ranks, args=(world, f"file://{d}/rdv", mesh, args.device,
-                               args.label, str(out)), nprocs=world)
+                               args.label, str(out), args.only),
+                 nprocs=world)
         lines = [json.loads(x) for x in out.read_text().splitlines()]
-    ok = all(x["loss_abs_diff"] <= 1e-5
-             and x["param_max_abs_diff_where_g_ge_1e-6"] <= 2e-5
-             and x["expert_counts_equal"] is not False for x in lines)
+    ok = all((x["logit_max_rel"] <= SERVE_REL and x["argmax_equal"])
+             if x.get("kind") == "serve" else
+             (x["loss_abs_diff"] <= 1e-5
+              and x["param_max_abs_diff_where_g_ge_1e-6"] <= 2e-5
+              and x["expert_counts_equal"] is not False) for x in lines)
     print(json.dumps({"label": args.label, "cases": len(lines), "ok": ok}))
     return 0 if ok else 1
 
