@@ -267,9 +267,11 @@ prints no result line):
  40. ``bf16_train`` (after phase 37): olmoe_1b_7b at full width, 2
      layers, bf16 parameters, 8 steps: finite, falling losses, launches
      exactly ``moe_ffn``'s and the bf16 ``moe_ffn_bwd``'s; the kernel
-     rows ``moe_ffn_bf16 train`` and ``moe_ffn_bwd bf16`` (each output
-     within 1e-2 of its largest plain magnitude, ``torch._grouped_mm``'s
-     time for the same products beside);
+     rows ``moe_ffn_bf16 train``, ``moe_ffn_bwd bf16`` and ``moe_ffn_bwd
+     bf16 mixtral`` (mixtral's expert shape: 8192 rows over 8 experts, d
+     4096, ff 14336; each output within 1e-2 of its largest plain
+     magnitude, each launch's device ms and the launch plan,
+     ``torch._grouped_mm``'s time for the same products beside);
  41. ``sharded_serve`` (after phase 39): ``prefill`` + 32 greedy
      ``decode_step``s with a (1, 1) NCCL mesh at full width (qwen3_4b,
      gemma3_4b, olmoe_1b_7b, zamba2_7b cut to 4-6 layers), tokens and
@@ -6776,22 +6778,36 @@ def _grouped_mm_bwd_library(dy, xg, offs, w, gate, g, u, h, sizes):
         return None, f"{type(e).__name__}: {e}"[:200]
 
 
-def _moe_bf16_bwd_row(launches: int, seed: int) -> dict:
-    """The bf16 ``moe_ffn_bwd`` at olmoe's training shape (2048 tokens x
-    top 8 = 16384 rows over 64 experts, d 2048, ff 1024; ``bf16_train``'s
-    launches): the three launches of ``moe_ffn_backward`` from the bf16
-    training forward's g, u and h against the plain version on the same
-    inputs (each output within ``MOE_BF16_BWD_TOL`` of its largest plain
-    magnitude, dtypes equal, the empty experts' weight gradients exactly
-    zero), CUDA-event ms, the plain version's, the bound (12 R d ff
-    operations over the bf16 peak; the bytes: x, dy, g, u, h, the touched
-    weights read once, dx, dgate and every expert's weight gradients
-    written once) and ``torch._grouped_mm``'s time for the same
-    products."""
+# the bf16 moe_ffn_bwd rows: (name, (d, ff, experts, tokens, top_k), seed
+# offset): olmoe's training shape (bf16_train's) and mixtral's (4096 tokens
+# x top 2 = 8192 rows over 8 experts, d 4096, ff 14336: the dry run's
+# mixtral train_4k expert shape, where the kernel is bound by operations)
+MOE_BF16_BWD_ROWS = (("moe_ffn_bwd bf16", (2048, 1024, 64, 2048, 8), 51),
+                     ("moe_ffn_bwd bf16 mixtral", (4096, 14336, 8, 4096, 2),
+                      52))
+
+
+def _moe_bf16_bwd_row(name, shape, launches: int | None,
+                      seed: int) -> dict:
+    """The bf16 ``moe_ffn_bwd`` at ``shape`` (d, ff, experts, tokens,
+    top_k; ``launches``: ``bf16_train``'s at olmoe's shape, None at
+    mixtral's, which no card phase runs): the three launches of
+    ``moe_ffn_backward`` from the bf16 training forward's g, u and h
+    against the plain version on the same inputs (each output within
+    ``MOE_BF16_BWD_TOL`` of its largest plain magnitude, dtypes equal,
+    the empty experts' weight gradients exactly zero, two calls' bits
+    equal), CUDA-event ms of eager calls, ``device_ms`` over a CUDA graph
+    of calls, each launch's device ms (``torch.profiler``, the mean of its
+    traced instances), the launch plan (``moe_ffn.bwd_launch_info``), the
+    plain version's ms, the bound (12 R d ff operations over the bf16
+    peak; the bytes: x, dy, g, u, h, the touched weights read once, dx,
+    dgate and every expert's weight gradients written once) and
+    ``torch._grouped_mm``'s time for the same products."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import moe_ffn as KM
-    d, ff, n_exp, tokens, top_k = 2048, 1024, 64, 2048, 8
+    d, ff, n_exp, tokens, top_k = shape
     xg, offs, w, gate, sizes = _moe_inputs(d, ff, n_exp, tokens, top_k,
                                            torch.bfloat16, seed)
     R = tokens * top_k
@@ -6821,7 +6837,7 @@ def _moe_bf16_bwd_row(launches: int, seed: int) -> dict:
     empty_zero = all(int(torch.count_nonzero(t[e])) == 0
                      for e in empty for t in got[1:4])
     repeat = all(torch.equal(a, b) for a, b in zip(got, again))
-    del again
+    del again, want
     lib, lib_note = _grouped_mm_bwd_library(dy, xg, offs, w, gate, g, u, h,
                                             sizes)
     touched = int((sizes > 0).sum())
@@ -6831,13 +6847,35 @@ def _moe_bf16_bwd_row(launches: int, seed: int) -> dict:
               + R * 4 + n_exp * wbytes)
     flops = 12.0 * R * d * ff
     bound, by = _bound_ms(nbytes, flops)
-    row = {"name": "moe_ffn_bwd bf16", "route": "cuda",
+    # outputs and scratch a call allocates: a graph of calls holds them all
+    per_call = (n_exp * wbytes + 2 * R * d * 2 + 2 * R * ff * 2 + R * 4
+                + R * -(-ff // KM.BWD_TILE) * 4)
+    g_calls = max(1, min(10, int(8e9 // per_call)))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    # the mean of each launch's traced instances (a trace can drop some)
+    us, seen = [0.0] * KM.BWD_LAUNCHES, [0] * KM.BWD_LAUNCHES
+    for e in prof.events():
+        m = re.search(r"moe_bwd16_kernel<(\d)>", e.name)
+        if m:
+            us[int(m.group(1))] += e.time_range.end - e.time_range.start
+            seen[int(m.group(1))] += 1
+    # null where the trace holds no instance of a launch
+    by_launch = [t / n / 1e3 if n else None for t, n in zip(us, seen)]
+    row = {"name": name, "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/moe_ffn_bwd.cu",
            "replaces": "src/repro/models/moe.py:83",
            "replaces_note": "XLA's gradient of the three lax.ragged_dot in "
                             "_grouped_ffn on bf16 rows and weights (no "
                             "Pallas kernel)",
-           "launches": launches, "launches_path": "bf16_train",
+           "launches": launches,
+           "launches_path": None if launches is None else "bf16_train",
+           "launches_note": ("no card phase runs mixtral's shape (the dry "
+                             "run plans it); bf16_train's launches, at "
+                             "olmoe's shape, are on the olmoe row"
+                             if launches is None else "bf16_train, olmoe"),
            "launches_per_call": KM.BWD_LAUNCHES,
            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
            "errors": errs,
@@ -6846,6 +6884,10 @@ def _moe_bf16_bwd_row(launches: int, seed: int) -> dict:
            "empty_experts_dw_exactly_zero": empty_zero,
            "bits_repeat": repeat,
            "ms": _time_ms(call, iters=5, warmup=1),
+           "device_ms": _graph_ms(call, calls=g_calls, replays=3),
+           "device_ms_by_launch": dict(zip(KM.BWD_LAUNCH_NAMES, by_launch)),
+           "traced_instances_by_launch": seen,
+           "plan": KM.bwd_launch_info(),
            "plain_ms": _time_ms(plain, iters=2, warmup=1),
            "bound_ms": bound, "bound_by": by, "flops": flops,
            "library_ms": (_time_ms(lib, iters=5, warmup=1)
@@ -6854,18 +6896,22 @@ def _moe_bf16_bwd_row(launches: int, seed: int) -> dict:
            "shape": {"d": d, "ff": ff, "experts": n_exp, "tokens": tokens,
                      "top_k": top_k, "rows": R, "touched_experts": touched,
                      "dtype": "bfloat16"},
+           "timing_calls": {"graph": g_calls, "replays": 3},
            "note": "ms: CUDA events around eager calls (three launches "
-                   "each); the forward's g, u, h are inputs; a simple "
-                   "design (one warpgroup a CTA, operands staged by "
-                   "plain loads, no pipelining)",
+                   "each); device_ms: per call of a CUDA graph of "
+                   "timing_calls calls; the forward's g, u, h are inputs; "
+                   "a persistent grid a launch, a TMA ring of 3-4 "
+                   "stages, two "
+                   "consumer warpgroups on wgmma and a producer warp; the "
+                   "weight gradients' operands read as they lie",
            "sass_hgmma": _sass_count("3b16", "HGMMA")}
-    del xg, w, dy, got, want, g, u, h
+    del xg, w, dy, got, g, u, h, lib
     torch.cuda.empty_cache()
     if bad or not empty_zero or not repeat or not row["sass_hgmma"]:
         print(json.dumps(row), file=sys.stderr, flush=True)
-        raise RuntimeError(f"moe_ffn_bwd bf16: outputs {bad} disagree with "
-                           f"plain, an empty expert's dW is not zero, the "
-                           f"bits do not repeat, or no HGMMA")
+        raise RuntimeError(f"{name}: outputs {bad} disagree with plain, an "
+                           f"empty expert's dW is not zero, the bits do not "
+                           f"repeat, or no HGMMA")
     return row
 
 
@@ -6939,7 +6985,7 @@ def run_bf16_train() -> tuple[dict, list[dict]]:
     parameters, ``BF16_TRAIN_STEPS`` steps on the card: finite losses
     that fall (the mean of the last 3 below the first 3's), parameters
     still bf16, launches exactly ``moe_ffn``'s and the bf16
-    ``moe_ffn_bwd``'s; then the two bf16 kernel rows."""
+    ``moe_ffn_bwd``'s; then the bf16 kernel rows."""
     import gc
     import math
     import statistics
@@ -7000,8 +7046,12 @@ def run_bf16_train() -> tuple[dict, list[dict]]:
     if bad:
         print(json.dumps(line), file=sys.stderr, flush=True)
         raise RuntimeError(f"bf16_train: {'; '.join(bad)}")
-    rows = [_moe_bf16_train_fwd_row(launched["moe_ffn"], SEED + 50),
-            _moe_bf16_bwd_row(launched["moe_ffn_bwd"], SEED + 51)]
+    rows = [_moe_bf16_train_fwd_row(launched["moe_ffn"], SEED + 50)]
+    # bf16_train runs olmoe's shape: its count belongs to that row alone
+    rows += [_moe_bf16_bwd_row(name, shape,
+                               launched["moe_ffn_bwd"] if i == 0 else None,
+                               SEED + seed)
+             for i, (name, shape, seed) in enumerate(MOE_BF16_BWD_ROWS)]
     line["seconds"] = time.perf_counter() - t0
     return line, rows
 

@@ -85,6 +85,58 @@
 #include "moe_plan.cuh"
 
 namespace {
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// A 2-d map over a row-major [outer, inner] matrix of float32 or bf16
+// (`dtype`) with row stride `ld` elements: boxes of box_x x box_y, 128B
+// swizzle, zero fill past its edges.
+bool map2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType dtype,
+           long long inner, long long outer, long long ld, int box_x,
+           int box_y) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const int elem_bytes = dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_x),
+                             static_cast<cuuint32_t>(box_y)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+constexpr CUtensorMapDataType kBF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
+  }
+  return n;
+}
+
+// Raises kernel K's dynamic shared memory limit to smem bytes, once.
+template <auto K>
+cudaError_t grant(int smem) {
+  static bool granted = false;
+  if (!granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        K, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    granted = true;
+  }
+  return cudaSuccess;
+}
+
 namespace bwd {
 
 enum Kind { kDown = 0, kDx = 1, kDw = 2 };
@@ -120,8 +172,6 @@ struct Args {
   float* dwd;           // [E, FF, D]
   int Rp, E, D, FF;
 };
-
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // x as the tensor cores read it as a TF32 operand: the low 13 bits cleared
 __device__ __forceinline__ float trunc_tf32(float x) {
@@ -220,26 +270,6 @@ __device__ __forceinline__ Work work_at(const Args& p, const int* start,
   return w;
 }
 
-// A 2-d map over a float32 [outer, inner] matrix with row stride `ld`
-// elements: boxes of box_x x box_y, 128B swizzle, zero fill past its
-// edges.
-bool map2d(CUtensorMap* map, const void* ptr, long long inner,
-           long long outer, long long ld, int box_x, int box_y) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 4};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_x),
-                             static_cast<cuuint32_t>(box_y)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // Maps a launch reads: kDown ta0 = dy (128-row boxes), tb0 = Wd as
 // [E * FF, D]; kDx ta0/ta1 = dg^T/du^T (32 x 32 boxes), tb0/tb1 = Wg/Wu
 // as [E * D, FF]; kDw ta0/ta1 = x/dy (32 x 32 boxes), tb0/tb1/tb2 = dg^T,
@@ -290,13 +320,7 @@ moe_bwd_kernel(const __grid_constant__ CUtensorMap ta0,
   }
   __syncthreads();
   if constexpr (KIND == kDw) {
-    // experts by rows, heaviest first (ties by index)
-    for (int e = threadIdx.x; e < p.E; e += kThreads) {
-      int rank = 0;
-      for (int f = 0; f < p.E; ++f)
-        rank += rows[f] > rows[e] || (rows[f] == rows[e] && f < e);
-      order[rank] = e;
-    }
+    heaviest_first(rows, p.E, order);
     __syncthreads();
   }
   const int units = KIND == kDw
@@ -539,28 +563,10 @@ moe_bwd_kernel(const __grid_constant__ CUtensorMap ta0,
   }
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      n = 0;
-  }
-  return n;
-}
-
 template <int KIND>
 int launch(const CUtensorMap (&m)[5], const Args& p, cudaStream_t stream) {
-  static bool granted = false;
-  if (!granted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        moe_bwd_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    granted = true;
-  }
+  const cudaError_t err = grant<moe_bwd_kernel<KIND>>(kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   moe_bwd_kernel<KIND><<<sm_count(), kThreads, kSmem, stream>>>(
       m[0], m[1], m[2], m[3], m[4], p);
   return static_cast<int>(cudaGetLastError());
@@ -606,23 +612,23 @@ EXPORT int moe_ffn_bwd_f32(int kind, const void* dy, const void* x,
   bool ok = true;
   switch (kind) {
     case kDown:
-      ok = map2d(&m[0], dy, D, R, D, kBK, kBM) &&
-           map2d(&m[2], wd, D, ef, D, kBK, kBN);
+      ok = map2d(&m[0], dy, kF32, D, R, D, kBK, kBM) &&
+           map2d(&m[2], wd, kF32, D, ef, D, kBK, kBN);
       m[1] = m[3] = m[4] = m[0];
       break;
     case kDx:
-      ok = map2d(&m[0], dgt, Rp, FF, Rp, 32, kBK) &&
-           map2d(&m[1], dut, Rp, FF, Rp, 32, kBK) &&
-           map2d(&m[2], wg, FF, ed, FF, kBK, kBN) &&
-           map2d(&m[3], wu, FF, ed, FF, kBK, kBN);
+      ok = map2d(&m[0], dgt, kF32, Rp, FF, Rp, 32, kBK) &&
+           map2d(&m[1], dut, kF32, Rp, FF, Rp, 32, kBK) &&
+           map2d(&m[2], wg, kF32, FF, ed, FF, kBK, kBN) &&
+           map2d(&m[3], wu, kF32, FF, ed, FF, kBK, kBN);
       m[4] = m[0];
       break;
     case kDw:
-      ok = map2d(&m[0], x, D, R, D, 32, kBK) &&
-           map2d(&m[1], dy, D, R, D, 32, kBK) &&
-           map2d(&m[2], dgt, Rp, FF, Rp, kBK, kBN) &&
-           map2d(&m[3], dut, Rp, FF, Rp, kBK, kBN) &&
-           map2d(&m[4], ht, Rp, FF, Rp, kBK, kBN);
+      ok = map2d(&m[0], x, kF32, D, R, D, 32, kBK) &&
+           map2d(&m[1], dy, kF32, D, R, D, 32, kBK) &&
+           map2d(&m[2], dgt, kF32, Rp, FF, Rp, kBK, kBN) &&
+           map2d(&m[3], dut, kF32, Rp, FF, Rp, kBK, kBN) &&
+           map2d(&m[4], ht, kF32, Rp, FF, Rp, kBK, kBN);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -646,69 +652,138 @@ EXPORT int moe_ffn_bwd_f32(int kind, const void* dy, const void* x,
 // operands (dy and c dy too); dx = bf16(dg.Wg^T) + bf16(du.Wu^T), the sum
 // rounded to bf16; dWg, dWu and dWd leave in bf16; dgate in float32.
 //
-// Three launches, as the float32 entry's:
-//   kDown  t = dy.Wd[e]^T (64-row x 128-column tiles of [R, FF]); the
-//          epilogue writes dg and du (bf16 [R, FF]) and each row's dc over
-//          its 128 columns: dc partials [R, ceil(FF / 128)], no atomics;
-//   kDx    dx over [R, D] tiles from two accumulators; the CTAs of column
-//          tile 0 sum each row's dc partials in column order into dgate;
-//   kDw    dWg = X^T.dg, dWu = X^T.du, dWd = H^T.(c dy), one CTA a
-//          (64 x 128 tile, product, expert), K the group's rows.
-// A CTA is one warpgroup.  Each 64-deep stage is staged by every thread
-// with plain loads (converted to bf16 and transposed where the operand
-// lies M- or N-major in device memory) into 128B-swizzled K-major tiles,
-// then four wgmma.m64n128k16; no pipelining.  Row tiles find their
-// expert from offs on the device (a CTA per possible tile; the surplus
-// exits), so nothing is read on the host.  A simple design: its times
-// and bound are in PERF.md.
+// Three launches, as the float32 entry's, each over 128-row x 256-column
+// output units:
+//   kDown  t = dy.Wd[e]^T over [R, FF] (A = dy's float32 rows, rounded to
+//          bf16 in registers; B = Wd[e] as it lies); the epilogue writes
+//          dg and du (bf16 [R, FF]) and each row's dc over every 128
+//          columns: dc partials [R, ceil(FF / 128)], no atomics.  It also
+//          writes c dy once, rounded to bf16, into cdy [R, D] for kDw: a
+//          unit the stages kt with kt % (its row tile's column tiles) equal
+//          to its column tile;
+//   kDx    dx over [R, D]: dg.Wg^T over FF, kept in registers as bf16,
+//          then du.Wu^T over FF from zero (A = dg or du rows, B = Wg[e] or
+//          Wu[e] as they lie); the units of column tile 0 sum each row's dc
+//          partials in column order into dgate;
+//   kDw    dWg = X^T.dg, dWu = X^T.du, dWd = H^T.(c dy), K the group's
+//          rows: A (x or h) read M-major and B (dg, du or cdy) N-major as
+//          they lie in their row-major [R, .] matrices, wgmma's transpose
+//          flags set, so no thread repacks an operand.
+//
+// Design (the H100): every launch walks a persistent grid (one CTA an SM):
+// kDown and kDx over (expert, row tile, column tile) from the unit plan of
+// moe_plan.cuh, kDw over (expert, product, tile) with the heaviest experts
+// first (an expert without rows stores zeros).  A CTA is three
+// warpgroups: two consumers (64 output rows each, wgmma.m64n256k16 bf16,
+// float32 accumulators) and a producer, whose first thread streams 64 x
+// 128-byte TMA boxes (128-byte swizzle, zero fill past the matrices'
+// edges) into a ring of 64-deep stages (kDown and kDw three, kDx four) as
+// soon as the consumers free a slot.  A consumer warpgroup waits on each
+// stage's products and frees the slot at once: the other warpgroup's
+// products keep the tensor cores busy meanwhile, and the producer gets
+// the slot a stage earlier than if one stage stayed in flight (faster at
+// both shapes below, on the card).  In kDw the producer's warps 9-11
+// zero the rows past the group in a group's last stage (the next group's)
+// before the consumers read it, and a unit's dW tile leaves through
+// shared memory by TMA stores that run on while the consumers start the
+// next unit.  kDown's epilogue reads g, u and h in batches of 24 loads a
+// thread.  Rows past the group in a row tile are computed and never
+// stored; a warpgroup whose rows all lie past it skips the products.
+//
+// What bounds it (NVIDIA H100 80GB HBM3, 700.00 W): at olmoe's training
+// shape (16384 rows over 64 experts, d 2048, ff 1024) the bytes, 0.611
+// ms (the weights read and the weight gradients written, 805 MB each, x,
+// dy, g, u, h, dx); operations 0.417 ms (12 R d ff at 989 TFLOP/s).  At
+// mixtral's (8192 rows over 8 experts, d 4096, ff 14336) the operations,
+// 5.84 ms.  Measured (tools/moe_bwd_lines.py, a CUDA graph of 10 calls;
+// the design before it in the same run): olmoe 1.279-1.280 ms a call
+// (down dgrad 0.365-0.369, x dgrad 0.349-0.355, dW 0.544-0.546), 48 % of
+// its bound, from 6.20-6.21; mixtral 11.40-11.56 (2.70 / 3.07 / 4.80),
+// 51 %, from 72.10-72.19.
+//
+// The bit rules: every output element sums its k16 products in k order
+// into one float32 accumulator from zero, whatever its group's size or
+// its place in the group, so a row's dx, dg, du and dgate bits depend on
+// the row alone; dW's bits depend only on its group's rows in sorted
+// order (no split-K across CTAs, no atomics), so a step repeats its bits.
+// The outputs equal those of the design before it (one warpgroup a CTA,
+// operands staged by plain loads, m64n128k16) bit for bit.
 // ============================================================================
 namespace {
 namespace b16 {
 
-constexpr int kBM = 64;                  // output rows a CTA
-constexpr int kBN = 128;                 // output columns a CTA
+enum Kind { kDown = 0, kDx = 1, kDw = 2 };
+
+constexpr int kBM = 128;                 // output rows a unit
+constexpr int kBN = 256;                 // output columns a unit
 constexpr int kBK = 64;                  // reduction depth a stage
-constexpr int kThreads = 128;            // one warpgroup
-constexpr int kATile = kBM * 128;        // rows of 64 bf16 (128 bytes)
-constexpr int kBTile = kBN * 128;
-constexpr int kSmem = 1024 + kATile + kBTile;
+constexpr int kThreads = 384;            // consumers 0-255, producer 256-383
+constexpr int kFixers = 96;              // the producer's warps 9-11 (kDw)
+constexpr int kBox = 64 * 128;           // a TMA box: 64 rows of 128 bytes
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// offs' plan (moe_plan.cuh) and kDw's walk order
+constexpr int kPlan16 = kPlanBytes + 4 * kMaxExperts;
+
+// A stage of each launch, in boxes: kDown four float32 boxes of dy (two
+// 32-column halves of each warpgroup's 64 rows) and four of Wd's rows;
+// kDx two boxes of dg's or du's rows and four of Wg's or Wu's; kDw one
+// M-major box of x or h per warpgroup and four N-major boxes of dg, du or
+// cdy.  kDw adds the 128 x 256 bf16 dW tile its stores leave from, so its
+// ring holds three stages; kDx's holds four.
+template <int KIND>
+struct Plan {
+  static constexpr int kStages = KIND == kDx ? 4 : 3;
+  static constexpr int kStageBytes = (KIND == kDown ? 8 : 6) * kBox;
+  static constexpr int kStoreBytes = KIND == kDw ? 8 * kBox : 0;
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + kStoreBytes +
+                               24 * kStages + kPlan16;
+  static_assert(kSmem <= 232448, "moe_ffn_bwd bf16 smem");
+};
 
 struct Args {
-  const float* dy;             // [R, D]
-  const __nv_bfloat16* x;      // [R, D]
   const int32_t* offs;         // [E + 1]
-  const __nv_bfloat16* wg;     // [E, D, FF]
-  const __nv_bfloat16* wu;     // [E, D, FF]
-  const __nv_bfloat16* wd;     // [E, FF, D]
   const float* gate;           // [R]
   const float* g;              // the forward's g [R, FF]
   const float* u;              // the forward's u [R, FF]
   const __nv_bfloat16* h;      // the forward's h [R, FF]
   __nv_bfloat16* dgb;          // dg [R, FF]
   __nv_bfloat16* dub;          // du [R, FF]
-  float* part;                 // [R, ceil(FF / kBN)]
+  __nv_bfloat16* cdy;          // c dy [R, D]
+  float* part;                 // [R, ceil(FF / 128)]
   __nv_bfloat16* dx;           // [R, D]
   float* dgate;                // [R]
-  __nv_bfloat16* dwg;          // [E, D, FF]
-  __nv_bfloat16* dwu;          // [E, D, FF]
-  __nv_bfloat16* dwd;          // [E, FF, D]
-  int R, E, D, FF;
+  int E, D, FF;
 };
 
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+// kDw's units of one expert: dWg's and dWu's [D, FF] tiles, then dWd's
+// [FF, D] ones
+__host__ __device__ inline int dw_tiles(int M, int N) {
+  return cdiv(M, kBM) * cdiv(N, kBN);
+}
+__host__ __device__ inline int dw_units(int D, int FF) {
+  return 2 * dw_tiles(D, FF) + dw_tiles(FF, D);
+}
 
-// d[64 x 128] (+)= A[64 x 16] . B[16 x 128], both K-major in shared memory
-__device__ __forceinline__ void wgmma_k(float (&d)[64], uint64_t da,
-                                        uint64_t db) {
+// d[64 x 256] += A[64 x 16] . B[16 x 256], A and B in shared memory, A
+// M-major if TA (else K-major), B N-major if TB (else K-major)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                           uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -721,282 +796,572 @@ __device__ __forceinline__ void wgmma_k(float (&d)[64], uint64_t da,
         "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-// 8 values along k, rounded to bf16, into row `row`'s 16-byte chunk `ch`
-// of a K-major tile of 128-byte rows (128B swizzle: the chunk index XORed
-// with the row's place in its 8-row atom)
-__device__ __forceinline__ void put8(uint8_t* tile, int row, int ch,
-                                     const float (&v)[8]) {
-  uint4 q;
-  q.x = pack_bf16(__float2bfloat16(v[0]), __float2bfloat16(v[1]));
-  q.y = pack_bf16(__float2bfloat16(v[2]), __float2bfloat16(v[3]));
-  q.z = pack_bf16(__float2bfloat16(v[4]), __float2bfloat16(v[5]));
-  q.w = pack_bf16(__float2bfloat16(v[6]), __float2bfloat16(v[7]));
-  *reinterpret_cast<uint4*>(tile + row * 128 + ((ch ^ (row & 7)) << 4)) = q;
+// d[64 x 256] += A[64 x 16] . B[16 x 256], A in registers (k16 step KK of
+// four: bf16 pairs a[4 KK] row g, k 2t; + 1 row g + 8; + 2 k 2t + 8; + 3
+// both), B K-major in shared memory
+template <int KK>
+__device__ __forceinline__ void wgmma_n256_rs(float (&d)[128],
+                                              const uint32_t (&a)[16],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[4 * KK]), "r"(a[4 * KK + 1]), "r"(a[4 * KK + 2]),
+        "r"(a[4 * KK + 3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void ld8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+// a 2-d box of `map` from shared memory at src to (x inner, y outer)
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(x), "r"(y)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// the 128 threads of consumer warpgroup wgi (named barrier 1 + wgi)
+__device__ __forceinline__ void wg_sync(int wgi) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wgi) : "memory");
 }
 
-__device__ __forceinline__ void ld8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 q = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&q);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
-}
+// One unit: expert e, its rows r0 .. r0 + rows - 1 (row-tiled kinds: from
+// the tile's first row on; rows may pass kBM), column tile n from column
+// n0, K in stages of kBK; kDw: product prod, output rows m0 .., its [M, N]
+// dW.
+struct Work {
+  int e, r0, rows, n, n0, m0, M, N, prod, kt;
+};
 
-__device__ __forceinline__ void zero8(float (&v)[8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = 0.f;
-}
-
-// acc[64 x 128] = A[64 x K] . B[K x 128]: la(m, k, v) / lb(n, k, v) give
-// the 8 operand values at k .. k + 7 of output row m / column n (zero past
-// the operand's edges)
-template <class LA, class LB>
-__device__ __forceinline__ void gemm(float (&acc)[64], int K, uint8_t* sa,
-                                     uint8_t* sb, LA la, LB lb) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  const uint32_t a_s = smem_u32(sa), b_s = smem_u32(sb);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int c = threadIdx.x; c < kBM * 8; c += kThreads) {
-      const int row = c % kBM, ch = c / kBM;
-      float v[8];
-      la(row, k0 + 8 * ch, v);
-      put8(sa, row, ch, v);
-    }
-    for (int c = threadIdx.x; c < kBN * 8; c += kThreads) {
-      const int row = c % kBN, ch = c / kBN;
-      float v[8];
-      lb(row, k0 + 8 * ch, v);
-      put8(sb, row, ch, v);
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    fence_regs(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int t = 0; t < kBK / 16; ++t)
-      wgmma_k(acc, desc_sw128(a_s + 32 * t, 16, 1024),
-              desc_sw128(b_s + 32 * t, 16, 1024));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    __syncthreads();
+template <int KIND>
+__device__ __forceinline__ Work work_at(const Args& p, const int* start,
+                                        const int* row0, const int* rows,
+                                        const int* order, int u) {
+  Work w{};
+  if constexpr (KIND == kDw) {
+    const int tg = dw_tiles(p.D, p.FF);
+    const int per = dw_units(p.D, p.FF);
+    const int rank = u / per;
+    int rem = u - rank * per;
+    w.prod = rem < tg ? 0 : rem < 2 * tg ? 1 : 2;
+    rem -= w.prod * tg;
+    w.M = w.prod == 2 ? p.FF : p.D;
+    w.N = w.prod == 2 ? p.D : p.FF;
+    const int tn = cdiv(w.N, kBN);
+    w.m0 = rem / tn * kBM;
+    w.n0 = rem % tn * kBN;
+    w.e = order[rank];
+    w.r0 = row0[w.e];
+    w.rows = rows[w.e];
+    w.kt = cdiv(w.rows, kBK);
+  } else {
+    const Unit t = unit_at(start, row0, rows, p.E, kBM, u);
+    w.e = t.e;
+    w.r0 = t.row;
+    w.rows = t.rows;
+    w.n = t.n;
+    w.n0 = t.n * kBN;
+    w.kt = (KIND == kDown ? p.D : 2 * p.FF) / kBK;   // kDx: g, then u
   }
+  return w;
 }
 
-__device__ __forceinline__ uint8_t* tiles(uint8_t* raw) {
-  const uint32_t r = smem_u32(raw);
-  return raw + (((r + 1023) & ~1023u) - r);
-}
+// Maps a launch reads and writes, every box 64 x 128 bytes:
+//   kDown  t0 = dy (float32, 32 x 64 boxes), t1 = Wd as [E * FF, D];
+//   kDx    t0/t1 = dg/du, t2/t3 = Wg/Wu as [E * D, FF];
+//   kDw    t0/t1 = x/h (A), t2/t3/t4 = dg/du/cdy (B), t5/t6/t7 = dWg/dWu
+//          as [E * D, FF] and dWd as [E * FF, D] (stores).
+template <int KIND>
+__global__ void __launch_bounds__(kThreads, 1)
+moe_bwd16_kernel(const __grid_constant__ CUtensorMap t0,
+                 const __grid_constant__ CUtensorMap t1,
+                 const __grid_constant__ CUtensorMap t2,
+                 const __grid_constant__ CUtensorMap t3,
+                 const __grid_constant__ CUtensorMap t4,
+                 const __grid_constant__ CUtensorMap t5,
+                 const __grid_constant__ CUtensorMap t6,
+                 const __grid_constant__ CUtensorMap t7, const Args p) {
+  using P = Plan<KIND>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;    // the swizzle's period
+  constexpr int kStages = P::kStages;
+  const uint32_t stg = base + kStages * P::kStageBytes;   // kDw's stores
+  const uint32_t bar = stg + P::kStoreBytes;
+  auto landed = [&](int s) { return bar + 8 * s; };
+  auto full = [&](int s) { return bar + 8 * (kStages + s); };
+  auto empty = [&](int s) { return bar + 8 * (2 * kStages + s); };
+  auto at_smem = [&](uint32_t a) { return smem_raw + (a - raw); };
+  int* start = reinterpret_cast<int*>(at_smem(bar + 24 * kStages));
+  int* row0 = start + kMaxExperts + 1;
+  int* rows = row0 + kMaxExperts;
+  int* order = rows + kMaxExperts;
 
-// Row tile t of all experts' groups in order (each group cut into 64-row
-// tiles): its expert and rows [r0, r1); false past the last tile.
-__device__ bool row_tile(const int32_t* offs, int E, int t, int& e, int& r0,
-                         int& r1) {
-  __shared__ int s[3];
-  if (threadIdx.x == 0) {
-    s[0] = -1;
-    int acc = 0;
-    for (int i = 0; i < E; ++i) {
-      const int a = offs[i], b = offs[i + 1];
-      const int n = cdiv(b - a, kBM);
-      if (t < acc + n) {
-        s[0] = i;
-        s[1] = a + (t - acc) * kBM;
-        s[2] = b;
-        break;
-      }
-      acc += n;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int D = p.D, FF = p.FF;
+  if (warp == 0)
+    plan_units(p.offs, p.E, kBM,
+               KIND == kDw ? 1 : cdiv(KIND == kDown ? FF : D, kBN),
+               start, row0, rows);
+  if (threadIdx.x == 32) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(landed(s), 1);
+      mbar_init(full(s), kFixers);
+      mbar_init(empty(s), 256);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  e = s[0];
-  r0 = s[1];
-  r1 = min(s[2], r0 + kBM);
-  return e >= 0;
-}
+  if constexpr (KIND == kDw) {
+    heaviest_first(rows, p.E, order);
+    __syncthreads();
+  }
+  const int units = KIND == kDw ? p.E * dw_units(D, FF) : start[p.E];
+  auto at = [&](int u) {
+    return work_at<KIND>(p, start, row0, rows, order, u);
+  };
 
-// accumulator element (row, column) of this thread: rows rr(h2), columns
-// cc(j) + q, register 4 j + 2 h2 + q
-__device__ __forceinline__ int acc_row(int h2) {
-  return 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2) + 8 * h2;
-}
-__device__ __forceinline__ int acc_col(int j) {
-  return 8 * j + 2 * (threadIdx.x & 3);
-}
-
-__global__ void __launch_bounds__(kThreads) down_kernel(Args p) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sa = tiles(smem_raw);
-  uint8_t* sb = sa + kATile;
-  int e, r0, r1;
-  if (!row_tile(p.offs, p.E, blockIdx.x, e, r0, r1)) return;
-  const int n0 = blockIdx.y * kBN, nr = r1 - r0, D = p.D, FF = p.FF;
-  float acc[64];
-  const __nv_bfloat16* wd = p.wd + static_cast<long long>(e) * FF * D;
-  gemm(acc, D, sa, sb,
-       [&](int m, int k, float (&v)[8]) {
-         if (m < nr) ld8(p.dy + static_cast<long long>(r0 + m) * D + k, v);
-         else zero8(v);
-       },
-       [&](int n, int k, float (&v)[8]) {
-         if (n0 + n < FF) ld8(wd + static_cast<long long>(n0 + n) * D + k, v);
-         else zero8(v);
-       });
-  const int nt = cdiv(FF, kBN);
-#pragma unroll
-  for (int h2 = 0; h2 < 2; ++h2) {
-    const int rr = acc_row(h2);
-    const bool live = rr < nr;
-    const long long row = r0 + rr;
-    float dc = 0.f;
-    if (live) {
-      const float c = p.gate[row];
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        const int col = n0 + acc_col(j);
-        if (col >= FF) continue;
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const float t = acc[4 * j + 2 * h2 + q];
-          const long long o = row * FF + col + q;
-          dc += __bfloat162float(p.h[o]) * t;
-          const float dh = __bfloat162float(__float2bfloat16(c * t));
-          const float gv = p.g[o], uv = p.u[o];
-          const float s = 1.f / (1.f + expf(-gv));
-          const float be = dh * uv;
-          p.dgb[o] = __float2bfloat16(be * s + (gv * be) * (s * (1.f - s)));
-          p.dub[o] = __float2bfloat16((gv * s) * dh);
+  if (warp >= 8) {
+    // ---- producer: warp 8's first thread streams the ring; in kDw warps
+    // 9-11 zero the rows past the group in a group's last stage
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kProducerRegs));
+    if (warp == 8) {
+      if (lane != 0) return;
+      int q = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Work w = at(u);
+        // the second warpgroup's rows hold some of the unit's
+        const int na = (KIND == kDw ? w.m0 + 64 < w.M : w.rows > 64) ? 2 : 1;
+        for (int kt = 0; kt < w.kt; ++kt, ++q) {
+          const int s = q % kStages;
+          if (q >= kStages) mbar_wait(empty(s), ((q / kStages) - 1) & 1);
+          const uint32_t st = base + s * P::kStageBytes;
+          const int k0 = kt * kBK;
+          if constexpr (KIND == kDown) {
+            const int nb = min(4, (FF - w.n0) / 64);   // Wd boxes inside FF
+            mbar_expect_tx(landed(s), (2 * na + nb) * kBox);
+            for (int a = 0; a < na; ++a)
+              for (int h = 0; h < 2; ++h)
+                tma_load_2d(st + (2 * a + h) * kBox, &t0, landed(s),
+                            k0 + 32 * h, w.r0 + 64 * a);
+            for (int c = 0; c < nb; ++c)
+              tma_load_2d(st + (4 + c) * kBox, &t1, landed(s), k0,
+                          w.e * FF + w.n0 + 64 * c);
+          } else if constexpr (KIND == kDx) {
+            // the gate product's FF / kBK stages, then the up product's
+            const bool up = k0 >= FF;
+            const int kf = up ? k0 - FF : k0;
+            const int nb = min(4, (D - w.n0) / 64);
+            mbar_expect_tx(landed(s), (na + nb) * kBox);
+            for (int a = 0; a < na; ++a)
+              tma_load_2d(st + a * kBox, up ? &t1 : &t0, landed(s), kf,
+                          w.r0 + 64 * a);
+            for (int c = 0; c < nb; ++c)
+              tma_load_2d(st + (2 + c) * kBox, up ? &t3 : &t2, landed(s), kf,
+                          w.e * D + w.n0 + 64 * c);
+          } else {
+            const int nb = min(4, (w.N - w.n0) / 64);
+            const CUtensorMap* ma = w.prod == 2 ? &t1 : &t0;
+            const CUtensorMap* mb = w.prod == 0 ? &t2 : w.prod == 1 ? &t3
+                                                                    : &t4;
+            mbar_expect_tx(landed(s), (na + nb) * kBox);
+            for (int a = 0; a < na; ++a)
+              tma_load_2d(st + a * kBox, ma, landed(s), w.m0 + 64 * a,
+                          w.r0 + k0);
+            for (int c = 0; c < nb; ++c)
+              tma_load_2d(st + (2 + c) * kBox, mb, landed(s),
+                          w.n0 + 64 * c, w.r0 + k0);
+          }
+        }
+      }
+      return;
+    }
+    if constexpr (KIND == kDw) {
+      const int ft = threadIdx.x - 288;            // 0 .. kFixers - 1
+      int q = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Work w = at(u);
+        for (int kt = 0; kt < w.kt; ++kt, ++q) {
+          const int s = q % kStages;
+          mbar_wait(landed(s), (q / kStages) & 1);
+          const int left = w.rows - kt * kBK;
+          if (left < kBK) {
+            // a k row is a box's 128-byte line (the swizzle moves chunks
+            // within a line): lines left .. 63 of all six boxes to zero
+            uint8_t* st = at_smem(base + s * P::kStageBytes);
+            const int n16 = (kBK - left) * 8;
+            for (int i = ft; i < 6 * n16; i += kFixers) {
+              const int b = i / n16;
+              *reinterpret_cast<uint4*>(st + b * kBox + left * 128 +
+                                        16 * (i - b * n16)) =
+                  make_uint4(0u, 0u, 0u, 0u);
+            }
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          }
+          mbar_arrive(full(s));
         }
       }
     }
-    // a row's 128 columns lie in the four lanes of its quad
-    dc += __shfl_xor_sync(0xffffffffu, dc, 1);
-    dc += __shfl_xor_sync(0xffffffffu, dc, 2);
-    if (live && (threadIdx.x & 3) == 0) p.part[row * nt + blockIdx.y] = dc;
+    return;
   }
-}
 
-__global__ void __launch_bounds__(kThreads) dx_kernel(Args p) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sa = tiles(smem_raw);
-  uint8_t* sb = sa + kATile;
-  int e, r0, r1;
-  if (!row_tile(p.offs, p.E, blockIdx.x, e, r0, r1)) return;
-  const int n0 = blockIdx.y * kBN, nr = r1 - r0, D = p.D, FF = p.FF;
-  const long long wo = static_cast<long long>(e) * D * FF;
-  float ag[64], au[64];
-  auto rows_of = [&](const __nv_bfloat16* src) {
-    return [=](int m, int k, float (&v)[8]) {
-      if (m < nr) ld8(src + static_cast<long long>(r0 + m) * FF + k, v);
-      else zero8(v);
-    };
-  };
-  auto cols_of = [&](const __nv_bfloat16* w) {
-    return [=](int n, int k, float (&v)[8]) {
-      if (n0 + n < D) ld8(w + wo + static_cast<long long>(n0 + n) * FF + k, v);
-      else zero8(v);
-    };
-  };
-  gemm(ag, FF, sa, sb, rows_of(p.dgb), cols_of(p.wg));
-  gemm(au, FF, sa, sb, rows_of(p.dub), cols_of(p.wu));
+  // ---- consumers: one warpgroup per 64 output rows of the unit ---------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wgi = warp >> 2;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int ml = 16 * (warp & 3) + g;      // rows ml, ml + 8 of the 64
+  const int rr0 = 64 * wgi + ml;           // ... of the unit's 128
+  int q = 0;
+
+  if constexpr (KIND == kDown) {
+    const int nt = cdiv(FF, kBN);            // column tiles a row tile
+    const int np = cdiv(FF, 128);            // dc partials a row
+    float acc[128];
+    uint32_t a[16];                          // a stage's A fragments
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Work w = at(u);
+      const bool active = 64 * wgi < w.rows;
+      const bool live0 = rr0 < w.rows, live1 = rr0 + 8 < w.rows;
+      const float c0 = live0 ? p.gate[w.r0 + rr0] : 0.f;
+      const float c1 = live1 ? p.gate[w.r0 + rr0 + 8] : 0.f;
+      __nv_bfloat16* cd = p.cdy + static_cast<long long>(w.r0 + rr0) * D;
 #pragma unroll
-  for (int h2 = 0; h2 < 2; ++h2) {
-    const int rr = acc_row(h2);
-    if (rr >= nr) continue;
-    const long long row = r0 + rr;
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < w.kt; ++kt, ++q) {
+        const int s = q % kStages;
+        mbar_wait(landed(s), (q / kStages) & 1);
+        if (!active) {
+          mbar_arrive(empty(s));
+          continue;
+        }
+        const uint32_t st = base + s * P::kStageBytes;
+        const uint8_t* A = at_smem(st + 2 * wgi * kBox);
+        const bool wc = kt % nt == w.n;       // this unit's share of c dy
 #pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      const int col = n0 + acc_col(j);
-      if (col >= D) continue;
-      const int i = 4 * j + 2 * h2;
-      const float a0 = __bfloat162float(__float2bfloat16(ag[i])) +
-                       __bfloat162float(__float2bfloat16(au[i]));
-      const float a1 = __bfloat162float(__float2bfloat16(ag[i + 1])) +
-                       __bfloat162float(__float2bfloat16(au[i + 1]));
-      *reinterpret_cast<uint32_t*>(p.dx + row * D + col) =
-          pack_bf16(__float2bfloat16(a0), __float2bfloat16(a1));
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            // A fragment e: row ml (+ 8 if e odd), k 2t (+ 8 if e > 1) of
+            // k16 step kk, from the float32 box of its 32 columns
+            const int m = ml + 8 * (e & 1);
+            const int k = 16 * kk + 2 * t + 8 * (e >> 1);
+            const float2 v = *reinterpret_cast<const float2*>(
+                A + (k >> 5) * kBox + m * 128 +
+                ((((k & 31) >> 2) ^ (m & 7)) << 4) + 4 * (k & 3));
+            a[4 * kk + e] = pack_bf16(__float2bfloat16(v.x),
+                                      __float2bfloat16(v.y));
+            if (wc && ((e & 1) ? live1 : live0)) {
+              const float c = (e & 1) ? c1 : c0;
+              *reinterpret_cast<uint32_t*>(
+                  cd + (e & 1) * 8 * static_cast<long long>(D) + kt * kBK +
+                  k) = pack_bf16(__float2bfloat16(c * v.x),
+                                 __float2bfloat16(c * v.y));
+            }
+          }
+        // wgmma is .aligned: the warp reconverged after the c dy stores
+        __syncwarp();
+        fence_regs(acc);
+        fence_regs(a);
+        wgmma_fence();
+        const uint32_t b = st + 4 * kBox;
+        wgmma_n256_rs<0>(acc, a, desc_sw128(b, 16, 1024));
+        wgmma_n256_rs<1>(acc, a, desc_sw128(b + 32, 16, 1024));
+        wgmma_n256_rs<2>(acc, a, desc_sw128(b + 64, 16, 1024));
+        wgmma_n256_rs<3>(acc, a, desc_sw128(b + 96, 16, 1024));
+        wgmma_commit();
+        // a's registers and the slot free once the products are done
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(a);
+        mbar_arrive(empty(s));
+      }
+
+      // ---- epilogue: rows rr0 and rr0 + 8, column pairs 8 j + 2 t of
+      // each 128-column half, dc over each half.  FF is a multiple of 64,
+      // so a half holds 16 or 8 column octets (j); each batch of 8 issues
+      // its 24 loads of g, u and h before it computes.
+#pragma unroll
+      for (int ph = 0; ph < 2; ++ph) {
+        const int cb = w.n0 + 128 * ph;
+        if (cb >= FF) continue;                  // the same for the warp
+        const int nb = cb + 128 <= FF ? 2 : 1;   // batches of 8 octets
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int rr = rr0 + 8 * h2;
+          const bool live = rr < w.rows;
+          const long long row = w.r0 + rr;
+          float dc = 0.f;
+          if (live) {
+            const float c = p.gate[row];
+#pragma unroll
+            for (int jb = 0; jb < 2; ++jb) {
+              if (jb >= nb) break;
+              const long long o0 = row * FF + cb + 64 * jb + 2 * t;
+              float2 gg[8], uu[8];
+              __nv_bfloat162 hh[8];
+#pragma unroll
+              for (int jj = 0; jj < 8; ++jj) {
+                gg[jj] = __ldg(reinterpret_cast<const float2*>(p.g + o0 +
+                                                               8 * jj));
+                uu[jj] = __ldg(reinterpret_cast<const float2*>(p.u + o0 +
+                                                               8 * jj));
+                hh[jj] = *reinterpret_cast<const __nv_bfloat162*>(p.h + o0 +
+                                                                  8 * jj);
+              }
+#pragma unroll
+              for (int jj = 0; jj < 8; ++jj) {
+                __nv_bfloat16 dg2[2], du2[2];
+#pragma unroll
+                for (int q2 = 0; q2 < 2; ++q2) {
+                  const float tv =
+                      acc[4 * (16 * ph + 8 * jb + jj) + 2 * h2 + q2];
+                  dc += (q2 ? __high2float(hh[jj]) : __low2float(hh[jj])) *
+                        tv;
+                  const float dh =
+                      __bfloat162float(__float2bfloat16(c * tv));
+                  const float gv = q2 ? gg[jj].y : gg[jj].x;
+                  const float uv = q2 ? uu[jj].y : uu[jj].x;
+                  const float sg = 1.f / (1.f + expf(-gv));
+                  const float be = dh * uv;
+                  dg2[q2] = __float2bfloat16(be * sg +
+                                             (gv * be) * (sg * (1.f - sg)));
+                  du2[q2] = __float2bfloat16((gv * sg) * dh);
+                }
+                *reinterpret_cast<uint32_t*>(p.dgb + o0 + 8 * jj) =
+                    pack_bf16(dg2[0], dg2[1]);
+                *reinterpret_cast<uint32_t*>(p.dub + o0 + 8 * jj) =
+                    pack_bf16(du2[0], du2[1]);
+              }
+            }
+          }
+          // a row's 128 columns lie in the four lanes of its quad
+          dc += __shfl_xor_sync(0xffffffffu, dc, 1);
+          dc += __shfl_xor_sync(0xffffffffu, dc, 2);
+          if (live && t == 0) p.part[row * np + cb / 128] = dc;
+        }
+      }
     }
-  }
-  if (blockIdx.y == 0 && threadIdx.x < nr) {
-    const int nt = cdiv(FF, kBN);
-    const long long row = r0 + threadIdx.x;
-    float s = 0.f;
-    for (int t = 0; t < nt; ++t) s += p.part[row * nt + t];
-    p.dgate[row] = s;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) dw_kernel(Args p) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sa = tiles(smem_raw);
-  uint8_t* sb = sa + kATile;
-  const int e = blockIdx.z / 3, prod = blockIdx.z % 3;
-  const int D = p.D, FF = p.FF;
-  const int M = prod == 2 ? FF : D, N = prod == 2 ? D : FF;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  if (m0 >= M || n0 >= N) return;
-  const int a = p.offs[e], K = p.offs[e + 1] - a;
-  float acc[64];
-  if (prod < 2) {
-    const __nv_bfloat16* src = prod == 0 ? p.dgb : p.dub;
-    gemm(acc, K, sa, sb,
-         [&](int m, int k, float (&v)[8]) {     // X^T: x read M-major
+  } else if constexpr (KIND == kDx) {
+    float acc[128];
+    uint32_t kept[64];     // bf16(dg.Wg^T) in pairs while du.Wu^T runs
+    const int ct = threadIdx.x;                // 0 .. 255
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Work w = at(u);
+      const bool active = 64 * wgi < w.rows;
 #pragma unroll
-           for (int i = 0; i < 8; ++i)
-             v[i] = k + i < K ? __bfloat162float(
-                        p.x[static_cast<long long>(a + k + i) * D + m0 + m])
-                              : 0.f;
-         },
-         [&](int n, int k, float (&v)[8]) {     // dg / du read N-major
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < w.kt; ++kt, ++q) {
+        const int s = q % kStages;
+        mbar_wait(landed(s), (q / kStages) & 1);
+        if (!active) {
+          mbar_arrive(empty(s));
+          continue;
+        }
+        const uint32_t st = base + s * P::kStageBytes;
+        __syncwarp();
+        fence_regs(acc);
+        wgmma_fence();
 #pragma unroll
-           for (int i = 0; i < 8; ++i)
-             v[i] = k + i < K ? __bfloat162float(
-                        src[static_cast<long long>(a + k + i) * FF + n0 + n])
-                              : 0.f;
-         });
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_n256<0, 0>(acc,
+                           desc_sw128(st + wgi * kBox + 32 * kk, 16, 1024),
+                           desc_sw128(st + 2 * kBox + 32 * kk, 16, 1024));
+        wgmma_commit();
+        // the slot back as soon as its products are done (the other
+        // warpgroup's keep the tensor cores busy meanwhile)
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(empty(s));
+        if (kt == w.kt / 2 - 1) {
+          // dg.Wg^T is whole: keep it in bf16, du.Wu^T from zero
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            kept[i] = pack_bf16(__float2bfloat16(acc[2 * i]),
+                                __float2bfloat16(acc[2 * i + 1]));
+            acc[2 * i] = acc[2 * i + 1] = 0.f;
+          }
+        }
+      }
+      // ---- epilogue: dx = bf16(bf16(dg.Wg^T) + bf16(du.Wu^T)) ----------
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int rr = rr0 + 8 * h2;
+        if (rr >= w.rows) continue;
+        __nv_bfloat16* o = p.dx + static_cast<long long>(w.r0 + rr) * D;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int col = w.n0 + 8 * j + 2 * t;
+          if (col >= D) continue;
+          const int i = 4 * j + 2 * h2;
+          // a bf16's float32 value: its 16 bits on top
+          const float a0 = __uint_as_float(kept[i / 2] << 16) +
+                           __bfloat162float(__float2bfloat16(acc[i]));
+          const float a1 = __uint_as_float(kept[i / 2] & 0xffff0000u) +
+                           __bfloat162float(__float2bfloat16(acc[i + 1]));
+          *reinterpret_cast<uint32_t*>(o + col) =
+              pack_bf16(__float2bfloat16(a0), __float2bfloat16(a1));
+        }
+      }
+      if (w.n0 == 0 && ct < kBM && ct < w.rows) {
+        const int np = cdiv(FF, 128);
+        const long long row = w.r0 + ct;
+        float sum = 0.f;
+        for (int j = 0; j < np; ++j) sum += p.part[row * np + j];
+        p.dgate[row] = sum;
+      }
+    }
   } else {
-    gemm(acc, K, sa, sb,
-         [&](int m, int k, float (&v)[8]) {     // H^T
+    float acc[128];
+    const uint32_t out = stg + wgi * 4 * kBox;   // this warpgroup's 64 rows
+    uint8_t* outp = at_smem(out);
+    const bool lead = (threadIdx.x & 127) == 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Work w = at(u);
+      const bool active = w.m0 + 64 * wgi < w.M;
 #pragma unroll
-           for (int i = 0; i < 8; ++i)
-             v[i] = k + i < K ? __bfloat162float(
-                        p.h[static_cast<long long>(a + k + i) * FF + m0 + m])
-                              : 0.f;
-         },
-         [&](int n, int k, float (&v)[8]) {     // c dy
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < w.kt; ++kt, ++q) {
+        const int s = q % kStages;
+        mbar_wait(full(s), (q / kStages) & 1);
+        if (!active) {
+          mbar_arrive(empty(s));
+          continue;
+        }
+        const uint32_t st = base + s * P::kStageBytes;
+        __syncwarp();
+        fence_regs(acc);
+        wgmma_fence();
+        // a k16 step is 16 of a box's 128-byte lines; B's four 64-column
+        // boxes one box apart
 #pragma unroll
-           for (int i = 0; i < 8; ++i) {
-             const long long r = a + k + i;
-             v[i] = k + i < K ? p.gate[r] * p.dy[r * D + n0 + n] : 0.f;
-           }
-         });
-  }
-  __nv_bfloat16* out = (prod == 0 ? p.dwg : prod == 1 ? p.dwu : p.dwd) +
-                       static_cast<long long>(e) * M * N;
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_n256<1, 1>(acc,
+                        desc_sw128(st + wgi * kBox + 2048 * kk, kBox, 1024),
+                        desc_sw128(st + 2 * kBox + 2048 * kk, kBox, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(empty(s));
+      }
+      if (!active) continue;
+      // ---- epilogue: the tile in bf16 into its four 64 x 64 boxes
+      // (128-byte swizzle), then TMA stores that run on into the next unit
+      if (lead) bulk_wait_read();    // the last unit's stores have read it
+      wg_sync(wgi);
 #pragma unroll
-  for (int h2 = 0; h2 < 2; ++h2) {
-    const int m = m0 + acc_row(h2);
-    if (m >= M) continue;
+      for (int j = 0; j < 32; ++j)
 #pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      const int n = n0 + acc_col(j);
-      if (n >= N) continue;
-      const int i = 4 * j + 2 * h2;
-      *reinterpret_cast<uint32_t*>(out + static_cast<long long>(m) * N + n) =
-          pack_bf16(__float2bfloat16(acc[i]), __float2bfloat16(acc[i + 1]));
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int r = ml + 8 * h2;
+          *reinterpret_cast<uint32_t*>(
+              outp + (j >> 3) * kBox + r * 128 +
+              ((((j & 7) ^ (r & 7)) << 4) | (4 * t))) =
+              pack_bf16(__float2bfloat16(acc[4 * j + 2 * h2]),
+                        __float2bfloat16(acc[4 * j + 2 * h2 + 1]));
+        }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wg_sync(wgi);
+      if (lead) {
+        const CUtensorMap* mo = w.prod == 0 ? &t5 : w.prod == 1 ? &t6 : &t7;
+        const int y = w.e * w.M + w.m0 + 64 * wgi;
+        for (int c = 0; c < 4 && w.n0 + 64 * c < w.N; ++c)
+          tma_store_2d(mo, out + c * kBox, w.n0 + 64 * c, y);
+        bulk_commit();
+      }
     }
+    if (lead) bulk_wait();
   }
+}
+
+template <int KIND>
+int launch(const CUtensorMap (&m)[8], const Args& p, cudaStream_t stream) {
+  const cudaError_t err = grant<moe_bwd16_kernel<KIND>>(Plan<KIND>::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  moe_bwd16_kernel<KIND><<<sm_count(), kThreads, Plan<KIND>::kSmem,
+                           stream>>>(m[0], m[1], m[2], m[3], m[4], m[5],
+                                     m[6], m[7], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KIND>
+int launch_info(int* info) {
+  const cudaError_t err = grant<moe_bwd16_kernel<KIND>>(Plan<KIND>::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, moe_bwd16_kernel<KIND>, kThreads, Plan<KIND>::kSmem);
+  if (occ != cudaSuccess) return static_cast<int>(occ);
+  const int v[7] = {sm_count(), kThreads, Plan<KIND>::kSmem, per_sm,
+                    Plan<KIND>::kStages, kBM, kBN};
+  for (int i = 0; i < 7; ++i) info[i] = v[i];
+  return 0;
 }
 
 }  // namespace b16
@@ -1007,41 +1372,77 @@ __global__ void __launch_bounds__(kThreads) dw_kernel(Args p) {
 // Shapes the wrapper has checked: D and FF multiples of 64, E at most
 // kMaxExperts, R >= 1, offs[E] = R, every base 16-byte aligned, all
 // tensors contiguous on the card: dy, gate, g, u, part, dgate float32;
-// x, weights, h, dgb, dub, dx and the weight gradients bf16.
+// x, weights, h, dgb, dub, cdy, dx and the weight gradients bf16.
 EXPORT int moe_ffn_bwd_bf16(int kind, const void* dy, const void* x,
                             const void* offs, const void* wg, const void* wu,
                             const void* wd, const void* gate, const void* g,
                             const void* u, const void* h, void* dgb,
-                            void* dub, void* part, void* dx, void* dgate,
-                            void* dwg, void* dwu, void* dwd, int R, int E,
-                            int D, int FF, void* stream) {
+                            void* dub, void* cdy, void* part, void* dx,
+                            void* dgate, void* dwg, void* dwu, void* dwd,
+                            int R, int E, int D, int FF, void* stream) {
   using namespace b16;
   using bf = __nv_bfloat16;
-  const Args p{static_cast<const float*>(dy), static_cast<const bf*>(x),
-               static_cast<const int32_t*>(offs), static_cast<const bf*>(wg),
-               static_cast<const bf*>(wu), static_cast<const bf*>(wd),
-               static_cast<const float*>(gate), static_cast<const float*>(g),
-               static_cast<const float*>(u), static_cast<const bf*>(h),
-               static_cast<bf*>(dgb), static_cast<bf*>(dub),
-               static_cast<float*>(part), static_cast<bf*>(dx),
-               static_cast<float*>(dgate), static_cast<bf*>(dwg),
-               static_cast<bf*>(dwu), static_cast<bf*>(dwd), R, E, D, FF};
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int tiles_r = cdiv(R, kBM) + E;
-  const int wide = D > FF ? D : FF;
+  const Args p{static_cast<const int32_t*>(offs),
+               static_cast<const float*>(gate),
+               static_cast<const float*>(g),
+               static_cast<const float*>(u),
+               static_cast<const bf*>(h),
+               static_cast<bf*>(dgb),
+               static_cast<bf*>(dub),
+               static_cast<bf*>(cdy),
+               static_cast<float*>(part),
+               static_cast<bf*>(dx),
+               static_cast<float*>(dgate),
+               E, D, FF};
+  const long long ed = static_cast<long long>(E) * D;
+  const long long ef = static_cast<long long>(E) * FF;
+  CUtensorMap m[8];
+  bool ok = true;
   switch (kind) {
-    case 0:
-      down_kernel<<<dim3(tiles_r, cdiv(FF, kBN)), kThreads, kSmem, s>>>(p);
+    case kDown:
+      ok = map2d(&m[0], dy, kF32, D, R, D, 32, 64) &&
+           map2d(&m[1], wd, kBF16, D, ef, D, 64, 64);
+      for (int i = 2; i < 8; ++i) m[i] = m[0];
       break;
-    case 1:
-      dx_kernel<<<dim3(tiles_r, cdiv(D, kBN)), kThreads, kSmem, s>>>(p);
+    case kDx:
+      ok = map2d(&m[0], dgb, kBF16, FF, R, FF, 64, 64) &&
+           map2d(&m[1], dub, kBF16, FF, R, FF, 64, 64) &&
+           map2d(&m[2], wg, kBF16, FF, ed, FF, 64, 64) &&
+           map2d(&m[3], wu, kBF16, FF, ed, FF, 64, 64);
+      for (int i = 4; i < 8; ++i) m[i] = m[0];
       break;
-    case 2:
-      dw_kernel<<<dim3(cdiv(wide, kBM), cdiv(wide, kBN), 3 * E), kThreads,
-                  kSmem, s>>>(p);
+    case kDw:
+      ok = map2d(&m[0], x, kBF16, D, R, D, 64, 64) &&
+           map2d(&m[1], h, kBF16, FF, R, FF, 64, 64) &&
+           map2d(&m[2], dgb, kBF16, FF, R, FF, 64, 64) &&
+           map2d(&m[3], dub, kBF16, FF, R, FF, 64, 64) &&
+           map2d(&m[4], cdy, kBF16, D, R, D, 64, 64) &&
+           map2d(&m[5], dwg, kBF16, FF, ed, FF, 64, 64) &&
+           map2d(&m[6], dwu, kBF16, FF, ed, FF, 64, 64) &&
+           map2d(&m[7], dwd, kBF16, D, ef, D, 64, 64);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case kDown: return launch<kDown>(m, p, s);
+    case kDx: return launch<kDx>(m, p, s);
+    default: return launch<kDw>(m, p, s);
+  }
+}
+
+// How launch `kind` of the bf16 entry runs, for measurement: info[0..6] =
+// CTAs in the grid, threads per CTA, dynamic shared memory bytes, CTAs
+// resident per SM (the occupancy calculator, after the limit is raised),
+// ring stages, rows a unit, columns a unit.
+EXPORT int moe_ffn_bwd_bf16_launch_info(int kind, int* info) {
+  using namespace b16;
+  switch (kind) {
+    case kDown: return launch_info<kDown>(info);
+    case kDx: return launch_info<kDx>(info);
+    case kDw: return launch_info<kDw>(info);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

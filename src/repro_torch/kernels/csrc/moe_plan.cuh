@@ -1,7 +1,8 @@
 // Shared by the moe_ffn kernels (moe_ffn.cu) and their backward
 // (moe_ffn_bwd.cu): the plan of (expert, row tile, column tile) units
 // that a CTA lays out in shared memory from the group offsets, which it
-// reads on the device, and the SwiGLU's silu(g) * u.
+// reads on the device, the backward's weight-gradient walk order
+// (heaviest expert first), and the SwiGLU's silu(g) * u.
 #pragma once
 
 #include "common.cuh"
@@ -62,6 +63,19 @@ __device__ __forceinline__ Unit unit_at(const int* start, const int* row0,
   const int local = u - start[lo];
   const int m = local % mt;
   return Unit{lo, row0[lo] + m * bm, rows[lo] - m * bm, local / mt};
+}
+
+// All the CTA's threads: order[i] = the expert of rank i by its rows (from
+// plan_units), heaviest first, ties by index.  The caller syncs before
+// reading order.
+__device__ __forceinline__ void heaviest_first(const int* rows, int E,
+                                               int* order) {
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    int rank = 0;
+    for (int f = 0; f < E; ++f)
+      rank += rows[f] > rows[e] || (rows[f] == rows[e] && f < e);
+    order[rank] = e;
+  }
 }
 
 __device__ __forceinline__ float silu_mul(float g, float u) {

@@ -33,8 +33,12 @@ bfloat16``), at smoke width.
 On a card (``requires_cuda``, no JAX: the JAX package is imported
 inside the tests that compare with it): the bf16 ``moe_ffn_bwd`` kernel
 against its plain version within ``BWD_REL`` of each output's largest,
-and the bf16 step on the card against the CPU's within the tolerances
-above.
+also at olmoe's and mixtral's widths with groups at the edges of its
+64-deep stages and 128-row tiles and experts without rows (their weight
+gradients exactly zero); its bit rules there (a row's dx and dgate bits
+alone, in 128 rows or in 2048 are the same, a group's dW bits do not
+depend on the groups before it, two calls repeat every bit); and the
+bf16 step on the card against the CPU's within the tolerances above.
 """
 import numpy as np
 import pytest
@@ -249,3 +253,103 @@ def test_bf16_train_step_card_matches_cpu(arch):
     for a, b in zip(pc, pg):
         reach = 2 * LR * (1 + WD * a.abs()) + BF16_ULP * (a.abs() + 2 * LR)
         assert bool(((a - b).abs() <= reach).all())
+
+
+# =============================================================================
+# on the card: the bf16 moe_ffn_bwd kernels at their tile edges and the
+# bit rules, at olmoe's and mixtral's widths
+# =============================================================================
+
+BF16_WIDTHS = [(2048, 1024), (4096, 14336)]     # olmoe's, mixtral's d, ff
+
+
+def _card_bf16_inputs(dev, sizes, d, ff, seed):
+    """Seeded bf16 rows and weights, float32 dy and gate weights on the
+    card for groups of ``sizes`` rows."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    e, R = len(sizes), sum(sizes)
+
+    def rnd(*shape, s=1.0):
+        return torch.randn(shape, generator=g, device=dev) * s
+    xg, dy = rnd(R, d).bfloat16(), rnd(R, d)
+    w = [rnd(e, d, ff, s=d ** -0.5).bfloat16(),
+         rnd(e, d, ff, s=d ** -0.5).bfloat16(),
+         rnd(e, ff, d, s=ff ** -0.5).bfloat16()]
+    gate = torch.rand(R, generator=g, device=dev)
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
+                        dtype=torch.int32, device=dev)
+    return dy, xg, offs, w, gate
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d,ff,empty_experts", [
+    (2048, 1024, 0), (2048, 1024, 64),
+    (4096, 14336, 0), (4096, 14336, 2)])   # mixtral's: 73 experts' dW and
+                                           # the plain one's overfill 80 GB
+@pytest.mark.parametrize("sizes", [
+    [0, 1, 63, 64, 65, 127, 128, 129, 300],   # the 64-deep stage and
+                                              # 128-row tile edges
+    [3, 70, 5, 130, 1, 0, 61],                # groups starting anywhere
+    [1, 0, 0, 2]])                            # R 3
+def test_bf16_backward_kernel_at_tile_edges(sizes, d, ff, empty_experts):
+    """The bf16 kernels from the training forward's g, u and h against
+    the plain version: every output finite, in the plain version's type
+    and within ``BWD_REL`` of its largest magnitude, three launches, and
+    an expert without rows has exactly zero weight gradients."""
+    from repro_torch import kernels
+    dev = cuda_device()
+    sizes = sizes + [0] * empty_experts
+    dy, xg, offs, w, gate = _card_bf16_inputs(dev, sizes, d, ff, 80)
+    _, g, u, h = KM.moe_ffn_train(xg, offs, *w, gate)
+    kernels.reset_launch_counts()
+    got = KM.moe_ffn_backward(dy, xg, offs, *w, gate, g, u, h)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["moe_ffn_bwd"] == KM.BWD_LAUNCHES
+    want = KM.moe_ffn_backward_plain(dy, xg, offs, *w, gate, g, u, h)
+    for name, x, ref in zip(("dx", "dWg", "dWu", "dWd", "dgate"), got,
+                            want):
+        assert x.dtype == ref.dtype, name
+        assert bool(torch.isfinite(x).all()), name
+        err = float((x.float() - ref.float()).abs().max())
+        assert err <= BWD_REL * float(ref.float().abs().max()), (name, err)
+    for e in np.flatnonzero(np.asarray(sizes) == 0):
+        for dw in got[1:4]:
+            assert int(torch.count_nonzero(dw[e])) == 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d,ff", BF16_WIDTHS)
+def test_bf16_backward_row_bits_do_not_depend_on_the_group(d, ff):
+    """A row's dx and dgate bits alone, in a 128-row group and in a
+    2048-row group are the same; two calls give the same bits of every
+    output; and dW depends only on its group's rows in order: the same
+    rows as the second of two groups give the first group's dW bits."""
+    dev = cuda_device()
+    dy, xg, _, w, gate = _card_bf16_inputs(dev, [2048], d, ff, 81)
+
+    def run(rows, split=None):
+        rows = torch.as_tensor(rows, device=dev)
+        n = rows.numel()
+        offs = torch.tensor([0, n] if split is None else [0, split, n],
+                            dtype=torch.int32, device=dev)
+        ws = w if split is None else [torch.cat([t, t]) for t in w]
+        x, c = xg[rows].contiguous(), gate[rows].contiguous()
+        guh = KM.moe_ffn_train(x, offs, *ws, c)[1:]
+        return KM.moe_ffn_backward(dy[rows].contiguous(), x, offs, *ws, c,
+                                   *guh)
+    full = run(list(range(2048)))
+    again = run(list(range(2048)))
+    for a, b in zip(full, again):
+        assert torch.equal(a, b)
+    for r in (0, 63, 64, 1000, 2047):
+        for part in (run([r]), run([(r + i) % 2048 for i in range(128)])):
+            assert torch.equal(part[0][0], full[0][r])
+            assert torch.equal(part[4][0], full[4][r])
+    # 300 rows alone, then behind 77 other rows in a second expert with the
+    # same weights: expert 1's dW equals the lone group's bit for bit
+    rows = list(range(300))
+    alone = run(rows)
+    behind = run(list(range(1000, 1077)) + rows, split=77)
+    for a, b in zip(alone[1:4], behind[1:4]):
+        assert torch.equal(a[0], b[1])

@@ -39,7 +39,12 @@ one TF32 term per operand misses.
 The kernels' shared memory and work units are sized in the kernel
 source; ``smem_bytes`` and ``units`` mirror them, so the launch plan is
 checked here at the edges of what the wrapper takes (the card test
-holds the mirror against ``moe_ffn.launch_info``).
+holds the mirror against ``moe_ffn.launch_info``).  ``bwd16_plan``,
+``bwd16_units`` and ``bwd16_dw_order`` do the same for the bf16
+backward's three launches (shared memory, ring stages, units at olmoe's
+and mixtral's training shapes and at 1 row and 256 experts, the weight
+gradients' heaviest-first walk; on a card against
+``moe_ffn.bwd_launch_info``).
 """
 import numpy as np
 import pytest
@@ -394,3 +399,103 @@ def test_launch_plan_mirror_matches_the_card(dtype, R, E):
     assert {k: info[k] for k in want} == want
     assert info["ctas"] == want["ctas_per_sm"] * torch.cuda.\
         get_device_properties(0).multi_processor_count
+
+
+# =============================================================================
+# the bf16 backward's launch plan: a mirror of csrc/moe_ffn_bwd.cu's b16
+# =============================================================================
+
+BOX = 64 * 128               # a TMA box: 64 lines of 128 bytes
+BWD16_PLAN_BYTES = 4 * (4 * KM.MAX_EXPERTS + 1)  # offs' plan, kDw's order
+# by launch: ring stages, bytes a stage, store-tile bytes, columns a unit
+BWD16_LAUNCHES = {
+    "down_dgrad": (3, 8 * BOX, 0, 256),      # dy (float32) 4 boxes, Wd 4
+    "x_dgrad": (4, 6 * BOX, 0, 256),         # dg or du 2, Wg or Wu 4
+    "weight_grads": (3, 6 * BOX, 8 * BOX, 256)}  # x or h 2, dg/du/c dy
+                                                 # 4; the dW tile stored
+
+
+def bwd16_plan() -> dict:
+    """The bf16 ``moe_ffn_bwd``'s launch plan by launch: one CTA an SM of
+    384 threads (two consumer warpgroups of 64 rows, a producer), a ring
+    of TMA boxes 64 deep, 1 KB of alignment, three barriers a stage and
+    the unit plan in shared memory; 128-row units."""
+    plan = {}
+    for name, (stages, stage, store, cols) in BWD16_LAUNCHES.items():
+        plan[name] = {"threads": 384, "stages": stages, "ctas_per_sm": 1,
+                      "unit_rows": 128, "unit_columns": cols,
+                      "smem_bytes": 1024 + stages * stage + store
+                      + 24 * stages + BWD16_PLAN_BYTES}
+    return plan
+
+
+def bwd16_units(sizes, d: int, ff: int) -> dict:
+    """Units a launch walks: the down dgrad over 128-row tiles of each
+    group x 256 columns of ff, the x dgrad x 256 columns of d, the weight
+    gradients over every expert's 128 x 256 tiles of dWg, dWu ([d, ff])
+    and dWd ([ff, d]), an expert without rows too (it stores zeros)."""
+    c = lambda a, b: -(-a // b)
+    tiles = sum(c(n, 128) for n in sizes)
+    per_expert = 2 * c(d, 128) * c(ff, 256) + c(ff, 128) * c(d, 256)
+    return {"down_dgrad": tiles * c(ff, 256), "x_dgrad": tiles * c(d, 256),
+            "weight_grads": len(sizes) * per_expert}
+
+
+def bwd16_dw_order(sizes) -> list[int]:
+    """The weight gradients' walk over experts, as the kernel ranks them:
+    expert e goes to place #{f: rows_f > rows_e or (rows_f = rows_e and
+    f < e)}."""
+    order = [0] * len(sizes)
+    for e, n in enumerate(sizes):
+        order[sum(m > n or (m == n and f < e)
+                  for f, m in enumerate(sizes))] = e
+    return order
+
+
+def test_bwd16_plan_fits():
+    """Every launch's ring, store tile and plan fit an H100 CTA's shared
+    memory at one CTA an SM, and no ring could take one more stage."""
+    for name, plan in bwd16_plan().items():
+        assert plan["smem_bytes"] * plan["ctas_per_sm"] <= MAX_SMEM, name
+        stage = BWD16_LAUNCHES[name][1] + 24
+        assert plan["smem_bytes"] + stage > MAX_SMEM, name
+    assert bwd16_plan()["weight_grads"]["smem_bytes"] == 218188
+    assert bwd16_plan()["x_dgrad"]["smem_bytes"] == 201828
+    assert bwd16_plan()["down_dgrad"]["smem_bytes"] == 201804
+
+
+@pytest.mark.parametrize("sizes,d,ff,want", [
+    ([256] * 64, 2048, 1024, (512, 1024, 12288)),       # olmoe, training
+    ([1024] * 8, 4096, 14336, (3584, 1024, 43008)),     # mixtral, training
+    ([1], 2048, 1024, (4, 8, 192)),                     # one row
+    ([1] + [0] * 255, 2048, 1024, (4, 8, 49152)),       # 256 experts
+    ([0] * 255 + [1], 4096, 14336, (56, 16, 256 * 5376)),
+    ([16384] + [0] * 63, 2048, 1024, (512, 1024, 12288)),  # one group
+    ([129, 127, 65, 63], 256, 192, (5, 5, 4 * 6)),      # tile edges
+])
+def test_bwd16_units_at_the_training_shapes_and_edges(sizes, d, ff, want):
+    got = bwd16_units(sizes, d, ff)
+    assert (got["down_dgrad"], got["x_dgrad"], got["weight_grads"]) == want
+
+
+@pytest.mark.parametrize("sizes", [
+    [3, 70, 5, 130, 1, 0, 61, 70],
+    [256] * 64,
+    [0] * 255 + [1],
+    list(np.random.default_rng(7).multinomial(16384, np.ones(64) / 64))])
+def test_bwd16_dw_walk_is_heaviest_first_ties_by_index(sizes):
+    order = bwd16_dw_order(sizes)
+    assert sorted(order) == list(range(len(sizes)))
+    assert order == sorted(range(len(sizes)), key=lambda e: (-sizes[e], e))
+    if sizes[:8] == [3, 70, 5, 130, 1, 0, 61, 70]:
+        assert order == [3, 1, 7, 6, 2, 0, 4, 5]
+
+
+@pytest.mark.requires_cuda
+def test_bwd16_launch_plan_mirror_matches_the_card():
+    cuda_device()
+    info = KM.bwd_launch_info()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, want in bwd16_plan().items():
+        assert {k: info[name][k] for k in want} == want, name
+        assert info[name]["ctas"] == sms

@@ -24,8 +24,6 @@
 namespace {
 namespace probe {
 
-using bwd::cdiv;
-
 // ---------------------------------------------------------------------------
 // the mma.sync route
 // ---------------------------------------------------------------------------
@@ -335,10 +333,10 @@ EXPORT int probe_wgmma_rate(int stage_sums, int iters, void* out,
                             void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (stage_sums)
-    probe::wgmma_rate<true><<<bwd::sm_count(), 256, 0, s>>>(
+    probe::wgmma_rate<true><<<sm_count(), 256, 0, s>>>(
         iters, static_cast<float*>(out));
   else
-    probe::wgmma_rate<false><<<bwd::sm_count(), 256, 0, s>>>(
+    probe::wgmma_rate<false><<<sm_count(), 256, 0, s>>>(
         iters, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
@@ -366,7 +364,7 @@ EXPORT int probe_dw_mma(const void* x, const void* dy, const void* dg,
     if (err != cudaSuccess) return static_cast<int>(err);
     granted = true;
   }
-  dw_mma_kernel<<<bwd::sm_count(), kThreads, kSmem,
+  dw_mma_kernel<<<sm_count(), kThreads, kSmem,
                   static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

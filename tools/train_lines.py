@@ -9,17 +9,20 @@ one):
 It imports the ``chip_smoke.py`` beside it in the working directory and,
 for each of its ``TRAIN_RUNS`` (qwen3_4b cut to 24 layers, mamba2_1_3b
 whole, zamba2_7b cut to 14 layers, olmoe_1b_7b cut to 8; float32, seq
-512, batch 8 in 2 microbatches), draws the seeded weights, takes five
-steps (the wall ms of the last four reported as ``unprofiled_step_ms``)
-and then one step under ``torch.profiler`` (device activity only).  It
+512, batch 8 in 2 microbatches) and for its ``bf16_train`` (olmoe_1b_7b
+cut to 2 layers, bf16 parameters, the phase's learning rate; twelve
+steps, the last eleven reported), draws the seeded weights, takes five
+steps (the wall ms of the last four reported as ``unprofiled_step_ms``) and
+then one step under ``torch.profiler`` (device activity only).  It
 prints one JSON line a run: LABEL, the card, the step's wall ms, the device's busy ms and share (the union of the kernel
 and copy intervals it traced), the device operations of the step, the ms
 of the GEMM kernels (names holding ``gemm``), of the MoE FFN's forward
-kernels (``moe_ffn``'s, names holding ``moe_tf32_kernel``) and of its
-backward's (``moe_ffn_bwd``'s, ``moe_bwd_kernel``), and the eight
+kernels (``moe_ffn``'s, names holding ``moe_tf32_kernel`` or
+``moe_wgmma_kernel``) and of its backward's (``moe_ffn_bwd``'s,
+``moe_bwd_kernel`` or the bf16 entry's ``b16::``), and the eight
 kernels that took the most device time, and the step's peak device
-memory.  ``--only PHASE`` (``train_olmoe``, say) profiles that run
-alone.
+memory.  ``--only PHASE`` (``train_olmoe`` or ``bf16_train``, say)
+profiles that run alone.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ from dataclasses import replace
 from pathlib import Path
 
 
-def profile_step(cfg, steps_before: int = 5) -> dict:
+def profile_step(cfg, steps_before: int = 5, dtype=None,
+                 lr: float = 1e-4) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -40,11 +44,12 @@ def profile_step(cfg, steps_before: int = 5) -> dict:
     from repro_torch.launch.train import make_train_step, micro_batches
     from repro_torch.models.transformer import init_params
     from repro_torch.optim import adamw
-    params = init_params(cfg, seed=SEED, dtype=torch.float32, device="cuda")
+    params = init_params(cfg, seed=SEED, dtype=dtype or torch.float32,
+                         device="cuda")
     opt = adamw.init(params)
     src = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED,
                       input_mode=cfg.input_mode, d_model=cfg.d_model)
-    step_fn = make_train_step(cfg, lr_fn=lambda s: 1e-4)
+    step_fn = make_train_step(cfg, lr_fn=lambda s: lr)
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
     for s in range(steps_before + 1):
@@ -89,8 +94,8 @@ def profile_step(cfg, steps_before: int = 5) -> dict:
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e3 / (wall * 1e3),
             "device_ops": len(events), "gemm_ms": gemm_us / 1e3,
-            "moe_ffn_ms": ms_of("moe_tf32_kernel"),
-            "moe_ffn_bwd_ms": ms_of("moe_bwd_kernel"),
+            "moe_ffn_ms": ms_of("moe_tf32_kernel") + ms_of("moe_wgmma_kernel"),
+            "moe_ffn_bwd_ms": ms_of("moe_bwd_kernel") + ms_of("b16::"),
             "top_kernels_ms": [[n[:80], t / 1e3] for n, t in top]}
 
 
@@ -120,6 +125,14 @@ def main() -> int:
             cfg = replace(cfg, n_layers=layers)
         line = {"label": label, "card": card, "phase": phase,
                 "layers": cfg.n_layers, **profile_step(cfg)}
+        print(json.dumps(line), flush=True)
+    if only in (None, "bf16_train"):
+        cfg = replace(registry()["olmoe_1b_7b"],
+                      n_layers=cs.BF16_TRAIN_LAYERS)
+        line = {"label": label, "card": card, "phase": "bf16_train",
+                "layers": cfg.n_layers, "dtype": "bfloat16",
+                **profile_step(cfg, steps_before=12, dtype=torch.bfloat16,
+                               lr=cs.BF16_TRAIN_LR)}
         print(json.dumps(line), flush=True)
     return 0
 
