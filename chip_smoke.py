@@ -189,7 +189,12 @@ prints no result line):
      the time the earlier design's tiles take to stream with no math, one
      CTA reading them and two CTAs of a cluster sharing them, from
      ``tools/flash_d256_probe.py``) and at D 64 (musicgen's,
-     bf16);
+     bf16); then K8 with ``q_start``, a row a body (bf16 D 64, D 112, D
+     128, D 256 causal and windowed; float32 D 112 and D 256): one rank's
+     rows of a (1, 3) mesh's sequence split at offsets 0, 1280 and the
+     last rank's, each within K8's tolerance of the plain version at the
+     same offset, and whether its rows equal those of one launch over the
+     whole sequence bit for bit (``bits_equal_whole_rows``);
  34. (phases 34-37 run first, right after the build, while the card is
      empty) ``train_qwen3``: single-device training (``launch.train.
      make_train_step``, driven as ``train_loop`` drives it: seeded float32
@@ -278,7 +283,8 @@ prints no result line):
      every step's logits bit for bit the unsharded path's, K8, K9 and
      ``moe_ffn`` launched as the path predicts;
  42. ``dryrun``: ``repro_torch.launch.dryrun`` in a subprocess on the
-     fake backend (one production cell per kind, every one ``ok``), and
+     fake backend (one production cell per kind and a context-mode
+     prefill, qwen2.5's, every one ``ok``), and
      the dry run's predicted peak of phase 38's olmoe step within 15 % of
      the card's;
   9. every kernel against its plain PyTorch version on the card at the
@@ -5513,6 +5519,133 @@ def run_slice15() -> dict:
     return out
 
 
+# K8 with q_start: one (1, 3) mesh rank's rows of each body's path shape
+# (torch's chunk of S), at offsets 0, a tile multiple and S - rows
+Q_START_MESH = 3
+Q_START_TILE_OFFSET = 1280                  # 10 x 128 rows
+
+
+def bench_q_start_kernels(path_launches: dict) -> list[dict]:
+    """K8 with ``q_start`` on the card, one row a body: bf16 at musicgen's
+    D 64, zamba2's D 112, the GQA shape's D 128 and gemma3's D 256 (causal
+    and with its 1024-token window), float32 at zamba2's D 112 and
+    gemma3's D 256.  Each takes the rows of one rank of a (1, 3) mesh's
+    sequence split (``Q_START_MESH``) at three offsets, 0, a tile multiple
+    and an unaligned one (the last rank's rows), against every key, as
+    the context-mode prefill gives them; each is held against the plain
+    version at the same offset (``FLASH_TOL``, float32
+    ``FLASH_F32_TOL``, absolute plus relative as the other K8 rows), and
+    its rows against the same rows of one launch
+    over the whole sequence, bit for bit or not.  ``ms``, ``plain_ms``,
+    ``library_ms`` (SDPA with the block's boolean mask, KV expanded
+    outside the timing) and the bound are the tile-multiple offset's;
+    ``ms_by_q_start`` has every offset's.  ``path_launches`` maps a row's
+    base row (the body at offset 0 on its path) to that row's launches:
+    on one card no path runs an offset other than 0 (a (1, 1) mesh is
+    never in context mode), so a row's launches are its body's."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as K8
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 35)
+    bf, f32 = torch.bfloat16, torch.float32
+    win = _gemma3_window()
+    B, S = LONGCTX_BATCH, LONGCTX_PROMPT
+    rows = []
+    for name, base, b, s, Hq, Hkv, D, window, dtype in (
+            ("flash_attention_d64_q_start", "flash_attention_d64", B, S, 24,
+             24, 64, 0, bf),
+            ("flash_attention_q_start", "flash_attention", B, S, 32, 32, 112,
+             0, bf),
+            ("flash_attention_gqa_q_start", "flash_attention_gqa",
+             *FLASH_GQA_SHAPE, 0, bf),
+            ("flash_attention_d256_q_start", "flash_attention_d256", B, S, 8,
+             4, 256, 0, bf),
+            ("flash_attention_d256_window_q_start",
+             "flash_attention_d256_window", B, S, 8, 4, 256, win, bf),
+            ("flash_attention_f32_q_start", "flash_attention_f32", B, S, 32,
+             32, 112, 0, f32),
+            ("flash_attention_f32_d256_q_start", "flash_attention_f32_d256",
+             B, S, 8, 4, 256, 0, f32)):
+        q, k, v = (torch.randn((b, s, h, D), generator=gen,
+                               device=dev).to(dtype)
+                   for h in (Hq, Hkv, Hkv))
+        n = -(-s // Q_START_MESH)
+        whole = K8.flash_attention(q, k, v, window=window)
+        tol = FLASH_TOL if dtype == bf else FLASH_F32_TOL
+        G = Hq // Hkv
+        kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1)
+                  for t in (k, v))
+        by_start = {}
+        for start in (0, Q_START_TILE_OFFSET, s - n):
+            qs = q[:, start:start + n]
+
+            def call():
+                return K8.flash_attention(qs, k, v, window=window,
+                                          q_start=start)
+            out = call()
+            ref = K8.flash_attention_plain(qs, k, v, window=window,
+                                           q_start=start)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            close = torch.allclose(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+            del ref
+            if not close:
+                raise RuntimeError(f"{name}: q_start {start} disagrees with "
+                                   f"plain (max abs err {err}, tolerance "
+                                   f"{tol} abs + {tol} rel)")
+            qi = torch.arange(start, start + n, device=dev)[:, None]
+            ki = torch.arange(s, device=dev)[None, :]
+            mask = (ki <= qi) & ((qi - ki < window) if window else True)
+            qt = qs.transpose(1, 2)
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         attn_mask=mask)
+            pairs = K8.key_pairs(n, s, True, window, s, start)
+            bound, by = _bound_ms(
+                q.element_size() * (2 * qs.numel() + 2 * k.numel()),
+                4.0 * b * Hq * D * pairs,
+                flops_per_s=BF16_FLOPS_PER_S if dtype == bf
+                else F32_TC_FLOPS_PER_S)
+            by_start[start] = {
+                "max_abs_err": err,
+                "bits_equal_whole_rows": bool(torch.equal(
+                    out, whole[:, start:start + n])),
+                "ms": _time_ms(call, iters=10, warmup=2),
+                "plain_ms": _time_ms(lambda: K8.flash_attention_plain(
+                    qs, k, v, window=window, q_start=start), iters=2,
+                    warmup=1),
+                "library_ms": _time_ms(lib, iters=10, warmup=2),
+                "bound_ms": bound, "bound_by": by, "pairs": pairs}
+        mid = by_start[Q_START_TILE_OFFSET]
+        rows.append({
+            "name": name, "kernel": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:78",
+            "launches": path_launches[base],
+            "launches_note": f"{base}'s body on its path (offset 0)",
+            "max_abs_err": max(r["max_abs_err"] for r in by_start.values()),
+            "tolerance": tol, "ms": mid["ms"], "plain_ms": mid["plain_ms"],
+            "bound_ms": mid["bound_ms"], "bound_by": mid["bound_by"],
+            "library_ms": mid["library_ms"],
+            "library_call": "scaled_dot_product_attention with the block's "
+                            "boolean mask (KV expanded to Hq heads outside "
+                            "the timing)",
+            "q_starts": list(by_start), "rows": n,
+            "bits_equal_whole_rows": {str(k): r["bits_equal_whole_rows"]
+                                      for k, r in by_start.items()},
+            "by_q_start": {str(k): r for k, r in by_start.items()},
+            "shape": {"B": b, "S": s, "Hq": Hq, "Hkv": Hkv, "D": D,
+                      "causal": True, "window": window,
+                      "dtype": str(dtype).removeprefix("torch.")}})
+        del q, k, v, kt, vt, whole
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _moe_f32_launches(cfg) -> int:
     """The float32 decode path of olmoe (full width, cut to 2 layers): a
     request of 16 + 8 tokens served in float32, its moe_ffn launches
@@ -6714,11 +6847,13 @@ SERVE_RUNS = (("qwen3_4b", 4), ("gemma3_4b", 6), ("olmoe_1b_7b", 4),
               ("zamba2_7b", 6))
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 512, 32
 # ``dryrun``: one production cell per kind (arch, shape, multi-pod,
-# analysis), traced in a subprocess on the fake backend; and the
+# analysis) and a context-mode prefill (qwen2.5's 40 heads over 16),
+# traced in a subprocess on the fake backend; and the
 # sharded_train olmoe step on a (1, 1) fake mesh, whose predicted peak is
 # held within DRYRUN_PEAK_GATE of the card's
 DRYRUN_CELLS = (("olmoe_1b_7b", "train_4k", False, True),
                 ("qwen3_4b", "prefill_32k", False, False),
+                ("qwen2_5_14b", "prefill_32k", False, False),  # context
                 ("gemma3_4b", "decode_32k", False, False),
                 ("zamba2_7b", "long_500k", True, False))
 DRYRUN_PEAK_GATE = 0.15
@@ -7418,6 +7553,8 @@ def main() -> int:
     lcross["runs"] += s13["card_vs_cpu_mixtral"]
     s15 = run_slice15()
     kernel_rows += s15["rows"]
+    kernel_rows += bench_q_start_kernels({r["name"]: r["launches"]
+                                          for r in kernel_rows})
     lcross["runs"] += s15["card_vs_cpu"]
     kernel_rows += train_rows + shard_rows + bf16_rows
 

@@ -25,6 +25,14 @@
 //   for D <= 128 and one for 128 < D <= 256; float32 one up to D 128 and
 //   one past it (below).  The D <= 128 kernels keep the bits they gave
 //   before the others were added.
+// - Query offset: every entry takes q_start (>= 0), and local q row r is
+//   position q_start + r in the causal and window masks, the key ranges
+//   and the edge tests, while Q and out are read and written at row r.
+//   The sharded prefill's context mode passes one rank's sequence shard
+//   of q against every key (the XLA sdpa that the JAX prefill runs under
+//   GSPMD computes that block).  The heaviest-first orders below stay
+//   heaviest first: under any offset a later row sees at least as many
+//   keys.
 // - Scaling: the model's sdpa scales q in float32 (attention.py:118-121),
 //   the Pallas wrapper pre-scales q in q's type (ops.py:36).  Both entries
 //   apply the scale in float32, as sdpa does, never to q in bf16.
@@ -249,8 +257,10 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
       int Hq, int Hkv, int D, int seq_len, int causal, int window,           \
       float scale, long long q_sb, long long q_ss, long long q_sh,           \
       long long k_sb, long long k_ss, long long k_sh, long long v_sb,        \
-      long long v_ss, long long v_sh, int vec
+      long long v_ss, long long v_sh, int vec, int q_start
 
+// Local q row r is position q_start + r in the masks and key ranges; Q
+// and out are read and written at row r.
 __global__ void __launch_bounds__(kThreads, 1) flash_f32_kernel(F32_ARGS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int sr = stride(D);
@@ -288,8 +298,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_f32_kernel(F32_ARGS) {
 
   // the key range any row of this CTA can see, in tiles of kBK
   int k_hi = min(seq_len, Sk);
-  if (causal) k_hi = min(k_hi, min(Sq, q0 + kBQ));
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  if (causal) k_hi = min(k_hi, q_start + min(Sq, q0 + kBQ));
+  const int k_lo =
+      window > 0 ? max(0, q_start + q0 - window + 1) / kBK * kBK : 0;
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
   const float* kp = k + b * k_sb + hk * k_sh;
   const float* vp = v + b * v_sb + hk * v_sh;
@@ -323,14 +334,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_f32_kernel(F32_ARGS) {
     cp_async_commit();
   };
 
-  // this warp's rows wq .. wq + 15 (this thread: wq + g and wq + g + 8)
-  // and the keys they can see, [w_lo, w_hi)
+  // this warp's rows wq .. wq + 15 (this thread: wq + g and wq + g + 8),
+  // at positions pw .. pw + 15 (p0, p1), and the keys they can see,
+  // [w_lo, w_hi)
   const int wq = q0 + mt * 16;
   const int r0 = wq + g;
   const int r1 = r0 + 8;
+  const int pw = q_start + wq;
+  const int p0 = q_start + r0;
+  const int p1 = p0 + 8;
   int w_hi = min(seq_len, Sk);
-  if (causal) w_hi = min(w_hi, wq + 16);
-  const int w_lo = window > 0 ? max(0, wq - window + 1) : 0;
+  if (causal) w_hi = min(w_hi, pw + 16);
+  const int w_lo = window > 0 ? max(0, pw - window + 1) : 0;
   if (wq >= Sq) w_hi = 0;
 
   float o[kNT][4];
@@ -382,8 +397,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_f32_kernel(F32_ARGS) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = sc[nt][e] + sb[nt][e];
       // -- online softmax in float32 ---------------------------------------
-      const bool edge = kb + kBK > seq_len || (causal && kb + kBK - 1 > wq) ||
-                        (window > 0 && wq + 15 - kb >= window);
+      const bool edge = kb + kBK > seq_len || (causal && kb + kBK - 1 > pw) ||
+                        (window > 0 && pw + 15 - kb >= window);
       float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
       for (int nt = 0; nt < kKeyTiles; ++nt)
@@ -392,7 +407,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_f32_kernel(F32_ARGS) {
           float x = s[nt][e];
           if (edge) {
             const int key = kb + nt * 8 + 2 * t + (e & 1);
-            const int qpos = (e & 2) ? r1 : r0;
+            const int qpos = (e & 2) ? p1 : p0;
             bool ok = key < seq_len;
             if (causal) ok = ok && key <= qpos;
             if (window > 0) ok = ok && qpos - key < window;
@@ -499,9 +514,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int Hq, int Hkv, int D, int seq_len, int causal,
            int window, float scale, long long q_sb, long long q_ss,
            long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-           long long v_sb, long long v_ss, long long v_sh,
+           long long v_sb, long long v_ss, long long v_sh, int q_start,
            cudaStream_t stream) {
-  if (D < 1 || D > kNarrowD || Hkv < 1 || Hq % Hkv != 0)
+  if (D < 1 || D > kNarrowD || Hkv < 1 || Hq % Hkv != 0 || q_start < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   // K and V rows copied 16 bytes at a time where every row is 16-byte
   // aligned, else 4 bytes at a time
@@ -521,7 +536,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   flash_f32_kernel<<<dim3(B * Hq, (Sq + kBQ - 1) / kBQ), kThreads,
                      smem_bytes(D), stream>>>(
       qf, kf, vf, of, Sq, Sk, Hq, Hkv, D, seq_len, causal, window, scale,
-      q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, vec);
+      q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, vec, q_start);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -669,7 +684,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_f32_d256_kernel(
     const __grid_constant__ CUtensorMap tv, const float* __restrict__ q,
     float* __restrict__ out, int Sq, int Sk, int Hq, int Hkv, int D,
     int seq_len, int causal, int window, float scale, long long q_sb,
-    long long q_ss, long long q_sh, int n_kt) {
+    long long q_ss, long long q_sh, int n_kt, int q_start) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -687,9 +702,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_f32_d256_kernel(
   const int b = bh / Hq;
   const int h = bh - b * Hq;
   const int bhk = b * Hkv + h / (Hq / Hkv);
+  const int pq = q_start + q0;                  // q0's position
   int hi = min(seq_len, Sk);
-  if (causal) hi = min(hi, min(Sq, q0 + kBQ));
-  const int lo = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  if (causal) hi = min(hi, q_start + min(Sq, q0 + kBQ));
+  const int lo = window > 0 ? max(0, pq - window + 1) / kBK * kBK : 0;
   const int n_tiles = hi > lo ? (hi - lo + kBK - 1) / kBK : 0;
 
   const int warp = threadIdx.x >> 5;
@@ -733,6 +749,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_f32_d256_kernel(
   const int rl = 16 * (warp & 3) + g;           // rows rl, rl + 8 of 64
   const int r0 = q0 + rl;
   const int r1 = r0 + 8;
+  const int p0 = q_start + r0, p1 = p0 + 8;     // their positions
 
   // Q scaled in float32 and split: the small term stays in registers as
   // the A operand of its product, the big term goes to shared memory in
@@ -809,15 +826,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_f32_d256_kernel(
     for (int j = 0; j < 16; ++j) s[j] += xo[j * 128 + tw];
 
     // -- online softmax in float32 -----------------------------------------
-    const bool edge = kb + kBK > seq_len || (causal && kb + kBK - 1 > q0) ||
-                      (window > 0 && q0 + kBQ - 1 - kb >= window);
+    const bool edge = kb + kBK > seq_len || (causal && kb + kBK - 1 > pq) ||
+                      (window > 0 && pq + kBQ - 1 - kb >= window);
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       float x = s[j];
       if (edge) {
         const int key = kb + 8 * (j >> 2) + 2 * t + (j & 1);
-        const int qpos = (j & 2) ? r1 : r0;
+        const int qpos = (j & 2) ? p1 : p0;
         bool ok = key < seq_len;
         if (causal) ok = ok && key <= qpos;
         if (window > 0) ok = ok && qpos - key < window;
@@ -946,9 +963,9 @@ int launch(const void* q, const void* k, const void* v, void* out,
            int seq_len, int causal, int window, float scale, long long q_sb,
            long long q_ss, long long q_sh, long long k_sb, long long k_ss,
            long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-           cudaStream_t stream) {
+           int q_start, cudaStream_t stream) {
   if (D <= kNarrowD || D > kMaxD || Hkv < 1 || Hq % Hkv != 0 ||
-      scratch == nullptr)
+      scratch == nullptr || q_start < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_kt = key_tiles(Sk);
   const long long heads = static_cast<long long>(B) * Hkv;
@@ -969,7 +986,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
   flash_f32_d256_kernel<<<B * Hq * ((Sq + kBQ - 1) / kBQ), kThreads, kSmem,
                           stream>>>(
       tk, tv, static_cast<const float*>(q), static_cast<float*>(out), Sq, Sk,
-      Hq, Hkv, D, seq_len, causal, window, scale, q_sb, q_ss, q_sh, n_kt);
+      Hq, Hkv, D, seq_len, causal, window, scale, q_sb, q_ss, q_sh, n_kt,
+      q_start);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -998,15 +1016,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-// Keys [lo, hi) that q rows [qw, qw + 64) of one warpgroup can see, lo
-// a whole tile of kTileKeys.
+// Keys [lo, hi) that q rows [qw, qw + 64) of one warpgroup can see, at
+// positions q_start + qw .. (below Sq), lo a whole tile of kTileKeys.
+// q_start defaults to 0 here and in wide_tiles for
+// tools/flash_d256_probe.cu, which includes this file.
 template <int kTileKeys = kBK>
 __device__ __forceinline__ void key_range(int qw, int Sq, int Sk,
                                           int seq_len, int causal,
-                                          int window, int& lo, int& hi) {
+                                          int window, int& lo, int& hi,
+                                          int q_start = 0) {
   hi = min(seq_len, Sk);
-  if (causal) hi = min(hi, min(Sq, qw + 64));
-  lo = window > 0 ? max(0, qw - window + 1) / kTileKeys * kTileKeys : 0;
+  if (causal) hi = min(hi, q_start + min(Sq, qw + 64));
+  lo = window > 0
+           ? max(0, q_start + qw - window + 1) / kTileKeys * kTileKeys
+           : 0;
   if (qw >= Sq) hi = lo;                // a warpgroup past the last row
 }
 
@@ -1038,7 +1061,7 @@ template <int kDChunks, int kStages, bool kFold = false>
 __device__ __forceinline__ void flash_wgmma_body(
     const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
     __nv_bfloat16* __restrict__ out, int Sq, int Sk, int Hq, int Hkv, int D,
-    int seq_len, int causal, int window, float scale_log2) {
+    int seq_len, int causal, int window, float scale_log2, int q_start) {
   extern __shared__ uint8_t smem_raw[];
   // 128B swizzle repeats every 1024 B: align the tiles to it
   const uint32_t raw = smem_u32(smem_raw);
@@ -1064,8 +1087,8 @@ __device__ __forceinline__ void flash_wgmma_body(
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // heaviest first
 
   int lo0, hi0, lo1, hi1;
-  key_range(q0, Sq, Sk, seq_len, causal, window, lo0, hi0);
-  key_range(q0 + 64, Sq, Sk, seq_len, causal, window, lo1, hi1);
+  key_range(q0, Sq, Sk, seq_len, causal, window, lo0, hi0, q_start);
+  key_range(q0 + 64, Sq, Sk, seq_len, causal, window, lo1, hi1, q_start);
   const int lo = lo0;                   // warpgroup 0 starts no later
   const int hi = max(hi0, hi1);
   const int n_tiles = hi > lo ? (hi - lo + kBK - 1) / kBK : 0;
@@ -1107,10 +1130,13 @@ __device__ __forceinline__ void flash_wgmma_body(
   const int qw = q0 + 64 * wg;
   const int my_lo = wg == 0 ? lo0 : lo1;
   const int my_hi = wg == 0 ? hi0 : hi1;
-  // this thread's two rows of the m64 accumulators, and its column pair
+  // this thread's two rows of the m64 accumulators, and its column pair;
+  // the rows' positions pw + (r0 - qw), + 8 in the masks
   const int r0 = qw + 16 * (warp & 3) + (lane >> 2);
   const int r1 = r0 + 8;
   const int cq = 2 * (lane & 3);
+  const int pw = q_start + qw;
+  const int p0 = q_start + r0, p1 = p0 + 8;
 
   float o[kDChunks][32];
 #pragma unroll
@@ -1150,15 +1176,15 @@ __device__ __forceinline__ void flash_wgmma_body(
       fence_regs(sc);
 
       // -- online softmax in float32, log2 domain ---------------------------
-      const bool edge = kb + kBK > seq_len || (causal && kb + kBK - 1 > qw) ||
-                        (window > 0 && qw + 63 - kb >= window);
+      const bool edge = kb + kBK > seq_len || (causal && kb + kBK - 1 > pw) ||
+                        (window > 0 && pw + 63 - kb >= window);
       float mx0 = kMasked, mx1 = kMasked;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         float x = kFold ? sc[j] : sc[j] * scale_log2;
         if (edge) {
           const int key = kb + 8 * (j >> 2) + cq + (j & 1);
-          const int qpos = (j & 2) ? r1 : r0;
+          const int qpos = (j & 2) ? p1 : p0;
           bool ok = key < seq_len;
           if (causal) ok = ok && key <= qpos;
           if (window > 0) ok = ok && qpos - key < window;
@@ -1262,11 +1288,12 @@ __device__ __forceinline__ void flash_wgmma_body(
 // D <= 64: one box, so Q takes 16 KB, a stage 16 KB and O 32 registers a
 // thread; two CTAs share an SM (95 registers a thread, no spill).
 __global__ void __launch_bounds__(kThreads, 2)
-flash_wgmma_d64_kernel(WG_ARGS) {
-  flash_wgmma_body<1, kD64Stages, true>(WG_PASS);
+flash_wgmma_d64_kernel(WG_ARGS, int q_start) {
+  flash_wgmma_body<1, kD64Stages, true>(WG_PASS, q_start);
 }
-__global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(WG_ARGS) {
-  flash_wgmma_body<2, 3>(WG_PASS);
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_kernel(WG_ARGS, int q_start) {
+  flash_wgmma_body<2, 3>(WG_PASS, q_start);
 }
 
 // ---------------------------------------------------------------------------
@@ -1363,15 +1390,19 @@ __device__ __forceinline__ void wgmma_rs256(float (&d)[128], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
-// The key tiles of q rows [q0, q0 + 128): warpgroup w's keys [lo_w, hi_w)
-// and the tile count n from lo0 (warpgroup 0 starts no later).
+// The key tiles of q rows [q0, q0 + 128) (positions from q_start + q0):
+// warpgroup w's keys [lo_w, hi_w) and the tile count n from lo0
+// (warpgroup 0 starts no later).
 template <int kTileKeys>
 __device__ __forceinline__ void wide_tiles(int q0, int Sq, int Sk,
                                            int seq_len, int causal,
                                            int window, int& lo0, int& hi0,
-                                           int& lo1, int& hi1, int& n) {
-  key_range<kTileKeys>(q0, Sq, Sk, seq_len, causal, window, lo0, hi0);
-  key_range<kTileKeys>(q0 + 64, Sq, Sk, seq_len, causal, window, lo1, hi1);
+                                           int& lo1, int& hi1, int& n,
+                                           int q_start = 0) {
+  key_range<kTileKeys>(q0, Sq, Sk, seq_len, causal, window, lo0, hi0,
+                       q_start);
+  key_range<kTileKeys>(q0 + 64, Sq, Sk, seq_len, causal, window, lo1, hi1,
+                       q_start);
   const int hi = max(hi0, hi1);
   n = hi > lo0 ? (hi - lo0 + kTileKeys - 1) / kTileKeys : 0;
 }
@@ -1410,7 +1441,8 @@ __device__ __forceinline__ void wide_pv(float (&o)[128], uint32_t (&pa)[32],
   wgmma_commit();
 }
 
-// The online softmax of one tile in float32, log2 domain, as
+// The online softmax of one tile in float32, log2 domain (qw, r0, r1: the
+// positions of the warpgroup's first row and of this thread's two), as
 // flash_wgmma_body's D <= 64 form: S unscaled and the scale folded into the
 // exponent's FFMA, masked with -2**100 (whose product with the scale is
 // exact) on a tile that straddles an edge, row maxima by quad shuffles, the
@@ -1477,7 +1509,7 @@ __device__ __forceinline__ void wide_softmax(
 // taking turns (named barriers 1 and 2) to issue their S, so that one's
 // softmax runs under the other's GEMMs.
 __global__ void __launch_bounds__(kWideThreads, 1)
-flash_d256_kernel(WG_ARGS, int B) {
+flash_d256_kernel(WG_ARGS, int B, int q_start) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t q_s = base;                    // [4][128 rows][128 B]
@@ -1530,7 +1562,7 @@ flash_d256_kernel(WG_ARGS, int B) {
         int b, h, q0, lo, hi0, lo1, hi1, n;
         item(k, b, h, q0);
         wide_tiles<kWideBK>(q0, Sq, Sk, seq_len, causal, window, lo, hi0,
-                            lo1, hi1, n);
+                            lo1, hi1, n, q_start);
         const int hk = h / (Hq / Hkv);
         if (it > 0) mbar_wait(q_empty, (it - 1) & 1);
         mbar_expect_tx(q_full, kWideQBytes);
@@ -1591,7 +1623,7 @@ flash_d256_kernel(WG_ARGS, int B) {
     int b, h, q0, lo, hi0, lo1, hi1, n;
     item(k, b, h, q0);
     wide_tiles<kWideBK>(q0, Sq, Sk, seq_len, causal, window, lo, hi0, lo1,
-                        hi1, n);
+                        hi1, n, q_start);
     const int qw = q0 + 64 * wg;
     const int r0 = qw + rw, r1 = r0 + 8;
     const int my_lo = wg == 0 ? lo : lo1;
@@ -1622,8 +1654,9 @@ flash_d256_kernel(WG_ARGS, int B) {
       fence_regs(sc);
       release(k_empty);
       if (i == ie - 1) release(q_empty);
-      wide_softmax(sc, pa, lo + i * kWideBK, qw, r0, r1, cq, seq_len, causal,
-                   window, scale_log2, m0, m1, l0, l1, alpha0, alpha1);
+      wide_softmax(sc, pa, lo + i * kWideBK, q_start + qw, q_start + r0,
+                   q_start + r1, cq, seq_len, causal, window, scale_log2, m0,
+                   m1, l0, l1, alpha0, alpha1);
       mbar_wait(v_full, (g + i) & 1);
       wide_pv(o, pa, v_s, alpha0, alpha1);
       wgmma_wait_all();
@@ -1701,7 +1734,8 @@ int launch_wide(const void* q, const void* k, const void* v, void* out,
                 int causal, int window, float scale, long long q_sb,
                 long long q_ss, long long q_sh, long long k_sb,
                 long long k_ss, long long k_sh, long long v_sb,
-                long long v_ss, long long v_sh, cudaStream_t stream) {
+                long long v_ss, long long v_sh, int q_start,
+                cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B, Sq, Hq, D, q_sb, q_ss, q_sh, kBQ) ||
       !make_map(&tk, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, kWideBK) ||
@@ -1715,7 +1749,7 @@ int launch_wide(const void* q, const void* k, const void* v, void* out,
   if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
   flash_d256_kernel<<<grid, kWideThreads, kWideSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, Hq, Hkv, D,
-      seq_len, causal, window, scale * kLog2e, B);
+      seq_len, causal, window, scale * kLog2e, B, q_start);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1723,14 +1757,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Sk, int Hq, int Hkv, int D, int seq_len, int causal,
            int window, float scale, long long q_sb, long long q_ss,
            long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-           long long v_sb, long long v_ss, long long v_sh,
+           long long v_sb, long long v_ss, long long v_sh, int q_start,
            cudaStream_t stream) {
-  if (D < 8 || D > kMaxD || D % 8 != 0 || Hkv < 1 || Hq % Hkv != 0)
+  if (D < 8 || D > kMaxD || D % 8 != 0 || Hkv < 1 || Hq % Hkv != 0 ||
+      q_start < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (D > kNarrowD)
     return launch_wide(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, seq_len, causal,
                        window, scale, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                       v_sb, v_ss, v_sh, stream);
+                       v_sb, v_ss, v_sh, q_start, stream);
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B, Sq, Hq, D, q_sb, q_ss, q_sh, kBQ) ||
       !make_map(&tk, k, B, Sk, Hkv, D, k_sb, k_ss, k_sh, kBK) ||
@@ -1748,11 +1783,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (narrow)
     flash_wgmma_d64_kernel<<<grid, kThreads, smem, stream>>>(
         tq, tk, tv, o, Sq, Sk, Hq, Hkv, D, seq_len, causal, window,
-        scale * kLog2e);
+        scale * kLog2e, q_start);
   else
     flash_wgmma_kernel<<<grid, kThreads, smem, stream>>>(
         tq, tk, tv, o, Sq, Sk, Hq, Hkv, D, seq_len, causal, window,
-        scale * kLog2e);
+        scale * kLog2e, q_start);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1767,21 +1802,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       long long k_sb, long long k_ss, long long k_sh, long long v_sb,        \
       long long v_ss, long long v_sh, cudaStream_t stream
 
+// Every entry takes q_start, the position of q's first row, last.
+
 // D <= 128 (128 < D <= 256 takes flash_attention_f32_d256)
-EXPORT int flash_attention_f32(FLASH_ARGS) {
+EXPORT int flash_attention_f32(FLASH_ARGS, int q_start) {
   return f32::launch(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, seq_len, causal,
                      window, scale, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-                     v_ss, v_sh, stream);
+                     v_ss, v_sh, q_start, stream);
 }
 
 // 128 < D <= 256: the pre-pass writes K's and V^T's TF32 terms into
 // `scratch`, the caller's, of 2 * B * Hkv * max(1, ceil(Sk / 32)) * 2 * 32
 // * 256 floats (kernels/flash_attention.py), then the wgmma kernel reads
 // them
-EXPORT int flash_attention_f32_d256(FLASH_ARGS, void* scratch) {
+EXPORT int flash_attention_f32_d256(FLASH_ARGS, void* scratch, int q_start) {
   return f32w::launch(q, k, v, out, scratch, B, Sq, Sk, Hq, Hkv, D, seq_len,
                       causal, window, scale, q_sb, q_ss, q_sh, k_sb, k_ss,
-                      k_sh, v_sb, v_ss, v_sh, stream);
+                      k_sh, v_sb, v_ss, v_sh, q_start, stream);
 }
 
 // How the float32 entry launches, for measurement: info[0..3] = CTAs in
@@ -1840,8 +1877,8 @@ EXPORT int flash_attention_bf16_wide_launch_info(int B, int Sq, int Hq,
   return 0;
 }
 
-EXPORT int flash_attention_bf16(FLASH_ARGS) {
+EXPORT int flash_attention_bf16(FLASH_ARGS, int q_start) {
   return wg::launch(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, seq_len, causal,
                     window, scale, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-                    v_ss, v_sh, stream);
+                    v_ss, v_sh, q_start, stream);
 }

@@ -22,9 +22,12 @@ V^T's terms into scratch this wrapper allocates
 (``f32_scratch_floats``).  On CPU tensors, at any D, it runs
 ``flash_attention_plain``: the KV-expansion ``sdpa`` in float32 with the
 ``_mask_bias`` causal/window bias plus the ``seq_len`` mask.  Either
-returns [B, Sq, Hq, D] in q's type.  Meta tensors (the dry run) get an
-empty output and add 4 D operations per scored (query, key) pair and
-head to ``kernels.meta_flops()``.
+returns [B, Sq, Hq, D] in q's type.  ``q_start`` places the queries at
+absolute positions ``q_start`` .. ``q_start + Sq - 1`` in the causal and
+window masks (a rank's sequence shard against every key, in the sharded
+prefill); the rows are read and written where they lie.  Meta tensors
+(the dry run) get an empty output and add 4 D operations per scored
+(query, key) pair and head to ``kernels.meta_flops()``.
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ from . import _build, add_meta_flops, count_launch
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+# the entries' arguments; ``q_start`` follows the stream (and the float32
+# entry's scratch past D 128)
 _ARGTYPES = [_C] * 4 + [_I] * 9 + [ctypes.c_float] + [_L] * 9 + [_C]
 _FN = {torch.float32: "flash_attention_f32",
        torch.bfloat16: "flash_attention_bf16"}
@@ -117,14 +122,16 @@ def wide_launch_info(B: int, Sq: int, Hq: int) -> dict:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           seq_len: int | None = None,
-                          scale: float | None = None) -> torch.Tensor:
+                          scale: float | None = None,
+                          q_start: int = 0) -> torch.Tensor:
     """The plain version: KV-expansion ``sdpa`` over float32 copies of
-    q, k, v with the causal/window bias and keys >= ``seq_len`` masked;
+    q, k, v with the causal/window bias of queries at positions
+    ``q_start`` .. ``q_start + Sq - 1`` and keys >= ``seq_len`` masked;
     the result in q's type."""
     from repro_torch.models.attention import NEG_INF, _mask_bias, sdpa_dense
     Sq, Sk, D = q.shape[1], k.shape[1], q.shape[3]
     dev = q.device
-    q_pos = torch.arange(Sq, device=dev)
+    q_pos = torch.arange(q_start, q_start + Sq, device=dev)
     k_pos = torch.arange(Sk, device=dev)
     if causal:
         bias = _mask_bias(q_pos, k_pos, window if window > 0 else None)
@@ -141,28 +148,29 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def key_pairs(Sq: int, Sk: int, causal: bool, window: int,
-              seq_len: int) -> int:
+              seq_len: int, q_start: int = 0) -> int:
     """(query, key) pairs the kernel scores: keys below ``seq_len``, at
     or before the query (``causal``) and less than ``window`` behind it
-    (``window`` > 0)."""
+    (``window`` > 0), the queries at positions ``q_start`` ..
+    ``q_start + Sq - 1``."""
     import numpy as np
-    q = np.arange(Sq, dtype=np.int64)
+    q = np.arange(q_start, q_start + Sq, dtype=np.int64)
     hi = np.minimum(q, seq_len - 1) if causal else np.full(Sq, seq_len - 1)
     lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(Sq,
                                                                   np.int64)
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def _meta(q, k, causal, window, seq_len):
+def _meta(q, k, causal, window, seq_len, q_start):
     """Meta tensors: the output's shape and type, and the kernel's
     operations (QK^T and PV, 4 D a scored pair and head)."""
     B, Sq, Hq, D = q.shape
     add_meta_flops("flash_attention", 4.0 * B * Hq * D * key_pairs(
-        Sq, k.shape[1], causal, window, seq_len))
+        Sq, k.shape[1], causal, window, seq_len, q_start))
     return torch.empty(q.shape, dtype=q.dtype, device="meta")
 
 
-def _launch(q, k, v, causal, window, seq_len, scale):
+def _launch(q, k, v, causal, window, seq_len, scale, q_start):
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     dev = q.device
@@ -189,11 +197,11 @@ def _launch(q, k, v, causal, window, seq_len, scale):
                                   dtype=torch.float32, device=dev)
             name, argtypes = "flash_attention_f32_d256", _ARGTYPES + [_C]
             extra = (scratch.data_ptr(),)
-    fn = _build.function(name, argtypes)
+    fn = _build.function(name, argtypes + [_I])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
              Sk, Hq, Hkv, D, seq_len, int(causal), window, scale, qs[0],
              qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-             _build.current_stream(dev.index), *extra)
+             _build.current_stream(dev.index), *extra, q_start)
     _build.check(err, name)
     count_launch("flash_attention")
     return out
@@ -202,10 +210,12 @@ def _launch(q, k, v, causal, window, seq_len, scale):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     seq_len: int | None = None,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None,
+                    q_start: int = 0) -> torch.Tensor:
     """q [B, Sq, Hq, D]; k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, D] in q's
     type.  ``scale`` defaults to D**-0.5; ``seq_len`` (default Sk) masks
-    the keys at and past it; ``window`` <= 0 means none."""
+    the keys at and past it; ``window`` <= 0 means none; ``q_start``
+    (>= 0) is the position of q's first row."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if k.shape != (B, Sk, Hkv, D) or v.shape != k.shape or Hq % Hkv:
@@ -216,16 +226,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not 0 <= seq_len <= Sk:
         raise ValueError(f"flash_attention: seq_len={seq_len} not in "
                          f"0..{Sk}")
+    q_start = int(q_start)
+    if q_start < 0:
+        raise ValueError(f"flash_attention: q_start={q_start} < 0")
     window = max(int(window or 0), 0)
     scale = D ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     seq_len=seq_len, scale=scale)
+                                     seq_len=seq_len, scale=scale,
+                                     q_start=q_start)
     if q.device.type == "meta":
-        return _meta(q, k, causal, window, seq_len)
+        return _meta(q, k, causal, window, seq_len, q_start)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if not 1 <= D <= MAX_D:
         raise ValueError(f"flash_attention: D={D} outside 1..{MAX_D} on "
                          f"the card")
-    return _launch(q, k, v, causal, window, seq_len, scale)
+    return _launch(q, k, v, causal, window, seq_len, scale, q_start)

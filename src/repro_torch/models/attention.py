@@ -135,22 +135,27 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def sdpa_qchunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  positions: torch.Tensor, *, window: int | None = None,
+                  positions: torch.Tensor, *,
+                  q_positions: torch.Tensor | None = None,
+                  window: int | None = None,
                   soft_cap: float | None = None, q_chunk: int = 1024
                   ) -> torch.Tensor:
     """Query-chunked ``sdpa`` (JAX ``sdpa_qchunked``): the queries in
-    chunks of ``q_chunk``, each chunk's mask built from ``positions``
-    [B, S] and its body a ``torch.utils.checkpoint``, so no [Sq, Sk] mask
-    and no logits block larger than [B, H, q_chunk, Sk] is kept for the
-    backward.  Where ``Sq`` is not a multiple of ``q_chunk`` or is no
-    longer than it, the plain ``sdpa`` over the whole mask."""
+    chunks of ``q_chunk``, each chunk's mask built from the keys'
+    ``positions`` [B, Sk] and the queries' ``q_positions`` [B, Sq]
+    (default ``positions``: queries and keys the same rows) and its body
+    a ``torch.utils.checkpoint``, so no [Sq, Sk] mask and no logits block
+    larger than [B, H, q_chunk, Sk] is kept for the backward.  Where
+    ``Sq`` is not a multiple of ``q_chunk`` or is no longer than it, the
+    plain ``sdpa`` over the whole mask."""
     import torch.utils.checkpoint
     B, Sq, Hq, Dh = q.shape
     G = Hq // k.shape[2]
     k = layers.repeat_heads(k, G, dim=2)
     v = layers.repeat_heads(v, G, dim=2)
+    q_pos = positions if q_positions is None else q_positions
     if Sq % q_chunk or Sq <= q_chunk:
-        return sdpa(q, k, v, _mask_bias(positions, positions, window),
+        return sdpa(q, k, v, _mask_bias(q_pos, positions, window),
                     soft_cap=soft_cap)
     scale = Dh ** -0.5
     kf = k.float()
@@ -164,7 +169,7 @@ def sdpa_qchunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
 
     outs = [torch.utils.checkpoint.checkpoint(
-                body, q[:, i:i + q_chunk], positions[:, i:i + q_chunk],
+                body, q[:, i:i + q_chunk], q_pos[:, i:i + q_chunk],
                 use_reentrant=False)
             for i in range(0, Sq, q_chunk)]
     return torch.cat(outs, dim=1)
@@ -179,20 +184,48 @@ def _head_places(mi, split: bool) -> list:
             for n in mi.mesh.mesh_dim_names]
 
 
+def gather_kv(k, v, mi):
+    """Context mode's K and V: DTensors k, v [B, S, Hkv, Dh] whole along
+    the sequence on every ``model`` rank (the batch split kept), gathered
+    with their Hkv heads."""
+    from repro_torch.parallel import sharding as sh
+    return (k.redistribute(mi.mesh, sh.like_batch(k)),
+            v.redistribute(mi.mesh, sh.like_batch(v)))
+
+
 def sdpa_sharded(q, k, v, mi, attend):
     """Attention of DTensors q, k, v over ``mi``'s mesh, run on each rank's
-    shards by ``attend(q_local, k_local, v_local)``: the batch split over
-    the data axes and, in megatron mode (the heads divide ``model``), the
-    heads over ``model``.  k/v heads that do not divide ``model`` are
-    expanded to Hq first (replicated, then each rank keeps its q heads'
-    copies).  In context mode q, k and v are whole on every ``model``
-    rank.  The training step's ``attend`` is ``sdpa`` (or
-    ``sdpa_qchunked``), the prefill's K8."""
+    shards by ``attend(q_local, k_local, v_local, q_start)``, where
+    ``q_start`` is the position of the rank's first query row; the batch
+    is split over the data axes.
+
+    Megatron mode (the heads divide ``model``): the heads over ``model``,
+    ``q_start`` 0.  k/v heads that do not divide ``model`` are expanded to
+    Hq first (replicated, then each rank keeps its q heads' copies).
+
+    Context mode (they do not), the JAX package's layout: q keeps each
+    ``model`` rank's rows of the sequence (torch's ``chunk`` sizes where
+    ``model`` does not divide S) and k, v are all-gathered along the
+    sequence over ``model`` (``gather_kv``).  They are gathered with
+    their Hkv heads, G times fewer bytes than expanded (JAX's GSPMD
+    gathers them expanded); ``attend`` expands them on the rank.  Each
+    rank's K/V gradient covers its own queries only, so it is declared a
+    partial sum over ``model``: the gather's backward is a reduce-scatter
+    of dK and dV.  The output leaves split along the sequence.
+
+    The training step's ``attend`` is ``sdpa`` (or ``sdpa_qchunked``),
+    the prefill's K8."""
     from repro_torch.parallel import sharding as sh
     Hq, Hkv = q.shape[2], k.shape[2]
-    split = Hq % mi.n_model == 0
-    place = _head_places(mi, split)
-    if split and Hkv % mi.n_model:
+    if Hq % mi.n_model:
+        place = sh.seq_rows(q, mi)
+        q = q.redistribute(mi.mesh, place)
+        k, v = gather_kv(k, v, mi)
+        kl, vl = (sh.local(t, mi, (mi.model_axis,)) for t in (k, v))
+        out = attend(q.to_local(), kl, vl, sh.local_offset(q)[1])
+        return sh.from_local(out, mi, place, q.shape)
+    place = _head_places(mi, True)
+    if Hkv % mi.n_model:
         whole = _head_places(mi, False)
         k = layers.repeat_heads(k.redistribute(mi.mesh, whole), Hq // Hkv,
                                 dim=2)
@@ -200,7 +233,7 @@ def sdpa_sharded(q, k, v, mi, attend):
                                 dim=2)
     ql, kl, vl = (t.redistribute(mi.mesh, place).to_local()
                   for t in (q, k, v))
-    return sh.from_local(attend(ql, kl, vl), mi, place, q.shape)
+    return sh.from_local(attend(ql, kl, vl, 0), mi, place, q.shape)
 
 
 def sdpa_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -225,6 +258,52 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """[B, S, Hq, Dh] x wo [Hq, Dh, d] -> [B, S, d]."""
     B, S = out.shape[:2]
     return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[2])
+
+
+def attention_rows(p: dict, x, cos: torch.Tensor, sin: torch.Tensor, mi,
+                   attend):
+    """A context-mode attention block on each ``model`` rank's rows of the
+    sequence, as the JAX package's GSPMD runs it: DTensor x [B, S, d]
+    split along the sequence (``sharding.seq_rows``; a slice where it is
+    whole), the QKV projections with RoPE (``cos``/``sin`` [B, S, Dh/2],
+    the rank's rows taken) and the output projection on the rank's rows,
+    K and V gathered along the sequence (``gather_kv``) and
+    ``sdpa_sharded``'s context branch with ``attend``.  The projections
+    run on local tensors (DTensor's matmul of a [B, S, d] split over two
+    dims flattens both into one, which it cannot always view back), the
+    weights gathered whole first (replicated, or split for FSDP) and
+    their gradients declared partial sums over every mesh axis, since
+    each rank projects its own rows; each weight's gradient is reduced
+    straight into ZeRO's layout (``sharding.zero_places``), so no rank
+    holds the whole gradients of its replicated attention weights.
+    Returns (out [B, S, d] split along the sequence, k, v [B, S, Hkv, Dh]
+    whole along it)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.parallel import sharding as sh
+    axes = tuple(mi.mesh.mesh_dim_names)
+    whole = [Replicate()] * mi.mesh.ndim
+
+    def w_local(w):
+        if not isinstance(w, DTensor):
+            return w
+        w = sh.grad_as(w, sh.zero_places(w, mi))
+        if any(not isinstance(pl, Replicate) for pl in w.placements):
+            w = w.redistribute(mi.mesh, whole)
+        return sh.local(w, mi, axes)
+
+    x = x.redistribute(mi.mesh, sh.seq_rows(x, mi))
+    b0, s0 = sh.local_offset(x)[:2]
+    xl = sh.local(x, mi)
+    B, S = x.shape[:2]
+    rows = (slice(b0, b0 + xl.shape[0]), slice(s0, s0 + xl.shape[1]))
+    wl = {name: w_local(w) for name, w in p.items() if name != "wo"}
+    q, k, v = (sh.from_local(t, mi, x.placements, (B, S, *t.shape[2:]))
+               for t in project_qkv(wl, xl, cos[rows], sin[rows]))
+    k, v = gather_kv(k, v, mi)
+    out = sdpa_sharded(q, k, v, mi, attend)
+    y = _out_proj(sh.local(out, mi), w_local(p["wo"]))
+    return sh.from_local(y, mi, x.placements, x.shape), k, v
 
 
 def attention(p: dict, x: torch.Tensor, positions: torch.Tensor,

@@ -427,6 +427,24 @@ def _attn_post(lp: dict, cfg: ArchConfig, out: torch.Tensor) -> torch.Tensor:
                            gemma_style=True)
 
 
+def _context(cfg: ArchConfig, mi: sh.MeshInfo | None) -> bool:
+    """Whether attention runs in context mode on ``mi``'s mesh: the heads
+    do not divide ``model``, so each ``model`` rank attends with its rows
+    of the sequence (``attention.sdpa_sharded``)."""
+    return mi is not None and sh.attn_mode(cfg, mi) == "context"
+
+
+def _add_rows(h, out, cfg: ArchConfig, mi: sh.MeshInfo):
+    """``h + out`` whole along the sequence (the FFN's input), where
+    context-mode attention's ``out`` lies split along it: added where h
+    is split too, then gathered; gathered first where h is whole.  One
+    all-gather either way."""
+    inner = sh.act_spec(cfg, mi, seq=False)
+    if sh.split_dims(h, 1):
+        return sh.constrain(h + out, mi, inner)
+    return h + sh.constrain(out, mi, inner)
+
+
 def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor | None,
             cache_len: int, *, embeds: torch.Tensor | None = None,
             mi: sh.MeshInfo | None = None):
@@ -445,7 +463,10 @@ def prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor | None,
     under ``implicit_replication`` here, so the caller must not hold one
     open): the prompts split over the data axes, the activations laid out
     by ``act_spec`` between layers (JAX's constraint), K8 on each rank's
-    heads and rows, K9 on each rank's heads (``mamba_forward_sharded``),
+    heads and batch rows (megatron mode) or, in context mode (heads that
+    do not divide ``model``), on its rows of the sequence from their first
+    position against K/V gathered along it (``attention.attention_rows``),
+    K9 on each rank's heads (``mamba_forward_sharded``),
     the MoE FFN on ``moe.moe_apply``'s expert- or tensor-parallel branch
     on ``moe_ffn``, and the caches written in ``kv_cache_spec``'s layout
     (slots over ``model``, ``_place_sharded``).  The state is DTensors
@@ -614,27 +635,39 @@ def _prefill_sharded(params, cfg, tokens, cache_len, embeds, mi):
                                   start_pos=S, device=dev, mi=mi)
         aspec = sh.act_spec(cfg, mi, seq=True)
         inner = sh.act_spec(cfg, mi, seq=False)
+        ctx = _context(cfg, mi)
 
         def attend(p, x, cos, sin, window=None):
+            """Attention on K8 and its K/V.  Context mode projects each
+            rank's rows and gathers K/V once (for K8 and the cache); K8
+            runs the rank's queries from their first position."""
             if cfg.soft_cap is not None:
                 raise NotImplementedError("attention: K8 has no logit soft "
                                           "cap")
+
+            def k8(a, b, c, s):
+                return K8.flash_attention(a, b, c, causal=True,
+                                          window=window or 0, q_start=s)
+            if ctx:
+                return attention.attention_rows(p, x, cos, sin, mi, k8)
             q, k, v = attention.project_qkv(p, x, cos, sin)
-            out = attention.sdpa_sharded(q, k, v, mi, lambda a, b, c: (
-                K8.flash_attention(a, b, c, causal=True,
-                                   window=window or 0)))
+            out = attention.sdpa_sharded(q, k, v, mi, k8)
             return attention._out_proj(out, p["wo"]), k, v
+
+        def add(h, out):
+            return _add_rows(h, out, cfg, mi) if ctx else h + out
 
         if cfg.layout == "attn":
             ropes = _rope_tables(cfg, positions)
             for l, lp in enumerate(params["layers"]):
                 w = cfg.attn_window_pattern[l]
                 cos, sin = _layer_rope(cfg, w, ropes)
-                h = sh.constrain(h, mi, inner)
+                # context mode attends on its rows of the sequence
+                h = sh.constrain(h, mi, aspec if ctx else inner)
                 x = layers.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
                                     gemma_style=cfg.gemma_norm)
                 out, k, v = attend(lp["attn"], x, cos, sin, w)
-                h = _ffn(lp, cfg, h + _attn_post(lp, cfg, out), mi=mi)[0]
+                h = _ffn(lp, cfg, add(h, _attn_post(lp, cfg, out)), mi=mi)[0]
                 _place_sharded(state["attn"][l], k, v, mi)
                 h = sh.constrain(h, mi, aspec)
         else:
@@ -653,7 +686,7 @@ def _prefill_sharded(params, cfg, tokens, cache_len, embeds, mi):
                     sp = params["shared"]
                     x = layers.rms_norm(h, sp["ln1"], eps=cfg.norm_eps)
                     out, k, v = attend(sp["attn"], x, cos, sin)
-                    h = _shared_mlp(sp, cfg, h + out, mi)
+                    h = _shared_mlp(sp, cfg, add(h, out), mi)
                     _place_sharded(state["attn"][ai], k, v, mi)
                     ai += 1
                 h = sh.constrain(h, mi, aspec)
@@ -717,23 +750,33 @@ def _decode_sharded(params, cfg, state, tokens, embeds, mi):
 # training forward: the loss and its gradient under autograd
 # =============================================================================
 
-def _sdpa(q, k, v, bias, mi: sh.MeshInfo | None, *,
-          soft_cap: float | None = None, q_chunk: int | None = None,
-          positions: torch.Tensor | None = None, window: int | None = None):
-    """The training attention: the plain ``sdpa`` over ``bias`` or, with
-    ``q_chunk`` (``cfg.attn_q_chunk``), ``sdpa_qchunked`` over
-    ``positions`` and ``window``; on each rank's shards under a mesh
-    (the training batch's rows of ``bias`` and ``positions`` are
-    equal)."""
-    def attend(q, k, v):
+def _train_attention(p: dict, x, cos, sin, bias, mi: sh.MeshInfo | None,
+                     ctx: bool, *, soft_cap: float | None = None,
+                     q_chunk: int | None = None,
+                     positions: torch.Tensor | None = None,
+                     window: int | None = None):
+    """The training attention block's output [B, S, d]: the projections,
+    the plain ``sdpa`` over ``bias`` or, with ``q_chunk``
+    (``cfg.attn_q_chunk``), ``sdpa_qchunked`` over ``positions`` and
+    ``window``, and the output projection; on each rank's shards under a
+    mesh (the training batch's rows of ``bias`` and ``positions`` are
+    equal).  In context mode (``ctx``, ``attention.attention_rows``) the
+    queries are the rank's rows of the sequence from ``q_start``, so they
+    take those rows of ``bias``, or of ``positions`` as ``q_positions``,
+    and the output leaves split along the sequence."""
+    def attend(q, k, v, q_start=0):
+        B, rows = q.shape[0], slice(q_start, q_start + q.shape[1])
         if q_chunk:
             return attention.sdpa_qchunked(
-                q, k, v, positions[:q.shape[0]], window=window,
-                soft_cap=soft_cap, q_chunk=q_chunk)
-        return attention.sdpa(q, k, v, bias[:q.shape[0]], soft_cap=soft_cap)
-    if mi is None:
-        return attend(q, k, v)
-    return attention.sdpa_sharded(q, k, v, mi, attend)
+                q, k, v, positions[:B], q_positions=positions[:B, rows],
+                window=window, soft_cap=soft_cap, q_chunk=q_chunk)
+        return attention.sdpa(q, k, v, bias[:B, rows], soft_cap=soft_cap)
+    if ctx:
+        return attention.attention_rows(p, x, cos, sin, mi, attend)[0]
+    q, k, v = attention.project_qkv(p, x, cos, sin)
+    out = (attend(q, k, v) if mi is None
+           else attention.sdpa_sharded(q, k, v, mi, attend))
+    return attention._out_proj(out, p["wo"])
 
 
 def _train_attn_layer(h: torch.Tensor, lp: dict, cfg: ArchConfig,
@@ -744,15 +787,14 @@ def _train_attn_layer(h: torch.Tensor, lp: dict, cfg: ArchConfig,
     has no backward) with the optional gemma post-norm, then the FFN.
     Returns (h, expert counts, load-balancing loss); the last two are
     None for a dense FFN."""
+    ctx = _context(cfg, mi)
     x = layers.rms_norm(h, lp["ln1"], eps=cfg.norm_eps,
                         gemma_style=cfg.gemma_norm)
-    q, k, v = attention.project_qkv(lp["attn"], x, cos, sin)
-    out = _sdpa(q, k, v, bias, mi, soft_cap=cfg.soft_cap,
-                q_chunk=cfg.attn_q_chunk, positions=positions,
-                window=window)
-    out = attention._out_proj(out, lp["attn"]["wo"])
-    h, counts, probs, idx = _ffn(lp, cfg, h + _attn_post(lp, cfg, out),
-                                 mi=mi)
+    out = _attn_post(lp, cfg, _train_attention(
+        lp["attn"], x, cos, sin, bias, mi, ctx, soft_cap=cfg.soft_cap,
+        q_chunk=cfg.attn_q_chunk, positions=positions, window=window))
+    h = _add_rows(h, out, cfg, mi) if ctx else h + out
+    h, counts, probs, idx = _ffn(lp, cfg, h, mi=mi)
     aux = (moe.aux_load_balance_loss(probs, idx, cfg.n_experts)
            if cfg.is_moe else None)
     return h, counts, aux
@@ -773,12 +815,12 @@ def _train_mamba_layer(h: torch.Tensor, lp: dict, sp: dict | None,
     else:
         h = h + ssm.mamba_forward_sharded(lp["mamba"], spec, x, mi)
     if sp is not None:
+        ctx = _context(cfg, mi)
         x = layers.rms_norm(h, sp["ln1"], eps=cfg.norm_eps)
-        q, k, v = attention.project_qkv(sp["attn"], x, cos, sin)
-        out = attention._out_proj(
-            _sdpa(q, k, v, bias, mi, q_chunk=cfg.attn_q_chunk,
-                  positions=positions), sp["attn"]["wo"])
-        h = _shared_mlp(sp, cfg, h + out, mi)
+        out = _train_attention(sp["attn"], x, cos, sin, bias, mi, ctx,
+                               q_chunk=cfg.attn_q_chunk, positions=positions)
+        h = _shared_mlp(sp, cfg, _add_rows(h, out, cfg, mi) if ctx
+                        else h + out, mi)
     return h
 
 
@@ -808,10 +850,15 @@ def forward_hidden(params: dict, cfg: ArchConfig, batch: dict,
     if mi is not None:
         aspec = sh.act_spec(cfg, mi, seq=True)
         inner = sh.act_spec(cfg, mi, seq=False)
+    # context mode: an attn layer attends on its rows of the sequence and
+    # gathers them after (_add_rows); the first takes the embedding's
+    # output split along the sequence too
+    ctx = cfg.layout == "attn" and _context(cfg, mi)
 
     def run(fn, h, *args):
-        if mi is not None:      # gathered over the sequence for the block
-            h = sh.constrain(h, mi, inner)
+        if mi is not None:      # the block's input: whole along the
+            # sequence, or split along it in context mode
+            h = sh.constrain(h, mi, aspec if ctx else inner)
         if cfg.remat:
             out = torch.utils.checkpoint.checkpoint(fn, h, *args,
                                                     use_reentrant=False)

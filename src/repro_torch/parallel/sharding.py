@@ -347,6 +347,38 @@ def like_batch(t, batch_dim: int = 0) -> list:
             else Replicate() for pl in t.placements]
 
 
+def seq_rows(t, mi: MeshInfo) -> list:
+    """Placements that keep DTensor ``t``'s split of its batch dim, split
+    its sequence dim (1) over ``model`` and leave every other dim whole:
+    context-mode attention's layout of x, q and the output, each
+    ``model`` rank's rows of the sequence (torch's ``chunk`` sizes where
+    ``model`` does not divide S; ``local_offset(...)[1]`` is the rank's
+    first row)."""
+    from torch.distributed.tensor import Shard
+    return [Shard(1) if n == mi.model_axis else pl
+            for n, pl in zip(mi.mesh.mesh_dim_names, like_batch(t))]
+
+
+def zero_places(t, mi: MeshInfo) -> list:
+    """Placements of DTensor ``t`` laid out as ZeRO lays out its gradient
+    sum and moments (``optim.adamw.zero_spec``): its splits kept and, where
+    it is whole over the data axes, its first unsplit dim that they divide
+    split over them."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.optim.adamw import zero_spec
+    names = mi.mesh.mesh_dim_names
+    spec: list = [()] * t.dim()
+    for n, pl in zip(names, t.placements):
+        if isinstance(pl, Shard):
+            spec[pl.dim] = (*spec[pl.dim], n)
+    if any(n in mi.dp_axes for entry in spec for n in entry):
+        return list(t.placements)
+    spec = [e[0] if len(e) == 1 else (e or None) for e in spec]
+    return list(placements(zero_spec(tuple(t.shape), tuple(spec),
+                                     mi.dp_axes, mi.n_data), mi.mesh))
+
+
 def full(x) -> torch.Tensor:
     """The whole tensor of a DTensor (a gather), a plain tensor as is."""
     from torch.distributed.tensor import DTensor

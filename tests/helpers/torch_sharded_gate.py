@@ -10,6 +10,13 @@ devices (the rest of the suite must see one): JAX's sharded
 ``moe_apply`` on the same mesh and inputs, and the JAX package's
 unsharded train step of every case on the same weights and batches.
 
+Both rank functions record, in the context-mode cases (``CONTEXT``: 6
+heads on 4 ``model`` ranks), each rank's query rows and first query
+position in every attention call (``query_rows``), and
+``torch_serve_ranks`` runs ``sdpa_sharded``'s context branch on a
+sequence that ``model`` does not divide (``UNEVEN_S``) against the
+unsharded ``sdpa``, values and gradients.
+
 ``torch_serve_ranks``: the port's ``prefill`` and ``decode_step`` with a
 mesh (``SERVE_CASES``) on the same (2, 4) mesh, and one real step of
 the dry run's (2, 4) train cell (``DRYRUN_TRAIN``) under
@@ -26,6 +33,7 @@ whose bytes both packages share.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import sys
@@ -34,9 +42,11 @@ import numpy as np
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..")
 
+# 6 heads do not divide 4 model ranks: context-mode attention
+CONTEXT = ("qwen3_4b", {"n_heads": 6, "n_kv_heads": 3, "d_model": 192})
 TRAIN_CASES = [
     ("qwen3_4b", {}),                                        # megatron GQA
-    ("qwen3_4b", {"n_heads": 6, "n_kv_heads": 3, "d_model": 192}),  # context
+    CONTEXT,                                                 # context
     ("olmoe_1b_7b", {"moe_capacity_factor": 8.0}),           # MoE EP
     ("mixtral_8x7b", {"n_experts": 2}),                      # MoE TP
     ("mamba2_1_3b", {}),                                     # SSM
@@ -56,8 +66,10 @@ SERVE_CASES = [
     ("zamba2_7b", {}),                                       # hybrid
     ("qwen3_4b", {"kv_cache_quant": True}),                  # int8 caches
     ("qwen3_4b", {"attn_q_chunk": 8}),                       # chunked prompt
+    CONTEXT,                                                 # context
 ]
 SERVE_B, SERVE_S, SERVE_NEW, SERVE_CACHE = 4, 24, 5, 40
+UNEVEN_S = 22           # torch's chunks over 4 model ranks: 6, 6, 6, 4
 # the dry run's cells at small shapes: (kind, arch, config changes,
 # (name, seq_len, global_batch, kind))
 DRYRUN_CELLS = {
@@ -87,6 +99,40 @@ def train_batch(cfg) -> dict:
     src = SyntheticLM(cfg.vocab, S, B, seed=5, input_mode=cfg.input_mode,
                       d_model=cfg.d_model)
     return micro_batches(src.batch(0), N_MICRO)
+
+
+@contextlib.contextmanager
+def query_rows(seen: list):
+    """Append (local query rows, first query position, local keys) to
+    ``seen`` for every attention call ``attention.sdpa_sharded`` makes on
+    this rank while open."""
+    from repro_torch.models import attention
+    plain = attention.sdpa_sharded
+
+    def spy(q, k, v, mi, attend):
+        def recorded(ql, kl, vl, q_start):
+            seen.append((ql.shape[1], q_start, kl.shape[1]))
+            return attend(ql, kl, vl, q_start)
+        return plain(q, k, v, mi, recorded)
+
+    attention.sdpa_sharded = spy
+    try:
+        yield seen
+    finally:
+        attention.sdpa_sharded = plain
+
+
+def by_model_rank(mi, seen: list) -> dict:
+    """{model rank: its ``query_rows`` records}, gathered from every rank
+    (each model rank's records from the first data rank that has them)."""
+    import torch.distributed as dist
+    mine = (mi.mesh.get_local_rank(mi.model_axis), seen)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    out: dict = {}
+    for m, recs in every:
+        out.setdefault(m, recs)
+    return out
 
 
 def moe_inputs(cfg, seed: int = 7):
@@ -156,8 +202,12 @@ def _torch_gate(rank: int) -> dict:
         params = sh.distribute(T.init_params(cfg, seed=0, device="cpu"), mi,
                                sh.param_specs(cfg, mi))
         opt = adamw.init(params)
-        params, opt, m = make_train_step(cfg, mi)(params, opt,
-                                                  train_batch(cfg))
+        seen: list = []
+        with query_rows(seen):
+            params, opt, m = make_train_step(cfg, mi)(params, opt,
+                                                      train_batch(cfg))
+        if (arch, tweak) == CONTEXT:
+            res["context_rows"] = by_model_rank(mi, seen)
         out = {"params": [host(p) for p in tree.leaves(params)],
                "m": [host(t) for t in tree.leaves(opt.m)],
                "names": tree.flatten_with_names(params)[0],
@@ -233,7 +283,8 @@ def torch_serve_ranks(rank: int, world: int, init: str, out: str) -> None:
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=world)
     try:
-        res = {"serve": _torch_serve(), "dryrun_train": _real_train_comms()}
+        res = {"serve": _torch_serve(), "dryrun_train": _real_train_comms(),
+               "uneven": _uneven_context()}
         if rank == 0:
             with open(out, "wb") as f:
                 pickle.dump(res, f)
@@ -257,8 +308,10 @@ def _torch_serve() -> dict:
             prompts, forced = serve_tokens(cfg)
             ps = sh.distribute(T.init_params(cfg, seed=0, device="cpu"), mi,
                                sh.param_specs(cfg, mi))
-            lg, st = T.prefill(ps, cfg, torch.from_numpy(prompts),
-                               SERVE_CACHE, mi=mi)
+            seen: list = []
+            with query_rows(seen):
+                lg, st = T.prefill(ps, cfg, torch.from_numpy(prompts),
+                                   SERVE_CACHE, mi=mi)
             logits = [host(lg)]
             for tok in forced:
                 lg, st = T.decode_step(ps, cfg, st, torch.from_numpy(tok),
@@ -268,8 +321,52 @@ def _torch_serve() -> dict:
                 "logits": logits,
                 "positions": host(st["positions"]),
                 "placements": sorted({str(t.placements)
-                                      for t in tree.leaves(st)})}
+                                      for t in tree.leaves(st)}),
+                "query_rows": by_model_rank(mi, seen)}
     return res
+
+
+def _uneven_context() -> dict:
+    """``sdpa_sharded``'s context branch (``sdpa`` as ``attend``, over the
+    rank's rows of a causal bias) on B 4 x ``UNEVEN_S`` rows of 6 q / 3
+    kv heads, against the unsharded ``sdpa`` on the same inputs: the
+    largest differences of the output and of q's, k's and v's gradients
+    (whole tensors), and each model rank's ``query_rows`` records."""
+    import torch
+
+    from repro_torch.launch.mesh import make_debug_mesh, make_mesh_info
+    from repro_torch.models import attention as A
+    from repro_torch.parallel import sharding as sh
+    mi = make_mesh_info(make_debug_mesh(*MESH, device_type="cpu"))
+    rng = np.random.default_rng(13)
+    shapes = {"q": (SERVE_B, UNEVEN_S, 6, 16), "k": (SERVE_B, UNEVEN_S, 3, 16),
+              "v": (SERVE_B, UNEVEN_S, 3, 16)}
+    whole = {n: torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+             for n, s in shapes.items()}
+    g_out = torch.from_numpy(rng.standard_normal(shapes["q"],
+                                                 dtype=np.float32))
+    pos = torch.arange(UNEVEN_S)[None]
+    bias = A._mask_bias(pos, pos, None)
+
+    def attend(q, k, v, q_start=0):
+        return A.sdpa(q, k, v, bias[:, q_start:q_start + q.shape[1]])
+
+    ref = {n: t.clone().requires_grad_(True) for n, t in whole.items()}
+    want = attend(ref["q"], ref["k"], ref["v"])
+    want.backward(g_out)
+    dist_in = {n: sh.distribute(t, mi, (sh.data_entry(mi), mi.model_axis))
+               .requires_grad_(True) for n, t in whole.items()}
+    seen: list = []
+    with query_rows(seen):
+        got = A.sdpa_sharded(dist_in["q"], dist_in["k"], dist_in["v"], mi,
+                             attend)
+    got.backward(sh.distribute(g_out, mi, (sh.data_entry(mi),
+                                           mi.model_axis)))
+    err = {"out": float((sh.full(got) - want).detach().abs().max())}
+    for n in whole:
+        err["d" + n] = float((sh.full(dist_in[n].grad) - ref[n].grad)
+                             .abs().max())
+    return {"err": err, "query_rows": by_model_rank(mi, seen)}
 
 
 def _real_train_comms() -> dict:

@@ -8,8 +8,10 @@ non-causal; GQA 4/2 and 8/2, D 64, 80, 128), float32 half;
 ``attention``, ``sdpa_grouped`` and the dense/ring ``decode_attention``
 against JAX's with weights carried over.  Floats within ``ATOL``/``RTOL``
 of ``helpers.torch_parity`` except where a test states its own limit.
+``q_start`` (a rank's rows of the sequence) is held against JAX's
+``sdpa`` over the shifted mask and against the rows of a whole run.
 The ``requires_cuda`` cases hold the CUDA kernel against the plain
-version on the card and skip here.
+version on the card (every body at three ``q_start``) and skip here.
 
 JAX is imported inside the tests that use it, so the CUDA cases also
 collect on a machine that has only torch.
@@ -89,6 +91,68 @@ def test_flash_attention_seq_len_matches_pallas_ref(causal, window, seq_len):
                               seq_len=seq_len)
     ref = np.asarray(ref).reshape(B, Hq, S, D).transpose(0, 2, 1, 3)
     assert_close(out, ref)
+
+
+# queries at positions start .. start + Sq - 1 against all Sk keys: a
+# rank's rows of the sequence in the sharded prefill's context mode
+Q_START = [(0, 32, 128, 0), (64, 32, 128, 0), (37, 29, 128, 16),
+           (96, 32, 128, 40), (5, 59, 64, 0)]
+
+
+@pytest.mark.parametrize("start,Sq,Sk,window", Q_START)
+@pytest.mark.parametrize("Hq,Hkv,D", [(4, 2, 64), (6, 3, 80)])
+def test_flash_attention_q_start_matches_jax_sdpa(start, Sq, Sk, window, Hq,
+                                                  Hkv, D):
+    """``q_start`` on CPU tensors (the plain version) against JAX's
+    ``sdpa`` over ``_mask_bias(q_pos + start, k_pos, window)``, and equal
+    to those rows of the whole sequence's result."""
+    jnp = _jnp()
+    from repro.models import attention as jattn
+    q, k, v = _qkv(2, Sk, Sk, Hq, Hkv, D, seed=4)
+    qs = q[:, start:start + Sq]
+    out = K8.flash_attention(*_t(qs, k, v), window=window, q_start=start)
+    assert out.shape == (2, Sq, Hq, D)
+    q_pos = jnp.arange(Sq, dtype=jnp.int32)[None] + start
+    k_pos = jnp.arange(Sk, dtype=jnp.int32)[None]
+    bias = jattn._mask_bias(q_pos, k_pos, window if window else None)
+    assert_close(out, jattn.sdpa(*(jnp.asarray(a) for a in (qs, k, v)),
+                                 bias))
+    whole = K8.flash_attention(*_t(q, k, v), window=window)
+    assert_close(out, whole[:, start:start + Sq], atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("causal,window,seq_len", [(True, 0, 128),
+                                                   (True, 24, 100),
+                                                   (False, 40, 128),
+                                                   (False, 0, 77)])
+def test_flash_attention_q_start_pairs_and_plain_mask(causal, window,
+                                                      seq_len):
+    """``key_pairs`` and the meta branch count the scored pairs of the
+    rows at ``q_start`` (not of a prefix of that length), and the plain
+    version's non-causal window is measured from the same positions."""
+    start, Sq, Sk = 40, 48, 128
+    qp = np.arange(start, start + Sq)[:, None]
+    kp = np.arange(Sk)[None]
+    ok = np.broadcast_to(kp < seq_len, (Sq, Sk))
+    if causal:
+        ok = ok & (kp <= qp)
+    if window:
+        ok = ok & (qp - kp < window)
+    assert K8.key_pairs(Sq, Sk, causal, window, seq_len, start) == ok.sum()
+    kernels.reset_meta_flops()
+    m = torch.empty((1, Sq, 2, 16), device="meta")
+    kv = torch.empty((1, Sk, 2, 16), device="meta")
+    K8.flash_attention(m, kv, kv, causal=causal, window=window,
+                       seq_len=seq_len, q_start=start)
+    assert kernels.meta_flops()["flash_attention"] == 4.0 * 2 * 16 * ok.sum()
+    q, k, v = _qkv(1, Sq, Sk, 2, 2, 16, seed=6)
+    out = K8.flash_attention(*_t(q, k, v), causal=causal, window=window,
+                             seq_len=seq_len, q_start=start)
+    bias = np.where(ok, 0.0, attention.NEG_INF).astype(np.float32)
+    want = attention.sdpa(*_t(q, k, v), torch.from_numpy(bias)[None])
+    assert_close(out, want)
+    with pytest.raises(ValueError, match="q_start"):
+        K8.flash_attention(*_t(q, k, v), q_start=-1)
 
 
 def test_flash_attention_refuses_bad_shapes():
@@ -277,6 +341,36 @@ def test_flash_attention_kernel_vs_plain_cuda(dtype, tol, B, Sq, Hq, Hkv, D,
     ref = K8.flash_attention_plain(q, k, v, causal=causal, window=window,
                                    seq_len=seq_len)
     assert out.dtype == dtype
+    assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+# (dtype, D, Hq, Hkv, window): one case for each body -- bf16 D <= 64,
+# D <= 128 (112 and 128), the persistent D-256 kernel with and without a
+# window, float32 up to D 128 (mma.sync) and past it (wgmma, pre-pass)
+Q_START_BODIES = [(torch.bfloat16, 64, 4, 4, 0), (torch.bfloat16, 112, 4, 2, 0),
+                  (torch.bfloat16, 128, 4, 1, 0), (torch.bfloat16, 256, 4, 2, 0),
+                  (torch.bfloat16, 256, 4, 2, 100), (torch.float32, 128, 4, 2, 0),
+                  (torch.float32, 256, 4, 2, 0)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,D,Hq,Hkv,window", Q_START_BODIES)
+@pytest.mark.parametrize("start", [0, 128, 77])
+def test_flash_attention_q_start_vs_plain_cuda(dtype, D, Hq, Hkv, window,
+                                               start):
+    """Each K8 body on a shard of 150 query rows at ``q_start`` 0, a tile
+    multiple and an unaligned offset, against all 400 keys: within the
+    plain version's tolerance (bf16 1e-2, float32 1e-5), one launch."""
+    dev = cuda_device()
+    Sq, Sk = 150, 400
+    q, k, v = _t(*_qkv(2, Sk, Sk, Hq, Hkv, D, seed=12), device=dev)
+    q, k, v = (t.to(dtype) for t in (q[:, start:start + Sq], k, v))
+    before = kernels.launch_counts()["flash_attention"]
+    out = K8.flash_attention(q, k, v, window=window, q_start=start)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    ref = K8.flash_attention_plain(q, k, v, window=window, q_start=start)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
     assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 

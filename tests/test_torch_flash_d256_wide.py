@@ -17,7 +17,9 @@ bf16 tolerance, 1e-2; one case drops the rescale and must miss.
 ``_schedule`` mirrors the kernel's persistent grid: at most one CTA an
 SM, the work items (q block, b * Hq + h) heaviest causal q block first,
 dealt to the CTAs in a snake.  Its tests check that every item is one
-CTA's once and that the causal schedule is within 5 % of an even split;
+CTA's once, that the causal schedule is within 5 % of an even split and
+that it stays heaviest first when the rows sit at an offset
+(``q_start``, whose emulation is held against the plain version too);
 on a card (``requires_cuda``, skipped here) the kernel's own plan
 (``wide_launch_info``) is held against the mirror.
 """
@@ -39,22 +41,25 @@ SMEM = 1024 + 4 * BQ * 128 + 2 * 4 * BK * 128 + 8 * (2 + 2 * (1 + 1))
 SMS = 132                          # the H100's SMs
 
 
-def _key_range(qw, Sq, Sk, seq_len, causal, window):
-    """Keys [lo, hi) that q rows [qw, qw + 64) can see, lo a whole tile."""
+def _key_range(qw, Sq, Sk, seq_len, causal, window, q_start=0):
+    """Keys [lo, hi) that q rows [qw, qw + 64), at positions q_start + qw
+    onwards, can see, lo a whole tile."""
     hi = min(seq_len, Sk)
     if causal:
-        hi = min(hi, min(Sq, qw + WG_ROWS))
-    lo = max(0, qw - window + 1) // BK * BK if window > 0 else 0
+        hi = min(hi, q_start + min(Sq, qw + WG_ROWS))
+    lo = (max(0, q_start + qw - window + 1) // BK * BK if window > 0
+          else 0)
     if qw >= Sq:
         hi = lo
     return lo, hi
 
 
-def _cta_tiles(q0, Sq, Sk, seq_len, causal, window):
+def _cta_tiles(q0, Sq, Sk, seq_len, causal, window, q_start=0):
     """An item's first key and tile count, and each warpgroup's tiles
     [ib, ie) among them."""
     (lo0, hi0), (lo1, hi1) = (_key_range(q0 + WG_ROWS * w, Sq, Sk, seq_len,
-                                         causal, window) for w in (0, 1))
+                                         causal, window, q_start)
+                              for w in (0, 1))
     lo, hi = lo0, max(hi0, hi1)
     n = -(-(hi - lo) // BK) if hi > lo else 0
     runs = []
@@ -66,8 +71,9 @@ def _cta_tiles(q0, Sq, Sk, seq_len, causal, window):
 
 
 def _emulate(q, k, v, *, causal=True, window=0, seq_len=None, scale=None,
-             rescale=True):
-    """The kernel's arithmetic in float32 on bf16 q, k, v [B, S, H, D]."""
+             rescale=True, q_start=0):
+    """The kernel's arithmetic in float32 on bf16 q [B, Sq, Hq, D] (its
+    rows at positions ``q_start`` onwards) and k, v [B, Sk, Hkv, D]."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -80,10 +86,11 @@ def _emulate(q, k, v, *, causal=True, window=0, seq_len=None, scale=None,
         for h in range(Hq):
             for q0 in range(0, Sq, BQ):
                 lo, _, runs = _cta_tiles(q0, Sq, Sk, seq_len, causal,
-                                         window)
+                                         window, q_start)
                 for w, (ib, ie) in enumerate(runs):
                     qw = q0 + WG_ROWS * w
                     rows = torch.arange(qw, qw + WG_ROWS)
+                    pos = rows + q_start
                     qt = torch.zeros((WG_ROWS, D))
                     live = rows < Sq
                     qt[live] = qf[b, rows[live], h]
@@ -100,9 +107,9 @@ def _emulate(q, k, v, *, causal=True, window=0, seq_len=None, scale=None,
                         x = qt @ kt.T                 # unscaled
                         ok = (keys < seq_len)[None, :].expand(WG_ROWS, BK)
                         if causal:
-                            ok = ok & (keys[None, :] <= rows[:, None])
+                            ok = ok & (keys[None, :] <= pos[:, None])
                         if window > 0:
-                            ok = ok & (rows[:, None] - keys[None, :] < window)
+                            ok = ok & (pos[:, None] - keys[None, :] < window)
                         x = torch.where(ok, x, torch.tensor(MASKED))
                         mn = torch.maximum(m, x.max(dim=1).values)
                         alpha = torch.exp2((m - mn) * scale_log2)
@@ -172,6 +179,19 @@ def test_emulation_vs_plain_and_pallas(D, B, S, Hq, Hkv, causal, window,
     assert_close(got.float(), plain.float(), atol=TOL, rtol=TOL)
     assert_close(got.float(), _pallas(q, k, v, causal, window, seq_len),
                  atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("start,window", [(128, 0), (77, 0), (150, 70)])
+def test_emulation_q_start_vs_plain(start, window):
+    """A shard of 150 q rows at position ``start`` against all 300 keys
+    (context mode's prefill): the emulation, with the kernel's key ranges
+    taken from the absolute rows, within K8's tolerance of the plain
+    version at the same ``q_start``."""
+    q, k, v = _qkv(1, 300, 4, 2, 256, seed=start + window)
+    qs = q[:, start:start + 150]
+    got = _emulate(qs, k, v, window=window, q_start=start)
+    plain = K8.flash_attention(qs, k, v, window=window, q_start=start)
+    assert_close(got.float(), plain.float(), atol=TOL, rtol=TOL)
 
 
 @pytest.mark.parametrize("window", [0, 70])
@@ -249,6 +269,20 @@ def test_schedule_evens_out_the_causal_work(window):
         rr[k % n] += _tiles_of((nqb - 1 - k // heads) * BQ, Sq, window) + 1
     if window == 0:
         assert max(rr) > 1.15 * even
+
+
+@pytest.mark.parametrize("start,window", [(0, 0), (667, 0), (1333, 0),
+                                          (1333, 1024)])
+def test_schedule_stays_heaviest_first_at_an_offset(start, window):
+    """One rank's 667 rows of a (1, 3) split of gemma3's 2000 (context
+    mode): with the rows at ``start``, every CTA's items still come in
+    order of falling tiles, so the snake deals the heaviest first."""
+    B, Sq, Hq, Sk = 4, 667, 8, 2000
+    _, plan = _schedule(B, Sq, Hq)
+    for mine in plan:
+        tiles = [_cta_tiles(q0, Sq, Sk, Sk, True, window, start)[1]
+                 for _, _, q0 in mine]
+        assert tiles == sorted(tiles, reverse=True), tiles
 
 
 def test_warpgroup_runs_inside_the_item_range():

@@ -13,6 +13,8 @@ the whole file (``tests/helpers/torch_sharded_gate.py``).
     within 1e-5, the parameters within 2e-5 where |g| >= 1e-6 (from the
     first moment), the first moments within 1e-4 of each leaf's largest,
     the expert counts exactly;
+  * the context case (6 heads on 4 model ranks) attends with each model
+    rank's S / 4 query rows from their first position;
   * ``Checkpointer.restore(..., shardings=)`` onto a smaller mesh after
     ``plan_elastic_remesh`` gives back the same whole tensors.
 
@@ -128,6 +130,20 @@ def test_sharded_train_step_matches_jax(runs, case):
         assert_same(got["expert_counts"], want["expert_counts"])
     # the moments are laid out by the ZeRO specs: split over data somewhere
     assert any("Shard" in s.split(",")[0] for s in got["placements"])
+
+
+def test_context_train_attends_on_each_ranks_rows(runs):
+    """The context case's attention (6 heads on 4 model ranks) runs each
+    model rank's S / 4 query rows from their first position against all
+    S keys, in every call of the step (two microbatches, each layer's
+    forward and its recompute)."""
+    S, n_model = gate.S, gate.MESH[1]
+    rows = runs[0]["context_rows"]
+    assert sorted(rows) == list(range(n_model))
+    for m, recs in rows.items():
+        assert len(recs) == gate.N_MICRO * 2 * gate.port_cfg(
+            *gate.CONTEXT).n_layers
+        assert set(recs) == {(S // n_model, m * S // n_model, S)}, m
 
 
 def test_restore_onto_a_smaller_mesh(runs):

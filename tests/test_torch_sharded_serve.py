@@ -11,9 +11,14 @@ Cases (``SERVE_CASES``, smoke width, float32): qwen3 (heads over
 and scaled embeddings), olmoe (expert-parallel MoE at capacity 8.0),
 mixtral (tensor-parallel MoE, 2 experts, rings), mamba2, zamba2 (Mamba-2
 heads over ``model``, the conv context's channels over ``model``, a
-shared-attention cache), qwen3 with int8 caches and qwen3 with
+shared-attention cache), qwen3 with int8 caches, qwen3 with
 ``attn_q_chunk`` 8 (JAX chunks the prompt's queries; the port's prompt
-attention is K8, flash-style).  A 24-token prompt into 40 slots split
+attention is K8, flash-style) and qwen3 with 6 heads on the 4 ``model``
+ranks (context mode: each rank projects and attends with its 6 prompt
+rows, K8 from their first position, against K/V gathered along the
+sequence; the test also checks those rows).  ``sdpa_sharded``'s context
+branch on an uneven sequence (22 rows over 4 ranks) is held against the
+unsharded ``sdpa``, values and gradients.  A 24-token prompt into 40 slots split
 over ``model`` (10 a rank), then 5 forced decode tokens.  Every step's
 logits within ``LOGIT_REL`` of the largest JAX logit (float32 summed in
 other orders, across ranks and packages; int8 caches ``INT8_LOGIT_REL``:
@@ -86,6 +91,33 @@ def test_sharded_prefill_decode_match_jax(runs, case):
     # the caches' slots are split over model (the mesh's second dim)
     assert any("Shard(dim=1)" in p.split(", ")[1]
                for p in got["placements"] if p.count("Shard") == 2)
+
+
+def test_context_prefill_attends_on_each_ranks_rows(runs):
+    """The context serve case's prefill runs K8 on each model rank's
+    SERVE_S / 4 prompt rows from their first position against all
+    SERVE_S keys, once a layer."""
+    S, n_model = gate.SERVE_S, gate.MESH[1]
+    rows = runs[0]["serve"][gate.case_id(*gate.CONTEXT)]["query_rows"]
+    assert sorted(rows) == list(range(n_model))
+    for m, recs in rows.items():
+        assert recs == [(S // n_model, m * S // n_model, S)] * \
+            gate.port_cfg(*gate.CONTEXT).n_layers, m
+
+
+def test_context_sdpa_sharded_uneven_matches_sdpa(runs):
+    """``sdpa_sharded``'s context branch on 22 rows over 4 model ranks
+    (torch's chunks: 6, 6, 6, 4) equals the unsharded ``sdpa``: the
+    output and q's gradient within 1e-6 (each rank's rows are computed as
+    the whole tensor's are; on this CPU they agree bit for bit), k's and
+    v's within 1e-5 (summed over the ranks' query rows by the gather's
+    reduce-scatter)."""
+    res = runs[0]["uneven"]
+    assert max(res["err"]["out"], res["err"]["dq"]) <= 1e-6, res["err"]
+    assert max(res["err"]["dk"], res["err"]["dv"]) <= 1e-5, res["err"]
+    rows = res["query_rows"]
+    assert rows == {0: [(6, 0, 22)], 1: [(6, 6, 22)], 2: [(6, 12, 22)],
+                    3: [(4, 18, 22)]}
 
 
 def test_collective_counts_match_gloo_run(runs):

@@ -5,7 +5,7 @@
 Run from the root of a checkout (or of an unpacked archive of one):
 
     python3 tools/sharded_lines.py [LABEL] [--mesh 2x2] [--device cpu]
-                                   [--only train|serve]
+                                   [--only train|serve|context]
 
 It spawns data x model processes that form a ``("data", "model")``
 DeviceMesh (rendezvous by a file under the system's temporary
@@ -34,6 +34,16 @@ logit distance over the steps relative to the largest unsharded logit
 (held within 1e-4), whether every step's argmax agrees, the sharded
 prefill's and decode's ms (rank 0's wall clock, after a warm-up run) and
 the unsharded ones'.
+
+``--only context`` runs the context-mode cases alone (``CONTEXT_FULL``:
+qwen2.5 and gemma3, whose 40 and 8 heads do not divide 3, at full width
+in float32 cut to 2 layers, on a (1, 3) mesh of three cards; on the CPU
+their smoke widths): each arch's train step (``CONTEXT_TRAIN_SHAPE``)
+and its prefill + decode (``CONTEXT_SERVE_SHAPE``) against the unsharded
+path on rank 0's card, under the gates above.  Each line then also has
+the unsharded run's ms and peak GB, and the serving lines the peak GB of
+each rank.  Run from the root of another tree (``cd parent; python3
+../tools/sharded_lines.py``), it measures that tree's code.
 """
 from __future__ import annotations
 
@@ -69,6 +79,10 @@ SERVE_FULL = [("qwen3_4b", 4, {}), ("gemma3_4b", 6, {}),
 # batch, prompt, forced decode tokens, cache slots
 SERVE_SMOKE_SHAPE, SERVE_FULL_SHAPE = (4, 24, 5, 40), (2, 512, 16, 544)
 SERVE_REL = 1e-4
+# context mode: heads that do not divide the model axis of a (1, 3) mesh
+CONTEXT_FULL = [("qwen2_5_14b", 2), ("gemma3_4b", 2)]
+CONTEXT_TRAIN_SHAPE = (2, 3072, 2)            # batch, seq, micro
+CONTEXT_SERVE_SHAPE = (1, 3072, 4, 3076)      # batch, prompt, new, cache
 
 
 def _card() -> str:
@@ -103,9 +117,7 @@ def _case(cfg, shape, mi, dev, rank) -> dict:
     del warm
     ps = sh.distribute(params, mi, sh.param_specs(cfg, mi))
     opt = adamw.init(ps)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    _reset_peak(dev)
     dist.barrier()
     comm = CommDebugMode()
     t0 = time.perf_counter()
@@ -114,14 +126,24 @@ def _case(cfg, shape, mi, dev, rank) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    peak = (torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda"
-            else None)
     peaks = [None] * dist.get_world_size()
-    dist.all_gather_object(peaks, peak)
+    dist.all_gather_object(peaks, _peak_gb(dev))
     got = [sh.full(p) for p in tree.leaves(ps)]
     if rank != 0:
         return {}
-    rp, ro, rm = make_train_step(cfg)(params, adamw.init(params), batch)
+    del ps, opt
+    ref_step = make_train_step(cfg)
+    warm = tree.map_leaves(torch.clone, params)
+    ref_step(warm, adamw.init(warm), batch)                  # warm-up
+    del warm
+    ref_opt = adamw.init(params)
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    rp, ro, rm = ref_step(params, ref_opt, batch)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    ref_peak = _peak_gb(dev)
     worst = 0.0
     for a, b, mo in zip(got, tree.leaves(rp), tree.leaves(ro.m)):
         big = (mo.abs() / 0.1) >= 1e-6                 # m = 0.1 g
@@ -134,8 +156,22 @@ def _case(cfg, shape, mi, dev, rank) -> dict:
                                                 rm["expert_counts"])
                                     if cfg.is_moe else None),
             "step_ms": ms, "peak_gb_per_rank": peaks,
+            "unsharded_step_ms": ref_ms, "unsharded_peak_gb": ref_peak,
             "collectives": {str(k): v for k, v in
                             comm.get_comm_counts().items()}}
+
+
+def _reset_peak(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb(dev):
+    import torch
+    return (torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda"
+            else None)
 
 
 def _serve(cfg, params, prompts, forced, cache, mi=None):
@@ -175,12 +211,18 @@ def _serve_case(cfg, shape, mi, dev, rank) -> dict:
         np.int32)).to(dev)
     forced = torch.from_numpy(rng.integers(0, cfg.vocab, (new, B, 1)).astype(
         np.int32)).to(dev)
+    import torch.distributed as dist
     ps = sh.distribute(params, mi, sh.param_specs(cfg, mi))
     _serve(cfg, ps, prompts, forced[:1], cache, mi)          # warm-up
+    _reset_peak(dev)
     got, pre_ms, dec_ms = _serve(cfg, ps, prompts, forced, cache, mi)
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, _peak_gb(dev))
     if rank != 0:
         return {}
+    del ps
     _serve(cfg, params, prompts, forced[:1], cache)
+    _reset_peak(dev)
     want, ref_pre, ref_dec = _serve(cfg, params, prompts, forced, cache)
     V = cfg.vocab
     rel = max(float((a - b)[..., :V].abs().max() / b[..., :V].abs().max())
@@ -191,7 +233,8 @@ def _serve_case(cfg, shape, mi, dev, rank) -> dict:
     return {"kind": "serve", "batch": B, "prompt": S, "decode_steps": new,
             "cache": cache, "logit_max_rel": rel, "argmax_equal": agree,
             "prefill_ms": pre_ms, "decode_ms": dec_ms,
-            "unsharded_prefill_ms": ref_pre, "unsharded_decode_ms": ref_dec}
+            "unsharded_prefill_ms": ref_pre, "unsharded_decode_ms": ref_dec,
+            "peak_gb_per_rank": peaks, "unsharded_peak_gb": _peak_gb(dev)}
 
 
 def _ranks(rank: int, world: int, init: str, mesh: tuple[int, int],
@@ -201,6 +244,7 @@ def _ranks(rank: int, world: int, init: str, mesh: tuple[int, int],
     import torch.distributed as dist
     from repro_torch.configs.base import get_arch, smoke
     from repro_torch.launch.mesh import make_debug_mesh, make_mesh_info
+    from repro_torch.parallel.sharding import attn_mode
     if device == "cuda":
         torch.cuda.set_device(rank)
         dev = torch.device("cuda", rank)
@@ -215,14 +259,24 @@ def _ranks(rank: int, world: int, init: str, mesh: tuple[int, int],
         mi = make_mesh_info(make_debug_mesh(*mesh, device_type=device))
         name = lambda a, t: f"{a}{''.join(f'-{k}{v}' for k, v in t.items())}"
         cases = []
-        if only != "serve":
+        if only == "context":
+            for a, n in CONTEXT_FULL:
+                cfg = (replace(get_arch(a), n_layers=n) if device == "cuda"
+                       else replace(smoke(get_arch(a)), n_layers=n))
+                cases += [(f"context-{a}-{n}layers", cfg,
+                           CONTEXT_TRAIN_SHAPE if device == "cuda"
+                           else SMOKE_SHAPE, _case),
+                          (f"context-serve-{a}-{n}layers", cfg,
+                           CONTEXT_SERVE_SHAPE if device == "cuda"
+                           else SERVE_SMOKE_SHAPE, _serve_case)]
+        elif only != "serve":
             cases += [(name(a, t), replace(smoke(get_arch(a)), **t),
                        SMOKE_SHAPE, _case) for a, t in SMOKE_CASES]
             if device == "cuda":
                 cases += [(f"{a}-full-{n}layers",
                            replace(get_arch(a), n_layers=n), FULL_SHAPE,
                            _case) for a, n in FULL_CASES]
-        if only != "train":
+        if only not in ("train", "context"):
             cases += [(f"serve-{name(a, t)}", replace(smoke(get_arch(a)),
                                                       **t),
                        SERVE_SMOKE_SHAPE, _serve_case)
@@ -237,7 +291,8 @@ def _ranks(rank: int, world: int, init: str, mesh: tuple[int, int],
             line = run(cfg, shape, mi, dev, rank)
             if rank == 0:
                 line = {"label": label, "case": name, "card": card,
-                        "mesh": list(mesh), "device": device, **line}
+                        "mesh": list(mesh), "device": device,
+                        "attn_mode": attn_mode(cfg, mi), **line}
                 print(json.dumps(line), flush=True)
                 lines.append(line)
     finally:
@@ -254,7 +309,8 @@ def main(argv: list[str]) -> int:
     ap.add_argument("label", nargs="?", default="run")
     ap.add_argument("--mesh", default="2x2")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--only", default="", choices=("", "train", "serve"))
+    ap.add_argument("--only", default="",
+                    choices=("", "train", "serve", "context"))
     args = ap.parse_args(argv)
     mesh = tuple(int(x) for x in args.mesh.split("x"))
     world = mesh[0] * mesh[1]
